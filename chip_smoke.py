@@ -1,0 +1,426 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from ``extpom_tpu_torch/csrc``, holds each
+kernel against its plain PyTorch version at the shapes of the main path
+(256x256x31), drives the seamount model through ``seamount_model`` /
+``Model.run_segment`` on the card in float32, checks the result, and prints
+one ``kernels`` JSON line, the card's name and power limit, and a last JSON
+line ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
+script exits non-zero; without a CUDA device it exits 1 and prints no
+result.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+IM, JM, KB = 256, 256, 31      # main-path grid
+SEG_WARM, SEG_TIMED = 2, 20    # run_segment lengths of the slice phase
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM (NVIDIA data sheet)
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}   # non-tensor
+# flops per grid point per external substep of the plain algorithm
+# (core/stepper.py:mode_external_substep): d 1, fluxes 8, elf 8, bc_el 1,
+# advave 71, uaf 38, vaf 38, dum/dvm 2, tail + Asselin + accumulators 32
+EXTLOOP_FLOPS_PER_POINT = 199
+EXTLOOP_KERNELS = ("k_metrics", "k_surface", "k_velocity", "k_update")
+SPIN_CYCLES = 2_000_000        # ~1 ms spin ahead of each timed call
+TOL = {  # max |kernel - plain| / max(1, max |plain|), per output field
+    "tridiag": {torch.float64: 1e-12, torch.float32: 1e-5},
+    "extloop": {torch.float64: 1e-10, torch.float32: 1e-4},
+}
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                      "golden", "seamount_33x33x11_10steps.npz")
+
+
+def say(tag: str, **kv) -> None:
+    print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in kv.items()),
+          flush=True)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+
+
+class L2Flush:
+    """Writes 64 MB (more than the 50 MB L2) so that the next launch finds
+    its inputs in device memory, as a caller that just produced them
+    elsewhere would."""
+
+    def __init__(self):
+        self.buf = torch.empty(64 * 2 ** 20 // 4, dtype=torch.float32,
+                               device="cuda")
+
+    def __call__(self):
+        self.buf.zero_()
+
+
+def call_ms(fn, reps: int, flush: L2Flush) -> float:
+    """Mean time of one call of ``fn`` in ms, host work included: CUDA
+    events around each call, after an L2 flush."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        flush()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        total += e0.elapsed_time(e1)
+    return total / reps
+
+
+def _kernel_events(prof):
+    """The profile's device-side kernel rows (the CPU op rows carry the
+    same device time again, so they are left out)."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+
+
+def device_ms(fn, reps: int, flush: L2Flush) -> float:
+    """Mean device time of one call of ``fn`` in ms, from CUDA events.
+
+    Before each call a spin kernel holds the card for about a millisecond
+    while the host enqueues the L2 flush and the call, so the events span
+    the call's kernels run back to back rather than the host work that
+    issues them.  A call whose host work outlasts the spin (the plain
+    versions) also counts the gaps the host leaves on the card."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        torch.cuda._sleep(SPIN_CYCLES)
+        flush()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        total += e0.elapsed_time(e1)
+    return total / reps
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """(max abs error, max abs error / max(1, max |want|))."""
+    err = float((got.double() - want.double()).abs().max())
+    scale = max(1.0, float(want.double().abs().max()))
+    return err, err / scale
+
+
+def tridiag_phase(flush: L2Flush) -> dict:
+    from extpom_tpu_torch.kernels import tridiag
+    rng = np.random.default_rng(5)
+    n = IM * JM
+    entry = {}
+    # (k0, k_last, use_cl, use_mask): proft/profu/profv, profq q2, profq q2l
+    variants = [(1, KB - 2, True, True), (1, KB - 1, False, False),
+                (2, KB - 1, False, False)]
+    for dtype in (torch.float64, torch.float32):
+        item = torch.finfo(dtype).bits // 8
+        for k0, k_last, use_cl, use_mask in variants:
+            r3 = lambda s=1.0, o=0.0: o + s * rng.random((KB, IM, JM))
+            r2 = lambda s=1.0, o=0.0: o + s * rng.random((IM, JM))
+            a, c = -r3(0.5, 0.1), -r3(0.5, 0.1)
+            den, rhs = r3(0.2, 1.0), r3(2.0, -1.0)
+            ee0, gg0 = r2(0.5), r2(1.0)
+            cl = a[k_last] if use_cl else np.zeros((IM, JM))
+            rb = r2(1.0)
+            db = r2(0.5, -1.5) if use_cl else np.ones((IM, JM))
+            mask = ((rng.random((IM, JM)) > 0.3).astype(float) if use_mask
+                    else np.ones((IM, JM)))
+            args = [torch.tensor(x, dtype=dtype, device="cuda")
+                    for x in (a, c, den, rhs, ee0, gg0, cl, rb, db, mask)]
+            got = tridiag.thomas(*args, k0, k_last)
+            want = tridiag.thomas_plain(*args, k0, k_last)
+            torch.cuda.synchronize()
+            err, rel = rel_err(got, want)
+            tol = TOL["tridiag"][dtype]
+            run = lambda: tridiag.thomas(*args, k0, k_last)
+            ms = device_ms(run, 20, flush)
+            wall_ms = call_ms(run, 20, flush)
+            plain_ms = device_ms(
+                lambda: tridiag.thomas_plain(*args, k0, k_last), 5, flush)
+            nbytes = (4 * KB * n + 6 * n + KB * n) * item
+            flops = n * (9 * (k_last - k0) + 7 + 3 * k_last)
+            bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            bound_ops = flops / PEAK_FLOPS[dtype] * 1e3
+            say("tridiag", dtype=str(dtype).split(".")[1], k0=k0,
+                k_last=k_last, max_abs_err=f"{err:.3e}",
+                rel_err=f"{rel:.3e}", tol=tol, ms=f"{ms:.5f}",
+                call_ms=f"{wall_ms:.5f}", plain_ms=f"{plain_ms:.4f}",
+                bound_ms=f"{max(bound_bytes, bound_ops):.5f}")
+            if not rel <= tol:
+                raise AssertionError(
+                    f"tridiag kernel disagrees with thomas_plain: {rel} > "
+                    f"{tol} ({dtype}, k0={k0}, k_last={k_last})")
+            if (k0, k_last) == (1, KB - 2):   # 4 of the 6 solves of a step
+                if dtype == torch.float64:
+                    entry["f64_max_abs_err"] = err
+                else:
+                    entry.update(
+                        max_abs_err=err, ms=ms, call_ms=wall_ms,
+                        plain_ms=plain_ms,
+                        bound_ms=max(bound_bytes, bound_ops),
+                        bound_by="bytes" if bound_bytes >= bound_ops
+                        else "operations",
+                        variant=f"k0=1,k_last={KB - 2}")
+    return entry
+
+
+def extloop_inputs():
+    """The external loop's operands at the second step of a 256x256x31
+    float64 seamount cold start, all computed by the plain path on the CPU
+    (one step, then the lateral terms and vertical integrals of the next)."""
+    from extpom_tpu_torch.cases.seamount import seamount_model
+    from extpom_tpu_torch.core import stepper
+    m = seamount_model(im=IM, jm=JM, kb=KB, dtype="float64", device="cpu")
+    m.run_segment(1)
+    g, cfg, st = m.grid, m.cfg, m.state
+    fc = m.base_forcing.replace(ramp=torch.tensor(
+        stepper.ramp_at(cfg, 2, m.period), dtype=torch.float64))
+    aam, advx, advy, drhox, drhoy = stepper.phase_lat(
+        g, cfg, st.u, st.v, st.ub, st.vb, st.aam, st.rho, m.rmean,
+        g.h + st.et, g.h + st.el, fc.ramp)
+    (adx2d, ady2d, drx2d, dry2d, aam2d, advua, advva, wubot, wvbot,
+     egf, utf, vtf) = stepper.mode_interaction(g, cfg, st, aam, advx, advy,
+                                               drhox, drhoy)
+    c0 = stepper.ExtCarry(st.el, st.elb, st.ua, st.uab, st.va, st.vab,
+                          st.etf, egf, utf, vtf, advua, advva, wubot, wvbot)
+    return g, cfg, c0, fc, (adx2d, ady2d, drx2d, dry2d, aam2d)
+
+
+def on_card(inputs, dtype):
+    """``extloop_inputs`` moved to the card in ``dtype``."""
+    from extpom_tpu_torch.core import stepper
+    g, cfg, c0, fc, aux = inputs
+    cast = lambda x: x.to(device="cuda", dtype=dtype).contiguous()
+    return (g.__class__(**{k: cast(v) for k, v in vars(g).items()}),
+            cfg.replace(dtype=str(dtype).split(".")[1]),
+            stepper.ExtCarry(*(cast(x) for x in c0)),
+            fc.__class__(**{k: cast(v) for k, v in vars(fc).items()}),
+            tuple(cast(x) for x in aux))
+
+
+def extloop_phase(flush: L2Flush) -> dict:
+    from extpom_tpu_torch.kernels import extloop
+    entry = {}
+    n = IM * JM
+    inputs = extloop_inputs()
+    for dtype in (torch.float64, torch.float32):
+        item = torch.finfo(dtype).bits // 8
+        grid, cfg, c0, fc, aux = on_card(inputs, dtype)
+        got = extloop.run_external_loop(grid, cfg, c0, fc, aux)
+        want = extloop.run_external_loop_plain(grid, cfg, c0, fc, aux)
+        torch.cuda.synchronize()
+        tol = TOL["extloop"][dtype]
+        worst = (0.0, 0.0, "none")
+        for name, a, b in zip(extloop.CARRY_FIELDS, got, want):
+            if not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"extloop kernel: {name} not finite")
+            err, rel = rel_err(a, b)
+            if rel > worst[1]:
+                worst = (err, rel, name)
+            if not rel <= tol:
+                raise AssertionError(
+                    f"extloop kernel disagrees with the plain loop on "
+                    f"{name}: {rel} > {tol} ({dtype})")
+        run = lambda: extloop.run_external_loop(grid, cfg, c0, fc, aux)
+        ms = device_ms(run, 20, flush)
+        wall_ms = call_ms(run, 20, flush)
+        plain_ms = device_ms(
+            lambda: extloop.run_external_loop_plain(grid, cfg, c0, fc, aux),
+            3, flush)
+        nbytes = ((34 + 14) * n + 6 * JM + 6 * IM + 1) * item
+        flops = EXTLOOP_FLOPS_PER_POINT * cfg.isplit * n
+        bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        say("extloop", dtype=str(dtype).split(".")[1], isplit=cfg.isplit,
+            max_abs_err=f"{worst[0]:.3e}", rel_err=f"{worst[1]:.3e}",
+            worst_field=worst[2], tol=tol, ms=f"{ms:.4f}",
+            call_ms=f"{wall_ms:.4f}", plain_ms=f"{plain_ms:.3f}",
+            bound_ms=f"{max(bound_bytes, bound_ops):.5f}")
+        if dtype == torch.float64:
+            entry["f64_max_abs_err"] = worst[0]
+        else:
+            entry.update(max_abs_err=worst[0], ms=ms, call_ms=wall_ms,
+                         plain_ms=plain_ms,
+                         bound_ms=max(bound_bytes, bound_ops),
+                         bound_by="bytes" if bound_bytes >= bound_ops
+                         else "operations")
+    return entry
+
+
+def golden_phase() -> None:
+    """The kernel path in float64 on the card against the repository's
+    golden snapshot (tests/golden, 33x33x11 seamount after 10 steps), at
+    tests/test_golden.py's 1e-9 relative tolerance."""
+    from extpom_tpu_torch.cases.seamount import seamount_model
+    g = np.load(GOLDEN)
+    im, jm, kb, n = (int(x) for x in g["meta"])
+    m = seamount_model(im=im, jm=jm, kb=kb, dtype="float64", device="cuda")
+    m.run(n_steps=n)
+    worst = 0.0
+    for name in ("el", "u", "v", "t", "s", "q2", "q2l"):
+        a = getattr(m.state, name).cpu().numpy()
+        b = g[name]
+        tol = 1e-9 * max(1.0, float(np.abs(b).max()))
+        err = float(np.abs(a - b).max())
+        worst = max(worst, err / tol * 1e-9)
+        if not err <= tol:
+            raise AssertionError(f"golden {name}: {err} > {tol}")
+    say("golden", grid=f"{im}x{jm}x{kb}", steps=n, dtype="float64",
+        worst_rel_err=f"{worst:.3e}", tol="1e-9")
+
+
+def nonsquare_phase(im: int = 40, jm: int = 56, kb: int = 9,
+                    steps: int = 4) -> None:
+    """The kernel path on the card against the plain path on the CPU, in
+    float64 on a grid with im != jm (an i/j mix-up in a kernel's indexing
+    would pass on square grids), over the first step and full steps."""
+    from extpom_tpu_torch.cases.seamount import seamount_model
+    kw = dict(im=im, jm=jm, kb=kb, dtype="float64")
+    card = seamount_model(device="cuda", **kw)
+    cpu = seamount_model(device="cpu", **kw)
+    card.run_segment(steps)
+    cpu.run_segment(steps)
+    worst = (0.0, "none")
+    for name in cpu.state.field_names():
+        a = getattr(card.state, name).cpu()
+        b = getattr(cpu.state, name)
+        err = float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+        if not err <= 1e-10:
+            raise AssertionError(f"card vs CPU, {name}: {err} > 1e-10")
+        if err > worst[0]:
+            worst = (err, name)
+    say("nonsquare", grid=f"{im}x{jm}x{kb}", steps=steps, dtype="float64",
+        worst_rel_err=f"{worst[0]:.3e}", worst_field=worst[1], tol="1e-10")
+
+
+def slice_phase(card: str) -> dict:
+    from extpom_tpu_torch import kernels
+    from extpom_tpu_torch.cases.seamount import seamount_model
+    from extpom_tpu_torch.diag import stats
+    m = seamount_model(im=IM, jm=JM, kb=KB)        # float32, on the card
+    kernels.reset_launches()
+    m.run_segment(SEG_WARM)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m.run_segment(SEG_TIMED)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    n = SEG_WARM + SEG_TIMED
+    want = {"extloop": n, "tridiag": 6 * (n - 1)}
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != {want}")
+    for name in m.state.field_names():
+        if not bool(torch.isfinite(getattr(m.state, name)).all()):
+            raise AssertionError(f"state field {name} is not finite")
+    s = {k: float(v) for k, v in
+         stats.domain_stats(m.grid, m.cfg, m.state).items()}
+    if not abs(s["saver"] - 15.0) <= 1e-4:
+        raise AssertionError(f"saver drifted: {s['saver']}")
+    ms_step = wall / SEG_TIMED * 1e3
+    say("slice", grid=f"{IM}x{JM}x{KB}", dtype="float32", steps=n,
+        timed_steps=SEG_TIMED, ms_per_step=f"{ms_step:.3f}",
+        grid_point_steps_per_s=f"{IM * JM * KB * SEG_TIMED / wall:.4e}",
+        saver=f"{s['saver']:.7f}", taver=f"{s['taver']:.7f}",
+        launches=json.dumps(launches, separators=(",", ":")),
+        card=f"'{card}'")
+    profile_phase(m)
+    return launches
+
+
+def profile_phase(m, steps: int = 3) -> None:
+    """Where a step's time goes: device time by kernel group from
+    torch.profiler over ``steps`` steps, against the host wall clock."""
+    from torch.profiler import ProfilerActivity, profile
+    groups = {"extloop": EXTLOOP_KERNELS, "tridiag": ("thomas_kernel",)}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        m.run_segment(steps)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = {"extloop": 0.0, "tridiag": 0.0, "other": 0.0}
+    n_other = 0
+    for e in _kernel_events(prof):
+        t = e.self_device_time_total / 1e3   # us -> ms
+        key = next((g for g, names in groups.items()
+                    if any(k in e.key for k in names)), "other")
+        dev[key] += t
+        if key == "other":
+            n_other += e.count
+    busy = sum(dev.values())
+    if busy == 0.0:
+        say("profile", device_time="not measured (no device events)")
+        return
+    say("profile", steps=steps, wall_ms_per_step=f"{wall_ms / steps:.3f}",
+        device_busy_ms_per_step=f"{busy / steps:.3f}",
+        device_idle_share=f"{1.0 - busy / wall_ms:.3f}",
+        extloop_ms_per_step=f"{dev['extloop'] / steps:.4f}",
+        tridiag_ms_per_step=f"{dev['tridiag'] / steps:.4f}",
+        plain_torch_ms_per_step=f"{dev['other'] / steps:.3f}",
+        plain_torch_kernels_per_step=n_other // steps)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from extpom_tpu_torch.kernels import build
+
+    card = card_line()
+    say("card", nvidia_smi=f"'{card}'", torch=torch.__version__,
+        cuda=torch.version.cuda, count=torch.cuda.device_count())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    build_s = build.build(verbose=True)
+    build.library()
+    say("build", seconds=f"{build_s:.1f}", lib=build.LIB.name)
+
+    flush = L2Flush()
+    tri = tridiag_phase(flush)
+    ext = extloop_phase(flush)
+    golden_phase()
+    nonsquare_phase()
+    launches = slice_phase(card)
+
+    kernels_line = {"kernels": [
+        dict(name="tridiag", route="cuda",
+             source="extpom_tpu_torch/csrc/tridiag.cu",
+             replaces="extpom_tpu/pallas/tridiag.py:77",
+             launches=launches["tridiag"], library_ms=None, **tri),
+        dict(name="extloop", route="cuda",
+             source="extpom_tpu_torch/csrc/extloop.cu",
+             replaces="extpom_tpu/pallas/extloop.py:243",
+             launches=launches["extloop"], library_ms=None, **ext),
+    ]}
+    print(json.dumps(kernels_line), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,182 @@
+"""High-level model driver (``extpom_tpu/core/model.py``): cold start, the
+time loop, print-interval diagnostics and the blow-up guard."""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from extpom_tpu_torch.core.config import Config
+from extpom_tpu_torch.core.grid import Grid
+from extpom_tpu_torch.core.state import State, Forcing, zero_state, zero_forcing
+from extpom_tpu_torch.core import stepper
+from extpom_tpu_torch.ops import density, pressure
+from extpom_tpu_torch.diag import stats as diag_stats
+
+
+def _as(x, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=like.dtype, device=like.device)
+
+
+def cold_start(grid: Grid, cfg: Config, tb, sb, tclim, sclim, elb=None,
+               uab=None, vab=None, ub=None, vb=None):
+    """Initial State + rmean, as ``initial_conditions`` + ``update_initial``
+    (initialize.f:392-521).  Returns (state, rmean)."""
+    h = grid.h
+    st = zero_state(cfg, device=h.device, dtype=h.dtype)
+    z2 = torch.zeros_like(h)
+    elb = z2 if elb is None else _as(elb, h)
+    uab = z2 if uab is None else _as(uab, h)
+    vab = z2 if vab is None else _as(vab, h)
+    tb, sb, tclim, sclim = (_as(x, h) for x in (tb, sb, tclim, sclim))
+
+    rmean = density.dens(grid, cfg, sclim, tclim)
+    rho = density.dens(grid, cfg, sb, tb)
+
+    et = elb
+    dt2 = h + et
+    # MY-2.5 seeds (initialize.f:481-494)
+    l0 = torch.broadcast_to(0.1 * dt2, (cfg.kb, cfg.im, cfg.jm)).contiguous()
+    q2b = torch.full_like(l0, cfg.small)
+    q2lb = l0 * q2b
+    kh = l0 * torch.sqrt(q2b)
+    aam = torch.full_like(l0, cfg.aam_init)
+    u0 = torch.zeros_like(l0) if ub is None else _as(ub, h)
+    v0 = torch.zeros_like(l0) if vb is None else _as(vb, h)
+
+    st = st.replace(
+        el=elb, elb=elb, et=et, etb=et, etf=et,
+        ua=uab, uab=uab, va=vab, vab=vab,
+        utb=uab * dt2, vtb=vab * dt2,
+        t=tb, tb=tb, s=sb, sb=sb, rho=rho,
+        u=u0, ub=u0, v=v0, vb=v0,
+        l=l0, q2=q2b, q2b=q2b, q2l=q2lb, q2lb=q2lb,
+        kh=kh, km=kh, kq=kh, aam=aam,
+    )
+    if cfg.npg != 1:
+        raise NotImplementedError("npg=2 (baropg_mcc) is not ported yet")
+    ramp = torch.ones((), dtype=h.dtype, device=h.device)
+    drhox, drhoy = pressure.baropg(grid, cfg, rho, rmean, dt2, ramp)
+    dz3 = grid.dz3[:cfg.kbm1]
+    st = st.replace(drx2d=torch.sum(drhox[:cfg.kbm1] * dz3, dim=0),
+                    dry2d=torch.sum(drhoy[:cfg.kbm1] * dz3, dim=0))
+    return st, rmean
+
+
+def edge_forcing(fc: Forcing, tb, sb, elb, uab, vab, ub, vb) -> Forcing:
+    """Open-boundary data from the initial edge columns (initialize.f:
+    437-460, plus the elevation/velocity edges the reference reads from its
+    .lbry file).  Slices are made contiguous: the kernels take them as
+    flat series."""
+    c = lambda a: a.contiguous()
+    return fc.replace(
+        tbe=c(tb[:, -1, :]), tbw=c(tb[:, 0, :]), sbe=c(sb[:, -1, :]),
+        sbw=c(sb[:, 0, :]), tbn=c(tb[:, :, -1]), tbs=c(tb[:, :, 0]),
+        sbn=c(sb[:, :, -1]), sbs=c(sb[:, :, 0]),
+        tsurf=c(tb[0]), ssurf=c(sb[0]),
+        elw=c(elb[0, :]), ele=c(elb[-1, :]), els=c(elb[:, 0]),
+        eln=c(elb[:, -1]),
+        uabw=c(uab[1, :]), uabe=c(uab[-1, :]), vabs=c(vab[:, 1]),
+        vabn=c(vab[:, -1]),
+        uabs=c(uab[:, 0]), uabn=c(uab[:, -1]), vabw=c(vab[0, :]),
+        vabe=c(vab[-1, :]),
+        ubw=c(ub[:, 1, :]), ube=c(ub[:, -1, :]), vbw=c(vb[:, 0, :]),
+        vbe=c(vb[:, -1, :]),
+        vbs=c(vb[:, :, 1]), vbn=c(vb[:, :, -1]), ubs=c(ub[:, :, 0]),
+        ubn=c(ub[:, :, -1]))
+
+
+class Model:
+    """Owns (grid, cfg, state, climatology) and drives the time loop with
+    the static edge-seeded forcing of the cold start.
+
+    A model resumed from a carried-across state (``core.convert``) passes
+    ``state``, ``rmean``, ``tclim``, ``sclim``, ``base_forcing`` and
+    ``iint`` instead of the initial fields ``tb``/``sb``."""
+
+    def __init__(self, grid: Grid, cfg: Config, tb=None, sb=None, tclim=None,
+                 sclim=None, elb=None, uab=None, vab=None, ub=None, vb=None,
+                 state: Optional[State] = None, rmean=None,
+                 base_forcing: Optional[Forcing] = None, iint: int = 0):
+        cfg.validate()
+        self.grid = grid
+        self.cfg = cfg
+        tclim = tb if tclim is None else tclim
+        sclim = sb if sclim is None else sclim
+        if state is None:
+            state, rmean = cold_start(grid, cfg, tb, sb, tclim, sclim,
+                                      elb=elb, uab=uab, vab=vab, ub=ub, vb=vb)
+        elif rmean is None or tclim is None or sclim is None:
+            raise ValueError("a resumed Model needs rmean, tclim and sclim")
+        self.state, self.rmean = state, rmean
+        self.tclim = _as(tclim, grid.h)
+        self.sclim = _as(sclim, grid.h)
+        if base_forcing is None:
+            st = self.state
+            base_forcing = edge_forcing(
+                zero_forcing(cfg, grid.device, grid.dtype,
+                             with_restore=cfg.do_restore),
+                st.tb, st.sb, st.elb, st.uab, st.vab, st.ub, st.vb)
+        self.base_forcing = base_forcing
+        self.iint = iint       # completed internal steps
+        self.time0 = 0.0
+        try:
+            self.period = grid.inertial_period_days()
+        except ValueError:
+            self.period = math.inf
+
+    @property
+    def time_days(self) -> float:
+        return self.cfg.dti * self.iint / 86400.0 + self.time0
+
+    def run_segment(self, n_steps: int) -> State:
+        """Advance ``n_steps`` internal steps (``stepper.run_steps``)."""
+        period = self.period if math.isfinite(self.period) else 1.0
+        self.state = stepper.run_steps(
+            self.grid, self.cfg, self.state, self.base_forcing, self.rmean,
+            self.tclim, self.sclim, self.iint, n_steps, period, self.time0,
+            first=(self.iint == 0))
+        self.iint += n_steps
+        return self.state
+
+    def step_once(self) -> State:
+        return self.run_segment(1)
+
+    def run(self, n_steps: Optional[int] = None,
+            log: Optional[Callable[[str], None]] = None,
+            check_interval: Optional[int] = None) -> State:
+        """Run the time loop with the print-interval diagnostics; raises
+        ``FloatingPointError`` when |va| > vmaxl (advance.f:611-641)."""
+        cfg = self.cfg
+        n = cfg.iend if n_steps is None else n_steps
+        for _ in range(n):
+            self.step_once()
+            if check_interval is not None:
+                iprint = check_interval
+            elif self.iint >= cfg.iswtch:
+                iprint = cfg.iprint2
+            else:
+                iprint = cfg.iprint
+            if self.iint % iprint == 0 or self.iint == n:
+                st = self.state
+                vamax, (iloc, jloc) = diag_stats.check_velocity(cfg, st.va)
+                vamax = float(vamax)
+                if not np.isfinite(vamax) or vamax > cfg.vmaxl:
+                    i, j = int(iloc), int(jloc)
+                    lon = float(self.grid.east_e[i, j])
+                    lat = float(self.grid.north_e[i, j])
+                    raise FloatingPointError(
+                        f"velocity condition violated: vamax={vamax:.3e} "
+                        f"at (i,j)=({i},{j}) lon/lat=({lon:.4f},{lat:.4f}),"
+                        f" iint={self.iint}")
+                if log is not None:
+                    s = {k: float(v) for k, v in
+                         diag_stats.domain_stats(self.grid, cfg, st).items()}
+                    log(f"time={self.time_days:9.4f} iint={self.iint:8d} "
+                        f"vtot={s['vtot']:.7e} eaver={s['eaver']:.7e} "
+                        f"taver={s['taver']:.7e} saver={s['saver']:.7e} "
+                        f"ekin={s['ekin']:.7e}")
+        return self.state

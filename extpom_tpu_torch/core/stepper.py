@@ -1,0 +1,405 @@
+"""Mode-split leapfrog time stepping (``extpom_tpu/core/stepper.py``).
+
+One :func:`step` advances the model by one internal step ``dti``, as
+``advance`` does (advance.f:6-59):
+
+    lateral terms -> mode_interaction -> isplit x external substep
+    -> internal phases uvw, tke, tracer, mom
+
+The isplit external substeps run in ``kernels.extloop.run_external_loop``
+(one CUDA kernel chain per step on the card); the six vertical solves of the
+internal phases in ``kernels.tridiag``.
+"""
+
+from __future__ import annotations
+
+from types import SimpleNamespace
+from typing import NamedTuple
+
+import torch
+
+from extpom_tpu_torch.core.config import Config
+from extpom_tpu_torch.core.grid import Grid
+from extpom_tpu_torch.core.state import State, Forcing
+from extpom_tpu_torch.ops.stencil import sft, put
+from extpom_tpu_torch.ops import (advection2d, momentum, tracers, pressure,
+                                  vertical, continuity, density)
+from extpom_tpu_torch.bc import bcond as bcf
+from extpom_tpu_torch.bc import orlanski as bco
+
+
+def mode_interaction(grid: Grid, cfg: Config, st: State, aam, advx, advy,
+                     drhox, drhoy):
+    """Vertical integrals feeding the external mode (advance.f:144-202).
+    Returns (adx2d, ady2d, drx2d, dry2d, aam2d, advua, advva, wubot, wvbot,
+    egf, utf, vtf)."""
+    if cfg.mode == 2:
+        raise NotImplementedError("mode=2 is not ported yet")
+    d = grid.h + st.el
+    dz3 = grid.dz3[:cfg.kbm1]
+    adx2d = torch.sum(advx[:cfg.kbm1] * dz3, dim=0)
+    ady2d = torch.sum(advy[:cfg.kbm1] * dz3, dim=0)
+    drx2d = torch.sum(drhox[:cfg.kbm1] * dz3, dim=0)
+    dry2d = torch.sum(drhoy[:cfg.kbm1] * dz3, dim=0)
+    aam2d = torch.sum(aam[:cfg.kbm1] * dz3, dim=0)
+    advua, advva, wubot, wvbot = advection2d.advave(
+        grid, cfg, d, st.ua, st.va, st.uab, st.vab, aam2d, st.wubot, st.wvbot)
+    adx2d = adx2d - advua
+    ady2d = ady2d - advva
+
+    egf = st.el * cfg.ispi
+    z2 = torch.zeros_like(d)
+    utf = put(z2, st.ua * (d + sft(d, -1, 0)) * cfg.isp2i,
+              slice(1, None), slice(None))
+    vtf = put(z2, st.va * (d + sft(d, 0, -1)) * cfg.isp2i,
+              slice(None), slice(1, None))
+    return (adx2d, ady2d, drx2d, dry2d, aam2d, advua, advva, wubot, wvbot,
+            egf, utf, vtf)
+
+
+def ext_precompute(grid) -> SimpleNamespace:
+    """Loop-invariant metrics of the external mode, computed once per step
+    instead of once per substep."""
+    dx, dy, h, cor, art = grid.dx, grid.dy, grid.h, grid.cor, grid.art
+    one = torch.ones((), dtype=dx.dtype, device=dx.device)
+    dx4 = dx + sft(dx, -1, 0) + sft(dx, 0, -1) + sft(dx, -1, -1)
+    dy4 = dy + sft(dy, -1, 0) + sft(dy, 0, -1) + sft(dy, -1, -1)
+    return SimpleNamespace(
+        dyu=dy + sft(dy, -1, 0),
+        dxv=dx + sft(dx, 0, -1),
+        hu=h + sft(h, -1, 0),
+        hv=h + sft(h, 0, -1),
+        corw=sft(cor, -1, 0),
+        cors=sft(cor, 0, -1),
+        rart=one / art,
+        rdx=one / dx,
+        rdy=one / dy,
+        dx4=dx4,
+        dy4=dy4,
+        rdx4=one / torch.where(dx4 == 0, one, dx4),
+        rdy4=one / torch.where(dy4 == 0, one, dy4),
+    )
+
+
+class ExtCarry(NamedTuple):
+    """External-mode carry; field order is ``CARRY_FIELDS`` of the TPU
+    kernel (``extpom_tpu/pallas/extloop.py:48``) and of ``csrc/extloop.cu``."""
+    el: torch.Tensor
+    elb: torch.Tensor
+    ua: torch.Tensor
+    uab: torch.Tensor
+    va: torch.Tensor
+    vab: torch.Tensor
+    etf: torch.Tensor
+    egf: torch.Tensor
+    utf: torch.Tensor
+    vtf: torch.Tensor
+    advua: torch.Tensor
+    advva: torch.Tensor
+    wubot: torch.Tensor
+    wvbot: torch.Tensor
+
+
+def mode_external_substep(grid: Grid, cfg: Config, c: ExtCarry, iext: int,
+                          fc: Forcing, aux, em=None) -> ExtCarry:
+    """One external (2-D) leapfrog substep (advance.f:205-353); ``iext`` is
+    the 1-based substep counter, ``aux`` = (adx2d, ady2d, drx2d, dry2d,
+    aam2d)."""
+    if cfg.bc_scheme == "orlanski":
+        raise NotImplementedError(
+            "bc_scheme='orlanski' (orl_el/orl_vel2d) is not ported yet")
+    (adx2d, ady2d, drx2d, dry2d, aam2d) = aux
+    if em is None:
+        em = ext_precompute(grid)
+    h, aru, arv, cor = grid.h, grid.aru, grid.arv, grid.cor
+    d = h + c.el
+    z2 = torch.zeros_like(d)
+
+    # free surface (advance.f:211-229)
+    fluxua = put(z2, 0.25 * (d + sft(d, -1, 0)) * em.dyu * c.ua,
+                 slice(1, None), slice(1, None))
+    fluxva = put(z2, 0.25 * (d + sft(d, 0, -1)) * em.dxv * c.va,
+                 slice(1, None), slice(1, None))
+    elf = put(z2, c.elb + cfg.dte2 * (
+        -(sft(fluxua, 1, 0) - fluxua + sft(fluxva, 0, 1) - fluxva) * em.rart
+        - fc.vflux),
+        slice(1, -1), slice(1, -1))
+    elf = bcf.bc_el(grid, cfg, elf, fc)
+
+    # external advection terms every ispadv substeps (advance.f:235)
+    if iext % cfg.ispadv == 0:
+        advua, advva, wubot, wvbot = advection2d.advave(
+            grid, cfg, d, c.ua, c.va, c.uab, c.vab, aam2d,
+            c.wubot, c.wvbot, em=em)
+    else:
+        advua, advva, wubot, wvbot = c.advua, c.advva, c.wubot, c.wvbot
+
+    # depth-mean momentum (advance.f:237-288)
+    alpha = cfg.alpha
+    uaf = put(z2,
+              adx2d + advua
+              - aru * 0.25 * (cor * d * (sft(c.va, 0, 1) + c.va)
+                              + em.corw * sft(d, -1, 0)
+                              * (sft(c.va, -1, 1) + sft(c.va, -1, 0)))
+              + 0.25 * cfg.grav * em.dyu * (d + sft(d, -1, 0))
+              * ((1.0 - 2.0 * alpha) * (c.el - sft(c.el, -1, 0))
+                 + alpha * (c.elb - sft(c.elb, -1, 0)
+                            + elf - sft(elf, -1, 0))
+                 + fc.e_atmos - sft(fc.e_atmos, -1, 0))
+              + drx2d + aru * (fc.wusurf - wubot),
+              slice(1, None), slice(1, -1))
+    uaf = put(z2,
+              ((em.hu + c.elb + sft(c.elb, -1, 0)) * aru * c.uab
+               - 4.0 * cfg.dte * uaf)
+              / ((em.hu + elf + sft(elf, -1, 0)) * aru),
+              slice(1, None), slice(1, -1))
+
+    vaf = put(z2,
+              ady2d + advva
+              + arv * 0.25 * (cor * d * (sft(c.ua, 1, 0) + c.ua)
+                              + em.cors * sft(d, 0, -1)
+                              * (sft(c.ua, 1, -1) + sft(c.ua, 0, -1)))
+              + 0.25 * cfg.grav * em.dxv * (d + sft(d, 0, -1))
+              * ((1.0 - 2.0 * alpha) * (c.el - sft(c.el, 0, -1))
+                 + alpha * (c.elb - sft(c.elb, 0, -1)
+                            + elf - sft(elf, 0, -1))
+                 + fc.e_atmos - sft(fc.e_atmos, 0, -1))
+              + dry2d + arv * (fc.wvsurf - wvbot),
+              slice(1, -1), slice(1, None))
+    vaf = put(z2,
+              ((em.hv + c.elb + sft(c.elb, 0, -1)) * arv * c.vab
+               - 4.0 * cfg.dte * vaf)
+              / ((em.hv + elf + sft(elf, 0, -1)) * arv),
+              slice(1, -1), slice(1, None))
+
+    uaf, vaf = bcf.bc_vel2d(grid, cfg, uaf, vaf, c.el, d, fc, fc.ramp)
+
+    # etf tail averaging over the last three substeps (advance.f:295-318)
+    isplit = cfg.isplit
+    etf = c.etf
+    if iext == isplit - 2:
+        etf = 0.25 * cfg.smoth * elf
+    elif iext == isplit - 1:
+        etf = c.etf + 0.5 * (1.0 - 0.5 * cfg.smoth) * elf
+    elif iext == isplit:
+        etf = (c.etf + 0.5 * elf) * grid.fsm
+
+    # Asselin filter + time level rotation (advance.f:321-330)
+    ua = c.ua + 0.5 * cfg.smoth * (c.uab - 2.0 * c.ua + uaf)
+    va = c.va + 0.5 * cfg.smoth * (c.vab - 2.0 * c.va + vaf)
+    el = c.el + 0.5 * cfg.smoth * (c.elb - 2.0 * c.el + elf)
+    elb = el
+    el = elf
+    d = h + el
+    uab = ua
+    ua = uaf
+    vab = va
+    va = vaf
+
+    # dti-average accumulators, skipped on the final substep
+    # (advance.f:332-350)
+    not_last = 1.0 if iext != isplit else 0.0
+    egf = c.egf + not_last * el * cfg.ispi
+    utf = put(c.utf, c.utf + not_last * ua * (d + sft(d, -1, 0)) * cfg.isp2i,
+              slice(1, None), slice(None))
+    vtf = put(c.vtf, c.vtf + not_last * va * (d + sft(d, 0, -1)) * cfg.isp2i,
+              slice(None), slice(1, None))
+
+    return ExtCarry(el=el, elb=elb, ua=ua, uab=uab, va=va, vab=vab,
+                    etf=etf, egf=egf, utf=utf, vtf=vtf,
+                    advua=advua, advva=advva, wubot=wubot, wvbot=wvbot)
+
+
+def phase_lat(grid, cfg: Config, u, v, ub, vb, aam0, rho, rmean, dt, d,
+              ramp):
+    """Lateral viscosity + 3-D advection/pressure terms (advance.f:96-141)
+    -> (aam, advx, advy, drhox, drhoy)."""
+    advx, advy = momentum.advct(grid, cfg, u, v, ub, vb, aam0, dt)
+    if cfg.npg != 1:
+        raise NotImplementedError("npg=2 (baropg_mcc) is not ported yet")
+    drhox, drhoy = pressure.baropg(grid, cfg, rho, rmean, dt, ramp)
+    dx, dy = grid.dx, grid.dy
+    aam_new = (cfg.horcon * dx * dy
+               * torch.sqrt(((sft(u, 1, 0) - u) / dx) ** 2
+                            + ((sft(v, 0, 1) - v) / dy) ** 2
+                            + 0.5 * (0.25 * (sft(u, 0, 1) + sft(u, 1, 1)
+                                             - sft(u, 0, -1) - sft(u, 1, -1))
+                                     / dy
+                                     + 0.25 * (sft(v, 1, 0) + sft(v, 1, 1)
+                                               - sft(v, -1, 0)
+                                               - sft(v, -1, 1))
+                                     / dx) ** 2))
+    aam = put(aam0, aam_new, slice(0, cfg.kbm1), slice(1, -1), slice(1, -1))
+    return aam, advx, advy, drhox, drhoy
+
+
+def phase_uvw(grid, cfg: Config, u, v, w, dt, utb, vtb, utf, vtf, etb, etf,
+              vfluxb, vflux):
+    """Depth-mean adjustment of u, v + vertical velocity
+    (advance.f:364-400) -> (u, v, w)."""
+    kbm1 = cfg.kbm1
+    KM1 = slice(0, kbm1)
+    dz3 = grid.dz3[:kbm1]
+    tps = torch.sum(u[:kbm1] * dz3, dim=0)
+    u = put(u, (u - tps) + (utb + utf) / (dt + sft(dt, -1, 0)),
+            KM1, slice(1, None), slice(None))
+    tps = torch.sum(v[:kbm1] * dz3, dim=0)
+    v = put(v, (v - tps) + (vtb + vtf) / (dt + sft(dt, 0, -1)),
+            KM1, slice(None), slice(1, None))
+    w = continuity.vertvl(grid, cfg, w, u, v, dt, etf, etb, vfluxb, vflux)
+    w = bco.orl_w(grid, cfg, w)
+    return u, v, w
+
+
+def phase_tke(grid, cfg: Config, q2, q2b, q2l, q2lb, u, v, w, aam, t, s,
+              rho, km, kh, kq, l, dt, etb, etf, wubot, wvbot, fc):
+    """TKE advection + MY-2.5 closure + BC + Asselin (advance.f:406-421)
+    -> (q2, q2b, q2l, q2lb, km, kh, kq, l)."""
+    q2f = tracers.advq(grid, cfg, q2b, q2, u, v, w, aam, dt, etb, etf)
+    q2lf = tracers.advq(grid, cfg, q2lb, q2l, u, v, w, aam, dt, etb, etf)
+    (q2f, q2lf, km, kh, kq, l, q2b, q2lb) = vertical.profq(
+        grid, cfg, q2f, q2lf, q2, q2b, q2lb, u, v, t, s, rho,
+        km, kh, kq, l, etf, fc.wusurf, fc.wvsurf, wubot, wvbot)
+    q2f, q2lf = bcf.bc_turb(grid, cfg, q2f, q2lf, q2, q2l, u, v)
+    q2 = q2 + 0.5 * cfg.smoth * (q2f + q2b - 2.0 * q2)
+    q2l = q2l + 0.5 * cfg.smoth * (q2lf + q2lb - 2.0 * q2l)
+    return q2f, q2, q2lf, q2l, km, kh, kq, l
+
+
+def phase_tracer(grid, cfg: Config, t, tb, s, sb, tclim, sclim, u, ub, v,
+                 w, aam, kh, dt, etb, etf, fc):
+    """Tracer advection + implicit diffusion + BC + Asselin + EOS
+    (advance.f:424-456) -> (t, tb, s, sb, rho)."""
+    if cfg.nadv != 1:
+        raise NotImplementedError("nadv=2 (MPDATA) is not ported yet")
+    if cfg.do_restore:
+        raise NotImplementedError("interior restoring is not ported yet")
+    tf = tracers.advt1(grid, cfg, tb, t, tclim, u, v, w, aam, dt, etb, etf)
+    sf = tracers.advt1(grid, cfg, sb, s, sclim, u, v, w, aam, dt, etb, etf)
+    tf = vertical.proft(grid, cfg, tf, fc.wtsurf, fc.tsurf, cfg.nbct, kh,
+                        etf, fc.swrad)
+    sf = vertical.proft(grid, cfg, sf, fc.wssurf, fc.ssurf, cfg.nbcs, kh,
+                        etf, fc.swrad)
+    tf, sf = bcf.bc_ts(grid, cfg, tf, sf, t, s, u, v, w, dt, fc)
+
+    t = t + 0.5 * cfg.smoth * (tf + tb - 2.0 * t)
+    s = s + 0.5 * cfg.smoth * (sf + sb - 2.0 * s)
+    tb, t, sb, s = t, tf, s, sf
+    rho = density.dens(grid, cfg, s, t)
+    return t, tb, s, sb, rho
+
+
+def phase_mom(grid, cfg: Config, u, ub, v, vb, w, advx, advy, drhox, drhoy,
+              km, dt, egf, egb, etb, etf, fc):
+    """Momentum advection + implicit vertical diffusion + BC + Asselin with
+    depth-mean correction (advance.f:459-521)
+    -> (u, ub, v, vb, wubot, wvbot)."""
+    kbm1 = cfg.kbm1
+    dz3 = grid.dz3[:kbm1]
+    uf = momentum.advu(grid, cfg, u, ub, v, w, advx, drhox, dt,
+                       egf, egb, fc.e_atmos, etb, etf)
+    vf = momentum.advv(grid, cfg, v, vb, u, w, advy, drhoy, dt,
+                       egf, egb, fc.e_atmos, etb, etf)
+    uf, wubot = vertical.profu(grid, cfg, uf, ub, vb, km, etf, fc.wusurf)
+    vf, wvbot = vertical.profv(grid, cfg, vf, ub, vb, km, etf, fc.wvsurf)
+    if cfg.bc_scheme == "file":
+        raise NotImplementedError("bc_vel3d (bc_scheme='file') is not "
+                                  "ported yet")
+    uf, vf = bco.orl_vel3d(grid, cfg, uf, vf, u, ub, v, vb)
+
+    tps = torch.sum((uf + ub - 2.0 * u)[:kbm1] * dz3, dim=0)
+    u = u + 0.5 * cfg.smoth * (uf + ub - 2.0 * u - tps)
+    tps = torch.sum((vf + vb - 2.0 * v)[:kbm1] * dz3, dim=0)
+    v = v + 0.5 * cfg.smoth * (vf + vb - 2.0 * v - tps)
+    return uf, u, vf, v, wubot, wvbot
+
+
+def mode_internal(grid: Grid, cfg: Config, st: State, fc: Forcing,
+                  c: ExtCarry, aam, advx, advy, drhox, drhoy, tclim, sclim,
+                  first: bool) -> State:
+    """Internal (3-D) mode update (advance.f:356-537); the first step of a
+    cold start skips the 3-D block, as the reference does (advance.f:362)."""
+    h = grid.h
+    dt = h + st.et
+    etf = c.etf
+    u, ub, v, vb, w = st.u, st.ub, st.v, st.vb, st.w
+    t, tb, s, sb, rho = st.t, st.tb, st.s, st.sb, st.rho
+    q2, q2b, q2l, q2lb = st.q2, st.q2b, st.q2l, st.q2lb
+    km, kh, kq, l = st.km, st.kh, st.kq, st.l
+    wubot, wvbot = c.wubot, c.wvbot
+
+    if not first:
+        u, v, w = phase_uvw(grid, cfg, u, v, w, dt, st.utb, st.vtb,
+                            c.utf, c.vtf, st.etb, etf, st.vfluxb, fc.vflux)
+        (q2, q2b, q2l, q2lb, km, kh, kq, l) = phase_tke(
+            grid, cfg, q2, q2b, q2l, q2lb, u, v, w, aam, t, s, rho,
+            km, kh, kq, l, dt, st.etb, etf, wubot, wvbot, fc)
+        if cfg.mode != 4:
+            t, tb, s, sb, rho = phase_tracer(
+                grid, cfg, t, tb, s, sb, tclim, sclim, u, ub, v, w,
+                aam, kh, dt, st.etb, etf, fc)
+        u, ub, v, vb, wubot, wvbot = phase_mom(
+            grid, cfg, u, ub, v, vb, w, advx, advy, drhox, drhoy,
+            km, dt, c.egf, st.egb, st.etb, etf, fc)
+
+    return st.replace(
+        u=u, ub=ub, v=v, vb=vb, w=w, t=t, tb=tb, s=s, sb=sb, rho=rho,
+        q2=q2, q2b=q2b, q2l=q2l, q2lb=q2lb, km=km, kh=kh, kq=kq, l=l,
+        aam=aam,
+        el=c.el, elb=c.elb, ua=c.ua, uab=c.uab, va=c.va, vab=c.vab,
+        egb=c.egf,
+        etb=st.et, et=etf, etf=etf,
+        utb=c.utf, vtb=c.vtf,
+        vfluxb=fc.vflux, vfluxf=fc.vflux,
+        advua=c.advua, advva=c.advva, wubot=wubot, wvbot=wvbot,
+    )
+
+
+def step(grid: Grid, cfg: Config, st: State, fc: Forcing, rmean, tclim,
+         sclim, first: bool = False) -> State:
+    """Advance one internal time step (advance.f:6-59)."""
+    from extpom_tpu_torch.kernels import extloop
+    if cfg.mode == 2:
+        raise NotImplementedError("mode=2 is not ported yet")
+    dt = grid.h + st.et
+    aam, advx, advy, drhox, drhoy = phase_lat(
+        grid, cfg, st.u, st.v, st.ub, st.vb, st.aam, st.rho, rmean, dt,
+        grid.h + st.el, fc.ramp)
+
+    (adx2d, ady2d, drx2d, dry2d, aam2d, advua, advva, wubot, wvbot,
+     egf, utf, vtf) = mode_interaction(grid, cfg, st, aam, advx, advy,
+                                       drhox, drhoy)
+    carry0 = ExtCarry(el=st.el, elb=st.elb, ua=st.ua, uab=st.uab,
+                      va=st.va, vab=st.vab, etf=st.etf, egf=egf,
+                      utf=utf, vtf=vtf, advua=advua, advva=advva,
+                      wubot=wubot, wvbot=wvbot)
+    aux = (adx2d, ady2d, drx2d, dry2d, aam2d)
+    carry = extloop.run_external_loop(grid, cfg, carry0, fc, aux)
+
+    st = mode_internal(grid, cfg, st, fc, carry, aam, advx, advy,
+                       drhox, drhoy, tclim, sclim, first)
+    return st.replace(adx2d=adx2d, ady2d=ady2d, drx2d=drx2d, dry2d=dry2d,
+                      aam2d=aam2d)
+
+
+def ramp_at(cfg: Config, iint: int, period_days: float,
+            time0_days: float = 0.0) -> float:
+    """Inertial ramp factor of internal step ``iint`` (advance.f:62-75)."""
+    if not cfg.lramp:
+        return 1.0
+    t_days = cfg.dti * iint / 86400.0 + time0_days
+    return min(t_days / period_days, 1.0)
+
+
+def run_steps(grid: Grid, cfg: Config, st: State, fc: Forcing, rmean,
+              tclim, sclim, iint0: int, n_steps: int, period_days: float,
+              time0_days: float = 0.0, first: bool = False) -> State:
+    """Advance ``n_steps`` internal steps with ``fc`` held constant; the
+    first step of a cold start (``first``) skips the internal 3-D block."""
+    for n in range(n_steps):
+        i = iint0 + 1 + n
+        ramp = torch.full((), ramp_at(cfg, i, period_days, time0_days),
+                          dtype=st.dtype, device=st.el.device)
+        st = step(grid, cfg, st, fc.replace(ramp=ramp), rmean, tclim, sclim,
+                  first=first and n == 0)
+    return st

@@ -1,0 +1,113 @@
+"""Build and load the CUDA kernels.
+
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process (all started
+together) for ``sm_90a`` and linked into ``build/kernels/
+libextpom_kernels.so`` at the repository root, which is loaded with
+``ctypes``.  Nothing happens at import: :func:`library` builds on its first
+call and reuses an up-to-date library after that.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+PKG = Path(__file__).resolve().parent.parent
+CSRC = PKG / "csrc"
+BUILD = PKG.parent / "build" / "kernels"
+LIB = BUILD / "libextpom_kernels.so"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-fmad=false"]
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C entry points: (argument types); each returns a cudaError_t as int
+SIGNATURES = {
+    # a, c, den, rhs, ee0, gg0, cl, rb, db, mask, out, ee, gg;
+    # kb, n, k0, k_last; stream
+    "extpom_tridiag_f32": [_P] * 13 + [_I] * 4 + [_P],
+    "extpom_tridiag_f64": [_P] * 13 + [_I] * 4 + [_P],
+    # pointer table, parameter table; im, jm, isplit, ispadv; stream
+    "extpom_extloop_f32": [_P, _P] + [_I] * 4 + [_P],
+    "extpom_extloop_f64": [_P, _P] + [_I] * 4 + [_P],
+    "extpom_error_string": [_I],
+}
+
+_lib = None
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                           "machine with the CUDA toolkit")
+    return nvcc
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _stale() -> bool:
+    if not LIB.exists():
+        return True
+    t = LIB.stat().st_mtime
+    return any(p.stat().st_mtime > t for p in _sources())
+
+
+def build(verbose: bool = False) -> float:
+    """Compile every source in parallel and link the library; returns the
+    wall seconds taken."""
+    t0 = time.perf_counter()
+    nvcc = _nvcc()
+    BUILD.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        objs, procs = [], []
+        extra = ["-Xptxas", "-v"] if verbose else []
+        for src in _sources():
+            obj = Path(tmp) / (src.stem + ".o")
+            objs.append(obj)
+            procs.append((src, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, *extra, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for src, p in procs:
+            out, _ = p.communicate()
+            if verbose and out:
+                print(out, flush=True)
+            if p.returncode != 0:
+                failed.append(f"{src.name}:\n{out}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp_lib = Path(tmp) / LIB.name
+        subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o",
+                        str(tmp_lib), *map(str, objs)], check=True)
+        os.replace(tmp_lib, LIB)
+    return time.perf_counter() - t0
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first when missing or stale."""
+    global _lib
+    if _lib is None:
+        if _stale():
+            build()
+        lib = ctypes.CDLL(str(LIB))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = _I
+        lib.extpom_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(status: int, what: str) -> None:
+    """Raise when a C entry point returned a CUDA error code."""
+    if status != 0:
+        msg = library().extpom_error_string(status).decode()
+        raise RuntimeError(f"{what}: CUDA error {status} ({msg})")

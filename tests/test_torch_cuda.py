@@ -1,0 +1,98 @@
+"""The port's CUDA kernels on the card against their plain PyTorch
+versions, and the kernel path against the CPU path.  They need an NVIDIA
+card and skip without one; on a machine with one, run
+
+    python -m pytest tests/test_torch_cuda.py -q -n 0 -m cuda
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from extpom_tpu_torch import kernels
+from extpom_tpu_torch.cases.seamount import seamount_model
+from extpom_tpu_torch.core import stepper
+from extpom_tpu_torch.kernels import extloop, tridiag
+
+torch.set_num_threads(1)
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _close(got, want, tol):
+    scale = max(1.0, float(want.abs().max()))
+    err = float((got - want).abs().max())
+    assert err <= tol * scale, (err, tol * scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("k0,k_last", [(1, 7), (1, 8), (2, 8)])
+def test_tridiag_kernel_matches_plain(card, dtype, k0, k_last):
+    rng = np.random.default_rng(5)
+    kb, im, jm = 9, 13, 17
+    r3 = lambda s, o: o + s * rng.random((kb, im, jm))
+    r2 = lambda s, o: o + s * rng.random((im, jm))
+    ops = [-r3(0.5, 0.1), -r3(0.5, 0.1), r3(0.2, 1.0), r3(2.0, -1.0),
+           r2(0.5, 0.0), r2(1.0, 0.0), r2(0.3, -0.4), r2(1.0, 0.0),
+           r2(0.5, -1.5), (rng.random((im, jm)) > 0.3).astype(float)]
+    ops = [torch.tensor(x, dtype=dtype, device=card) for x in ops]
+    before = kernels.LAUNCHES["tridiag"]
+    got = tridiag.thomas(*ops, k0, k_last)
+    assert kernels.LAUNCHES["tridiag"] == before + 1
+    _close(got, tridiag.thomas_plain(*ops, k0, k_last), TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_extloop_kernel_matches_plain(card, dtype):
+    m = seamount_model(device=card, im=32, jm=48, kb=7, dtype="float64",
+                       isplit=6)
+    m.run_segment(1)
+    g, cfg, st = m.grid, m.cfg, m.state
+    fc = m.base_forcing
+    aam, advx, advy, drhox, drhoy = stepper.phase_lat(
+        g, cfg, st.u, st.v, st.ub, st.vb, st.aam, st.rho, m.rmean,
+        g.h + st.et, g.h + st.el, fc.ramp)
+    out = stepper.mode_interaction(g, cfg, st, aam, advx, advy, drhox,
+                                   drhoy)
+    c0 = stepper.ExtCarry(st.el, st.elb, st.ua, st.uab, st.va, st.vab,
+                          st.etf, out[9], out[10], out[11], out[5], out[6],
+                          out[7], out[8])
+    cast = lambda x: x.to(dtype).contiguous()
+    g = g.__class__(**{k: cast(v) for k, v in vars(g).items()})
+    fc = fc.__class__(**{k: cast(v) for k, v in vars(fc).items()})
+    c0 = stepper.ExtCarry(*(cast(x) for x in c0))
+    aux = tuple(cast(x) for x in out[:5])
+    cfg = cfg.replace(dtype=str(dtype).split(".")[1])
+    before = kernels.LAUNCHES["extloop"]
+    got = extloop.run_external_loop(g, cfg, c0, fc, aux)
+    assert kernels.LAUNCHES["extloop"] == before + 1
+    want = extloop.run_external_loop_plain(g, cfg, c0, fc, aux)
+    for name, a, b in zip(extloop.CARRY_FIELDS, got, want):
+        _close(a, b, TOL[dtype] * 10)
+
+
+def test_card_path_matches_cpu_path(card):
+    kw = dict(im=17, jm=23, kb=7, dtype="float64")
+    gpu = seamount_model(device=card, **kw)
+    cpu = seamount_model(device="cpu", **kw)
+    gpu.run_segment(3)
+    cpu.run_segment(3)
+    for name in cpu.state.field_names():
+        _close(getattr(gpu.state, name).cpu(), getattr(cpu.state, name),
+               1e-10)
+
+
+def test_orlanski_raises_on_the_card(card):
+    m = seamount_model(device=card, im=9, jm=9, kb=5, dtype="float64",
+                       bc_scheme="orlanski")
+    with pytest.raises(NotImplementedError):
+        m.run_segment(1)
