@@ -3,11 +3,12 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``extpom_tpu_torch/csrc``, holds each
-kernel against its plain PyTorch version at the shapes of the main path
-(256x256x31), drives the seamount model through ``seamount_model`` /
-``Model.run_segment`` on the card in float32, checks the result, and prints
-one ``kernels`` JSON line, the card's name and power limit, and a last JSON
-line ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
+kernel (tridiag, extloop and the phases lat, uvw, tke, tracer, mom) against
+its plain PyTorch version at the shapes of the main path (256x256x31), drives
+the seamount model through ``seamount_model`` / ``Model.run_segment`` on the
+card in float32, checks the result, and prints one ``kernels`` JSON line,
+the card's name and power limit, and a last JSON line
+``{"ok": true, "device": {...}}``.  Any failed check raises, so the
 script exits non-zero; without a CUDA device it exits 1 and prints no
 result.
 """
@@ -32,10 +33,31 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}   # non-tensor
 # advave 71, uaf 38, vaf 38, dum/dvm 2, tail + Asselin + accumulators 32
 EXTLOOP_FLOPS_PER_POINT = 199
 EXTLOOP_KERNELS = ("k_metrics", "k_surface", "k_velocity", "k_update")
+PHASES = ("lat", "uvw", "tke", "tracer", "mom")
+# device kernels of each phase (csrc/phase_*.cu), as the profiler names them
+PHASE_KERNELS = {"lat": ("::k_lat<",), "uvw": ("::k_uv<", "::k_w<"),
+                 "tke": ("::k_column<", "::k_edges<"),
+                 "tracer": ("::k_tracer<",),
+                 "mom": ("::k_solve<", "::k_final<")}
+# each phase's outputs, in the order it returns them
+PHASE_OUTPUTS = {"lat": ("aam", "advx", "advy", "drhox", "drhoy"),
+                 "uvw": ("u", "v", "w"),
+                 "tke": ("q2", "q2b", "q2l", "q2lb", "km", "kh", "kq", "l"),
+                 "tracer": ("t", "tb", "s", "sb", "rho"),
+                 "mom": ("u", "ub", "v", "vb", "wubot", "wvbot")}
+# flops per grid point (column level) of each phase's plain algorithm,
+# counted from its source: lat advct ~220, baropg ~40, aam ~20; uvw ~20; tke
+# advq ~60 per field, profq ~170 (sound speed, buoyancy, length scale,
+# production, two solves, stability functions), bc and Asselin ~10; tracer
+# ~120 per tracer (fluxes, solve, Asselin) and ~45 for dens; mom ~50 per
+# component and ~20 for Orlanski and Asselin
+PHASE_FLOPS_PER_POINT = {"lat": 280, "uvw": 20, "tke": 300, "tracer": 285,
+                         "mom": 120}
 SPIN_CYCLES = 2_000_000        # ~1 ms spin ahead of each timed call
-TOL = {  # max |kernel - plain| / max(1, max |plain|), per output field
+TOL = {  # max |kernel - plain| / max |plain|, per output field
     "tridiag": {torch.float64: 1e-12, torch.float32: 1e-5},
-    "extloop": {torch.float64: 1e-10, torch.float32: 1e-4},
+    "extloop": {torch.float64: 1e-10, torch.float32: 1e-5},
+    "phase": {torch.float64: 1e-10, torch.float32: 1e-5},
 }
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                       "golden", "seamount_33x33x11_10steps.npz")
@@ -118,10 +140,13 @@ def device_ms(fn, reps: int, flush: L2Flush) -> float:
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
-    """(max abs error, max abs error / max(1, max |want|))."""
+    """(max abs error, max abs error / max |want|): each field is held to
+    its own scale, so a field of small values is checked as closely as a
+    large one (0 where both are 0, inf where only ``want`` is)."""
     err = float((got.double() - want.double()).abs().max())
-    scale = max(1.0, float(want.double().abs().max()))
-    return err, err / scale
+    scale = float(want.double().abs().max())
+    return err, (err / scale if scale > 0 else (0.0 if err == 0 else
+                                                  float("inf")))
 
 
 def tridiag_phase(flush: L2Flush) -> dict:
@@ -184,45 +209,66 @@ def tridiag_phase(flush: L2Flush) -> dict:
     return entry
 
 
-def extloop_inputs():
-    """The external loop's operands at the second step of a 256x256x31
-    float64 seamount cold start, all computed by the plain path on the CPU
-    (one step, then the lateral terms and vertical integrals of the next)."""
+def step_inputs():
+    """The operands of the third step of a 256x256x31 float64 seamount cold
+    start, all computed by the plain path on the CPU: two steps, then the
+    third step's lateral terms, vertical integrals, external loop and
+    internal phases, keeping the external loop's and each phase kernel's
+    operands.  Returns (extloop operands, grid, cfg, {phase: arguments})."""
     from extpom_tpu_torch.cases.seamount import seamount_model
     from extpom_tpu_torch.core import stepper
+    from extpom_tpu_torch.kernels import extloop, phases
     m = seamount_model(im=IM, jm=JM, kb=KB, dtype="float64", device="cpu")
-    m.run_segment(1)
+    m.run_segment(2)
     g, cfg, st = m.grid, m.cfg, m.state
     fc = m.base_forcing.replace(ramp=torch.tensor(
-        stepper.ramp_at(cfg, 2, m.period), dtype=torch.float64))
-    aam, advx, advy, drhox, drhoy = stepper.phase_lat(
-        g, cfg, st.u, st.v, st.ub, st.vb, st.aam, st.rho, m.rmean,
-        g.h + st.et, g.h + st.el, fc.ramp)
+        stepper.ramp_at(cfg, 3, m.period), dtype=torch.float64))
+    dt = g.h + st.et
+    args = {"lat": (st.u, st.v, st.ub, st.vb, st.aam, st.rho, m.rmean, dt,
+                    fc.ramp)}
+    aam, advx, advy, drhox, drhoy = phases.phase_lat(g, cfg, *args["lat"])
     (adx2d, ady2d, drx2d, dry2d, aam2d, advua, advva, wubot, wvbot,
      egf, utf, vtf) = stepper.mode_interaction(g, cfg, st, aam, advx, advy,
                                                drhox, drhoy)
     c0 = stepper.ExtCarry(st.el, st.elb, st.ua, st.uab, st.va, st.vab,
                           st.etf, egf, utf, vtf, advua, advva, wubot, wvbot)
-    return g, cfg, c0, fc, (adx2d, ady2d, drx2d, dry2d, aam2d)
+    aux = (adx2d, ady2d, drx2d, dry2d, aam2d)
+    c = extloop.run_external_loop(g, cfg, c0, fc, aux)
+    # mode_internal's sequence (core/stepper.py)
+    args["uvw"] = (st.u, st.v, st.w, dt, st.utb, st.vtb, c.utf, c.vtf,
+                   st.etb, c.etf, st.vfluxb, fc.vflux)
+    u, v, w = phases.phase_uvw(g, cfg, *args["uvw"])
+    args["tke"] = (st.q2, st.q2b, st.q2l, st.q2lb, u, v, w, aam, st.t, st.s,
+                   st.rho, st.km, st.kh, st.kq, dt, st.etb, c.etf, c.wubot,
+                   c.wvbot, fc)
+    _, _, _, _, km, kh, _, _ = phases.phase_tke(g, cfg, *args["tke"])
+    args["tracer"] = (st.t, st.tb, st.s, st.sb, m.tclim, m.sclim, u, v, w,
+                      aam, kh, dt, st.etb, c.etf, fc)
+    args["mom"] = (u, st.ub, v, st.vb, w, advx, advy, drhox, drhoy, km, dt,
+                   c.egf, st.egb, st.etb, c.etf, fc)
+    return (g, cfg, c0, fc, aux), g, cfg, args
+
+
+def cast(x, dtype):
+    """A tensor, or a Grid/Forcing of tensors, on the card in ``dtype``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device="cuda", dtype=dtype).contiguous()
+    return x.__class__(**{k: cast(v, dtype) for k, v in vars(x).items()})
 
 
 def on_card(inputs, dtype):
-    """``extloop_inputs`` moved to the card in ``dtype``."""
+    """The extloop operands of ``step_inputs`` on the card in ``dtype``."""
     from extpom_tpu_torch.core import stepper
     g, cfg, c0, fc, aux = inputs
-    cast = lambda x: x.to(device="cuda", dtype=dtype).contiguous()
-    return (g.__class__(**{k: cast(v) for k, v in vars(g).items()}),
-            cfg.replace(dtype=str(dtype).split(".")[1]),
-            stepper.ExtCarry(*(cast(x) for x in c0)),
-            fc.__class__(**{k: cast(v) for k, v in vars(fc).items()}),
-            tuple(cast(x) for x in aux))
+    return (cast(g, dtype), cfg.replace(dtype=str(dtype).split(".")[1]),
+            stepper.ExtCarry(*(cast(x, dtype) for x in c0)),
+            cast(fc, dtype), tuple(cast(x, dtype) for x in aux))
 
 
-def extloop_phase(flush: L2Flush) -> dict:
+def extloop_phase(flush: L2Flush, inputs) -> dict:
     from extpom_tpu_torch.kernels import extloop
     entry = {}
     n = IM * JM
-    inputs = extloop_inputs()
     for dtype in (torch.float64, torch.float32):
         item = torch.finfo(dtype).bits // 8
         grid, cfg, c0, fc, aux = on_card(inputs, dtype)
@@ -265,6 +311,68 @@ def extloop_phase(flush: L2Flush) -> dict:
                          bound_by="bytes" if bound_bytes >= bound_ops
                          else "operations")
     return entry
+
+
+def phases_phase(flush: L2Flush, grid, cfg, args) -> dict:
+    """Each phase kernel against its plain PyTorch version on the card, at
+    the main path's shapes, on the operands of ``step_inputs``."""
+    from extpom_tpu_torch.kernels import phases
+    entries, failed = {}, []
+    n = IM * JM * KB
+    for phase in PHASES:
+        kernel = getattr(phases, f"phase_{phase}")
+        plain = getattr(phases, f"phase_{phase}_plain")
+        for dtype in (torch.float64, torch.float32):
+            item = torch.finfo(dtype).bits // 8
+            g = cast(grid, dtype)
+            c = cfg.replace(dtype=str(dtype).split(".")[1])
+            a = [cast(x, dtype) for x in args[phase]]
+            got = kernel(g, c, *a)
+            want = plain(g, c, *a)
+            torch.cuda.synchronize()
+            tol = TOL["phase"][dtype]
+            worst = (0.0, 0.0, "none")
+            rels = {}
+            for name, x, y in zip(PHASE_OUTPUTS[phase], got, want):
+                err, rel = rel_err(x, y)
+                rels[name] = float(f"{rel:.3e}")
+                if rel >= worst[1]:
+                    worst = (err, rel, name)
+                if not bool(torch.isfinite(x).all()):
+                    failed.append(f"phase_{phase} {dtype}: {name} is not "
+                                  f"finite")
+                elif not rel <= tol:
+                    failed.append(f"phase_{phase} {dtype}: {name} "
+                                  f"disagrees with the plain phase, {rel} "
+                                  f"> {tol}")
+            run = lambda: kernel(g, c, *a)
+            ms = device_ms(run, 20, flush)
+            wall_ms = call_ms(run, 20, flush)
+            plain_ms = device_ms(lambda: plain(g, c, *a), 3, flush)
+            ins = phases.kernel_inputs(phase, g, c, *a)
+            nbytes = sum(x.numel() for x in list(ins) + list(got)) * item
+            bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            bound_ops = (PHASE_FLOPS_PER_POINT[phase] * n
+                         / PEAK_FLOPS[dtype] * 1e3)
+            say("phases", phase=phase, dtype=str(dtype).split(".")[1],
+                max_abs_err=f"{worst[0]:.3e}", rel_err=f"{worst[1]:.3e}",
+                worst_output=worst[2], tol=tol, ms=f"{ms:.5f}",
+                call_ms=f"{wall_ms:.5f}", plain_ms=f"{plain_ms:.4f}",
+                bound_ms=f"{max(bound_bytes, bound_ops):.5f}",
+                mbytes=f"{nbytes / 1e6:.2f}",
+                field_rel_err=json.dumps(rels, separators=(",", ":")))
+            if dtype == torch.float64:
+                entries[phase] = {"f64_max_abs_err": worst[0]}
+            else:
+                entries[phase].update(
+                    max_abs_err=worst[0], ms=ms, call_ms=wall_ms,
+                    plain_ms=plain_ms, bound_ms=max(bound_bytes, bound_ops),
+                    bound_by="bytes" if bound_bytes >= bound_ops
+                    else "operations")
+    if failed:
+        raise AssertionError("phase kernels disagree with their plain "
+                             "versions:\n" + "\n".join(failed))
+    return entries
 
 
 def golden_phase() -> None:
@@ -327,7 +435,12 @@ def slice_phase(card: str) -> dict:
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     n = SEG_WARM + SEG_TIMED
-    want = {"extloop": n, "tridiag": 6 * (n - 1)}
+    # lat runs every step; the first step of a cold start skips the internal
+    # phases.  The standalone tridiag kernel is not on the path: the phase
+    # kernels solve their columns themselves (column.cuh), as the TPU's
+    # fused phase kernel does.
+    want = {"extloop": n, "tridiag": 0, "phase_lat": n, "phase_uvw": n - 1,
+            "phase_tke": n - 1, "phase_tracer": n - 1, "phase_mom": n - 1}
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     for name in m.state.field_names():
@@ -345,6 +458,7 @@ def slice_phase(card: str) -> dict:
         launches=json.dumps(launches, separators=(",", ":")),
         card=f"'{card}'")
     profile_phase(m)
+    parts_phase(m)
     return launches
 
 
@@ -352,14 +466,15 @@ def profile_phase(m, steps: int = 3) -> None:
     """Where a step's time goes: device time by kernel group from
     torch.profiler over ``steps`` steps, against the host wall clock."""
     from torch.profiler import ProfilerActivity, profile
-    groups = {"extloop": EXTLOOP_KERNELS, "tridiag": ("thomas_kernel",)}
+    groups = {"extloop": EXTLOOP_KERNELS, "tridiag": ("thomas_kernel",),
+              **{f"phase_{p}": PHASE_KERNELS[p] for p in PHASES}}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         m.run_segment(steps)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    dev = {"extloop": 0.0, "tridiag": 0.0, "other": 0.0}
+    dev = dict.fromkeys(list(groups) + ["other"], 0.0)
     n_other = 0
     for e in _kernel_events(prof):
         t = e.self_device_time_total / 1e3   # us -> ms
@@ -375,10 +490,51 @@ def profile_phase(m, steps: int = 3) -> None:
     say("profile", steps=steps, wall_ms_per_step=f"{wall_ms / steps:.3f}",
         device_busy_ms_per_step=f"{busy / steps:.3f}",
         device_idle_share=f"{1.0 - busy / wall_ms:.3f}",
-        extloop_ms_per_step=f"{dev['extloop'] / steps:.4f}",
-        tridiag_ms_per_step=f"{dev['tridiag'] / steps:.4f}",
+        **{f"{k}_ms_per_step": f"{dev[k] / steps:.4f}" for k in groups},
         plain_torch_ms_per_step=f"{dev['other'] / steps:.3f}",
         plain_torch_kernels_per_step=n_other // steps)
+
+
+def parts_phase(m, steps: int = 3) -> None:
+    """Wall time of a step by part: each part that ``stepper.step`` calls
+    is wrapped so that the card is synchronized before and after it, and
+    the host clock time in between is summed.  The synchronizations take
+    away the overlap of host and card, so the parts of a wrapped step add up
+    to at least the unwrapped step's time."""
+    from extpom_tpu_torch.core import stepper
+    from extpom_tpu_torch.kernels import extloop, phases
+    parts = [(phases, "phase_lat"), (stepper, "mode_interaction"),
+             (extloop, "run_external_loop"), (phases, "phase_uvw"),
+             (phases, "phase_tke"), (phases, "phase_tracer"),
+             (phases, "phase_mom")]
+    spent = dict.fromkeys((name for _, name in parts), 0.0)
+
+    def timed(name, fn):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spent[name] += time.perf_counter() - t0
+            return out
+        return wrapper
+
+    saved = [(mod, name, getattr(mod, name)) for mod, name in parts]
+    try:
+        for mod, name, fn in saved:
+            setattr(mod, name, timed(name, fn))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m.run_segment(steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    ms = {k: v / steps * 1e3 for k, v in spent.items()}
+    say("parts", steps=steps, wall_ms_per_step=f"{wall / steps * 1e3:.3f}",
+        **{f"{k}_ms": f"{v:.3f}" for k, v in ms.items()},
+        rest_ms=f"{wall / steps * 1e3 - sum(ms.values()):.3f}")
 
 
 def main() -> int:
@@ -399,7 +555,9 @@ def main() -> int:
 
     flush = L2Flush()
     tri = tridiag_phase(flush)
-    ext = extloop_phase(flush)
+    ext_inputs, grid, cfg, phase_args = step_inputs()
+    ext = extloop_phase(flush, ext_inputs)
+    phs = phases_phase(flush, grid, cfg, phase_args)
     golden_phase()
     nonsquare_phase()
     launches = slice_phase(card)
@@ -408,12 +566,18 @@ def main() -> int:
         dict(name="tridiag", route="cuda",
              source="extpom_tpu_torch/csrc/tridiag.cu",
              replaces="extpom_tpu/pallas/tridiag.py:77",
-             launches=launches["tridiag"], library_ms=None, **tri),
+             launches=launches["tridiag"], on_main_path=False,
+             library_ms=None, **tri),
         dict(name="extloop", route="cuda",
              source="extpom_tpu_torch/csrc/extloop.cu",
              replaces="extpom_tpu/pallas/extloop.py:243",
              launches=launches["extloop"], library_ms=None, **ext),
-    ]}
+    ] + [
+        dict(name=f"phase_{p}", route="cuda",
+             source=f"extpom_tpu_torch/csrc/phase_{p}.cu",
+             replaces="extpom_tpu/pallas/phases.py:315",
+             launches=launches[f"phase_{p}"], library_ms=None, **phs[p])
+        for p in PHASES]}
     print(json.dumps(kernels_line), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,9 @@ One :func:`step` advances the model by one internal step ``dti``, as
     -> internal phases uvw, tke, tracer, mom
 
 The isplit external substeps run in ``kernels.extloop.run_external_loop``
-(one CUDA kernel chain per step on the card); the six vertical solves of the
-internal phases in ``kernels.tridiag``.
+(one CUDA kernel chain per step on the card) and the phases lat, uvw, tke,
+tracer and mom in ``kernels.phases`` (one CUDA kernel chain each on the
+card).
 """
 
 from __future__ import annotations
@@ -21,11 +22,10 @@ import torch
 from extpom_tpu_torch.core.config import Config
 from extpom_tpu_torch.core.grid import Grid
 from extpom_tpu_torch.core.state import State, Forcing
+from extpom_tpu_torch.kernels import phases
 from extpom_tpu_torch.ops.stencil import sft, put
-from extpom_tpu_torch.ops import (advection2d, momentum, tracers, pressure,
-                                  vertical, continuity, density)
+from extpom_tpu_torch.ops import advection2d
 from extpom_tpu_torch.bc import bcond as bcf
-from extpom_tpu_torch.bc import orlanski as bco
 
 
 def mode_interaction(grid: Grid, cfg: Config, st: State, aam, advx, advy,
@@ -210,110 +210,6 @@ def mode_external_substep(grid: Grid, cfg: Config, c: ExtCarry, iext: int,
                     advua=advua, advva=advva, wubot=wubot, wvbot=wvbot)
 
 
-def phase_lat(grid, cfg: Config, u, v, ub, vb, aam0, rho, rmean, dt, d,
-              ramp):
-    """Lateral viscosity + 3-D advection/pressure terms (advance.f:96-141)
-    -> (aam, advx, advy, drhox, drhoy)."""
-    advx, advy = momentum.advct(grid, cfg, u, v, ub, vb, aam0, dt)
-    if cfg.npg != 1:
-        raise NotImplementedError("npg=2 (baropg_mcc) is not ported yet")
-    drhox, drhoy = pressure.baropg(grid, cfg, rho, rmean, dt, ramp)
-    dx, dy = grid.dx, grid.dy
-    aam_new = (cfg.horcon * dx * dy
-               * torch.sqrt(((sft(u, 1, 0) - u) / dx) ** 2
-                            + ((sft(v, 0, 1) - v) / dy) ** 2
-                            + 0.5 * (0.25 * (sft(u, 0, 1) + sft(u, 1, 1)
-                                             - sft(u, 0, -1) - sft(u, 1, -1))
-                                     / dy
-                                     + 0.25 * (sft(v, 1, 0) + sft(v, 1, 1)
-                                               - sft(v, -1, 0)
-                                               - sft(v, -1, 1))
-                                     / dx) ** 2))
-    aam = put(aam0, aam_new, slice(0, cfg.kbm1), slice(1, -1), slice(1, -1))
-    return aam, advx, advy, drhox, drhoy
-
-
-def phase_uvw(grid, cfg: Config, u, v, w, dt, utb, vtb, utf, vtf, etb, etf,
-              vfluxb, vflux):
-    """Depth-mean adjustment of u, v + vertical velocity
-    (advance.f:364-400) -> (u, v, w)."""
-    kbm1 = cfg.kbm1
-    KM1 = slice(0, kbm1)
-    dz3 = grid.dz3[:kbm1]
-    tps = torch.sum(u[:kbm1] * dz3, dim=0)
-    u = put(u, (u - tps) + (utb + utf) / (dt + sft(dt, -1, 0)),
-            KM1, slice(1, None), slice(None))
-    tps = torch.sum(v[:kbm1] * dz3, dim=0)
-    v = put(v, (v - tps) + (vtb + vtf) / (dt + sft(dt, 0, -1)),
-            KM1, slice(None), slice(1, None))
-    w = continuity.vertvl(grid, cfg, w, u, v, dt, etf, etb, vfluxb, vflux)
-    w = bco.orl_w(grid, cfg, w)
-    return u, v, w
-
-
-def phase_tke(grid, cfg: Config, q2, q2b, q2l, q2lb, u, v, w, aam, t, s,
-              rho, km, kh, kq, l, dt, etb, etf, wubot, wvbot, fc):
-    """TKE advection + MY-2.5 closure + BC + Asselin (advance.f:406-421)
-    -> (q2, q2b, q2l, q2lb, km, kh, kq, l)."""
-    q2f = tracers.advq(grid, cfg, q2b, q2, u, v, w, aam, dt, etb, etf)
-    q2lf = tracers.advq(grid, cfg, q2lb, q2l, u, v, w, aam, dt, etb, etf)
-    (q2f, q2lf, km, kh, kq, l, q2b, q2lb) = vertical.profq(
-        grid, cfg, q2f, q2lf, q2, q2b, q2lb, u, v, t, s, rho,
-        km, kh, kq, l, etf, fc.wusurf, fc.wvsurf, wubot, wvbot)
-    q2f, q2lf = bcf.bc_turb(grid, cfg, q2f, q2lf, q2, q2l, u, v)
-    q2 = q2 + 0.5 * cfg.smoth * (q2f + q2b - 2.0 * q2)
-    q2l = q2l + 0.5 * cfg.smoth * (q2lf + q2lb - 2.0 * q2l)
-    return q2f, q2, q2lf, q2l, km, kh, kq, l
-
-
-def phase_tracer(grid, cfg: Config, t, tb, s, sb, tclim, sclim, u, ub, v,
-                 w, aam, kh, dt, etb, etf, fc):
-    """Tracer advection + implicit diffusion + BC + Asselin + EOS
-    (advance.f:424-456) -> (t, tb, s, sb, rho)."""
-    if cfg.nadv != 1:
-        raise NotImplementedError("nadv=2 (MPDATA) is not ported yet")
-    if cfg.do_restore:
-        raise NotImplementedError("interior restoring is not ported yet")
-    tf = tracers.advt1(grid, cfg, tb, t, tclim, u, v, w, aam, dt, etb, etf)
-    sf = tracers.advt1(grid, cfg, sb, s, sclim, u, v, w, aam, dt, etb, etf)
-    tf = vertical.proft(grid, cfg, tf, fc.wtsurf, fc.tsurf, cfg.nbct, kh,
-                        etf, fc.swrad)
-    sf = vertical.proft(grid, cfg, sf, fc.wssurf, fc.ssurf, cfg.nbcs, kh,
-                        etf, fc.swrad)
-    tf, sf = bcf.bc_ts(grid, cfg, tf, sf, t, s, u, v, w, dt, fc)
-
-    t = t + 0.5 * cfg.smoth * (tf + tb - 2.0 * t)
-    s = s + 0.5 * cfg.smoth * (sf + sb - 2.0 * s)
-    tb, t, sb, s = t, tf, s, sf
-    rho = density.dens(grid, cfg, s, t)
-    return t, tb, s, sb, rho
-
-
-def phase_mom(grid, cfg: Config, u, ub, v, vb, w, advx, advy, drhox, drhoy,
-              km, dt, egf, egb, etb, etf, fc):
-    """Momentum advection + implicit vertical diffusion + BC + Asselin with
-    depth-mean correction (advance.f:459-521)
-    -> (u, ub, v, vb, wubot, wvbot)."""
-    kbm1 = cfg.kbm1
-    dz3 = grid.dz3[:kbm1]
-    uf = momentum.advu(grid, cfg, u, ub, v, w, advx, drhox, dt,
-                       egf, egb, fc.e_atmos, etb, etf)
-    vf = momentum.advv(grid, cfg, v, vb, u, w, advy, drhoy, dt,
-                       egf, egb, fc.e_atmos, etb, etf)
-    uf, wubot = vertical.profu(grid, cfg, uf, ub, vb, km, etf, fc.wusurf)
-    vf, wvbot = vertical.profv(grid, cfg, vf, ub, vb, km, etf, fc.wvsurf)
-    if cfg.bc_scheme == "file":
-        raise NotImplementedError("bc_vel3d (bc_scheme='file') is not "
-                                  "ported yet")
-    uf, vf = bco.orl_vel3d(grid, cfg, uf, vf, u, ub, v, vb)
-
-    tps = torch.sum((uf + ub - 2.0 * u)[:kbm1] * dz3, dim=0)
-    u = u + 0.5 * cfg.smoth * (uf + ub - 2.0 * u - tps)
-    tps = torch.sum((vf + vb - 2.0 * v)[:kbm1] * dz3, dim=0)
-    v = v + 0.5 * cfg.smoth * (vf + vb - 2.0 * v - tps)
-    return uf, u, vf, v, wubot, wvbot
-
-
 def mode_internal(grid: Grid, cfg: Config, st: State, fc: Forcing,
                   c: ExtCarry, aam, advx, advy, drhox, drhoy, tclim, sclim,
                   first: bool) -> State:
@@ -329,16 +225,17 @@ def mode_internal(grid: Grid, cfg: Config, st: State, fc: Forcing,
     wubot, wvbot = c.wubot, c.wvbot
 
     if not first:
-        u, v, w = phase_uvw(grid, cfg, u, v, w, dt, st.utb, st.vtb,
-                            c.utf, c.vtf, st.etb, etf, st.vfluxb, fc.vflux)
-        (q2, q2b, q2l, q2lb, km, kh, kq, l) = phase_tke(
+        u, v, w = phases.phase_uvw(grid, cfg, u, v, w, dt, st.utb, st.vtb,
+                                   c.utf, c.vtf, st.etb, etf, st.vfluxb,
+                                   fc.vflux)
+        (q2, q2b, q2l, q2lb, km, kh, kq, l) = phases.phase_tke(
             grid, cfg, q2, q2b, q2l, q2lb, u, v, w, aam, t, s, rho,
-            km, kh, kq, l, dt, st.etb, etf, wubot, wvbot, fc)
+            km, kh, kq, dt, st.etb, etf, wubot, wvbot, fc)
         if cfg.mode != 4:
-            t, tb, s, sb, rho = phase_tracer(
-                grid, cfg, t, tb, s, sb, tclim, sclim, u, ub, v, w,
+            t, tb, s, sb, rho = phases.phase_tracer(
+                grid, cfg, t, tb, s, sb, tclim, sclim, u, v, w,
                 aam, kh, dt, st.etb, etf, fc)
-        u, ub, v, vb, wubot, wvbot = phase_mom(
+        u, ub, v, vb, wubot, wvbot = phases.phase_mom(
             grid, cfg, u, ub, v, vb, w, advx, advy, drhox, drhoy,
             km, dt, c.egf, st.egb, st.etb, etf, fc)
 
@@ -362,9 +259,9 @@ def step(grid: Grid, cfg: Config, st: State, fc: Forcing, rmean, tclim,
     if cfg.mode == 2:
         raise NotImplementedError("mode=2 is not ported yet")
     dt = grid.h + st.et
-    aam, advx, advy, drhox, drhoy = phase_lat(
+    aam, advx, advy, drhox, drhoy = phases.phase_lat(
         grid, cfg, st.u, st.v, st.ub, st.vb, st.aam, st.rho, rmean, dt,
-        grid.h + st.el, fc.ramp)
+        fc.ramp)
 
     (adx2d, ady2d, drx2d, dry2d, aam2d, advua, advva, wubot, wvbot,
      egf, utf, vtf) = mode_interaction(grid, cfg, st, aam, advx, advy,

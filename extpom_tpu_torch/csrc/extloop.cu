@@ -43,6 +43,8 @@
 
 #include <cuda_runtime.h>
 
+#include "column.cuh"
+
 namespace {
 
 template <typename T>
@@ -70,10 +72,10 @@ struct Ext {
       tsmoth, rfe, rfw, rfn, rfs;
 };
 
-// zero-filled read: sft semantics, 0 outside the array
+// zero-filled read: sft semantics, 0 outside the array (column.cuh)
 template <typename T>
 __device__ __forceinline__ T ld(const T* a, const Ext<T>& s, int i, int j) {
-  return (i >= 0 && i < s.im && j >= 0 && j < s.jm) ? a[i * s.jm + j] : T(0);
+  return extpom::ld2(a, s.im, s.jm, i, j);
 }
 
 // d = h + el (zero outside the array, as sft(d, ...) reads)

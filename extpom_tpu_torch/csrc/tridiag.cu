@@ -21,9 +21,12 @@
 //
 // Semantics (must match _solve): ee/gg rows below k0-1 are zero; mask is
 // applied at every back-substitution level (equal to masking once, mask is
-// 0/1); rows > k_last are zero.
+// 0/1); rows > k_last are zero.  The solve itself is extpom::thomas_column
+// (column.cuh), which the phase kernels call too.
 
 #include <cuda_runtime.h>
+
+#include "column.cuh"
 
 namespace {
 
@@ -41,37 +44,19 @@ __global__ void thomas_kernel(const T* __restrict__ a, const T* __restrict__ c,
                               int n, int k0, int k_last) {
   const long p = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= n) return;
-  const T one = T(1);
-  T ee = ee0[p];
-  T gg = gg0[p];
-  for (int k = 0; k < k0 - 1; ++k) {
-    ees[k * (long)n + p] = T(0);
-    ggs[k * (long)n + p] = T(0);
-  }
-  ees[(k0 - 1) * (long)n + p] = ee;
-  ggs[(k0 - 1) * (long)n + p] = gg;
-  // forward elimination (solver.f:1650-1661 pattern)
-  for (int k = k0; k < k_last; ++k) {
-    const long q = k * (long)n + p;
-    const T ak = a[q], ck = c[q];
-    const T g = one / (ak + ck * (one - ee) - den[q]);
-    ee = ak * g;
-    gg = (rhs[q] + ck * gg) * g;
-    ees[q] = ee;
-    ggs[q] = gg;
-  }
-  // closed-form bottom row; ee/gg hold row k_last-1 here
-  const T m = mask[p];
-  const T clp = cl[p];
-  T f = (clp * gg + rb[p]) / (clp * (one - ee) + db[p]) * m;
-  out[k_last * (long)n + p] = f;
-  // back substitution (solver.f:1673-1680 pattern)
-  for (int k = k_last - 1; k >= 0; --k) {
-    const long q = k * (long)n + p;
-    f = (ees[q] * f + ggs[q]) * m;
-    out[q] = f;
-  }
-  for (int k = k_last + 1; k < kb; ++k) out[k * (long)n + p] = T(0);
+  const long nn = n;
+  // forward elimination and back substitution (solver.f:1650-1680 pattern)
+  extpom::thomas_column<T>(
+      [&](int k, T& ak, T& ck, T& dk, T& rk) {
+        const long q = k * nn + p;
+        ak = a[q];
+        ck = c[q];
+        dk = den[q];
+        rk = rhs[q];
+      },
+      [&](int k, T f) { out[k * nn + p] = f; }, ee0[p], gg0[p], cl[p], rb[p],
+      db[p], mask[p], ees, ggs, nn, p, k0, k_last);
+  for (int k = k_last + 1; k < kb; ++k) out[k * nn + p] = T(0);
 }
 
 template <typename T>

@@ -4,7 +4,8 @@ Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process (all started
 together) for ``sm_90a`` and linked into ``build/kernels/
 libextpom_kernels.so`` at the repository root, which is loaded with
 ``ctypes``.  Nothing happens at import: :func:`library` builds on its first
-call and reuses an up-to-date library after that.
+call and reuses the library after that while no file under ``csrc/``
+(sources and the headers they include) is newer than it.
 """
 
 from __future__ import annotations
@@ -34,6 +35,10 @@ SIGNATURES = {
     # pointer table, parameter table; im, jm, isplit, ispadv; stream
     "extpom_extloop_f32": [_P, _P] + [_I] * 4 + [_P],
     "extpom_extloop_f64": [_P, _P] + [_I] * 4 + [_P],
+    # pointer table, parameter table; kb, im, jm, two phase options; stream
+    **{f"extpom_phase_{ph}_{t}": [_P, _P] + [_I] * 5 + [_P]
+       for ph in ("lat", "uvw", "tke", "tracer", "mom")
+       for t in ("f32", "f64")},
     "extpom_error_string": [_I],
 }
 
@@ -56,7 +61,7 @@ def _stale() -> bool:
     if not LIB.exists():
         return True
     t = LIB.stat().st_mtime
-    return any(p.stat().st_mtime > t for p in _sources())
+    return any(p.stat().st_mtime > t for p in CSRC.rglob("*") if p.is_file())
 
 
 def build(verbose: bool = False) -> float:

@@ -1,0 +1,380 @@
+"""Internal-mode phases ``lat``, ``uvw``, ``tke``, ``tracer`` and ``mom``:
+the CUDA kernels ``csrc/phase_{lat,uvw,tke,tracer,mom}.cu`` (the
+counterparts of the phases of ``extpom_tpu/pallas/phases.py:_kernel``) and
+their plain PyTorch versions.
+
+Each ``phase_*`` has the signature of ``core/stepper.py``'s phase of the
+JAX package without the operands no kernel reads (``d`` of ``lat`` and
+``mom``, ``ub`` of ``tracer``, ``l`` of ``tke``) and returns the same tuple.
+The ``*_plain`` versions run the ops of ``ops/`` and ``bc/``, whose Thomas
+solves are ``tridiag.thomas_plain``, so a plain phase launches no
+hand-written kernel, on the card either.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from extpom_tpu_torch import kernels
+from extpom_tpu_torch.core.config import Config
+from extpom_tpu_torch.kernels import build
+from extpom_tpu_torch.ops import (continuity, density, momentum, pressure,
+                                  tracers, vertical)
+from extpom_tpu_torch.ops.stencil import sft, put
+from extpom_tpu_torch.bc import bcond as bcf
+from extpom_tpu_torch.bc import orlanski as bco
+
+_DTYPES = (torch.float32, torch.float64)
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+
+def _plain_checks(phase: str, cfg: Config) -> None:
+    """The options the port has not ported yet, in either version."""
+    if phase == "lat" and cfg.npg != 1:
+        raise NotImplementedError("npg=2 (baropg_mcc) is not ported yet")
+    if phase == "tracer":
+        if cfg.nadv != 1:
+            raise NotImplementedError("nadv=2 (MPDATA) is not ported yet")
+        if cfg.do_restore:
+            raise NotImplementedError("interior restoring is not ported yet")
+        if cfg.bc_scheme == "orlanski":
+            raise NotImplementedError("orl_ts (bc_scheme='orlanski') is not "
+                                      "ported yet")
+    if phase == "tke" and cfg.bc_scheme == "orlanski":
+        raise NotImplementedError("orl_turb (bc_scheme='orlanski') is not "
+                                  "ported yet")
+    if phase == "mom" and cfg.bc_scheme == "file":
+        raise NotImplementedError("bc_vel3d (bc_scheme='file') is not "
+                                  "ported yet")
+
+
+def _depth_sum(x, dz3, kbm1: int):
+    """sum over k < kbm1 of x[k] dz[k], in ascending k as the phase kernels
+    take it: torch.sum's order differs in the last bit, and vertvl's
+    continuity integral amplifies that difference in w."""
+    acc = x[0] * dz3[0]
+    for k in range(1, kbm1):
+        acc = acc + x[k] * dz3[k]
+    return acc
+
+
+def phase_lat_plain(grid, cfg: Config, u, v, ub, vb, aam0, rho, rmean, dt,
+                    ramp):
+    """Lateral viscosity + 3-D advection/pressure terms (advance.f:96-141)
+    -> (aam, advx, advy, drhox, drhoy)."""
+    _plain_checks("lat", cfg)
+    advx, advy = momentum.advct(grid, cfg, u, v, ub, vb, aam0, dt)
+    drhox, drhoy = pressure.baropg(grid, cfg, rho, rmean, dt, ramp)
+    dx, dy = grid.dx, grid.dy
+    aam_new = (cfg.horcon * dx * dy
+               * torch.sqrt(((sft(u, 1, 0) - u) / dx) ** 2
+                            + ((sft(v, 0, 1) - v) / dy) ** 2
+                            + 0.5 * (0.25 * (sft(u, 0, 1) + sft(u, 1, 1)
+                                             - sft(u, 0, -1) - sft(u, 1, -1))
+                                     / dy
+                                     + 0.25 * (sft(v, 1, 0) + sft(v, 1, 1)
+                                               - sft(v, -1, 0)
+                                               - sft(v, -1, 1))
+                                     / dx) ** 2))
+    aam = put(aam0, aam_new, slice(0, cfg.kbm1), slice(1, -1), slice(1, -1))
+    return aam, advx, advy, drhox, drhoy
+
+
+def phase_uvw_plain(grid, cfg: Config, u, v, w, dt, utb, vtb, utf, vtf, etb,
+                    etf, vfluxb, vflux):
+    """Depth-mean adjustment of u, v + vertical velocity
+    (advance.f:364-400) -> (u, v, w)."""
+    kbm1 = cfg.kbm1
+    KM1 = slice(0, kbm1)
+    dz3 = grid.dz3
+    tps = _depth_sum(u, dz3, kbm1)
+    u = put(u, (u - tps) + (utb + utf) / (dt + sft(dt, -1, 0)),
+            KM1, slice(1, None), slice(None))
+    tps = _depth_sum(v, dz3, kbm1)
+    v = put(v, (v - tps) + (vtb + vtf) / (dt + sft(dt, 0, -1)),
+            KM1, slice(None), slice(1, None))
+    w = continuity.vertvl(grid, cfg, w, u, v, dt, etf, etb, vfluxb, vflux)
+    w = bco.orl_w(grid, cfg, w)
+    return u, v, w
+
+
+def phase_tke_plain(grid, cfg: Config, q2, q2b, q2l, q2lb, u, v, w, aam, t,
+                    s, rho, km, kh, kq, dt, etb, etf, wubot, wvbot, fc):
+    """TKE advection + MY-2.5 closure + BC + Asselin (advance.f:406-421)
+    -> (q2, q2b, q2l, q2lb, km, kh, kq, l)."""
+    _plain_checks("tke", cfg)
+    q2f = tracers.advq(grid, cfg, q2b, q2, u, v, w, aam, dt, etb, etf)
+    q2lf = tracers.advq(grid, cfg, q2lb, q2l, u, v, w, aam, dt, etb, etf)
+    (q2f, q2lf, km, kh, kq, l, q2b, q2lb) = vertical.profq(
+        grid, cfg, q2f, q2lf, q2, q2b, q2lb, u, v, t, s, rho,
+        km, kh, kq, etf, fc.wusurf, fc.wvsurf, wubot, wvbot)
+    q2f, q2lf = bcf.bc_turb(grid, cfg, q2f, q2lf, q2, q2l, u, v)
+    q2 = q2 + 0.5 * cfg.smoth * (q2f + q2b - 2.0 * q2)
+    q2l = q2l + 0.5 * cfg.smoth * (q2lf + q2lb - 2.0 * q2l)
+    return q2f, q2, q2lf, q2l, km, kh, kq, l
+
+
+def phase_tracer_plain(grid, cfg: Config, t, tb, s, sb, tclim, sclim, u, v,
+                       w, aam, kh, dt, etb, etf, fc):
+    """Tracer advection + implicit diffusion + BC + Asselin + EOS
+    (advance.f:424-456) -> (t, tb, s, sb, rho)."""
+    _plain_checks("tracer", cfg)
+    tf = tracers.advt1(grid, cfg, tb, t, tclim, u, v, w, aam, dt, etb, etf)
+    sf = tracers.advt1(grid, cfg, sb, s, sclim, u, v, w, aam, dt, etb, etf)
+    tf = vertical.proft(grid, cfg, tf, fc.wtsurf, fc.tsurf, cfg.nbct, kh,
+                        etf, fc.swrad)
+    sf = vertical.proft(grid, cfg, sf, fc.wssurf, fc.ssurf, cfg.nbcs, kh,
+                        etf, fc.swrad)
+    tf, sf = bcf.bc_ts(grid, cfg, tf, sf, t, s, u, v, w, dt, fc)
+
+    t = t + 0.5 * cfg.smoth * (tf + tb - 2.0 * t)
+    s = s + 0.5 * cfg.smoth * (sf + sb - 2.0 * s)
+    tb, t, sb, s = t, tf, s, sf
+    rho = density.dens(grid, cfg, s, t)
+    return t, tb, s, sb, rho
+
+
+def phase_mom_plain(grid, cfg: Config, u, ub, v, vb, w, advx, advy, drhox,
+                    drhoy, km, dt, egf, egb, etb, etf, fc):
+    """Momentum advection + implicit vertical diffusion + BC + Asselin with
+    depth-mean correction (advance.f:459-521)
+    -> (u, ub, v, vb, wubot, wvbot)."""
+    _plain_checks("mom", cfg)
+    kbm1 = cfg.kbm1
+    dz3 = grid.dz3
+    uf = momentum.advu(grid, cfg, u, ub, v, w, advx, drhox, dt,
+                       egf, egb, fc.e_atmos, etb, etf)
+    vf = momentum.advv(grid, cfg, v, vb, u, w, advy, drhoy, dt,
+                       egf, egb, fc.e_atmos, etb, etf)
+    uf, wubot = vertical.profu(grid, cfg, uf, ub, vb, km, etf, fc.wusurf)
+    vf, wvbot = vertical.profv(grid, cfg, vf, ub, vb, km, etf, fc.wvsurf)
+    uf, vf = bco.orl_vel3d(grid, cfg, uf, vf, u, ub, v, vb)
+
+    tps = _depth_sum(uf + ub - 2.0 * u, dz3, kbm1)
+    u = u + 0.5 * cfg.smoth * (uf + ub - 2.0 * u - tps)
+    tps = _depth_sum(vf + vb - 2.0 * v, dz3, kbm1)
+    v = v + 0.5 * cfg.smoth * (vf + vb - 2.0 * v - tps)
+    return uf, u, vf, v, wubot, wvbot
+
+
+# ---------------------------------------------------------------------------
+# operand checks and dispatch
+# ---------------------------------------------------------------------------
+
+# each phase's operands after (grid, cfg); the first _N3 are (kb, im, jm),
+# the others (im, jm) but for the 0-d ramp and the Forcing fc
+_ARGS = {
+    "lat": ("u", "v", "ub", "vb", "aam0", "rho", "rmean", "dt", "ramp"),
+    "uvw": ("u", "v", "w", "dt", "utb", "vtb", "utf", "vtf", "etb", "etf",
+            "vfluxb", "vflux"),
+    "tke": ("q2", "q2b", "q2l", "q2lb", "u", "v", "w", "aam", "t", "s", "rho",
+            "km", "kh", "kq", "dt", "etb", "etf", "wubot", "wvbot", "fc"),
+    "tracer": ("t", "tb", "s", "sb", "tclim", "sclim", "u", "v", "w", "aam",
+               "kh", "dt", "etb", "etf", "fc"),
+    "mom": ("u", "ub", "v", "vb", "w", "advx", "advy", "drhox", "drhoy",
+            "km", "dt", "egf", "egb", "etb", "etf", "fc"),
+}
+_N3 = {"lat": 7, "uvw": 3, "tke": 14, "tracer": 11, "mom": 10}
+# forcing fields the kernel reads: (im, jm), (kb, jm), (kb, im)
+_FC = {
+    "tke": (("wusurf", "wvsurf"), (), ()),
+    "tracer": (("wtsurf", "tsurf", "wssurf", "ssurf", "swrad"),
+               ("tbw", "tbe", "sbw", "sbe"), ("tbs", "tbn", "sbs", "sbn")),
+    "mom": (("e_atmos", "wusurf", "wvsurf"), (), ()),
+}
+# grid fields the kernel reads: (im, jm), (kb,)
+_GRID = {
+    "lat": (("dx", "dy", "aru", "arv", "dum", "dvm"), ("zz",)),
+    "uvw": (("dx", "dy", "fsm"), ("dz",)),
+    "tke": (("h", "dx", "dy", "art", "dum", "dvm", "fsm"),
+            ("z", "zz", "dz", "dzz")),
+    "tracer": (("h", "dx", "dy", "art", "dum", "dvm", "fsm"),
+               ("z", "zz", "dz", "dzz")),
+    "mom": (("h", "dx", "dy", "aru", "arv", "cor", "cbc", "dum", "dvm"),
+            ("dz", "dzz")),
+}
+
+
+def kernel_inputs(phase: str, grid, cfg: Config, *args) -> list:
+    """The tensors the phase's kernel reads, in its pointer-table order:
+    the state operands, the ramp, the forcing fields, then the grid
+    fields."""
+    named = dict(zip(_ARGS[phase], args))
+    fc, ramp = named.pop("fc", None), named.pop("ramp", None)
+    out = list(named.values())
+    if ramp is not None:
+        out.append(ramp)
+    for group in _FC.get(phase, ()):
+        out += [getattr(fc, n) for n in group]
+    two, one = _GRID[phase]
+    return out + [getattr(grid, n) for n in two + one]
+
+
+def _check(phase: str, grid, cfg: Config, args) -> torch.device:
+    """Validate every operand of a phase (state, grid and forcing) before
+    any dispatch; returns their device."""
+    kb, im, jm = cfg.kb, cfg.im, cfg.jm
+    if not isinstance(args[0], torch.Tensor):
+        raise TypeError(f"phase_{phase}: operands must be tensors")
+    dtype, device = args[0].dtype, args[0].device
+    if dtype not in _DTYPES:
+        raise TypeError(f"phase_{phase}: dtype {dtype} not supported")
+    if phase in ("tke", "tracer", "mom") and kb < 4:
+        raise ValueError(f"phase_{phase}: the vertical solve needs kb >= 4, "
+                         f"got {kb}")
+    shape = {"ramp": ()}
+    named = []
+    for k, (n, x) in enumerate(zip(_ARGS[phase], args)):
+        if n == "fc":
+            sides = ((im, jm), (kb, jm), (kb, im))
+            for group, sh in zip(_FC.get(phase, ()), sides):
+                named += [(f, getattr(x, f), sh) for f in group]
+        else:
+            named.append((n, x, shape.get(n, (kb, im, jm) if k < _N3[phase]
+                                          else (im, jm))))
+    two, one = _GRID[phase]
+    named += ([(n, getattr(grid, n), (im, jm)) for n in two]
+              + [(n, getattr(grid, n), (kb,)) for n in one])
+    for name, x, sh in named:
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"phase_{phase}: {name} must be a tensor")
+        if tuple(x.shape) != sh:
+            raise ValueError(f"phase_{phase}: {name} is {tuple(x.shape)}, "
+                             f"expected {sh}")
+        if x.dtype != dtype or x.device != device:
+            raise TypeError(f"phase_{phase}: {name} differs in dtype or "
+                            f"device")
+        if not x.is_contiguous():
+            raise ValueError(f"phase_{phase}: {name} must be contiguous")
+    if device.type not in ("cpu", "cuda"):
+        raise TypeError(f"phase_{phase}: unsupported device {device}")
+    return device
+
+
+def _tke_params(cfg: Config) -> list:
+    """The parameter table of ``csrc/phase_tke.cu``: each constant of the
+    plain tke phase as its Python expression forms it."""
+    v = vertical
+    a1, b1, a2, b2, c1 = v.MY_A1, v.MY_B1, v.MY_A2, v.MY_B2, v.MY_C1
+    return [cfg.dti2, -cfg.dti2, 2.0 * cfg.umol, 2.0 * cfg.dti2,
+            -2.0 * cfg.dti2, cfg.dti, 0.5 * cfg.smoth, cfg.grav,
+            (cfg.grav ** 2) * 2.0, cfg.grav * cfg.rhoref, cfg.tbias,
+            cfg.sbias, cfg.kappa, -cfg.kappa, cfg.small,
+            (b1 ** (2.0 / 3.0)) * v.MY_SEF,
+            (15.8 * v.MY_CBCNST) ** (2.0 / 3.0), v.MY_SURFL, v.MY_SEF,
+            v.MY_SHIW, b1, v.MY_E1, v.MY_E2, a1, a2, 6.0 * a1 / b1,
+            1.0 - 3.0 * c1, 3.0 * a2 * b2, 18.0 * a1 * a2,
+            18.0 * a1 * a1 + 9.0 * a1 * a2, 9.0 * a1 * a2]
+
+
+def _launch(phase: str, tensors, prm, cfg: Config, opt0=0, opt1=0) -> None:
+    """Call ``extpom_phase_<phase>_<f32|f64>`` with a pointer table of
+    ``tensors`` and a parameter table of the doubles ``prm``."""
+    x = tensors[0]
+    ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    params = (ctypes.c_double * len(prm))(*prm)
+    lib = build.library()
+    suffix = "f32" if x.dtype == torch.float32 else "f64"
+    fn = getattr(lib, f"extpom_phase_{phase}_{suffix}")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        status = fn(ctypes.cast(ptrs, ctypes.c_void_p),
+                    ctypes.cast(params, ctypes.c_void_p), cfg.kb, cfg.im,
+                    cfg.jm, opt0, opt1, stream)
+    build.check(status, f"phase_{phase} kernel")
+    kernels.LAUNCHES[f"phase_{phase}"] += 1
+
+
+def _empty(like: torch.Tensor, n: int) -> list:
+    """``n`` fresh tensors shaped like ``like`` (each its own allocation, so
+    an output kept in the state holds no other output alive)."""
+    return [torch.empty_like(like) for _ in range(n)]
+
+
+# ---------------------------------------------------------------------------
+# the phases
+# ---------------------------------------------------------------------------
+
+
+def phase_lat(grid, cfg: Config, u, v, ub, vb, aam0, rho, rmean, dt, ramp):
+    """-> (aam, advx, advy, drhox, drhoy); CUDA tensors launch
+    ``csrc/phase_lat.cu``, CPU tensors run :func:`phase_lat_plain`."""
+    args = (u, v, ub, vb, aam0, rho, rmean, dt, ramp)
+    if _check("lat", grid, cfg, args).type == "cpu":
+        return phase_lat_plain(grid, cfg, *args)
+    _plain_checks("lat", cfg)
+    out = _empty(u, 5)
+    _launch("lat", kernel_inputs("lat", grid, cfg, *args) + out,
+            [cfg.horcon, cfg.grav], cfg)
+    return tuple(out)
+
+
+def phase_uvw(grid, cfg: Config, u, v, w, dt, utb, vtb, utf, vtf, etb, etf,
+              vfluxb, vflux):
+    """-> (u, v, w); CUDA tensors launch ``csrc/phase_uvw.cu``, CPU tensors
+    run :func:`phase_uvw_plain`."""
+    args = (u, v, w, dt, utb, vtb, utf, vtf, etb, etf, vfluxb, vflux)
+    if _check("uvw", grid, cfg, args).type == "cpu":
+        return phase_uvw_plain(grid, cfg, *args)
+    out = _empty(u, 3)
+    _launch("uvw", kernel_inputs("uvw", grid, cfg, *args) + out, [cfg.dti2],
+            cfg)
+    return tuple(out)
+
+
+def phase_tke(grid, cfg: Config, q2, q2b, q2l, q2lb, u, v, w, aam, t, s, rho,
+              km, kh, kq, dt, etb, etf, wubot, wvbot, fc):
+    """-> (q2, q2b, q2l, q2lb, km, kh, kq, l); CUDA tensors launch
+    ``csrc/phase_tke.cu``, CPU tensors run :func:`phase_tke_plain`."""
+    args = (q2, q2b, q2l, q2lb, u, v, w, aam, t, s, rho, km, kh, kq, dt, etb,
+            etf, wubot, wvbot, fc)
+    if _check("tke", grid, cfg, args).type == "cpu":
+        return phase_tke_plain(grid, cfg, *args)
+    _plain_checks("tke", cfg)
+    out = _empty(q2, 8)
+    _launch("tke", kernel_inputs("tke", grid, cfg, *args) + out
+            + _empty(q2, 5), _tke_params(cfg), cfg)
+    return tuple(out)
+
+
+def phase_tracer(grid, cfg: Config, t, tb, s, sb, tclim, sclim, u, v, w,
+                 aam, kh, dt, etb, etf, fc):
+    """-> (t, tb, s, sb, rho); CUDA tensors launch ``csrc/phase_tracer.cu``,
+    CPU tensors run :func:`phase_tracer_plain`."""
+    args = (t, tb, s, sb, tclim, sclim, u, v, w, aam, kh, dt, etb, etf, fc)
+    if _check("tracer", grid, cfg, args).type == "cpu":
+        return phase_tracer_plain(grid, cfg, *args)
+    _plain_checks("tracer", cfg)
+    for nbc in (cfg.nbct, cfg.nbcs):
+        if nbc not in (1, 2, 3, 4):
+            raise ValueError(f"invalid nbc {nbc}")
+    out = _empty(t, 5)
+    ntp = cfg.ntp - 1
+    _launch("tracer",
+            kernel_inputs("tracer", grid, cfg, *args) + out + _empty(t, 2),
+            [cfg.dti2, cfg.dti, cfg.tprni, cfg.umol, cfg.smoth, cfg.tbias,
+             cfg.sbias, cfg.grav, cfg.rhoref, vertical._R_JERLOV[ntp],
+             vertical._AD1_JERLOV[ntp], vertical._AD2_JERLOV[ntp]],
+            cfg, cfg.nbct, cfg.nbcs)
+    return tuple(out)
+
+
+def phase_mom(grid, cfg: Config, u, ub, v, vb, w, advx, advy, drhox, drhoy,
+              km, dt, egf, egb, etb, etf, fc):
+    """-> (u, ub, v, vb, wubot, wvbot); CUDA tensors launch
+    ``csrc/phase_mom.cu``, CPU tensors run :func:`phase_mom_plain`."""
+    args = (u, ub, v, vb, w, advx, advy, drhox, drhoy, km, dt, egf, egb, etb,
+            etf, fc)
+    if _check("mom", grid, cfg, args).type == "cpu":
+        return phase_mom_plain(grid, cfg, *args)
+    _plain_checks("mom", cfg)
+    out = _empty(u, 4) + _empty(dt, 2)
+    _launch("mom",
+            kernel_inputs("mom", grid, cfg, *args) + out + _empty(u, 4),
+            [cfg.dti2, cfg.grav, cfg.umol, cfg.smoth], cfg)
+    return tuple(out)

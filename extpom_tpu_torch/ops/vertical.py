@@ -1,7 +1,8 @@
 """Implicit vertical solvers (``extpom_tpu/ops/vertical.py``):
 ``proft`` (solver.f:1541-1683), ``profu``/``profv`` (solver.f:1686-1877)
-and the Mellor-Yamada 2.5 closure ``profq`` (solver.f:1212-1538).  Each
-Thomas solve goes through :func:`_solve` to ``kernels.tridiag.thomas``."""
+and the Mellor-Yamada 2.5 closure ``profq`` (solver.f:1212-1538).  They
+are the plain versions the phase kernels of ``kernels.phases`` are held
+against, so each Thomas solve is ``kernels.tridiag.thomas_plain``."""
 
 from __future__ import annotations
 
@@ -11,8 +12,7 @@ import torch
 
 from extpom_tpu_torch.core.config import Config
 from extpom_tpu_torch.core.grid import Grid
-from extpom_tpu_torch.kernels import tridiag
-from extpom_tpu_torch.kernels.tridiag import _backward, _forward  # noqa: F401
+from extpom_tpu_torch.kernels.tridiag import thomas_plain
 from extpom_tpu_torch.ops.stencil import sft, sfk, put, set_i, set_j, set_k, s_
 
 # Paulson & Simpson (1977) irradiance parameters by Jerlov type
@@ -20,13 +20,11 @@ _R_JERLOV = (0.58, 0.62, 0.67, 0.77, 0.78)
 _AD1_JERLOV = (0.35, 0.60, 1.0, 1.5, 1.4)
 _AD2_JERLOV = (23.0, 20.0, 17.0, 14.0, 7.9)
 
-
-def _solve(cfg: Config, a, c, den, rhs, ee0, gg0, cl, rb, db, mask,
-           k0: int, k_last: int) -> torch.Tensor:
-    """One vertical Thomas solve (see :mod:`kernels.tridiag`); returns the
-    (kb, im, jm) stack with rows > k_last zero."""
-    return tridiag.thomas(a, c, den, rhs, ee0, gg0, cl, rb, db, mask,
-                          k0, k_last)
+# constants of the Mellor-Yamada 2.5 closure (profq)
+MY_A1, MY_B1, MY_A2, MY_B2, MY_C1 = 0.92, 16.6, 0.74, 10.1, 0.08
+MY_E1, MY_E2 = 1.8, 1.33
+MY_SEF = 1.0
+MY_CBCNST, MY_SURFL, MY_SHIW = 100.0, 2.0e5, 0.0
 
 
 def proft(grid: Grid, cfg: Config, f, wfsurf, fsurf, nbc: int, kh, etf,
@@ -69,9 +67,9 @@ def proft(grid: Grid, cfg: Config, f, wfsurf, fsurf, nbc: int, kh, etf,
     rhs = -f + cfg.dti2 * (rad - sfk(rad, 1)) / (dh * dz)
     rb = (-f[kbm2]
           + cfg.dti2 * (rad[kbm2] - rad[kbm1]) / (dh * dz[kbm2]))
-    sol = _solve(cfg, a, c, den, rhs, ee0, gg0,
-                 cl=c[kbm2], rb=rb, db=-torch.ones_like(h),
-                 mask=torch.ones_like(h), k0=1, k_last=kbm2)
+    sol = thomas_plain(a, c, den, rhs, ee0, gg0, cl=c[kbm2], rb=rb,
+                       db=-torch.ones_like(h), mask=torch.ones_like(h), k0=1,
+                       k_last=kbm2)
     return torch.cat([sol[:kbm1], f[kbm1:]], dim=0)
 
 
@@ -91,9 +89,9 @@ def _profuv_solve(cfg: Config, grid: Grid, cm, dh, wsurf, fin, ub_bot,
     gg0 = (-cfg.dti2 * wsurf / (-dz[0] * dh) - fin[0]) / (a[0] - 1.0)
     tps = cbc2 * torch.sqrt(ub_bot ** 2 + vb_bot ** 2)
     db = tps * cfg.dti2 / (-grid.dz[kbm2] * dh) - 1.0
-    sol = _solve(cfg, a, c, torch.ones_like(fin), -fin, ee0, gg0,
-                 cl=c[kbm2], rb=-fin[kbm2], db=db, mask=mask,
-                 k0=1, k_last=kbm2)
+    sol = thomas_plain(a, c, torch.ones_like(fin), -fin, ee0, gg0,
+                       cl=c[kbm2], rb=-fin[kbm2], db=db, mask=mask, k0=1,
+                       k_last=kbm2)
     return sol, tps
 
 
@@ -143,20 +141,22 @@ def profv(grid: Grid, cfg: Config, vf, ub, vb, km, etf,
 
 
 def profq(grid: Grid, cfg: Config, q2f, q2lf, q2, q2b, q2lb, u, v, t, s,
-          rho, km, kh, kq, l, etf, wusurf, wvsurf, wubot, wvbot):
+          rho, km, kh, kq, etf, wusurf, wvsurf, wubot, wvbot):
     """Mellor-Yamada 2.5 closure.  Returns (q2f, q2lf, km, kh, kq, l,
     q2b_abs, q2lb_abs); the last two are the |.|-rectified time-(n-1)
-    fields the reference mutates in place (solver.f:1325-1326)."""
+    fields the reference mutates in place (solver.f:1325-1326).  Every
+    level of the length scale l is recomputed, so the old l is not an
+    operand."""
     h = grid.h
     dz, dzz, z, zz = grid.dz3, grid.dzz3, grid.z3, grid.zz3
     kb, kbm1 = cfg.kb, cfg.kbm1
     K2 = slice(1, kbm1)
     z3 = torch.zeros_like(q2)
 
-    a1, b1, a2, b2, c1 = 0.92, 16.6, 0.74, 10.1, 0.08
-    e1, e2 = 1.8, 1.33
-    sef = 1.0
-    cbcnst, surfl, shiw = 100.0, 2.0e5, 0.0
+    a1, b1, a2, b2, c1 = MY_A1, MY_B1, MY_A2, MY_B2, MY_C1
+    e1, e2 = MY_E1, MY_E2
+    sef = MY_SEF
+    cbcnst, surfl, shiw = MY_CBCNST, MY_SURFL, MY_SHIW
 
     dh = h + etf
 
@@ -165,7 +165,7 @@ def profq(grid: Grid, cfg: Config, q2f, q2lf, q2, q2b, q2lb, u, v, t, s,
     c = put(z3, (-cfg.dti2 * (sfk(kq, -1) + kq + 2.0 * cfg.umol) * 0.5
                        / (sfk(dzz, -1) * sfk(dz, -1) * dh * dh)), *s_[K2])
 
-    const1 = (16.6 ** (2.0 / 3.0)) * sef
+    const1 = (b1 ** (2.0 / 3.0)) * sef
 
     z2 = torch.zeros_like(h)
     utau2 = put(z2, torch.sqrt((0.5 * (wusurf + sft(wusurf, 1, 0))) ** 2
@@ -197,7 +197,7 @@ def profq(grid: Grid, cfg: Config, q2f, q2lf, q2, q2b, q2lb, u, v, t, s,
 
     l_mid = torch.abs(q2lb / torch.where(q2b == 0, 1.0, q2b))
     l_mid = torch.where(z > -0.5, torch.maximum(l_mid, cfg.kappa * l0), l_mid)
-    l = put(l, l_mid, *s_[K2])
+    l = put(z3, l_mid, *s_[K2])
     l = set_k(l, 0, cfg.kappa * l0)
     l = set_k(l, kb - 1, 0.0)
     gh = put(z3, torch.clamp(
@@ -218,9 +218,9 @@ def profq(grid: Grid, cfg: Config, q2f, q2lf, q2, q2b, q2lb, u, v, t, s,
     den = 2.0 * cfg.dti2 * dtef + 1.0
     rhs = -2.0 * cfg.dti2 * prod - q2f
     ones2 = torch.ones_like(h)
-    q2f = _solve(cfg, a, c, den, rhs, ee0, gg0,
-                 cl=torch.zeros_like(h), rb=q2f[kb - 1], db=ones2,
-                 mask=ones2, k0=1, k_last=kb - 1)
+    q2f = thomas_plain(a, c, den, rhs, ee0, gg0, cl=torch.zeros_like(h),
+                       rb=q2f[kb - 1], db=ones2, mask=ones2, k0=1,
+                       k_last=kb - 1)
 
     # ---- q2l solve (solver.f:1415-1455) ----
     q2lf = set_k(set_k(q2lf, 0, 0.0), kb - 1, 0.0)
@@ -240,9 +240,9 @@ def profq(grid: Grid, cfg: Config, q2f, q2lf, q2, q2b, q2lb, u, v, t, s,
     den2 = cfg.dti2 * dtef2 + 1.0
     rhs2 = cfg.dti2 * (-prod * l * e1) - q2lf
     # back substitution down to k=1; k=0 stays 0
-    q2l_low = _solve(cfg, a, c, den2, rhs2, ee1, gg1,
-                     cl=torch.zeros_like(h), rb=q2lf[kb - 1], db=ones2,
-                     mask=ones2, k0=2, k_last=kb - 1)
+    q2l_low = thomas_plain(a, c, den2, rhs2, ee1, gg1,
+                           cl=torch.zeros_like(h), rb=q2lf[kb - 1], db=ones2,
+                           mask=ones2, k0=2, k_last=kb - 1)
     q2lf = put(q2lf, q2l_low, *s_[1:kb - 1])
 
     q2f = put(q2f, torch.abs(q2f), *s_[K2])

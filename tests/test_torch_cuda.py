@@ -12,7 +12,7 @@ import torch
 from extpom_tpu_torch import kernels
 from extpom_tpu_torch.cases.seamount import seamount_model
 from extpom_tpu_torch.core import stepper
-from extpom_tpu_torch.kernels import extloop, tridiag
+from extpom_tpu_torch.kernels import extloop, phases, tridiag
 
 torch.set_num_threads(1)
 
@@ -28,10 +28,14 @@ def card():
     return torch.device("cuda")
 
 
-def _close(got, want, tol):
-    scale = max(1.0, float(want.abs().max()))
+def _close(got, want, tol, floor=0.0):
+    """max |got - want| <= tol * max(floor, max |want|): with no floor a
+    kernel output is held to its own scale, so a field of small values
+    (w, wubot, the velocities of a cold start) is checked as closely as a
+    large one."""
+    scale = max(floor, float(want.abs().max()))
     err = float((got - want).abs().max())
-    assert err <= tol * scale, (err, tol * scale)
+    assert err <= tol * scale or err == 0.0, (err, tol * scale)
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -58,9 +62,9 @@ def test_extloop_kernel_matches_plain(card, dtype):
     m.run_segment(1)
     g, cfg, st = m.grid, m.cfg, m.state
     fc = m.base_forcing
-    aam, advx, advy, drhox, drhoy = stepper.phase_lat(
+    aam, advx, advy, drhox, drhoy = phases.phase_lat(
         g, cfg, st.u, st.v, st.ub, st.vb, st.aam, st.rho, m.rmean,
-        g.h + st.et, g.h + st.el, fc.ramp)
+        g.h + st.et, fc.ramp)
     out = stepper.mode_interaction(g, cfg, st, aam, advx, advy, drhox,
                                    drhoy)
     c0 = stepper.ExtCarry(st.el, st.elb, st.ua, st.uab, st.va, st.vab,
@@ -87,8 +91,9 @@ def test_card_path_matches_cpu_path(card):
     gpu.run_segment(3)
     cpu.run_segment(3)
     for name in cpu.state.field_names():
+        # whole-model comparisons take the floor of 1 of test_golden.py
         _close(getattr(gpu.state, name).cpu(), getattr(cpu.state, name),
-               1e-10)
+               1e-10, floor=1.0)
 
 
 def test_orlanski_raises_on_the_card(card):
@@ -96,3 +101,74 @@ def test_orlanski_raises_on_the_card(card):
                        bc_scheme="orlanski")
     with pytest.raises(NotImplementedError):
         m.run_segment(1)
+
+
+PHASE_TOL = {torch.float64: 1e-10, torch.float32: 1e-5}
+_PHASE_CASES = {}
+
+
+def _phase_case(im, jm, kb):
+    """Operands of each phase at the third step of a float64 seamount run
+    on the CPU, with seeded perturbations so both branches of the open
+    boundaries occur: (grid, cfg, {phase: argument tuple})."""
+    if (im, jm, kb) not in _PHASE_CASES:
+        m = seamount_model(device="cpu", im=im, jm=jm, kb=kb,
+                           dtype="float64", isplit=6)
+        m.run_segment(2)
+        g, cfg, st = m.grid, m.cfg, m.state
+        fc = m.base_forcing.replace(ramp=torch.tensor(0.7,
+                                                      dtype=torch.float64))
+        rng = np.random.default_rng(3)
+        n3 = lambda s: torch.from_numpy(s * rng.standard_normal((kb, im, jm)))
+        n2 = lambda s: torch.from_numpy(s * rng.standard_normal((im, jm)))
+        u, ub, v, vb = (x + n3(0.05) for x in (st.u, st.ub, st.v, st.vb))
+        w = st.w + n3(1e-5)
+        dt = g.h + st.et
+        etf = st.et + n2(1e-3)
+        lat = (u, v, ub, vb, st.aam, st.rho, m.rmean, dt, fc.ramp)
+        aam, advx, advy, drhox, drhoy = phases.phase_lat_plain(g, cfg, *lat)
+        _PHASE_CASES[(im, jm, kb)] = (g, cfg, {
+            "lat": lat,
+            "uvw": (u, v, w, dt, st.utb, st.vtb, st.utb + n2(1.0),
+                    st.vtb + n2(1.0), st.etb, etf, st.vfluxb, fc.vflux),
+            "tracer": (st.t + n3(0.1), st.tb, st.s + n3(0.01), st.sb,
+                       m.tclim, m.sclim, u, v, w, aam,
+                       st.kh + n3(1e-4).abs(), dt, st.etb, etf, fc),
+            "mom": (u, ub, v, vb, w, advx, advy, drhox, drhoy,
+                    st.km + n3(1e-4).abs(), dt, st.egb + n2(1e-3), st.egb,
+                    st.etb, etf, fc),
+            "tke": (st.q2 + n3(1e-6).abs(), st.q2b + n3(1e-6),
+                    st.q2l + n3(1e-6).abs(), st.q2lb + n3(1e-6), u, v, w,
+                    aam, st.t, st.s, st.rho, st.km, st.kh,
+                    st.kq + n3(1e-4).abs(), dt, st.etb, etf, n2(1e-5),
+                    n2(1e-5), fc),
+        })
+    return _PHASE_CASES[(im, jm, kb)]
+
+
+def _to(x, card, dtype):
+    if isinstance(x, torch.Tensor):
+        return x.to(device=card, dtype=dtype).contiguous()
+    return x.__class__(**{k: _to(v, card, dtype) for k, v in vars(x).items()})
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", [(24, 24, 7), (40, 56, 9)],
+                         ids=["square", "nonsquare"])
+@pytest.mark.parametrize("phase", ["lat", "uvw", "tke", "tracer", "mom"])
+def test_phase_kernel_matches_plain(card, phase, shape, dtype):
+    g, cfg, args = _phase_case(*shape)
+    g = _to(g, card, dtype)
+    cfg = cfg.replace(dtype=str(dtype).split(".")[1])
+    args = [_to(x, card, dtype) for x in args[phase]]
+    name = f"phase_{phase}"
+    before = kernels.LAUNCHES[name]
+    got = getattr(phases, name)(g, cfg, *args)
+    assert kernels.LAUNCHES[name] == before + 1
+    launched = dict(kernels.LAUNCHES)
+    want = getattr(phases, name + "_plain")(g, cfg, *args)
+    assert kernels.LAUNCHES == launched     # the plain phase launches none
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        _close(a, b, PHASE_TOL[dtype])

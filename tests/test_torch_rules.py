@@ -76,5 +76,97 @@ def test_kernels_not_built_at_import():
     """Importing the kernel modules builds nothing; the build needs nvcc,
     which only the machine with the card has."""
     import extpom_tpu_torch.kernels.extloop  # noqa: F401
+    import extpom_tpu_torch.kernels.phases  # noqa: F401
     import extpom_tpu_torch.kernels.tridiag  # noqa: F401
     assert build._lib is None
+
+
+def _phase_operands(phase: str):
+    """Valid CPU operands of one phase wrapper, from a small float64
+    seamount state: (wrapper, grid, cfg, argument list)."""
+    from extpom_tpu_torch.kernels import phases
+    m = seamount_model(device="cpu", im=9, jm=11, kb=5, dtype="float64")
+    g, cfg, st, fc = m.grid, m.cfg, m.state, m.base_forcing
+    dt = g.h + st.et
+    args = {
+        "lat": (st.u, st.v, st.ub, st.vb, st.aam, st.rho, m.rmean, dt,
+                fc.ramp),
+        "uvw": (st.u, st.v, st.w, dt, st.utb, st.vtb, st.utb, st.vtb,
+                st.etb, st.et, st.vfluxb, fc.vflux),
+        "tke": (st.q2, st.q2b, st.q2l, st.q2lb, st.u, st.v, st.w, st.aam,
+                st.t, st.s, st.rho, st.km, st.kh, st.kq, dt, st.etb, st.et,
+                st.wubot, st.wvbot, fc),
+        "tracer": (st.t, st.tb, st.s, st.sb, m.tclim, m.sclim, st.u, st.v,
+                   st.w, st.aam, st.kh, dt, st.etb, st.et, fc),
+        "mom": (st.u, st.ub, st.v, st.vb, st.w, st.u, st.v, st.u, st.v,
+                st.km, dt, st.egb, st.egb, st.etb, st.et, fc),
+    }[phase]
+    return getattr(phases, f"phase_{phase}"), g, cfg, list(args)
+
+
+PHASES = ("lat", "uvw", "tke", "tracer", "mom")
+
+
+@pytest.mark.parametrize("phase", PHASES)
+def test_phase_wrappers_reject_bad_operands(phase):
+    fn, g, cfg, args = _phase_operands(phase)
+    fn(g, cfg, *args)                         # the valid call runs
+
+    bad = list(args)
+    bad[1] = bad[1].to(torch.float16)         # a dtype no kernel takes
+    with pytest.raises(TypeError):
+        fn(g, cfg, *bad)
+    bad = [a.float() if isinstance(a, torch.Tensor) else a for a in args]
+    bad[0] = bad[0].double()                  # mixed dtypes
+    with pytest.raises(TypeError):
+        fn(g, cfg, *bad)
+    bad = list(args)
+    bad[1] = bad[1][:, :-1]                   # a 3-D operand of wrong shape
+    with pytest.raises(ValueError):
+        fn(g, cfg, *bad)
+    bad = list(args)
+    k2 = next(k for k, a in enumerate(args)
+              if isinstance(a, torch.Tensor) and a.dim() == 2)
+    bad[k2] = bad[k2][:-1]                    # a 2-D operand of wrong shape
+    with pytest.raises(ValueError):
+        fn(g, cfg, *bad)
+    bad = list(args)
+    bad[0] = bad[0].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError):
+        fn(g, cfg, *bad)
+    # a device that is neither the CPU nor the card never reaches the plain
+    # version
+    meta = [a.to("meta") if isinstance(a, torch.Tensor) else a for a in args]
+    g_meta = g.__class__(**{k: v.to("meta") for k, v in vars(g).items()})
+    if phase in ("tke", "tracer", "mom"):
+        fc = meta[-1]
+        meta[-1] = fc.__class__(**{k: v.to("meta")
+                                   for k, v in vars(fc).items()})
+    with pytest.raises(TypeError):
+        fn(g_meta, cfg, *meta)
+
+
+@pytest.mark.parametrize("mode", [3, 4])
+def test_mode4_skips_the_tracer_phase(mode, monkeypatch):
+    """mode=4 freezes T/S: the step never calls the tracer phase."""
+    from extpom_tpu_torch.kernels import phases
+    calls = []
+    real = phases.phase_tracer
+    monkeypatch.setattr(phases, "phase_tracer",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    m = seamount_model(device="cpu", im=9, jm=9, kb=5, dtype="float64",
+                       mode=mode)
+    t0 = m.state.t.clone()
+    m.run_segment(2)
+    assert len(calls) == (0 if mode == 4 else 1)
+    assert torch.equal(m.state.t, t0) == (mode == 4)
+
+
+@pytest.mark.parametrize("phase", ["tke", "tracer"])
+def test_phase_raises_for_orlanski_boundaries(phase):
+    """Under bc_scheme='orlanski' the reference runs orl_turb/orl_ts, which
+    are not ported: the phase raises rather than run bc_turb/bc_ts."""
+    fn, g, _, args = _phase_operands(phase)
+    cfg = Config(im=9, jm=11, kb=5, dtype="float64", bc_scheme="orlanski")
+    with pytest.raises(NotImplementedError):
+        fn(g, cfg, *args)
