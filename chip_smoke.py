@@ -3,14 +3,16 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``extpom_tpu_torch/csrc``, holds each
-kernel (tridiag, extloop and the phases lat, uvw, tke, tracer, mom) against
-its plain PyTorch version at the shapes of the main path (256x256x31), drives
-the seamount model through ``seamount_model`` / ``Model.run_segment`` on the
-card in float32, checks the result, and prints one ``kernels`` JSON line,
-the card's name and power limit, and a last JSON line
-``{"ok": true, "device": {...}}``.  Any failed check raises, so the
-script exits non-zero; without a CUDA device it exits 1 and prints no
-result.
+kernel (tridiag, extloop, extwin and the phases lat, uvw, tke, tracer, mom)
+against its plain PyTorch version at the shapes of the paths that run it,
+and drives two paths through ``seamount_model`` / ``Model.run_segment`` on
+the card in float32: the main path (256x256x31, whose external loop is the
+whole-grid chain) and the large-grid path of ``configs/config5_2048.json``
+(2048x2048x41 on one card, whose external loop is the window kernel).  It
+checks the results, prints the dispatch echo of both grids, one ``kernels``
+JSON line, the card's name and power limit, and a last JSON line
+``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
+exits non-zero; without a CUDA device it exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -26,13 +28,19 @@ import torch
 
 IM, JM, KB = 256, 256, 31      # main-path grid
 SEG_WARM, SEG_TIMED = 2, 20    # run_segment lengths of the slice phase
+LARGE_WARM, LARGE_TIMED = 2, 5  # run_segment lengths of the large phase
+ROOT = os.path.dirname(os.path.abspath(__file__))
+LARGE = os.path.join(ROOT, "configs", "config5_2048.json")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM (NVIDIA data sheet)
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}   # non-tensor
 # flops per grid point per external substep of the plain algorithm
 # (core/stepper.py:mode_external_substep): d 1, fluxes 8, elf 8, bc_el 1,
 # advave 71, uaf 38, vaf 38, dum/dvm 2, tail + Asselin + accumulators 32
 EXTLOOP_FLOPS_PER_POINT = 199
-EXTLOOP_KERNELS = ("k_metrics", "k_surface", "k_velocity", "k_update")
+# device kernels of the external loops, as the profiler names them; both
+# machines launch k_metrics once per step
+EXT_KERNELS = {"extloop": ("::k_surface<", "::k_velocity<", "::k_update<"),
+               "extwin": ("::k_window<",), "ext_metrics": ("::k_metrics<",)}
 PHASES = ("lat", "uvw", "tke", "tracer", "mom")
 # device kernels of each phase (csrc/phase_*.cu), as the profiler names them
 PHASE_KERNELS = {"lat": ("::k_lat<",), "uvw": ("::k_uv<", "::k_w<"),
@@ -59,8 +67,7 @@ TOL = {  # max |kernel - plain| / max |plain|, per output field
     "extloop": {torch.float64: 1e-10, torch.float32: 1e-5},
     "phase": {torch.float64: 1e-10, torch.float32: 1e-5},
 }
-GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                      "golden", "seamount_33x33x11_10steps.npz")
+GOLDEN = os.path.join(ROOT, "tests", "golden", "seamount_33x33x11_10steps.npz")
 
 
 def say(tag: str, **kv) -> None:
@@ -439,8 +446,9 @@ def slice_phase(card: str) -> dict:
     # phases.  The standalone tridiag kernel is not on the path: the phase
     # kernels solve their columns themselves (column.cuh), as the TPU's
     # fused phase kernel does.
-    want = {"extloop": n, "tridiag": 0, "phase_lat": n, "phase_uvw": n - 1,
-            "phase_tke": n - 1, "phase_tracer": n - 1, "phase_mom": n - 1}
+    want = {"extloop": n, "extwin": 0, "tridiag": 0, "phase_lat": n,
+            "phase_uvw": n - 1, "phase_tke": n - 1, "phase_tracer": n - 1,
+            "phase_mom": n - 1}
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     for name in m.state.field_names():
@@ -462,11 +470,11 @@ def slice_phase(card: str) -> dict:
     return launches
 
 
-def profile_phase(m, steps: int = 3) -> None:
+def profile_phase(m, steps: int = 3, tag: str = "profile") -> None:
     """Where a step's time goes: device time by kernel group from
     torch.profiler over ``steps`` steps, against the host wall clock."""
     from torch.profiler import ProfilerActivity, profile
-    groups = {"extloop": EXTLOOP_KERNELS, "tridiag": ("thomas_kernel",),
+    groups = {**EXT_KERNELS, "tridiag": ("thomas_kernel",),
               **{f"phase_{p}": PHASE_KERNELS[p] for p in PHASES}}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -485,9 +493,9 @@ def profile_phase(m, steps: int = 3) -> None:
             n_other += e.count
     busy = sum(dev.values())
     if busy == 0.0:
-        say("profile", device_time="not measured (no device events)")
+        say(tag, device_time="not measured (no device events)")
         return
-    say("profile", steps=steps, wall_ms_per_step=f"{wall_ms / steps:.3f}",
+    say(tag, steps=steps, wall_ms_per_step=f"{wall_ms / steps:.3f}",
         device_busy_ms_per_step=f"{busy / steps:.3f}",
         device_idle_share=f"{1.0 - busy / wall_ms:.3f}",
         **{f"{k}_ms_per_step": f"{dev[k] / steps:.4f}" for k in groups},
@@ -495,16 +503,17 @@ def profile_phase(m, steps: int = 3) -> None:
         plain_torch_kernels_per_step=n_other // steps)
 
 
-def parts_phase(m, steps: int = 3) -> None:
+def parts_phase(m, steps: int = 3, tag: str = "parts") -> None:
     """Wall time of a step by part: each part that ``stepper.step`` calls
     is wrapped so that the card is synchronized before and after it, and
     the host clock time in between is summed.  The synchronizations take
     away the overlap of host and card, so the parts of a wrapped step add up
     to at least the unwrapped step's time."""
     from extpom_tpu_torch.core import stepper
-    from extpom_tpu_torch.kernels import extloop, phases
+    from extpom_tpu_torch.kernels import extloop, extwin, phases
     parts = [(phases, "phase_lat"), (stepper, "mode_interaction"),
-             (extloop, "run_external_loop"), (phases, "phase_uvw"),
+             (extloop, "run_external_loop"),
+             (extwin, "run_external_loop_windowed"), (phases, "phase_uvw"),
              (phases, "phase_tke"), (phases, "phase_tracer"),
              (phases, "phase_mom")]
     spent = dict.fromkeys((name for _, name in parts), 0.0)
@@ -532,9 +541,192 @@ def parts_phase(m, steps: int = 3) -> None:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
     ms = {k: v / steps * 1e3 for k, v in spent.items()}
-    say("parts", steps=steps, wall_ms_per_step=f"{wall / steps * 1e3:.3f}",
+    say(tag, steps=steps, wall_ms_per_step=f"{wall / steps * 1e3:.3f}",
         **{f"{k}_ms": f"{v:.3f}" for k, v in ms.items()},
         rest_ms=f"{wall / steps * 1e3 - sum(ms.values()):.3f}")
+
+
+def ext_operands(m):
+    """The external loop's operands of model ``m``'s next step, on the card:
+    that step's lateral terms, from the plain lat phase so that no kernel
+    launch is counted, and ``mode_interaction``.  Returns (grid, cfg,
+    carry, forcing, aux)."""
+    from extpom_tpu_torch.core import stepper
+    from extpom_tpu_torch.kernels import phases
+    g, cfg, st = m.grid, m.cfg, m.state
+    period = m.period if np.isfinite(m.period) else 1.0
+    fc = m.base_forcing.replace(ramp=torch.tensor(
+        stepper.ramp_at(cfg, m.iint + 1, period), dtype=st.dtype,
+        device=g.h.device))
+    lat = phases.phase_lat_plain(g, cfg, st.u, st.v, st.ub, st.vb, st.aam,
+                                 st.rho, m.rmean, g.h + st.et, fc.ramp)
+    (adx2d, ady2d, drx2d, dry2d, aam2d, advua, advva, wubot, wvbot,
+     egf, utf, vtf) = stepper.mode_interaction(g, cfg, st, *lat)
+    del lat
+    c0 = stepper.ExtCarry(st.el.clone(), st.elb.clone(), st.ua.clone(),
+                          st.uab.clone(), st.va.clone(), st.vab.clone(),
+                          st.etf.clone(), egf, utf, vtf, advua, advva,
+                          wubot, wvbot)
+    return g, cfg, c0, fc, (adx2d, ady2d, drx2d, dry2d, aam2d)
+
+
+def large_phase(card: str):
+    """The large-grid path: the case and config blocks of
+    configs/config5_2048.json (2048x2048x41 float32) on one card through
+    ``seamount_model`` / ``Model.run_segment``, LARGE_WARM steps from a cold
+    start, then LARGE_TIMED timed steps; the launch counts cover all of
+    them.  Between the two, the external loop's operands of the next step
+    are kept for ``extwin_phase``.  Returns (launches, those operands)."""
+    from extpom_tpu_torch import kernels
+    from extpom_tpu_torch.cases.seamount import seamount_model
+    from extpom_tpu_torch.diag import stats
+    from extpom_tpu_torch.kernels import extwin
+    with open(LARGE) as f:
+        run = json.load(f)
+    t0 = time.perf_counter()
+    m = seamount_model(**run["case_args"], **run["config"])
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    cfg = m.cfg
+    say("large", config=os.path.relpath(LARGE, ROOT),
+        grid=f"{cfg.im}x{cfg.jm}x{cfg.kb}", dtype=cfg.dtype,
+        isplit=cfg.isplit, setup_s=f"{setup_s:.1f}",
+        not_applied="'mesh and distributed blocks: multi-GPU is not "
+                    "ported yet'")
+    kernels.reset_launches()
+    m.run_segment(LARGE_WARM)
+    torch.cuda.synchronize()
+    ops = ext_operands(m)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m.run_segment(LARGE_TIMED)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    n = LARGE_WARM + LARGE_TIMED
+    chunks = cfg.isplit // extwin.chunk_geometry(cfg, 4).C
+    want = {"extloop": 0, "extwin": n * chunks, "tridiag": 0,
+            "phase_lat": n, "phase_uvw": n - 1, "phase_tke": n - 1,
+            "phase_tracer": n - 1, "phase_mom": n - 1}
+    if launches != want:
+        raise AssertionError(f"large: launch counts {launches} != {want}")
+    for name in m.state.field_names():
+        if not bool(torch.isfinite(getattr(m.state, name)).all()):
+            raise AssertionError(f"large: state field {name} is not finite")
+    st = {k: float(v) for k, v in
+          stats.domain_stats(m.grid, cfg, m.state).items()}
+    if not abs(st["saver"] - 15.0) <= 1e-4:
+        raise AssertionError(f"large: saver drifted: {st['saver']}")
+    cfl = float(stats.cfl_min(m.grid, cfg))
+    points = cfg.im * cfg.jm * cfg.kb
+    say("large", steps=n, timed_steps=LARGE_TIMED,
+        ms_per_step=f"{wall / LARGE_TIMED * 1e3:.3f}",
+        grid_point_steps_per_s=f"{points * LARGE_TIMED / wall:.4e}",
+        saver=f"{st['saver']:.7f}", taver=f"{st['taver']:.7f}",
+        cfl_min_s=f"{cfl:.4f}", dte_s=cfg.dte, dte_below_cfl=cfg.dte < cfl,
+        peak_mem_gb=f"{peak / 1e9:.3f}",
+        launches=json.dumps(launches, separators=(",", ":")),
+        card=f"'{card}'")
+    profile_phase(m, steps=2, tag="large_profile")
+    parts_phase(m, steps=2, tag="large_parts")
+    return launches, ops
+
+
+def extwin_phase(flush: L2Flush, large) -> dict:
+    """The window kernel against its plain version on the card, in f64 and
+    f32 with ispadv 1 and 2, at 2048x2048 (the operands of ``large_phase``),
+    at 520x392 (im != jm, not a whole number of tiles) and at 40x56 (a few
+    tiles), each from a seamount run's third step.  At 2048x2048
+    ispadv=1 it also times the kernel, the plain loop and, in f32, the
+    whole-grid chain on the same operands, which must agree bit for bit."""
+    from extpom_tpu_torch.cases.seamount import seamount_model
+    from extpom_tpu_torch.kernels import extloop, extwin
+    cases = [("2048x2048", large)]
+    for im, jm in ((520, 392), (40, 56)):
+        m = seamount_model(im=im, jm=jm, kb=5, dtype="float64")
+        m.run_segment(2)
+        cases.append((f"{im}x{jm}", ext_operands(m)))
+    entry = {}
+    for grid_name, inputs in cases:
+        for dtype in (torch.float64, torch.float32):
+            item = torch.finfo(dtype).bits // 8
+            g, cfg0, c0, fc, aux = on_card(inputs, dtype)
+            for ispadv in (1, 2):
+                cfg = cfg0.replace(ispadv=ispadv)
+                geo = extwin.chunk_geometry(cfg, item)
+                run = lambda: extwin.run_external_loop_windowed(g, cfg, c0,
+                                                                fc, aux)
+                plain = lambda: extwin.run_external_loop_windowed_plain(
+                    g, cfg, c0, fc, aux)
+                got, want = run(), plain()
+                torch.cuda.synchronize()
+                tol = TOL["extloop"][dtype]
+                worst = (0.0, 0.0, "none")
+                for name, a, b in zip(extloop.CARRY_FIELDS, got, want):
+                    if not bool(torch.isfinite(a).all()):
+                        raise AssertionError(f"extwin kernel: {name} not "
+                                             f"finite ({grid_name})")
+                    err, rel = rel_err(a, b)
+                    if rel >= worst[1]:
+                        worst = (err, rel, name)
+                    if not rel <= tol:
+                        raise AssertionError(
+                            f"extwin kernel disagrees with the plain loop on "
+                            f"{name}: {rel} > {tol} ({grid_name}, {dtype}, "
+                            f"ispadv={ispadv})")
+                line = dict(grid=grid_name, dtype=str(dtype).split(".")[1],
+                            ispadv=ispadv, isplit=cfg.isplit, C=geo.C,
+                            H=geo.H, tile=f"{geo.ti}x{geo.tj}",
+                            smem_bytes=geo.smem,
+                            max_abs_err=f"{worst[0]:.3e}",
+                            rel_err=f"{worst[1]:.3e}",
+                            worst_field=worst[2], tol=tol)
+                if grid_name == "2048x2048" and ispadv == 1:
+                    n = cfg.im * cfg.jm
+                    ms = device_ms(run, 10, flush)
+                    wall_ms = call_ms(run, 10, flush)
+                    plain_ms = device_ms(plain, 2, flush)
+                    nbytes = ((34 + 14) * n + 6 * cfg.jm + 6 * cfg.im
+                              + 1) * item
+                    flops = EXTLOOP_FLOPS_PER_POINT * cfg.isplit * n
+                    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                    bound_ops = flops / PEAK_FLOPS[dtype] * 1e3
+                    line.update(ms=f"{ms:.4f}", call_ms=f"{wall_ms:.4f}",
+                                plain_ms=f"{plain_ms:.3f}",
+                                bound_ms=f"{max(bound_bytes, bound_ops):.5f}")
+                    if dtype == torch.float64:
+                        entry["f64_max_abs_err"] = worst[0]
+                        entry["f64_ms"] = ms
+                    else:
+                        chain = lambda: extloop.run_external_loop(g, cfg, c0,
+                                                                  fc, aux)
+                        same = all(torch.equal(a, b)
+                                   for a, b in zip(got, chain()))
+                        if not same:
+                            raise AssertionError("extwin and the extloop "
+                                                 "chain differ at 2048x2048")
+                        chain_ms = device_ms(chain, 5, flush)
+                        line.update(chain_ms=f"{chain_ms:.4f}",
+                                    chain_equal=same)
+                        entry.update(
+                            grid=grid_name, max_abs_err=worst[0], ms=ms,
+                            call_ms=wall_ms, plain_ms=plain_ms,
+                            bound_ms=max(bound_bytes, bound_ops),
+                            bound_by="bytes" if bound_bytes >= bound_ops
+                            else "operations", chain_ms=chain_ms)
+                say("extwin", **line)
+    return entry
+
+
+def dispatch_echo(*cfgs) -> None:
+    """The dispatch report of each configuration in float32 on the card."""
+    from extpom_tpu_torch.core import dispatch
+    for cfg in cfgs:
+        rep = dispatch.dispatch_report(cfg, torch.float32, "cuda")
+        for line in dispatch.format_report(rep).splitlines():
+            print("[dispatch] " + line.strip(), flush=True)
 
 
 def main() -> int:
@@ -561,22 +753,36 @@ def main() -> int:
     golden_phase()
     nonsquare_phase()
     launches = slice_phase(card)
+    large_launches, large_ops = large_phase(card)
+    win = extwin_phase(flush, large_ops)
+    dispatch_echo(cfg.replace(dtype="float32"), large_ops[1])
+    del large_ops
+    paths = {"slice_256": launches, "large_2048": large_launches}
+    by_path = lambda k: {p: c[k] for p, c in paths.items()}
 
     kernels_line = {"kernels": [
         dict(name="tridiag", route="cuda",
              source="extpom_tpu_torch/csrc/tridiag.cu",
              replaces="extpom_tpu/pallas/tridiag.py:77",
              launches=launches["tridiag"], on_main_path=False,
-             library_ms=None, **tri),
+             launches_by_path=by_path("tridiag"), library_ms=None, **tri),
         dict(name="extloop", route="cuda",
              source="extpom_tpu_torch/csrc/extloop.cu",
              replaces="extpom_tpu/pallas/extloop.py:243",
-             launches=launches["extloop"], library_ms=None, **ext),
+             launches=launches["extloop"],
+             launches_by_path=by_path("extloop"), library_ms=None, **ext),
+        dict(name="extwin", route="cuda",
+             source="extpom_tpu_torch/csrc/extwin.cu",
+             replaces="extpom_tpu/pallas/extwin.py:112",
+             launches=large_launches["extwin"],
+             launches_by_path=by_path("extwin"), library_ms=None, **win),
     ] + [
         dict(name=f"phase_{p}", route="cuda",
              source=f"extpom_tpu_torch/csrc/phase_{p}.cu",
              replaces="extpom_tpu/pallas/phases.py:315",
-             launches=launches[f"phase_{p}"], library_ms=None, **phs[p])
+             launches=launches[f"phase_{p}"],
+             launches_by_path=by_path(f"phase_{p}"), library_ms=None,
+             **phs[p])
         for p in PHASES]}
     print(json.dumps(kernels_line), flush=True)
     print(card, flush=True)

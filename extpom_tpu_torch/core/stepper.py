@@ -7,9 +7,11 @@ One :func:`step` advances the model by one internal step ``dti``, as
     -> internal phases uvw, tke, tracer, mom
 
 The isplit external substeps run in ``kernels.extloop.run_external_loop``
-(one CUDA kernel chain per step on the card) and the phases lat, uvw, tke,
-tracer and mom in ``kernels.phases`` (one CUDA kernel chain each on the
-card).
+(one CUDA kernel chain per step on the card) or, on the card for grids whose
+external working set exceeds its L2, in
+``kernels.extwin.run_external_loop_windowed`` (isplit/C window launches);
+the phases lat, uvw, tke, tracer and mom run in ``kernels.phases`` (one CUDA
+kernel chain each on the card).
 """
 
 from __future__ import annotations
@@ -255,7 +257,7 @@ def mode_internal(grid: Grid, cfg: Config, st: State, fc: Forcing,
 def step(grid: Grid, cfg: Config, st: State, fc: Forcing, rmean, tclim,
          sclim, first: bool = False) -> State:
     """Advance one internal time step (advance.f:6-59)."""
-    from extpom_tpu_torch.kernels import extloop
+    from extpom_tpu_torch.kernels import extloop, extwin
     if cfg.mode == 2:
         raise NotImplementedError("mode=2 is not ported yet")
     dt = grid.h + st.et
@@ -271,7 +273,12 @@ def step(grid: Grid, cfg: Config, st: State, fc: Forcing, rmean, tclim,
                       utf=utf, vtf=vtf, advua=advua, advva=advva,
                       wubot=wubot, wvbot=wvbot)
     aux = (adx2d, ady2d, drx2d, dry2d, aam2d)
-    carry = extloop.run_external_loop(grid, cfg, carry0, fc, aux)
+    el = carry0.el
+    if el.is_cuda and extwin.use_windowed(cfg.im, cfg.jm, el.element_size(),
+                                          extwin.l2_bytes(el.device)):
+        carry = extwin.run_external_loop_windowed(grid, cfg, carry0, fc, aux)
+    else:
+        carry = extloop.run_external_loop(grid, cfg, carry0, fc, aux)
 
     st = mode_internal(grid, cfg, st, fc, carry, aam, advx, advy,
                        drhox, drhoy, tclim, sclim, first)

@@ -1,0 +1,452 @@
+// Per-point arithmetic of one external (2-D barotropic) substep,
+// core/stepper.py:mode_external_substep, shared by the whole-grid kernel
+// chain (extloop.cu) and the halo-window kernel (extwin.cu).  Both call the
+// same device functions, so a value rounds the same way in the same order
+// in both, and both match the plain loop bit for bit (built with
+// -fmad=false).
+//
+// Operands fall in two groups:
+//   ExtArgs  the read-only fields (grid, step-constant 2-D terms, forcing,
+//            boundary series, the loop-invariant metrics), always whole
+//            (im, jm) arrays in device memory, read at p = i*jm + j;
+//   Carry    the fields a substep reads at neighbours and rewrites (el,
+//            elb, ua, uab, va, vab, advua, advva) and the substep's elf,
+//            uaf, vaf.  The chain points them at whole arrays in device
+//            memory; extwin at a window of shared memory.  Either way a
+//            point is named by its global (i, j).
+//
+// Where an off-by-one would hide:
+//   * sft reads 0 outside the array: ld() returns 0 there, it never clamps.
+//   * put regions: every flux/face value is defined only on the region of
+//     its Fortran loop (put(z2, expr, 1:, 1:-1) etc.) and is 0 elsewhere.
+//   * bc_el writes west, east, south, north, so a corner takes the value of
+//     the side written last; with zero-gradient copies that makes
+//     elf(i, j) = elf_interior(clamp(i), clamp(j)) * fsm(i, j).
+//   * bc_vel2d writes row 1 (column 1) before row 0 (column 0) copies it;
+//     corners keep 0.
+//   * the etf tail uses iext == isplit-2 / isplit-1 / isplit and the
+//     accumulators skip the last substep.
+//
+// Stencil radius: a substep's new carry at (i, j) reads the old carry at
+// most 2 cells away in i and in j (elf reads d/ua/va at +-1 and feeds
+// uaf and utf at i-1; advave reads d at i-2 and j-2).  extwin's halo is 2
+// cells per substep for that reason (tests/test_torch_extwin.py checks it
+// on the plain loop).
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "column.cuh"
+
+namespace extpom {
+
+// operand order of the read-only block of a pointer table: grid, aux, 2-D
+// forcing, 1-D series (j-sides, then i-sides), ramp, metrics
+constexpr int kExtOperands = 11 + 5 + 4 + 12 + 1 + 13;
+
+template <typename T>
+struct ExtArgs {
+  // grid
+  const T *h, *dx, *dy, *art, *aru, *arv, *cor, *fsm, *dum, *dvm, *cbc;
+  // step-constant 2-D terms
+  const T *adx2d, *ady2d, *drx2d, *dry2d, *aam2d;
+  // 2-D forcing
+  const T *wusurf, *wvsurf, *vflux, *e_atmos;
+  // 1-D boundary series, j-sides (jm) then i-sides (im)
+  const T *elw, *ele, *uabw, *uabe, *vabw, *vabe;
+  const T *els, *eln, *vabs, *vabn, *uabs, *uabn;
+  const T* ramp;  // 0-d
+  // loop-invariant metrics (ext_precompute), written by k_metrics
+  T *dyu, *dxv, *hu, *hv, *corw, *cors, *rart, *rdx, *rdy, *dx4, *dy4, *rdx4,
+      *rdy4;
+  // bottom stress of the carry: advave passes it through outside mode 2
+  const T *wubot, *wvbot;
+  int im, jm;
+  // constants, rounded to T as PyTorch rounds a Python float operand
+  T dte2, c4dte, c025g, grav, ralpha, alpha, ispi, isp2i, hsmoth, qsmoth,
+      tsmoth, rfe, rfw, rfn, rfs;
+};
+
+// Fills the read-only block from ptr[0 .. kExtOperands) and the constants
+// from prm = (dte, grav, smoth, alpha, isplit, rfe, rfw, rfn, rfs); each
+// constant is formed in double as the Python expression forms it.
+template <typename T>
+void set_ext_args(ExtArgs<T>& s, void* const* ptr, const double* prm, int im,
+                  int jm) {
+  int k = 0;
+#define NEXT(f) s.f = (decltype(s.f))ptr[k++]
+  NEXT(h); NEXT(dx); NEXT(dy); NEXT(art); NEXT(aru); NEXT(arv); NEXT(cor);
+  NEXT(fsm); NEXT(dum); NEXT(dvm); NEXT(cbc);
+  NEXT(adx2d); NEXT(ady2d); NEXT(drx2d); NEXT(dry2d); NEXT(aam2d);
+  NEXT(wusurf); NEXT(wvsurf); NEXT(vflux); NEXT(e_atmos);
+  NEXT(elw); NEXT(ele); NEXT(uabw); NEXT(uabe); NEXT(vabw); NEXT(vabe);
+  NEXT(els); NEXT(eln); NEXT(vabs); NEXT(vabn); NEXT(uabs); NEXT(uabn);
+  NEXT(ramp);
+  NEXT(dyu); NEXT(dxv); NEXT(hu); NEXT(hv); NEXT(corw); NEXT(cors);
+  NEXT(rart); NEXT(rdx); NEXT(rdy); NEXT(dx4); NEXT(dy4); NEXT(rdx4);
+  NEXT(rdy4);
+#undef NEXT
+  s.wubot = s.wvbot = nullptr;
+  s.im = im;
+  s.jm = jm;
+  const double dte = prm[0], grav = prm[1], smoth = prm[2], alpha = prm[3],
+               nsp = prm[4];
+  s.dte2 = T(dte * 2.0);
+  s.c4dte = T(4.0 * dte);
+  s.c025g = T(0.25 * grav);
+  s.grav = T(grav);
+  s.ralpha = T(1.0 - 2.0 * alpha);
+  s.alpha = T(alpha);
+  s.ispi = T(1.0 / nsp);
+  s.isp2i = T(1.0 / (2.0 * nsp));
+  s.hsmoth = T(0.5 * smoth);
+  s.qsmoth = T(0.25 * smoth);
+  s.tsmoth = T(0.5 * (1.0 - 0.5 * smoth));
+  s.rfe = T(prm[5]);
+  s.rfw = T(prm[6]);
+  s.rfn = T(prm[7]);
+  s.rfs = T(prm[8]);
+}
+
+// The substep's rewritten fields.  The chain (kWindow false) keeps them as
+// whole (im, jm) arrays indexed like the read-only fields.  extwin (kWindow
+// true) keeps a window of them: array cell (0, 0) is global (oi, oj), rows
+// are `stride` apart, and global rows [i0, i1) x columns [j0, j1), the
+// window within the domain, may be read.  Either way a cell is named by its
+// global (i, j) and read through at(), in() and ldc() below.
+template <typename T, bool kWindow>
+struct Carry {
+  T *el, *elb, *ua, *uab, *va, *vab, *advua, *advva, *elf, *uaf, *vaf;
+  int oi, oj, stride;
+  int i0, i1, j0, j1;
+};
+
+// index of cell (i, j) in the arrays of c
+template <typename T, bool W>
+__device__ __forceinline__ int at(const ExtArgs<T>& s, const Carry<T, W>& c,
+                                  int i, int j) {
+  if constexpr (W) return (i - c.oi) * c.stride + (j - c.oj);
+  return i * s.jm + j;
+}
+
+// distance between rows of the arrays of c
+template <typename T, bool W>
+__device__ __forceinline__ int rows(const ExtArgs<T>& s,
+                                    const Carry<T, W>& c) {
+  if constexpr (W) return c.stride;
+  return s.jm;
+}
+
+// whether cell (i, j) of c may be read
+template <typename T, bool W>
+__device__ __forceinline__ bool in(const ExtArgs<T>& s, const Carry<T, W>& c,
+                                   int i, int j) {
+  if constexpr (W) return i >= c.i0 && i < c.i1 && j >= c.j0 && j < c.j1;
+  return i >= 0 && i < s.im && j >= 0 && j < s.jm;
+}
+
+// zero-filled read of a field of c: 0 outside the domain, as sft reads
+template <typename T, bool W>
+__device__ __forceinline__ T ldc(const ExtArgs<T>& s, const Carry<T, W>& c,
+                                 const T* a, int i, int j) {
+  return in(s, c, i, j) ? a[at(s, c, i, j)] : T(0);
+}
+
+// zero-filled read of a read-only field (column.cuh)
+template <typename T>
+__device__ __forceinline__ T ld(const T* a, const ExtArgs<T>& s, int i,
+                                int j) {
+  return ld2(a, s.im, s.jm, i, j);
+}
+
+// d = h + el (zero outside the array, as sft(d, ...) reads)
+template <typename T, bool W>
+__device__ __forceinline__ T dd(const ExtArgs<T>& s, const Carry<T, W>& c,
+                                int i, int j) {
+  return in(s, c, i, j) ? s.h[i * s.jm + j] + c.el[at(s, c, i, j)] : T(0);
+}
+
+// ext_precompute, one point
+template <typename T>
+__global__ void k_metrics(ExtArgs<T> s) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= s.im * s.jm) return;
+  const int i = p / s.jm, j = p % s.jm;
+  const T one = T(1);
+  const T dx4 = s.dx[p] + ld(s.dx, s, i - 1, j) + ld(s.dx, s, i, j - 1) +
+                ld(s.dx, s, i - 1, j - 1);
+  const T dy4 = s.dy[p] + ld(s.dy, s, i - 1, j) + ld(s.dy, s, i, j - 1) +
+                ld(s.dy, s, i - 1, j - 1);
+  s.dyu[p] = s.dy[p] + ld(s.dy, s, i - 1, j);
+  s.dxv[p] = s.dx[p] + ld(s.dx, s, i, j - 1);
+  s.hu[p] = s.h[p] + ld(s.h, s, i - 1, j);
+  s.hv[p] = s.h[p] + ld(s.h, s, i, j - 1);
+  s.corw[p] = ld(s.cor, s, i - 1, j);
+  s.cors[p] = ld(s.cor, s, i, j - 1);
+  s.rart[p] = one / s.art[p];
+  s.rdx[p] = one / s.dx[p];
+  s.rdy[p] = one / s.dy[p];
+  s.dx4[p] = dx4;
+  s.dy4[p] = dy4;
+  s.rdx4[p] = one / (dx4 == T(0) ? one : dx4);
+  s.rdy4[p] = one / (dy4 == T(0) ? one : dy4);
+}
+
+// ---- free surface (advance.f:211-229) ----
+
+// fluxua = put(z2, .25 (d + d_w) dyu ua, 1:, 1:)
+template <typename T, bool W>
+__device__ T flux_u(const ExtArgs<T>& s, const Carry<T, W>& c, int i, int j) {
+  if (i < 1 || i >= s.im || j < 1 || j >= s.jm) return T(0);
+  return T(0.25) * (dd(s, c, i, j) + dd(s, c, i - 1, j)) *
+         s.dyu[i * s.jm + j] * c.ua[at(s, c, i, j)];
+}
+
+// fluxva = put(z2, .25 (d + d_s) dxv va, 1:, 1:)
+template <typename T, bool W>
+__device__ T flux_v(const ExtArgs<T>& s, const Carry<T, W>& c, int i, int j) {
+  if (i < 1 || i >= s.im || j < 1 || j >= s.jm) return T(0);
+  return T(0.25) * (dd(s, c, i, j) + dd(s, c, i, j - 1)) *
+         s.dxv[i * s.jm + j] * c.va[at(s, c, i, j)];
+}
+
+// elf before bc_el, on its put region 1:-1, 1:-1
+template <typename T, bool W>
+__device__ T elf_interior(const ExtArgs<T>& s, const Carry<T, W>& c, int i,
+                          int j) {
+  const int p = i * s.jm + j;
+  const T div = flux_u(s, c, i + 1, j) - flux_u(s, c, i, j) +
+                flux_v(s, c, i, j + 1) - flux_v(s, c, i, j);
+  return c.elb[at(s, c, i, j)] + s.dte2 * (-div * s.rart[p] - s.vflux[p]);
+}
+
+// elf + bc_el: edges copy the clamped interior value (see header)
+template <typename T, bool W>
+__device__ T elf_point(const ExtArgs<T>& s,
+                       const Carry<T, W>& c, int i, int j) {
+  const int ci = min(max(i, 1), s.im - 2), cj = min(max(j, 1), s.jm - 2);
+  return elf_interior(s, c, ci, cj) * s.fsm[i * s.jm + j];
+}
+
+// ---- advave, mode != 2 (solver.f:16-121) ----
+
+template <typename T, bool W>
+__device__ T adv_tps(const ExtArgs<T>& s, const Carry<T, W>& c, int i, int j) {
+  // put(z, ..., 1:, 1:)
+  if (i < 1 || i >= s.im || j < 1 || j >= s.jm) return T(0);
+  const int p = i * s.jm + j, q = at(s, c, i, j);
+  const T dsum = dd(s, c, i, j) + dd(s, c, i - 1, j) + dd(s, c, i, j - 1) +
+                 dd(s, c, i - 1, j - 1);
+  const T asum = s.aam2d[p] + ld(s.aam2d, s, i, j - 1) +
+                 ld(s.aam2d, s, i - 1, j) + ld(s.aam2d, s, i - 1, j - 1);
+  return T(0.25) * dsum * asum *
+         ((c.uab[q] - ldc(s, c, c.uab, i, j - 1)) * s.rdy4[p] +
+          (c.vab[q] - ldc(s, c, c.vab, i - 1, j)) * s.rdx4[p]);
+}
+
+// u-part fluxua after viscous term and * dy; region 1:-1, 1:
+template <typename T, bool W>
+__device__ T adv_fua3(const ExtArgs<T>& s, const Carry<T, W>& c, int i, int j) {
+  if (i < 1 || i > s.im - 2 || j < 1 || j >= s.jm) return T(0);
+  const int p = i * s.jm + j, q = at(s, c, i, j);
+  const T d = dd(s, c, i, j);
+  const T ue = ldc(s, c, c.ua, i + 1, j);
+  T f = T(0.125) *
+        ((dd(s, c, i + 1, j) + d) * ue + (d + dd(s, c, i - 1, j)) * c.ua[q]) *
+        (ue + c.ua[q]);
+  f = f - d * T(2) * s.aam2d[p] * (ldc(s, c, c.uab, i + 1, j) - c.uab[q]) *
+              s.rdx[p];
+  return f * s.dy[p];
+}
+
+// u-part fluxva after the cross term and * dx4/4; region 1:, 1:
+template <typename T, bool W>
+__device__ T adv_fva3(const ExtArgs<T>& s, const Carry<T, W>& c, int i, int j) {
+  if (i < 1 || i >= s.im || j < 1 || j >= s.jm) return T(0);
+  const int p = i * s.jm + j, q = at(s, c, i, j);
+  const T f = T(0.125) *
+              ((dd(s, c, i, j) + dd(s, c, i, j - 1)) * c.va[q] +
+               (dd(s, c, i - 1, j) + dd(s, c, i - 1, j - 1)) *
+                   ldc(s, c, c.va, i - 1, j)) *
+              (c.ua[q] + ldc(s, c, c.ua, i, j - 1));
+  return (f - adv_tps(s, c, i, j)) * T(0.25) * s.dx4[p];
+}
+
+// v-part fluxua after the cross term and * dy4/4; region 1:, 1:
+template <typename T, bool W>
+__device__ T adv_fua6(const ExtArgs<T>& s, const Carry<T, W>& c, int i, int j) {
+  if (i < 1 || i >= s.im || j < 1 || j >= s.jm) return T(0);
+  const int p = i * s.jm + j, q = at(s, c, i, j);
+  const T f = T(0.125) *
+              ((dd(s, c, i, j) + dd(s, c, i - 1, j)) * c.ua[q] +
+               (dd(s, c, i, j - 1) + dd(s, c, i - 1, j - 1)) *
+                   ldc(s, c, c.ua, i, j - 1)) *
+              (ldc(s, c, c.va, i - 1, j) + c.va[q]);
+  return (f - adv_tps(s, c, i, j)) * T(0.25) * s.dy4[p];
+}
+
+// v-part fluxva after viscous term and * dx; region 1:, 1:-1
+template <typename T, bool W>
+__device__ T adv_fva6(const ExtArgs<T>& s, const Carry<T, W>& c, int i, int j) {
+  if (i < 1 || i >= s.im || j < 1 || j > s.jm - 2) return T(0);
+  const int p = i * s.jm + j, q = at(s, c, i, j);
+  const T d = dd(s, c, i, j);
+  const T vn = ldc(s, c, c.va, i, j + 1);
+  T f = T(0.125) *
+        ((dd(s, c, i, j + 1) + d) * vn + (d + dd(s, c, i, j - 1)) * c.va[q]) *
+        (vn + c.va[q]);
+  f = f - d * T(2) * s.aam2d[p] * (ldc(s, c, c.vab, i, j + 1) - c.vab[q]) *
+              s.rdy[p];
+  return f * s.dx[p];
+}
+
+// advua and advva at one point (0 off their put region 1:-1, 1:-1); they
+// read d/ua/va/uab/vab only
+template <typename T, bool W>
+__device__ void adv_point(const ExtArgs<T>& s, const Carry<T, W>& c, int i,
+                          int j, T& advua, T& advva) {
+  const bool inside = i >= 1 && i <= s.im - 2 && j >= 1 && j <= s.jm - 2;
+  advua = inside ? adv_fua3(s, c, i, j) - adv_fua3(s, c, i - 1, j) +
+                   adv_fva3(s, c, i, j + 1) - adv_fva3(s, c, i, j)
+             : T(0);
+  advva = inside ? adv_fua6(s, c, i + 1, j) - adv_fua6(s, c, i, j) +
+                   adv_fva6(s, c, i, j) - adv_fva6(s, c, i, j - 1)
+             : T(0);
+}
+
+// ---- depth-mean momentum (advance.f:237-288) ----
+
+// uaf on its put region 1:, 1:-1
+template <typename T, bool W>
+__device__ T uaf_interior(const ExtArgs<T>& s, const Carry<T, W>& c, int i,
+                          int j) {
+  const int p = i * s.jm + j, w = p - s.jm;
+  const int q = at(s, c, i, j), qw = q - rows(s, c);
+  const T d = dd(s, c, i, j), dw = dd(s, c, i - 1, j);
+  const T cori = s.aru[p] * T(0.25) *
+                 (s.cor[p] * d * (c.va[q + 1] + c.va[q]) +
+                  s.corw[p] * dw * (c.va[qw + 1] + c.va[qw]));
+  const T slope = s.ralpha * (c.el[q] - c.el[qw]) +
+                  s.alpha * (c.elb[q] - c.elb[qw] + c.elf[q] - c.elf[qw]) +
+                  s.e_atmos[p] - s.e_atmos[w];
+  const T u1 = s.adx2d[p] + c.advua[q] - cori +
+               s.c025g * s.dyu[p] * (d + dw) * slope + s.drx2d[p] +
+               s.aru[p] * (s.wusurf[p] - s.wubot[p]);
+  return ((s.hu[p] + c.elb[q] + c.elb[qw]) * s.aru[p] * c.uab[q] -
+          s.c4dte * u1) /
+         ((s.hu[p] + c.elf[q] + c.elf[qw]) * s.aru[p]);
+}
+
+// vaf on its put region 1:-1, 1:
+template <typename T, bool W>
+__device__ T vaf_interior(const ExtArgs<T>& s, const Carry<T, W>& c, int i,
+                          int j) {
+  const int p = i * s.jm + j, ps = p - 1;
+  const int q = at(s, c, i, j), qs = q - 1, qe = q + rows(s, c);
+  const T d = dd(s, c, i, j), ds = dd(s, c, i, j - 1);
+  const T cori = s.arv[p] * T(0.25) *
+                 (s.cor[p] * d * (c.ua[qe] + c.ua[q]) +
+                  s.cors[p] * ds * (c.ua[qe - 1] + c.ua[qs]));
+  const T slope = s.ralpha * (c.el[q] - c.el[qs]) +
+                  s.alpha * (c.elb[q] - c.elb[qs] + c.elf[q] - c.elf[qs]) +
+                  s.e_atmos[p] - s.e_atmos[ps];
+  const T v1 = s.ady2d[p] + c.advva[q] + cori +
+               s.c025g * s.dxv[p] * (d + ds) * slope + s.dry2d[p] +
+               s.arv[p] * (s.wvsurf[p] - s.wvbot[p]);
+  return ((s.hv[p] + c.elb[q] + c.elb[qs]) * s.arv[p] * c.vab[q] -
+          s.c4dte * v1) /
+         ((s.hv[p] + c.elf[q] + c.elf[qs]) * s.arv[p]);
+}
+
+// Flather radiation value with d/el read at (i, j): sqrt(g/d) is taken as
+// sqrt((1/d)*g), PyTorch's form of a Python float over a tensor
+template <typename T, bool W>
+__device__ __forceinline__ T flather(const ExtArgs<T>& s, const Carry<T, W>& c,
+                                     int i, int j, T rf, T sign, T vb, T eb) {
+  const T r = rf * sqrt((T(1) / dd(s, c, i, j)) * s.grav);
+  return s.ramp[0] * (vb + sign * (r * (c.el[at(s, c, i, j)] - eb)));
+}
+
+// uaf and vaf at one point, bc_vel2d included, times dum/dvm
+template <typename T, bool W>
+__device__ void velocity_point(const ExtArgs<T>& s, const Carry<T, W>& c, int i,
+                               int j, T& uaf, T& vaf) {
+  const int im = s.im, jm = s.jm;
+  const bool jin = j >= 1 && j <= jm - 2, iin = i >= 1 && i <= im - 2;
+  // uaf: west rows 0/1 and east row im-1 on j in 1..jm-2, then the south
+  // and north columns on i in 1..im-2; the corners keep 0
+  T u = T(0);
+  if (jin) {
+    if (i <= 1)
+      u = flather(s, c, 1, j, s.rfw, T(-1), s.uabw[j], s.elw[j]);
+    else if (i == im - 1)
+      u = flather(s, c, im - 2, j, s.rfe, T(1), s.uabe[j], s.ele[j]);
+    else
+      u = uaf_interior(s, c, i, j);
+  } else if (iin) {
+    u = j == 0 ? s.uabs[i] : s.uabn[i];
+  }
+  // vaf: west/east rows on j in 1..jm-2, then columns 0/1 and jm-1 on
+  // i in 1..im-2
+  T v = T(0);
+  if (iin) {
+    if (j <= 1)
+      v = flather(s, c, i, 1, s.rfs, T(-1), s.vabs[i], s.els[i]);
+    else if (j == jm - 1)
+      v = flather(s, c, i, jm - 2, s.rfn, T(1), s.vabn[i], s.eln[i]);
+    else
+      v = vaf_interior(s, c, i, j);
+  } else if (jin) {
+    v = i == 0 ? s.vabw[j] : s.vabe[j];
+  }
+  const int p = i * jm + j;
+  uaf = u * s.dum[p];
+  vaf = v * s.dvm[p];
+}
+
+// ---- etf tail, Asselin filter, rotation, accumulators (advance.f:295-350)
+
+// etf tail and the egf/utf/vtf accumulators at (i, j); the four fields are
+// whole arrays indexed i*jm + j.  Reads elf/uaf/vaf only, so it may run
+// before or after rotate() at the same point.
+template <typename T, bool W>
+__device__ void accumulate(const ExtArgs<T>& s, const Carry<T, W>& c, int i,
+                           int j, int iext, int isplit, T* etf, T* egf,
+                           T* utf, T* vtf) {
+  const int p = i * s.jm + j, q = at(s, c, i, j);
+  const T elf = c.elf[q], uaf = c.uaf[q], vaf = c.vaf[q];
+  if (iext == isplit - 2)
+    etf[p] = s.qsmoth * elf;
+  else if (iext == isplit - 1)
+    etf[p] = etf[p] + s.tsmoth * elf;
+  else if (iext == isplit)
+    etf[p] = (etf[p] + T(0.5) * elf) * s.fsm[p];
+
+  const T nl = iext != isplit ? T(1) : T(0);
+  egf[p] = egf[p] + nl * elf * s.ispi;
+  // d = h + el with the new el, read from elf (the carry el of a
+  // neighbour may already be rotated)
+  const T d = s.h[p] + elf;
+  if (i >= 1)
+    utf[p] = utf[p] + nl * uaf *
+                          (d + (s.h[p - s.jm] + c.elf[q - rows(s, c)])) *
+                          s.isp2i;
+  if (j >= 1)
+    vtf[p] = vtf[p] + nl * vaf * (d + (s.h[p - 1] + c.elf[q - 1])) * s.isp2i;
+}
+
+// Asselin filter and time-level rotation at array cell q
+template <typename T, bool W>
+__device__ void rotate(const ExtArgs<T>& s, const Carry<T, W>& c, int q) {
+  const T elf = c.elf[q], uaf = c.uaf[q], vaf = c.vaf[q];
+  const T ua = c.ua[q], va = c.va[q], el = c.el[q];
+  c.uab[q] = ua + s.hsmoth * (c.uab[q] - T(2) * ua + uaf);
+  c.vab[q] = va + s.hsmoth * (c.vab[q] - T(2) * va + vaf);
+  c.elb[q] = el + s.hsmoth * (c.elb[q] - T(2) * el + elf);
+  c.ua[q] = uaf;
+  c.va[q] = vaf;
+  c.el[q] = elf;
+}
+
+}  // namespace extpom

@@ -75,6 +75,15 @@ def domain_stats(grid: Grid, cfg: Config, st: State) -> Dict[str, torch.Tensor]:
                 taver=tavg, saver=savg, eaver=eavg, ekin=ekin)
 
 
+def cfl_min(grid: Grid, cfg: Config) -> torch.Tensor:
+    """Minimum external-mode CFL time step over water points
+    (parallel_mpi.f:488-502): 0.5 / sqrt(1/dx^2 + 1/dy^2) / sqrt(g h)."""
+    tps = (0.5 / torch.sqrt(1.0 / grid.dx ** 2 + 1.0 / grid.dy ** 2)
+           / torch.sqrt(cfg.grav * torch.clamp(grid.h, min=1.0e-12)))
+    big = torch.full((), 1.0e30, dtype=tps.dtype, device=tps.device)
+    return torch.min(torch.where(grid.fsm > 0, tps, big))
+
+
 def check_velocity(cfg: Config, vaf: torch.Tensor
                    ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Blow-up detector: (max |vaf|, (i, j) of the max)."""

@@ -6,8 +6,9 @@ first use by :mod:`extpom_tpu_torch.kernels.build`).  Each wrapper counts
 its kernel launches in :data:`LAUNCHES`.
 """
 
-LAUNCHES = {"tridiag": 0, "extloop": 0, "phase_lat": 0, "phase_uvw": 0,
-            "phase_tke": 0, "phase_tracer": 0, "phase_mom": 0}
+LAUNCHES = {"tridiag": 0, "extloop": 0, "extwin": 0, "phase_lat": 0,
+            "phase_uvw": 0, "phase_tke": 0, "phase_tracer": 0,
+            "phase_mom": 0}
 
 
 def reset_launches() -> None:

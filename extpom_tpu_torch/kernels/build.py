@@ -35,6 +35,10 @@ SIGNATURES = {
     # pointer table, parameter table; im, jm, isplit, ispadv; stream
     "extpom_extloop_f32": [_P, _P] + [_I] * 4 + [_P],
     "extpom_extloop_f64": [_P, _P] + [_I] * 4 + [_P],
+    # pointer table, parameter table; im, jm, isplit, ispadv, C, H, ti, tj,
+    # threads; stream
+    "extpom_extwin_f32": [_P, _P] + [_I] * 9 + [_P],
+    "extpom_extwin_f64": [_P, _P] + [_I] * 9 + [_P],
     # pointer table, parameter table; kb, im, jm, two phase options; stream
     **{f"extpom_phase_{ph}_{t}": [_P, _P] + [_I] * 5 + [_P]
        for ph in ("lat", "uvw", "tke", "tracer", "mom")

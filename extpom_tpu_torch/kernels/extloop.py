@@ -41,42 +41,43 @@ def run_external_loop_plain(grid, cfg, c0, fc, aux):
     return c
 
 
-def _check(grid, cfg, c0, fc, aux):
-    """Validate operands before any device dispatch."""
+def check_operands(grid, cfg, c0, fc, aux, what: str = "extloop"):
+    """Validate the operands of an external-loop wrapper before any device
+    dispatch; ``what`` names the wrapper in the errors."""
     im, jm = cfg.im, cfg.jm
     el = c0[0]
     dtype, device = el.dtype, el.device
     if dtype not in _DTYPES:
-        raise TypeError(f"extloop: dtype {dtype} not supported")
+        raise TypeError(f"{what}: dtype {dtype} not supported")
     if len(c0) != len(CARRY_FIELDS) or len(aux) != len(AUX_FIELDS):
-        raise ValueError("extloop: carry or aux has the wrong length")
+        raise ValueError(f"{what}: carry or aux has the wrong length")
     named = (list(zip(CARRY_FIELDS, c0))
              + [(f, getattr(grid, f)) for f in GRID_FIELDS]
              + list(zip(AUX_FIELDS, aux))
              + [(f, getattr(fc, f)) for f in FC_2D_FIELDS])
     for name, x in named:
         if x.shape != (im, jm):
-            raise ValueError(f"extloop: {name} is {tuple(x.shape)}, "
+            raise ValueError(f"{what}: {name} is {tuple(x.shape)}, "
                              f"expected ({im}, {jm})")
     series = ([(f, getattr(fc, f), jm) for f in FC_1D_J]
               + [(f, getattr(fc, f), im) for f in FC_1D_I])
     for name, x, n in series:
         if x.shape != (n,):
-            raise ValueError(f"extloop: {name} is {tuple(x.shape)}, "
+            raise ValueError(f"{what}: {name} is {tuple(x.shape)}, "
                              f"expected ({n},)")
     if fc.ramp.numel() != 1:
-        raise ValueError("extloop: ramp must be a scalar")
+        raise ValueError(f"{what}: ramp must be a scalar")
     for name, x in named + [(f, x) for f, x, _ in series] + [("ramp", fc.ramp)]:
         if x.dtype != dtype or x.device != device:
-            raise TypeError(f"extloop: {name} differs in dtype or device")
+            raise TypeError(f"{what}: {name} differs in dtype or device")
         if not x.is_contiguous():
-            raise ValueError(f"extloop: {name} must be contiguous")
+            raise ValueError(f"{what}: {name} must be contiguous")
 
 
 def run_external_loop(grid, cfg, c0, fc, aux):
     """All isplit substeps; CUDA tensors launch the kernel chain, CPU
     tensors run :func:`run_external_loop_plain`."""
-    _check(grid, cfg, c0, fc, aux)
+    check_operands(grid, cfg, c0, fc, aux)
     device = c0[0].device
     if device.type == "cpu":
         return run_external_loop_plain(grid, cfg, c0, fc, aux)

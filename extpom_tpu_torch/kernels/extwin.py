@@ -1,0 +1,145 @@
+"""Halo-window external loop: the CUDA kernel ``csrc/extwin.cu`` (the
+counterpart of ``extpom_tpu/pallas/extwin.py:_kernel``), its dispatch and
+its plain PyTorch version.
+
+The whole-grid chain of :mod:`extpom_tpu_torch.kernels.extloop` passes over
+every 2-D field three times per substep.  While the loop's working set fits
+the card's L2 those passes are L2 hits; beyond it they stream from device
+memory.  The window kernel runs C substeps per launch on 2-D tiles kept in
+shared memory, so it reads the carry from device memory ``isplit / C``
+times per step instead.  :func:`use_windowed` picks the machine.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
+
+import torch
+
+from extpom_tpu_torch import kernels
+from extpom_tpu_torch.kernels import build, extloop
+from extpom_tpu_torch.kernels.extloop import (
+    CARRY_FIELDS, GRID_FIELDS, AUX_FIELDS, FC_2D_FIELDS, FC_1D_J, FC_1D_I,
+    N_METRICS, N_SUBSTEP)
+
+RADIUS = 2          # cells a substep's new carry reads of the old one
+C_MAX = 2           # substeps per launch, at most
+THREADS = 512       # threads of a window block (csrc/extwin.cu allows 512)
+N_SHARED = 11       # window fields of csrc/extwin.cu in shared memory
+SMEM_BYTES = 232_448    # shared memory a block may use on Hopper (227 KB)
+# fields of (im, jm) the loop keeps live: carry, grid, aux, 2-D forcing,
+# metrics and the substep's elf/uaf/vaf
+N_WORKING = (len(CARRY_FIELDS) + len(GRID_FIELDS) + len(AUX_FIELDS)
+             + len(FC_2D_FIELDS) + N_METRICS + N_SUBSTEP)
+
+
+class Geometry(NamedTuple):
+    """C substeps per launch, halo H, tile (ti, tj), threads per block and
+    the block's shared memory in bytes."""
+    C: int
+    H: int
+    ti: int
+    tj: int
+    threads: int
+    smem: int
+
+
+def chunk_geometry(cfg, itemsize: int) -> Geometry:
+    """The window kernel's geometry for ``cfg`` in a dtype of ``itemsize``
+    bytes: C is the largest divisor of ``isplit`` up to :data:`C_MAX`, H
+    covers C substeps of radius :data:`RADIUS`, and the tile is 16x64 in
+    f32 and 8x32 in f64 (j fastest), the fastest of a sweep of C, tile and
+    block size at 2048x2048 on the H100
+    (``python -m extpom_tpu_torch.tools.extwin_sweep``)."""
+    C = max(c for c in range(1, min(C_MAX, cfg.isplit) + 1)
+            if cfg.isplit % c == 0)
+    H = RADIUS * C
+    ti, tj = (16, 64) if itemsize <= 4 else (8, 32)
+    smem = N_SHARED * (ti + 2 * H) * (tj + 2 * H) * itemsize
+    if smem > SMEM_BYTES:
+        raise ValueError(f"extwin: a {ti}x{tj} tile with halo {H} needs "
+                         f"{smem} bytes of shared memory")
+    return Geometry(C, H, ti, tj, THREADS, smem)
+
+
+def working_set_bytes(im: int, jm: int, itemsize: int) -> int:
+    """Bytes of the external loop's working set: the 2-D fields it keeps
+    live and the 1-D boundary series."""
+    return (N_WORKING * im * jm + len(FC_1D_J) * jm
+            + len(FC_1D_I) * im) * itemsize
+
+
+def use_windowed(im: int, jm: int, itemsize: int, l2_bytes: int) -> bool:
+    """The dispatch: the whole-grid chain while the loop's working set fits
+    the card's L2 (``l2_bytes``), the window kernel beyond it."""
+    return working_set_bytes(im, jm, itemsize) > l2_bytes
+
+
+@functools.lru_cache(maxsize=None)
+def l2_bytes(device: torch.device) -> int:
+    """L2 size of a CUDA device."""
+    return torch.cuda.get_device_properties(device).L2_cache_size
+
+
+def run_external_loop_windowed_plain(grid, cfg, c0, fc, aux):
+    """All isplit substeps in plain PyTorch: the function the window kernel
+    computes, whatever its C."""
+    return extloop.run_external_loop_plain(grid, cfg, c0, fc, aux)
+
+
+def run_external_loop_windowed(grid, cfg, c0, fc, aux, geo=None):
+    """All isplit substeps as isplit/C window launches; CUDA tensors launch
+    the kernel, CPU tensors run :func:`run_external_loop_windowed_plain`.
+    Same contract as ``extloop.run_external_loop``; ``geo`` is the kernel's
+    :class:`Geometry`, :func:`chunk_geometry`'s by default."""
+    extloop.check_operands(grid, cfg, c0, fc, aux, "extwin")
+    device = c0[0].device
+    if device.type == "cpu":
+        return run_external_loop_windowed_plain(grid, cfg, c0, fc, aux)
+    if device.type != "cuda":
+        raise TypeError(f"extwin: unsupported device {device}")
+    if cfg.mode == 2:
+        raise NotImplementedError("extwin kernel: mode=2 is not ported yet")
+    if cfg.bc_scheme == "orlanski":
+        raise NotImplementedError("extwin kernel: bc_scheme='orlanski' "
+                                  "(orl_el/orl_vel2d) is not ported yet")
+    return _launch(grid, cfg, c0, fc, aux, geo)
+
+
+def _launch(grid, cfg, c0, fc, aux, geo):
+    from extpom_tpu_torch.core.stepper import ExtCarry
+    el = c0[0]
+    im, jm = cfg.im, cfg.jm
+    geo = geo or chunk_geometry(cfg, el.element_size())
+    # two carry buffers: each launch reads one and writes the other
+    carry = torch.empty((2, len(CARRY_FIELDS), im, jm), dtype=el.dtype,
+                        device=el.device)
+    for k, x in enumerate(c0):
+        carry[0, k].copy_(x)
+    metrics = torch.empty((N_METRICS, im, jm), dtype=el.dtype,
+                          device=el.device)
+    tensors = ([carry[0], carry[1]]
+               + [getattr(grid, f) for f in GRID_FIELDS]
+               + list(aux)
+               + [getattr(fc, f) for f in FC_2D_FIELDS + FC_1D_J + FC_1D_I]
+               + [fc.ramp]
+               + list(metrics))
+    ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    prm = (ctypes.c_double * 9)(cfg.dte, cfg.grav, cfg.smoth, cfg.alpha,
+                                float(cfg.isplit), cfg.rfe, cfg.rfw,
+                                cfg.rfn, cfg.rfs)
+    lib = build.library()
+    fn = lib.extpom_extwin_f32 if el.dtype == torch.float32 \
+        else lib.extpom_extwin_f64
+    stream = torch.cuda.current_stream(el.device).cuda_stream
+    with torch.cuda.device(el.device):
+        status = fn(ctypes.cast(ptrs, ctypes.c_void_p),
+                    ctypes.cast(prm, ctypes.c_void_p), im, jm, cfg.isplit,
+                    cfg.ispadv, geo.C, geo.H, geo.ti, geo.tj, geo.threads,
+                    stream)
+    build.check(status, "extwin kernel")
+    n_chunks = cfg.isplit // geo.C
+    kernels.LAUNCHES["extwin"] += n_chunks
+    return ExtCarry(*carry[n_chunks % 2].unbind(0))

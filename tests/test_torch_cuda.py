@@ -12,7 +12,7 @@ import torch
 from extpom_tpu_torch import kernels
 from extpom_tpu_torch.cases.seamount import seamount_model
 from extpom_tpu_torch.core import stepper
-from extpom_tpu_torch.kernels import extloop, phases, tridiag
+from extpom_tpu_torch.kernels import extloop, extwin, phases, tridiag
 
 torch.set_num_threads(1)
 
@@ -82,6 +82,89 @@ def test_extloop_kernel_matches_plain(card, dtype):
     want = extloop.run_external_loop_plain(g, cfg, c0, fc, aux)
     for name, a, b in zip(extloop.CARRY_FIELDS, got, want):
         _close(a, b, TOL[dtype] * 10)
+
+
+def _ext_operands(card, im, jm, dtype):
+    """External-loop operands at the second step of a float64 seamount run
+    on the card, cast to ``dtype``: (grid, cfg, carry, forcing, aux)."""
+    m = seamount_model(device=card, im=im, jm=jm, kb=5, dtype="float64")
+    m.run_segment(1)
+    g, cfg, st = m.grid, m.cfg, m.state
+    fc = m.base_forcing.replace(ramp=torch.tensor(0.7, dtype=torch.float64,
+                                                  device=card))
+    rng = np.random.default_rng(11)
+    n2 = lambda s: torch.from_numpy(s * rng.standard_normal((im, jm))).to(card)
+    aam, advx, advy, drhox, drhoy = phases.phase_lat(
+        g, cfg, st.u, st.v, st.ub, st.vb, st.aam, st.rho, m.rmean,
+        g.h + st.et, fc.ramp)
+    out = stepper.mode_interaction(g, cfg, st, aam, advx, advy, drhox,
+                                   drhoy)
+    c0 = stepper.ExtCarry(st.el + n2(1e-2), st.elb, st.ua + n2(5e-2), st.uab,
+                          st.va + n2(5e-2), st.vab, st.etf, out[9], out[10],
+                          out[11], out[5], out[6], out[7], out[8])
+    cast = lambda x: x.to(dtype).contiguous()
+    g = g.__class__(**{k: cast(v) for k, v in vars(g).items()})
+    fc = fc.__class__(**{k: cast(v) for k, v in vars(fc).items()})
+    return (g, cfg.replace(dtype=str(dtype).split(".")[1]),
+            stepper.ExtCarry(*(cast(x) for x in c0)), fc,
+            tuple(cast(x) for x in out[:5]))
+
+
+@pytest.mark.parametrize("ispadv", [1, 2])
+@pytest.mark.parametrize("shape", [(37, 53), (70, 45)])
+def test_extwin_kernel_matches_plain(card, shape, ispadv):
+    g, cfg, c0, fc, aux = _ext_operands(card, *shape, torch.float64)
+    cfg = cfg.replace(ispadv=ispadv)
+    n_chunks = cfg.isplit // extwin.chunk_geometry(cfg, 8).C
+    before = kernels.LAUNCHES["extwin"]
+    got = extwin.run_external_loop_windowed(g, cfg, c0, fc, aux)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["extwin"] == before + n_chunks
+    want = extwin.run_external_loop_windowed_plain(g, cfg, c0, fc, aux)
+    assert kernels.LAUNCHES["extwin"] == before + n_chunks
+    for name, a, b in zip(extloop.CARRY_FIELDS, got, want):
+        assert bool(torch.isfinite(a).all()), name
+        _close(a, b, 1e-10)
+    # the chain and the window share their per-point arithmetic
+    for a, b in zip(got, extloop.run_external_loop(g, cfg, c0, fc, aux)):
+        assert torch.equal(a, b)
+
+
+def test_extwin_kernel_raises(card):
+    g, cfg, c0, fc, aux = _ext_operands(card, 37, 53, torch.float64)
+    with pytest.raises(NotImplementedError):
+        extwin.run_external_loop_windowed(
+            g, cfg.replace(bc_scheme="orlanski"), c0, fc, aux)
+    with pytest.raises(NotImplementedError):
+        extwin.run_external_loop_windowed(g, cfg.replace(mode=2), c0, fc,
+                                          aux)
+    with pytest.raises(TypeError):        # a CPU operand among CUDA ones
+        extwin.run_external_loop_windowed(
+            g, cfg, c0._replace(uab=c0.uab.cpu()), fc, aux)
+    with pytest.raises(TypeError):        # CUDA operands among CPU ones
+        cpu = lambda x: x.cpu()
+        extwin.run_external_loop_windowed(
+            g.__class__(**{k: cpu(v) for k, v in vars(g).items()}), cfg,
+            stepper.ExtCarry(*(cpu(x) for x in c0)),
+            fc.__class__(**{k: cpu(v) for k, v in vars(fc).items()}),
+            aux)
+
+
+def test_window_path_matches_cpu_path(card, monkeypatch):
+    """The model with its external loop forced onto the window kernel on
+    the card against the CPU path, over 3 steps (float64, 40x56x7)."""
+    monkeypatch.setattr(extwin, "use_windowed", lambda *a: True)
+    kw = dict(im=40, jm=56, kb=7, dtype="float64")
+    gpu = seamount_model(device=card, **kw)
+    cpu = seamount_model(device="cpu", **kw)
+    chunks = gpu.cfg.isplit // extwin.chunk_geometry(gpu.cfg, 8).C
+    before = kernels.LAUNCHES["extwin"]
+    gpu.run_segment(3)
+    cpu.run_segment(3)
+    assert kernels.LAUNCHES["extwin"] == before + 3 * chunks
+    for name in cpu.state.field_names():
+        _close(getattr(gpu.state, name).cpu(), getattr(cpu.state, name),
+               1e-10, floor=1.0)
 
 
 def test_card_path_matches_cpu_path(card):

@@ -75,9 +75,12 @@ def test_unported_options_raise(kw):
 def test_kernels_not_built_at_import():
     """Importing the kernel modules builds nothing; the build needs nvcc,
     which only the machine with the card has."""
+    import extpom_tpu_torch.core.dispatch  # noqa: F401
     import extpom_tpu_torch.kernels.extloop  # noqa: F401
+    import extpom_tpu_torch.kernels.extwin  # noqa: F401
     import extpom_tpu_torch.kernels.phases  # noqa: F401
     import extpom_tpu_torch.kernels.tridiag  # noqa: F401
+    import extpom_tpu_torch.tools.extwin_sweep  # noqa: F401
     assert build._lib is None
 
 
