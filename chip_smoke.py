@@ -3,14 +3,17 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``extpom_tpu_torch/csrc``, holds each
-kernel (tridiag, extloop, extwin and the phases lat, uvw, tke, tracer, mom)
-against its plain PyTorch version at the shapes of the paths that run it,
-and drives two paths through ``seamount_model`` / ``Model.run_segment`` on
-the card in float32: the main path (256x256x31, whose external loop is the
-whole-grid chain) and the large-grid path of ``configs/config5_2048.json``
-(2048x2048x41 on one card, whose external loop is the window kernel).  It
-checks the results, prints the dispatch echo of both grids, one ``kernels``
-JSON line, the card's name and power limit, and a last JSON line
+kernel (tridiag, extloop, extwin and the phases lat, uvw, tke, tracer, mom,
+and the decomposed step's block kernels extchunk, extwin_chunk and
+phase_<p>_mesh) against its plain PyTorch version at the shapes of the
+paths that run it, and drives four paths through ``seamount_model`` /
+``Model.run_segment`` on the card in float32: the main path (256x256x31,
+whose external loop is the whole-grid chain), the large-grid path of
+``configs/config5_2048.json`` (2048x2048x41 on one card, whose external
+loop is the window kernel), and each of them decomposed over config5's 2x4
+mesh with every block on the card (``Model.shard``).  It checks the
+results, prints the dispatch echo of the four, one ``kernels`` JSON line,
+the card's name and power limit, and a last JSON line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero; without a CUDA device it exits 1 and prints no result.
 """
@@ -29,6 +32,8 @@ import torch
 IM, JM, KB = 256, 256, 31      # main-path grid
 SEG_WARM, SEG_TIMED = 2, 20    # run_segment lengths of the slice phase
 LARGE_WARM, LARGE_TIMED = 2, 5  # run_segment lengths of the large phase
+# fields the decomposed large-grid run is held to the single-device one on
+LARGE_CHECK = ("el", "ua", "va", "u", "v", "t", "s", "q2")
 ROOT = os.path.dirname(os.path.abspath(__file__))
 LARGE = os.path.join(ROOT, "configs", "config5_2048.json")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM (NVIDIA data sheet)
@@ -47,6 +52,11 @@ PHASE_KERNELS = {"lat": ("::k_lat<",), "uvw": ("::k_uv<", "::k_w<"),
                  "tke": ("::k_column<", "::k_edges<"),
                  "tracer": ("::k_tracer<",),
                  "mom": ("::k_solve<", "::k_final<")}
+# the block kernels of the decomposed step, as the profiler names them
+MESH_KERNELS = {"extchunk": EXT_KERNELS["extloop"],
+                "extwin_chunk": EXT_KERNELS["extwin"],
+                "ext_metrics": EXT_KERNELS["ext_metrics"],
+                **{f"phase_{p}_mesh": PHASE_KERNELS[p] for p in PHASES}}
 # each phase's outputs, in the order it returns them
 PHASE_OUTPUTS = {"lat": ("aam", "advx", "advy", "drhox", "drhoy"),
                  "uvw": ("u", "v", "w"),
@@ -446,7 +456,7 @@ def slice_phase(card: str) -> dict:
     # phases.  The standalone tridiag kernel is not on the path: the phase
     # kernels solve their columns themselves (column.cuh), as the TPU's
     # fused phase kernel does.
-    want = {"extloop": n, "extwin": 0, "tridiag": 0, "phase_lat": n,
+    want = {**dict.fromkeys(launches, 0), "extloop": n, "phase_lat": n,
             "phase_uvw": n - 1, "phase_tke": n - 1, "phase_tracer": n - 1,
             "phase_mom": n - 1}
     if launches != want:
@@ -470,12 +480,14 @@ def slice_phase(card: str) -> dict:
     return launches
 
 
-def profile_phase(m, steps: int = 3, tag: str = "profile") -> None:
-    """Where a step's time goes: device time by kernel group from
-    torch.profiler over ``steps`` steps, against the host wall clock."""
+def profile_phase(m, steps: int = 3, tag: str = "profile",
+                  groups=None) -> None:
+    """Where a step's time goes: device time by kernel group (``groups``,
+    the single-device kernels by default) from torch.profiler over
+    ``steps`` steps, against the host wall clock."""
     from torch.profiler import ProfilerActivity, profile
-    groups = {**EXT_KERNELS, "tridiag": ("thomas_kernel",),
-              **{f"phase_{p}": PHASE_KERNELS[p] for p in PHASES}}
+    groups = groups or {**EXT_KERNELS, "tridiag": ("thomas_kernel",),
+                        **{f"phase_{p}": PHASE_KERNELS[p] for p in PHASES}}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -503,19 +515,21 @@ def profile_phase(m, steps: int = 3, tag: str = "profile") -> None:
         plain_torch_kernels_per_step=n_other // steps)
 
 
-def parts_phase(m, steps: int = 3, tag: str = "parts") -> None:
+def parts_phase(m, steps: int = 3, tag: str = "parts", parts=None) -> None:
     """Wall time of a step by part: each part that ``stepper.step`` calls
-    is wrapped so that the card is synchronized before and after it, and
-    the host clock time in between is summed.  The synchronizations take
-    away the overlap of host and card, so the parts of a wrapped step add up
-    to at least the unwrapped step's time."""
+    (or ``stepper.mesh_step``, given its ``parts``) is wrapped so that the
+    card is synchronized before and after it, and the host clock time in
+    between is summed.  The synchronizations take away the overlap of host
+    and card, so the parts of a wrapped step add up to at least the
+    unwrapped step's time."""
     from extpom_tpu_torch.core import stepper
     from extpom_tpu_torch.kernels import extloop, extwin, phases
-    parts = [(phases, "phase_lat"), (stepper, "mode_interaction"),
-             (extloop, "run_external_loop"),
-             (extwin, "run_external_loop_windowed"), (phases, "phase_uvw"),
-             (phases, "phase_tke"), (phases, "phase_tracer"),
-             (phases, "phase_mom")]
+    parts = parts or [
+        (phases, "phase_lat"), (stepper, "mode_interaction"),
+        (extloop, "run_external_loop"),
+        (extwin, "run_external_loop_windowed"), (phases, "phase_uvw"),
+        (phases, "phase_tke"), (phases, "phase_tracer"),
+        (phases, "phase_mom")]
     spent = dict.fromkeys((name for _, name in parts), 0.0)
 
     def timed(name, fn):
@@ -576,7 +590,8 @@ def large_phase(card: str):
     ``seamount_model`` / ``Model.run_segment``, LARGE_WARM steps from a cold
     start, then LARGE_TIMED timed steps; the launch counts cover all of
     them.  Between the two, the external loop's operands of the next step
-    are kept for ``extwin_phase``.  Returns (launches, those operands)."""
+    are kept for ``extwin_phase``.  Returns (launches, those operands, the
+    LARGE_CHECK fields after the timed steps, on the host)."""
     from extpom_tpu_torch import kernels
     from extpom_tpu_torch.cases.seamount import seamount_model
     from extpom_tpu_torch.diag import stats
@@ -591,8 +606,7 @@ def large_phase(card: str):
     say("large", config=os.path.relpath(LARGE, ROOT),
         grid=f"{cfg.im}x{cfg.jm}x{cfg.kb}", dtype=cfg.dtype,
         isplit=cfg.isplit, setup_s=f"{setup_s:.1f}",
-        not_applied="'mesh and distributed blocks: multi-GPU is not "
-                    "ported yet'")
+        not_applied="'mesh block (see [large_mesh]) and distributed block'")
     kernels.reset_launches()
     m.run_segment(LARGE_WARM)
     torch.cuda.synchronize()
@@ -607,7 +621,7 @@ def large_phase(card: str):
     peak = torch.cuda.max_memory_allocated()
     n = LARGE_WARM + LARGE_TIMED
     chunks = cfg.isplit // extwin.chunk_geometry(cfg, 4).C
-    want = {"extloop": 0, "extwin": n * chunks, "tridiag": 0,
+    want = {**dict.fromkeys(launches, 0), "extwin": n * chunks,
             "phase_lat": n, "phase_uvw": n - 1, "phase_tke": n - 1,
             "phase_tracer": n - 1, "phase_mom": n - 1}
     if launches != want:
@@ -629,9 +643,10 @@ def large_phase(card: str):
         peak_mem_gb=f"{peak / 1e9:.3f}",
         launches=json.dumps(launches, separators=(",", ":")),
         card=f"'{card}'")
+    ref = {f: getattr(m.state, f).cpu() for f in LARGE_CHECK}
     profile_phase(m, steps=2, tag="large_profile")
     parts_phase(m, steps=2, tag="large_parts")
-    return launches, ops
+    return launches, ops, ref
 
 
 def extwin_phase(flush: L2Flush, large) -> dict:
@@ -720,11 +735,435 @@ def extwin_phase(flush: L2Flush, large) -> dict:
     return entry
 
 
-def dispatch_echo(*cfgs) -> None:
-    """The dispatch report of each configuration in float32 on the card."""
+# ---------------------------------------------------------------------------
+# the decomposed step (Model.shard over config5's mesh, every block on the
+# card)
+# ---------------------------------------------------------------------------
+
+
+def mesh_of(run: dict):
+    """The ``Mesh`` of a run file's mesh block, every block on the card."""
+    from extpom_tpu_torch.mesh.shardmap import Mesh
+    if run["mesh"].get("mode", "shardmap") != "shardmap":
+        raise AssertionError(f"mesh mode {run['mesh']['mode']!r}")
+    return Mesh(run["mesh"]["px"], run["mesh"]["py"], device="cuda")
+
+
+def record_calls(steps_fn):
+    """Every call of a block-kernel wrapper that ``steps_fn()`` makes, as
+    {"lat", ..., "mom", "chunk": [(args, kwargs)]}: the wrappers pass
+    through, the operands are kept."""
+    from extpom_tpu_torch.kernels import extloop, phases
+    calls = {}
+    saved = [(phases, f"phase_{p}", p) for p in PHASES]
+    saved.append((extloop, "run_external_chunk", "chunk"))
+    fns = [getattr(mod, name) for mod, name, _ in saved]
+
+    def spy(key, fn):
+        def wrapper(*a, **k):
+            calls.setdefault(key, []).append((a, k))
+            return fn(*a, **k)
+        return wrapper
+
+    try:
+        for (mod, name, key), fn in zip(saved, fns):
+            setattr(mod, name, spy(key, fn))
+        steps_fn()
+    finally:
+        for (mod, name, _), fn in zip(saved, fns):
+            setattr(mod, name, fn)
+    return calls
+
+
+def ring_of(blocks, shape) -> tuple:
+    """The ring (hx, hy) of a ring-extended (.., R, L) block."""
+    return ((shape[-2] - blocks.ni) // 2, (shape[-1] - blocks.nj) // 2)
+
+
+def trim_to(blocks, x: torch.Tensor) -> torch.Tensor:
+    """The block's own cells of a ring-extended (.., R, L) tensor."""
+    return blocks.trim(x, ring_of(blocks, x.shape))
+
+
+def block_at(blocks, shape, off) -> tuple:
+    """The block whose extension by the ring of ``shape`` starts at global
+    ``off``."""
+    hx, hy = ring_of(blocks, shape)
+    return ((off[0] + hx) // blocks.ni, (off[1] + hy) // blocks.nj)
+
+
+def cast_any(x, dtype):
+    """``cast`` of a tensor, Grid or Forcing, through the carry and the aux
+    tuple; other values (the Config, ints) as they are."""
+    from extpom_tpu_torch.core.grid import Grid
+    from extpom_tpu_torch.core.state import Forcing
+    if isinstance(x, (torch.Tensor, Grid, Forcing)):
+        return cast(x, dtype)
+    if hasattr(x, "_fields"):
+        return type(x)(*(cast_any(y, dtype) for y in x))
+    if isinstance(x, tuple):
+        return tuple(cast_any(y, dtype) for y in x)
+    return x
+
+
+def chunk_bound(c, C: int, item: int, dtype) -> tuple:
+    """(bound ms, bound_by) of C substeps on an (R, L) block: the chain's
+    operands read once and the carry written once, or its operations."""
+    R, L = c.el.shape
+    n = R * L
+    nbytes = ((34 + 14) * n + 6 * L + 6 * R + 1) * item
+    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops = EXTLOOP_FLOPS_PER_POINT * C * n / PEAK_FLOPS[dtype] * 1e3
+    return (max(bound_bytes, bound_ops),
+            "bytes" if bound_bytes >= bound_ops else "operations")
+
+
+def block_call(kind: str, args, kw):
+    """(kernel, plain version, block shape (R, L), global offset) of one
+    recorded wrapper call; ``kind`` is a phase, ``extchunk`` or
+    ``extwin_chunk``."""
+    from extpom_tpu_torch.kernels import extloop, extwin, phases
+    if kind in PHASES:
+        g, cfg, *rest = args
+        kernel = lambda: getattr(phases, f"phase_{kind}")(g, cfg, *rest,
+                                                          **kw)
+        plain = lambda: phases._plain(kind, g, cfg, rest, kw["off"])
+        return kernel, plain, rest[0].shape[-2:], kw["off"]
+    wrapper = (extloop.run_external_chunk if kind == "extchunk"
+               else extwin.run_external_chunk_windowed)
+    kernel = lambda: wrapper(*args)
+    plain = lambda: extloop.run_external_chunk_plain(*args)
+    return kernel, plain, args[2].el.shape, args[7]
+
+
+def mesh_kernels_phase(flush: L2Flush) -> tuple:
+    """The block kernels against their plain versions on the card, in
+    float64 and float32, on every block's operands of the third step of the
+    main path decomposed 2x4 (256x256x31 f64 seamount; blocks 128x64, phase
+    rings of 8, chunks of C=10 substeps on rings of 30), each output to its
+    own scale on the block's own cells; the window kernel (whose main path
+    is [large_mesh]) on the chunk operands too.  Times each kernel on block
+    (0, 1) in float32.  Then holds the f64 decomposed run after 3 steps to
+    the single-device one.  Returns ({kernel: entry}, worst f64 error)."""
+    from extpom_tpu_torch.cases.seamount import seamount_model
+    with open(LARGE) as f:
+        mesh = mesh_of(json.load(f))
+    kw = dict(im=IM, jm=JM, kb=KB, dtype="float64")
+    m = seamount_model(**kw).shard(mesh)
+    m.run_segment(2)
+    calls = record_calls(lambda: m.run_segment(1))
+    blocks = m.blocks
+    target = (0, 1)
+    kinds = [(p, calls[p]) for p in PHASES] + [
+        ("extchunk", calls["chunk"]), ("extwin_chunk", calls["chunk"])]
+    entries, failed = {}, []
+    for kind, recorded in kinds:
+        name = kind if kind.startswith("ext") else f"phase_{kind}_mesh"
+        for dtype in (torch.float64, torch.float32):
+            item = torch.finfo(dtype).bits // 8
+            tol = TOL["phase" if kind in PHASES else "extloop"][dtype]
+            worst, timed = (0.0, 0.0, "none"), None
+            for args, k in recorded:
+                args = [cast_any(x, dtype) for x in args]
+                args[1] = args[1].replace(dtype=str(dtype).split(".")[1])
+                kernel, plain, shape, off = block_call(kind, args, k)
+                got, want = kernel(), plain()
+                torch.cuda.synchronize()
+                for i, (a, b) in enumerate(zip(got, want)):
+                    a, b = trim_to(blocks, a), trim_to(blocks, b)
+                    err, rel = rel_err(a, b)
+                    if rel >= worst[1]:
+                        worst = (err, rel, i)
+                    if not bool(torch.isfinite(a).all()) or not rel <= tol:
+                        failed.append(f"{name} {dtype} output {i}: {rel}")
+                if (dtype == torch.float32 and timed is None
+                        and block_at(blocks, shape, off) == target):
+                    timed = (kernel, plain, args, got)
+            line = dict(kernel=name, dtype=str(dtype).split(".")[1],
+                        calls=len(recorded), max_abs_err=f"{worst[0]:.3e}",
+                        rel_err=f"{worst[1]:.3e}", worst_output=worst[2],
+                        tol=tol)
+            if dtype == torch.float64:
+                entries[name] = {"f64_max_abs_err": worst[0]}
+            else:
+                kernel, plain, args, got = timed
+                ms = device_ms(kernel, 20, flush)
+                wall_ms = call_ms(kernel, 20, flush)
+                plain_ms = device_ms(plain, 3, flush)
+                if kind in PHASES:
+                    from extpom_tpu_torch.kernels import phases
+                    ins = phases.kernel_inputs(kind, *args)
+                    nbytes = sum(x.numel() for x in ins + list(got)) * item
+                    bb = nbytes / HBM_BYTES_PER_S * 1e3
+                    bo = (PHASE_FLOPS_PER_POINT[kind] * got[0].numel()
+                          / PEAK_FLOPS[dtype] * 1e3)
+                    bound, by = max(bb, bo), ("bytes" if bb >= bo
+                                              else "operations")
+                    shape = "x".join(map(str, got[0].shape))
+                else:
+                    bound, by = chunk_bound(args[2], args[5], item, dtype)
+                    shape = "x".join(map(str, shape))
+                line.update(block=f"'{target} {shape}'", ms=f"{ms:.5f}",
+                            call_ms=f"{wall_ms:.5f}",
+                            plain_ms=f"{plain_ms:.4f}",
+                            bound_ms=f"{bound:.5f}")
+                entries[name].update(max_abs_err=worst[0], ms=ms,
+                                     call_ms=wall_ms, plain_ms=plain_ms,
+                                     bound_ms=bound, bound_by=by,
+                                     shape=shape)
+            say("mesh_kernels", **line)
+    if failed:
+        raise AssertionError("block kernels disagree with their plain "
+                             "versions:\n" + "\n".join(failed))
+    # the f64 decomposed run (3 steps, the kernels above) against the
+    # single-device run
+    ref = seamount_model(**kw)
+    ref.run_segment(3)
+    st = m.gathered_state()
+    worst = (0.0, "none")
+    for f in st.field_names():
+        _, rel = rel_err(getattr(st, f), getattr(ref.state, f))
+        if not rel <= 1e-10:
+            raise AssertionError(f"mesh f64 vs single device, {f}: {rel}")
+        if rel >= worst[0]:
+            worst = (rel, f)
+    say("mesh_f64", grid=f"{IM}x{JM}x{KB}", mesh=f"{mesh.px}x{mesh.py}",
+        steps=3, worst_rel_err=f"{worst[0]:.3e}", worst_field=worst[1],
+        tol="1e-10")
+    return entries, worst[0]
+
+
+def chunk_plan(m):
+    """The external loop's chunk plan of a decomposed model on the card."""
+    from extpom_tpu_torch.mesh import extchunk
+    b = m.blocks
+    return extchunk.chunk_plan(m.cfg, b.px, b.py, b.ni, b.nj, "cuda",
+                               m.grid.h.element_size())
+
+
+def mesh_parts():
+    """The parts of ``stepper.mesh_step`` that ``parts_phase`` times."""
+    from extpom_tpu_torch.core import stepper
+    from extpom_tpu_torch.kernels import extloop, extwin, phases
+    from extpom_tpu_torch.mesh import shardmap
+    return [(phases, "phase_lat"), (stepper, "depth_integrals"),
+            (stepper, "interaction_2d"), (extloop, "run_external_chunk"),
+            (extwin, "run_external_chunk_windowed"), (phases, "phase_uvw"),
+            (phases, "phase_tke"), (phases, "phase_tracer"),
+            (phases, "phase_mom"), (shardmap, "_ring_extend"),
+            (shardmap.Blocks, "trim")]
+
+
+def mesh_phase(card: str) -> dict:
+    """The main path decomposed: 256x256x31 float32 on config5's 2x4 mesh,
+    every block on the card, SEG_WARM + SEG_TIMED steps from a cold start
+    through ``Model.shard`` / ``Model.run_segment``; then the same steps on
+    one device, against which every field is held (1e-5 of its scale)."""
+    from extpom_tpu_torch import kernels
+    from extpom_tpu_torch.cases.seamount import seamount_model
+    from extpom_tpu_torch.diag import stats
+    with open(LARGE) as f:
+        mesh = mesh_of(json.load(f))
+    m = seamount_model(im=IM, jm=JM, kb=KB).shard(mesh)     # float32
+    nb = mesh.px * mesh.py
+    kernels.reset_launches()
+    m.run_segment(SEG_WARM)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m.run_segment(SEG_TIMED)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    n = SEG_WARM + SEG_TIMED
+    chunks = nb * m.cfg.isplit // chunk_plan(m).C
+    want = {**dict.fromkeys(launches, 0), "extchunk": n * chunks,
+            "phase_lat_mesh": n * nb,
+            **{f"phase_{p}_mesh": (n - 1) * nb for p in PHASES[1:]}}
+    if launches != want:
+        raise AssertionError(f"mesh: launch counts {launches} != {want}")
+    st = m.gathered_state()
+    ref = seamount_model(im=IM, jm=JM, kb=KB)
+    ref.run_segment(n)
+    worst, equal = (0.0, "none"), True
+    for f in st.field_names():
+        a, b = getattr(st, f), getattr(ref.state, f)
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"mesh: state field {f} is not finite")
+        _, rel = rel_err(a, b)
+        equal = equal and torch.equal(a, b)
+        if not rel <= TOL["phase"][torch.float32]:
+            raise AssertionError(f"mesh vs single device, {f}: {rel}")
+        if rel >= worst[0]:
+            worst = (rel, f)
+    s = {k: float(v) for k, v in
+         stats.domain_stats(m.grid, m.cfg, st).items()}
+    if not abs(s["saver"] - 15.0) <= 1e-4:
+        raise AssertionError(f"mesh: saver drifted: {s['saver']}")
+    del st, ref
+    say("mesh", grid=f"{IM}x{JM}x{KB}", mesh=f"{mesh.px}x{mesh.py}",
+        local_tile=f"{m.blocks.ni}x{m.blocks.nj}x{KB}", dtype="float32",
+        steps=n, timed_steps=SEG_TIMED,
+        ms_per_step=f"{wall / SEG_TIMED * 1e3:.3f}",
+        grid_point_steps_per_s=f"{IM * JM * KB * SEG_TIMED / wall:.4e}",
+        saver=f"{s['saver']:.7f}", taver=f"{s['taver']:.7f}",
+        vs_single_device_max_rel_err=f"{worst[0]:.3e}",
+        worst_field=worst[1], bit_equal=equal,
+        launches=json.dumps(launches, separators=(",", ":")),
+        card=f"'{card}'")
+    profile_phase(m, tag="mesh_profile", groups=MESH_KERNELS)
+    parts_phase(m, tag="mesh_parts", parts=mesh_parts())
+    return launches
+
+
+def large_mesh_phase(card: str, flush: L2Flush, large_ref: dict):
+    """The large-grid path decomposed: configs/config5_2048.json's case,
+    config and mesh blocks (2048x2048x41 float32 on 2x4, blocks
+    1024x512x41, every block on the card), LARGE_WARM + LARGE_TIMED steps;
+    held to ``large_ref``, the single-device run's LARGE_CHECK fields after
+    the same steps (1e-5 of each field's scale).  The distributed block is
+    not applied.  On block (0, 1)'s first window chunk of the second step
+    it holds the window kernel to its plain version (f64 and f32) and times
+    it.  Returns (launches, the window kernel's entry)."""
+    from extpom_tpu_torch import kernels
+    from extpom_tpu_torch.cases.seamount import seamount_model
+    from extpom_tpu_torch.diag import stats
+    from extpom_tpu_torch.kernels import extwin
+    from extpom_tpu_torch.mesh import shardmap
+    with open(LARGE) as f:
+        run = json.load(f)
+    mesh = mesh_of(run)
+    nb = mesh.px * mesh.py
+    t0 = time.perf_counter()
+    m = seamount_model(**run["case_args"], **run["config"]).shard(mesh)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    cfg, blocks = m.cfg, m.blocks
+    say("large_mesh", config=os.path.relpath(LARGE, ROOT),
+        grid=f"{cfg.im}x{cfg.jm}x{cfg.kb}", mesh=f"{mesh.px}x{mesh.py}",
+        local_tile=f"{blocks.ni}x{blocks.nj}x{cfg.kb}", dtype=cfg.dtype,
+        setup_s=f"{setup_s:.1f}",
+        not_applied="'distributed block: every block on one card'")
+    kept = []
+    orig = extwin.run_external_chunk_windowed
+
+    def keep(*a, **k):
+        # the operands of block (0, 1)'s first chunk of each warm step
+        if a[6] == 1 and block_at(blocks, a[2].el.shape, a[7]) == (0, 1):
+            kept.append(a)
+        return orig(*a, **k)
+
+    kernels.reset_launches()
+    extwin.run_external_chunk_windowed = keep
+    try:
+        m.run_segment(LARGE_WARM)
+    finally:
+        extwin.run_external_chunk_windowed = orig
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m.run_segment(LARGE_TIMED)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(kernels.LAUNCHES)
+    n = LARGE_WARM + LARGE_TIMED
+    chunks = nb * cfg.isplit // chunk_plan(m).C
+    want = {**dict.fromkeys(launches, 0), "extwin_chunk": n * chunks,
+            "phase_lat_mesh": n * nb,
+            **{f"phase_{p}_mesh": (n - 1) * nb for p in PHASES[1:]}}
+    if launches != want:
+        raise AssertionError(f"large_mesh: launch counts {launches} != "
+                             f"{want}")
+    worst, equal = (0.0, "none"), True
+    for f in LARGE_CHECK:
+        a = shardmap.gather(blocks, blocks.field(f)).cpu()
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"large_mesh: {f} is not finite")
+        _, rel = rel_err(a, large_ref[f])
+        equal = equal and torch.equal(a, large_ref[f])
+        if not rel <= TOL["phase"][torch.float32]:
+            raise AssertionError(f"large_mesh vs large, {f}: {rel}")
+        if rel >= worst[0]:
+            worst = (rel, f)
+    st = m.gathered_state()
+    for f in st.field_names():
+        if not bool(torch.isfinite(getattr(st, f)).all()):
+            raise AssertionError(f"large_mesh: state field {f} not finite")
+    s = {k: float(v) for k, v in stats.domain_stats(m.grid, cfg, st).items()}
+    del st
+    if not abs(s["saver"] - 15.0) <= 1e-4:
+        raise AssertionError(f"large_mesh: saver drifted: {s['saver']}")
+    if not peak < 80e9:
+        raise AssertionError(f"large_mesh: peak memory {peak}")
+    points = cfg.im * cfg.jm * cfg.kb
+    say("large_mesh", steps=n, timed_steps=LARGE_TIMED,
+        ms_per_step=f"{wall / LARGE_TIMED * 1e3:.3f}",
+        grid_point_steps_per_s=f"{points * LARGE_TIMED / wall:.4e}",
+        saver=f"{s['saver']:.7f}", taver=f"{s['taver']:.7f}",
+        peak_mem_gb=f"{peak / 1e9:.3f}",
+        vs_large_max_rel_err=f"{worst[0]:.3e}", worst_field=worst[1],
+        bit_equal=equal,
+        launches=json.dumps(launches, separators=(",", ":")),
+        card=f"'{card}'")
+    entry = window_chunk_check(flush, blocks, kept[-1])
+    del kept
+    profile_phase(m, steps=2, tag="large_mesh_profile", groups=MESH_KERNELS)
+    parts_phase(m, steps=2, tag="large_mesh_parts", parts=mesh_parts())
+    return launches, entry
+
+
+def window_chunk_check(flush: L2Flush, blocks, args) -> dict:
+    """The window kernel on one block of [large_mesh] against its plain
+    version in f64 and f32 on the block's own cells, and its time in f32."""
+    from extpom_tpu_torch.kernels import extloop, extwin
+    entry = {}
+    _, cfg0, c, _, _, C, iext0, _ = args
+    R, L = c.el.shape
+    for dtype in (torch.float64, torch.float32):
+        item = torch.finfo(dtype).bits // 8
+        a = [cast_any(x, dtype) for x in args]
+        a[1] = cfg0.replace(dtype=str(dtype).split(".")[1])
+        run = lambda: extwin.run_external_chunk_windowed(*a)
+        plain = lambda: extloop.run_external_chunk_plain(*a)
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        worst = (0.0, 0.0, 0)
+        for i, (x, y) in enumerate(zip(got, want)):
+            x, y = trim_to(blocks, x), trim_to(blocks, y)
+            err, rel = rel_err(x, y)
+            if rel >= worst[1]:
+                worst = (err, rel, i)
+            tol = TOL["extloop"][dtype]
+            if not bool(torch.isfinite(x).all()) or not rel <= tol:
+                raise AssertionError(f"extwin_chunk disagrees with the "
+                                     f"plain chunk, output {i}: {rel} > "
+                                     f"{tol} ({dtype})")
+        line = dict(kernel="extwin_chunk", dtype=str(dtype).split(".")[1],
+                    block=f"'(0, 1) {R}x{L}'",
+                    C=C, iext0=iext0, max_abs_err=f"{worst[0]:.3e}",
+                    rel_err=f"{worst[1]:.3e}", worst_output=worst[2])
+        if dtype == torch.float64:
+            entry["f64_max_abs_err"] = worst[0]
+        else:
+            ms = device_ms(run, 10, flush)
+            wall_ms = call_ms(run, 10, flush)
+            plain_ms = device_ms(plain, 2, flush)
+            bound, by = chunk_bound(a[2], C, item, dtype)
+            line.update(ms=f"{ms:.4f}", call_ms=f"{wall_ms:.4f}",
+                        plain_ms=f"{plain_ms:.3f}", bound_ms=f"{bound:.5f}")
+            entry.update(max_abs_err=worst[0], ms=ms, call_ms=wall_ms,
+                         plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                         shape=f"{R}x{L}")
+        say("mesh_kernels", **line)
+    return entry
+
+
+def dispatch_echo(*runs) -> None:
+    """The dispatch report of each (configuration, mesh block or None) in
+    float32 on the card."""
     from extpom_tpu_torch.core import dispatch
-    for cfg in cfgs:
-        rep = dispatch.dispatch_report(cfg, torch.float32, "cuda")
+    for cfg, mesh in runs:
+        rep = dispatch.dispatch_report(cfg, torch.float32, "cuda", mesh=mesh)
         for line in dispatch.format_report(rep).splitlines():
             print("[dispatch] " + line.strip(), flush=True)
 
@@ -753,12 +1192,23 @@ def main() -> int:
     golden_phase()
     nonsquare_phase()
     launches = slice_phase(card)
-    large_launches, large_ops = large_phase(card)
+    large_launches, large_ops, large_ref = large_phase(card)
     win = extwin_phase(flush, large_ops)
-    dispatch_echo(cfg.replace(dtype="float32"), large_ops[1])
+    large_cfg = large_ops[1]
     del large_ops
-    paths = {"slice_256": launches, "large_2048": large_launches}
+    mesh_k, _ = mesh_kernels_phase(flush)
+    mesh_launches = mesh_phase(card)
+    large_mesh_launches, win_chunk = large_mesh_phase(card, flush, large_ref)
+    del large_ref
+    with open(LARGE) as f:
+        mesh_block = json.load(f)["mesh"]
+    dispatch_echo((cfg.replace(dtype="float32"), None), (large_cfg, None),
+                  (cfg.replace(dtype="float32"), mesh_block),
+                  (large_cfg, mesh_block))
+    paths = {"slice_256": launches, "large_2048": large_launches,
+             "mesh_256": mesh_launches, "mesh_2048": large_mesh_launches}
     by_path = lambda k: {p: c[k] for p, c in paths.items()}
+    mesh_k["extwin_chunk"] = win_chunk
 
     kernels_line = {"kernels": [
         dict(name="tridiag", route="cuda",
@@ -783,6 +1233,26 @@ def main() -> int:
              launches=launches[f"phase_{p}"],
              launches_by_path=by_path(f"phase_{p}"), library_ms=None,
              **phs[p])
+        for p in PHASES] + [
+        dict(name="extchunk", route="cuda",
+             source="extpom_tpu_torch/csrc/extloop.cu",
+             replaces="extpom_tpu/pallas/extloop.py:137",
+             launches=mesh_launches["extchunk"],
+             launches_by_path=by_path("extchunk"), library_ms=None,
+             **mesh_k["extchunk"]),
+        dict(name="extwin_chunk", route="cuda",
+             source="extpom_tpu_torch/csrc/extwin.cu",
+             replaces="extpom_tpu/pallas/extwin.py:112",
+             launches=large_mesh_launches["extwin_chunk"],
+             launches_by_path=by_path("extwin_chunk"), library_ms=None,
+             **mesh_k["extwin_chunk"]),
+    ] + [
+        dict(name=f"phase_{p}_mesh", route="cuda",
+             source=f"extpom_tpu_torch/csrc/phase_{p}.cu",
+             replaces="extpom_tpu/pallas/phases.py:315",
+             launches=mesh_launches[f"phase_{p}_mesh"],
+             launches_by_path=by_path(f"phase_{p}_mesh"), library_ms=None,
+             **mesh_k[f"phase_{p}_mesh"])
         for p in PHASES]}
     print(json.dumps(kernels_line), flush=True)
     print(card, flush=True)

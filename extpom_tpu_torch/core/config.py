@@ -1,9 +1,12 @@
 """Run configuration: the physics and numerics fields of the reference's
 namelist (``extpom_tpu/core/config.py``), with the same names and defaults.
 
-The TPU schedule knobs of the JAX package (``pallas_*``, ``phase_*``,
-``extwin_*``, ``scan_unroll``, ``ext_unroll``, ...) have no counterpart: the
-port dispatches by the tensors' device.
+The TPU schedule knobs of the JAX package (``pallas_*``, ``phase_block``,
+``extwin_budget_mb``, ``scan_unroll``, ``ext_unroll``, ...) have no
+counterpart: the port dispatches by the tensors' device.  It keeps the ring
+widths and chunking of the decomposed step (``phase_halo``,
+``ext_halo_sub``, ``extwin_chunk``, ``ext_local_chunk``), which set what it
+computes on each block, not only how fast.
 """
 
 from __future__ import annotations
@@ -77,6 +80,14 @@ class Config:
     # -- numerics --
     dtype: str = "float32"
 
+    # -- decomposed step (mesh/shardmap.py, mesh/extchunk.py) --
+    phase_halo: int = 8        # ring cells per split side for the phases
+                               # (>= the chained stencil radius of any one)
+    extwin_chunk: int = 10     # external substeps per ring exchange, at most
+    ext_local_chunk: str = "auto"   # "off": one substep per exchange
+    ext_halo_sub: int = 3      # ring cells a substep consumes (radius 2,
+                               # + 1 for the metrics of ext_precompute)
+
     # derived quantities (initialize.f:177-191)
     @property
     def dti(self) -> float:
@@ -148,6 +159,8 @@ class Config:
             raise ValueError(f"invalid bc_scheme {self.bc_scheme}")
         if self.dtype not in ("float32", "float64"):
             raise ValueError(f"invalid dtype {self.dtype}")
+        if self.ext_local_chunk not in ("auto", "off"):
+            raise ValueError(f"invalid ext_local_chunk {self.ext_local_chunk}")
         if self.kb < 3 or self.im < 5 or self.jm < 5:
             raise ValueError("domain too small")
         if self.im_act not in (None, self.im) or self.jm_act not in (None, self.jm):

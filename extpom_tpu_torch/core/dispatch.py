@@ -1,5 +1,6 @@
-"""Which machine each model component gets (``extpom_tpu/core/dispatch.py``,
-single-device part).
+"""Which machine each model component gets (``extpom_tpu/core/dispatch.py``):
+on one device, and for the decomposed step on a mesh whose blocks share
+one device.
 
 :func:`dispatch_report` computes the decisions the step takes for a
 configuration, dtype and device without running anything, and
@@ -8,27 +9,29 @@ configuration, dtype and device without running anything, and
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 
 from extpom_tpu_torch.core.config import Config
-from extpom_tpu_torch.kernels import extwin
-
-PHASES = ("lat", "uvw", "tke", "tracer", "mom")
+from extpom_tpu_torch.kernels import PHASES, extwin
 
 
 def dispatch_report(cfg: Config, dtype: torch.dtype, device,
-                    mesh: Optional[dict] = None) -> dict:
+                    mesh=None) -> dict:
     """The machine of the external loop and of each phase for ``cfg`` in
     ``dtype`` on ``device``: on the card the external loop is the
     whole-grid chain (``cuda-chain``) or the window kernel (``cuda-window``,
     with its C, H and tile), the phases ``cuda``; on the CPU everything is
-    ``plain``.  ``mesh`` is a run file's mesh block; multi-GPU runs are not
-    ported yet, so any mesh raises."""
-    if mesh is not None:
-        raise NotImplementedError("multi-GPU meshes are not ported yet")
+    ``plain``.  ``mesh`` is a run file's mesh block ({"px", "py", "mode"})
+    or a ``mesh.shardmap.Mesh``: a mesh of more than one block reports the
+    decomposed step (:func:`_mesh_report`); a 1x1 mesh runs the
+    single-device path."""
     device = torch.device(device)
+    if device.type not in ("cuda", "cpu"):
+        raise TypeError(f"dispatch: unsupported device {device}")
+    if mesh is not None:
+        px, py, mode = _mesh_shape(mesh)
+        if px * py > 1:
+            return _mesh_report(cfg, dtype, device, px, py)
     if device.type == "cuda":
         itemsize = torch.empty((), dtype=dtype).element_size()
         if extwin.use_windowed(cfg.im, cfg.jm, itemsize,
@@ -40,13 +43,57 @@ def dispatch_report(cfg: Config, dtype: torch.dtype, device,
         else:
             external = {"machine": "cuda-chain"}
         phase = "cuda"
-    elif device.type == "cpu":
-        external, phase = {"machine": "plain"}, "plain"
     else:
-        raise TypeError(f"dispatch: unsupported device {device}")
+        external, phase = {"machine": "plain"}, "plain"
     return {"external": external,
             "phases": {p: {"machine": phase} for p in PHASES},
             "mesh": {"px": 1, "py": 1, "mode": "single-device"},
+            "grid": (cfg.im, cfg.jm, cfg.kb), "dtype": str(dtype),
+            "device": str(device)}
+
+
+def _mesh_shape(mesh) -> tuple:
+    """(px, py, mode) of a run file's mesh block or a Mesh; what the port
+    cannot run raises."""
+    if isinstance(mesh, dict):
+        px, py = int(mesh["px"]), int(mesh["py"])
+        mode = mesh.get("mode", "shardmap")
+    else:
+        px, py, mode = mesh.px, mesh.py, "shardmap"
+        mesh.device       # raises for blocks on several devices
+    if mode != "shardmap":
+        raise NotImplementedError(f"parallel mode {mode!r} is not ported; "
+                                  f"the port has 'shardmap'")
+    return px, py, mode
+
+
+def _mesh_report(cfg: Config, dtype: torch.dtype, device, px: int,
+                 py: int) -> dict:
+    """The decomposed step's decisions (``stepper.mesh_step``): the chunk
+    plan of the external loop (``mesh.extchunk.chunk_plan``: C substeps per
+    ring exchange, the ring, the extended block and, for the window kernel,
+    its C per launch, H and tile) and the phases' ring."""
+    from extpom_tpu_torch.mesh import extchunk
+    if cfg.im % px or cfg.jm % py:
+        raise NotImplementedError(
+            f"grid {cfg.im}x{cfg.jm} does not divide mesh {px}x{py}: "
+            f"padding ragged grids is not ported yet")
+    ni, nj = cfg.im // px, cfg.jm // py
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    plan = extchunk.chunk_plan(cfg, px, py, ni, nj, device, itemsize)
+    external = {"machine": plan.machine, "C": plan.C,
+                "ring": (plan.hx, plan.hy), "block": (plan.R, plan.L),
+                "chunks_per_step": cfg.isplit // plan.C}
+    if plan.geo is not None:
+        external.update(C_launch=plan.geo.C, H=plan.geo.H,
+                        tile=f"{plan.geo.ti}x{plan.geo.tj}",
+                        threads=plan.geo.threads)
+    ring = (cfg.phase_halo if px > 1 else 0, cfg.phase_halo if py > 1 else 0)
+    phase = "cuda-mesh" if device.type == "cuda" else "plain"
+    return {"external": external,
+            "phases": {p: {"machine": phase, "ring": ring} for p in PHASES},
+            "mesh": {"px": px, "py": py, "mode": "shardmap", "devices": 1,
+                     "local_tile": (ni, nj, cfg.kb)},
             "grid": (cfg.im, cfg.jm, cfg.kb), "dtype": str(dtype),
             "device": str(device)}
 
@@ -61,9 +108,16 @@ def format_report(rep: dict) -> str:
              + (f"  [{geo}]" if geo else "")]
     by_machine: dict = {}
     for p, d in rep["phases"].items():
-        by_machine.setdefault(d["machine"], []).append(p)
-    for machine, names in sorted(by_machine.items()):
-        lines.append(f"  phases [{machine}]: {', '.join(names)}")
+        geo = " ".join(f"{k}={v}" for k, v in d.items() if k != "machine")
+        by_machine.setdefault((d["machine"], geo), []).append(p)
+    for (machine, geo), names in sorted(by_machine.items()):
+        lines.append(f"  phases [{machine}]: {', '.join(names)}"
+                     + (f"  [{geo}]" if geo else ""))
     mk = rep["mesh"]
-    lines.append(f"  mesh: {mk['px']}x{mk['py']} {mk['mode']}")
+    line = f"  mesh: {mk['px']}x{mk['py']} {mk['mode']}"
+    if "local_tile" in mk:
+        n = mk["devices"]
+        line += (f" on {n} device{'s' if n > 1 else ''}  local tile "
+                 + "x".join(map(str, mk["local_tile"])))
+    lines.append(line)
     return "\n".join(lines)

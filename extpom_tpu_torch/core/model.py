@@ -1,5 +1,6 @@
 """High-level model driver (``extpom_tpu/core/model.py``): cold start, the
-time loop, print-interval diagnostics and the blow-up guard."""
+time loop, print-interval diagnostics and the blow-up guard, on one device
+or decomposed over a mesh (:meth:`Model.shard`)."""
 
 from __future__ import annotations
 
@@ -123,6 +124,8 @@ class Model:
         self.base_forcing = base_forcing
         self.iint = iint       # completed internal steps
         self.time0 = 0.0
+        self.mesh = None       # set by shard()
+        self.blocks = None     # the decomposed model, on a mesh of > 1 block
         try:
             self.period = grid.inertial_period_days()
         except ValueError:
@@ -132,17 +135,60 @@ class Model:
     def time_days(self) -> float:
         return self.cfg.dti * self.iint / 86400.0 + self.time0
 
-    def run_segment(self, n_steps: int) -> State:
-        """Advance ``n_steps`` internal steps (``stepper.run_steps``)."""
+    def shard(self, mesh, mode: str = "shardmap") -> "Model":
+        """Decompose the model over ``mesh`` (``mesh.shardmap.Mesh``; the
+        distribute_mpi analogue, parallel_mpi.f:34-122): the state, grid,
+        forcing and climatology become px x py local blocks, and
+        :meth:`run_segment` runs the decomposed step
+        (``stepper.mesh_step``).  A 1x1 mesh keeps the single-device path.
+        After it ``state`` is None: :meth:`gathered_state` assembles the
+        global state from the blocks."""
+        from extpom_tpu_torch.mesh import shardmap
+        if mode != "shardmap":
+            raise NotImplementedError(f"parallel mode {mode!r} is not "
+                                      f"ported; the port has 'shardmap'")
+        if self.blocks is not None:
+            raise ValueError("the model is already decomposed")
+        device = mesh.device
+        if device != self.grid.device and not (
+                device.type == self.grid.device.type == "cuda"
+                and (device.index or 0) == (self.grid.device.index or 0)):
+            raise ValueError(f"the mesh is on {device}, the model on "
+                             f"{self.grid.device}")
+        self.mesh = mesh
+        if mesh.px * mesh.py > 1:
+            self.blocks = shardmap.shard_args(
+                mesh, self.cfg, self.grid, self.state, self.base_forcing,
+                self.rmean, self.tclim, self.sclim)
+            self.state = None
+        return self
+
+    def gathered_state(self) -> State:
+        """The global state: ``state`` itself on one device, assembled from
+        the blocks on a mesh."""
+        if self.blocks is None:
+            return self.state
+        from extpom_tpu_torch.mesh import shardmap
+        return shardmap.gather_state(self.blocks)
+
+    def run_segment(self, n_steps: int) -> Optional[State]:
+        """Advance ``n_steps`` internal steps (``stepper.run_steps``, or on
+        a mesh the decomposed step); returns ``state`` (None on a mesh)."""
         period = self.period if math.isfinite(self.period) else 1.0
-        self.state = stepper.run_steps(
-            self.grid, self.cfg, self.state, self.base_forcing, self.rmean,
-            self.tclim, self.sclim, self.iint, n_steps, period, self.time0,
-            first=(self.iint == 0))
+        if self.blocks is not None:
+            from extpom_tpu_torch.mesh import shardmap
+            shardmap.make_shardmap_run(self.blocks, self.cfg, period,
+                                       self.time0)(
+                self.iint, n_steps, first=(self.iint == 0))
+        else:
+            self.state = stepper.run_steps(
+                self.grid, self.cfg, self.state, self.base_forcing,
+                self.rmean, self.tclim, self.sclim, self.iint, n_steps,
+                period, self.time0, first=(self.iint == 0))
         self.iint += n_steps
         return self.state
 
-    def step_once(self) -> State:
+    def step_once(self) -> Optional[State]:
         return self.run_segment(1)
 
     def run(self, n_steps: Optional[int] = None,
@@ -161,7 +207,7 @@ class Model:
             else:
                 iprint = cfg.iprint
             if self.iint % iprint == 0 or self.iint == n:
-                st = self.state
+                st = self.gathered_state()
                 vamax, (iloc, jloc) = diag_stats.check_velocity(cfg, st.va)
                 vamax = float(vamax)
                 if not np.isfinite(vamax) or vamax > cfg.vmaxl:

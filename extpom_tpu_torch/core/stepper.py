@@ -25,9 +25,12 @@ from extpom_tpu_torch.core.config import Config
 from extpom_tpu_torch.core.grid import Grid
 from extpom_tpu_torch.core.state import State, Forcing
 from extpom_tpu_torch.kernels import phases
-from extpom_tpu_torch.ops.stencil import sft, put
+from extpom_tpu_torch.ops.stencil import domain, sft, put
 from extpom_tpu_torch.ops import advection2d
 from extpom_tpu_torch.bc import bcond as bcf
+
+
+INTERACTION_RADIUS = 2
 
 
 def mode_interaction(grid: Grid, cfg: Config, st: State, aam, advx, advy,
@@ -35,28 +38,40 @@ def mode_interaction(grid: Grid, cfg: Config, st: State, aam, advx, advy,
     """Vertical integrals feeding the external mode (advance.f:144-202).
     Returns (adx2d, ady2d, drx2d, dry2d, aam2d, advua, advva, wubot, wvbot,
     egf, utf, vtf)."""
+    adx2d, ady2d, drx2d, dry2d, aam2d = depth_integrals(
+        grid, cfg, aam, advx, advy, drhox, drhoy)
+    advua, advva, wubot, wvbot, egf, utf, vtf = interaction_2d(
+        grid, cfg, st.el, st.ua, st.va, st.uab, st.vab, aam2d, st.wubot,
+        st.wvbot)
+    return (adx2d - advua, ady2d - advva, drx2d, dry2d, aam2d, advua, advva,
+            wubot, wvbot, egf, utf, vtf)
+
+
+def depth_integrals(grid: Grid, cfg: Config, aam, advx, advy, drhox, drhoy):
+    """The pointwise part of ``mode_interaction``: (adx2d, ady2d, drx2d,
+    dry2d, aam2d) before advave's terms come off adx2d and ady2d."""
     if cfg.mode == 2:
         raise NotImplementedError("mode=2 is not ported yet")
-    d = grid.h + st.el
     dz3 = grid.dz3[:cfg.kbm1]
-    adx2d = torch.sum(advx[:cfg.kbm1] * dz3, dim=0)
-    ady2d = torch.sum(advy[:cfg.kbm1] * dz3, dim=0)
-    drx2d = torch.sum(drhox[:cfg.kbm1] * dz3, dim=0)
-    dry2d = torch.sum(drhoy[:cfg.kbm1] * dz3, dim=0)
-    aam2d = torch.sum(aam[:cfg.kbm1] * dz3, dim=0)
-    advua, advva, wubot, wvbot = advection2d.advave(
-        grid, cfg, d, st.ua, st.va, st.uab, st.vab, aam2d, st.wubot, st.wvbot)
-    adx2d = adx2d - advua
-    ady2d = ady2d - advva
+    return tuple(torch.sum(x[:cfg.kbm1] * dz3, dim=0)
+                 for x in (advx, advy, drhox, drhoy, aam))
 
-    egf = st.el * cfg.ispi
+
+def interaction_2d(grid: Grid, cfg: Config, el, ua, va, uab, vab, aam2d,
+                   wubot, wvbot):
+    """The stencil part of ``mode_interaction``: (advua, advva, wubot,
+    wvbot, egf, utf, vtf).  A value at (i, j) reads the inputs at most
+    :data:`INTERACTION_RADIUS` cells away (advave reads d at i-2)."""
+    d = grid.h + el
+    advua, advva, wubot, wvbot = advection2d.advave(
+        grid, cfg, d, ua, va, uab, vab, aam2d, wubot, wvbot)
+    egf = el * cfg.ispi
     z2 = torch.zeros_like(d)
-    utf = put(z2, st.ua * (d + sft(d, -1, 0)) * cfg.isp2i,
+    utf = put(z2, ua * (d + sft(d, -1, 0)) * cfg.isp2i,
               slice(1, None), slice(None))
-    vtf = put(z2, st.va * (d + sft(d, 0, -1)) * cfg.isp2i,
+    vtf = put(z2, va * (d + sft(d, 0, -1)) * cfg.isp2i,
               slice(None), slice(1, None))
-    return (adx2d, ady2d, drx2d, dry2d, aam2d, advua, advva, wubot, wvbot,
-            egf, utf, vtf)
+    return advua, advva, wubot, wvbot, egf, utf, vtf
 
 
 def ext_precompute(grid) -> SimpleNamespace:
@@ -284,6 +299,122 @@ def step(grid: Grid, cfg: Config, st: State, fc: Forcing, rmean, tclim,
                        drhox, drhoy, tclim, sclim, first)
     return st.replace(adx2d=adx2d, ady2d=ady2d, drx2d=drx2d, dry2d=dry2d,
                       aam2d=aam2d)
+
+
+def mesh_step(blocks, cfg: Config, ramp, first: bool = False) -> None:
+    """One internal step of every block of ``blocks``
+    (``mesh.shardmap.Blocks``), in the stages of :func:`step`: lat,
+    mode_interaction, the external loop, uvw, tke, tracer, mom.  Each stage
+    of each block runs on the block grown by a ring of its neighbours'
+    current values: ``cfg.phase_halo`` cells for the phases,
+    :data:`INTERACTION_RADIUS` for mode_interaction, C x ext_halo_sub for
+    a chunk of C external substeps (``mesh.extchunk``); then the ring is
+    trimmed.  Updates ``blocks.state`` in place of the old states."""
+    from extpom_tpu_torch.mesh.extchunk import run_external_loop_chunked
+    from extpom_tpu_torch.mesh.shardmap import _local_ctx
+    ids = blocks.ids
+    hp = blocks.ring(cfg.phase_halo)
+    hm = blocks.ring(INTERACTION_RADIUS)
+    st = blocks.state
+    ext = lambda vals, b, h=hp: blocks.ext(vals, b, h)
+    trim = lambda outs, h=hp: [blocks.trim(x, h) for x in outs]
+    dt = {b: blocks.grid[b].h + st[b].et for b in ids}
+
+    def phase(fn, b, operands, extra=(), fc=False):
+        """Phase ``fn`` on block ``b``, its trimmed outputs: ``operands``
+        are state field names or per-block dicts, both ring-extended, then
+        come the ``extra`` tensors as they are and the extended forcing."""
+        args = [ext(blocks.field(x) if isinstance(x, str) else x, b)
+                for x in operands]
+        args += list(extra)
+        if fc:
+            args.append(blocks.fc_ext(b, hp).replace(ramp=ramp))
+        return trim(fn(blocks.grid_ext(b, hp), cfg, *args,
+                       off=blocks.goff(b, hp)))
+
+    lat = {}
+    for b in ids:
+        rmean = blocks.clim_ext(b, hp)[0]
+        lat[b] = phase(phases.phase_lat, b, ("u", "v", "ub", "vb", "aam",
+                                             "rho"),
+                       (rmean, ext(dt, b), ramp))
+    aam = {b: lat[b][0] for b in ids}
+
+    # mode_interaction: depth integrals in place, advave on the ring
+    ints = {b: depth_integrals(blocks.grid[b], cfg, *lat[b]) for b in ids}
+    aam2d = {b: ints[b][4] for b in ids}
+    carry, aux = {}, {}
+    for b in ids:
+        e = lambda vals: ext(vals, b, hm)
+        with domain(_local_ctx(cfg, blocks.goff(b, hm))):
+            advua, advva, _, _, egf, utf, vtf = interaction_2d(
+                blocks.grid_ext(b, hm), cfg, e(blocks.field("el")),
+                e(blocks.field("ua")), e(blocks.field("va")),
+                e(blocks.field("uab")), e(blocks.field("vab")), e(aam2d),
+                None, None)
+        advua, advva, egf, utf, vtf = trim((advua, advva, egf, utf, vtf),
+                                           hm)
+        s = st[b]
+        adx2d, ady2d, drx2d, dry2d, _ = ints[b]
+        aux[b] = (adx2d - advua, ady2d - advva, drx2d, dry2d, aam2d[b])
+        carry[b] = ExtCarry(el=s.el, elb=s.elb, ua=s.ua, uab=s.uab, va=s.va,
+                            vab=s.vab, etf=s.etf, egf=egf, utf=utf, vtf=vtf,
+                            advua=advua, advva=advva, wubot=s.wubot,
+                            wvbot=s.wvbot)
+    carry = run_external_loop_chunked(blocks, cfg, carry, aux, ramp)
+
+    new = {b: dict(u=st[b].u, ub=st[b].ub, v=st[b].v, vb=st[b].vb,
+                   w=st[b].w, t=st[b].t, tb=st[b].tb, s=st[b].s,
+                   sb=st[b].sb, rho=st[b].rho, q2=st[b].q2, q2b=st[b].q2b,
+                   q2l=st[b].q2l, q2lb=st[b].q2lb, km=st[b].km,
+                   kh=st[b].kh, kq=st[b].kq, l=st[b].l,
+                   wubot=carry[b].wubot, wvbot=carry[b].wvbot)
+           for b in ids}
+    if not first:
+        cget = lambda k: {b: getattr(carry[b], k) for b in ids}
+        nget = lambda k: {b: new[b][k] for b in ids}
+
+        def stage(names, outs):
+            """Merge a stage's outputs once every block has run it."""
+            for b in ids:
+                new[b].update(zip(names, outs[b]))
+
+        stage(("u", "v", "w"), {b: phase(
+            phases.phase_uvw, b,
+            ("u", "v", "w", dt, "utb", "vtb", cget("utf"), cget("vtf"),
+             "etb", cget("etf"), "vfluxb"),
+            (blocks.fc_ext(b, hp).vflux,)) for b in ids})
+        stage(("q2", "q2b", "q2l", "q2lb", "km", "kh", "kq", "l"), {b: phase(
+            phases.phase_tke, b,
+            ("q2", "q2b", "q2l", "q2lb", nget("u"), nget("v"), nget("w"),
+             aam, "t", "s", "rho", "km", "kh", "kq", dt, "etb", cget("etf"),
+             cget("wubot"), cget("wvbot")), fc=True) for b in ids})
+        if cfg.mode != 4:
+            stage(("t", "tb", "s", "sb", "rho"), {b: phase(
+                phases.phase_tracer, b, ("t", "tb", "s", "sb"),
+                blocks.clim_ext(b, hp)[1:] + tuple(ext(x, b) for x in (
+                    nget("u"), nget("v"), nget("w"), aam, nget("kh"), dt,
+                    blocks.field("etb"), cget("etf"))), fc=True)
+                for b in ids})
+        lat_out = lambda k: {b: lat[b][k] for b in ids}
+        stage(("u", "ub", "v", "vb", "wubot", "wvbot"), {b: phase(
+            phases.phase_mom, b,
+            (nget("u"), "ub", nget("v"), "vb", nget("w"), lat_out(1),
+             lat_out(2), lat_out(3), lat_out(4), nget("km"), dt,
+             cget("egf"), "egb", "etb", cget("etf")), fc=True)
+            for b in ids})
+
+    fc = {b: blocks.fc[b] for b in ids}
+    for b in ids:
+        s, c = st[b], carry[b]
+        blocks.state[b] = s.replace(
+            **new[b], aam=aam[b],
+            el=c.el, elb=c.elb, ua=c.ua, uab=c.uab, va=c.va, vab=c.vab,
+            egb=c.egf, etb=s.et, et=c.etf, etf=c.etf, utb=c.utf, vtb=c.vtf,
+            vfluxb=fc[b].vflux, vfluxf=fc[b].vflux,
+            advua=c.advua, advva=c.advva,
+            adx2d=aux[b][0], ady2d=aux[b][1], drx2d=aux[b][2],
+            dry2d=aux[b][3], aam2d=aux[b][4])
 
 
 def ramp_at(cfg: Config, iint: int, period_days: float,

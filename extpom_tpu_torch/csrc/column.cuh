@@ -3,7 +3,8 @@
 //
 // Layout: 3-D fields are (kb, im, jm) with the column index p = i*jm + j
 // fastest, so level k of column p is a[k*n + p] (n = im*jm) and a warp of
-// consecutive columns reads one level coalesced.
+// consecutive columns reads one level coalesced.  (i, j) below are array
+// indices; GeomT says how they map onto the domain.
 //
 // Counterparts in the JAX package: extpom_tpu/ops/stencil.py sft/sfk (the
 // zero fill) and extpom_tpu/pallas/tridiag.py:_kernel (the solve).
@@ -14,11 +15,69 @@
 
 namespace extpom {
 
-// Extents of a (kb, im, jm) field.
-struct Geom {
+// Extents of a (kb, im, jm) field: the domain, or (O, "offset") one
+// ring-extended block of it in the decomposed step.  On a block the arrays
+// are (kb, R, L) (im, jm below), array cell (0, 0) is global (oi, oj) of
+// the (gim, gjm) domain, region tests and boundary conditions use the
+// global (i, j) (gi, gj, GI, GJ), and neighbour reads stay in the block: a
+// launch skips the cells within (mi, mj) of a split edge of the block, so
+// that its unguarded neighbour reads land inside it, and the zero-filled
+// reads below fill 0 outside the block, as sft reads on the block.  The
+// skipped cells lie in the ring, whose cells the caller trims.  O is a
+// template parameter so that the whole-domain kernels compile to the code
+// they had without it.
+template <bool O = false>
+struct GeomT {
   int kb, im, jm;
   long n;  // im * jm
+  int gim, gjm, oi, oj, mi, mj;
+
+  __device__ __forceinline__ int gi(int i) const {
+    if constexpr (O) return i + oi;
+    return i;
+  }
+  __device__ __forceinline__ int gj(int j) const {
+    if constexpr (O) return j + oj;
+    return j;
+  }
+  __device__ __forceinline__ int GI() const {
+    if constexpr (O) return gim;
+    return im;
+  }
+  __device__ __forceinline__ int GJ() const {
+    if constexpr (O) return gjm;
+    return jm;
+  }
+  // array row of global row i, array column of global column j
+  __device__ __forceinline__ int li(int i) const {
+    if constexpr (O) return i - oi;
+    return i;
+  }
+  __device__ __forceinline__ int lj(int j) const {
+    if constexpr (O) return j - oj;
+    return j;
+  }
+  // whether a launch leaves array cell (i, j) alone
+  __device__ __forceinline__ bool skip(int i, int j) const {
+    if constexpr (O) return i < mi || i >= im - mi || j < mj || j >= jm - mj;
+    return false;
+  }
 };
+
+using Geom = GeomT<false>;
+
+// The geometry of a launch: the domain, or (O) the (R, L) block at global
+// (oi, oj) of the (im, jm) domain, skipping `margin` cells along each axis
+// on which the block is not the whole domain.
+template <bool O>
+GeomT<O> geometry(int kb, int im, int jm, int R, int L, int oi, int oj,
+                  int margin) {
+  if constexpr (!O) return GeomT<O>{kb, im, jm, (long)im * jm, im, jm, 0, 0,
+                                    0, 0};
+  const int mi = (oi == 0 && R == im) ? 0 : margin;
+  const int mj = (oj == 0 && L == jm) ? 0 : margin;
+  return GeomT<O>{kb, R, L, (long)R * L, im, jm, oi, oj, mi, mj};
+}
 
 // Zero-filled read of a 2-D (im, jm) field: sft semantics, 0 outside the
 // array, never a clamped edge value.
@@ -27,15 +86,15 @@ __device__ __forceinline__ T ld2(const T* a, int im, int jm, int i, int j) {
   return (i >= 0 && i < im && j >= 0 && j < jm) ? a[(long)i * jm + j] : T(0);
 }
 
-template <typename T>
-__device__ __forceinline__ T ld2(const T* a, const Geom& g, int i, int j) {
+template <typename T, bool O>
+__device__ __forceinline__ T ld2(const T* a, const GeomT<O>& g, int i, int j) {
   return ld2(a, g.im, g.jm, i, j);
 }
 
 // Zero-filled read of level k of a (kb, im, jm) field (sfk reads 0 above
 // level 0 and below level kb-1).
-template <typename T>
-__device__ __forceinline__ T ld3(const T* a, const Geom& g, int k, int i,
+template <typename T, bool O>
+__device__ __forceinline__ T ld3(const T* a, const GeomT<O>& g, int k, int i,
                                  int j) {
   return (k >= 0 && k < g.kb && i >= 0 && i < g.im && j >= 0 && j < g.jm)
              ? a[k * g.n + (long)i * g.jm + j]

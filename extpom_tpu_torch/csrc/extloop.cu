@@ -30,6 +30,18 @@
 // shares; built with -fmad=false so each operation rounds as the plain
 // PyTorch version's does.  The carry order is CARRY_FIELDS of the TPU
 // kernel (extloop.py:48).
+//
+// extpom_extchunk_f32/f64, the same chain on one ring-extended block of the
+// decomposed step (the O variant of extstep.cuh), replace
+// extpom_tpu/pallas/extloop.py:_chunk_kernel (via run_external_chunk_vmem),
+// which runs C substeps on a ring-extended local block held whole in VMEM.
+// They run substeps iext0 .. iext0+C-1 of isplit on the (R, L) block whose
+// cell (0, 0) is global (oi, oj): masks and boundary conditions at global
+// (i, j) against the global (im, jm), reads zero-filled outside the block,
+// so the block's cells that the ring covers come out as the whole-domain
+// chain gives them (kernels/extloop.py:run_external_chunk_plain is the
+// plain version).  Bound as the chain: the extended block of the main path
+// (188x124 at 256x256 on a 2x4 mesh) fits the L2 many times over.
 
 #include <cuda_runtime.h>
 
@@ -40,44 +52,57 @@ namespace {
 using extpom::Carry;
 using extpom::ExtArgs;
 
-template <typename T>
-__global__ void k_surface(ExtArgs<T> s, Carry<T, false> c, int do_adv) {
+template <typename T, bool O>
+__global__ void k_surface(ExtArgs<T, O> s, Carry<T, false> c, int do_adv) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= s.im * s.jm) return;
-  const int i = p / s.jm, j = p % s.jm;
+  if (p >= extpom::cells(s)) return;
+  int i, j;
+  extpom::cell(s, p, i, j);
   c.elf[p] = extpom::elf_point(s, c, i, j);
   // advave reads d/ua/va/uab/vab only; advua/advva are read by nobody else
   // in this kernel
   if (do_adv) extpom::adv_point(s, c, i, j, c.advua[p], c.advva[p]);
 }
 
-template <typename T>
-__global__ void k_velocity(ExtArgs<T> s, Carry<T, false> c) {
+template <typename T, bool O>
+__global__ void k_velocity(ExtArgs<T, O> s, Carry<T, false> c) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= s.im * s.jm) return;
-  extpom::velocity_point(s, c, p / s.jm, p % s.jm, c.uaf[p], c.vaf[p]);
+  if (p >= extpom::cells(s)) return;
+  int i, j;
+  extpom::cell(s, p, i, j);
+  extpom::velocity_point(s, c, i, j, c.uaf[p], c.vaf[p]);
 }
 
-template <typename T>
-__global__ void k_update(ExtArgs<T> s, Carry<T, false> c, T* etf, T* egf,
+template <typename T, bool O>
+__global__ void k_update(ExtArgs<T, O> s, Carry<T, false> c, T* etf, T* egf,
                          T* utf, T* vtf, int iext, int isplit) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= s.im * s.jm) return;
-  extpom::accumulate(s, c, p / s.jm, p % s.jm, iext, isplit, etf, egf, utf,
-                     vtf);
+  if (p >= extpom::cells(s)) return;
+  int i, j;
+  extpom::cell(s, p, i, j);
+  extpom::accumulate(s, c, i, j, iext, isplit, etf, egf, utf, vtf);
   extpom::rotate(s, c, p);
 }
 
 constexpr int kThreads = 256;
 
 // ptr: the 14 carry fields (CARRY_FIELDS order, updated in place), the
-// extpom::kExtOperands read-only operands, then elf/uaf/vaf scratch
-template <typename T>
-int run(void* const* ptr, const double* prm, int im, int jm, int isplit,
-        int ispadv, void* stream) {
+// extpom::kExtOperands read-only operands, then elf/uaf/vaf scratch; all
+// (im, jm), or (R, L) on a block (O).  Runs substeps iext0 .. iext0+nsub-1
+// of isplit.
+template <typename T, bool O>
+int run(void* const* ptr, const double* prm, int im, int jm, int R, int L,
+        int oi, int oj, int iext0, int nsub, int isplit, int ispadv,
+        void* stream) {
+  if (nsub < 1 || iext0 < 1 || iext0 + nsub - 1 > isplit || R < 1 || L < 1)
+    return (int)cudaErrorInvalidValue;
   T* const* cf = (T* const*)ptr;
-  ExtArgs<T> s;
+  ExtArgs<T, O> s;
   extpom::set_ext_args(s, ptr + 14, prm, im, jm);
+  s.R = R;
+  s.L = L;
+  s.oi = oi;
+  s.oj = oj;
   s.wubot = cf[12];
   s.wvbot = cf[13];
   T* const* scr = cf + 14 + extpom::kExtOperands;
@@ -87,15 +112,15 @@ int run(void* const* ptr, const double* prm, int im, int jm, int isplit,
   c.elf = scr[0]; c.uaf = scr[1]; c.vaf = scr[2];
 
   cudaStream_t st = (cudaStream_t)stream;
-  const int n = im * jm;
+  const int n = R * L;
   const int blocks = (n + kThreads - 1) / kThreads;
-  extpom::k_metrics<T><<<blocks, kThreads, 0, st>>>(s);
+  extpom::k_metrics<T, O><<<blocks, kThreads, 0, st>>>(s);
   cudaError_t err = cudaGetLastError();
-  for (int iext = 1; iext <= isplit && err == cudaSuccess; ++iext) {
-    k_surface<T><<<blocks, kThreads, 0, st>>>(s, c, iext % ispadv == 0);
-    k_velocity<T><<<blocks, kThreads, 0, st>>>(s, c);
-    k_update<T><<<blocks, kThreads, 0, st>>>(s, c, cf[6], cf[7], cf[8], cf[9],
-                                              iext, isplit);
+  for (int iext = iext0; iext < iext0 + nsub && err == cudaSuccess; ++iext) {
+    k_surface<T, O><<<blocks, kThreads, 0, st>>>(s, c, iext % ispadv == 0);
+    k_velocity<T, O><<<blocks, kThreads, 0, st>>>(s, c);
+    k_update<T, O><<<blocks, kThreads, 0, st>>>(s, c, cf[6], cf[7], cf[8],
+                                                 cf[9], iext, isplit);
     err = cudaGetLastError();
   }
   return (int)err;
@@ -106,11 +131,29 @@ int run(void* const* ptr, const double* prm, int im, int jm, int isplit,
 extern "C" int extpom_extloop_f32(void* const* ptr, const double* prm, int im,
                                   int jm, int isplit, int ispadv,
                                   void* stream) {
-  return run<float>(ptr, prm, im, jm, isplit, ispadv, stream);
+  return run<float, false>(ptr, prm, im, jm, im, jm, 0, 0, 1, isplit, isplit,
+                           ispadv, stream);
 }
 
 extern "C" int extpom_extloop_f64(void* const* ptr, const double* prm, int im,
                                   int jm, int isplit, int ispadv,
                                   void* stream) {
-  return run<double>(ptr, prm, im, jm, isplit, ispadv, stream);
+  return run<double, false>(ptr, prm, im, jm, im, jm, 0, 0, 1, isplit, isplit,
+                            ispadv, stream);
+}
+
+extern "C" int extpom_extchunk_f32(void* const* ptr, const double* prm, int im,
+                                   int jm, int R, int L, int nsub, int iext0,
+                                   int oi, int oj, int isplit, int ispadv,
+                                   void* stream) {
+  return run<float, true>(ptr, prm, im, jm, R, L, oi, oj, iext0, nsub, isplit,
+                          ispadv, stream);
+}
+
+extern "C" int extpom_extchunk_f64(void* const* ptr, const double* prm, int im,
+                                   int jm, int R, int L, int nsub, int iext0,
+                                   int oi, int oj, int isplit, int ispadv,
+                                   void* stream) {
+  return run<double, true>(ptr, prm, im, jm, R, L, oi, oj, iext0, nsub,
+                           isplit, ispadv, stream);
 }

@@ -32,6 +32,18 @@
 // uaf and utf at i-1; advave reads d at i-2 and j-2).  extwin's halo is 2
 // cells per substep for that reason (tests/test_torch_extwin.py checks it
 // on the plain loop).
+//
+// Blocks (the template flag O, "offset"): the decomposed step runs the same
+// substep on a ring-extended (R, L) block of the domain whose cell (0, 0) is
+// global (oi, oj) (extchunk in extloop.cu, extwin_chunk in extwin.cu).
+// Cells keep their global (i, j), so every region test and boundary
+// condition is the domain's; arrays are the block's, indexed (i - oi) * L +
+// (j - oj), and every read is zero-filled outside the block, as sft reads
+// on the block.  Cells outside the domain (the ring beyond a domain edge)
+// hold 0 in every carry field, as the plain version leaves them.  The
+// flag is a template parameter so that the whole-domain kernels compile to
+// the code they had without it: there the reads that a region keeps inside
+// the domain stay unguarded (rn, cn below).
 
 #pragma once
 
@@ -45,7 +57,7 @@ namespace extpom {
 // forcing, 1-D series (j-sides, then i-sides), ramp, metrics
 constexpr int kExtOperands = 11 + 5 + 4 + 12 + 1 + 13;
 
-template <typename T>
+template <typename T, bool O = false>
 struct ExtArgs {
   // grid
   const T *h, *dx, *dy, *art, *aru, *arv, *cor, *fsm, *dum, *dvm, *cbc;
@@ -62,7 +74,8 @@ struct ExtArgs {
       *rdy4;
   // bottom stress of the carry: advave passes it through outside mode 2
   const T *wubot, *wvbot;
-  int im, jm;
+  int im, jm;          // the domain's extents
+  int R, L, oi, oj;    // O: the block's extents and global (i, j) of (0, 0)
   // constants, rounded to T as PyTorch rounds a Python float operand
   T dte2, c4dte, c025g, grav, ralpha, alpha, ispi, isp2i, hsmoth, qsmoth,
       tsmoth, rfe, rfw, rfn, rfs;
@@ -71,9 +84,9 @@ struct ExtArgs {
 // Fills the read-only block from ptr[0 .. kExtOperands) and the constants
 // from prm = (dte, grav, smoth, alpha, isplit, rfe, rfw, rfn, rfs); each
 // constant is formed in double as the Python expression forms it.
-template <typename T>
-void set_ext_args(ExtArgs<T>& s, void* const* ptr, const double* prm, int im,
-                  int jm) {
+template <typename T, bool O>
+void set_ext_args(ExtArgs<T, O>& s, void* const* ptr, const double* prm,
+                  int im, int jm) {
   int k = 0;
 #define NEXT(f) s.f = (decltype(s.f))ptr[k++]
   NEXT(h); NEXT(dx); NEXT(dy); NEXT(art); NEXT(aru); NEXT(arv); NEXT(cor);
@@ -90,6 +103,9 @@ void set_ext_args(ExtArgs<T>& s, void* const* ptr, const double* prm, int im,
   s.wubot = s.wvbot = nullptr;
   s.im = im;
   s.jm = jm;
+  s.R = im;
+  s.L = jm;
+  s.oi = s.oj = 0;
   const double dte = prm[0], grav = prm[1], smoth = prm[2], alpha = prm[3],
                nsp = prm[4];
   s.dte2 = T(dte * 2.0);
@@ -122,57 +138,138 @@ struct Carry {
   int i0, i1, j0, j1;
 };
 
-// index of cell (i, j) in the arrays of c
-template <typename T, bool W>
-__device__ __forceinline__ int at(const ExtArgs<T>& s, const Carry<T, W>& c,
-                                  int i, int j) {
-  if constexpr (W) return (i - c.oi) * c.stride + (j - c.oj);
+// index of cell (i, j) in the read-only arrays
+template <typename T, bool O>
+__device__ __forceinline__ int pix(const ExtArgs<T, O>& s, int i, int j) {
+  if constexpr (O) return (i - s.oi) * s.L + (j - s.oj);
   return i * s.jm + j;
 }
 
-// distance between rows of the arrays of c
-template <typename T, bool W>
-__device__ __forceinline__ int rows(const ExtArgs<T>& s,
-                                    const Carry<T, W>& c) {
-  if constexpr (W) return c.stride;
+// distance between rows of the read-only arrays
+template <typename T, bool O>
+__device__ __forceinline__ int prow(const ExtArgs<T, O>& s) {
+  if constexpr (O) return s.L;
   return s.jm;
 }
 
-// whether cell (i, j) of c may be read
-template <typename T, bool W>
-__device__ __forceinline__ bool in(const ExtArgs<T>& s, const Carry<T, W>& c,
-                                   int i, int j) {
-  if constexpr (W) return i >= c.i0 && i < c.i1 && j >= c.j0 && j < c.j1;
+// whether cell (i, j) lies in the read-only arrays (the domain or the block)
+template <typename T, bool O>
+__device__ __forceinline__ bool inb(const ExtArgs<T, O>& s, int i, int j) {
+  if constexpr (O)
+    return i >= s.oi && i < s.oi + s.R && j >= s.oj && j < s.oj + s.L;
   return i >= 0 && i < s.im && j >= 0 && j < s.jm;
 }
 
-// zero-filled read of a field of c: 0 outside the domain, as sft reads
-template <typename T, bool W>
-__device__ __forceinline__ T ldc(const ExtArgs<T>& s, const Carry<T, W>& c,
-                                 const T* a, int i, int j) {
+// whether cell (i, j) lies in the domain
+template <typename T, bool O>
+__device__ __forceinline__ bool in_domain(const ExtArgs<T, O>& s, int i,
+                                          int j) {
+  return i >= 0 && i < s.im && j >= 0 && j < s.jm;
+}
+
+// cells of the read-only arrays, and the (i, j) of cell p of them
+template <typename T, bool O>
+__device__ __forceinline__ int cells(const ExtArgs<T, O>& s) {
+  return O ? s.R * s.L : s.im * s.jm;
+}
+
+template <typename T, bool O>
+__device__ __forceinline__ void cell(const ExtArgs<T, O>& s, int p, int& i,
+                                     int& j) {
+  if constexpr (O) {
+    i = p / s.L + s.oi;
+    j = p % s.L + s.oj;
+  } else {
+    i = p / s.jm;
+    j = p % s.jm;
+  }
+}
+
+// boundary series at column j (j-sides) or row i (i-sides)
+template <typename T, bool O>
+__device__ __forceinline__ T at_j(const ExtArgs<T, O>& s, const T* a, int j) {
+  return a[O ? j - s.oj : j];
+}
+
+template <typename T, bool O>
+__device__ __forceinline__ T at_i(const ExtArgs<T, O>& s, const T* a, int i) {
+  return a[O ? i - s.oi : i];
+}
+
+// index of cell (i, j) in the arrays of c
+template <typename T, bool O, bool W>
+__device__ __forceinline__ int at(const ExtArgs<T, O>& s,
+                                  const Carry<T, W>& c, int i, int j) {
+  if constexpr (W) return (i - c.oi) * c.stride + (j - c.oj);
+  return pix(s, i, j);
+}
+
+// distance between rows of the arrays of c
+template <typename T, bool O, bool W>
+__device__ __forceinline__ int rows(const ExtArgs<T, O>& s,
+                                    const Carry<T, W>& c) {
+  if constexpr (W) return c.stride;
+  return prow(s);
+}
+
+// whether cell (i, j) of c may be read
+template <typename T, bool O, bool W>
+__device__ __forceinline__ bool in(const ExtArgs<T, O>& s,
+                                   const Carry<T, W>& c, int i, int j) {
+  if constexpr (W) return i >= c.i0 && i < c.i1 && j >= c.j0 && j < c.j1;
+  return inb(s, i, j);
+}
+
+// zero-filled read of a field of c: 0 outside the domain (the block), as
+// sft reads
+template <typename T, bool O, bool W>
+__device__ __forceinline__ T ldc(const ExtArgs<T, O>& s,
+                                 const Carry<T, W>& c, const T* a, int i,
+                                 int j) {
   return in(s, c, i, j) ? a[at(s, c, i, j)] : T(0);
 }
 
-// zero-filled read of a read-only field (column.cuh)
-template <typename T>
-__device__ __forceinline__ T ld(const T* a, const ExtArgs<T>& s, int i,
+// zero-filled read of a read-only field
+template <typename T, bool O>
+__device__ __forceinline__ T ld(const T* a, const ExtArgs<T, O>& s, int i,
                                 int j) {
+  if constexpr (O) return inb(s, i, j) ? a[pix(s, i, j)] : T(0);
   return ld2(a, s.im, s.jm, i, j);
 }
 
+// read-only field at (i + di, j + dj), p the index of (i, j): unguarded on
+// the domain, whose region tests keep such reads inside it; zero-filled on
+// a block
+template <typename T, bool O>
+__device__ __forceinline__ T rn(const ExtArgs<T, O>& s, const T* a, int p,
+                                int i, int j, int di = 0, int dj = 0) {
+  if constexpr (O) return ld(a, s, i + di, j + dj);
+  return a[p + di * s.jm + dj];
+}
+
+// the same for a field of c, q the index of (i, j) in its arrays
+template <typename T, bool O, bool W>
+__device__ __forceinline__ T cn(const ExtArgs<T, O>& s, const Carry<T, W>& c,
+                                const T* a, int q, int i, int j, int di = 0,
+                                int dj = 0) {
+  if constexpr (O) return ldc(s, c, a, i + di, j + dj);
+  return a[q + di * rows(s, c) + dj];
+}
+
 // d = h + el (zero outside the array, as sft(d, ...) reads)
-template <typename T, bool W>
-__device__ __forceinline__ T dd(const ExtArgs<T>& s, const Carry<T, W>& c,
+template <typename T, bool O, bool W>
+__device__ __forceinline__ T dd(const ExtArgs<T, O>& s, const Carry<T, W>& c,
                                 int i, int j) {
-  return in(s, c, i, j) ? s.h[i * s.jm + j] + c.el[at(s, c, i, j)] : T(0);
+  return in(s, c, i, j) ? s.h[pix(s, i, j)] + c.el[at(s, c, i, j)] : T(0);
 }
 
 // ext_precompute, one point
-template <typename T>
-__global__ void k_metrics(ExtArgs<T> s) {
+template <typename T, bool O>
+__global__ void k_metrics(ExtArgs<T, O> s) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= s.im * s.jm) return;
-  const int i = p / s.jm, j = p % s.jm;
+  if (p >= cells(s)) return;
+  int i, j;
+  cell(s, p, i, j);
   const T one = T(1);
   const T dx4 = s.dx[p] + ld(s.dx, s, i - 1, j) + ld(s.dx, s, i, j - 1) +
                 ld(s.dx, s, i - 1, j - 1);
@@ -196,115 +293,134 @@ __global__ void k_metrics(ExtArgs<T> s) {
 // ---- free surface (advance.f:211-229) ----
 
 // fluxua = put(z2, .25 (d + d_w) dyu ua, 1:, 1:)
-template <typename T, bool W>
-__device__ T flux_u(const ExtArgs<T>& s, const Carry<T, W>& c, int i, int j) {
+template <typename T, bool O, bool W>
+__device__ T flux_u(const ExtArgs<T, O>& s, const Carry<T, W>& c, int i,
+                    int j) {
   if (i < 1 || i >= s.im || j < 1 || j >= s.jm) return T(0);
   return T(0.25) * (dd(s, c, i, j) + dd(s, c, i - 1, j)) *
-         s.dyu[i * s.jm + j] * c.ua[at(s, c, i, j)];
+         rn(s, s.dyu, pix(s, i, j), i, j) *
+         cn(s, c, c.ua, at(s, c, i, j), i, j);
 }
 
 // fluxva = put(z2, .25 (d + d_s) dxv va, 1:, 1:)
-template <typename T, bool W>
-__device__ T flux_v(const ExtArgs<T>& s, const Carry<T, W>& c, int i, int j) {
+template <typename T, bool O, bool W>
+__device__ T flux_v(const ExtArgs<T, O>& s, const Carry<T, W>& c, int i,
+                    int j) {
   if (i < 1 || i >= s.im || j < 1 || j >= s.jm) return T(0);
   return T(0.25) * (dd(s, c, i, j) + dd(s, c, i, j - 1)) *
-         s.dxv[i * s.jm + j] * c.va[at(s, c, i, j)];
+         rn(s, s.dxv, pix(s, i, j), i, j) *
+         cn(s, c, c.va, at(s, c, i, j), i, j);
 }
 
 // elf before bc_el, on its put region 1:-1, 1:-1
-template <typename T, bool W>
-__device__ T elf_interior(const ExtArgs<T>& s, const Carry<T, W>& c, int i,
+template <typename T, bool O, bool W>
+__device__ T elf_interior(const ExtArgs<T, O>& s, const Carry<T, W>& c, int i,
                           int j) {
-  const int p = i * s.jm + j;
+  const int p = pix(s, i, j);
   const T div = flux_u(s, c, i + 1, j) - flux_u(s, c, i, j) +
                 flux_v(s, c, i, j + 1) - flux_v(s, c, i, j);
-  return c.elb[at(s, c, i, j)] + s.dte2 * (-div * s.rart[p] - s.vflux[p]);
+  return cn(s, c, c.elb, at(s, c, i, j), i, j) +
+         s.dte2 * (-div * rn(s, s.rart, p, i, j) - rn(s, s.vflux, p, i, j));
 }
 
-// elf + bc_el: edges copy the clamped interior value (see header)
-template <typename T, bool W>
-__device__ T elf_point(const ExtArgs<T>& s,
-                       const Carry<T, W>& c, int i, int j) {
+// elf + bc_el: edges copy the clamped interior value (see header); 0
+// outside the domain
+template <typename T, bool O, bool W>
+__device__ T elf_point(const ExtArgs<T, O>& s, const Carry<T, W>& c, int i,
+                       int j) {
+  if constexpr (O)
+    if (!in_domain(s, i, j)) return T(0);
   const int ci = min(max(i, 1), s.im - 2), cj = min(max(j, 1), s.jm - 2);
-  return elf_interior(s, c, ci, cj) * s.fsm[i * s.jm + j];
+  return elf_interior(s, c, ci, cj) * rn(s, s.fsm, pix(s, i, j), i, j);
 }
 
 // ---- advave, mode != 2 (solver.f:16-121) ----
 
-template <typename T, bool W>
-__device__ T adv_tps(const ExtArgs<T>& s, const Carry<T, W>& c, int i, int j) {
+template <typename T, bool O, bool W>
+__device__ T adv_tps(const ExtArgs<T, O>& s, const Carry<T, W>& c, int i,
+                     int j) {
   // put(z, ..., 1:, 1:)
   if (i < 1 || i >= s.im || j < 1 || j >= s.jm) return T(0);
-  const int p = i * s.jm + j, q = at(s, c, i, j);
+  const int p = pix(s, i, j), q = at(s, c, i, j);
   const T dsum = dd(s, c, i, j) + dd(s, c, i - 1, j) + dd(s, c, i, j - 1) +
                  dd(s, c, i - 1, j - 1);
-  const T asum = s.aam2d[p] + ld(s.aam2d, s, i, j - 1) +
+  const T asum = rn(s, s.aam2d, p, i, j) + ld(s.aam2d, s, i, j - 1) +
                  ld(s.aam2d, s, i - 1, j) + ld(s.aam2d, s, i - 1, j - 1);
   return T(0.25) * dsum * asum *
-         ((c.uab[q] - ldc(s, c, c.uab, i, j - 1)) * s.rdy4[p] +
-          (c.vab[q] - ldc(s, c, c.vab, i - 1, j)) * s.rdx4[p]);
+         ((cn(s, c, c.uab, q, i, j) - ldc(s, c, c.uab, i, j - 1)) *
+              rn(s, s.rdy4, p, i, j) +
+          (cn(s, c, c.vab, q, i, j) - ldc(s, c, c.vab, i - 1, j)) *
+              rn(s, s.rdx4, p, i, j));
 }
 
 // u-part fluxua after viscous term and * dy; region 1:-1, 1:
-template <typename T, bool W>
-__device__ T adv_fua3(const ExtArgs<T>& s, const Carry<T, W>& c, int i, int j) {
+template <typename T, bool O, bool W>
+__device__ T adv_fua3(const ExtArgs<T, O>& s, const Carry<T, W>& c, int i,
+                      int j) {
   if (i < 1 || i > s.im - 2 || j < 1 || j >= s.jm) return T(0);
-  const int p = i * s.jm + j, q = at(s, c, i, j);
+  const int p = pix(s, i, j), q = at(s, c, i, j);
   const T d = dd(s, c, i, j);
-  const T ue = ldc(s, c, c.ua, i + 1, j);
+  const T ue = ldc(s, c, c.ua, i + 1, j), ua = cn(s, c, c.ua, q, i, j);
   T f = T(0.125) *
-        ((dd(s, c, i + 1, j) + d) * ue + (d + dd(s, c, i - 1, j)) * c.ua[q]) *
-        (ue + c.ua[q]);
-  f = f - d * T(2) * s.aam2d[p] * (ldc(s, c, c.uab, i + 1, j) - c.uab[q]) *
-              s.rdx[p];
-  return f * s.dy[p];
+        ((dd(s, c, i + 1, j) + d) * ue + (d + dd(s, c, i - 1, j)) * ua) *
+        (ue + ua);
+  f = f - d * T(2) * rn(s, s.aam2d, p, i, j) *
+              (ldc(s, c, c.uab, i + 1, j) - cn(s, c, c.uab, q, i, j)) *
+              rn(s, s.rdx, p, i, j);
+  return f * rn(s, s.dy, p, i, j);
 }
 
 // u-part fluxva after the cross term and * dx4/4; region 1:, 1:
-template <typename T, bool W>
-__device__ T adv_fva3(const ExtArgs<T>& s, const Carry<T, W>& c, int i, int j) {
+template <typename T, bool O, bool W>
+__device__ T adv_fva3(const ExtArgs<T, O>& s, const Carry<T, W>& c, int i,
+                      int j) {
   if (i < 1 || i >= s.im || j < 1 || j >= s.jm) return T(0);
-  const int p = i * s.jm + j, q = at(s, c, i, j);
+  const int p = pix(s, i, j), q = at(s, c, i, j);
   const T f = T(0.125) *
-              ((dd(s, c, i, j) + dd(s, c, i, j - 1)) * c.va[q] +
+              ((dd(s, c, i, j) + dd(s, c, i, j - 1)) *
+                   cn(s, c, c.va, q, i, j) +
                (dd(s, c, i - 1, j) + dd(s, c, i - 1, j - 1)) *
                    ldc(s, c, c.va, i - 1, j)) *
-              (c.ua[q] + ldc(s, c, c.ua, i, j - 1));
-  return (f - adv_tps(s, c, i, j)) * T(0.25) * s.dx4[p];
+              (cn(s, c, c.ua, q, i, j) + ldc(s, c, c.ua, i, j - 1));
+  return (f - adv_tps(s, c, i, j)) * T(0.25) * rn(s, s.dx4, p, i, j);
 }
 
 // v-part fluxua after the cross term and * dy4/4; region 1:, 1:
-template <typename T, bool W>
-__device__ T adv_fua6(const ExtArgs<T>& s, const Carry<T, W>& c, int i, int j) {
+template <typename T, bool O, bool W>
+__device__ T adv_fua6(const ExtArgs<T, O>& s, const Carry<T, W>& c, int i,
+                      int j) {
   if (i < 1 || i >= s.im || j < 1 || j >= s.jm) return T(0);
-  const int p = i * s.jm + j, q = at(s, c, i, j);
+  const int p = pix(s, i, j), q = at(s, c, i, j);
   const T f = T(0.125) *
-              ((dd(s, c, i, j) + dd(s, c, i - 1, j)) * c.ua[q] +
+              ((dd(s, c, i, j) + dd(s, c, i - 1, j)) *
+                   cn(s, c, c.ua, q, i, j) +
                (dd(s, c, i, j - 1) + dd(s, c, i - 1, j - 1)) *
                    ldc(s, c, c.ua, i, j - 1)) *
-              (ldc(s, c, c.va, i - 1, j) + c.va[q]);
-  return (f - adv_tps(s, c, i, j)) * T(0.25) * s.dy4[p];
+              (ldc(s, c, c.va, i - 1, j) + cn(s, c, c.va, q, i, j));
+  return (f - adv_tps(s, c, i, j)) * T(0.25) * rn(s, s.dy4, p, i, j);
 }
 
 // v-part fluxva after viscous term and * dx; region 1:, 1:-1
-template <typename T, bool W>
-__device__ T adv_fva6(const ExtArgs<T>& s, const Carry<T, W>& c, int i, int j) {
+template <typename T, bool O, bool W>
+__device__ T adv_fva6(const ExtArgs<T, O>& s, const Carry<T, W>& c, int i,
+                      int j) {
   if (i < 1 || i >= s.im || j < 1 || j > s.jm - 2) return T(0);
-  const int p = i * s.jm + j, q = at(s, c, i, j);
+  const int p = pix(s, i, j), q = at(s, c, i, j);
   const T d = dd(s, c, i, j);
-  const T vn = ldc(s, c, c.va, i, j + 1);
+  const T vn = ldc(s, c, c.va, i, j + 1), va = cn(s, c, c.va, q, i, j);
   T f = T(0.125) *
-        ((dd(s, c, i, j + 1) + d) * vn + (d + dd(s, c, i, j - 1)) * c.va[q]) *
-        (vn + c.va[q]);
-  f = f - d * T(2) * s.aam2d[p] * (ldc(s, c, c.vab, i, j + 1) - c.vab[q]) *
-              s.rdy[p];
-  return f * s.dx[p];
+        ((dd(s, c, i, j + 1) + d) * vn + (d + dd(s, c, i, j - 1)) * va) *
+        (vn + va);
+  f = f - d * T(2) * rn(s, s.aam2d, p, i, j) *
+              (ldc(s, c, c.vab, i, j + 1) - cn(s, c, c.vab, q, i, j)) *
+              rn(s, s.rdy, p, i, j);
+  return f * rn(s, s.dx, p, i, j);
 }
 
 // advua and advva at one point (0 off their put region 1:-1, 1:-1); they
 // read d/ua/va/uab/vab only
-template <typename T, bool W>
-__device__ void adv_point(const ExtArgs<T>& s, const Carry<T, W>& c, int i,
+template <typename T, bool O, bool W>
+__device__ void adv_point(const ExtArgs<T, O>& s, const Carry<T, W>& c, int i,
                           int j, T& advua, T& advva) {
   const bool inside = i >= 1 && i <= s.im - 2 && j >= 1 && j <= s.jm - 2;
   advua = inside ? adv_fua3(s, c, i, j) - adv_fua3(s, c, i - 1, j) +
@@ -318,60 +434,79 @@ __device__ void adv_point(const ExtArgs<T>& s, const Carry<T, W>& c, int i,
 // ---- depth-mean momentum (advance.f:237-288) ----
 
 // uaf on its put region 1:, 1:-1
-template <typename T, bool W>
-__device__ T uaf_interior(const ExtArgs<T>& s, const Carry<T, W>& c, int i,
+template <typename T, bool O, bool W>
+__device__ T uaf_interior(const ExtArgs<T, O>& s, const Carry<T, W>& c, int i,
                           int j) {
-  const int p = i * s.jm + j, w = p - s.jm;
-  const int q = at(s, c, i, j), qw = q - rows(s, c);
+  const int p = pix(s, i, j), q = at(s, c, i, j);
+  // (i - 1, j) and its neighbour (i - 1, j + 1)
+  auto w = [&](const T* a, int dj) { return cn(s, c, a, q, i, j, -1, dj); };
+  auto h = [&](const T* a, int dj) { return cn(s, c, a, q, i, j, 0, dj); };
+  auto g = [&](const T* a, int di) { return rn(s, a, p, i, j, di, 0); };
   const T d = dd(s, c, i, j), dw = dd(s, c, i - 1, j);
-  const T cori = s.aru[p] * T(0.25) *
-                 (s.cor[p] * d * (c.va[q + 1] + c.va[q]) +
-                  s.corw[p] * dw * (c.va[qw + 1] + c.va[qw]));
-  const T slope = s.ralpha * (c.el[q] - c.el[qw]) +
-                  s.alpha * (c.elb[q] - c.elb[qw] + c.elf[q] - c.elf[qw]) +
-                  s.e_atmos[p] - s.e_atmos[w];
-  const T u1 = s.adx2d[p] + c.advua[q] - cori +
-               s.c025g * s.dyu[p] * (d + dw) * slope + s.drx2d[p] +
-               s.aru[p] * (s.wusurf[p] - s.wubot[p]);
-  return ((s.hu[p] + c.elb[q] + c.elb[qw]) * s.aru[p] * c.uab[q] -
+  const T cori = g(s.aru, 0) * T(0.25) *
+                 (g(s.cor, 0) * d * (h(c.va, 1) + h(c.va, 0)) +
+                  g(s.corw, 0) * dw * (w(c.va, 1) + w(c.va, 0)));
+  const T slope = s.ralpha * (h(c.el, 0) - w(c.el, 0)) +
+                  s.alpha * (h(c.elb, 0) - w(c.elb, 0) + h(c.elf, 0) -
+                             w(c.elf, 0)) +
+                  g(s.e_atmos, 0) - g(s.e_atmos, -1);
+  const T u1 = g(s.adx2d, 0) + h(c.advua, 0) - cori +
+               s.c025g * g(s.dyu, 0) * (d + dw) * slope + g(s.drx2d, 0) +
+               g(s.aru, 0) * (g(s.wusurf, 0) - g(s.wubot, 0));
+  return ((g(s.hu, 0) + h(c.elb, 0) + w(c.elb, 0)) * g(s.aru, 0) *
+              h(c.uab, 0) -
           s.c4dte * u1) /
-         ((s.hu[p] + c.elf[q] + c.elf[qw]) * s.aru[p]);
+         ((g(s.hu, 0) + h(c.elf, 0) + w(c.elf, 0)) * g(s.aru, 0));
 }
 
 // vaf on its put region 1:-1, 1:
-template <typename T, bool W>
-__device__ T vaf_interior(const ExtArgs<T>& s, const Carry<T, W>& c, int i,
+template <typename T, bool O, bool W>
+__device__ T vaf_interior(const ExtArgs<T, O>& s, const Carry<T, W>& c, int i,
                           int j) {
-  const int p = i * s.jm + j, ps = p - 1;
-  const int q = at(s, c, i, j), qs = q - 1, qe = q + rows(s, c);
+  const int p = pix(s, i, j), q = at(s, c, i, j);
+  // (i, j - 1) and its neighbour (i + 1, j - 1)
+  auto v = [&](const T* a, int di) { return cn(s, c, a, q, i, j, di, -1); };
+  auto h = [&](const T* a, int di) { return cn(s, c, a, q, i, j, di, 0); };
+  auto g = [&](const T* a, int dj) { return rn(s, a, p, i, j, 0, dj); };
   const T d = dd(s, c, i, j), ds = dd(s, c, i, j - 1);
-  const T cori = s.arv[p] * T(0.25) *
-                 (s.cor[p] * d * (c.ua[qe] + c.ua[q]) +
-                  s.cors[p] * ds * (c.ua[qe - 1] + c.ua[qs]));
-  const T slope = s.ralpha * (c.el[q] - c.el[qs]) +
-                  s.alpha * (c.elb[q] - c.elb[qs] + c.elf[q] - c.elf[qs]) +
-                  s.e_atmos[p] - s.e_atmos[ps];
-  const T v1 = s.ady2d[p] + c.advva[q] + cori +
-               s.c025g * s.dxv[p] * (d + ds) * slope + s.dry2d[p] +
-               s.arv[p] * (s.wvsurf[p] - s.wvbot[p]);
-  return ((s.hv[p] + c.elb[q] + c.elb[qs]) * s.arv[p] * c.vab[q] -
+  const T cori = g(s.arv, 0) * T(0.25) *
+                 (g(s.cor, 0) * d * (h(c.ua, 1) + h(c.ua, 0)) +
+                  g(s.cors, 0) * ds * (v(c.ua, 1) + v(c.ua, 0)));
+  const T slope = s.ralpha * (h(c.el, 0) - v(c.el, 0)) +
+                  s.alpha * (h(c.elb, 0) - v(c.elb, 0) + h(c.elf, 0) -
+                             v(c.elf, 0)) +
+                  g(s.e_atmos, 0) - g(s.e_atmos, -1);
+  const T v1 = g(s.ady2d, 0) + h(c.advva, 0) + cori +
+               s.c025g * g(s.dxv, 0) * (d + ds) * slope + g(s.dry2d, 0) +
+               g(s.arv, 0) * (g(s.wvsurf, 0) - g(s.wvbot, 0));
+  return ((g(s.hv, 0) + h(c.elb, 0) + v(c.elb, 0)) * g(s.arv, 0) *
+              h(c.vab, 0) -
           s.c4dte * v1) /
-         ((s.hv[p] + c.elf[q] + c.elf[qs]) * s.arv[p]);
+         ((g(s.hv, 0) + h(c.elf, 0) + v(c.elf, 0)) * g(s.arv, 0));
 }
 
 // Flather radiation value with d/el read at (i, j): sqrt(g/d) is taken as
 // sqrt((1/d)*g), PyTorch's form of a Python float over a tensor
-template <typename T, bool W>
-__device__ __forceinline__ T flather(const ExtArgs<T>& s, const Carry<T, W>& c,
-                                     int i, int j, T rf, T sign, T vb, T eb) {
+template <typename T, bool O, bool W>
+__device__ __forceinline__ T flather(const ExtArgs<T, O>& s,
+                                     const Carry<T, W>& c, int i, int j, T rf,
+                                     T sign, T vb, T eb) {
   const T r = rf * sqrt((T(1) / dd(s, c, i, j)) * s.grav);
-  return s.ramp[0] * (vb + sign * (r * (c.el[at(s, c, i, j)] - eb)));
+  return s.ramp[0] *
+         (vb + sign * (r * (cn(s, c, c.el, at(s, c, i, j), i, j) - eb)));
 }
 
-// uaf and vaf at one point, bc_vel2d included, times dum/dvm
-template <typename T, bool W>
-__device__ void velocity_point(const ExtArgs<T>& s, const Carry<T, W>& c, int i,
-                               int j, T& uaf, T& vaf) {
+// uaf and vaf at one point, bc_vel2d included, times dum/dvm; 0 outside
+// the domain
+template <typename T, bool O, bool W>
+__device__ void velocity_point(const ExtArgs<T, O>& s, const Carry<T, W>& c,
+                               int i, int j, T& uaf, T& vaf) {
+  if constexpr (O) {
+    if (!in_domain(s, i, j)) {
+      uaf = vaf = T(0);
+      return;
+    }
+  }
   const int im = s.im, jm = s.jm;
   const bool jin = j >= 1 && j <= jm - 2, iin = i >= 1 && i <= im - 2;
   // uaf: west rows 0/1 and east row im-1 on j in 1..jm-2, then the south
@@ -379,28 +514,32 @@ __device__ void velocity_point(const ExtArgs<T>& s, const Carry<T, W>& c, int i,
   T u = T(0);
   if (jin) {
     if (i <= 1)
-      u = flather(s, c, 1, j, s.rfw, T(-1), s.uabw[j], s.elw[j]);
+      u = flather(s, c, 1, j, s.rfw, T(-1), at_j(s, s.uabw, j),
+                  at_j(s, s.elw, j));
     else if (i == im - 1)
-      u = flather(s, c, im - 2, j, s.rfe, T(1), s.uabe[j], s.ele[j]);
+      u = flather(s, c, im - 2, j, s.rfe, T(1), at_j(s, s.uabe, j),
+                  at_j(s, s.ele, j));
     else
       u = uaf_interior(s, c, i, j);
   } else if (iin) {
-    u = j == 0 ? s.uabs[i] : s.uabn[i];
+    u = j == 0 ? at_i(s, s.uabs, i) : at_i(s, s.uabn, i);
   }
   // vaf: west/east rows on j in 1..jm-2, then columns 0/1 and jm-1 on
   // i in 1..im-2
   T v = T(0);
   if (iin) {
     if (j <= 1)
-      v = flather(s, c, i, 1, s.rfs, T(-1), s.vabs[i], s.els[i]);
+      v = flather(s, c, i, 1, s.rfs, T(-1), at_i(s, s.vabs, i),
+                  at_i(s, s.els, i));
     else if (j == jm - 1)
-      v = flather(s, c, i, jm - 2, s.rfn, T(1), s.vabn[i], s.eln[i]);
+      v = flather(s, c, i, jm - 2, s.rfn, T(1), at_i(s, s.vabn, i),
+                  at_i(s, s.eln, i));
     else
       v = vaf_interior(s, c, i, j);
   } else if (jin) {
-    v = i == 0 ? s.vabw[j] : s.vabe[j];
+    v = i == 0 ? at_j(s, s.vabw, j) : at_j(s, s.vabe, j);
   }
-  const int p = i * jm + j;
+  const int p = pix(s, i, j);
   uaf = u * s.dum[p];
   vaf = v * s.dvm[p];
 }
@@ -408,13 +547,13 @@ __device__ void velocity_point(const ExtArgs<T>& s, const Carry<T, W>& c, int i,
 // ---- etf tail, Asselin filter, rotation, accumulators (advance.f:295-350)
 
 // etf tail and the egf/utf/vtf accumulators at (i, j); the four fields are
-// whole arrays indexed i*jm + j.  Reads elf/uaf/vaf only, so it may run
-// before or after rotate() at the same point.
-template <typename T, bool W>
-__device__ void accumulate(const ExtArgs<T>& s, const Carry<T, W>& c, int i,
-                           int j, int iext, int isplit, T* etf, T* egf,
+// whole arrays indexed like the read-only fields.  Reads elf/uaf/vaf only,
+// so it may run before or after rotate() at the same point.
+template <typename T, bool O, bool W>
+__device__ void accumulate(const ExtArgs<T, O>& s, const Carry<T, W>& c,
+                           int i, int j, int iext, int isplit, T* etf, T* egf,
                            T* utf, T* vtf) {
-  const int p = i * s.jm + j, q = at(s, c, i, j);
+  const int p = pix(s, i, j), q = at(s, c, i, j);
   const T elf = c.elf[q], uaf = c.uaf[q], vaf = c.vaf[q];
   if (iext == isplit - 2)
     etf[p] = s.qsmoth * elf;
@@ -430,15 +569,19 @@ __device__ void accumulate(const ExtArgs<T>& s, const Carry<T, W>& c, int i,
   const T d = s.h[p] + elf;
   if (i >= 1)
     utf[p] = utf[p] + nl * uaf *
-                          (d + (s.h[p - s.jm] + c.elf[q - rows(s, c)])) *
+                          (d + (rn(s, s.h, p, i, j, -1, 0) +
+                                cn(s, c, c.elf, q, i, j, -1, 0))) *
                           s.isp2i;
   if (j >= 1)
-    vtf[p] = vtf[p] + nl * vaf * (d + (s.h[p - 1] + c.elf[q - 1])) * s.isp2i;
+    vtf[p] = vtf[p] + nl * vaf *
+                          (d + (rn(s, s.h, p, i, j, 0, -1) +
+                                cn(s, c, c.elf, q, i, j, 0, -1))) *
+                          s.isp2i;
 }
 
 // Asselin filter and time-level rotation at array cell q
-template <typename T, bool W>
-__device__ void rotate(const ExtArgs<T>& s, const Carry<T, W>& c, int q) {
+template <typename T, bool O, bool W>
+__device__ void rotate(const ExtArgs<T, O>& s, const Carry<T, W>& c, int q) {
   const T elf = c.elf[q], uaf = c.uaf[q], vaf = c.vaf[q];
   const T ua = c.ua[q], va = c.va[q], el = c.el[q];
   c.uab[q] = ua + s.hsmoth * (c.uab[q] - T(2) * ua + uaf);

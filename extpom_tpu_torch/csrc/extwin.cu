@@ -45,6 +45,18 @@
 //     the etf tail on substeps isplit-2..isplit (which may span two chunks)
 //     and the last-substep skip of the accumulators follow the global
 //     substep count.
+//
+// extpom_extwin_chunk_f32/f64, the same kernel on one ring-extended block of
+// the decomposed step (the O variant of extstep.cuh), replace
+// extpom_tpu/pallas/extwin.py:_kernel with has_off (via
+// run_external_chunk_windowed), which stripes a ring-extended local block
+// into windows.  The tiles cover the (R, L) block whose cell (0, 0) is
+// global (oi, oj) instead of the domain; a window is bounded by the block,
+// cells keep their global (i, j) for masks and boundary conditions, and a
+// chunk of nsub substeps (one ring exchange) runs as nsub/C launches, the
+// metrics computed once.  Bound as the whole-domain kernel: at 2048x2048 on
+// a 2x4 mesh the extended block (1084x572) is 124 MB of working set, past
+// the L2.
 
 #include <cuda_runtime.h>
 
@@ -74,16 +86,21 @@ __device__ __forceinline__ void for_rect(int r0, int r1, int c0, int c1,
   for (int q = threadIdx.x; q < n; q += blockDim.x) f(r0 + q / nc, c0 + q % nc);
 }
 
-template <typename T>
+// Tiles cover rows [lo_i, hi_i) and columns [lo_j, hi_j): the domain, or
+// the block (O).
+template <typename T, bool O>
 __global__ void __launch_bounds__(kMaxThreads)
-    k_window(ExtArgs<T> s, const T* __restrict__ cin, T* __restrict__ cout,
+    k_window(ExtArgs<T, O> s, const T* __restrict__ cin, T* __restrict__ cout,
              int iext0, int isplit, int ispadv, int nsub, int halo, int ti,
              int tj) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* sm = reinterpret_cast<T*>(smem);
-  const int im = s.im, jm = s.jm;
-  const long n = (long)im * jm;
-  const int i0 = blockIdx.y * ti, j0 = blockIdx.x * tj;
+  const int lo_i = O ? s.oi : 0, lo_j = O ? s.oj : 0;
+  // hi_i, hi_j; the domain's own extents when O is false, so that the
+  // whole-domain kernel keeps its parent code
+  const int im = O ? s.oi + s.R : s.im, jm = O ? s.oj + s.L : s.jm;
+  const long n = O ? (long)s.R * s.L : (long)im * jm;
+  const int i0 = lo_i + blockIdx.y * ti, j0 = lo_j + blockIdx.x * tj;
   const int ie = min(i0 + ti, im), je = min(j0 + tj, jm);
   const int wj = tj + 2 * halo, wn = (ti + 2 * halo) * wj;
 
@@ -104,21 +121,21 @@ __global__ void __launch_bounds__(kMaxThreads)
   c.oi = i0 - halo;
   c.oj = j0 - halo;
   c.stride = wj;
-  c.i0 = max(i0 - halo, 0);
+  c.i0 = max(i0 - halo, lo_i);
   c.i1 = min(ie + halo, im);
-  c.j0 = max(j0 - halo, 0);
+  c.j0 = max(j0 - halo, lo_j);
   c.j1 = min(je + halo, jm);
   s.wubot = cin + WUBOT * n;
   s.wvbot = cin + WVBOT * n;
 
   for_rect(c.i0, c.i1, c.j0, c.j1, [&](int i, int j) {
-    const int p = i * jm + j, q = extpom::at(s, c, i, j);
+    const int p = extpom::pix(s, i, j), q = extpom::at(s, c, i, j);
 #pragma unroll
     for (int k = 0; k < 8; ++k) sm[k * wn + q] = cin[loaded(k) * n + p];
   });
   // the tile's accumulators and bottom stress start from the input
   for_rect(i0, ie, j0, je, [&](int i, int j) {
-    const int p = i * jm + j;
+    const int p = extpom::pix(s, i, j);
 #pragma unroll
     for (int k = ETF; k <= WVBOT; ++k)
       if (k < ADVUA || k > ADVVA) cout[k * n + p] = cin[k * n + p];
@@ -128,12 +145,13 @@ __global__ void __launch_bounds__(kMaxThreads)
   for (int sub = 0; sub < nsub; ++sub) {
     const int iext = iext0 + sub;
     const int m = 2 * (nsub - 1 - sub);  // margin still needed afterwards
-    const int r0 = max(i0 - m, 0), r1 = min(ie + m, im);
-    const int c0 = max(j0 - m, 0), c1 = min(je + m, jm);
+    const int r0 = max(i0 - m, lo_i), r1 = min(ie + m, im);
+    const int c0 = max(j0 - m, lo_j), c1 = min(je + m, jm);
     const bool adv = iext % ispadv == 0;
     // elf one cell further out: uaf and utf read it at i-1, vaf and vtf at
     // j-1
-    for_rect(max(r0 - 1, 0), min(r1 + 1, im), max(c0 - 1, 0), min(c1 + 1, jm),
+    for_rect(max(r0 - 1, lo_i), min(r1 + 1, im), max(c0 - 1, lo_j),
+             min(c1 + 1, jm),
              [&](int i, int j) {
                const int q = extpom::at(s, c, i, j);
                c.elf[q] = extpom::elf_point(s, c, i, j);
@@ -156,42 +174,50 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 
   for_rect(i0, ie, j0, je, [&](int i, int j) {
-    const int p = i * jm + j, q = extpom::at(s, c, i, j);
+    const int p = extpom::pix(s, i, j), q = extpom::at(s, c, i, j);
 #pragma unroll
     for (int k = 0; k < 8; ++k) cout[loaded(k) * n + p] = sm[k * wn + q];
   });
 }
 
-// ptr: carry buffers A and B (each the 14 carry fields of (im, jm) back to
-// back, CARRY_FIELDS order; the input is in A), then the
-// extpom::kExtOperands read-only operands.  Chunk ic reads one buffer and
-// writes the other, so the result is in A when isplit/nsub is even and in B
-// when it is odd.
-template <typename T>
-int run(void* const* ptr, const double* prm, int im, int jm, int isplit,
-        int ispadv, int nsub, int halo, int ti, int tj, int threads,
-        void* stream) {
-  if (nsub < 1 || isplit % nsub != 0 || halo < 2 * nsub || ti < 1 ||
-      tj < 1 || threads < 32 || threads > kMaxThreads || threads % 32 != 0)
+// ptr: carry buffers A and B (each the 14 carry fields of (im, jm), or
+// (R, L) on a block (O), back to back, CARRY_FIELDS order; the input is in
+// A), then the extpom::kExtOperands read-only operands.  Runs substeps
+// iext0 .. iext0+total-1 of isplit as total/nsub launches of nsub each;
+// launch ic reads one buffer and writes the other, so the result is in A
+// when total/nsub is even and in B when it is odd.
+template <typename T, bool O>
+int run(void* const* ptr, const double* prm, int im, int jm, int R, int L,
+        int oi, int oj, int iext0, int total, int isplit, int ispadv,
+        int nsub, int halo, int ti, int tj, int threads, void* stream) {
+  if (nsub < 1 || total % nsub != 0 || iext0 < 1 ||
+      iext0 + total - 1 > isplit || halo < 2 * nsub || ti < 1 || tj < 1 ||
+      threads < 32 || threads > kMaxThreads || threads % 32 != 0 || R < 1 ||
+      L < 1)
     return (int)cudaErrorInvalidValue;
   T* a = (T*)ptr[0];
   T* b = (T*)ptr[1];
-  ExtArgs<T> s;
+  ExtArgs<T, O> s;
   extpom::set_ext_args(s, ptr + 2, prm, im, jm);
+  s.R = R;
+  s.L = L;
+  s.oi = oi;
+  s.oj = oj;
   const size_t smem =
       sizeof(T) * kShared * (size_t)(ti + 2 * halo) * (tj + 2 * halo);
   cudaError_t err = cudaFuncSetAttribute(
-      k_window<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      k_window<T, O>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
 
   cudaStream_t st = (cudaStream_t)stream;
-  const int n = im * jm;
-  extpom::k_metrics<T><<<(n + 255) / 256, 256, 0, st>>>(s);
+  const int n = R * L;
+  extpom::k_metrics<T, O><<<(n + 255) / 256, 256, 0, st>>>(s);
   err = cudaGetLastError();
-  const dim3 grid((jm + tj - 1) / tj, (im + ti - 1) / ti);
-  for (int ic = 0; ic < isplit / nsub && err == cudaSuccess; ++ic) {
-    k_window<T><<<grid, threads, smem, st>>>(s, a, b, ic * nsub + 1, isplit,
-                                             ispadv, nsub, halo, ti, tj);
+  const dim3 grid((L + tj - 1) / tj, (R + ti - 1) / ti);
+  for (int ic = 0; ic < total / nsub && err == cudaSuccess; ++ic) {
+    k_window<T, O><<<grid, threads, smem, st>>>(s, a, b, iext0 + ic * nsub,
+                                                isplit, ispadv, nsub, halo,
+                                                ti, tj);
     err = cudaGetLastError();
     T* t = a;
     a = b;
@@ -206,14 +232,33 @@ extern "C" int extpom_extwin_f32(void* const* ptr, const double* prm, int im,
                                  int jm, int isplit, int ispadv, int nsub,
                                  int halo, int ti, int tj, int threads,
                                  void* stream) {
-  return run<float>(ptr, prm, im, jm, isplit, ispadv, nsub, halo, ti, tj,
-                    threads, stream);
+  return run<float, false>(ptr, prm, im, jm, im, jm, 0, 0, 1, isplit, isplit,
+                           ispadv, nsub, halo, ti, tj, threads, stream);
 }
 
 extern "C" int extpom_extwin_f64(void* const* ptr, const double* prm, int im,
                                  int jm, int isplit, int ispadv, int nsub,
                                  int halo, int ti, int tj, int threads,
                                  void* stream) {
-  return run<double>(ptr, prm, im, jm, isplit, ispadv, nsub, halo, ti, tj,
-                     threads, stream);
+  return run<double, false>(ptr, prm, im, jm, im, jm, 0, 0, 1, isplit, isplit,
+                            ispadv, nsub, halo, ti, tj, threads, stream);
+}
+
+extern "C" int extpom_extwin_chunk_f32(void* const* ptr, const double* prm,
+                                       int im, int jm, int R, int L, int total,
+                                       int iext0, int oi, int oj, int isplit,
+                                       int ispadv, int nsub, int halo, int ti,
+                                       int tj, int threads, void* stream) {
+  return run<float, true>(ptr, prm, im, jm, R, L, oi, oj, iext0, total,
+                          isplit, ispadv, nsub, halo, ti, tj, threads, stream);
+}
+
+extern "C" int extpom_extwin_chunk_f64(void* const* ptr, const double* prm,
+                                       int im, int jm, int R, int L, int total,
+                                       int iext0, int oi, int oj, int isplit,
+                                       int ispadv, int nsub, int halo, int ti,
+                                       int tj, int threads, void* stream) {
+  return run<double, true>(ptr, prm, im, jm, R, L, oi, oj, iext0, total,
+                           isplit, ispadv, nsub, halo, ti, tj, threads,
+                           stream);
 }

@@ -27,6 +27,12 @@
 //   * the ramp multiplies drhox/drhoy on [:, 1:-1, 1:-1], so level kbm1 of
 //     the interior is 0 * ramp;
 //   * aam keeps aam0 outside [:kbm1, 1:-1, 1:-1].
+//
+// extpom_phase_lat_mesh_f32/f64 run the same kernel on one ring-extended
+// block of the decomposed step (O, column.cuh), replacing the same TPU
+// kernel with has_off (via mesh_runner): regions at global (i, j), the
+// launch skipping 2 cells next to the block's split edges (its unguarded
+// reads reach 1 cell).
 
 #include <cuda_runtime.h>
 
@@ -34,33 +40,34 @@
 
 namespace {
 
-using extpom::Geom;
+using extpom::GeomT;
 using extpom::ld2;
 using extpom::ld3;
 
-template <typename T>
+template <typename T, bool O>
 struct Lat {
   const T *u, *v, *ub, *vb, *aam0, *rho, *rmean;  // (kb, im, jm)
   const T *dt, *ramp;                             // (im, jm), 0-d
   const T *dx, *dy, *aru, *arv, *dum, *dvm;       // (im, jm)
   const T* zz;                                    // (kb,)
   T *aam, *advx, *advy, *drhox, *drhoy;           // outputs
-  Geom g;
+  GeomT<O> g;
   int kbm1;
   T horcon, g025, g05;  // horcon, grav*0.25, 0.5*grav
 };
 
 // dx4-style 4-point sum a + a_w + a_s + a_ws (zero-filled)
-template <typename T>
-__device__ __forceinline__ T sum4(const T* a, const Geom& g, int i, int j) {
+template <typename T, bool O>
+__device__ __forceinline__ T sum4(const T* a, const GeomT<O>& g, int i,
+                                  int j) {
   return a[(long)i * g.jm + j] + ld2(a, g, i - 1, j) + ld2(a, g, i, j - 1) +
          ld2(a, g, i - 1, j - 1);
 }
 
 // curv on [KM1, 1:-1, 1:-1]; the callers read it on the interior only
-template <typename T>
-__device__ T curv(const Lat<T>& s, int k, int i, int j) {
-  const Geom& g = s.g;
+template <typename T, bool O>
+__device__ T curv(const Lat<T, O>& s, int k, int i, int j) {
+  const auto& g = s.g;
   const long p = (long)i * g.jm + j;
   return T(0.25) *
          ((ld3(s.v, g, k, i, j + 1) + ld3(s.v, g, k, i, j)) *
@@ -71,18 +78,18 @@ __device__ T curv(const Lat<T>& s, int k, int i, int j) {
 }
 
 // dtaam = .25 dt4 aam4 at (k, i, j)
-template <typename T>
-__device__ __forceinline__ T dtaam(const Lat<T>& s, int k, int i, int j) {
-  const Geom& g = s.g;
+template <typename T, bool O>
+__device__ __forceinline__ T dtaam(const Lat<T, O>& s, int k, int i, int j) {
+  const auto& g = s.g;
   return T(0.25) * sum4(s.dt, g, i, j) * sum4(s.aam0 + k * g.n, g, i, j);
 }
 
 // advx's xflux after the viscous term, on [KM1, 1:-1, 1:] (j >= 1 here);
 // 0 at i = 0 and i = im-1
-template <typename T>
-__device__ T xflux_x(const Lat<T>& s, int k, int i, int j) {
-  const Geom& g = s.g;
-  if (i < 1 || i > g.im - 2) return T(0);
+template <typename T, bool O>
+__device__ T xflux_x(const Lat<T, O>& s, int k, int i, int j) {
+  const auto& g = s.g;
+  if (g.gi(i) < 1 || g.gi(i) > g.GI() - 2) return T(0);
   const long p = (long)i * g.jm + j;
   const T u = ld3(s.u, g, k, i, j), ue = ld3(s.u, g, k, i + 1, j);
   const T dt = s.dt[p], dte = ld2(s.dt, g, i + 1, j);
@@ -94,9 +101,9 @@ __device__ T xflux_x(const Lat<T>& s, int k, int i, int j) {
 }
 
 // advx's yflux after the cross term, on [KM1, 1:-1, 1:] (i interior here)
-template <typename T>
-__device__ T yflux_x(const Lat<T>& s, int k, int i, int j) {
-  const Geom& g = s.g;
+template <typename T, bool O>
+__device__ T yflux_x(const Lat<T, O>& s, int k, int i, int j) {
+  const auto& g = s.g;
   const long p = (long)i * g.jm + j;
   const T f = T(0.125) *
               ((s.dt[p] + ld2(s.dt, g, i, j - 1)) * ld3(s.v, g, k, i, j) +
@@ -111,9 +118,9 @@ __device__ T yflux_x(const Lat<T>& s, int k, int i, int j) {
 }
 
 // advy's xflux after the cross term, on [KM1, 1:, 1:-1] (i >= 1 here)
-template <typename T>
-__device__ T xflux_y(const Lat<T>& s, int k, int i, int j) {
-  const Geom& g = s.g;
+template <typename T, bool O>
+__device__ T xflux_y(const Lat<T, O>& s, int k, int i, int j) {
+  const auto& g = s.g;
   const long p = (long)i * g.jm + j;
   const T f = T(0.125) *
               ((s.dt[p] + ld2(s.dt, g, i - 1, j)) * ld3(s.u, g, k, i, j) +
@@ -129,10 +136,10 @@ __device__ T xflux_y(const Lat<T>& s, int k, int i, int j) {
 
 // advy's yflux after the viscous term, on [KM1, 1:, 1:-1] (i interior
 // here); 0 at j = 0 and j = jm-1
-template <typename T>
-__device__ T yflux_y(const Lat<T>& s, int k, int i, int j) {
-  const Geom& g = s.g;
-  if (j < 1 || j > g.jm - 2) return T(0);
+template <typename T, bool O>
+__device__ T yflux_y(const Lat<T, O>& s, int k, int i, int j) {
+  const auto& g = s.g;
+  if (g.gj(j) < 1 || g.gj(j) > g.GJ() - 2) return T(0);
   const long p = (long)i * g.jm + j;
   const T v = ld3(s.v, g, k, i, j), vn = ld3(s.v, g, k, i, j + 1);
   const T dt = s.dt[p], dtn = ld2(s.dt, g, i, j + 1);
@@ -143,14 +150,16 @@ __device__ T yflux_y(const Lat<T>& s, int k, int i, int j) {
                             s.dy[p]);
 }
 
-template <typename T>
-__global__ void k_lat(Lat<T> s) {
-  const Geom& g = s.g;
+template <typename T, bool O>
+__global__ void k_lat(Lat<T, O> s) {
+  const auto& g = s.g;
   const long p = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= g.n) return;
   const int i = p / g.jm, j = p % g.jm;
+  if (g.skip(i, j)) return;
+  const int gi = g.gi(i), gj = g.gj(j);
   const long n = g.n;
-  if (i < 1 || i > g.im - 2 || j < 1 || j > g.jm - 2) {
+  if (gi < 1 || gi > g.GI() - 2 || gj < 1 || gj > g.GJ() - 2) {
     for (int k = 0; k < g.kb; ++k) {
       const long q = k * n + p;
       s.aam[q] = s.aam0[q];
@@ -174,7 +183,7 @@ __global__ void k_lat(Lat<T> s) {
     // ---- advct x-component ----
     T ax = xflux_x(s, k, i, j) - xflux_x(s, k, i - 1, j) +
            yflux_x(s, k, i, j + 1) - yflux_x(s, k, i, j);
-    if (i >= 2)
+    if (gi >= 2)
       ax = ax - s.aru[p] * T(0.25) *
                     (curv(s, k, i, j) * dt * (s.v[q + 1] + s.v[q]) +
                      curv(s, k, i - 1, j) * dtw * (s.v[q - g.jm + 1] + s.v[q - g.jm]));
@@ -182,7 +191,7 @@ __global__ void k_lat(Lat<T> s) {
     // ---- advct y-component ----
     T ay = xflux_y(s, k, i + 1, j) - xflux_y(s, k, i, j) +
            yflux_y(s, k, i, j) - yflux_y(s, k, i, j - 1);
-    if (j >= 2)
+    if (gj >= 2)
       ay = ay + s.arv[p] * T(0.25) *
                     (curv(s, k, i, j) * dt * (s.u[q + g.jm] + s.u[q]) +
                      curv(s, k, i, j - 1) * dts * (s.u[q + g.jm - 1] + s.u[q - 1]));
@@ -234,10 +243,12 @@ __global__ void k_lat(Lat<T> s) {
 constexpr int kThreads = 256;
 constexpr int kPointers = 21;
 
-template <typename T>
-int run(void* const* ptr, const double* prm, int kb, int im, int jm,
-        void* stream) {
-  Lat<T> s;
+// ptr: the operands and outputs; the domain is (im, jm), the arrays the
+// domain or (O) the (R, L) block at global (oi, oj)
+template <typename T, bool O>
+int run(void* const* ptr, const double* prm, int kb, int im, int jm, int R,
+        int L, int oi, int oj, void* stream) {
+  Lat<T, O> s;
   int k = 0;
 #define NEXT(f) s.f = (decltype(s.f))ptr[k++]
   NEXT(u); NEXT(v); NEXT(ub); NEXT(vb); NEXT(aam0); NEXT(rho); NEXT(rmean);
@@ -246,7 +257,7 @@ int run(void* const* ptr, const double* prm, int kb, int im, int jm,
   NEXT(aam); NEXT(advx); NEXT(advy); NEXT(drhox); NEXT(drhoy);
 #undef NEXT
   if (k != kPointers) return (int)cudaErrorInvalidValue;
-  s.g = Geom{kb, im, jm, (long)im * jm};
+  s.g = extpom::geometry<O>(kb, im, jm, R, L, oi, oj, 2);
   s.kbm1 = kb - 1;
   // prm: horcon, grav; each constant formed in double as the Python
   // expression forms it, then rounded to T
@@ -254,7 +265,7 @@ int run(void* const* ptr, const double* prm, int kb, int im, int jm,
   s.g025 = T(prm[1] * 0.25);
   s.g05 = T(0.5 * prm[1]);
   const int blocks = (int)((s.g.n + kThreads - 1) / kThreads);
-  k_lat<T><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(s);
+  k_lat<T, O><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(s);
   return (int)cudaGetLastError();
 }
 
@@ -263,11 +274,25 @@ int run(void* const* ptr, const double* prm, int kb, int im, int jm,
 extern "C" int extpom_phase_lat_f32(void* const* ptr, const double* prm,
                                     int kb, int im, int jm, int, int,
                                     void* stream) {
-  return run<float>(ptr, prm, kb, im, jm, stream);
+  return run<float, false>(ptr, prm, kb, im, jm, im, jm, 0, 0, stream);
 }
 
 extern "C" int extpom_phase_lat_f64(void* const* ptr, const double* prm,
                                     int kb, int im, int jm, int, int,
                                     void* stream) {
-  return run<double>(ptr, prm, kb, im, jm, stream);
+  return run<double, false>(ptr, prm, kb, im, jm, im, jm, 0, 0, stream);
+}
+
+extern "C" int extpom_phase_lat_mesh_f32(void* const* ptr, const double* prm,
+                                         int kb, int im, int jm, int R, int L,
+                                         int oi, int oj, int, int,
+                                         void* stream) {
+  return run<float, true>(ptr, prm, kb, im, jm, R, L, oi, oj, stream);
+}
+
+extern "C" int extpom_phase_lat_mesh_f64(void* const* ptr, const double* prm,
+                                         int kb, int im, int jm, int R, int L,
+                                         int oi, int oj, int, int,
+                                         void* stream) {
+  return run<double, true>(ptr, prm, kb, im, jm, R, L, oi, oj, stream);
 }

@@ -27,6 +27,12 @@
 // Built with -fmad=false so each operation rounds as the plain PyTorch
 // version's does; the depth sums run in ascending k, as the plain phase's
 // do (kernels/phases.py:_depth_sum).
+//
+// extpom_phase_mom_mesh_f32/f64 run the same kernels on one ring-extended
+// block of the decomposed step (O, column.cuh), replacing the same TPU
+// kernel with has_off (via mesh_runner): regions and the Orlanski rows at
+// global (i, j), k_solve skipping 2 cells next to the block's split edges
+// and k_final 4 (their unguarded reads reach 1 and 2 cells).
 
 #include <cuda_runtime.h>
 
@@ -34,9 +40,9 @@
 
 namespace {
 
-using extpom::Geom;
+using extpom::GeomT;
 
-template <typename T>
+template <typename T, bool O>
 struct Mom {
   const T *u, *ub, *v, *vb, *w, *advx, *advy, *drhox, *drhoy, *km;  // 3-D
   const T *dt, *egf, *egb, *etb, *etf;                              // 2-D
@@ -45,7 +51,7 @@ struct Mom {
   const T *dz, *dzz;                                                // (kb,)
   T *uo, *ubo, *vo, *vbo, *wubot, *wvbot;                           // outputs
   T *ufs, *vfs, *ees, *ggs;                                         // scratch
-  Geom g;
+  GeomT<O> g;
   int kbm1, kbm2;
   // constants, each formed in double as the Python expression forms it and
   // rounded to T as PyTorch rounds a Python float operand
@@ -54,26 +60,28 @@ struct Mom {
 
 // ---- k_solve ----------------------------------------------------------------
 
-template <typename T>
-__global__ void k_solve(Mom<T> s) {
-  const Geom& g = s.g;
+template <typename T, bool O>
+__global__ void k_solve(Mom<T, O> s) {
+  const auto& g = s.g;
   const long p = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= g.n) return;
   const int i = p / g.jm, j = p % g.jm;
+  if (g.skip(i, j)) return;
+  const int gi = g.gi(i), gj = g.gj(j);
   const int jm = g.jm, kbm1 = s.kbm1, kbm2 = s.kbm2;
   const long n = g.n;
   // vertical advection, on [1:kbm1, 1:, :] (u) and [1:kbm1, :, 1:] (v)
   auto vadv_u = [&](int k) -> T {
-    if (k < 1 || k >= kbm1 || i < 1) return T(0);
+    if (k < 1 || k >= kbm1 || gi < 1) return T(0);
     const long q = k * n + p;
     return T(0.25) * (s.w[q] + s.w[q - jm]) * (s.u[q] + s.u[q - n]);
   };
   auto vadv_v = [&](int k) -> T {
-    if (k < 1 || k >= kbm1 || j < 1) return T(0);
+    if (k < 1 || k >= kbm1 || gj < 1) return T(0);
     const long q = k * n + p;
     return T(0.25) * (s.w[q] + s.w[q - 1]) * (s.v[q] + s.v[q - n]);
   };
-  if (i < 1 || i > g.im - 2 || j < 1 || j > g.jm - 2) {
+  if (gi < 1 || gi > g.GI() - 2 || gj < 1 || gj > g.GJ() - 2) {
     // outside the combine region uf/vf hold the raw vertical advection,
     // which profu/profv leave as it is
     for (int k = 0; k < g.kb; ++k) {
@@ -222,58 +230,63 @@ __device__ __forceinline__ T radiate(T cl, T fb, T f_in) {
   return (fb * (T(1) - cl) + T(2) * cl * f_in) / (T(1) + cl);
 }
 
-// uf after orl_vel3d at level k < kbm1, before the dum mask
-template <typename T>
-__device__ T uf_final(const Mom<T>& s, int k, int i, int j) {
-  const Geom& g = s.g;
-  const int im = g.im, jm = g.jm;
+// uf after orl_vel3d at level k < kbm1, before the dum mask; at(a, ii)
+// reads global row ii of the cell's column
+template <typename T, bool O>
+__device__ T uf_final(const Mom<T, O>& s, int k, int i, int j) {
+  const auto& g = s.g;
+  const int im = g.GI(), jm = g.jm, gi = g.gi(i), gj = g.gj(j);
   const long row = k * g.n;
-  auto at = [&](const T* a, int ii) { return a[row + (long)ii * jm + j]; };
-  if (j >= 1 && j <= jm - 2) {
-    if (i == im - 1) {  // east: uf/ub one row in, u two rows in
+  auto at = [&](const T* a, int ii) {
+    return a[row + (long)g.li(ii) * jm + j];
+  };
+  if (gj >= 1 && gj <= g.GJ() - 2) {
+    if (gi == im - 1) {  // east: uf/ub one row in, u two rows in
       const T cl = phase_speed(at(s.ufs, im - 2), at(s.ub, im - 2),
                                at(s.u, im - 3));
       return radiate(cl, at(s.ub, im - 1), at(s.u, im - 2));
     }
-    if (i <= 1) {  // west: the u-face at 1, then row 0 copies it
+    if (gi <= 1) {  // west: the u-face at 1, then row 0 copies it
       const T cl = phase_speed(at(s.ufs, 2), at(s.ub, 2), at(s.u, 3));
       return radiate(cl, at(s.ub, 1), at(s.u, 2));
     }
-  } else if (i >= 1 && i <= im - 2) {  // south and north rows
+  } else if (gi >= 1 && gi <= im - 2) {  // south and north rows
     return T(0);
   }
   return s.ufs[row + (long)i * jm + j];
 }
 
-// vf after orl_vel3d at level k < kbm1, before the dvm mask
-template <typename T>
-__device__ T vf_final(const Mom<T>& s, int k, int i, int j) {
-  const Geom& g = s.g;
-  const int im = g.im, jm = g.jm;
-  const long row = k * g.n + (long)i * jm;
-  auto at = [&](const T* a, int jj) { return a[row + jj]; };
-  if (i >= 1 && i <= im - 2) {
-    if (j == jm - 1) {  // north
+// vf after orl_vel3d at level k < kbm1, before the dvm mask; at(a, jj)
+// reads global column jj of the cell's row
+template <typename T, bool O>
+__device__ T vf_final(const Mom<T, O>& s, int k, int i, int j) {
+  const auto& g = s.g;
+  const int im = g.GI(), jm = g.GJ(), gi = g.gi(i), gj = g.gj(j);
+  const long row = k * g.n + (long)i * g.jm;
+  auto at = [&](const T* a, int jj) { return a[row + g.lj(jj)]; };
+  if (gi >= 1 && gi <= im - 2) {
+    if (gj == jm - 1) {  // north
       const T cl = phase_speed(at(s.vfs, jm - 2), at(s.vb, jm - 2),
                                at(s.v, jm - 3));
       return radiate(cl, at(s.vb, jm - 1), at(s.v, jm - 2));
     }
-    if (j <= 1) {  // south: the v-face at 1, then column 0 copies it
+    if (gj <= 1) {  // south: the v-face at 1, then column 0 copies it
       const T cl = phase_speed(at(s.vfs, 2), at(s.vb, 2), at(s.v, 3));
       return radiate(cl, at(s.vb, 1), at(s.v, 2));
     }
-  } else if (j >= 1 && j <= jm - 2) {  // east and west rows
+  } else if (gj >= 1 && gj <= jm - 2) {  // east and west rows
     return T(0);
   }
   return s.vfs[row + j];
 }
 
-template <typename T>
-__global__ void k_final(Mom<T> s) {
-  const Geom& g = s.g;
+template <typename T, bool O>
+__global__ void k_final(Mom<T, O> s) {
+  const auto& g = s.g;
   const long p = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= g.n) return;
   const int i = p / g.jm, j = p % g.jm;
+  if (g.skip(i, j)) return;
   const long n = g.n;
   const T dum = s.dum[p], dvm = s.dvm[p];
   T tpu = T(0), tpv = T(0);
@@ -298,10 +311,12 @@ __global__ void k_final(Mom<T> s) {
 constexpr int kThreads = 128;
 constexpr int kPointers = 39;
 
-template <typename T>
-int run(void* const* ptr, const double* prm, int kb, int im, int jm,
-        void* stream) {
-  Mom<T> s;
+// ptr: the operands, outputs and scratch; the domain is (im, jm), the
+// arrays the domain or (O) the (R, L) block at global (oi, oj)
+template <typename T, bool O>
+int run(void* const* ptr, const double* prm, int kb, int im, int jm, int R,
+        int L, int oi, int oj, void* stream) {
+  Mom<T, O> s;
   int k = 0;
 #define NEXT(f) s.f = (decltype(s.f))ptr[k++]
   NEXT(u); NEXT(ub); NEXT(v); NEXT(vb); NEXT(w); NEXT(advx); NEXT(advy);
@@ -315,7 +330,7 @@ int run(void* const* ptr, const double* prm, int kb, int im, int jm,
   NEXT(ufs); NEXT(vfs); NEXT(ees); NEXT(ggs);
 #undef NEXT
   if (k != kPointers) return (int)cudaErrorInvalidValue;
-  s.g = Geom{kb, im, jm, (long)im * jm};
+  s.g = extpom::geometry<O>(kb, im, jm, R, L, oi, oj, 2);
   s.kbm1 = kb - 1;
   s.kbm2 = kb - 2;
   // prm: dti2, grav, umol, smoth
@@ -327,8 +342,9 @@ int run(void* const* ptr, const double* prm, int kb, int im, int jm,
   s.hsmoth = T(0.5 * prm[3]);
   cudaStream_t st = (cudaStream_t)stream;
   const int blocks = (int)((s.g.n + kThreads - 1) / kThreads);
-  k_solve<T><<<blocks, kThreads, 0, st>>>(s);
-  k_final<T><<<blocks, kThreads, 0, st>>>(s);
+  k_solve<T, O><<<blocks, kThreads, 0, st>>>(s);
+  s.g = extpom::geometry<O>(kb, im, jm, R, L, oi, oj, 4);
+  k_final<T, O><<<blocks, kThreads, 0, st>>>(s);
   return (int)cudaGetLastError();
 }
 
@@ -337,11 +353,25 @@ int run(void* const* ptr, const double* prm, int kb, int im, int jm,
 extern "C" int extpom_phase_mom_f32(void* const* ptr, const double* prm,
                                     int kb, int im, int jm, int, int,
                                     void* stream) {
-  return run<float>(ptr, prm, kb, im, jm, stream);
+  return run<float, false>(ptr, prm, kb, im, jm, im, jm, 0, 0, stream);
 }
 
 extern "C" int extpom_phase_mom_f64(void* const* ptr, const double* prm,
                                     int kb, int im, int jm, int, int,
                                     void* stream) {
-  return run<double>(ptr, prm, kb, im, jm, stream);
+  return run<double, false>(ptr, prm, kb, im, jm, im, jm, 0, 0, stream);
+}
+
+extern "C" int extpom_phase_mom_mesh_f32(void* const* ptr, const double* prm,
+                                         int kb, int im, int jm, int R, int L,
+                                         int oi, int oj, int, int,
+                                         void* stream) {
+  return run<float, true>(ptr, prm, kb, im, jm, R, L, oi, oj, stream);
+}
+
+extern "C" int extpom_phase_mom_mesh_f64(void* const* ptr, const double* prm,
+                                         int kb, int im, int jm, int R, int L,
+                                         int oi, int oj, int, int,
+                                         void* stream) {
+  return run<double, true>(ptr, prm, kb, im, jm, R, L, oi, oj, stream);
 }

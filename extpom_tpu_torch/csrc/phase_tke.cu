@@ -40,6 +40,12 @@
 //   * the old l is never read: every level is recomputed;
 //   * bc_turb writes all kb levels of the edge columns, west, east, south,
 //     north, so a corner takes the south or north value.
+//
+// extpom_phase_tke_mesh_f32/f64 run the same kernels on one ring-extended
+// block of the decomposed step (O, column.cuh), replacing the same TPU
+// kernel with has_off (via mesh_runner): regions and edges at global
+// (i, j), k_column skipping 2 cells next to the block's split edges and
+// k_edges 4 (their unguarded reads reach 1 cell).
 
 #include <cuda_runtime.h>
 
@@ -47,9 +53,9 @@
 
 namespace {
 
-using extpom::Geom;
+using extpom::GeomT;
 
-template <typename T>
+template <typename T, bool O>
 struct Tke {
   const T *q2, *q2b, *q2l, *q2lb, *u, *v, *w, *aam, *t, *s, *rho;  // 3-D
   const T *km, *kh, *kq;                                           // 3-D
@@ -59,7 +65,7 @@ struct Tke {
   const T *z, *zz, *dz, *dzz;                                      // (kb,)
   T *q2o, *q2bo, *q2lo, *q2lbo, *kmo, *kho, *kqo, *lo;             // outputs
   T *ees, *ggs, *kmr, *khr, *kqr;                                  // scratch
-  Geom g;
+  GeomT<O> g;
   int kbm1;
   // constants, each formed in double as the Python expression forms it and
   // rounded to T as PyTorch rounds a Python float operand
@@ -78,8 +84,8 @@ __device__ __forceinline__ T nan_max(T a, T b) {
 }
 
 // advq's x face flux at column q (i >= 1, j >= 1), level 1 <= k < kbm1
-template <typename T>
-__device__ __forceinline__ T xflux(const Tke<T>& s, const T* f, const T* fb,
+template <typename T, bool O>
+__device__ __forceinline__ T xflux(const Tke<T, O>& s, const T* f, const T* fb,
                                    int k, long q) {
   const long n = s.g.n, kq = k * n + q, qw = q - s.g.jm, kw = kq - s.g.jm;
   const T x1 = T(0.125) * (f[kq] + f[kw]) * (s.dt[q] + s.dt[qw]) *
@@ -91,8 +97,8 @@ __device__ __forceinline__ T xflux(const Tke<T>& s, const T* f, const T* fb,
   return T(0.5) * (s.dy[q] + s.dy[qw]) * (x1 - xd);
 }
 
-template <typename T>
-__device__ __forceinline__ T yflux(const Tke<T>& s, const T* f, const T* fb,
+template <typename T, bool O>
+__device__ __forceinline__ T yflux(const Tke<T, O>& s, const T* f, const T* fb,
                                    int k, long q) {
   const long n = s.g.n, kq = k * n + q, qs = q - 1, ks = kq - 1;
   const T y1 = T(0.125) * (f[kq] + f[ks]) * (s.dt[q] + s.dt[qs]) *
@@ -105,8 +111,8 @@ __device__ __forceinline__ T yflux(const Tke<T>& s, const T* f, const T* fb,
 }
 
 // advq's new value of f at interior column p, level 1 <= k < kbm1
-template <typename T>
-__device__ T advq(const Tke<T>& s, const T* f, const T* fb, int k, long p) {
+template <typename T, bool O>
+__device__ T advq(const Tke<T, O>& s, const T* f, const T* fb, int k, long p) {
   const long n = s.g.n, jm = s.g.jm, q = k * n + p;
   const T h = s.h[p], art = s.art[p];
   const T qf = (s.w[q - n] * f[q - n] - s.w[q + n] * f[q + n]) * art /
@@ -118,8 +124,8 @@ __device__ T advq(const Tke<T>& s, const T* f, const T* fb, int k, long p) {
 }
 
 // profq's speed of sound at level k < kbm1 of column p
-template <typename T>
-__device__ __forceinline__ T sound(const Tke<T>& s, int k, long p) {
+template <typename T, bool O>
+__device__ __forceinline__ T sound(const Tke<T, O>& s, int k, long p) {
   const long q = k * s.g.n + p;
   const T tp = s.t[q] + s.tbias, sp = s.s[q] + s.sbias;
   const T pr = s.grho * (-s.zz[k] * s.h[p]) * T(1.0e-4);
@@ -130,8 +136,8 @@ __device__ __forceinline__ T sound(const Tke<T>& s, int k, long p) {
 }
 
 // buoyancy gradient at level 1 <= k < kbm1 of column p
-template <typename T>
-__device__ __forceinline__ T boygr(const Tke<T>& s, int k, long p) {
+template <typename T, bool O>
+__device__ __forceinline__ T boygr(const Tke<T, O>& s, int k, long p) {
   const long q = k * s.g.n + p;
   const T cm = sound(s, k - 1, p), c0 = sound(s, k, p);
   return s.grav * (s.rho[q - s.g.n] - s.rho[q]) / (s.dzz[k - 1] * s.h[p]) +
@@ -139,25 +145,25 @@ __device__ __forceinline__ T boygr(const Tke<T>& s, int k, long p) {
 }
 
 // bc_turb's value of f at edge column (i, j), level k, before fsm
-template <typename T>
-__device__ T turb_edge(const Tke<T>& s, const T* f, int k, int i, int j) {
-  const int im = s.g.im, jm = s.g.jm;
+template <typename T, bool O>
+__device__ T turb_edge(const Tke<T, O>& s, const T* f, int k, int i, int j) {
+  const int jm = s.g.jm, gi = s.g.gi(i), gj = s.g.gj(j);
   const long row = k * s.g.n;
   long e, in;  // the edge point and the one inside it
   bool le;
   T u1;
   // written west, east, south, north: the last side written wins
-  if (j == jm - 1) {
+  if (gj == s.g.GJ() - 1) {
     e = (long)i * jm + j; in = e - 1; le = true;
     u1 = T(2) * s.v[row + e] * s.dti / (s.dy[e] + s.dy[in]);
-  } else if (j == 0) {
-    e = (long)i * jm; in = e + 1; le = false;
+  } else if (gj == 0) {
+    e = (long)i * jm + j; in = e + 1; le = false;
     u1 = T(2) * s.v[row + in] * s.dti / (s.dy[e] + s.dy[in]);
-  } else if (i == im - 1) {
+  } else if (gi == s.g.GI() - 1) {
     e = (long)i * jm + j; in = e - jm; le = true;
     u1 = T(2) * s.u[row + e] * s.dti / (s.dx[e] + s.dx[in]);
   } else {
-    e = j; in = e + jm; le = false;
+    e = (long)i * jm + j; in = e + jm; le = false;
     u1 = T(2) * s.u[row + in] * s.dti / (s.dx[e] + s.dx[in]);
   }
   const T fe = f[row + e], fi = f[row + in];
@@ -165,19 +171,21 @@ __device__ T turb_edge(const Tke<T>& s, const T* f, int k, int i, int j) {
   return u1 >= T(0) ? fe - u1 * (fe - s.small) : fe - u1 * (fi - fe);
 }
 
-template <typename T>
-__global__ void k_column(Tke<T> s) {
-  const Geom& g = s.g;
+template <typename T, bool O>
+__global__ void k_column(Tke<T, O> s) {
+  const auto& g = s.g;
   const long p = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= g.n) return;
   const int i = p / g.jm, j = p % g.jm;
+  if (g.skip(i, j)) return;
+  const int gi = g.gi(i), gj = g.gj(j);
   const int kb = g.kb, kbm1 = s.kbm1, jm = g.jm;
   const long n = g.n;
   const T h = s.h[p], fsm = s.fsm[p];
   const T dh = h + s.etf[p];
   // surface friction velocity squared, 0 on the last row and column
   T utau2 = T(0);
-  if (i < g.im - 1 && j < jm - 1) {
+  if (gi < g.GI() - 1 && gj < g.GJ() - 1) {
     const T su = T(0.5) * (s.wusurf[p] + s.wusurf[p + jm]);
     const T sv = T(0.5) * (s.wvsurf[p] + s.wvsurf[p + 1]);
     utau2 = sqrt(su * su + sv * sv);
@@ -203,7 +211,7 @@ __global__ void k_column(Tke<T> s) {
     fbo[q] = f[q] + s.hsmoth * (fn + rect(fb, k) - T(2) * f[q]);
   };
 
-  if (i < 1 || i > g.im - 2 || j < 1 || j > jm - 2) {
+  if (gi < 1 || gi > g.GI() - 2 || gj < 1 || gj > g.GJ() - 2) {
     for (int k = 0; k < kb; ++k) {
       commit(s.q2, s.q2b, s.q2o, s.q2bo, k,
              turb_edge(s, s.q2, k, i, j) * fsm + T(1.0e-10));
@@ -302,15 +310,17 @@ __global__ void k_column(Tke<T> s) {
   }
 }
 
-template <typename T>
-__global__ void k_edges(Tke<T> s) {
-  const Geom& g = s.g;
+template <typename T, bool O>
+__global__ void k_edges(Tke<T, O> s) {
+  const auto& g = s.g;
   const long p = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= g.n) return;
   const int i = p / g.jm, j = p % g.jm;
-  const int ci = i == 0 ? 1 : (i == g.im - 1 ? g.im - 2 : i);
-  const int cj = j == 0 ? 1 : (j == g.jm - 1 ? g.jm - 2 : j);
-  const long src = (long)ci * g.jm + cj;
+  if (g.skip(i, j)) return;
+  const int gi = g.gi(i), gj = g.gj(j), im = g.GI(), jm = g.GJ();
+  const int ci = gi == 0 ? 1 : (gi == im - 1 ? im - 2 : gi);
+  const int cj = gj == 0 ? 1 : (gj == jm - 1 ? jm - 2 : gj);
+  const long src = (long)g.li(ci) * g.jm + g.lj(cj);
   const T fsm = s.fsm[p];
   for (int k = 0; k < g.kb; ++k) {
     const long q = k * g.n;
@@ -323,10 +333,12 @@ __global__ void k_edges(Tke<T> s) {
 constexpr int kThreads = 128;
 constexpr int kPointers = 45;
 
-template <typename T>
-int run(void* const* ptr, const double* prm, int kb, int im, int jm,
-        void* stream) {
-  Tke<T> s;
+// ptr: the operands, outputs and scratch; the domain is (im, jm), the
+// arrays the domain or (O) the (R, L) block at global (oi, oj)
+template <typename T, bool O>
+int run(void* const* ptr, const double* prm, int kb, int im, int jm, int R,
+        int L, int oi, int oj, void* stream) {
+  Tke<T, O> s;
   int k = 0;
 #define NEXT(f) s.f = (decltype(s.f))ptr[k++]
   NEXT(q2); NEXT(q2b); NEXT(q2l); NEXT(q2lb); NEXT(u); NEXT(v); NEXT(w);
@@ -340,7 +352,7 @@ int run(void* const* ptr, const double* prm, int kb, int im, int jm,
   NEXT(ees); NEXT(ggs); NEXT(kmr); NEXT(khr); NEXT(kqr);
 #undef NEXT
   if (k != kPointers) return (int)cudaErrorInvalidValue;
-  s.g = Geom{kb, im, jm, (long)im * jm};
+  s.g = extpom::geometry<O>(kb, im, jm, R, L, oi, oj, 2);
   s.kbm1 = kb - 1;
   // prm (kernels/phases.py:phase_tke): dti2, -dti2, 2 umol, 2 dti2,
   // -2 dti2, dti, smoth/2, grav, 2 grav^2, grav rhoref, tbias, sbias,
@@ -380,8 +392,9 @@ int run(void* const* ptr, const double* prm, int kb, int im, int jm,
   s.coef5 = T(prm[30]);
   cudaStream_t st = (cudaStream_t)stream;
   const int blocks = (int)((s.g.n + kThreads - 1) / kThreads);
-  k_column<T><<<blocks, kThreads, 0, st>>>(s);
-  k_edges<T><<<blocks, kThreads, 0, st>>>(s);
+  k_column<T, O><<<blocks, kThreads, 0, st>>>(s);
+  s.g = extpom::geometry<O>(kb, im, jm, R, L, oi, oj, 4);
+  k_edges<T, O><<<blocks, kThreads, 0, st>>>(s);
   return (int)cudaGetLastError();
 }
 
@@ -390,11 +403,25 @@ int run(void* const* ptr, const double* prm, int kb, int im, int jm,
 extern "C" int extpom_phase_tke_f32(void* const* ptr, const double* prm,
                                     int kb, int im, int jm, int, int,
                                     void* stream) {
-  return run<float>(ptr, prm, kb, im, jm, stream);
+  return run<float, false>(ptr, prm, kb, im, jm, im, jm, 0, 0, stream);
 }
 
 extern "C" int extpom_phase_tke_f64(void* const* ptr, const double* prm,
                                     int kb, int im, int jm, int, int,
                                     void* stream) {
-  return run<double>(ptr, prm, kb, im, jm, stream);
+  return run<double, false>(ptr, prm, kb, im, jm, im, jm, 0, 0, stream);
+}
+
+extern "C" int extpom_phase_tke_mesh_f32(void* const* ptr, const double* prm,
+                                         int kb, int im, int jm, int R, int L,
+                                         int oi, int oj, int, int,
+                                         void* stream) {
+  return run<float, true>(ptr, prm, kb, im, jm, R, L, oi, oj, stream);
+}
+
+extern "C" int extpom_phase_tke_mesh_f64(void* const* ptr, const double* prm,
+                                         int kb, int im, int jm, int R, int L,
+                                         int oi, int oj, int, int,
+                                         void* stream) {
+  return run<double, true>(ptr, prm, kb, im, jm, R, L, oi, oj, stream);
 }

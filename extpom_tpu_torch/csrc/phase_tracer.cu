@@ -35,6 +35,12 @@
 //     the south or north value; it writes levels k < kbm1 only, and its
 //     vertical-advection correction applies for 0 < k < kbm1-1 with
 //     dzz2 == 0 read as 1 (bcond.py:93-100).
+//
+// extpom_phase_tracer_mesh_f32/f64 run the same kernel on one ring-extended
+// block of the decomposed step (O, column.cuh), replacing the same TPU
+// kernel with has_off (via mesh_runner): regions and edges at global
+// (i, j), the launch skipping 2 cells next to the block's split edges (its
+// unguarded reads reach 1 cell).
 
 #include <cuda_runtime.h>
 
@@ -42,12 +48,12 @@
 
 namespace {
 
-using extpom::Geom;
+using extpom::GeomT;
 using extpom::ld1;
 using extpom::ld2;
 using extpom::ld3;
 
-template <typename T>
+template <typename T, bool O>
 struct Trc {
   const T *t, *tb, *s, *sb, *tclim, *sclim, *u, *v, *w, *aam, *kh;  // 3-D
   const T *dt, *etb, *etf;                                           // 2-D
@@ -58,7 +64,7 @@ struct Trc {
   const T *z, *zz, *dz, *dzz;                    // (kb,)
   T *to, *tbo, *so, *sbo, *rho;                  // outputs
   T *ees, *ggs;                                  // (kb, n) scratch
-  Geom g;
+  GeomT<O> g;
   int kbm1, kbm2, nbct, nbcs;
   // constants, each formed in double as the Python expression forms it and
   // rounded to T as PyTorch rounds a Python float operand
@@ -79,8 +85,8 @@ struct View {
 
 // advt1's x face flux at column q (i >= 1, j >= 1): advection plus the
 // climatology-deviation diffusion, times the face width
-template <typename T>
-__device__ __forceinline__ T xflux(const Trc<T>& s, const View<T>& tv, int k,
+template <typename T, bool O>
+__device__ __forceinline__ T xflux(const Trc<T, O>& s, const View<T>& tv, int k,
                                    long q) {
   const long n = s.g.n, kq = k * n + q, qw = q - s.g.jm, kw = kq - s.g.jm;
   const T x1 = T(0.25) * (s.dt[q] + s.dt[qw]) * (tv.f[kq] + tv.f[kw]) * s.u[kq];
@@ -91,8 +97,8 @@ __device__ __forceinline__ T xflux(const Trc<T>& s, const View<T>& tv, int k,
   return T(0.5) * (s.dy[q] + s.dy[qw]) * (x1 + xd);
 }
 
-template <typename T>
-__device__ __forceinline__ T yflux(const Trc<T>& s, const View<T>& tv, int k,
+template <typename T, bool O>
+__device__ __forceinline__ T yflux(const Trc<T, O>& s, const View<T>& tv, int k,
                                    long q) {
   const long n = s.g.n, kq = k * n + q, qs = q - 1, ks = kq - 1;
   const T y1 = T(0.25) * (s.dt[q] + s.dt[qs]) * (tv.f[kq] + tv.f[ks]) * s.v[kq];
@@ -104,8 +110,8 @@ __device__ __forceinline__ T yflux(const Trc<T>& s, const View<T>& tv, int k,
 }
 
 // advt1 + proft + fsm + Asselin for one tracer of an interior column
-template <typename T>
-__device__ void interior(const Trc<T>& s, const View<T>& tv, long p) {
+template <typename T, bool O>
+__device__ void interior(const Trc<T, O>& s, const View<T>& tv, long p) {
   const long n = s.g.n;
   const int jm = s.g.jm, kbm1 = s.kbm1, kbm2 = s.kbm2;
   const T h = s.h[p], art = s.art[p], fsm = s.fsm[p];
@@ -178,34 +184,33 @@ __device__ void interior(const Trc<T>& s, const View<T>& tv, long p) {
   }
 }
 
-// bc_ts's value at edge column (i, j), level k < kbm1, before fsm
-template <typename T>
-__device__ T edge_value(const Trc<T>& s, const View<T>& tv, int k, int i,
+// bc_ts's value at edge column (i, j), level k < kbm1, before fsm; the
+// inner point (ii, jj) is the neighbour towards the interior
+template <typename T, bool O>
+__device__ T edge_value(const Trc<T, O>& s, const View<T>& tv, int k, int i,
                         int j) {
-  const Geom& g = s.g;
+  const auto& g = s.g;
   const int im = g.im, jm = g.jm;
+  const long e = (long)i * jm + j;
   int ii, jj;
   bool le;
   T u1, ext;
   // written east, west, south, north: the last side written wins
-  if (j == jm - 1) {
-    ii = i; jj = jm - 2; le = true;
-    u1 = T(2) * ld3(s.v, g, k, i, j) * s.dti / (s.dy[(long)i * jm + j] +
-                                                 s.dy[(long)i * jm + j - 1]);
+  if (g.gj(j) == g.GJ() - 1) {
+    ii = i; jj = j - 1; le = true;
+    u1 = T(2) * ld3(s.v, g, k, i, j) * s.dti / (s.dy[e] + s.dy[e - 1]);
     ext = tv.bn[k * im + i];
-  } else if (j == 0) {
-    ii = i; jj = 1; le = false;
-    u1 = T(2) * ld3(s.v, g, k, i, 1) * s.dti / (s.dy[(long)i * jm] +
-                                                 s.dy[(long)i * jm + 1]);
+  } else if (g.gj(j) == 0) {
+    ii = i; jj = j + 1; le = false;
+    u1 = T(2) * ld3(s.v, g, k, i, j + 1) * s.dti / (s.dy[e] + s.dy[e + 1]);
     ext = tv.bs[k * im + i];
-  } else if (i == 0) {
-    ii = 1; jj = j; le = false;
-    u1 = T(2) * ld3(s.u, g, k, 1, j) * s.dti / (s.dx[j] + s.dx[jm + j]);
+  } else if (g.gi(i) == 0) {
+    ii = i + 1; jj = j; le = false;
+    u1 = T(2) * ld3(s.u, g, k, i + 1, j) * s.dti / (s.dx[e] + s.dx[e + jm]);
     ext = tv.bw[k * jm + j];
   } else {
-    ii = im - 2; jj = j; le = true;
-    u1 = T(2) * ld3(s.u, g, k, im - 1, j) * s.dti /
-         (s.dx[(long)(im - 1) * jm + j] + s.dx[(long)(im - 2) * jm + j]);
+    ii = i - 1; jj = j; le = true;
+    u1 = T(2) * ld3(s.u, g, k, i, j) * s.dti / (s.dx[e] + s.dx[e - jm]);
     ext = tv.be[k * jm + j];
   }
   const T fe = ld3(tv.f, g, k, i, j), fi = ld3(tv.f, g, k, ii, jj);
@@ -227,8 +232,8 @@ __device__ T edge_value(const Trc<T>& s, const View<T>& tv, int k, int i,
   return u1 >= T(0) ? f_inf : f_out;
 }
 
-template <typename T>
-__device__ void edge(const Trc<T>& s, const View<T>& tv, long p, int i,
+template <typename T, bool O>
+__device__ void edge(const Trc<T, O>& s, const View<T>& tv, long p, int i,
                      int j) {
   const long n = s.g.n;
   const T fsm = s.fsm[p];
@@ -240,17 +245,19 @@ __device__ void edge(const Trc<T>& s, const View<T>& tv, long p, int i,
   }
 }
 
-template <typename T>
-__global__ void k_tracer(Trc<T> s) {
-  const Geom& g = s.g;
+template <typename T, bool O>
+__global__ void k_tracer(Trc<T, O> s) {
+  const auto& g = s.g;
   const long p = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= g.n) return;
   const int i = p / g.jm, j = p % g.jm;
+  if (g.skip(i, j)) return;
+  const int gi = g.gi(i), gj = g.gj(j);
   const View<T> tt{s.t, s.tb, s.tclim, s.wtsurf, s.tsurf, s.tbw, s.tbe,
                    s.tbs, s.tbn, s.to, s.tbo, s.nbct};
   const View<T> ss{s.s, s.sb, s.sclim, s.wssurf, s.ssurf, s.sbw, s.sbe,
                    s.sbs, s.sbn, s.so, s.sbo, s.nbcs};
-  if (i >= 1 && i <= g.im - 2 && j >= 1 && j <= g.jm - 2) {
+  if (gi >= 1 && gi <= g.GI() - 2 && gj >= 1 && gj <= g.GJ() - 2) {
     interior(s, tt, p);
     interior(s, ss, p);
   } else {
@@ -288,10 +295,12 @@ __global__ void k_tracer(Trc<T> s) {
 constexpr int kThreads = 128;
 constexpr int kPointers = 45;
 
-template <typename T>
-int run(void* const* ptr, const double* prm, int kb, int im, int jm,
-        int nbct, int nbcs, void* stream) {
-  Trc<T> s;
+// ptr: the operands, outputs and scratch; the domain is (im, jm), the
+// arrays the domain or (O) the (R, L) block at global (oi, oj)
+template <typename T, bool O>
+int run(void* const* ptr, const double* prm, int kb, int im, int jm, int R,
+        int L, int oi, int oj, int nbct, int nbcs, void* stream) {
+  Trc<T, O> s;
   int k = 0;
 #define NEXT(f) s.f = (decltype(s.f))ptr[k++]
   NEXT(t); NEXT(tb); NEXT(s); NEXT(sb); NEXT(tclim); NEXT(sclim); NEXT(u);
@@ -306,7 +315,7 @@ int run(void* const* ptr, const double* prm, int kb, int im, int jm,
   NEXT(ees); NEXT(ggs);
 #undef NEXT
   if (k != kPointers) return (int)cudaErrorInvalidValue;
-  s.g = Geom{kb, im, jm, (long)im * jm};
+  s.g = extpom::geometry<O>(kb, im, jm, R, L, oi, oj, 2);
   s.kbm1 = kb - 1;
   s.kbm2 = kb - 2;
   s.nbct = nbct;
@@ -330,7 +339,7 @@ int run(void* const* ptr, const double* prm, int kb, int im, int jm,
   s.rad1 = T(1) / T(prm[10]);
   s.rad2 = T(1) / T(prm[11]);
   const int blocks = (int)((s.g.n + kThreads - 1) / kThreads);
-  k_tracer<T><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(s);
+  k_tracer<T, O><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(s);
   return (int)cudaGetLastError();
 }
 
@@ -339,11 +348,31 @@ int run(void* const* ptr, const double* prm, int kb, int im, int jm,
 extern "C" int extpom_phase_tracer_f32(void* const* ptr, const double* prm,
                                        int kb, int im, int jm, int nbct,
                                        int nbcs, void* stream) {
-  return run<float>(ptr, prm, kb, im, jm, nbct, nbcs, stream);
+  return run<float, false>(ptr, prm, kb, im, jm, im, jm, 0, 0, nbct, nbcs,
+                           stream);
 }
 
 extern "C" int extpom_phase_tracer_f64(void* const* ptr, const double* prm,
                                        int kb, int im, int jm, int nbct,
                                        int nbcs, void* stream) {
-  return run<double>(ptr, prm, kb, im, jm, nbct, nbcs, stream);
+  return run<double, false>(ptr, prm, kb, im, jm, im, jm, 0, 0, nbct, nbcs,
+                            stream);
+}
+
+extern "C" int extpom_phase_tracer_mesh_f32(void* const* ptr,
+                                            const double* prm, int kb, int im,
+                                            int jm, int R, int L, int oi,
+                                            int oj, int nbct, int nbcs,
+                                            void* stream) {
+  return run<float, true>(ptr, prm, kb, im, jm, R, L, oi, oj, nbct, nbcs,
+                          stream);
+}
+
+extern "C" int extpom_phase_tracer_mesh_f64(void* const* ptr,
+                                            const double* prm, int kb, int im,
+                                            int jm, int R, int L, int oi,
+                                            int oj, int nbct, int nbcs,
+                                            void* stream) {
+  return run<double, true>(ptr, prm, kb, im, jm, R, L, oi, oj, nbct, nbcs,
+                           stream);
 }

@@ -22,6 +22,12 @@
 // Built with -fmad=false so each operation rounds as the plain PyTorch
 // version's does; the depth sum runs in ascending k, as the plain phase's
 // does (kernels/phases.py:_depth_sum).
+//
+// extpom_phase_uvw_mesh_f32/f64 run the same kernels on one ring-extended
+// block of the decomposed step (O, column.cuh), replacing the same TPU
+// kernel with has_off (via mesh_runner): regions at global (i, j), each
+// launch skipping 2 more cells next to the block's split edges (its reads
+// reach 1 cell).
 
 #include <cuda_runtime.h>
 
@@ -29,9 +35,9 @@
 
 namespace {
 
-using extpom::Geom;
+using extpom::GeomT;
 
-template <typename T>
+template <typename T, bool O>
 struct Uvw {
   const T *u, *v, *w;                                // (kb, im, jm)
   const T *dt, *utb, *vtb, *utf, *vtf, *etb, *etf;  // (im, jm)
@@ -39,19 +45,20 @@ struct Uvw {
   const T *dx, *dy, *fsm;                           // (im, jm)
   const T* dz;                                      // (kb,)
   T *uo, *vo, *wo;                                  // outputs
-  Geom g;
+  GeomT<O> g;
   int kbm1;
   T rdti2;  // 1/dti2: PyTorch on the card divides by a Python float as a
             // product with its reciprocal
 };
 
-template <typename T>
-__global__ void k_uv(Uvw<T> s) {
+template <typename T, bool O>
+__global__ void k_uv(Uvw<T, O> s) {
   const long p = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= s.g.n) return;
   const int i = p / s.g.jm, j = p % s.g.jm;
+  if (s.g.skip(i, j)) return;
   const long n = s.g.n;
-  if (i >= 1) {
+  if (s.g.gi(i) >= 1) {
     T tps = T(0);
     for (int k = 0; k < s.kbm1; ++k) tps = tps + s.u[k * n + p] * s.dz[k];
     const T add = (s.utb[p] + s.utf[p]) / (s.dt[p] + s.dt[p - s.g.jm]);
@@ -61,7 +68,7 @@ __global__ void k_uv(Uvw<T> s) {
     for (int k = 0; k < s.kbm1; ++k) s.uo[k * n + p] = s.u[k * n + p];
   }
   for (int k = s.kbm1; k < s.g.kb; ++k) s.uo[k * n + p] = s.u[k * n + p];
-  if (j >= 1) {
+  if (s.g.gj(j) >= 1) {
     T tps = T(0);
     for (int k = 0; k < s.kbm1; ++k) tps = tps + s.v[k * n + p] * s.dz[k];
     const T add = (s.vtb[p] + s.vtf[p]) / (s.dt[p] + s.dt[p - 1]);
@@ -73,15 +80,16 @@ __global__ void k_uv(Uvw<T> s) {
   for (int k = s.kbm1; k < s.g.kb; ++k) s.vo[k * n + p] = s.v[k * n + p];
 }
 
-template <typename T>
-__global__ void k_w(Uvw<T> s) {
+template <typename T, bool O>
+__global__ void k_w(Uvw<T, O> s) {
   const long p = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= s.g.n) return;
   const int i = p / s.g.jm, j = p % s.g.jm;
-  const int im = s.g.im, jm = s.g.jm;
+  if (s.g.skip(i, j)) return;
+  const int gi = s.g.gi(i), gj = s.g.gj(j), im = s.g.GI(), jm = s.g.jm;
   const long n = s.g.n;
   const T fsm = s.fsm[p];
-  if (i < 1 || i > im - 2 || j < 1 || j > jm - 2) {
+  if (gi < 1 || gi > im - 2 || gj < 1 || gj > s.g.GJ() - 2) {
     for (int k = 0; k < s.g.kb; ++k)
       s.wo[k * n + p] = k < s.kbm1 ? s.w[k * n + p] * fsm : s.w[k * n + p];
     return;
@@ -109,10 +117,12 @@ __global__ void k_w(Uvw<T> s) {
 constexpr int kThreads = 256;
 constexpr int kPointers = 19;
 
-template <typename T>
-int run(void* const* ptr, const double* prm, int kb, int im, int jm,
-        void* stream) {
-  Uvw<T> s;
+// ptr: the operands and outputs; the domain is (im, jm), the arrays the
+// domain or (O) the (R, L) block at global (oi, oj)
+template <typename T, bool O>
+int run(void* const* ptr, const double* prm, int kb, int im, int jm, int R,
+        int L, int oi, int oj, void* stream) {
+  Uvw<T, O> s;
   int k = 0;
 #define NEXT(f) s.f = (decltype(s.f))ptr[k++]
   NEXT(u); NEXT(v); NEXT(w);
@@ -122,14 +132,15 @@ int run(void* const* ptr, const double* prm, int kb, int im, int jm,
   NEXT(uo); NEXT(vo); NEXT(wo);
 #undef NEXT
   if (k != kPointers) return (int)cudaErrorInvalidValue;
-  s.g = Geom{kb, im, jm, (long)im * jm};
+  s.g = extpom::geometry<O>(kb, im, jm, R, L, oi, oj, 2);
   s.kbm1 = kb - 1;
   // prm: dti2
   s.rdti2 = T(1) / T(prm[0]);
   cudaStream_t st = (cudaStream_t)stream;
   const int blocks = (int)((s.g.n + kThreads - 1) / kThreads);
-  k_uv<T><<<blocks, kThreads, 0, st>>>(s);
-  k_w<T><<<blocks, kThreads, 0, st>>>(s);
+  k_uv<T, O><<<blocks, kThreads, 0, st>>>(s);
+  s.g = extpom::geometry<O>(kb, im, jm, R, L, oi, oj, 4);
+  k_w<T, O><<<blocks, kThreads, 0, st>>>(s);
   return (int)cudaGetLastError();
 }
 
@@ -138,11 +149,25 @@ int run(void* const* ptr, const double* prm, int kb, int im, int jm,
 extern "C" int extpom_phase_uvw_f32(void* const* ptr, const double* prm,
                                     int kb, int im, int jm, int, int,
                                     void* stream) {
-  return run<float>(ptr, prm, kb, im, jm, stream);
+  return run<float, false>(ptr, prm, kb, im, jm, im, jm, 0, 0, stream);
 }
 
 extern "C" int extpom_phase_uvw_f64(void* const* ptr, const double* prm,
                                     int kb, int im, int jm, int, int,
                                     void* stream) {
-  return run<double>(ptr, prm, kb, im, jm, stream);
+  return run<double, false>(ptr, prm, kb, im, jm, im, jm, 0, 0, stream);
+}
+
+extern "C" int extpom_phase_uvw_mesh_f32(void* const* ptr, const double* prm,
+                                         int kb, int im, int jm, int R, int L,
+                                         int oi, int oj, int, int,
+                                         void* stream) {
+  return run<float, true>(ptr, prm, kb, im, jm, R, L, oi, oj, stream);
+}
+
+extern "C" int extpom_phase_uvw_mesh_f64(void* const* ptr, const double* prm,
+                                         int kb, int im, int jm, int R, int L,
+                                         int oi, int oj, int, int,
+                                         void* stream) {
+  return run<double, true>(ptr, prm, kb, im, jm, R, L, oi, oj, stream);
 }

@@ -3,12 +3,16 @@
 Each wrapper checks its operands, then dispatches by device: CPU tensors go
 to the plain version, CUDA tensors to the kernel (built from ``csrc/`` at
 first use by :mod:`extpom_tpu_torch.kernels.build`).  Each wrapper counts
-its kernel launches in :data:`LAUNCHES`.
+its kernel launches in :data:`LAUNCHES`; the variants for blocks of the
+decomposed step (``extchunk``, ``extwin_chunk``, ``phase_<p>_mesh``) count
+one per wrapper call.
 """
 
-LAUNCHES = {"tridiag": 0, "extloop": 0, "extwin": 0, "phase_lat": 0,
-            "phase_uvw": 0, "phase_tke": 0, "phase_tracer": 0,
-            "phase_mom": 0}
+PHASES = ("lat", "uvw", "tke", "tracer", "mom")
+LAUNCHES = {"tridiag": 0, "extloop": 0, "extwin": 0,
+            **{f"phase_{p}": 0 for p in PHASES},
+            "extchunk": 0, "extwin_chunk": 0,
+            **{f"phase_{p}_mesh": 0 for p in PHASES}}
 
 
 def reset_launches() -> None:

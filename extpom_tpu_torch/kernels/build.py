@@ -39,8 +39,20 @@ SIGNATURES = {
     # threads; stream
     "extpom_extwin_f32": [_P, _P] + [_I] * 9 + [_P],
     "extpom_extwin_f64": [_P, _P] + [_I] * 9 + [_P],
+    # extloop's on a block: pointer table, parameter table; im, jm, R, L, C,
+    # iext0, oi, oj, isplit, ispadv; stream
+    "extpom_extchunk_f32": [_P, _P] + [_I] * 10 + [_P],
+    "extpom_extchunk_f64": [_P, _P] + [_I] * 10 + [_P],
+    # extwin's on a block: pointer table, parameter table; im, jm, R, L, C,
+    # iext0, oi, oj, isplit, ispadv, C per launch, H, ti, tj, threads; stream
+    "extpom_extwin_chunk_f32": [_P, _P] + [_I] * 15 + [_P],
+    "extpom_extwin_chunk_f64": [_P, _P] + [_I] * 15 + [_P],
     # pointer table, parameter table; kb, im, jm, two phase options; stream
     **{f"extpom_phase_{ph}_{t}": [_P, _P] + [_I] * 5 + [_P]
+       for ph in ("lat", "uvw", "tke", "tracer", "mom")
+       for t in ("f32", "f64")},
+    # on a block: kb, im, jm, R, L, oi, oj, two phase options; stream
+    **{f"extpom_phase_{ph}_mesh_{t}": [_P, _P] + [_I] * 9 + [_P]
        for ph in ("lat", "uvw", "tke", "tracer", "mom")
        for t in ("f32", "f64")},
     "extpom_error_string": [_I],

@@ -4,6 +4,11 @@ PyTorch version, the Python loop over ``stepper.mode_external_substep``.
 
 One call runs all ``isplit`` substeps of an internal step and returns the
 final :class:`~extpom_tpu_torch.core.stepper.ExtCarry`.
+
+:func:`run_external_chunk` is the decomposed step's variant (the
+counterpart of ``extpom_tpu/pallas/extloop.py:_chunk_kernel``, via
+``run_external_chunk_vmem``): C substeps on one ring-extended block, the
+same chain in ``csrc/extloop.cu`` built for blocks.
 """
 
 from __future__ import annotations
@@ -33,19 +38,33 @@ _DTYPES = (torch.float32, torch.float64)
 
 def run_external_loop_plain(grid, cfg, c0, fc, aux):
     """All isplit substeps in plain PyTorch."""
+    return run_external_chunk_plain(grid, cfg, c0, fc, aux, cfg.isplit, 1)
+
+
+def run_external_chunk_plain(grid, cfg, c0, fc, aux, C: int, iext0: int,
+                             off=None):
+    """Substeps iext0 .. iext0+C-1 in plain PyTorch; on a block whose cell
+    (0, 0) is global ``off`` when it is given (the XLA chunk body of
+    ``extpom_tpu/mesh/extchunk.py``)."""
     from extpom_tpu_torch.core import stepper
-    em = stepper.ext_precompute(grid)
-    c = c0
-    for iext in range(1, cfg.isplit + 1):
-        c = stepper.mode_external_substep(grid, cfg, c, iext, fc, aux, em=em)
+    from extpom_tpu_torch.ops.stencil import DomainCtx, domain
+    ctx = None if off is None else DomainCtx(cfg.im, cfg.jm, *off)
+    with domain(ctx):
+        em = stepper.ext_precompute(grid)
+        c = c0
+        for iext in range(iext0, iext0 + C):
+            c = stepper.mode_external_substep(grid, cfg, c, iext, fc, aux,
+                                              em=em)
     return c
 
 
-def check_operands(grid, cfg, c0, fc, aux, what: str = "extloop"):
+def check_operands(grid, cfg, c0, fc, aux, what: str = "extloop",
+                   block: bool = False):
     """Validate the operands of an external-loop wrapper before any device
-    dispatch; ``what`` names the wrapper in the errors."""
-    im, jm = cfg.im, cfg.jm
+    dispatch; ``what`` names the wrapper in the errors.  The horizontal
+    extents are the grid's, or with ``block`` the carry's own (R, L)."""
     el = c0[0]
+    im, jm = el.shape if block else (cfg.im, cfg.jm)
     dtype, device = el.dtype, el.device
     if dtype not in _DTYPES:
         raise TypeError(f"{what}: dtype {dtype} not supported")
@@ -91,14 +110,48 @@ def run_external_loop(grid, cfg, c0, fc, aux):
     return _launch(grid, cfg, c0, fc, aux)
 
 
-def _launch(grid, cfg, c0, fc, aux):
+def run_external_chunk(grid, cfg, c0, fc, aux, C: int, iext0: int, off):
+    """Substeps iext0 .. iext0+C-1 on a ring-extended (R, L) block whose
+    cell (0, 0) is global ``off``: every 2-D operand is (R, L), the j-side
+    series (L,) and the i-side series (R,), ``cfg.im``/``cfg.jm`` are the
+    global extents.  Only the cells the ring covers come out right (the
+    caller trims the rest).  CUDA tensors launch the chain of
+    ``csrc/extloop.cu`` built for blocks, CPU tensors run
+    :func:`run_external_chunk_plain`."""
+    check_chunk(grid, cfg, c0, fc, aux, C, iext0, off, "extchunk")
+    if c0[0].device.type == "cpu":
+        return run_external_chunk_plain(grid, cfg, c0, fc, aux, C, iext0,
+                                        off)
+    return _launch(grid, cfg, c0, fc, aux, (C, iext0, *off))
+
+
+def check_chunk(grid, cfg, c0, fc, aux, C, iext0, off, what):
+    """Validate a chunk wrapper's operands (see :func:`run_external_chunk`)
+    before any device dispatch."""
+    check_operands(grid, cfg, c0, fc, aux, what, block=True)
+    if not (1 <= iext0 and C >= 1 and iext0 + C - 1 <= cfg.isplit):
+        raise ValueError(f"{what}: substeps {iext0}..{iext0 + C - 1} "
+                         f"outside 1..{cfg.isplit}")
+    if len(off) != 2 or not all(isinstance(o, int) for o in off):
+        raise TypeError(f"{what}: off must be two ints")
+    device = c0[0].device
+    if device.type not in ("cpu", "cuda"):
+        raise TypeError(f"{what}: unsupported device {device}")
+    if device.type == "cuda" and cfg.bc_scheme == "orlanski":
+        raise NotImplementedError(f"{what} kernel: bc_scheme='orlanski' "
+                                  "(orl_el/orl_vel2d) is not ported yet")
+
+
+def _launch(grid, cfg, c0, fc, aux, chunk=None):
+    """Launch the whole loop, or with ``chunk`` = (C, iext0, oi, oj) the
+    block variant (``extpom_extchunk_*``)."""
     from extpom_tpu_torch.core.stepper import ExtCarry
     el = c0[0]
-    im, jm = cfg.im, cfg.jm
+    R, L = el.shape
     # the kernel updates the carry in place: work on a fresh copy so the
     # caller's state tensors are left as they were
     carry = torch.stack(list(c0))
-    scratch = torch.empty((N_METRICS + N_SUBSTEP, im, jm), dtype=el.dtype,
+    scratch = torch.empty((N_METRICS + N_SUBSTEP, R, L), dtype=el.dtype,
                           device=el.device)
     tensors = (list(carry)
                + [getattr(grid, f) for f in GRID_FIELDS]
@@ -111,13 +164,15 @@ def _launch(grid, cfg, c0, fc, aux):
                                 float(cfg.isplit), cfg.rfe, cfg.rfw,
                                 cfg.rfn, cfg.rfs)
     lib = build.library()
-    fn = lib.extpom_extloop_f32 if el.dtype == torch.float32 \
-        else lib.extpom_extloop_f64
+    suffix = "f32" if el.dtype == torch.float32 else "f64"
+    name = "extloop" if chunk is None else "extchunk"
+    fn = getattr(lib, f"extpom_{name}_{suffix}")
+    block = () if chunk is None else (R, L, *chunk)
     stream = torch.cuda.current_stream(el.device).cuda_stream
     with torch.cuda.device(el.device):
         status = fn(ctypes.cast(ptrs, ctypes.c_void_p),
                     ctypes.cast(prm, ctypes.c_void_p),
-                    im, jm, cfg.isplit, cfg.ispadv, stream)
-    build.check(status, "extloop kernel")
-    kernels.LAUNCHES["extloop"] += 1
+                    cfg.im, cfg.jm, *block, cfg.isplit, cfg.ispadv, stream)
+    build.check(status, f"{name} kernel")
+    kernels.LAUNCHES[name] += 1
     return ExtCarry(*carry.unbind(0))

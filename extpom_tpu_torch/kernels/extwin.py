@@ -8,6 +8,14 @@ the card's L2 those passes are L2 hits; beyond it they stream from device
 memory.  The window kernel runs C substeps per launch on 2-D tiles kept in
 shared memory, so it reads the carry from device memory ``isplit / C``
 times per step instead.  :func:`use_windowed` picks the machine.
+
+:func:`run_external_chunk_windowed` is the decomposed step's variant (the
+counterpart of ``extpom_tpu/pallas/extwin.py:_kernel`` with ``has_off``,
+via ``run_external_chunk_windowed``): C substeps on one ring-extended block,
+as C / ``win_geometry(...).C`` window launches of the same source built for
+blocks.  The ring's C (substeps per exchange, ``mesh/extchunk.py``) and the
+kernel's C per launch (at most :data:`C_MAX`, set by shared memory) are
+separate: one ring of width 3 C serves all the launches of a chunk.
 """
 
 from __future__ import annotations
@@ -53,8 +61,14 @@ def chunk_geometry(cfg, itemsize: int) -> Geometry:
     f32 and 8x32 in f64 (j fastest), the fastest of a sweep of C, tile and
     block size at 2048x2048 on the H100
     (``python -m extpom_tpu_torch.tools.extwin_sweep``)."""
-    C = max(c for c in range(1, min(C_MAX, cfg.isplit) + 1)
-            if cfg.isplit % c == 0)
+    return win_geometry(cfg.isplit, itemsize)
+
+
+def win_geometry(n_substeps: int, itemsize: int) -> Geometry:
+    """:func:`chunk_geometry` for a run of ``n_substeps`` substeps (a whole
+    loop, or one ring chunk of the decomposed step)."""
+    C = max(c for c in range(1, min(C_MAX, n_substeps) + 1)
+            if n_substeps % c == 0)
     H = RADIUS * C
     ti, tj = (16, 64) if itemsize <= 4 else (8, 32)
     smem = N_SHARED * (ti + 2 * H) * (tj + 2 * H) * itemsize
@@ -73,8 +87,13 @@ def working_set_bytes(im: int, jm: int, itemsize: int) -> int:
 
 def use_windowed(im: int, jm: int, itemsize: int, l2_bytes: int) -> bool:
     """The dispatch: the whole-grid chain while the loop's working set fits
-    the card's L2 (``l2_bytes``), the window kernel beyond it."""
+    the card's L2 (``l2_bytes``), the window kernel beyond it.  The
+    decomposed step asks the same of a ring-extended (R, L) block
+    (``use_win_chunk``)."""
     return working_set_bytes(im, jm, itemsize) > l2_bytes
+
+
+use_win_chunk = use_windowed
 
 
 @functools.lru_cache(maxsize=None)
@@ -87,6 +106,27 @@ def run_external_loop_windowed_plain(grid, cfg, c0, fc, aux):
     """All isplit substeps in plain PyTorch: the function the window kernel
     computes, whatever its C."""
     return extloop.run_external_loop_plain(grid, cfg, c0, fc, aux)
+
+
+def run_external_chunk_windowed(grid, cfg, c0, fc, aux, C: int, iext0: int,
+                                off, geo=None):
+    """Substeps iext0 .. iext0+C-1 on a ring-extended (R, L) block whose
+    cell (0, 0) is global ``off``, as C / geo.C window launches; the
+    contract of ``extloop.run_external_chunk``.  ``geo`` is the kernel's
+    :class:`Geometry`, ``win_geometry(C, ...)`` by default.  CUDA tensors
+    launch the kernel, CPU tensors run its plain version, which is the
+    chain's, ``extloop.run_external_chunk_plain``, whatever C per
+    launch."""
+    extloop.check_chunk(grid, cfg, c0, fc, aux, C, iext0, off,
+                        "extwin_chunk")
+    if c0[0].device.type == "cpu":
+        return extloop.run_external_chunk_plain(grid, cfg, c0, fc, aux, C,
+                                                iext0, off)
+    geo = geo or win_geometry(C, c0[0].element_size())
+    if C % geo.C:
+        raise ValueError(f"extwin_chunk: {geo.C} substeps per launch do not "
+                         f"divide the chunk's {C}")
+    return _launch(grid, cfg, c0, fc, aux, geo, (C, iext0, *off))
 
 
 def run_external_loop_windowed(grid, cfg, c0, fc, aux, geo=None):
@@ -108,17 +148,19 @@ def run_external_loop_windowed(grid, cfg, c0, fc, aux, geo=None):
     return _launch(grid, cfg, c0, fc, aux, geo)
 
 
-def _launch(grid, cfg, c0, fc, aux, geo):
+def _launch(grid, cfg, c0, fc, aux, geo, chunk=None):
+    """Launch the whole loop, or with ``chunk`` = (C, iext0, oi, oj) the
+    block variant (``extpom_extwin_chunk_*``)."""
     from extpom_tpu_torch.core.stepper import ExtCarry
     el = c0[0]
-    im, jm = cfg.im, cfg.jm
+    R, L = el.shape
     geo = geo or chunk_geometry(cfg, el.element_size())
     # two carry buffers: each launch reads one and writes the other
-    carry = torch.empty((2, len(CARRY_FIELDS), im, jm), dtype=el.dtype,
+    carry = torch.empty((2, len(CARRY_FIELDS), R, L), dtype=el.dtype,
                         device=el.device)
     for k, x in enumerate(c0):
         carry[0, k].copy_(x)
-    metrics = torch.empty((N_METRICS, im, jm), dtype=el.dtype,
+    metrics = torch.empty((N_METRICS, R, L), dtype=el.dtype,
                           device=el.device)
     tensors = ([carry[0], carry[1]]
                + [getattr(grid, f) for f in GRID_FIELDS]
@@ -131,15 +173,18 @@ def _launch(grid, cfg, c0, fc, aux, geo):
                                 float(cfg.isplit), cfg.rfe, cfg.rfw,
                                 cfg.rfn, cfg.rfs)
     lib = build.library()
-    fn = lib.extpom_extwin_f32 if el.dtype == torch.float32 \
-        else lib.extpom_extwin_f64
+    suffix = "f32" if el.dtype == torch.float32 else "f64"
+    name = "extwin" if chunk is None else "extwin_chunk"
+    fn = getattr(lib, f"extpom_{name}_{suffix}")
+    block = () if chunk is None else (R, L, *chunk)
     stream = torch.cuda.current_stream(el.device).cuda_stream
     with torch.cuda.device(el.device):
         status = fn(ctypes.cast(ptrs, ctypes.c_void_p),
-                    ctypes.cast(prm, ctypes.c_void_p), im, jm, cfg.isplit,
-                    cfg.ispadv, geo.C, geo.H, geo.ti, geo.tj, geo.threads,
-                    stream)
-    build.check(status, "extwin kernel")
-    n_chunks = cfg.isplit // geo.C
-    kernels.LAUNCHES["extwin"] += n_chunks
-    return ExtCarry(*carry[n_chunks % 2].unbind(0))
+                    ctypes.cast(prm, ctypes.c_void_p), cfg.im, cfg.jm,
+                    *block, cfg.isplit, cfg.ispadv, geo.C, geo.H, geo.ti,
+                    geo.tj, geo.threads, stream)
+    build.check(status, f"{name} kernel")
+    n_launch = (cfg.isplit if chunk is None else chunk[0]) // geo.C
+    # the whole loop counts its launches; the block variant its calls
+    kernels.LAUNCHES[name] += n_launch if chunk is None else 1
+    return ExtCarry(*carry[n_launch % 2].unbind(0))

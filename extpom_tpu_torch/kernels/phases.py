@@ -9,6 +9,16 @@ JAX package without the operands no kernel reads (``d`` of ``lat`` and
 The ``*_plain`` versions run the ops of ``ops/`` and ``bc/``, whose Thomas
 solves are ``tridiag.thomas_plain``, so a plain phase launches no
 hand-written kernel, on the card either.
+
+With ``off=(oi, oj)`` a phase runs on one ring-extended block of the
+decomposed step (``mesh/shardmap.py``; the mesh variant of the TPU kernel,
+``windowed_phase(..., rows, lanes, off)``): every field is (.., R, L), the
+grid and forcing are extended alike, ``off`` is the global (i, j) of the
+block's cell (0, 0), and ``cfg.im``/``cfg.jm`` stay the global extents.  Its
+regions and edges are those of the global domain; only the cells whose
+inputs the ring covers come out right, and the caller trims the rest.  On
+the card it launches the ``*_mesh`` entry of the same source, counted
+under ``phase_<p>_mesh``.
 """
 
 from __future__ import annotations
@@ -22,11 +32,16 @@ from extpom_tpu_torch.core.config import Config
 from extpom_tpu_torch.kernels import build
 from extpom_tpu_torch.ops import (continuity, density, momentum, pressure,
                                   tracers, vertical)
-from extpom_tpu_torch.ops.stencil import sft, put
+from extpom_tpu_torch.ops.stencil import DomainCtx, domain, sft, put
 from extpom_tpu_torch.bc import bcond as bcf
 from extpom_tpu_torch.bc import orlanski as bco
 
 _DTYPES = (torch.float32, torch.float64)
+# cells next to a split edge of a block that the last launch of a block
+# phase kernel skips (csrc/column.cuh GeomT; phase_uvw, tke and mom skip 2,
+# then 4): the ring must be at least this wide for the block's own cells to
+# come out
+MESH_MARGIN = 4
 
 # ---------------------------------------------------------------------------
 # plain PyTorch versions
@@ -215,12 +230,17 @@ def kernel_inputs(phase: str, grid, cfg: Config, *args) -> list:
     return out + [getattr(grid, n) for n in two + one]
 
 
-def _check(phase: str, grid, cfg: Config, args) -> torch.device:
+def _check(phase: str, grid, cfg: Config, args, off=None) -> torch.device:
     """Validate every operand of a phase (state, grid and forcing) before
-    any dispatch; returns their device."""
-    kb, im, jm = cfg.kb, cfg.im, cfg.jm
+    any dispatch; returns their device.  The horizontal extents are the
+    grid's (im, jm), or a block's (R, L) when ``off`` is given."""
     if not isinstance(args[0], torch.Tensor):
         raise TypeError(f"phase_{phase}: operands must be tensors")
+    kb, im, jm = cfg.kb, cfg.im, cfg.jm
+    if off is not None:
+        im, jm = args[0].shape[-2:]
+        if len(off) != 2 or not all(isinstance(o, int) for o in off):
+            raise TypeError(f"phase_{phase}: off must be two ints")
     dtype, device = args[0].dtype, args[0].device
     if dtype not in _DTYPES:
         raise TypeError(f"phase_{phase}: dtype {dtype} not supported")
@@ -272,22 +292,36 @@ def _tke_params(cfg: Config) -> list:
             18.0 * a1 * a1 + 9.0 * a1 * a2, 9.0 * a1 * a2]
 
 
-def _launch(phase: str, tensors, prm, cfg: Config, opt0=0, opt1=0) -> None:
-    """Call ``extpom_phase_<phase>_<f32|f64>`` with a pointer table of
-    ``tensors`` and a parameter table of the doubles ``prm``."""
+def _launch(phase: str, tensors, prm, cfg: Config, opt0=0, opt1=0,
+            off=None) -> None:
+    """Call ``extpom_phase_<phase>_<f32|f64>`` (``extpom_phase_<phase>_mesh_
+    <f32|f64>`` on a block at ``off``) with a pointer table of ``tensors``
+    and a parameter table of the doubles ``prm``."""
     x = tensors[0]
     ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
     params = (ctypes.c_double * len(prm))(*prm)
     lib = build.library()
     suffix = "f32" if x.dtype == torch.float32 else "f64"
-    fn = getattr(lib, f"extpom_phase_{phase}_{suffix}")
+    name = f"phase_{phase}" if off is None else f"phase_{phase}_mesh"
+    fn = getattr(lib, f"extpom_{name}_{suffix}")
+    block = () if off is None else (*x.shape[-2:], *off)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         status = fn(ctypes.cast(ptrs, ctypes.c_void_p),
                     ctypes.cast(params, ctypes.c_void_p), cfg.kb, cfg.im,
-                    cfg.jm, opt0, opt1, stream)
-    build.check(status, f"phase_{phase} kernel")
-    kernels.LAUNCHES[f"phase_{phase}"] += 1
+                    cfg.jm, *block, opt0, opt1, stream)
+    build.check(status, f"{name} kernel")
+    kernels.LAUNCHES[name] += 1
+
+
+def _plain(phase: str, grid, cfg: Config, args, off):
+    """The plain phase, on a block under its DomainCtx when ``off`` is
+    given."""
+    fn = globals()[f"phase_{phase}_plain"]
+    if off is None:
+        return fn(grid, cfg, *args)
+    with domain(DomainCtx(cfg.im, cfg.jm, *off)):
+        return fn(grid, cfg, *args)
 
 
 def _empty(like: torch.Tensor, n: int) -> list:
@@ -301,54 +335,55 @@ def _empty(like: torch.Tensor, n: int) -> list:
 # ---------------------------------------------------------------------------
 
 
-def phase_lat(grid, cfg: Config, u, v, ub, vb, aam0, rho, rmean, dt, ramp):
+def phase_lat(grid, cfg: Config, u, v, ub, vb, aam0, rho, rmean, dt, ramp,
+              off=None):
     """-> (aam, advx, advy, drhox, drhoy); CUDA tensors launch
     ``csrc/phase_lat.cu``, CPU tensors run :func:`phase_lat_plain`."""
     args = (u, v, ub, vb, aam0, rho, rmean, dt, ramp)
-    if _check("lat", grid, cfg, args).type == "cpu":
-        return phase_lat_plain(grid, cfg, *args)
+    if _check("lat", grid, cfg, args, off).type == "cpu":
+        return _plain("lat", grid, cfg, args, off)
     _plain_checks("lat", cfg)
     out = _empty(u, 5)
     _launch("lat", kernel_inputs("lat", grid, cfg, *args) + out,
-            [cfg.horcon, cfg.grav], cfg)
+            [cfg.horcon, cfg.grav], cfg, off=off)
     return tuple(out)
 
 
 def phase_uvw(grid, cfg: Config, u, v, w, dt, utb, vtb, utf, vtf, etb, etf,
-              vfluxb, vflux):
+              vfluxb, vflux, off=None):
     """-> (u, v, w); CUDA tensors launch ``csrc/phase_uvw.cu``, CPU tensors
     run :func:`phase_uvw_plain`."""
     args = (u, v, w, dt, utb, vtb, utf, vtf, etb, etf, vfluxb, vflux)
-    if _check("uvw", grid, cfg, args).type == "cpu":
-        return phase_uvw_plain(grid, cfg, *args)
+    if _check("uvw", grid, cfg, args, off).type == "cpu":
+        return _plain("uvw", grid, cfg, args, off)
     out = _empty(u, 3)
     _launch("uvw", kernel_inputs("uvw", grid, cfg, *args) + out, [cfg.dti2],
-            cfg)
+            cfg, off=off)
     return tuple(out)
 
 
 def phase_tke(grid, cfg: Config, q2, q2b, q2l, q2lb, u, v, w, aam, t, s, rho,
-              km, kh, kq, dt, etb, etf, wubot, wvbot, fc):
+              km, kh, kq, dt, etb, etf, wubot, wvbot, fc, off=None):
     """-> (q2, q2b, q2l, q2lb, km, kh, kq, l); CUDA tensors launch
     ``csrc/phase_tke.cu``, CPU tensors run :func:`phase_tke_plain`."""
     args = (q2, q2b, q2l, q2lb, u, v, w, aam, t, s, rho, km, kh, kq, dt, etb,
             etf, wubot, wvbot, fc)
-    if _check("tke", grid, cfg, args).type == "cpu":
-        return phase_tke_plain(grid, cfg, *args)
+    if _check("tke", grid, cfg, args, off).type == "cpu":
+        return _plain("tke", grid, cfg, args, off)
     _plain_checks("tke", cfg)
     out = _empty(q2, 8)
     _launch("tke", kernel_inputs("tke", grid, cfg, *args) + out
-            + _empty(q2, 5), _tke_params(cfg), cfg)
+            + _empty(q2, 5), _tke_params(cfg), cfg, off=off)
     return tuple(out)
 
 
 def phase_tracer(grid, cfg: Config, t, tb, s, sb, tclim, sclim, u, v, w,
-                 aam, kh, dt, etb, etf, fc):
+                 aam, kh, dt, etb, etf, fc, off=None):
     """-> (t, tb, s, sb, rho); CUDA tensors launch ``csrc/phase_tracer.cu``,
     CPU tensors run :func:`phase_tracer_plain`."""
     args = (t, tb, s, sb, tclim, sclim, u, v, w, aam, kh, dt, etb, etf, fc)
-    if _check("tracer", grid, cfg, args).type == "cpu":
-        return phase_tracer_plain(grid, cfg, *args)
+    if _check("tracer", grid, cfg, args, off).type == "cpu":
+        return _plain("tracer", grid, cfg, args, off)
     _plain_checks("tracer", cfg)
     for nbc in (cfg.nbct, cfg.nbcs):
         if nbc not in (1, 2, 3, 4):
@@ -360,21 +395,21 @@ def phase_tracer(grid, cfg: Config, t, tb, s, sb, tclim, sclim, u, v, w,
             [cfg.dti2, cfg.dti, cfg.tprni, cfg.umol, cfg.smoth, cfg.tbias,
              cfg.sbias, cfg.grav, cfg.rhoref, vertical._R_JERLOV[ntp],
              vertical._AD1_JERLOV[ntp], vertical._AD2_JERLOV[ntp]],
-            cfg, cfg.nbct, cfg.nbcs)
+            cfg, cfg.nbct, cfg.nbcs, off=off)
     return tuple(out)
 
 
 def phase_mom(grid, cfg: Config, u, ub, v, vb, w, advx, advy, drhox, drhoy,
-              km, dt, egf, egb, etb, etf, fc):
+              km, dt, egf, egb, etb, etf, fc, off=None):
     """-> (u, ub, v, vb, wubot, wvbot); CUDA tensors launch
     ``csrc/phase_mom.cu``, CPU tensors run :func:`phase_mom_plain`."""
     args = (u, ub, v, vb, w, advx, advy, drhox, drhoy, km, dt, egf, egb, etb,
             etf, fc)
-    if _check("mom", grid, cfg, args).type == "cpu":
-        return phase_mom_plain(grid, cfg, *args)
+    if _check("mom", grid, cfg, args, off).type == "cpu":
+        return _plain("mom", grid, cfg, args, off)
     _plain_checks("mom", cfg)
     out = _empty(u, 4) + _empty(dt, 2)
     _launch("mom",
             kernel_inputs("mom", grid, cfg, *args) + out + _empty(u, 4),
-            [cfg.dti2, cfg.grav, cfg.umol, cfg.smoth], cfg)
+            [cfg.dti2, cfg.grav, cfg.umol, cfg.smoth], cfg, off=off)
     return tuple(out)

@@ -1,5 +1,4 @@
-"""Shifted-slice stencil primitives on global arrays
-(``extpom_tpu/ops/stencil.py``, global mode only).
+"""Shifted-slice stencil primitives (``extpom_tpu/ops/stencil.py``).
 
 * :func:`sft` -- zero-filled shifted read: ``sft(a, di, dj)[..., i, j] ==
   a[..., i+di, j+dj]`` and 0 outside the array (Fortran ``a(i-1,j)`` is
@@ -8,11 +7,54 @@
   onto a copy of the base only on the region the Fortran loop covered.
 
 The i axis is ``-2`` and the j axis ``-1``; 3-D arrays are (kb, im, jm).
+
+Arrays are the whole domain unless a :class:`DomainCtx` is installed with
+:func:`domain`: then they are one ring-extended block of it (the decomposed
+step, ``mesh/shardmap.py``), shifts stay local to the block, and the
+regions of :func:`put`, :func:`set_i` and :func:`set_j` are read as regions
+of the GLOBAL domain and mapped onto the block's slice of it.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import threading
+from typing import Optional
+
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class DomainCtx:
+    """The block the stencil primitives work on: the global extents ``im``
+    and ``jm`` and the global (i, j) of the block's cell (0, 0), which is
+    negative by the ring width on a block at the domain's low edge.  It is
+    the JAX package's ``windowed`` context; the port has no other kind."""
+
+    im: int
+    jm: int
+    off_i: int = 0
+    off_j: int = 0
+
+
+_tls = threading.local()
+
+
+def domain_ctx() -> Optional[DomainCtx]:
+    """The installed :class:`DomainCtx`, or None for whole-domain arrays."""
+    return getattr(_tls, "domain", None)
+
+
+@contextlib.contextmanager
+def domain(ctx: Optional[DomainCtx]):
+    """Install ``ctx`` for the enclosed calls."""
+    prev = domain_ctx()
+    _tls.domain = ctx
+    try:
+        yield
+    finally:
+        _tls.domain = prev
 
 
 class _RegionBuilder:
@@ -51,6 +93,38 @@ def sfk(a: torch.Tensor, dk: int) -> torch.Tensor:
     return _shift1(a, dk, 0)
 
 
+def _local(n: int, r, n_act: int, off: int) -> slice:
+    """Region entry ``r`` of a global axis of ``n_act`` cells, as a slice of
+    a block of ``n`` cells whose first cell is global ``off``: ``-1`` and
+    ``slice(1, -1)`` name global rows, not the block's own."""
+    if isinstance(r, int):
+        lo = r % n_act
+        hi = lo + 1
+    else:
+        lo, hi, step = r.indices(n_act)
+        if step != 1:
+            raise ValueError("strided regions are not supported")
+    lo = min(max(lo - off, 0), n)
+    return slice(lo, max(min(hi - off, n), lo))
+
+
+def _region(shape, region) -> tuple:
+    """``region`` as an index of an array of ``shape``: unchanged for
+    whole-domain arrays, mapped onto the block under a DomainCtx."""
+    ctx = domain_ctx()
+    if ctx is None:
+        return region
+    nd = len(shape)
+    out = []
+    for ax, r in enumerate(region):
+        if ax == nd - 2:
+            r = _local(shape[ax], r, ctx.im, ctx.off_i)
+        elif ax == nd - 1:
+            r = _local(shape[ax], r, ctx.jm, ctx.off_j)
+        out.append(r)
+    return tuple(out)
+
+
 def put(base: torch.Tensor, expr, *region) -> torch.Tensor:
     """Commit ``expr`` onto a copy of ``base`` over ``region`` (ints or
     slices on the leading ``len(region)`` axes of ``base``, numpy-style);
@@ -60,6 +134,7 @@ def put(base: torch.Tensor, expr, *region) -> torch.Tensor:
     if len(shape) != base.dim():
         raise ValueError(f"put: expression {tuple(expr.shape)} widens base "
                          f"{tuple(base.shape)}")
+    region = _region(shape, region)
     out = base.expand(shape).clone()
     out[region] = expr.expand(shape)[region]
     return out
@@ -75,10 +150,26 @@ def _edge(base: torch.Tensor, val, axis: int, idx: int) -> torch.Tensor:
     return val
 
 
+def _row(base: torch.Tensor, idx: int, axis: int) -> Optional[int]:
+    """Global row (axis -2) or column (axis -1) ``idx`` as an index of
+    ``base``: itself for whole-domain arrays, the block's local index under
+    a DomainCtx, None when the block does not hold it."""
+    ctx = domain_ctx()
+    if ctx is None:
+        return idx
+    n_act, off = (ctx.im, ctx.off_i) if axis == -2 else (ctx.jm, ctx.off_j)
+    loc = idx % n_act - off
+    return loc if 0 <= loc < base.shape[axis] else None
+
+
 def set_i(base: torch.Tensor, i: int, val,
           j=slice(None), k=slice(None)) -> torch.Tensor:
     """Set row ``i`` (axis -2) to ``val``, restricted to ``j`` (and ``k``
     on 3-D bases)."""
+    i = _row(base, i, -2)
+    if i is None:
+        return base
+    j = _region(base.shape[-2:], (slice(None), j))[1]
     row_val = _edge(base, val, -2, i)
     out = base.clone()
     if base.dim() == 2:
@@ -92,6 +183,10 @@ def set_j(base: torch.Tensor, j: int, val,
           i=slice(None), k=slice(None)) -> torch.Tensor:
     """Set column ``j`` (axis -1) to ``val``, restricted to ``i`` (and
     ``k`` on 3-D bases)."""
+    j = _row(base, j, -1)
+    if j is None:
+        return base
+    i = _region(base.shape[-2:], (i, slice(None)))[0]
     col_val = _edge(base, val, -1, j)
     out = base.clone()
     if base.dim() == 2:
@@ -108,12 +203,20 @@ def set_k(base: torch.Tensor, k: int, val) -> torch.Tensor:
     return out
 
 
+def _whole(what: str) -> None:
+    if domain_ctx() is not None:
+        raise RuntimeError(f"{what}() reads a global row or column; blocks "
+                           f"use sft and set_i/set_j instead")
+
+
 def row(a: torch.Tensor, i: int) -> torch.Tensor:
-    """``a[..., i, :]``."""
+    """``a[..., i, :]`` of a whole-domain array."""
+    _whole("row")
     return a[..., i % a.shape[-2], :]
 
 
 def col(a: torch.Tensor, j: int) -> torch.Tensor:
-    """``a[..., :, j]``."""
+    """``a[..., :, j]`` of a whole-domain array."""
+    _whole("col")
     return a[..., :, j % a.shape[-1]]
 

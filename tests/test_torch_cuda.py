@@ -11,8 +11,9 @@ import torch
 
 from extpom_tpu_torch import kernels
 from extpom_tpu_torch.cases.seamount import seamount_model
-from extpom_tpu_torch.core import stepper
+from extpom_tpu_torch.core import dispatch, stepper
 from extpom_tpu_torch.kernels import extloop, extwin, phases, tridiag
+from extpom_tpu_torch.mesh.shardmap import Mesh
 
 torch.set_num_threads(1)
 
@@ -255,3 +256,127 @@ def test_phase_kernel_matches_plain(card, phase, shape, dtype):
     for a, b in zip(got, want):
         assert bool(torch.isfinite(a).all())
         _close(a, b, PHASE_TOL[dtype])
+
+
+# ---- the decomposed step's block kernels (extchunk, extwin_chunk and
+# phase_<p>_mesh) ----
+
+MESH_KW = dict(im=32, jm=48, kb=6, isplit=6, dtype="float64")
+_MESH_CALLS = {}
+
+
+def _mesh_calls():
+    """Every call of a block-kernel wrapper in the third step of a float64
+    seamount run decomposed 2x4 on the CPU (blocks 16x12, rings of 8 for
+    the phases and 9 for chunks of 3 substeps): {"blocks": the Blocks,
+    "calls": {"lat", ..., "chunk": [(args, kwargs)]}}."""
+    if not _MESH_CALLS:
+        calls = {}
+
+        def spy(name, fn):
+            def wrapper(*a, **k):
+                calls.setdefault(name, []).append((a, k))
+                return fn(*a, **k)
+            return wrapper
+
+        m = seamount_model(device="cpu", **MESH_KW).shard(
+            Mesh(2, 4, device="cpu"))
+        m.run_segment(2)
+        with pytest.MonkeyPatch.context() as mp:
+            for p in dispatch.PHASES:
+                mp.setattr(phases, f"phase_{p}",
+                           spy(p, getattr(phases, f"phase_{p}")))
+            mp.setattr(extloop, "run_external_chunk",
+                       spy("chunk", extloop.run_external_chunk))
+            m.run_segment(1)
+        _MESH_CALLS.update(blocks=m.blocks, calls=calls)
+    return _MESH_CALLS
+
+
+def _trim(blocks, x):
+    """The block's own cells of an extended (.., R, L) tensor."""
+    h = ((x.shape[-2] - blocks.ni) // 2, (x.shape[-1] - blocks.nj) // 2)
+    return blocks.trim(x, h)
+
+
+def _to_any(x, card, dtype):
+    if isinstance(x, tuple):
+        return type(x)(*(_to_any(y, card, dtype) for y in x))
+    return _to(x, card, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("phase", ["lat", "uvw", "tke", "tracer", "mom"])
+def test_phase_mesh_kernel_matches_plain(card, phase, dtype):
+    """Each block's phase on the card (phase_<p>_mesh) against the plain
+    phase on the same block, on the block's own cells."""
+    rec = _mesh_calls()
+    name = f"phase_{phase}_mesh"
+    for (g, cfg, *args), kw in rec["calls"][phase]:
+        g = _to(g, card, dtype)
+        cfg = cfg.replace(dtype=str(dtype).split(".")[1])
+        args = [_to(x, card, dtype) for x in args]
+        before = dict(kernels.LAUNCHES)
+        got = getattr(phases, f"phase_{phase}")(g, cfg, *args, **kw)
+        assert kernels.LAUNCHES == {**before, name: before[name] + 1}
+        want = phases._plain(phase, g, cfg, args, kw["off"])
+        for a, b in zip(got, want):
+            a, b = _trim(rec["blocks"], a), _trim(rec["blocks"], b)
+            assert bool(torch.isfinite(a).all())
+            _close(a, b, PHASE_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("ispadv", [1, 2])
+@pytest.mark.parametrize("kernel", ["extchunk", "extwin_chunk"])
+def test_chunk_kernel_matches_plain(card, kernel, ispadv, dtype):
+    """Each block's first and last chunk of external substeps on the card
+    against the plain chunk, on the block's own cells; the window kernel
+    with 8x16 tiles, so that a block takes several."""
+    rec = _mesh_calls()
+    calls = rec["calls"]["chunk"]
+    for (g, cfg, c, fc, aux, C, iext0, off), _ in calls[:8] + calls[-8:]:
+        g, c, fc = (_to_any(x, card, dtype) for x in (g, c, fc))
+        aux = tuple(_to(x, card, dtype) for x in aux)
+        cfg = cfg.replace(dtype=str(dtype).split(".")[1], ispadv=ispadv)
+        before = kernels.LAUNCHES[kernel]
+        if kernel == "extchunk":
+            got = extloop.run_external_chunk(g, cfg, c, fc, aux, C, iext0,
+                                             off)
+        else:
+            geo = extwin.win_geometry(C, c.el.element_size())
+            got = extwin.run_external_chunk_windowed(
+                g, cfg, c, fc, aux, C, iext0, off,
+                geo=geo._replace(ti=8, tj=16))
+        assert kernels.LAUNCHES[kernel] == before + 1
+        want = extloop.run_external_chunk_plain(g, cfg, c, fc, aux, C, iext0,
+                                                off)
+        for a, b in zip(got, want):
+            a, b = _trim(rec["blocks"], a), _trim(rec["blocks"], b)
+            assert bool(torch.isfinite(a).all())
+            _close(a, b, PHASE_TOL[dtype])
+
+
+@pytest.mark.parametrize("window", [False, True], ids=["chain", "window"])
+def test_mesh_card_path_matches_cpu_path(card, monkeypatch, window):
+    """The decomposed step on the card (2x4, every block kernel) against
+    the CPU's over 3 steps in float64, with the launches it should make."""
+    monkeypatch.setattr(extwin, "use_win_chunk", lambda *a: window)
+    gpu = seamount_model(device=card, **MESH_KW).shard(Mesh(2, 4,
+                                                            device=card))
+    cpu = seamount_model(device="cpu", **MESH_KW).shard(Mesh(2, 4,
+                                                             device="cpu"))
+    kernels.reset_launches()
+    gpu.run_segment(3)
+    cpu.run_segment(3)
+    n_chunks = 3 * (MESH_KW["isplit"] // 3) * 8    # C = 3, 8 blocks
+    assert kernels.LAUNCHES == {
+        **{k: 0 for k in kernels.LAUNCHES},
+        "extwin_chunk" if window else "extchunk": n_chunks,
+        "phase_lat_mesh": 3 * 8,
+        **{f"phase_{p}_mesh": 2 * 8 for p in ("uvw", "tke", "tracer",
+                                              "mom")}}
+    want, got = cpu.gathered_state(), gpu.gathered_state()
+    for name in want.field_names():
+        _close(getattr(got, name).cpu(), getattr(want, name), 1e-10,
+               floor=1.0)

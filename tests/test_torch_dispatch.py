@@ -17,6 +17,7 @@ from extpom_tpu_torch.cases.seamount import seamount_case
 from extpom_tpu_torch.core import dispatch
 from extpom_tpu_torch.core.config import Config
 from extpom_tpu_torch.diag import stats
+from extpom_tpu_torch.mesh.shardmap import Mesh
 
 torch.set_num_threads(1)
 
@@ -93,9 +94,20 @@ def test_dispatch_report_names_what_runs():
 
 
 def test_dispatch_report_refuses_a_mesh():
+    """The meshes the port cannot run yet raise: another parallel mode than
+    shard_map, a grid that does not divide the mesh, blocks on several
+    devices.  (config5's 2x4 shard_map mesh on one device is reported:
+    tests/test_torch_mesh.py.)"""
     cfg = Config(im=2048, jm=2048, kb=41)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="gspmd"):
         dispatch.dispatch_report(cfg, torch.float32, "cpu",
-                                 mesh={"px": 2, "py": 4, "mode": "shardmap"})
+                                 mesh={"px": 2, "py": 4, "mode": "gspmd"})
+    with pytest.raises(NotImplementedError, match="does not divide"):
+        dispatch.dispatch_report(Config(im=2046, jm=2048, kb=41),
+                                 torch.float32, "cpu",
+                                 mesh={"px": 4, "py": 4, "mode": "shardmap"})
+    with pytest.raises(NotImplementedError, match="several devices"):
+        dispatch.dispatch_report(cfg, torch.float32, "cpu",
+                                 mesh=Mesh(1, 2, devices=["cpu", "meta"]))
     with pytest.raises(TypeError):
         dispatch.dispatch_report(cfg, torch.float32, "meta")
