@@ -11,7 +11,11 @@ paths that run it, and drives four paths through ``seamount_model`` /
 whose external loop is the whole-grid chain), the large-grid path of
 ``configs/config5_2048.json`` (2048x2048x41 on one card, whose external
 loop is the window kernel), and each of them decomposed over config5's 2x4
-mesh with every block on the card (``Model.shard``).  It checks the
+mesh with every block on the card (``Model.shard``).  The tke and tracer
+kernels (column tiles) are also held to their plain versions at config5's
+depth on a small grid and timed on the large-grid path's operands
+(``[large_phases]``), with the registers, shared memory and resident
+blocks the card gives them.  It checks the
 results, prints the dispatch echo of the four, one ``kernels`` JSON line,
 the card's name and power limit, and a last JSON line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -47,10 +51,12 @@ EXTLOOP_FLOPS_PER_POINT = 199
 EXT_KERNELS = {"extloop": ("::k_surface<", "::k_velocity<", "::k_update<"),
                "extwin": ("::k_window<",), "ext_metrics": ("::k_metrics<",)}
 PHASES = ("lat", "uvw", "tke", "tracer", "mom")
+TILED = ("tke", "tracer")      # the column-tile kernels (kernels/phases.py)
+DEEP = (96, 80, 41)            # config5's depth on a small grid
 # device kernels of each phase (csrc/phase_*.cu), as the profiler names them
 PHASE_KERNELS = {"lat": ("::k_lat<",), "uvw": ("::k_uv<", "::k_w<"),
-                 "tke": ("::k_column<", "::k_edges<"),
-                 "tracer": ("::k_tracer<",),
+                 "tke": ("::k_tke_tile<",),
+                 "tracer": ("::k_tracer_tile<",),
                  "mom": ("::k_solve<", "::k_final<")}
 # the block kernels of the decomposed step, as the profiler names them
 MESH_KERNELS = {"extchunk": EXT_KERNELS["extloop"],
@@ -121,6 +127,22 @@ def call_ms(fn, reps: int, flush: L2Flush) -> float:
         e1.synchronize()
         total += e0.elapsed_time(e1)
     return total / reps
+
+
+def host_ms(fn, reps: int) -> float:
+    """Mean host time in ms to issue one call of ``fn``: the wrapper's
+    checks, planning, allocations and launch, while a spin kernel keeps the
+    card busy so that no launch waits for room in the queue."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        torch.cuda._sleep(4 * SPIN_CYCLES)
+        t0 = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t0
+        torch.cuda.synchronize()
+    return total / reps * 1e3
 
 
 def _kernel_events(prof):
@@ -330,12 +352,40 @@ def extloop_phase(flush: L2Flush, inputs) -> dict:
     return entry
 
 
+def tile_fields(phase: str, dtype, kb: int, mesh: bool = False) -> dict:
+    """The tile of a column-tile kernel and what the card gives it:
+    registers, static and dynamic shared bytes, resident blocks per SM."""
+    from extpom_tpu_torch.kernels import phases
+    tile = phases.column_tile(kb, dtype, phase)
+    info = phases.tile_info(phase, dtype, tile, mesh)
+    return dict(tile=f"{tile.ti}x{tile.tj}",
+                registers=info["registers"],
+                static_smem=info["static_smem"],
+                dynamic_smem=info["dynamic_smem"],
+                blocks_per_sm=info["blocks_per_sm"],
+                spill_bytes=info["spill_bytes"])
+
+
+def phase_bound(phase: str, g, c, a, got, item: int, dtype) -> tuple:
+    """(bound ms, bound_by, MB moved) of one phase call: each operand read
+    once and each output written once over the HBM rate, or its flops over
+    the non-tensor peak."""
+    from extpom_tpu_torch.kernels import phases
+    ins = phases.kernel_inputs(phase, g, c, *a)
+    nbytes = sum(x.numel() for x in list(ins) + list(got)) * item
+    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops = (PHASE_FLOPS_PER_POINT[phase] * got[0].numel()
+                 / PEAK_FLOPS[dtype] * 1e3)
+    return (max(bound_bytes, bound_ops),
+            "bytes" if bound_bytes >= bound_ops else "operations",
+            nbytes / 1e6)
+
+
 def phases_phase(flush: L2Flush, grid, cfg, args) -> dict:
     """Each phase kernel against its plain PyTorch version on the card, at
     the main path's shapes, on the operands of ``step_inputs``."""
     from extpom_tpu_torch.kernels import phases
     entries, failed = {}, []
-    n = IM * JM * KB
     for phase in PHASES:
         kernel = getattr(phases, f"phase_{phase}")
         plain = getattr(phases, f"phase_{phase}_plain")
@@ -365,31 +415,64 @@ def phases_phase(flush: L2Flush, grid, cfg, args) -> dict:
             run = lambda: kernel(g, c, *a)
             ms = device_ms(run, 20, flush)
             wall_ms = call_ms(run, 20, flush)
+            issue_ms = host_ms(run, 20)
             plain_ms = device_ms(lambda: plain(g, c, *a), 3, flush)
-            ins = phases.kernel_inputs(phase, g, c, *a)
-            nbytes = sum(x.numel() for x in list(ins) + list(got)) * item
-            bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            bound_ops = (PHASE_FLOPS_PER_POINT[phase] * n
-                         / PEAK_FLOPS[dtype] * 1e3)
+            bound, by, mb = phase_bound(phase, g, c, a, got, item, dtype)
+            tiles = tile_fields(phase, dtype, KB) if phase in TILED else {}
             say("phases", phase=phase, dtype=str(dtype).split(".")[1],
                 max_abs_err=f"{worst[0]:.3e}", rel_err=f"{worst[1]:.3e}",
                 worst_output=worst[2], tol=tol, ms=f"{ms:.5f}",
-                call_ms=f"{wall_ms:.5f}", plain_ms=f"{plain_ms:.4f}",
-                bound_ms=f"{max(bound_bytes, bound_ops):.5f}",
-                mbytes=f"{nbytes / 1e6:.2f}",
+                call_ms=f"{wall_ms:.5f}", host_ms=f"{issue_ms:.5f}",
+                plain_ms=f"{plain_ms:.4f}",
+                bound_ms=f"{bound:.5f}", mbytes=f"{mb:.2f}", **tiles,
                 field_rel_err=json.dumps(rels, separators=(",", ":")))
             if dtype == torch.float64:
                 entries[phase] = {"f64_max_abs_err": worst[0]}
             else:
                 entries[phase].update(
                     max_abs_err=worst[0], ms=ms, call_ms=wall_ms,
-                    plain_ms=plain_ms, bound_ms=max(bound_bytes, bound_ops),
-                    bound_by="bytes" if bound_bytes >= bound_ops
-                    else "operations")
+                    plain_ms=plain_ms, bound_ms=bound, bound_by=by, **tiles)
     if failed:
         raise AssertionError("phase kernels disagree with their plain "
                              "versions:\n" + "\n".join(failed))
     return entries
+
+
+def deep_phases_check() -> None:
+    """The tke and tracer kernels against their plain versions at config5's
+    depth (DEEP: 96x80x41), f64 and f32, on the phases' operands of the
+    second step of a float64 seamount run on the card."""
+    from extpom_tpu_torch.cases.seamount import seamount_model
+    from extpom_tpu_torch.kernels import phases
+    im, jm, kb = DEEP
+    m = seamount_model(im=im, jm=jm, kb=kb, dtype="float64")
+    m.run_segment(1)
+    calls = record_calls(lambda: m.run_segment(1), TILED)
+    failed = []
+    for phase in TILED:
+        (g0, cfg0, *args0), _ = calls[phase][0]
+        for dtype in (torch.float64, torch.float32):
+            g = cast(g0, dtype)
+            c = cfg0.replace(dtype=str(dtype).split(".")[1])
+            a = [cast(x, dtype) for x in args0]
+            got = getattr(phases, f"phase_{phase}")(g, c, *a)
+            want = getattr(phases, f"phase_{phase}_plain")(g, c, *a)
+            torch.cuda.synchronize()
+            tol = TOL["phase"][dtype]
+            worst = (0.0, 0.0, "none")
+            for name, x, y in zip(PHASE_OUTPUTS[phase], got, want):
+                err, rel = rel_err(x, y)
+                if rel >= worst[1]:
+                    worst = (err, rel, name)
+                if not bool(torch.isfinite(x).all()) or not rel <= tol:
+                    failed.append(f"phase_{phase} {dtype} {name}: {rel}")
+            say("phases", phase=phase, dtype=str(dtype).split(".")[1],
+                grid=f"{im}x{jm}x{kb}", max_abs_err=f"{worst[0]:.3e}",
+                rel_err=f"{worst[1]:.3e}", worst_output=worst[2], tol=tol,
+                **tile_fields(phase, dtype, kb))
+    if failed:
+        raise AssertionError("tile kernels disagree with their plain versions "
+                             "at kb=41:\n" + "\n".join(failed))
 
 
 def golden_phase() -> None:
@@ -560,6 +643,59 @@ def parts_phase(m, steps: int = 3, tag: str = "parts", parts=None) -> None:
         rest_ms=f"{wall / steps * 1e3 - sum(ms.values()):.3f}")
 
 
+ALLOC_STATS = ("num_device_alloc", "num_device_free", "num_alloc_retries")
+
+
+def timed_window(m, steps: int) -> dict:
+    """Run ``steps`` steps of ``m`` in one ``run_segment`` and time them.
+    Returns the host wall of the window in s, each step's span on the
+    card's stream in ms (CUDA events recorded after each call of
+    ``stepper.step``, or ``stepper.mesh_step`` on a mesh; no
+    synchronization inside the window), and the caching allocator's device
+    allocations, frees and retries during the window (each stalls the
+    host), with the device allocations of each step."""
+    from extpom_tpu_torch.core import stepper
+    name = "step" if m.blocks is None else "mesh_step"
+    fn = getattr(stepper, name)
+    ev = [torch.cuda.Event(enable_timing=True)]
+    allocs = []
+
+    def step(*a, **k):
+        out = fn(*a, **k)
+        ev.append(torch.cuda.Event(enable_timing=True))
+        ev[-1].record()
+        allocs.append(torch.cuda.memory_stats().get("num_device_alloc", 0))
+        return out
+
+    before = torch.cuda.memory_stats()
+    torch.cuda.synchronize()
+    setattr(stepper, name, step)
+    try:
+        t0 = time.perf_counter()
+        ev[0].record()
+        m.run_segment(steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        setattr(stepper, name, fn)
+    after = torch.cuda.memory_stats()
+    allocs = [b - a for a, b in
+              zip([before.get("num_device_alloc", 0)] + allocs, allocs)]
+    return dict(wall=wall, step_ms=[round(a.elapsed_time(b), 3)
+                                    for a, b in zip(ev, ev[1:])],
+                step_device_allocs=allocs,
+                **{k: after[k] - before[k] for k in ALLOC_STATS
+                   if k in after and k in before})
+
+
+def window_fields(w: dict) -> dict:
+    """The say() fields of a ``timed_window``: its spans and allocator
+    counts."""
+    return dict(**{k: json.dumps(w[k], separators=(",", ":"))
+                   for k in ("step_ms", "step_device_allocs")},
+                **{k: w[k] for k in ALLOC_STATS if k in w})
+
+
 def ext_operands(m):
     """The external loop's operands of model ``m``'s next step, on the card:
     that step's lateral terms, from the plain lat phase so that no kernel
@@ -584,14 +720,17 @@ def ext_operands(m):
     return g, cfg, c0, fc, (adx2d, ady2d, drx2d, dry2d, aam2d)
 
 
-def large_phase(card: str):
+def large_phase(card: str, flush: L2Flush):
     """The large-grid path: the case and config blocks of
     configs/config5_2048.json (2048x2048x41 float32) on one card through
     ``seamount_model`` / ``Model.run_segment``, LARGE_WARM steps from a cold
     start, then LARGE_TIMED timed steps; the launch counts cover all of
     them.  Between the two, the external loop's operands of the next step
-    are kept for ``extwin_phase``.  Returns (launches, those operands, the
-    LARGE_CHECK fields after the timed steps, on the host)."""
+    are kept for ``extwin_phase``.  A second window of LARGE_TIMED steps in
+    the same process follows, timed alike, so that a first window that
+    reads slower than its profile shows beside one that does not.  Returns
+    (launches, those operands, the LARGE_CHECK fields after the first
+    window, on the host, and the ``large_phases`` times)."""
     from extpom_tpu_torch import kernels
     from extpom_tpu_torch.cases.seamount import seamount_model
     from extpom_tpu_torch.diag import stats
@@ -613,10 +752,8 @@ def large_phase(card: str):
     ops = ext_operands(m)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    m.run_segment(LARGE_TIMED)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    w1 = timed_window(m, LARGE_TIMED)
+    wall = w1["wall"]
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     n = LARGE_WARM + LARGE_TIMED
@@ -640,13 +777,41 @@ def large_phase(card: str):
         grid_point_steps_per_s=f"{points * LARGE_TIMED / wall:.4e}",
         saver=f"{st['saver']:.7f}", taver=f"{st['taver']:.7f}",
         cfl_min_s=f"{cfl:.4f}", dte_s=cfg.dte, dte_below_cfl=cfg.dte < cfl,
-        peak_mem_gb=f"{peak / 1e9:.3f}",
+        peak_mem_gb=f"{peak / 1e9:.3f}", **window_fields(w1),
         launches=json.dumps(launches, separators=(",", ":")),
         card=f"'{card}'")
     ref = {f: getattr(m.state, f).cpu() for f in LARGE_CHECK}
+    w2 = timed_window(m, LARGE_TIMED)
+    say("large", window=2, timed_steps=LARGE_TIMED,
+        ms_per_step=f"{w2['wall'] / LARGE_TIMED * 1e3:.3f}",
+        **window_fields(w2))
     profile_phase(m, steps=2, tag="large_profile")
     parts_phase(m, steps=2, tag="large_parts")
-    return launches, ops, ref
+    large = large_phases(flush, m)
+    return launches, ops, ref, large
+
+
+def large_phases(flush: L2Flush, m) -> dict:
+    """The tke and tracer kernels timed on the large-grid model's next step's
+    operands (2048x2048x41 f32): device time by CUDA events after an L2
+    flush, beside the bound.  Returns {phase: (ms, bound ms)}."""
+    from extpom_tpu_torch.kernels import phases
+    calls = record_calls(lambda: m.run_segment(1), TILED)
+    out = {}
+    for phase in TILED:
+        (g, c, *a), _ = calls.pop(phase)[0]
+        run = lambda: getattr(phases, f"phase_{phase}")(g, c, *a)
+        got = run()
+        ms = device_ms(run, 5, flush)
+        bound, by, mb = phase_bound(phase, g, c, a, got, 4, torch.float32)
+        del got
+        say("large_phases", phase=phase,
+            grid=f"{c.im}x{c.jm}x{c.kb}", dtype="float32", ms=f"{ms:.4f}",
+            bound_ms=f"{bound:.5f}", bound_by=by, mbytes=f"{mb:.1f}",
+            **tile_fields(phase, torch.float32, c.kb))
+        out[phase] = (ms, bound)
+        del g, c, a, run
+    return out
 
 
 def extwin_phase(flush: L2Flush, large) -> dict:
@@ -749,14 +914,16 @@ def mesh_of(run: dict):
     return Mesh(run["mesh"]["px"], run["mesh"]["py"], device="cuda")
 
 
-def record_calls(steps_fn):
-    """Every call of a block-kernel wrapper that ``steps_fn()`` makes, as
-    {"lat", ..., "mom", "chunk": [(args, kwargs)]}: the wrappers pass
-    through, the operands are kept."""
+def record_calls(steps_fn, kinds=PHASES + ("chunk",)):
+    """Every call of a phase wrapper or of the block chunk's that
+    ``steps_fn()`` makes, as {"lat", ..., "mom", "chunk": [(args, kwargs)]}
+    for those of ``kinds``: the wrappers pass through, the operands are
+    kept."""
     from extpom_tpu_torch.kernels import extloop, phases
     calls = {}
-    saved = [(phases, f"phase_{p}", p) for p in PHASES]
-    saved.append((extloop, "run_external_chunk", "chunk"))
+    saved = [(phases, f"phase_{p}", p) for p in PHASES if p in kinds]
+    if "chunk" in kinds:
+        saved.append((extloop, "run_external_chunk", "chunk"))
     fns = [getattr(mod, name) for mod, name, _ in saved]
 
     def spy(key, fn):
@@ -891,26 +1058,22 @@ def mesh_kernels_phase(flush: L2Flush) -> tuple:
                 wall_ms = call_ms(kernel, 20, flush)
                 plain_ms = device_ms(plain, 3, flush)
                 if kind in PHASES:
-                    from extpom_tpu_torch.kernels import phases
-                    ins = phases.kernel_inputs(kind, *args)
-                    nbytes = sum(x.numel() for x in ins + list(got)) * item
-                    bb = nbytes / HBM_BYTES_PER_S * 1e3
-                    bo = (PHASE_FLOPS_PER_POINT[kind] * got[0].numel()
-                          / PEAK_FLOPS[dtype] * 1e3)
-                    bound, by = max(bb, bo), ("bytes" if bb >= bo
-                                              else "operations")
+                    bound, by, _ = phase_bound(kind, args[0], args[1],
+                                               args[2:], got, item, dtype)
                     shape = "x".join(map(str, got[0].shape))
                 else:
                     bound, by = chunk_bound(args[2], args[5], item, dtype)
                     shape = "x".join(map(str, shape))
+                tiles = (tile_fields(kind, dtype, args[1].kb, mesh=True)
+                         if kind in TILED else {})
                 line.update(block=f"'{target} {shape}'", ms=f"{ms:.5f}",
                             call_ms=f"{wall_ms:.5f}",
                             plain_ms=f"{plain_ms:.4f}",
-                            bound_ms=f"{bound:.5f}")
+                            bound_ms=f"{bound:.5f}", **tiles)
                 entries[name].update(max_abs_err=worst[0], ms=ms,
                                      call_ms=wall_ms, plain_ms=plain_ms,
                                      bound_ms=bound, bound_by=by,
-                                     shape=shape)
+                                     shape=shape, **tiles)
             say("mesh_kernels", **line)
     if failed:
         raise AssertionError("block kernels disagree with their plain "
@@ -1060,10 +1223,8 @@ def large_mesh_phase(card: str, flush: L2Flush, large_ref: dict):
         extwin.run_external_chunk_windowed = orig
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    m.run_segment(LARGE_TIMED)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    w1 = timed_window(m, LARGE_TIMED)
+    wall = w1["wall"]
     peak = torch.cuda.max_memory_allocated()
     launches = dict(kernels.LAUNCHES)
     n = LARGE_WARM + LARGE_TIMED
@@ -1102,7 +1263,7 @@ def large_mesh_phase(card: str, flush: L2Flush, large_ref: dict):
         saver=f"{s['saver']:.7f}", taver=f"{s['taver']:.7f}",
         peak_mem_gb=f"{peak / 1e9:.3f}",
         vs_large_max_rel_err=f"{worst[0]:.3e}", worst_field=worst[1],
-        bit_equal=equal,
+        bit_equal=equal, **window_fields(w1),
         launches=json.dumps(launches, separators=(",", ":")),
         card=f"'{card}'")
     entry = window_chunk_check(flush, blocks, kept[-1])
@@ -1189,10 +1350,14 @@ def main() -> int:
     ext_inputs, grid, cfg, phase_args = step_inputs()
     ext = extloop_phase(flush, ext_inputs)
     phs = phases_phase(flush, grid, cfg, phase_args)
+    deep_phases_check()
     golden_phase()
     nonsquare_phase()
     launches = slice_phase(card)
-    large_launches, large_ops, large_ref = large_phase(card)
+    large_launches, large_ops, large_ref, large_tiled = large_phase(card,
+                                                                    flush)
+    for p, (ms, bound) in large_tiled.items():
+        phs[p].update(large_2048_ms=ms, large_2048_bound_ms=bound)
     win = extwin_phase(flush, large_ops)
     large_cfg = large_ops[1]
     del large_ops

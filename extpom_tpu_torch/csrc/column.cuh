@@ -1,5 +1,6 @@
 // Device helpers shared by the column kernels: the zero-filled neighbour
-// read of ops/stencil.py:sft and the Thomas solve of one column.
+// read of ops/stencil.py:sft, the Thomas solve of one column, and the
+// column tiles of the tke and tracer kernels (level staging by cp.async).
 //
 // Layout: 3-D fields are (kb, im, jm) with the column index p = i*jm + j
 // fastest, so level k of column p is a[k*n + p] (n = im*jm) and a warp of
@@ -149,6 +150,123 @@ __device__ __forceinline__ void thomas_column(Coef coef, Out out, T ee, T gg,
     f = (ees[q] * f + ggs[q]) * mask;
     out(k, f);
   }
+}
+
+// ---- column tiles (phase_tke.cu, phase_tracer.cu) ----
+//
+// A block owns a TI x TJ tile of columns, one thread each (t = ti*TJ + tj,
+// TJ along the contiguous j), and walks k once.  Level by level it stages
+// the planes of the fields read at a neighbour into shared memory as a
+// (TI+2) x (TJ+2) window (the tile and a one-cell halo, 0 outside the
+// array as sft reads), and the planes read only at the own column as
+// TI x TJ, with cp.async a couple of levels ahead of the level it computes.
+// The tiles are row-major over the array; `grid` blocks walk them, so
+// device scratch per block (ee/gg of the Thomas solves) is sized by the
+// blocks that run at once, not by the grid of columns.
+struct Tiles {
+  int TI, TJ;     // tile rows and columns (TJ a multiple of 32)
+  int nj, count;  // tiles along j, tiles in all
+};
+
+// the window cells a thread stages: window cell t + m*threads for
+// m < kWindowCells (a TJ >= 32 tile has fewer than 4*threads of them)
+constexpr int kWindowCells = 4;
+constexpr int kBeyond = -2;   // past the window's last cell
+constexpr int kOutside = -1;  // outside the array: staged as 0
+
+// Array offset (i*jm + j) of each window cell thread t stages, kOutside or
+// kBeyond; the window's cell (0, 0) is array cell (i0-1, j0-1).
+__device__ __forceinline__ void window_cells(int* off, int t, int threads,
+                                             int i0, int j0, int TI, int TJ,
+                                             int im, int jm) {
+  const int HJ = TJ + 2, HC = (TI + 2) * HJ;
+#pragma unroll
+  for (int m = 0; m < kWindowCells; ++m) {
+    const int c = t + m * threads;
+    const int i = i0 - 1 + c / HJ, j = j0 - 1 + c % HJ;
+    off[m] = c >= HC ? kBeyond
+             : (i >= 0 && i < im && j >= 0 && j < jm) ? i * jm + j
+                                                      : kOutside;
+  }
+}
+
+// Asynchronous copy of one element from device to shared memory (cp.async:
+// no register holds it, and the thread goes on); ok false stores 0.  The
+// host pass of nvcc, and a host build of the kernel source, copy at once.
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src, bool ok) {
+#if defined(__CUDA_ARCH__)
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
+               "l"(src), "n"((int)sizeof(T)), "r"(ok ? (int)sizeof(T) : 0)
+               : "memory");
+#else
+  *dst = ok ? *src : T(0);
+#endif
+}
+
+// close the group of copies issued since the last commit
+__device__ __forceinline__ void cp_async_commit() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+
+// wait for every committed group (a __syncthreads must follow before other
+// threads' copies are read)
+__device__ __forceinline__ void cp_async_wait_all() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+#endif
+}
+
+// Stage one plane (level base) of a field into a window of shared memory.
+template <typename T>
+__device__ __forceinline__ void stage_window(T* dst, const T* plane,
+                                             const int* off, int t,
+                                             int threads) {
+#pragma unroll
+  for (int m = 0; m < kWindowCells; ++m) {
+    if (off[m] == kBeyond) continue;
+    const bool ok = off[m] >= 0;
+    cp_async(dst + t + m * threads, ok ? plane + off[m] : plane, ok);
+  }
+}
+
+// Stage the own column's value of one plane into the thread's slot dst (0
+// for a thread past the array's edge).
+template <typename T>
+__device__ __forceinline__ void stage_own(T* dst, const T* plane, long p,
+                                          bool in) {
+  cp_async(dst, in ? plane + p : plane, in);
+}
+
+// What the compiler and the card give a tile kernel: out = registers per
+// thread, static shared bytes, dynamic shared bytes, resident blocks per
+// SM, local (spill) bytes per thread, SMs of the current device.
+template <typename Kernel>
+int tile_info(Kernel kernel, int threads, int smem, int* out) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaFuncAttributes a;
+  e = cudaFuncGetAttributes(&a, kernel);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0, dev = 0, sms = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads,
+                                                    (size_t)smem);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = smem;
+  out[3] = blocks;
+  out[4] = (int)a.localSizeBytes;
+  out[5] = sms;
+  return 0;
 }
 
 }  // namespace extpom

@@ -14,17 +14,33 @@
 // rho), with ~150 flops per level and tracer plus two exp per level where
 // the surface condition has shortwave radiation (nbc 2, 4).
 //
-// Design: one thread per (i, j) column and one launch.  An interior column
-// computes advt1's tendency level by level inside the forward sweep of its
-// Thomas solve (extpom::thomas_column, column.cuh), T first and then S
-// through the same (2, kb, n) ee/gg scratch, and applies fsm and the
-// Asselin filter as the back substitution hands out each level.  An edge
-// column takes bc_ts's value instead: bc_ts reads only the OLD t/s/u/v/w/dt,
-// so no column needs a neighbour's new value.  The equation of state then
-// runs down the column on the new t/s.  Neighbour fluxes are recomputed,
-// not stored.  Built with -fmad=false so each operation rounds as the plain
-// PyTorch version's does; exp and pow come from CUDA's math library, which
-// may differ from PyTorch's in the last bit.
+// Design: one launch, column tiles (column.cuh Tiles).  A block owns a
+// TI x TJ tile of columns, one thread each, and sweeps k once upward:
+//   * each level's planes of t, tb, tclim, s, sb, sclim, u, v, aam (read
+//     at a neighbour by the fluxes) are staged into shared memory as the
+//     tile's window with a one-cell halo, those of w and kh (own column
+//     only) as the tile, by cp.async two levels ahead (a ring of three: k,
+//     k+1 resident, k+2 in flight); the 2-D grid fields of the fluxes once
+//     per tile;
+//   * each face flux of advt1 is computed once per level into shared
+//     memory (every thread its west and south face, the tile's last row
+//     and column the faces beyond), and advt1 takes differences of the
+//     stored faces; the vertical flux and the shortwave term of level k+1
+//     are carried to level k+1;
+//   * T's and S's forward eliminations run in the same sweep and share
+//     proft's coef_a/coef_c; one descending pass then does both back
+//     substitutions, the Asselin commits and the equation of state of each
+//     level as soon as its new t and s exist;
+//   * ee/gg of the two solves live in device scratch, kb x 4 rows of the
+//     tile's columns per block; the grid is the resident blocks, so the
+//     scratch is sized by them, not by the grid of columns.
+// An edge column takes bc_ts's value, read from device memory with the
+// zero-fill guards (bc_ts reads only the OLD t/s/u/v/w/dt), and its
+// equation of state in the same sweep.  Every per-point expression is the
+// one of the plain version, operand for operand, and the sources build
+// with -fmad=false, so each operation rounds as the plain PyTorch
+// version's does; exp and pow come from CUDA's math library, which may
+// differ from PyTorch's in the last bit.
 //
 // Where an off-by-one would hide:
 //   * advt1's ghost bottom layer (tracers.py:65-66) is never read by the
@@ -39,8 +55,8 @@
 // extpom_phase_tracer_mesh_f32/f64 run the same kernel on one ring-extended
 // block of the decomposed step (O, column.cuh), replacing the same TPU
 // kernel with has_off (via mesh_runner): regions and edges at global
-// (i, j), the launch skipping 2 cells next to the block's split edges (its
-// unguarded reads reach 1 cell).
+// (i, j), the launch skipping 2 cells next to the block's split edges;
+// every staged read is guarded, 0 outside the block.
 
 #include <cuda_runtime.h>
 
@@ -52,6 +68,36 @@ using extpom::GeomT;
 using extpom::ld1;
 using extpom::ld2;
 using extpom::ld3;
+using extpom::Tiles;
+
+constexpr int kMaxThreads = 256;
+constexpr int kStages = 3;  // levels k, k+1 resident, k+2 in flight
+// fields staged per level as the window
+constexpr int kHalo = 9;
+enum { HT, HTB, HTC, HS, HSB, HSC, HU, HV, HAAM };
+// ... and at the own column: w, kh
+constexpr int kOwn = 2;
+enum { OW, OKH };
+// 2-D fields of the fluxes, staged once per tile: dt, h, dx, dy, dum, dvm
+constexpr int k2D = 6;
+enum { DDT, DH, DDX, DDY, DDUM, DDVM };
+
+// Shared memory of a tile, in elements: kStages stages, the 2-D window,
+// the x and y faces of T and S.  kernels/phases.py:column_tile counts the
+// same from the constants above, which it reads from this file.
+struct Layout {
+  int HC, TC, stage, faces, total;
+};
+
+__host__ __device__ inline Layout layout(int TI, int TJ) {
+  Layout L;
+  L.HC = (TI + 2) * (TJ + 2);
+  L.TC = TI * TJ;
+  L.stage = kHalo * L.HC + kOwn * L.TC;
+  L.faces = 2 * ((TI + 1) * TJ + TI * (TJ + 1));
+  L.total = kStages * L.stage + k2D * L.HC + L.faces;
+  return L;
+}
 
 template <typename T, bool O>
 struct Trc {
@@ -63,8 +109,10 @@ struct Trc {
   const T *h, *dx, *dy, *art, *dum, *dvm, *fsm;  // (im, jm)
   const T *z, *zz, *dz, *dzz;                    // (kb,)
   T *to, *tbo, *so, *sbo, *rho;                  // outputs
-  T *ees, *ggs;                                  // (kb, n) scratch
+  // ee/gg rows of the two solves, kb x 4 x TI*TJ per block
+  T* egs;
   GeomT<O> g;
+  Tiles tl;
   int kbm1, kbm2, nbct, nbcs;
   // constants, each formed in double as the Python expression forms it and
   // rounded to T as PyTorch rounds a Python float operand
@@ -83,105 +131,40 @@ struct View {
   int nbc;
 };
 
-// advt1's x face flux at column q (i >= 1, j >= 1): advection plus the
-// climatology-deviation diffusion, times the face width
-template <typename T, bool O>
-__device__ __forceinline__ T xflux(const Trc<T, O>& s, const View<T>& tv, int k,
-                                   long q) {
-  const long n = s.g.n, kq = k * n + q, qw = q - s.g.jm, kw = kq - s.g.jm;
-  const T x1 = T(0.25) * (s.dt[q] + s.dt[qw]) * (tv.f[kq] + tv.f[kw]) * s.u[kq];
-  const T xd = T(-0.5) * (s.aam[kq] + s.aam[kw]) * (s.h[q] + s.h[qw]) *
-               s.tprni *
-               ((tv.fb[kq] - tv.fclim[kq]) - (tv.fb[kw] - tv.fclim[kw])) *
-               s.dum[q] / (s.dx[q] + s.dx[qw]);
-  return T(0.5) * (s.dy[q] + s.dy[qw]) * (x1 + xd);
+// advt1's x face flux between window cells c - HJ and c: advection plus
+// the climatology-deviation diffusion, times the face width; f, fb, fclim,
+// u and aam at the level, the 2-D window d
+template <typename T>
+__device__ __forceinline__ T xface(const T* f, const T* fb, const T* fc,
+                                   const T* u, const T* a, const T* d,
+                                   T tprni, int HC, int c, int HJ) {
+  const int w = c - HJ;
+  const T* dt = d + DDT * HC;
+  const T* h = d + DH * HC;
+  const T* dx = d + DDX * HC;
+  const T* dy = d + DDY * HC;
+  const T x1 = T(0.25) * (dt[c] + dt[w]) * (f[c] + f[w]) * u[c];
+  const T xd = T(-0.5) * (a[c] + a[w]) * (h[c] + h[w]) * tprni *
+               ((fb[c] - fc[c]) - (fb[w] - fc[w])) * d[DDUM * HC + c] /
+               (dx[c] + dx[w]);
+  return T(0.5) * (dy[c] + dy[w]) * (x1 + xd);
 }
 
-template <typename T, bool O>
-__device__ __forceinline__ T yflux(const Trc<T, O>& s, const View<T>& tv, int k,
-                                   long q) {
-  const long n = s.g.n, kq = k * n + q, qs = q - 1, ks = kq - 1;
-  const T y1 = T(0.25) * (s.dt[q] + s.dt[qs]) * (tv.f[kq] + tv.f[ks]) * s.v[kq];
-  const T yd = T(-0.5) * (s.aam[kq] + s.aam[ks]) * (s.h[q] + s.h[qs]) *
-               s.tprni *
-               ((tv.fb[kq] - tv.fclim[kq]) - (tv.fb[ks] - tv.fclim[ks])) *
-               s.dvm[q] / (s.dy[q] + s.dy[qs]);
-  return T(0.5) * (s.dx[q] + s.dx[qs]) * (y1 + yd);
-}
-
-// advt1 + proft + fsm + Asselin for one tracer of an interior column
-template <typename T, bool O>
-__device__ void interior(const Trc<T, O>& s, const View<T>& tv, long p) {
-  const long n = s.g.n;
-  const int jm = s.g.jm, kbm1 = s.kbm1, kbm2 = s.kbm2;
-  const T h = s.h[p], art = s.art[p], fsm = s.fsm[p];
-  const T dh = h + s.etf[p];
-  const bool with_rad = tv.nbc == 2 || tv.nbc == 4;
-  auto rad = [&](int k) -> T {
-    if (!with_rad || k >= kbm1) return T(0);
-    const T zd = s.z[k] * dh;
-    return s.swrad[p] * (s.r * exp(zd * s.rad1) + s.omr * exp(zd * s.rad2));
-  };
-  auto zflux = [&](int k) -> T {
-    if (k == 0) return tv.f[p] * s.w[p] * art;
-    if (k < kbm1)
-      return T(0.5) * (tv.f[(k - 1) * n + p] + tv.f[k * n + p]) *
-             s.w[k * n + p] * art;
-    return T(0);
-  };
-  // advt1's new value at level k < kbm1
-  auto adv = [&](int k) -> T {
-    const T ff = xflux(s, tv, k, p + jm) - xflux(s, tv, k, p) +
-                 yflux(s, tv, k, p + 1) - yflux(s, tv, k, p) +
-                 (zflux(k) - zflux(k + 1)) / s.dz[k];
-    return (tv.fb[k * n + p] * (h + s.etb[p]) * art - s.dti2 * ff) /
-           ((h + s.etf[p]) * art);
-  };
-  auto coef_a = [&](int k) -> T {
-    return k < kbm2 ? s.mdti2 * (s.kh[(k + 1) * n + p] + s.umol) /
-                          (s.dz[k] * s.dzz[k] * dh * dh)
-                    : T(0);
-  };
-  auto coef_c = [&](int k) -> T {
-    return k >= 1 && k < kbm1 ? s.mdti2 * (s.kh[k * n + p] + s.umol) /
-                                    (s.dz[k] * s.dzz[k - 1] * dh * dh)
-                              : T(0);
-  };
-  const T a0 = coef_a(0);
-  T ee0, gg0;
-  if (tv.nbc == 1) {
-    ee0 = a0 / (a0 - T(1));
-    gg0 = (s.dti2 * tv.wfsurf[p] / (s.dz[0] * dh) - adv(0)) / (a0 - T(1));
-  } else if (tv.nbc == 2) {
-    ee0 = a0 / (a0 - T(1));
-    gg0 = (s.dti2 * (tv.wfsurf[p] + rad(0) - rad(1)) / (s.dz[0] * dh) -
-           adv(0)) /
-          (a0 - T(1));
-  } else {
-    ee0 = T(0);
-    gg0 = tv.fsurf[p];
-  }
-  const T rb = -adv(kbm2) + s.dti2 * (rad(kbm2) - rad(kbm1)) /
-                                (dh * s.dz[kbm2]);
-  extpom::thomas_column<T>(
-      [&](int k, T& a, T& c, T& den, T& rhs) {
-        a = coef_a(k);
-        c = coef_c(k);
-        den = T(1);
-        rhs = -adv(k) + s.dti2 * (rad(k) - rad(k + 1)) / (dh * s.dz[k]);
-      },
-      [&](int k, T f) {
-        const long q = k * n + p;
-        const T fn = f * fsm;
-        tv.fo[q] = fn;
-        tv.fbo[q] = tv.f[q] + s.hsmoth * (fn + tv.fb[q] - T(2) * tv.f[q]);
-      },
-      ee0, gg0, coef_c(kbm2), rb, T(-1), T(1), s.ees, s.ggs, n, p, 1, kbm2);
-  for (int k = kbm1; k < s.g.kb; ++k) {  // proft keeps advt1's 0 there
-    const long q = k * n + p;
-    tv.fo[q] = T(0);
-    tv.fbo[q] = tv.f[q] + s.hsmoth * (T(0) + tv.fb[q] - T(2) * tv.f[q]);
-  }
+// advt1's y face flux between window cells c - 1 and c
+template <typename T>
+__device__ __forceinline__ T yface(const T* f, const T* fb, const T* fc,
+                                   const T* v, const T* a, const T* d,
+                                   T tprni, int HC, int c) {
+  const int s = c - 1;
+  const T* dt = d + DDT * HC;
+  const T* h = d + DH * HC;
+  const T* dx = d + DDX * HC;
+  const T* dy = d + DDY * HC;
+  const T y1 = T(0.25) * (dt[c] + dt[s]) * (f[c] + f[s]) * v[c];
+  const T yd = T(-0.5) * (a[c] + a[s]) * (h[c] + h[s]) * tprni *
+               ((fb[c] - fc[c]) - (fb[s] - fc[s])) * d[DDVM * HC + c] /
+               (dy[c] + dy[s]);
+  return T(0.5) * (dx[c] + dx[s]) * (y1 + yd);
 }
 
 // bc_ts's value at edge column (i, j), level k < kbm1, before fsm; the
@@ -232,74 +215,260 @@ __device__ T edge_value(const Trc<T, O>& s, const View<T>& tv, int k, int i,
   return u1 >= T(0) ? f_inf : f_out;
 }
 
+// dens on the new t/s of level k < kb-1 (density.py:12-36), times fsm
 template <typename T, bool O>
-__device__ void edge(const Trc<T, O>& s, const View<T>& tv, long p, int i,
-                     int j) {
-  const long n = s.g.n;
-  const T fsm = s.fsm[p];
-  for (int k = 0; k < s.g.kb; ++k) {
-    const long q = k * n + p;
-    const T fn = k < s.kbm1 ? edge_value(s, tv, k, i, j) * fsm : T(0);
-    tv.fo[q] = fn;
-    tv.fbo[q] = tv.f[q] + s.hsmoth * (fn + tv.fb[q] - T(2) * tv.f[q]);
-  }
+__device__ __forceinline__ T dens(const Trc<T, O>& s, int k, T tn, T sn, T h,
+                                  T fsm) {
+  const T tr = tn + s.tbias, sr = sn + s.sbias;
+  const T tr2 = tr * tr, tr3 = tr2 * tr, tr4 = tr3 * tr;
+  const T pr = s.grho * (-s.zz[k] * h) * T(1.0e-5);
+  T rhor = T(-0.157406) + T(6.793952e-2) * tr - T(9.095290e-3) * tr2 +
+           T(1.001685e-4) * tr3 - T(1.120083e-6) * tr4 +
+           T(6.536332e-9) * tr4 * tr;
+  rhor = rhor + ((T(0.824493) - T(4.0899e-3) * tr + T(7.6438e-5) * tr2 -
+                  T(8.2467e-7) * tr3 + T(5.3875e-9) * tr4) *
+                     sr +
+                 (T(-5.72466e-3) + T(1.0227e-4) * tr - T(1.6546e-6) * tr2) *
+                     pow(fabs(sr), T(1.5)) +
+                 T(4.8314e-4) * sr * sr);
+  const T cr = T(1449.1) + T(0.0821) * pr + T(4.55) * tr - T(0.045) * tr2 +
+               T(1.34) * (sr - T(35.0));
+  rhor = rhor + T(1.0e5) * pr / (cr * cr) * (T(1) - T(2) * pr / (cr * cr));
+  return rhor * s.rrhoref * fsm;
 }
 
+// One tracer's forward elimination state in the ascending sweep
+template <typename T>
+struct Fwd {
+  T ee, gg;  // the last row
+  T zf;      // advt1's vertical flux at the level's top face
+  T last;    // the solution at level kbm2
+};
+
 template <typename T, bool O>
-__global__ void k_tracer(Trc<T, O> s) {
+__global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 4 ? 2 : 1)
+    k_tracer_tile(Trc<T, O> s) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const sm = reinterpret_cast<T*>(smem_raw);
   const auto& g = s.g;
-  const long p = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= g.n) return;
-  const int i = p / g.jm, j = p % g.jm;
-  if (g.skip(i, j)) return;
-  const int gi = g.gi(i), gj = g.gj(j);
-  const View<T> tt{s.t, s.tb, s.tclim, s.wtsurf, s.tsurf, s.tbw, s.tbe,
-                   s.tbs, s.tbn, s.to, s.tbo, s.nbct};
-  const View<T> ss{s.s, s.sb, s.sclim, s.wssurf, s.ssurf, s.sbw, s.sbe,
-                   s.sbs, s.sbn, s.so, s.sbo, s.nbcs};
-  if (gi >= 1 && gi <= g.GI() - 2 && gj >= 1 && gj <= g.GJ() - 2) {
-    interior(s, tt, p);
-    interior(s, ss, p);
-  } else {
-    edge(s, tt, p, i, j);
-    edge(s, ss, p, i, j);
-  }
-  // dens on the new t/s (density.py:12-36); layer kb-1 is 0
-  const T h = s.h[p], fsm = s.fsm[p];
-  for (int k = 0; k < g.kb; ++k) {
-    const long q = k * g.n + p;
-    if (k == g.kb - 1) {
-      s.rho[q] = T(0);
-      continue;
+  const Tiles tl = s.tl;
+  const int TI = tl.TI, TJ = tl.TJ, HJ = TJ + 2, nt = TI * TJ;
+  const int t = threadIdx.x, ti = t / TJ, tj = t % TJ;
+  const int kb = g.kb, kbm1 = s.kbm1, kbm2 = s.kbm2, jm = g.jm;
+  const long n = g.n;
+  const Layout L = layout(TI, TJ);
+  const int HC = L.HC, wc = (ti + 1) * HJ + tj + 1;  // own window cell
+  T* const d2 = sm + kStages * L.stage;
+  T* const fxy = d2 + k2D * HC;  // per tracer: x (TI+1) x TJ, y TI x (TJ+1)
+  const int nface = (TI + 1) * TJ + TI * (TJ + 1);
+  T* const eg = s.egs + (long)blockIdx.x * kb * 4 * nt;
+  const int fw = ti * TJ + tj, fe = fw + TJ;      // x faces west, east
+  const int fs = ti * (TJ + 1) + tj, fn = fs + 1;  // y faces south, north
+  auto win = [&](int k, int f) {
+    return sm + (k % kStages) * L.stage + f * HC;
+  };
+  auto own = [&](int k, int f) {
+    return sm + (k % kStages) * L.stage + kHalo * HC + f * L.TC + t;
+  };
+  auto row = [&](int k, int c) -> T& { return eg[(k * 4 + c) * nt + t]; };
+  const View<T> tv[2] = {{s.t, s.tb, s.tclim, s.wtsurf, s.tsurf, s.tbw,
+                          s.tbe, s.tbs, s.tbn, s.to, s.tbo, s.nbct},
+                         {s.s, s.sb, s.sclim, s.wssurf, s.ssurf, s.sbw,
+                          s.sbe, s.sbs, s.sbn, s.so, s.sbo, s.nbcs}};
+  const bool any_rad = s.nbct == 2 || s.nbct == 4 || s.nbcs == 2 ||
+                       s.nbcs == 4;
+
+  for (int tile = blockIdx.x; tile < tl.count; tile += gridDim.x) {
+    const int i0 = (tile / tl.nj) * TI, j0 = (tile % tl.nj) * TJ;
+    const int i = i0 + ti, j = j0 + tj;
+    const bool in = i < g.im && j < jm;
+    const long p = in ? (long)i * jm + j : 0;
+    const bool act = in && !g.skip(i, j);
+    const int gi = g.gi(i), gj = g.gj(j);
+    const bool inner =
+        act && gi >= 1 && gi <= g.GI() - 2 && gj >= 1 && gj <= g.GJ() - 2;
+    int off[extpom::kWindowCells];
+    extpom::window_cells(off, t, nt, i0, j0, TI, TJ, g.im, jm);
+    auto stage = [&](int k) {
+      if (k < kb) {
+        const long b = (long)k * n;
+        extpom::stage_window(win(k, HT), s.t + b, off, t, nt);
+        extpom::stage_window(win(k, HTB), s.tb + b, off, t, nt);
+        extpom::stage_window(win(k, HTC), s.tclim + b, off, t, nt);
+        extpom::stage_window(win(k, HS), s.s + b, off, t, nt);
+        extpom::stage_window(win(k, HSB), s.sb + b, off, t, nt);
+        extpom::stage_window(win(k, HSC), s.sclim + b, off, t, nt);
+        extpom::stage_window(win(k, HU), s.u + b, off, t, nt);
+        extpom::stage_window(win(k, HV), s.v + b, off, t, nt);
+        extpom::stage_window(win(k, HAAM), s.aam + b, off, t, nt);
+        extpom::stage_own(own(k, OW), s.w + b, p, in);
+        extpom::stage_own(own(k, OKH), s.kh + b, p, in);
+      }
+      extpom::cp_async_commit();
+    };
+    __syncthreads();  // the previous tile is done with shared memory
+    extpom::stage_window(d2 + DDT * HC, s.dt, off, t, nt);
+    extpom::stage_window(d2 + DH * HC, s.h, off, t, nt);
+    extpom::stage_window(d2 + DDX * HC, s.dx, off, t, nt);
+    extpom::stage_window(d2 + DDY * HC, s.dy, off, t, nt);
+    extpom::stage_window(d2 + DDUM * HC, s.dum, off, t, nt);
+    extpom::stage_window(d2 + DDVM * HC, s.dvm, off, t, nt);
+    stage(0);
+    stage(1);
+
+    // the column's 2-D values
+    T h = T(0), fsm = T(0), dh = T(0), art = T(0), etb = T(0), etf = T(0),
+      swrad = T(0);
+    if (act) {
+      h = s.h[p];
+      fsm = s.fsm[p];
     }
-    const T tr = s.to[q] + s.tbias, sr = s.so[q] + s.sbias;
-    const T tr2 = tr * tr, tr3 = tr2 * tr, tr4 = tr3 * tr;
-    const T pr = s.grho * (-s.zz[k] * h) * T(1.0e-5);
-    T rhor = T(-0.157406) + T(6.793952e-2) * tr - T(9.095290e-3) * tr2 +
-             T(1.001685e-4) * tr3 - T(1.120083e-6) * tr4 +
-             T(6.536332e-9) * tr4 * tr;
-    rhor = rhor + ((T(0.824493) - T(4.0899e-3) * tr + T(7.6438e-5) * tr2 -
-                    T(8.2467e-7) * tr3 + T(5.3875e-9) * tr4) *
-                       sr +
-                   (T(-5.72466e-3) + T(1.0227e-4) * tr - T(1.6546e-6) * tr2) *
-                       pow(fabs(sr), T(1.5)) +
-                   T(4.8314e-4) * sr * sr);
-    const T cr = T(1449.1) + T(0.0821) * pr + T(4.55) * tr - T(0.045) * tr2 +
-                 T(1.34) * (sr - T(35.0));
-    rhor = rhor +
-           T(1.0e5) * pr / (cr * cr) * (T(1) - T(2) * pr / (cr * cr));
-    s.rho[q] = rhor * s.rrhoref * fsm;
+    if (inner) {
+      art = s.art[p];
+      etb = s.etb[p];
+      etf = s.etf[p];
+      dh = h + etf;
+      if (any_rad) swrad = s.swrad[p];
+    }
+    // proft's shortwave term at level k (0 from kbm1 on)
+    auto rad = [&](int k) -> T {
+      if (k >= kbm1) return T(0);
+      const T zd = s.z[k] * dh;
+      return swrad * (s.r * exp(zd * s.rad1) + s.omr * exp(zd * s.rad2));
+    };
+    auto with_rad = [&](int c) { return tv[c].nbc == 2 || tv[c].nbc == 4; };
+    Fwd<T> fw_[2] = {{T(0), T(0), T(0), T(0)}, {T(0), T(0), T(0), T(0)}};
+    T rk = T(0);  // rad(k) where a tracer needs it
+
+    // ---- the ascending sweep ----
+    for (int k = 0; k < kb; ++k) {
+      extpom::cp_async_wait_all();
+      __syncthreads();
+      stage(k + 2);
+      if (k <= kbm2) {
+        const T *u = win(k, HU), *v = win(k, HV), *a = win(k, HAAM);
+        for (int c = 0; c < 2; ++c) {
+          const T* f = win(k, c ? HS : HT);
+          const T* fb = win(k, c ? HSB : HTB);
+          const T* fc = win(k, c ? HSC : HTC);
+          T* x = fxy + c * nface;
+          T* y = x + (TI + 1) * TJ;
+          x[fw] = xface(f, fb, fc, u, a, d2, s.tprni, HC, wc, HJ);
+          y[fs] = yface(f, fb, fc, v, a, d2, s.tprni, HC, wc);
+          if (ti == TI - 1)
+            x[fe] = xface(f, fb, fc, u, a, d2, s.tprni, HC, wc + HJ, HJ);
+          if (tj == TJ - 1)
+            y[fn] = yface(f, fb, fc, v, a, d2, s.tprni, HC, wc + 1);
+        }
+        __syncthreads();
+      }
+      if (!act) continue;
+      const long q = k * n + p;
+      if (!inner) {  // bc_ts, Asselin and dens at this edge column
+        T fnew[2];
+        for (int c = 0; c < 2; ++c) {
+          const T f = win(k, c ? HS : HT)[wc], fb = win(k, c ? HSB : HTB)[wc];
+          const T fv = k < kbm1 ? edge_value(s, tv[c], k, i, j) * fsm : T(0);
+          tv[c].fo[q] = fv;
+          tv[c].fbo[q] = f + s.hsmoth * (fv + fb - T(2) * f);
+          fnew[c] = fv;
+        }
+        s.rho[q] = k == kb - 1 ? T(0) : dens(s, k, fnew[0], fnew[1], h, fsm);
+        continue;
+      }
+      if (k > kbm2) continue;
+      // proft's coefficients at level k, shared by T and S
+      const T ca = k < kbm2 ? s.mdti2 * (*own(k + 1, OKH) + s.umol) /
+                                  (s.dz[k] * s.dzz[k] * dh * dh)
+                            : T(0);
+      const T cc = k >= 1 && k < kbm1 ? s.mdti2 * (*own(k, OKH) + s.umol) /
+                                            (s.dz[k] * s.dzz[k - 1] * dh * dh)
+                                      : T(0);
+      if (k == 0 && any_rad) rk = rad(0);
+      const T rk1 = any_rad ? rad(k + 1) : T(0);
+      const T wp = *own(k + 1, OW);
+      for (int c = 0; c < 2; ++c) {
+        Fwd<T>& st = fw_[c];
+        const T* wf = win(k, c ? HS : HT);
+        const T fk = wf[wc], fbk = win(k, c ? HSB : HTB)[wc];
+        const T fp = win(k + 1, c ? HS : HT)[wc];
+        if (k == 0) st.zf = fk * *own(0, OW) * art;
+        const T zf1 =
+            k + 1 < kbm1 ? T(0.5) * (fk + fp) * wp * art : T(0);
+        const T* x = fxy + c * nface;
+        const T* y = x + (TI + 1) * TJ;
+        const T ff = x[fe] - x[fw] + y[fn] - y[fs] + (st.zf - zf1) / s.dz[k];
+        const T adv =
+            (fbk * (h + etb) * art - s.dti2 * ff) / ((h + etf) * art);
+        st.zf = zf1;
+        const bool wr = with_rad(c);
+        const T r0 = wr ? rk : T(0), r1 = wr ? rk1 : T(0);
+        if (k == 0) {
+          const View<T>& v = tv[c];
+          if (v.nbc == 1) {
+            st.ee = ca / (ca - T(1));
+            st.gg =
+                (s.dti2 * v.wfsurf[p] / (s.dz[0] * dh) - adv) / (ca - T(1));
+          } else if (v.nbc == 2) {
+            st.ee = ca / (ca - T(1));
+            st.gg = (s.dti2 * (v.wfsurf[p] + r0 - r1) / (s.dz[0] * dh) - adv) /
+                    (ca - T(1));
+          } else {
+            st.ee = T(0);
+            st.gg = v.fsurf[p];
+          }
+        } else if (k < kbm2) {
+          const T rhs = -adv + s.dti2 * (r0 - r1) / (dh * s.dz[k]);
+          const T gk = T(1) / (ca + cc * (T(1) - st.ee) - T(1));
+          st.ee = ca * gk;
+          st.gg = (rhs + cc * st.gg) * gk;
+        } else {  // the closed-form bottom row
+          const T rb = -adv + s.dti2 * (r0 - r1) / (dh * s.dz[kbm2]);
+          st.last = (cc * st.gg + rb) / (cc * (T(1) - st.ee) + T(-1)) * T(1);
+        }
+        if (k < kbm2) {
+          row(k, 2 * c) = st.ee;
+          row(k, 2 * c + 1) = st.gg;
+        }
+      }
+      rk = rk1;
+    }
+
+    // ---- the descending pass: back substitutions, commits, dens ----
+    if (inner) {
+      T f[2] = {fw_[0].last, fw_[1].last};
+      for (int k = kb - 1; k >= 0; --k) {
+        const long q = k * n + p;
+        T fnew[2];
+        for (int c = 0; c < 2; ++c) {
+          const View<T>& v = tv[c];
+          const T fo = v.f[q], fbo = v.fb[q];
+          if (k > kbm2) {  // proft keeps advt1's 0 there
+            v.fo[q] = T(0);
+            v.fbo[q] = fo + s.hsmoth * (T(0) + fbo - T(2) * fo);
+            continue;
+          }
+          if (k < kbm2)
+            f[c] = (row(k, 2 * c) * f[c] + row(k, 2 * c + 1)) * T(1);
+          fnew[c] = f[c] * fsm;
+          v.fo[q] = fnew[c];
+          v.fbo[q] = fo + s.hsmoth * (fnew[c] + fbo - T(2) * fo);
+        }
+        s.rho[q] = k == kb - 1 ? T(0) : dens(s, k, fnew[0], fnew[1], h, fsm);
+      }
+    }
   }
 }
 
-constexpr int kThreads = 128;
-constexpr int kPointers = 45;
+constexpr int kPointers = 44;
 
 // ptr: the operands, outputs and scratch; the domain is (im, jm), the
-// arrays the domain or (O) the (R, L) block at global (oi, oj)
+// arrays the domain or (O) the (R, L) block at global (oi, oj); the tiles
+// TI x TJ, walked by `grid` blocks
 template <typename T, bool O>
 int run(void* const* ptr, const double* prm, int kb, int im, int jm, int R,
-        int L, int oi, int oj, int nbct, int nbcs, void* stream) {
+        int L, int oi, int oj, int nbct, int nbcs, int TI, int TJ, int grid,
+        void* stream) {
   Trc<T, O> s;
   int k = 0;
 #define NEXT(f) s.f = (decltype(s.f))ptr[k++]
@@ -312,10 +481,18 @@ int run(void* const* ptr, const double* prm, int kb, int im, int jm, int R,
   NEXT(h); NEXT(dx); NEXT(dy); NEXT(art); NEXT(dum); NEXT(dvm); NEXT(fsm);
   NEXT(z); NEXT(zz); NEXT(dz); NEXT(dzz);
   NEXT(to); NEXT(tbo); NEXT(so); NEXT(sbo); NEXT(rho);
-  NEXT(ees); NEXT(ggs);
+  NEXT(egs);
 #undef NEXT
   if (k != kPointers) return (int)cudaErrorInvalidValue;
+  const int threads = TI * TJ;
+  if (TI < 1 || TJ < 32 || TJ % 32 || threads > kMaxThreads || grid < 1 ||
+      s.egs == nullptr)
+    return (int)cudaErrorInvalidValue;
   s.g = extpom::geometry<O>(kb, im, jm, R, L, oi, oj, 2);
+  s.tl.TI = TI;
+  s.tl.TJ = TJ;
+  s.tl.nj = (s.g.jm + TJ - 1) / TJ;
+  s.tl.count = ((s.g.im + TI - 1) / TI) * s.tl.nj;
   s.kbm1 = kb - 1;
   s.kbm2 = kb - 2;
   s.nbct = nbct;
@@ -338,41 +515,66 @@ int run(void* const* ptr, const double* prm, int kb, int im, int jm, int R,
   s.omr = T(1.0 - prm[9]);
   s.rad1 = T(1) / T(prm[10]);
   s.rad2 = T(1) / T(prm[11]);
-  const int blocks = (int)((s.g.n + kThreads - 1) / kThreads);
-  k_tracer<T, O><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(s);
+  const int smem = layout(TI, TJ).total * (int)sizeof(T);
+  const cudaError_t e = cudaFuncSetAttribute(
+      k_tracer_tile<T, O>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  k_tracer_tile<T, O><<<grid, threads, smem, (cudaStream_t)stream>>>(s);
   return (int)cudaGetLastError();
+}
+
+template <typename T, bool O>
+int info(int TI, int TJ, int* out) {
+  return extpom::tile_info(k_tracer_tile<T, O>, TI * TJ,
+                           layout(TI, TJ).total * (int)sizeof(T), out);
 }
 
 }  // namespace
 
 extern "C" int extpom_phase_tracer_f32(void* const* ptr, const double* prm,
                                        int kb, int im, int jm, int nbct,
-                                       int nbcs, void* stream) {
+                                       int nbcs, int TI, int TJ, int grid,
+                                       void* stream) {
   return run<float, false>(ptr, prm, kb, im, jm, im, jm, 0, 0, nbct, nbcs,
-                           stream);
+                           TI, TJ, grid, stream);
 }
 
 extern "C" int extpom_phase_tracer_f64(void* const* ptr, const double* prm,
                                        int kb, int im, int jm, int nbct,
-                                       int nbcs, void* stream) {
+                                       int nbcs, int TI, int TJ, int grid,
+                                       void* stream) {
   return run<double, false>(ptr, prm, kb, im, jm, im, jm, 0, 0, nbct, nbcs,
-                            stream);
+                            TI, TJ, grid, stream);
 }
 
 extern "C" int extpom_phase_tracer_mesh_f32(void* const* ptr,
                                             const double* prm, int kb, int im,
                                             int jm, int R, int L, int oi,
                                             int oj, int nbct, int nbcs,
+                                            int TI, int TJ, int grid,
                                             void* stream) {
-  return run<float, true>(ptr, prm, kb, im, jm, R, L, oi, oj, nbct, nbcs,
-                          stream);
+  return run<float, true>(ptr, prm, kb, im, jm, R, L, oi, oj, nbct, nbcs, TI,
+                          TJ, grid, stream);
 }
 
 extern "C" int extpom_phase_tracer_mesh_f64(void* const* ptr,
                                             const double* prm, int kb, int im,
                                             int jm, int R, int L, int oi,
                                             int oj, int nbct, int nbcs,
+                                            int TI, int TJ, int grid,
                                             void* stream) {
   return run<double, true>(ptr, prm, kb, im, jm, R, L, oi, oj, nbct, nbcs,
-                           stream);
+                           TI, TJ, grid, stream);
+}
+
+// registers, static and dynamic shared bytes, resident blocks per SM,
+// spill bytes and SMs of the tile kernel (column.cuh tile_info); f64 and
+// mesh pick the instantiation
+extern "C" int extpom_phase_tracer_info(int f64, int mesh, int TI, int TJ,
+                                        int* out) {
+  if (f64)
+    return mesh ? info<double, true>(TI, TJ, out)
+                : info<double, false>(TI, TJ, out);
+  return mesh ? info<float, true>(TI, TJ, out)
+              : info<float, false>(TI, TJ, out);
 }

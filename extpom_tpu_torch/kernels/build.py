@@ -49,12 +49,19 @@ SIGNATURES = {
     "extpom_extwin_chunk_f64": [_P, _P] + [_I] * 15 + [_P],
     # pointer table, parameter table; kb, im, jm, two phase options; stream
     **{f"extpom_phase_{ph}_{t}": [_P, _P] + [_I] * 5 + [_P]
-       for ph in ("lat", "uvw", "tke", "tracer", "mom")
-       for t in ("f32", "f64")},
+       for ph in ("lat", "uvw", "mom") for t in ("f32", "f64")},
     # on a block: kb, im, jm, R, L, oi, oj, two phase options; stream
     **{f"extpom_phase_{ph}_mesh_{t}": [_P, _P] + [_I] * 9 + [_P]
-       for ph in ("lat", "uvw", "tke", "tracer", "mom")
-       for t in ("f32", "f64")},
+       for ph in ("lat", "uvw", "mom") for t in ("f32", "f64")},
+    # the column-tile kernels take the tile after the phase options: TI, TJ,
+    # blocks
+    **{f"extpom_phase_{ph}_{t}": [_P, _P] + [_I] * 8 + [_P]
+       for ph in ("tke", "tracer") for t in ("f32", "f64")},
+    **{f"extpom_phase_{ph}_mesh_{t}": [_P, _P] + [_I] * 12 + [_P]
+       for ph in ("tke", "tracer") for t in ("f32", "f64")},
+    # f64, block variant, TI, TJ; the six ints of column.cuh tile_info
+    **{f"extpom_phase_{ph}_info": [_I] * 4 + [_P]
+       for ph in ("tke", "tracer")},
     "extpom_error_string": [_I],
 }
 

@@ -24,6 +24,9 @@ under ``phase_<p>_mesh``.
 from __future__ import annotations
 
 import ctypes
+import functools
+import re
+from typing import NamedTuple
 
 import torch
 
@@ -38,10 +41,125 @@ from extpom_tpu_torch.bc import orlanski as bco
 
 _DTYPES = (torch.float32, torch.float64)
 # cells next to a split edge of a block that the last launch of a block
-# phase kernel skips (csrc/column.cuh GeomT; phase_uvw, tke and mom skip 2,
-# then 4): the ring must be at least this wide for the block's own cells to
-# come out
+# phase kernel skips (csrc/column.cuh GeomT; phase_uvw and mom skip 2, then
+# 4): the ring must be at least this wide for the block's own cells to come
+# out
 MESH_MARGIN = 4
+
+# ---------------------------------------------------------------------------
+# the column tiles of the tke and tracer kernels (csrc/column.cuh Tiles)
+# ---------------------------------------------------------------------------
+
+SMEM_BYTES = 232_448     # shared memory a block may use on Hopper (227 KB)
+# the tile (TI, TJ) by itemsize: the fastest of
+# `python -m extpom_tpu_torch.tools.phase_sweep` at 2048x2048x41 on the H100
+TILE = {4: (8, 32), 8: (4, 32)}
+TILED = ("tke", "tracer")
+
+
+@functools.lru_cache(maxsize=None)
+def layout_constants(phase: str) -> dict:
+    """The constants that size the ``phase`` tile kernel's shared memory,
+    read from its source ``csrc/phase_<phase>.cu``: kStages (levels in the
+    ring), kHalo (fields staged as the window), kOwn (fields staged at the
+    own column), k2D (2-D window fields) and kMaxThreads."""
+    src = (build.CSRC / f"phase_{phase}.cu").read_text()
+    return {name: int(re.search(rf"constexpr int {name} = (\d+);",
+                                src).group(1))
+            for name in ("kStages", "kHalo", "kOwn", "k2D", "kMaxThreads")}
+
+
+class Tile(NamedTuple):
+    """TI x TJ columns per block (TJ along j), the block's dynamic shared
+    bytes and its ee/gg scratch bytes in device memory (kb x 4 rows of its
+    columns)."""
+    ti: int
+    tj: int
+    smem: int
+    scratch: int
+
+
+def column_tile(kb: int, dtype: torch.dtype, phase: str, ti=None,
+                tj=None) -> Tile:
+    """The tile of the ``phase`` kernel ("tke" or "tracer") at ``kb``
+    levels in ``dtype``: :data:`TILE` unless ``ti``/``tj`` are given.  The
+    shared bytes are those of the kernel's ``layout``: the level ring, the
+    2-D window and the faces of two fields.  Raises ValueError where the
+    tile breaks the kernel's rules or does not fit a block's shared
+    memory."""
+    if phase not in TILED:
+        raise ValueError(f"column_tile: no tile kernel for phase {phase!r}")
+    c = layout_constants(phase)
+    item = torch.finfo(dtype).bits // 8
+    dti, dtj = TILE[item]
+    ti, tj = ti or dti, tj or dtj
+    if ti < 1 or tj < 32 or tj % 32 or ti * tj > c["kMaxThreads"]:
+        raise ValueError(f"column_tile: a {ti}x{tj} tile needs TJ a multiple "
+                         f"of 32 and at most {c['kMaxThreads']} columns")
+    hc, tc = (ti + 2) * (tj + 2), ti * tj
+    faces = 2 * ((ti + 1) * tj + ti * (tj + 1))
+    smem = (c["kStages"] * (c["kHalo"] * hc + c["kOwn"] * tc)
+            + c["k2D"] * hc + faces) * item
+    if smem > SMEM_BYTES:
+        raise ValueError(
+            f"column_tile: phase {phase} in {dtype} with a {ti}x{tj} tile "
+            f"needs {smem} bytes of shared memory, more than a block's "
+            f"{SMEM_BYTES}")
+    return Tile(ti, tj, smem, kb * 4 * tc * item)
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_info(phase: str, f64: bool, mesh: bool, ti: int, tj: int,
+               device: int) -> dict:
+    out = (ctypes.c_int * 6)()
+    with torch.cuda.device(device):
+        status = getattr(build.library(), f"extpom_phase_{phase}_info")(
+            int(f64), int(mesh), ti, tj, ctypes.cast(out, ctypes.c_void_p))
+    build.check(status, f"phase_{phase} tile info")
+    return dict(zip(("registers", "static_smem", "dynamic_smem",
+                     "blocks_per_sm", "spill_bytes", "sms"), out))
+
+
+def tile_info(phase: str, dtype: torch.dtype, tile: Tile, mesh: bool = False,
+              device=None) -> dict:
+    """What the compiler and the card give the ``phase`` tile kernel:
+    registers per thread, static and dynamic shared bytes, resident blocks
+    per SM, spill bytes per thread and the SMs of the card (from
+    ``cudaFuncGetAttributes`` and
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).  Builds the kernels;
+    needs a CUDA device."""
+    device = torch.device("cuda" if device is None else device)
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return dict(_tile_info(phase, dtype == torch.float64, mesh, tile.ti,
+                           tile.tj, index))
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(phase: str, dtype: torch.dtype, kb: int, R: int, L: int,
+          mesh: bool, device: torch.device, ti, tj) -> tuple:
+    """(tile, blocks) of a launch of the ``phase`` tile kernel on (kb, R, L)
+    operands: the resident blocks the card gives the tile, at most one per
+    tile."""
+    tile = column_tile(kb, dtype, phase, ti, tj)
+    info = tile_info(phase, dtype, tile, mesh, device)
+    if info["blocks_per_sm"] < 1:
+        raise RuntimeError(f"phase_{phase}: a {tile.ti}x{tile.tj} tile does "
+                           f"not fit an SM ({info})")
+    tiles = -(-R // tile.ti) * -(-L // tile.tj)
+    return tile, min(tiles, info["blocks_per_sm"] * info["sms"])
+
+
+def _tile_launch(phase: str, kb: int, x: torch.Tensor, off, tile) -> tuple:
+    """(geometry ints, ee/gg scratch) of a launch of the ``phase`` tile
+    kernel with ``tile`` (the planned one when None) on operands like
+    ``x``: TI, TJ and the blocks, and the scratch of every block."""
+    tile, blocks = _plan(phase, x.dtype, kb, *x.shape[-2:], off is not None,
+                         x.device, *(tile[:2] if tile else (None, None)))
+    eg = torch.empty(blocks * tile.scratch // x.element_size(),
+                     dtype=x.dtype, device=x.device)
+    return (tile.ti, tile.tj, blocks), eg
+
 
 # ---------------------------------------------------------------------------
 # plain PyTorch versions
@@ -293,12 +411,14 @@ def _tke_params(cfg: Config) -> list:
 
 
 def _launch(phase: str, tensors, prm, cfg: Config, opt0=0, opt1=0,
-            off=None) -> None:
+            off=None, geo=()) -> None:
     """Call ``extpom_phase_<phase>_<f32|f64>`` (``extpom_phase_<phase>_mesh_
     <f32|f64>`` on a block at ``off``) with a pointer table of ``tensors``
-    and a parameter table of the doubles ``prm``."""
+    (None a null pointer), a parameter table of the doubles ``prm`` and the
+    geometry integers ``geo`` of the tile kernels."""
     x = tensors[0]
-    ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    ptrs = (ctypes.c_void_p * len(tensors))(
+        *[None if t is None else t.data_ptr() for t in tensors])
     params = (ctypes.c_double * len(prm))(*prm)
     lib = build.library()
     suffix = "f32" if x.dtype == torch.float32 else "f64"
@@ -309,7 +429,7 @@ def _launch(phase: str, tensors, prm, cfg: Config, opt0=0, opt1=0,
     with torch.cuda.device(x.device):
         status = fn(ctypes.cast(ptrs, ctypes.c_void_p),
                     ctypes.cast(params, ctypes.c_void_p), cfg.kb, cfg.im,
-                    cfg.jm, *block, opt0, opt1, stream)
+                    cfg.jm, *block, opt0, opt1, *geo, stream)
     build.check(status, f"{name} kernel")
     kernels.LAUNCHES[name] += 1
 
@@ -363,24 +483,28 @@ def phase_uvw(grid, cfg: Config, u, v, w, dt, utb, vtb, utf, vtf, etb, etf,
 
 
 def phase_tke(grid, cfg: Config, q2, q2b, q2l, q2lb, u, v, w, aam, t, s, rho,
-              km, kh, kq, dt, etb, etf, wubot, wvbot, fc, off=None):
+              km, kh, kq, dt, etb, etf, wubot, wvbot, fc, off=None,
+              tile=None):
     """-> (q2, q2b, q2l, q2lb, km, kh, kq, l); CUDA tensors launch
-    ``csrc/phase_tke.cu``, CPU tensors run :func:`phase_tke_plain`."""
+    ``csrc/phase_tke.cu`` with ``tile`` (:func:`column_tile`'s by default),
+    CPU tensors run :func:`phase_tke_plain`."""
     args = (q2, q2b, q2l, q2lb, u, v, w, aam, t, s, rho, km, kh, kq, dt, etb,
             etf, wubot, wvbot, fc)
     if _check("tke", grid, cfg, args, off).type == "cpu":
         return _plain("tke", grid, cfg, args, off)
     _plain_checks("tke", cfg)
     out = _empty(q2, 8)
-    _launch("tke", kernel_inputs("tke", grid, cfg, *args) + out
-            + _empty(q2, 5), _tke_params(cfg), cfg, off=off)
+    geo, eg = _tile_launch("tke", cfg.kb, q2, off, tile)
+    _launch("tke", kernel_inputs("tke", grid, cfg, *args) + out + [eg],
+            _tke_params(cfg), cfg, off=off, geo=geo)
     return tuple(out)
 
 
 def phase_tracer(grid, cfg: Config, t, tb, s, sb, tclim, sclim, u, v, w,
-                 aam, kh, dt, etb, etf, fc, off=None):
-    """-> (t, tb, s, sb, rho); CUDA tensors launch ``csrc/phase_tracer.cu``,
-    CPU tensors run :func:`phase_tracer_plain`."""
+                 aam, kh, dt, etb, etf, fc, off=None, tile=None):
+    """-> (t, tb, s, sb, rho); CUDA tensors launch ``csrc/phase_tracer.cu``
+    with ``tile`` (:func:`column_tile`'s by default), CPU tensors run
+    :func:`phase_tracer_plain`."""
     args = (t, tb, s, sb, tclim, sclim, u, v, w, aam, kh, dt, etb, etf, fc)
     if _check("tracer", grid, cfg, args, off).type == "cpu":
         return _plain("tracer", grid, cfg, args, off)
@@ -390,12 +514,13 @@ def phase_tracer(grid, cfg: Config, t, tb, s, sb, tclim, sclim, u, v, w,
             raise ValueError(f"invalid nbc {nbc}")
     out = _empty(t, 5)
     ntp = cfg.ntp - 1
+    geo, eg = _tile_launch("tracer", cfg.kb, t, off, tile)
     _launch("tracer",
-            kernel_inputs("tracer", grid, cfg, *args) + out + _empty(t, 2),
+            kernel_inputs("tracer", grid, cfg, *args) + out + [eg],
             [cfg.dti2, cfg.dti, cfg.tprni, cfg.umol, cfg.smoth, cfg.tbias,
              cfg.sbias, cfg.grav, cfg.rhoref, vertical._R_JERLOV[ntp],
              vertical._AD1_JERLOV[ntp], vertical._AD2_JERLOV[ntp]],
-            cfg, cfg.nbct, cfg.nbcs, off=off)
+            cfg, cfg.nbct, cfg.nbcs, off=off, geo=geo)
     return tuple(out)
 
 

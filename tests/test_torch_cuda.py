@@ -236,9 +236,13 @@ def _to(x, card, dtype):
     return x.__class__(**{k: _to(v, card, dtype) for k, v in vars(x).items()})
 
 
+# square, non-square; a one-row last tile and a one-column last tile of the
+# tke/tracer kernels (im = 1 mod TI, jm = 1 mod TJ: profq's edge push
+# crosses into them); the smallest solve; config5's depth
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("shape", [(24, 24, 7), (40, 56, 9)],
-                         ids=["square", "nonsquare"])
+@pytest.mark.parametrize("shape", [(24, 24, 7), (40, 56, 9), (33, 65, 9),
+                                   (17, 33, 4), (24, 40, 41)],
+                         ids=["square", "nonsquare", "ragged", "kb4", "kb41"])
 @pytest.mark.parametrize("phase", ["lat", "uvw", "tke", "tracer", "mom"])
 def test_phase_kernel_matches_plain(card, phase, shape, dtype):
     g, cfg, args = _phase_case(*shape)
@@ -256,6 +260,51 @@ def test_phase_kernel_matches_plain(card, phase, shape, dtype):
     for a, b in zip(got, want):
         assert bool(torch.isfinite(a).all())
         _close(a, b, PHASE_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("nbc", [(2, 3), (4, 4)], ids=["nbc2-3", "nbc4"])
+def test_tracer_kernel_surface_conditions(card, nbc, dtype):
+    """proft's shortwave (exp) and prescribed-value surface conditions in
+    the tracer kernel, on a ragged grid with shortwave radiation."""
+    g, cfg, args = _phase_case(33, 65, 9)
+    rng = np.random.default_rng(23)
+    fc = args["tracer"][-1]
+    fc = fc.replace(swrad=fc.swrad + torch.from_numpy(
+        1e-5 * rng.standard_normal(tuple(fc.swrad.shape))))
+    g = _to(g, card, dtype)
+    cfg = cfg.replace(dtype=str(dtype).split(".")[1], nbct=nbc[0],
+                      nbcs=nbc[1])
+    args = [_to(x, card, dtype) for x in args["tracer"][:-1] + (fc,)]
+    got = phases.phase_tracer(g, cfg, *args)
+    want = phases.phase_tracer_plain(g, cfg, *args)
+    for a, b in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        _close(a, b, PHASE_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("phase", ["tke", "tracer"])
+def test_column_tiles_agree(card, phase, dtype):
+    """Every tile shape gives the default tile's bits, on a ragged grid;
+    the card gives the planned tile the shared memory the planner counted,
+    and in f32 at least 16 warps per SM."""
+    g, cfg, args = _phase_case(33, 65, 9)
+    g = _to(g, card, dtype)
+    cfg = cfg.replace(dtype=str(dtype).split(".")[1])
+    args = [_to(x, card, dtype) for x in args[phase]]
+    fn = getattr(phases, f"phase_{phase}")
+    want = fn(g, cfg, *args)
+    for ti, tj in ((1, 32), (2, 64), (8, 32), (4, 64)):
+        tile = phases.column_tile(cfg.kb, dtype, phase, ti, tj)
+        for a, b in zip(fn(g, cfg, *args, tile=tile), want):
+            assert torch.equal(a, b), (ti, tj)
+    tile = phases.column_tile(cfg.kb, dtype, phase)
+    info = phases.tile_info(phase, dtype, tile)
+    assert info["dynamic_smem"] == tile.smem
+    assert info["blocks_per_sm"] >= 1
+    if dtype == torch.float32:
+        assert info["blocks_per_sm"] * tile.ti * tile.tj >= 16 * 32
 
 
 # ---- the decomposed step's block kernels (extchunk, extwin_chunk and

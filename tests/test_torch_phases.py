@@ -67,15 +67,17 @@ def _np(obj, cls):
             for f in dataclasses.fields(cls)}
 
 
-@pytest.fixture(scope="module")
-def case():
-    m = jx_model(donate=False, pallas_ext="off", pallas_phases="off", **KW)
+def _make_case(kw, phases_used):
+    """Operands of every phase after two JAX steps of a seamount run of
+    ``kw``, perturbed, on both sides."""
+    KB, IM, JM = kw["kb"], kw["im"], kw["jm"]
+    m = jx_model(donate=False, pallas_ext="off", pallas_phases="off", **kw)
     m.step_once()
     m.step_once()
     jcfg = m.cfg.replace(pallas_phases="on", phase_block=8, phase_halo=8)
     # the runner falls back to the XLA phase where a window does not fit:
-    # make sure each of the four goes through the Pallas kernel
-    assert set(ARGS) <= set(jx_phases.feasible_phases(jcfg))
+    # make sure each phase compared goes through the Pallas kernel
+    assert set(phases_used) <= set(jx_phases.feasible_phases(jcfg))
 
     rng = np.random.default_rng(17)
     n3 = lambda s: s * rng.standard_normal((KB, IM, JM))
@@ -110,12 +112,27 @@ def case():
         f[name] = f[name] + n3(1e-6)
     f.update(kq=f["kq"] + np.abs(n3(1e-3)), wubot=n2(1e-5), wvbot=n2(1e-5))
 
-    pcfg, _, _ = pt_case(device="cpu", **KW)
+    pcfg, _, _ = pt_case(device="cpu", **kw)
     pgrid, _, pfc, _, _, _ = from_numpy(pcfg, gd, st, fc, f["rmean"],
                                         f["tclim"], f["sclim"], device="cpu")
     jfc = m.forcing_at(3).replace(**{k: jnp.asarray(v) for k, v in fc.items()})
     return dict(jcfg=jcfg, jgrid=m.grid, jfc=jfc, pcfg=pcfg, pgrid=pgrid,
                 pfc=pfc, f=f)
+
+
+@pytest.fixture(scope="module")
+def case():
+    return _make_case(KW, ARGS)
+
+
+# config5's depth, where the card's tke and tracer kernels hold their level
+# ring and ee/gg rows for 41 levels, on a small grid
+DEEP_KW = dict(im=24, jm=16, kb=41, dtype="float64", isplit=6)
+
+
+@pytest.fixture(scope="module")
+def deep_case():
+    return _make_case(DEEP_KW, ("tke", "tracer"))
 
 
 def _pt_args(case, phase):
@@ -171,6 +188,15 @@ def test_plain_phase_matches_jax_kernel(case, phase, kw):
     args = _pt_args(case, phase)
     got = PLAIN[phase](case["pgrid"], case["pcfg"], *args)
     _compare(got, _jax_phase(case, phase), f"{phase} {kw}")
+
+
+@pytest.mark.parametrize("phase", ["tke", "tracer"])
+def test_plain_phase_matches_jax_kernel_kb41(deep_case, phase):
+    """At kb = 41 the plain tke and tracer phases, which the card holds its
+    kernels to at that depth, agree with the JAX Pallas phase kernel."""
+    args = _pt_args(deep_case, phase)
+    got = PLAIN[phase](deep_case["pgrid"], deep_case["pcfg"], *args)
+    _compare(got, _jax_phase(deep_case, phase), f"{phase} kb=41")
 
 
 @pytest.mark.parametrize("phase", list(ARGS))
