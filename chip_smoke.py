@@ -11,10 +11,12 @@ paths that run it, and drives four paths through ``seamount_model`` /
 whose external loop is the whole-grid chain), the large-grid path of
 ``configs/config5_2048.json`` (2048x2048x41 on one card, whose external
 loop is the window kernel), and each of them decomposed over config5's 2x4
-mesh with every block on the card (``Model.shard``).  The tke and tracer
-kernels (column tiles) are also held to their plain versions at config5's
-depth on a small grid and timed on the large-grid path's operands
-(``[large_phases]``), with the registers, shared memory and resident
+mesh with every block on the card (``Model.shard``).  The lat, tke, tracer
+and mom kernels (column tiles) are also held to their plain versions at
+config5's depth on a small grid and on two ragged grids (kb 9 and 4), lat
+and mom bit for bit, and timed on the large-grid path's operands
+(``[large_phases]``) and on its decomposed blocks
+(``[large_mesh_phases]``), with the registers, shared memory and resident
 blocks the card gives them.  It checks the
 results, prints the dispatch echo of the four, one ``kernels`` JSON line,
 the card's name and power limit, and a last JSON line
@@ -51,13 +53,18 @@ EXTLOOP_FLOPS_PER_POINT = 199
 EXT_KERNELS = {"extloop": ("::k_surface<", "::k_velocity<", "::k_update<"),
                "extwin": ("::k_window<",), "ext_metrics": ("::k_metrics<",)}
 PHASES = ("lat", "uvw", "tke", "tracer", "mom")
-TILED = ("tke", "tracer")      # the column-tile kernels (kernels/phases.py)
-DEEP = (96, 80, 41)            # config5's depth on a small grid
+TILED = ("lat", "tke", "tracer", "mom")   # column tiles (kernels/phases.py)
+# phase kernels held to their plain versions bit for bit (+, -, *, / and
+# sqrt only, each correctly rounded on the card)
+BIT_EQUAL = ("lat", "mom")
+# config5's depth on a small grid; ragged grids (one-row and one-column
+# last tiles) at kb 9 and the smallest solve's kb 4
+DEEP = ((96, 80, 41), (33, 65, 9), (17, 33, 4))
 # device kernels of each phase (csrc/phase_*.cu), as the profiler names them
-PHASE_KERNELS = {"lat": ("::k_lat<",), "uvw": ("::k_uv<", "::k_w<"),
+PHASE_KERNELS = {"lat": ("::k_lat_tile<",), "uvw": ("::k_uv<", "::k_w<"),
                  "tke": ("::k_tke_tile<",),
                  "tracer": ("::k_tracer_tile<",),
-                 "mom": ("::k_solve<", "::k_final<")}
+                 "mom": ("::k_mom_tile<", "::k_mom_edge<")}
 # the block kernels of the decomposed step, as the profiler names them
 MESH_KERNELS = {"extchunk": EXT_KERNELS["extloop"],
                 "extwin_chunk": EXT_KERNELS["extwin"],
@@ -352,13 +359,16 @@ def extloop_phase(flush: L2Flush, inputs) -> dict:
     return entry
 
 
-def tile_fields(phase: str, dtype, kb: int, mesh: bool = False) -> dict:
-    """The tile of a column-tile kernel and what the card gives it:
-    registers, static and dynamic shared bytes, resident blocks per SM."""
+def tile_fields(phase: str, dtype, kb: int, shape, mesh: bool = False) -> dict:
+    """The tile a column-tile kernel is planned with on (kb, R, L) operands
+    (``shape`` ends in R, L) and what the card gives it: whether it keeps
+    its levels in shared memory (mom), the blocks launched, registers,
+    static and dynamic shared bytes, resident blocks per SM."""
     from extpom_tpu_torch.kernels import phases
-    tile = phases.column_tile(kb, dtype, phase)
+    tile, blocks = phases.plan_tile(phase, dtype, kb, *shape[-2:], mesh)
     info = phases.tile_info(phase, dtype, tile, mesh)
-    return dict(tile=f"{tile.ti}x{tile.tj}",
+    return dict(tile=f"{tile.ti}x{tile.tj}", keep=tile.keep,
+                launch_blocks=blocks,
                 registers=info["registers"],
                 static_smem=info["static_smem"],
                 dynamic_smem=info["dynamic_smem"],
@@ -412,16 +422,22 @@ def phases_phase(flush: L2Flush, grid, cfg, args) -> dict:
                     failed.append(f"phase_{phase} {dtype}: {name} "
                                   f"disagrees with the plain phase, {rel} "
                                   f"> {tol}")
+            equal = all(torch.equal(x, y) for x, y in zip(got, want))
+            if phase in BIT_EQUAL and not equal:
+                failed.append(f"phase_{phase} {dtype}: not bit-equal to "
+                              f"the plain phase")
             run = lambda: kernel(g, c, *a)
             ms = device_ms(run, 20, flush)
             wall_ms = call_ms(run, 20, flush)
             issue_ms = host_ms(run, 20)
             plain_ms = device_ms(lambda: plain(g, c, *a), 3, flush)
             bound, by, mb = phase_bound(phase, g, c, a, got, item, dtype)
-            tiles = tile_fields(phase, dtype, KB) if phase in TILED else {}
+            tiles = (tile_fields(phase, dtype, KB, a[0].shape)
+                     if phase in TILED else {})
             say("phases", phase=phase, dtype=str(dtype).split(".")[1],
                 max_abs_err=f"{worst[0]:.3e}", rel_err=f"{worst[1]:.3e}",
-                worst_output=worst[2], tol=tol, ms=f"{ms:.5f}",
+                worst_output=worst[2], tol=tol, bit_equal=equal,
+                ms=f"{ms:.5f}",
                 call_ms=f"{wall_ms:.5f}", host_ms=f"{issue_ms:.5f}",
                 plain_ms=f"{plain_ms:.4f}",
                 bound_ms=f"{bound:.5f}", mbytes=f"{mb:.2f}", **tiles,
@@ -439,40 +455,46 @@ def phases_phase(flush: L2Flush, grid, cfg, args) -> dict:
 
 
 def deep_phases_check() -> None:
-    """The tke and tracer kernels against their plain versions at config5's
-    depth (DEEP: 96x80x41), f64 and f32, on the phases' operands of the
-    second step of a float64 seamount run on the card."""
+    """The tile kernels against their plain versions on the grids of DEEP
+    (config5's depth, 96x80x41; ragged 33x65x9 and 17x33x4), f64 and f32,
+    on the phases' operands of the second step of a float64 seamount run
+    on the card; lat and mom bit for bit."""
     from extpom_tpu_torch.cases.seamount import seamount_model
     from extpom_tpu_torch.kernels import phases
-    im, jm, kb = DEEP
-    m = seamount_model(im=im, jm=jm, kb=kb, dtype="float64")
-    m.run_segment(1)
-    calls = record_calls(lambda: m.run_segment(1), TILED)
     failed = []
-    for phase in TILED:
-        (g0, cfg0, *args0), _ = calls[phase][0]
-        for dtype in (torch.float64, torch.float32):
-            g = cast(g0, dtype)
-            c = cfg0.replace(dtype=str(dtype).split(".")[1])
-            a = [cast(x, dtype) for x in args0]
-            got = getattr(phases, f"phase_{phase}")(g, c, *a)
-            want = getattr(phases, f"phase_{phase}_plain")(g, c, *a)
-            torch.cuda.synchronize()
-            tol = TOL["phase"][dtype]
-            worst = (0.0, 0.0, "none")
-            for name, x, y in zip(PHASE_OUTPUTS[phase], got, want):
-                err, rel = rel_err(x, y)
-                if rel >= worst[1]:
-                    worst = (err, rel, name)
-                if not bool(torch.isfinite(x).all()) or not rel <= tol:
-                    failed.append(f"phase_{phase} {dtype} {name}: {rel}")
-            say("phases", phase=phase, dtype=str(dtype).split(".")[1],
-                grid=f"{im}x{jm}x{kb}", max_abs_err=f"{worst[0]:.3e}",
-                rel_err=f"{worst[1]:.3e}", worst_output=worst[2], tol=tol,
-                **tile_fields(phase, dtype, kb))
+    for im, jm, kb in DEEP:
+        m = seamount_model(im=im, jm=jm, kb=kb, dtype="float64")
+        m.run_segment(1)
+        calls = record_calls(lambda: m.run_segment(1), TILED)
+        for phase in TILED:
+            (g0, cfg0, *args0), _ = calls[phase][0]
+            for dtype in (torch.float64, torch.float32):
+                g = cast(g0, dtype)
+                c = cfg0.replace(dtype=str(dtype).split(".")[1])
+                a = [cast(x, dtype) for x in args0]
+                got = getattr(phases, f"phase_{phase}")(g, c, *a)
+                want = getattr(phases, f"phase_{phase}_plain")(g, c, *a)
+                torch.cuda.synchronize()
+                tol = TOL["phase"][dtype]
+                worst = (0.0, 0.0, "none")
+                for name, x, y in zip(PHASE_OUTPUTS[phase], got, want):
+                    err, rel = rel_err(x, y)
+                    if rel >= worst[1]:
+                        worst = (err, rel, name)
+                    if not bool(torch.isfinite(x).all()) or not rel <= tol:
+                        failed.append(f"phase_{phase} {dtype} {name}: {rel}")
+                equal = all(torch.equal(x, y) for x, y in zip(got, want))
+                if phase in BIT_EQUAL and not equal:
+                    failed.append(f"phase_{phase} {dtype} {im}x{jm}x{kb}: "
+                                  f"not bit-equal")
+                say("phases", phase=phase, dtype=str(dtype).split(".")[1],
+                    grid=f"{im}x{jm}x{kb}", max_abs_err=f"{worst[0]:.3e}",
+                    rel_err=f"{worst[1]:.3e}", worst_output=worst[2],
+                    tol=tol, bit_equal=equal,
+                    **tile_fields(phase, dtype, kb, a[0].shape))
     if failed:
-        raise AssertionError("tile kernels disagree with their plain versions "
-                             "at kb=41:\n" + "\n".join(failed))
+        raise AssertionError("tile kernels disagree with their plain "
+                             "versions:\n" + "\n".join(failed))
 
 
 def golden_phase() -> None:
@@ -792,7 +814,7 @@ def large_phase(card: str, flush: L2Flush):
 
 
 def large_phases(flush: L2Flush, m) -> dict:
-    """The tke and tracer kernels timed on the large-grid model's next step's
+    """The tile kernels timed on the large-grid model's next step's
     operands (2048x2048x41 f32): device time by CUDA events after an L2
     flush, beside the bound.  Returns {phase: (ms, bound ms)}."""
     from extpom_tpu_torch.kernels import phases
@@ -808,7 +830,7 @@ def large_phases(flush: L2Flush, m) -> dict:
         say("large_phases", phase=phase,
             grid=f"{c.im}x{c.jm}x{c.kb}", dtype="float32", ms=f"{ms:.4f}",
             bound_ms=f"{bound:.5f}", bound_by=by, mbytes=f"{mb:.1f}",
-            **tile_fields(phase, torch.float32, c.kb))
+            **tile_fields(phase, torch.float32, c.kb, a[0].shape))
         out[phase] = (ms, bound)
         del g, c, a, run
     return out
@@ -1029,7 +1051,7 @@ def mesh_kernels_phase(flush: L2Flush) -> tuple:
         for dtype in (torch.float64, torch.float32):
             item = torch.finfo(dtype).bits // 8
             tol = TOL["phase" if kind in PHASES else "extloop"][dtype]
-            worst, timed = (0.0, 0.0, "none"), None
+            worst, timed, equal = (0.0, 0.0, "none"), None, True
             for args, k in recorded:
                 args = [cast_any(x, dtype) for x in args]
                 args[1] = args[1].replace(dtype=str(dtype).split(".")[1])
@@ -1043,13 +1065,18 @@ def mesh_kernels_phase(flush: L2Flush) -> tuple:
                         worst = (err, rel, i)
                     if not bool(torch.isfinite(a).all()) or not rel <= tol:
                         failed.append(f"{name} {dtype} output {i}: {rel}")
+                    if not torch.equal(a, b):
+                        equal = False
+                        if kind in BIT_EQUAL:
+                            failed.append(f"{name} {dtype} output {i} at "
+                                          f"{off}: not bit-equal")
                 if (dtype == torch.float32 and timed is None
                         and block_at(blocks, shape, off) == target):
                     timed = (kernel, plain, args, got)
             line = dict(kernel=name, dtype=str(dtype).split(".")[1],
                         calls=len(recorded), max_abs_err=f"{worst[0]:.3e}",
                         rel_err=f"{worst[1]:.3e}", worst_output=worst[2],
-                        tol=tol)
+                        tol=tol, bit_equal=equal)
             if dtype == torch.float64:
                 entries[name] = {"f64_max_abs_err": worst[0]}
             else:
@@ -1064,7 +1091,8 @@ def mesh_kernels_phase(flush: L2Flush) -> tuple:
                 else:
                     bound, by = chunk_bound(args[2], args[5], item, dtype)
                     shape = "x".join(map(str, shape))
-                tiles = (tile_fields(kind, dtype, args[1].kb, mesh=True)
+                tiles = (tile_fields(kind, dtype, args[1].kb, args[2].shape,
+                                     mesh=True)
                          if kind in TILED else {})
                 line.update(block=f"'{target} {shape}'", ms=f"{ms:.5f}",
                             call_ms=f"{wall_ms:.5f}",
@@ -1270,7 +1298,35 @@ def large_mesh_phase(card: str, flush: L2Flush, large_ref: dict):
     del kept
     profile_phase(m, steps=2, tag="large_mesh_profile", groups=MESH_KERNELS)
     parts_phase(m, steps=2, tag="large_mesh_parts", parts=mesh_parts())
-    return launches, entry
+    return launches, entry, large_mesh_phases(flush, m)
+
+
+def large_mesh_phases(flush: L2Flush, m) -> dict:
+    """The tile kernels' block variants timed on every block of the next
+    step of the decomposed large-grid model (2048x2048x41 f32 on 2x4): the
+    sum over the blocks of each call's device time (CUDA events after an L2
+    flush) and of its bound.  Returns {phase: (ms, bound ms)} per step."""
+    from extpom_tpu_torch.kernels import phases
+    calls = record_calls(lambda: m.run_segment(1), TILED)
+    out = {}
+    for phase in TILED:
+        ms = bound = 0.0
+        shape = None
+        for (g, c, *a), kw in calls.pop(phase):
+            run = lambda: getattr(phases, f"phase_{phase}")(g, c, *a, **kw)
+            got = run()
+            ms += device_ms(run, 5, flush)
+            b, by, _ = phase_bound(phase, g, c, a, got, 4, torch.float32)
+            bound += b
+            shape = "x".join(map(str, got[0].shape))
+            del got
+        say("large_mesh_phases", phase=phase, block=shape, blocks=m.mesh.px *
+            m.mesh.py, dtype="float32", ms_per_step=f"{ms:.4f}",
+            bound_ms_per_step=f"{bound:.5f}", bound_by=by,
+            **tile_fields(phase, torch.float32, c.kb, a[0].shape,
+                          mesh=True))
+        out[phase] = (ms, bound)
+    return out
 
 
 def window_chunk_check(flush: L2Flush, blocks, args) -> dict:
@@ -1363,7 +1419,8 @@ def main() -> int:
     del large_ops
     mesh_k, _ = mesh_kernels_phase(flush)
     mesh_launches = mesh_phase(card)
-    large_mesh_launches, win_chunk = large_mesh_phase(card, flush, large_ref)
+    large_mesh_launches, win_chunk, large_mesh_tiled = large_mesh_phase(
+        card, flush, large_ref)
     del large_ref
     with open(LARGE) as f:
         mesh_block = json.load(f)["mesh"]
@@ -1374,6 +1431,9 @@ def main() -> int:
              "mesh_256": mesh_launches, "mesh_2048": large_mesh_launches}
     by_path = lambda k: {p: c[k] for p, c in paths.items()}
     mesh_k["extwin_chunk"] = win_chunk
+    for p, (ms, bound) in large_mesh_tiled.items():
+        mesh_k[f"phase_{p}_mesh"].update(large_2048_ms_per_step=ms,
+                                         large_2048_bound_ms_per_step=bound)
 
     kernels_line = {"kernels": [
         dict(name="tridiag", route="cuda",

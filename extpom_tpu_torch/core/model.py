@@ -173,7 +173,10 @@ class Model:
 
     def run_segment(self, n_steps: int) -> Optional[State]:
         """Advance ``n_steps`` internal steps (``stepper.run_steps``, or on
-        a mesh the decomposed step); returns ``state`` (None on a mesh)."""
+        a mesh the decomposed step); returns ``state``.  On a mesh that is
+        None: the segment gathers nothing (a gather copies a whole State,
+        ~14 GB at 2048x2048x41 f32), so call :meth:`gathered_state` for the
+        global state."""
         period = self.period if math.isfinite(self.period) else 1.0
         if self.blocks is not None:
             from extpom_tpu_torch.mesh import shardmap
@@ -195,7 +198,9 @@ class Model:
             log: Optional[Callable[[str], None]] = None,
             check_interval: Optional[int] = None) -> State:
         """Run the time loop with the print-interval diagnostics; raises
-        ``FloatingPointError`` when |va| > vmaxl (advance.f:611-641)."""
+        ``FloatingPointError`` when |va| > vmaxl (advance.f:611-641).
+        Returns the State, on a mesh the gathered one (one more gather at
+        the end)."""
         cfg = self.cfg
         n = cfg.iend if n_steps is None else n_steps
         for _ in range(n):
@@ -225,4 +230,4 @@ class Model:
                         f"vtot={s['vtot']:.7e} eaver={s['eaver']:.7e} "
                         f"taver={s['taver']:.7e} saver={s['saver']:.7e} "
                         f"ekin={s['ekin']:.7e}")
-        return self.state
+        return self.gathered_state()

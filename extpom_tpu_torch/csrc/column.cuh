@@ -1,6 +1,7 @@
 // Device helpers shared by the column kernels: the zero-filled neighbour
 // read of ops/stencil.py:sft, the Thomas solve of one column, and the
-// column tiles of the tke and tracer kernels (level staging by cp.async).
+// column tiles of the lat, tke, tracer and mom kernels (level staging by
+// cp.async).
 //
 // Layout: 3-D fields are (kb, im, jm) with the column index p = i*jm + j
 // fastest, so level k of column p is a[k*n + p] (n = im*jm) and a warp of
@@ -152,7 +153,8 @@ __device__ __forceinline__ void thomas_column(Coef coef, Out out, T ee, T gg,
   }
 }
 
-// ---- column tiles (phase_tke.cu, phase_tracer.cu) ----
+// ---- column tiles (phase_lat.cu, phase_tke.cu, phase_tracer.cu,
+// phase_mom.cu) ----
 //
 // A block owns a TI x TJ tile of columns, one thread each (t = ti*TJ + tj,
 // TJ along the contiguous j), and walks k once.  Level by level it stages
@@ -230,6 +232,22 @@ __device__ __forceinline__ void stage_window(T* dst, const T* plane,
     if (off[m] == kBeyond) continue;
     const bool ok = off[m] >= 0;
     cp_async(dst + t + m * threads, ok ? plane + off[m] : plane, ok);
+  }
+}
+
+// Stage one plane of a field into a window with a `halo`-cell margin,
+// (TI + 2 halo) x (TJ + 2 halo) cells from array cell (i0-halo, j0-halo),
+// 0 outside the array; for planes staged once per tile.
+template <typename T>
+__device__ __forceinline__ void stage_halo(T* dst, const T* plane, int t,
+                                           int threads, int i0, int j0,
+                                           int TI, int TJ, int halo, int im,
+                                           int jm) {
+  const int HJ = TJ + 2 * halo, HC = (TI + 2 * halo) * HJ;
+  for (int c = t; c < HC; c += threads) {
+    const int i = i0 - halo + c / HJ, j = j0 - halo + c % HJ;
+    const bool ok = i >= 0 && i < im && j >= 0 && j < jm;
+    cp_async(dst + c, ok ? plane + (long)i * jm + j : plane, ok);
   }
 }
 

@@ -11,13 +11,27 @@
 // ub, vb, aam, rho, rmean) and writes 5 (aam, advx, advy, drhox, drhoy),
 // with ~250 flops per level.
 //
-// Design: one thread per (i, j) column and one launch; the loop over k is
-// coalesced in the (kb, im, jm) layout.  Every flux a column needs at a
-// neighbour (xflux at i-1, yflux at j+1, curv at i-1/j-1, ...) is
-// recomputed there instead of being stored, as csrc/extloop.cu does.  The
-// baropg integral runs down the column in ascending k, the order of
-// pressure.py:_cumk.  Built with -fmad=false so each operation rounds as
-// the plain PyTorch version's does.
+// Design: one launch, column tiles (column.cuh Tiles).  A block owns a
+// TI x TJ tile of columns, one thread each, and sweeps k once upward:
+//   * each level's planes of u, v, ub, vb, aam, rho and rmean are staged
+//     into shared memory as the tile's window with a one-cell halo
+//     (diagonals included: curv reads v at (i-1, j+1), xflux at (i+1, j-1)
+//     reads u), by cp.async one level ahead (a ring of two);
+//   * dt, dx and dy are staged once per tile with a two-cell halo (xflux at
+//     i-1 reads dt at i-2, curv at i-1 dy at i-2), and the k-independent
+//     terms the plain version forms whole are formed from them once per
+//     tile: dt + dt_w, dt + dt_s, the dx4/dy4/dt4 sums, 0.25 dx4, 0.25 dy4,
+//     0.25 dt4, the curvature metrics dy_e - dy_w, dx_n - dx_s and dx dy;
+//   * each level the four face fluxes of advct (xflux and yflux of each
+//     component, with their viscous terms and dtaam formed once per cell)
+//     and curv are computed once into shared memory, and advx and advy are
+//     differences of stored faces;
+//   * baropg's running sum stays in registers in ascending k, the order of
+//     pressure.py:_cumk, with rho - rmean at (i, j), (i-1, j) and (i, j-1)
+//     carried from level k-1.
+// Every per-point expression is the one of the plain version, operand for
+// operand, and the sources build with -fmad=false, so each operation
+// rounds as the plain PyTorch version's does.
 //
 // Where an off-by-one would hide (ops/momentum.py:16-69):
 //   * the flux regions differ per term: xflux of advx lives on [1:-1, :]
@@ -30,9 +44,9 @@
 //
 // extpom_phase_lat_mesh_f32/f64 run the same kernel on one ring-extended
 // block of the decomposed step (O, column.cuh), replacing the same TPU
-// kernel with has_off (via mesh_runner): regions at global (i, j), the
-// launch skipping 2 cells next to the block's split edges (its unguarded
-// reads reach 1 cell).
+// kernel with has_off (via mesh_runner): regions at global (i, j), every
+// staged read 0 outside the block, the launch skipping 2 cells next to the
+// block's split edges.
 
 #include <cuda_runtime.h>
 
@@ -41,8 +55,48 @@
 namespace {
 
 using extpom::GeomT;
-using extpom::ld2;
-using extpom::ld3;
+using extpom::Tiles;
+
+constexpr int kMaxThreads = 256;
+// The kernel is bound by the latency of its per-level arithmetic, so it
+// trades registers for resident warps: at most 64 registers in f32 (four
+// 256-thread blocks per SM) and 128 in f64 (four 4x32 blocks).
+constexpr int kStages = 2;  // level k resident, k+1 in flight
+// fields staged per level as the window
+constexpr int kHalo = 7;
+enum { HU, HV, HUB, HVB, HAAM, HRHO, HRM };
+// ... and at the own column: none
+constexpr int kOwn = 0;
+// arrays on the one-cell window: the k-independent terms, formed once per
+// tile, and curv, formed per level
+constexpr int k2D = 11;
+enum { DSX, DSY, DQT4, DX4, DY4, DQX4, DQY4, DCY, DCX, DXY, DCURV };
+// 2-D fields staged once per tile with a two-cell halo: dt, dx, dy
+constexpr int kWide = 3;
+enum { WDT, WDX, WDY };
+// face pairs per level: xflux and yflux of advx, of advy
+constexpr int kFaces = 2;
+// ee/gg rows per level in device scratch, levels kept per column: none
+constexpr int kScratch = 0;
+constexpr int kKeep = 0;
+
+// Shared memory of a tile, in elements: kStages stages, the 2-D arrays,
+// the wide window, the faces.  kernels/phases.py:column_tile counts the
+// same from the constants above, which it reads from this file.
+struct Layout {
+  int HC, W2, TC, stage, total;
+};
+
+__host__ __device__ inline Layout layout(int TI, int TJ) {
+  Layout L;
+  L.HC = (TI + 2) * (TJ + 2);
+  L.W2 = (TI + 4) * (TJ + 4);
+  L.TC = TI * TJ;
+  L.stage = kHalo * L.HC + kOwn * L.TC;
+  L.total = kStages * L.stage + k2D * L.HC + kWide * L.W2 +
+            kFaces * ((TI + 1) * TJ + TI * (TJ + 1));
+  return L;
+}
 
 template <typename T, bool O>
 struct Lat {
@@ -52,202 +106,288 @@ struct Lat {
   const T* zz;                                    // (kb,)
   T *aam, *advx, *advy, *drhox, *drhoy;           // outputs
   GeomT<O> g;
+  Tiles tl;
   int kbm1;
   T horcon, g025, g05;  // horcon, grav*0.25, 0.5*grav
 };
 
-// dx4-style 4-point sum a + a_w + a_s + a_ws (zero-filled)
 template <typename T, bool O>
-__device__ __forceinline__ T sum4(const T* a, const GeomT<O>& g, int i,
-                                  int j) {
-  return a[(long)i * g.jm + j] + ld2(a, g, i - 1, j) + ld2(a, g, i, j - 1) +
-         ld2(a, g, i - 1, j - 1);
-}
-
-// curv on [KM1, 1:-1, 1:-1]; the callers read it on the interior only
-template <typename T, bool O>
-__device__ T curv(const Lat<T, O>& s, int k, int i, int j) {
+__global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 4 ? 4 : 2)
+    k_lat_tile(Lat<T, O> s) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const sm = reinterpret_cast<T*>(smem_raw);
   const auto& g = s.g;
-  const long p = (long)i * g.jm + j;
-  return T(0.25) *
-         ((ld3(s.v, g, k, i, j + 1) + ld3(s.v, g, k, i, j)) *
-              (ld2(s.dy, g, i + 1, j) - ld2(s.dy, g, i - 1, j)) -
-          (ld3(s.u, g, k, i + 1, j) + ld3(s.u, g, k, i, j)) *
-              (ld2(s.dx, g, i, j + 1) - ld2(s.dx, g, i, j - 1))) /
-         (s.dx[p] * s.dy[p]);
-}
-
-// dtaam = .25 dt4 aam4 at (k, i, j)
-template <typename T, bool O>
-__device__ __forceinline__ T dtaam(const Lat<T, O>& s, int k, int i, int j) {
-  const auto& g = s.g;
-  return T(0.25) * sum4(s.dt, g, i, j) * sum4(s.aam0 + k * g.n, g, i, j);
-}
-
-// advx's xflux after the viscous term, on [KM1, 1:-1, 1:] (j >= 1 here);
-// 0 at i = 0 and i = im-1
-template <typename T, bool O>
-__device__ T xflux_x(const Lat<T, O>& s, int k, int i, int j) {
-  const auto& g = s.g;
-  if (g.gi(i) < 1 || g.gi(i) > g.GI() - 2) return T(0);
-  const long p = (long)i * g.jm + j;
-  const T u = ld3(s.u, g, k, i, j), ue = ld3(s.u, g, k, i + 1, j);
-  const T dt = s.dt[p], dte = ld2(s.dt, g, i + 1, j);
-  const T f = T(0.125) * ((dte + dt) * ue + (dt + ld2(s.dt, g, i - 1, j)) * u) *
-              (ue + u);
-  return s.dy[p] * (f - dt * ld3(s.aam0, g, k, i, j) * T(2) *
-                            (ld3(s.ub, g, k, i + 1, j) - ld3(s.ub, g, k, i, j)) /
-                            s.dx[p]);
-}
-
-// advx's yflux after the cross term, on [KM1, 1:-1, 1:] (i interior here)
-template <typename T, bool O>
-__device__ T yflux_x(const Lat<T, O>& s, int k, int i, int j) {
-  const auto& g = s.g;
-  const long p = (long)i * g.jm + j;
-  const T f = T(0.125) *
-              ((s.dt[p] + ld2(s.dt, g, i, j - 1)) * ld3(s.v, g, k, i, j) +
-               (ld2(s.dt, g, i - 1, j) + ld2(s.dt, g, i - 1, j - 1)) *
-                   ld3(s.v, g, k, i - 1, j)) *
-              (ld3(s.u, g, k, i, j) + ld3(s.u, g, k, i, j - 1));
-  const T dx4 = sum4(s.dx, g, i, j), dy4 = sum4(s.dy, g, i, j);
-  return T(0.25) * dx4 *
-         (f - dtaam(s, k, i, j) *
-                  ((ld3(s.ub, g, k, i, j) - ld3(s.ub, g, k, i, j - 1)) / dy4 +
-                   (ld3(s.vb, g, k, i, j) - ld3(s.vb, g, k, i - 1, j)) / dx4));
-}
-
-// advy's xflux after the cross term, on [KM1, 1:, 1:-1] (i >= 1 here)
-template <typename T, bool O>
-__device__ T xflux_y(const Lat<T, O>& s, int k, int i, int j) {
-  const auto& g = s.g;
-  const long p = (long)i * g.jm + j;
-  const T f = T(0.125) *
-              ((s.dt[p] + ld2(s.dt, g, i - 1, j)) * ld3(s.u, g, k, i, j) +
-               (ld2(s.dt, g, i, j - 1) + ld2(s.dt, g, i - 1, j - 1)) *
-                   ld3(s.u, g, k, i, j - 1)) *
-              (ld3(s.v, g, k, i, j) + ld3(s.v, g, k, i - 1, j));
-  const T dx4 = sum4(s.dx, g, i, j), dy4 = sum4(s.dy, g, i, j);
-  return T(0.25) * dy4 *
-         (f - dtaam(s, k, i, j) *
-                  ((ld3(s.ub, g, k, i, j) - ld3(s.ub, g, k, i, j - 1)) / dy4 +
-                   (ld3(s.vb, g, k, i, j) - ld3(s.vb, g, k, i - 1, j)) / dx4));
-}
-
-// advy's yflux after the viscous term, on [KM1, 1:, 1:-1] (i interior
-// here); 0 at j = 0 and j = jm-1
-template <typename T, bool O>
-__device__ T yflux_y(const Lat<T, O>& s, int k, int i, int j) {
-  const auto& g = s.g;
-  if (g.gj(j) < 1 || g.gj(j) > g.GJ() - 2) return T(0);
-  const long p = (long)i * g.jm + j;
-  const T v = ld3(s.v, g, k, i, j), vn = ld3(s.v, g, k, i, j + 1);
-  const T dt = s.dt[p], dtn = ld2(s.dt, g, i, j + 1);
-  const T f = T(0.125) * ((dtn + dt) * vn + (dt + ld2(s.dt, g, i, j - 1)) * v) *
-              (vn + v);
-  return s.dx[p] * (f - dt * ld3(s.aam0, g, k, i, j) * T(2) *
-                            (ld3(s.vb, g, k, i, j + 1) - ld3(s.vb, g, k, i, j)) /
-                            s.dy[p]);
-}
-
-template <typename T, bool O>
-__global__ void k_lat(Lat<T, O> s) {
-  const auto& g = s.g;
-  const long p = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= g.n) return;
-  const int i = p / g.jm, j = p % g.jm;
-  if (g.skip(i, j)) return;
-  const int gi = g.gi(i), gj = g.gj(j);
+  const Tiles tl = s.tl;
+  const int TI = tl.TI, TJ = tl.TJ, HJ = TJ + 2, WJ = TJ + 4, nt = TI * TJ;
+  const int t = threadIdx.x, ti = t / TJ, tj = t % TJ;
+  const int kbm1 = s.kbm1, jm = g.jm;
   const long n = g.n;
-  if (gi < 1 || gi > g.GI() - 2 || gj < 1 || gj > g.GJ() - 2) {
-    for (int k = 0; k < g.kb; ++k) {
-      const long q = k * n + p;
-      s.aam[q] = s.aam0[q];
-      s.advx[q] = T(0);
-      s.advy[q] = T(0);
-      s.drhox[q] = T(0);
-      s.drhoy[q] = T(0);
-    }
-    return;
-  }
-  const long pw = p - g.jm, ps = p - 1;
+  const Layout L = layout(TI, TJ);
+  const int HC = L.HC;
+  const int oc = (ti + 1) * HJ + tj + 1;  // own window cell
+  // the window cells a thread computes, c = t + m nt at row a, column b:
+  // the first one's (a0, b0), and the step from one to the next
+  const int a0 = t / HJ, b0 = t % HJ, da = nt / HJ, db = nt % HJ;
+  T* const d2 = sm + kStages * L.stage;
+  T* const wd = d2 + k2D * HC;
+  // faces: xflux of advx (TI+1) x TJ from row i0-1, yflux of advx
+  // TI x (TJ+1) from column j0, xflux of advy (TI+1) x TJ from row i0,
+  // yflux of advy TI x (TJ+1) from column j0-1
+  T* const fxx = wd + kWide * L.W2;
+  T* const fyx = fxx + (TI + 1) * TJ;
+  T* const fxy = fyx + TI * (TJ + 1);
+  T* const fyy = fxy + (TI + 1) * TJ;
+  const T* const dtw = wd + WDT * L.W2;
+  const T* const dxw = wd + WDX * L.W2;
+  const T* const dyw = wd + WDY * L.W2;
+  T* const sx = d2 + DSX * HC;
+  T* const sy = d2 + DSY * HC;
+  T* const qdt4 = d2 + DQT4 * HC;
+  T* const dx4 = d2 + DX4 * HC;
+  T* const dy4 = d2 + DY4 * HC;
+  T* const qdx4 = d2 + DQX4 * HC;
+  T* const qdy4 = d2 + DQY4 * HC;
+  T* const cdy = d2 + DCY * HC;
+  T* const cdx = d2 + DCX * HC;
+  T* const dxy = d2 + DXY * HC;
+  T* const curv = d2 + DCURV * HC;
+  auto win = [&](int k, int f) {
+    return sm + (k % kStages) * L.stage + f * HC;
+  };
   const T ramp = s.ramp[0];
-  const T dt = s.dt[p], dtw = s.dt[pw], dts = s.dt[ps];
-  const T dx = s.dx[p], dy = s.dy[p];
-  // baropg: dts/dtd and the perpendicular metric of each component
-  const T dtsx = dt + dtw, dtdx = dt - dtw, dtsy = dt + dts, dtdy = dt - dts;
   const T zz0 = s.zz[0];
-  T drx = T(0), dry = T(0);
-  for (int k = 0; k < s.kbm1; ++k) {
-    const long q = k * n + p;
-    // ---- advct x-component ----
-    T ax = xflux_x(s, k, i, j) - xflux_x(s, k, i - 1, j) +
-           yflux_x(s, k, i, j + 1) - yflux_x(s, k, i, j);
-    if (gi >= 2)
-      ax = ax - s.aru[p] * T(0.25) *
-                    (curv(s, k, i, j) * dt * (s.v[q + 1] + s.v[q]) +
-                     curv(s, k, i - 1, j) * dtw * (s.v[q - g.jm + 1] + s.v[q - g.jm]));
-    s.advx[q] = ax;
-    // ---- advct y-component ----
-    T ay = xflux_y(s, k, i + 1, j) - xflux_y(s, k, i, j) +
-           yflux_y(s, k, i, j) - yflux_y(s, k, i, j - 1);
-    if (gj >= 2)
-      ay = ay + s.arv[p] * T(0.25) *
-                    (curv(s, k, i, j) * dt * (s.u[q + g.jm] + s.u[q]) +
-                     curv(s, k, i, j - 1) * dts * (s.u[q + g.jm - 1] + s.u[q - 1]));
-    s.advy[q] = ay;
-    // ---- baropg, the running sum in ascending k ----
-    const T rr = s.rho[q] - s.rmean[q];
-    const T rrw = s.rho[q - g.jm] - s.rmean[q - g.jm];
-    const T rrs = s.rho[q - 1] - s.rmean[q - 1];
-    if (k == 0) {
-      drx = s.g05 * (-zz0) * dtsx * (rr - rrw);
-      dry = s.g05 * (-zz0) * dtsy * (rr - rrs);
-    } else {
-      const long m = q - n;
-      const T rrm = s.rho[m] - s.rmean[m];
-      const T rrwm = s.rho[m - g.jm] - s.rmean[m - g.jm];
-      const T rrsm = s.rho[m - 1] - s.rmean[m - 1];
-      const T zdif = s.g025 * (s.zz[k - 1] - s.zz[k]);
-      const T zsum = s.g025 * (s.zz[k - 1] + s.zz[k]);
-      drx = drx + (zdif * dtsx * ((rr - rrw) + (rrm - rrwm)) +
-                   zsum * dtdx * ((rr + rrw) - (rrm + rrwm)));
-      dry = dry + (zdif * dtsy * ((rr - rrs) + (rrm - rrsm)) +
-                   zsum * dtdy * ((rr + rrs) - (rrm + rrsm)));
+
+  for (int tile = blockIdx.x; tile < tl.count; tile += gridDim.x) {
+    const int i0 = (tile / tl.nj) * TI, j0 = (tile % tl.nj) * TJ;
+    const int i = i0 + ti, j = j0 + tj;
+    const bool in = i < g.im && j < jm;
+    const long p = in ? (long)i * jm + j : 0;
+    const bool act = in && !g.skip(i, j);
+    const int gi = g.gi(i), gj = g.gj(j);
+    const bool inner =
+        act && gi >= 1 && gi <= g.GI() - 2 && gj >= 1 && gj <= g.GJ() - 2;
+    int off[extpom::kWindowCells];
+    extpom::window_cells(off, t, nt, i0, j0, TI, TJ, g.im, jm);
+    auto stage = [&](int k) {
+      if (k < kbm1) {
+        const long b = (long)k * n;
+        extpom::stage_window(win(k, HU), s.u + b, off, t, nt);
+        extpom::stage_window(win(k, HV), s.v + b, off, t, nt);
+        extpom::stage_window(win(k, HUB), s.ub + b, off, t, nt);
+        extpom::stage_window(win(k, HVB), s.vb + b, off, t, nt);
+        extpom::stage_window(win(k, HAAM), s.aam0 + b, off, t, nt);
+        extpom::stage_window(win(k, HRHO), s.rho + b, off, t, nt);
+        extpom::stage_window(win(k, HRM), s.rmean + b, off, t, nt);
+      }
+      extpom::cp_async_commit();
+    };
+    __syncthreads();  // the previous tile is done with shared memory
+    extpom::stage_halo(wd + WDT * L.W2, s.dt, t, nt, i0, j0, TI, TJ, 2,
+                       g.im, jm);
+    extpom::stage_halo(wd + WDX * L.W2, s.dx, t, nt, i0, j0, TI, TJ, 2,
+                       g.im, jm);
+    extpom::stage_halo(wd + WDY * L.W2, s.dy, t, nt, i0, j0, TI, TJ, 2,
+                       g.im, jm);
+    stage(0);
+    extpom::cp_async_wait_all();
+    __syncthreads();
+    // the k-independent terms on the one-cell window (cell c; w is the
+    // same cell of the wide window)
+    for (int c = t, a = a0, b = b0; c < HC; c += nt, a += da, b += db) {
+      if (b >= HJ) {
+        b -= HJ;
+        ++a;
+      }
+      const int w = (a + 1) * WJ + b + 1;
+      sx[c] = dtw[w] + dtw[w - WJ];
+      sy[c] = dtw[w] + dtw[w - 1];
+      qdt4[c] = T(0.25) *
+                (dtw[w] + dtw[w - WJ] + dtw[w - 1] + dtw[w - WJ - 1]);
+      const T ax = dxw[w] + dxw[w - WJ] + dxw[w - 1] + dxw[w - WJ - 1];
+      const T ay = dyw[w] + dyw[w - WJ] + dyw[w - 1] + dyw[w - WJ - 1];
+      dx4[c] = ax;
+      dy4[c] = ay;
+      qdx4[c] = T(0.25) * ax;
+      qdy4[c] = T(0.25) * ay;
+      cdy[c] = dyw[w + WJ] - dyw[w - WJ];
+      cdx[c] = dxw[w + 1] - dxw[w - 1];
+      dxy[c] = dxw[w] * dyw[w];
     }
-    s.drhox[q] = T(0.25) * dtsx * drx * s.dum[p] * (dy + s.dy[pw]) * ramp;
-    s.drhoy[q] = T(0.25) * dtsy * dry * s.dvm[p] * (dx + s.dx[ps]) * ramp;
-    // ---- lateral viscosity ----
-    const T a = (s.u[q + g.jm] - s.u[q]) / dx;
-    const T b = (s.v[q + 1] - s.v[q]) / dy;
-    const T c = T(0.25) *
-                    (s.u[q + 1] + s.u[q + g.jm + 1] - s.u[q - 1] -
-                     s.u[q + g.jm - 1]) /
-                    dy +
-                T(0.25) *
-                    (s.v[q + g.jm] + s.v[q + g.jm + 1] - s.v[q - g.jm] -
-                     s.v[q - g.jm + 1]) /
-                    dx;
-    s.aam[q] = s.horcon * dx * dy * sqrt(a * a + b * b + T(0.5) * (c * c));
-  }
-  for (int k = s.kbm1; k < g.kb; ++k) {
-    const long q = k * n + p;
+
+    // the column's 2-D values
+    const int ow = (ti + 2) * WJ + tj + 2;  // own cell of the wide window
+    T dt = T(0), dx = T(0), dy = T(0), aru4 = T(0), arv4 = T(0);
+    T dtsx = T(0), dtdx = T(0), dtsy = T(0), dtdy = T(0), dum = T(0),
+      dvm = T(0), dyy = T(0), dxx = T(0), hdd = T(0);
+    if (inner) {
+      dt = dtw[ow];
+      dx = dxw[ow];
+      dy = dyw[ow];
+      aru4 = s.aru[p] * T(0.25);
+      arv4 = s.arv[p] * T(0.25);
+      dtsx = dt + dtw[ow - WJ];
+      dtdx = dt - dtw[ow - WJ];
+      dtsy = dt + dtw[ow - 1];
+      dtdy = dt - dtw[ow - 1];
+      // baropg's mask and perpendicular metric of each component
+      dum = s.dum[p];
+      dvm = s.dvm[p];
+      dyy = dy + dyw[ow - WJ];
+      dxx = dx + dxw[ow - 1];
+      hdd = s.horcon * dx * dy;
+    }
+    T drx = T(0), dry = T(0), rrm = T(0), rrwm = T(0), rrsm = T(0);
+
+    // ---- the ascending sweep ----
+    for (int k = 0; k < kbm1; ++k) {
+      extpom::cp_async_wait_all();
+      __syncthreads();
+      stage(k + 1);
+      const T* const U = win(k, HU);
+      const T* const V = win(k, HV);
+      const T* const UB = win(k, HUB);
+      const T* const VB = win(k, HVB);
+      const T* const A = win(k, HAAM);
+      // the faces and curv of every window cell that needs them
+      for (int c = t, a = a0, b = b0; c < HC;
+           c += nt, a += da, b += db) {
+        if (b >= HJ) {
+          b -= HJ;
+          ++a;
+        }
+        const int w = (a + 1) * WJ + b + 1;
+        // xflux of advx on rows i0-1 .. i0+TI-1; 0 at i = 0 and im-1
+        if (a <= TI && b >= 1 && b <= TJ) {
+          const int gii = g.gi(i0 - 1 + a);
+          T f = T(0);
+          if (gii >= 1 && gii <= g.GI() - 2) {
+            const T uu = U[c], ue = U[c + HJ];
+            const T x = T(0.125) * (sx[c + HJ] * ue + sx[c] * uu) * (ue + uu);
+            f = dyw[w] * (x - dtw[w] * A[c] * T(2) * (UB[c + HJ] - UB[c]) /
+                                  dxw[w]);
+          }
+          fxx[a * TJ + b - 1] = f;
+        }
+        // yflux of advy on columns j0-1 .. j0+TJ-1; 0 at j = 0 and jm-1
+        if (a >= 1 && a <= TI && b <= TJ) {
+          const int gjj = g.gj(j0 - 1 + b);
+          T f = T(0);
+          if (gjj >= 1 && gjj <= g.GJ() - 2) {
+            const T vv = V[c], vn = V[c + 1];
+            const T y = T(0.125) * (sy[c + 1] * vn + sy[c] * vv) * (vn + vv);
+            f = dxw[w] * (y - dtw[w] * A[c] * T(2) * (VB[c + 1] - VB[c]) /
+                                  dyw[w]);
+          }
+          fyy[(a - 1) * (TJ + 1) + b] = f;
+        }
+        // yflux of advx (columns j0 .. j0+TJ) and xflux of advy (rows
+        // i0 .. i0+TI) share the cell's viscous cross term, dtaam times
+        // the same sum in both components of advct
+        const bool yx = a >= 1 && a <= TI && b >= 1;
+        const bool xy = a >= 1 && b >= 1 && b <= TJ;
+        if (yx || xy) {
+          const T dta =
+              qdt4[c] * (A[c] + A[c - HJ] + A[c - 1] + A[c - HJ - 1]);
+          const T visc = dta * ((UB[c] - UB[c - 1]) / dy4[c] +
+                                (VB[c] - VB[c - HJ]) / dx4[c]);
+          if (yx) {
+            const T y = T(0.125) * (sy[c] * V[c] + sy[c - HJ] * V[c - HJ]) *
+                        (U[c] + U[c - 1]);
+            fyx[(a - 1) * (TJ + 1) + b - 1] = qdx4[c] * (y - visc);
+          }
+          if (xy) {
+            const T x = T(0.125) * (sx[c] * U[c] + sx[c - 1] * U[c - 1]) *
+                        (V[c] + V[c - HJ]);
+            fxy[(a - 1) * TJ + b - 1] = qdy4[c] * (x - visc);
+          }
+        }
+        // curv on the tile, row i0-1 and column j0-1
+        if (a <= TI && b <= TJ)
+          curv[c] = T(0.25) *
+                    ((V[c + 1] + V[c]) * cdy[c] -
+                     (U[c + HJ] + U[c]) * cdx[c]) /
+                    dxy[c];
+      }
+      __syncthreads();
+      if (!act) continue;
+      const long q = k * n + p;
+      if (!inner) {
+        s.aam[q] = A[oc];
+        s.advx[q] = T(0);
+        s.advy[q] = T(0);
+        s.drhox[q] = T(0);
+        s.drhoy[q] = T(0);
+        continue;
+      }
+      // ---- advct x-component ----
+      const int xe = (ti + 1) * TJ + tj, yo = ti * (TJ + 1) + tj;
+      T ax = fxx[xe] - fxx[xe - TJ] + fyx[yo + 1] - fyx[yo];
+      if (gi >= 2)
+        ax = ax - aru4 * (curv[oc] * dt * (V[oc + 1] + V[oc]) +
+                          curv[oc - HJ] * dtw[ow - WJ] *
+                              (V[oc - HJ + 1] + V[oc - HJ]));
+      s.advx[q] = ax;
+      // ---- advct y-component ----
+      T ay = fxy[xe] - fxy[xe - TJ] + fyy[yo + 1] - fyy[yo];
+      if (gj >= 2)
+        ay = ay + arv4 * (curv[oc] * dt * (U[oc + HJ] + U[oc]) +
+                          curv[oc - 1] * dtw[ow - 1] *
+                              (U[oc + HJ - 1] + U[oc - 1]));
+      s.advy[q] = ay;
+      // ---- baropg, the running sum in ascending k ----
+      const T* const R = win(k, HRHO);
+      const T* const M = win(k, HRM);
+      const T rr = R[oc] - M[oc];
+      const T rrw = R[oc - HJ] - M[oc - HJ];
+      const T rrs = R[oc - 1] - M[oc - 1];
+      if (k == 0) {
+        drx = s.g05 * (-zz0) * dtsx * (rr - rrw);
+        dry = s.g05 * (-zz0) * dtsy * (rr - rrs);
+      } else {
+        const T zdif = s.g025 * (s.zz[k - 1] - s.zz[k]);
+        const T zsum = s.g025 * (s.zz[k - 1] + s.zz[k]);
+        drx = drx + (zdif * dtsx * ((rr - rrw) + (rrm - rrwm)) +
+                     zsum * dtdx * ((rr + rrw) - (rrm + rrwm)));
+        dry = dry + (zdif * dtsy * ((rr - rrs) + (rrm - rrsm)) +
+                     zsum * dtdy * ((rr + rrs) - (rrm + rrsm)));
+      }
+      rrm = rr;
+      rrwm = rrw;
+      rrsm = rrs;
+      s.drhox[q] = T(0.25) * dtsx * drx * dum * dyy * ramp;
+      s.drhoy[q] = T(0.25) * dtsy * dry * dvm * dxx * ramp;
+      // ---- lateral viscosity ----
+      const T va = (U[oc + HJ] - U[oc]) / dx;
+      const T vb = (V[oc + 1] - V[oc]) / dy;
+      const T vc = T(0.25) *
+                       (U[oc + 1] + U[oc + HJ + 1] - U[oc - 1] -
+                        U[oc + HJ - 1]) /
+                       dy +
+                   T(0.25) *
+                       (V[oc + HJ] + V[oc + HJ + 1] - V[oc - HJ] -
+                        V[oc - HJ + 1]) /
+                       dx;
+      s.aam[q] = hdd * sqrt(va * va + vb * vb + T(0.5) * (vc * vc));
+    }
+    if (!act) continue;
+    // level kbm1: aam0, no advection, the ramp on the interior
+    const long q = (long)kbm1 * n + p;
     s.aam[q] = s.aam0[q];
     s.advx[q] = T(0);
     s.advy[q] = T(0);
-    s.drhox[q] = T(0) * ramp;
-    s.drhoy[q] = T(0) * ramp;
+    s.drhox[q] = inner ? T(0) * ramp : T(0);
+    s.drhoy[q] = inner ? T(0) * ramp : T(0);
   }
 }
 
-constexpr int kThreads = 256;
 constexpr int kPointers = 21;
 
 // ptr: the operands and outputs; the domain is (im, jm), the arrays the
-// domain or (O) the (R, L) block at global (oi, oj)
+// domain or (O) the (R, L) block at global (oi, oj); the tiles TI x TJ,
+// walked by `grid` blocks
 template <typename T, bool O>
 int run(void* const* ptr, const double* prm, int kb, int im, int jm, int R,
-        int L, int oi, int oj, void* stream) {
+        int L, int oi, int oj, int TI, int TJ, int grid, void* stream) {
   Lat<T, O> s;
   int k = 0;
 #define NEXT(f) s.f = (decltype(s.f))ptr[k++]
@@ -257,42 +397,76 @@ int run(void* const* ptr, const double* prm, int kb, int im, int jm, int R,
   NEXT(aam); NEXT(advx); NEXT(advy); NEXT(drhox); NEXT(drhoy);
 #undef NEXT
   if (k != kPointers) return (int)cudaErrorInvalidValue;
+  const int threads = TI * TJ;
+  if (TI < 1 || TJ < 32 || TJ % 32 || threads > kMaxThreads || grid < 1 ||
+      kb < 2)
+    return (int)cudaErrorInvalidValue;
   s.g = extpom::geometry<O>(kb, im, jm, R, L, oi, oj, 2);
+  s.tl.TI = TI;
+  s.tl.TJ = TJ;
+  s.tl.nj = (s.g.jm + TJ - 1) / TJ;
+  s.tl.count = ((s.g.im + TI - 1) / TI) * s.tl.nj;
   s.kbm1 = kb - 1;
   // prm: horcon, grav; each constant formed in double as the Python
   // expression forms it, then rounded to T
   s.horcon = T(prm[0]);
   s.g025 = T(prm[1] * 0.25);
   s.g05 = T(0.5 * prm[1]);
-  const int blocks = (int)((s.g.n + kThreads - 1) / kThreads);
-  k_lat<T, O><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(s);
+  const int smem = layout(TI, TJ).total * (int)sizeof(T);
+  const cudaError_t e = cudaFuncSetAttribute(
+      k_lat_tile<T, O>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  k_lat_tile<T, O><<<grid, threads, smem, (cudaStream_t)stream>>>(s);
   return (int)cudaGetLastError();
+}
+
+template <typename T, bool O>
+int info(int TI, int TJ, int* out) {
+  return extpom::tile_info(k_lat_tile<T, O>, TI * TJ,
+                           layout(TI, TJ).total * (int)sizeof(T), out);
 }
 
 }  // namespace
 
 extern "C" int extpom_phase_lat_f32(void* const* ptr, const double* prm,
-                                    int kb, int im, int jm, int, int,
-                                    void* stream) {
-  return run<float, false>(ptr, prm, kb, im, jm, im, jm, 0, 0, stream);
+                                    int kb, int im, int jm, int, int, int TI,
+                                    int TJ, int grid, void* stream) {
+  return run<float, false>(ptr, prm, kb, im, jm, im, jm, 0, 0, TI, TJ, grid,
+                           stream);
 }
 
 extern "C" int extpom_phase_lat_f64(void* const* ptr, const double* prm,
-                                    int kb, int im, int jm, int, int,
-                                    void* stream) {
-  return run<double, false>(ptr, prm, kb, im, jm, im, jm, 0, 0, stream);
+                                    int kb, int im, int jm, int, int, int TI,
+                                    int TJ, int grid, void* stream) {
+  return run<double, false>(ptr, prm, kb, im, jm, im, jm, 0, 0, TI, TJ, grid,
+                            stream);
 }
 
 extern "C" int extpom_phase_lat_mesh_f32(void* const* ptr, const double* prm,
                                          int kb, int im, int jm, int R, int L,
-                                         int oi, int oj, int, int,
-                                         void* stream) {
-  return run<float, true>(ptr, prm, kb, im, jm, R, L, oi, oj, stream);
+                                         int oi, int oj, int, int, int TI,
+                                         int TJ, int grid, void* stream) {
+  return run<float, true>(ptr, prm, kb, im, jm, R, L, oi, oj, TI, TJ, grid,
+                          stream);
 }
 
 extern "C" int extpom_phase_lat_mesh_f64(void* const* ptr, const double* prm,
                                          int kb, int im, int jm, int R, int L,
-                                         int oi, int oj, int, int,
-                                         void* stream) {
-  return run<double, true>(ptr, prm, kb, im, jm, R, L, oi, oj, stream);
+                                         int oi, int oj, int, int, int TI,
+                                         int TJ, int grid, void* stream) {
+  return run<double, true>(ptr, prm, kb, im, jm, R, L, oi, oj, TI, TJ, grid,
+                           stream);
+}
+
+// registers, static and dynamic shared bytes, resident blocks per SM,
+// spill bytes and SMs of the tile kernel (column.cuh tile_info); f64 and
+// mesh pick the instantiation (its shared memory does not depend on the
+// depth and the keep option of phase_mom.cu's entry)
+extern "C" int extpom_phase_lat_info(int f64, int mesh, int TI, int TJ, int,
+                                     int, int* out) {
+  if (f64)
+    return mesh ? info<double, true>(TI, TJ, out)
+                : info<double, false>(TI, TJ, out);
+  return mesh ? info<float, true>(TI, TJ, out)
+              : info<float, false>(TI, TJ, out);
 }

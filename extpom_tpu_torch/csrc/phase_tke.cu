@@ -78,6 +78,12 @@ enum { OW, OT, OS, ORHO, OKM, OKH, OKQ };
 // 2-D fields of the fluxes, staged once per tile: dt, h, dx, dy, dum, dvm
 constexpr int k2D = 6;
 enum { DDT, DH, DDX, DDY, DDUM, DDVM };
+// no wide window; face pairs per level: the x and y faces of two fields
+constexpr int kWide = 0;
+constexpr int kFaces = 2;
+// ee/gg rows per level in device scratch; no levels kept per column
+constexpr int kScratch = 4;
+constexpr int kKeep = 0;
 
 // Shared memory of a tile, in elements: kStages stages, the 2-D window,
 // the x and y faces of q2 and q2l.  kernels/phases.py:column_tile counts
@@ -91,7 +97,7 @@ __host__ __device__ inline Layout layout(int TI, int TJ) {
   L.HC = (TI + 2) * (TJ + 2);
   L.TC = TI * TJ;
   L.stage = kHalo * L.HC + kOwn * L.TC;
-  L.faces = 2 * ((TI + 1) * TJ + TI * (TJ + 1));
+  L.faces = kFaces * ((TI + 1) * TJ + TI * (TJ + 1));
   L.total = kStages * L.stage + k2D * L.HC + L.faces;
   return L;
 }
@@ -618,9 +624,10 @@ extern "C" int extpom_phase_tke_mesh_f64(void* const* ptr, const double* prm,
 
 // registers, static and dynamic shared bytes, resident blocks per SM,
 // spill bytes and SMs of the tile kernel (column.cuh tile_info); f64 and
-// mesh pick the instantiation
+// mesh pick the instantiation (its shared memory does not depend on the
+// depth and the keep option of phase_mom.cu's entry)
 extern "C" int extpom_phase_tke_info(int f64, int mesh, int TI, int TJ,
-                                     int* out) {
+                                     int, int, int* out) {
   if (f64)
     return mesh ? info<double, true>(TI, TJ, out)
                 : info<double, false>(TI, TJ, out);

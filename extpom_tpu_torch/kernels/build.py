@@ -26,6 +26,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-fmad=false"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+TILED = ("lat", "tke", "tracer", "mom")   # the column-tile phase kernels
 # C entry points: (argument types); each returns a cudaError_t as int
 SIGNATURES = {
     # a, c, den, rhs, ee0, gg0, cl, rb, db, mask, out, ee, gg;
@@ -48,20 +49,20 @@ SIGNATURES = {
     "extpom_extwin_chunk_f32": [_P, _P] + [_I] * 15 + [_P],
     "extpom_extwin_chunk_f64": [_P, _P] + [_I] * 15 + [_P],
     # pointer table, parameter table; kb, im, jm, two phase options; stream
-    **{f"extpom_phase_{ph}_{t}": [_P, _P] + [_I] * 5 + [_P]
-       for ph in ("lat", "uvw", "mom") for t in ("f32", "f64")},
+    **{f"extpom_phase_uvw_{t}": [_P, _P] + [_I] * 5 + [_P]
+       for t in ("f32", "f64")},
     # on a block: kb, im, jm, R, L, oi, oj, two phase options; stream
-    **{f"extpom_phase_{ph}_mesh_{t}": [_P, _P] + [_I] * 9 + [_P]
-       for ph in ("lat", "uvw", "mom") for t in ("f32", "f64")},
+    **{f"extpom_phase_uvw_mesh_{t}": [_P, _P] + [_I] * 9 + [_P]
+       for t in ("f32", "f64")},
     # the column-tile kernels take the tile after the phase options: TI, TJ,
     # blocks
     **{f"extpom_phase_{ph}_{t}": [_P, _P] + [_I] * 8 + [_P]
-       for ph in ("tke", "tracer") for t in ("f32", "f64")},
+       for ph in TILED for t in ("f32", "f64")},
     **{f"extpom_phase_{ph}_mesh_{t}": [_P, _P] + [_I] * 12 + [_P]
-       for ph in ("tke", "tracer") for t in ("f32", "f64")},
-    # f64, block variant, TI, TJ; the six ints of column.cuh tile_info
-    **{f"extpom_phase_{ph}_info": [_I] * 4 + [_P]
-       for ph in ("tke", "tracer")},
+       for ph in TILED for t in ("f32", "f64")},
+    # f64, block variant, TI, TJ, kb, keep; the six ints of column.cuh
+    # tile_info
+    **{f"extpom_phase_{ph}_info": [_I] * 6 + [_P] for ph in TILED},
     "extpom_error_string": [_I],
 }
 

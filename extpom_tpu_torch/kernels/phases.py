@@ -47,46 +47,66 @@ _DTYPES = (torch.float32, torch.float64)
 MESH_MARGIN = 4
 
 # ---------------------------------------------------------------------------
-# the column tiles of the tke and tracer kernels (csrc/column.cuh Tiles)
+# the column tiles of the lat, tke, tracer and mom kernels (csrc/column.cuh
+# Tiles)
 # ---------------------------------------------------------------------------
 
 SMEM_BYTES = 232_448     # shared memory a block may use on Hopper (227 KB)
 # the tile (TI, TJ) by itemsize: the fastest of
 # `python -m extpom_tpu_torch.tools.phase_sweep` at 2048x2048x41 on the H100
 TILE = {4: (8, 32), 8: (4, 32)}
-TILED = ("tke", "tracer")
+TILED = build.TILED
+_LAYOUT = ("kStages", "kHalo", "kOwn", "k2D", "kWide", "kFaces", "kScratch",
+           "kKeep", "kMaxThreads")
 
 
 @functools.lru_cache(maxsize=None)
 def layout_constants(phase: str) -> dict:
-    """The constants that size the ``phase`` tile kernel's shared memory,
-    read from its source ``csrc/phase_<phase>.cu``: kStages (levels in the
-    ring), kHalo (fields staged as the window), kOwn (fields staged at the
-    own column), k2D (2-D window fields) and kMaxThreads."""
+    """The constants that size the ``phase`` tile kernel's memory, read from
+    its source ``csrc/phase_<phase>.cu``: kStages (levels in the ring),
+    kHalo (fields staged as the one-cell window), kOwn (fields staged at
+    the own column), k2D (arrays on the one-cell window), kWide (2-D fields
+    on the two-cell window), kFaces (face pairs per level), kScratch (ee/gg
+    rows per level in device scratch), kKeep (values per level a column
+    keeps in shared memory when the tile keeps its levels) and
+    kMaxThreads."""
     src = (build.CSRC / f"phase_{phase}.cu").read_text()
     return {name: int(re.search(rf"constexpr int {name} = (\d+);",
                                 src).group(1))
-            for name in ("kStages", "kHalo", "kOwn", "k2D", "kMaxThreads")}
+            for name in _LAYOUT}
 
 
 class Tile(NamedTuple):
     """TI x TJ columns per block (TJ along j), the block's dynamic shared
-    bytes and its ee/gg scratch bytes in device memory (kb x 4 rows of its
-    columns)."""
+    bytes, its ee/gg scratch bytes in device memory (kb x kScratch rows of
+    its columns), the depth kb it was planned for and whether it keeps the
+    kb levels of each column in shared memory (mom's Asselin pass)."""
     ti: int
     tj: int
     smem: int
     scratch: int
+    kb: int
+    keep: bool
 
 
-def column_tile(kb: int, dtype: torch.dtype, phase: str, ti=None,
-                tj=None) -> Tile:
-    """The tile of the ``phase`` kernel ("tke" or "tracer") at ``kb``
-    levels in ``dtype``: :data:`TILE` unless ``ti``/``tj`` are given.  The
-    shared bytes are those of the kernel's ``layout``: the level ring, the
-    2-D window and the faces of two fields.  Raises ValueError where the
-    tile breaks the kernel's rules or does not fit a block's shared
-    memory."""
+def _smem(c: dict, ti: int, tj: int, kb: int, keep: bool) -> int:
+    """Shared elements of a ti x tj tile by the kernel's ``layout``: the
+    level ring, the 2-D arrays, the wide window, the faces and the kept
+    levels."""
+    hc, tc = (ti + 2) * (tj + 2), ti * tj
+    return (c["kStages"] * (c["kHalo"] * hc + c["kOwn"] * tc)
+            + c["k2D"] * hc + c["kWide"] * (ti + 4) * (tj + 4)
+            + c["kFaces"] * ((ti + 1) * tj + ti * (tj + 1))
+            + (c["kKeep"] * kb * tc if keep else 0))
+
+
+def column_tile(kb: int, dtype: torch.dtype, phase: str, ti=None, tj=None,
+                keep: bool = False) -> Tile:
+    """The tile of the ``phase`` kernel (one of :data:`TILED`) at ``kb``
+    levels in ``dtype``: :data:`TILE` unless ``ti``/``tj`` are given; with
+    ``keep`` a kernel that can (mom) keeps each column's levels in shared
+    memory.  Raises ValueError where the tile breaks the kernel's rules or
+    does not fit a block's shared memory."""
     if phase not in TILED:
         raise ValueError(f"column_tile: no tile kernel for phase {phase!r}")
     c = layout_constants(phase)
@@ -96,25 +116,25 @@ def column_tile(kb: int, dtype: torch.dtype, phase: str, ti=None,
     if ti < 1 or tj < 32 or tj % 32 or ti * tj > c["kMaxThreads"]:
         raise ValueError(f"column_tile: a {ti}x{tj} tile needs TJ a multiple "
                          f"of 32 and at most {c['kMaxThreads']} columns")
-    hc, tc = (ti + 2) * (tj + 2), ti * tj
-    faces = 2 * ((ti + 1) * tj + ti * (tj + 1))
-    smem = (c["kStages"] * (c["kHalo"] * hc + c["kOwn"] * tc)
-            + c["k2D"] * hc + faces) * item
+    keep = bool(keep and c["kKeep"])
+    smem = _smem(c, ti, tj, kb, keep) * item
     if smem > SMEM_BYTES:
         raise ValueError(
             f"column_tile: phase {phase} in {dtype} with a {ti}x{tj} tile "
             f"needs {smem} bytes of shared memory, more than a block's "
             f"{SMEM_BYTES}")
-    return Tile(ti, tj, smem, kb * 4 * tc * item)
+    return Tile(ti, tj, smem, kb * c["kScratch"] * ti * tj * item, kb,
+                keep)
 
 
 @functools.lru_cache(maxsize=None)
-def _tile_info(phase: str, f64: bool, mesh: bool, ti: int, tj: int,
-               device: int) -> dict:
+def _tile_info(phase: str, f64: bool, mesh: bool, ti: int, tj: int, kb: int,
+               keep: bool, device: int) -> dict:
     out = (ctypes.c_int * 6)()
     with torch.cuda.device(device):
         status = getattr(build.library(), f"extpom_phase_{phase}_info")(
-            int(f64), int(mesh), ti, tj, ctypes.cast(out, ctypes.c_void_p))
+            int(f64), int(mesh), ti, tj, kb, int(keep),
+            ctypes.cast(out, ctypes.c_void_p))
     build.check(status, f"phase_{phase} tile info")
     return dict(zip(("registers", "static_smem", "dynamic_smem",
                      "blocks_per_sm", "spill_bytes", "sms"), out))
@@ -122,43 +142,62 @@ def _tile_info(phase: str, f64: bool, mesh: bool, ti: int, tj: int,
 
 def tile_info(phase: str, dtype: torch.dtype, tile: Tile, mesh: bool = False,
               device=None) -> dict:
-    """What the compiler and the card give the ``phase`` tile kernel:
-    registers per thread, static and dynamic shared bytes, resident blocks
-    per SM, spill bytes per thread and the SMs of the card (from
-    ``cudaFuncGetAttributes`` and
+    """What the compiler and the card give the ``phase`` tile kernel with
+    ``tile``: registers per thread, static and dynamic shared bytes,
+    resident blocks per SM, spill bytes per thread and the SMs of the card
+    (from ``cudaFuncGetAttributes`` and
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).  Builds the kernels;
     needs a CUDA device."""
     device = torch.device("cuda" if device is None else device)
     index = device.index if device.index is not None else \
         torch.cuda.current_device()
     return dict(_tile_info(phase, dtype == torch.float64, mesh, tile.ti,
-                           tile.tj, index))
+                           tile.tj, tile.kb, tile.keep, index))
 
 
 @functools.lru_cache(maxsize=None)
-def _plan(phase: str, dtype: torch.dtype, kb: int, R: int, L: int,
-          mesh: bool, device: torch.device, ti, tj) -> tuple:
+def plan_tile(phase: str, dtype: torch.dtype, kb: int, R: int, L: int,
+              mesh: bool = False, device=None, ti=None, tj=None,
+              keep=None) -> tuple:
     """(tile, blocks) of a launch of the ``phase`` tile kernel on (kb, R, L)
     operands: the resident blocks the card gives the tile, at most one per
-    tile."""
-    tile = column_tile(kb, dtype, phase, ti, tj)
+    tile.  Unless ``keep`` says, a kernel that can keep its levels in
+    shared memory (mom) keeps them where the blocks the card then holds at
+    once still cover every tile: the kept levels save device traffic, and
+    the fewer blocks per SM cost nothing when one wave runs the grid."""
+    device = torch.device("cuda" if device is None else device)
+    tiles = lambda t: -(-R // t.ti) * -(-L // t.tj)
+    if keep is None:
+        keep = False
+        if layout_constants(phase)["kKeep"]:
+            try:
+                kept = column_tile(kb, dtype, phase, ti, tj, keep=True)
+            except ValueError:
+                kept = None
+            if kept is not None:
+                info = tile_info(phase, dtype, kept, mesh, device)
+                keep = info["blocks_per_sm"] * info["sms"] >= tiles(kept)
+    tile = column_tile(kb, dtype, phase, ti, tj, keep)
     info = tile_info(phase, dtype, tile, mesh, device)
     if info["blocks_per_sm"] < 1:
         raise RuntimeError(f"phase_{phase}: a {tile.ti}x{tile.tj} tile does "
                            f"not fit an SM ({info})")
-    tiles = -(-R // tile.ti) * -(-L // tile.tj)
-    return tile, min(tiles, info["blocks_per_sm"] * info["sms"])
+    return tile, min(tiles(tile), info["blocks_per_sm"] * info["sms"])
 
 
 def _tile_launch(phase: str, kb: int, x: torch.Tensor, off, tile) -> tuple:
-    """(geometry ints, ee/gg scratch) of a launch of the ``phase`` tile
+    """(geometry ints, scratch, keep) of a launch of the ``phase`` tile
     kernel with ``tile`` (the planned one when None) on operands like
-    ``x``: TI, TJ and the blocks, and the scratch of every block."""
-    tile, blocks = _plan(phase, x.dtype, kb, *x.shape[-2:], off is not None,
-                         x.device, *(tile[:2] if tile else (None, None)))
-    eg = torch.empty(blocks * tile.scratch // x.element_size(),
-                     dtype=x.dtype, device=x.device)
-    return (tile.ti, tile.tj, blocks), eg
+    ``x``: TI, TJ and the blocks; the ee/gg scratch of every block (none
+    for a kernel without a solve); whether the tile keeps its levels."""
+    tile, blocks = plan_tile(phase, x.dtype, kb, *x.shape[-2:],
+                             off is not None, x.device,
+                             *(tile[:2] if tile else (None, None)),
+                             tile.keep if tile else None)
+    scratch = [torch.empty(blocks * tile.scratch // x.element_size(),
+                           dtype=x.dtype, device=x.device)] \
+        if tile.scratch else []
+    return (tile.ti, tile.tj, blocks), scratch, tile.keep
 
 
 # ---------------------------------------------------------------------------
@@ -456,16 +495,18 @@ def _empty(like: torch.Tensor, n: int) -> list:
 
 
 def phase_lat(grid, cfg: Config, u, v, ub, vb, aam0, rho, rmean, dt, ramp,
-              off=None):
+              off=None, tile=None):
     """-> (aam, advx, advy, drhox, drhoy); CUDA tensors launch
-    ``csrc/phase_lat.cu``, CPU tensors run :func:`phase_lat_plain`."""
+    ``csrc/phase_lat.cu`` with ``tile`` (:func:`column_tile`'s by default),
+    CPU tensors run :func:`phase_lat_plain`."""
     args = (u, v, ub, vb, aam0, rho, rmean, dt, ramp)
     if _check("lat", grid, cfg, args, off).type == "cpu":
         return _plain("lat", grid, cfg, args, off)
     _plain_checks("lat", cfg)
     out = _empty(u, 5)
+    geo, _, _ = _tile_launch("lat", cfg.kb, u, off, tile)
     _launch("lat", kernel_inputs("lat", grid, cfg, *args) + out,
-            [cfg.horcon, cfg.grav], cfg, off=off)
+            [cfg.horcon, cfg.grav], cfg, off=off, geo=geo)
     return tuple(out)
 
 
@@ -494,8 +535,8 @@ def phase_tke(grid, cfg: Config, q2, q2b, q2l, q2lb, u, v, w, aam, t, s, rho,
         return _plain("tke", grid, cfg, args, off)
     _plain_checks("tke", cfg)
     out = _empty(q2, 8)
-    geo, eg = _tile_launch("tke", cfg.kb, q2, off, tile)
-    _launch("tke", kernel_inputs("tke", grid, cfg, *args) + out + [eg],
+    geo, eg, _ = _tile_launch("tke", cfg.kb, q2, off, tile)
+    _launch("tke", kernel_inputs("tke", grid, cfg, *args) + out + eg,
             _tke_params(cfg), cfg, off=off, geo=geo)
     return tuple(out)
 
@@ -514,9 +555,9 @@ def phase_tracer(grid, cfg: Config, t, tb, s, sb, tclim, sclim, u, v, w,
             raise ValueError(f"invalid nbc {nbc}")
     out = _empty(t, 5)
     ntp = cfg.ntp - 1
-    geo, eg = _tile_launch("tracer", cfg.kb, t, off, tile)
+    geo, eg, _ = _tile_launch("tracer", cfg.kb, t, off, tile)
     _launch("tracer",
-            kernel_inputs("tracer", grid, cfg, *args) + out + [eg],
+            kernel_inputs("tracer", grid, cfg, *args) + out + eg,
             [cfg.dti2, cfg.dti, cfg.tprni, cfg.umol, cfg.smoth, cfg.tbias,
              cfg.sbias, cfg.grav, cfg.rhoref, vertical._R_JERLOV[ntp],
              vertical._AD1_JERLOV[ntp], vertical._AD2_JERLOV[ntp]],
@@ -525,16 +566,22 @@ def phase_tracer(grid, cfg: Config, t, tb, s, sb, tclim, sclim, u, v, w,
 
 
 def phase_mom(grid, cfg: Config, u, ub, v, vb, w, advx, advy, drhox, drhoy,
-              km, dt, egf, egb, etb, etf, fc, off=None):
+              km, dt, egf, egb, etb, etf, fc, off=None, tile=None):
     """-> (u, ub, v, vb, wubot, wvbot); CUDA tensors launch
-    ``csrc/phase_mom.cu``, CPU tensors run :func:`phase_mom_plain`."""
+    ``csrc/phase_mom.cu`` with ``tile`` (:func:`column_tile`'s by default),
+    CPU tensors run :func:`phase_mom_plain`."""
     args = (u, ub, v, vb, w, advx, advy, drhox, drhoy, km, dt, egf, egb, etb,
             etf, fc)
     if _check("mom", grid, cfg, args, off).type == "cpu":
         return _plain("mom", grid, cfg, args, off)
     _plain_checks("mom", cfg)
     out = _empty(u, 4) + _empty(dt, 2)
+    geo, eg, keep = _tile_launch("mom", cfg.kb, u, off, tile)
+    # the solved uf of rows 2 and im-2, vf of columns 2 and jm-2
+    R, L = u.shape[-2:]
+    strip = u.new_empty(2 * cfg.kb * (L + R))
     _launch("mom",
-            kernel_inputs("mom", grid, cfg, *args) + out + _empty(u, 4),
-            [cfg.dti2, cfg.grav, cfg.umol, cfg.smoth], cfg, off=off)
+            kernel_inputs("mom", grid, cfg, *args) + out + eg + [strip],
+            [cfg.dti2, cfg.grav, cfg.umol, cfg.smoth], cfg, int(keep),
+            off=off, geo=geo)
     return tuple(out)

@@ -1,15 +1,16 @@
-"""Sweep the tke and tracer kernels' column tiles on the card.
+"""Sweep the column tiles of the lat, tke, tracer and mom kernels on the
+card.
 
     python -m extpom_tpu_torch.tools.phase_sweep [--grid 2048] [--kb 41]
         [--reps 3] [--dtypes float32,float64] [--tree PATH]
 
-Times one call of ``csrc/phase_tke.cu`` and ``csrc/phase_tracer.cu`` for
-each tile (TI x TJ) that fits a block, on the phases' operands of the
-second step of a seamount run of GRID x GRID x KB cells in float32 (cast
-for float64).  Every
-tile's result must equal the default tile's bit for bit.  Prints one line
-per geometry with the registers, shared bytes and resident blocks per SM
-the card gives it, then the fastest per phase and dtype, and the card's name
+Times one call of ``csrc/phase_{lat,tke,tracer,mom}.cu`` for each tile
+(TI x TJ) that fits a block, mom's with and without its levels kept in
+shared memory, on the phases' operands of the second step of a seamount
+run of GRID x GRID x KB cells in float32 (cast for float64).  Every tile's
+result must equal the default tile's bit for bit.  Prints one line per
+geometry with the registers, shared bytes and resident blocks per SM the
+card gives it, then the fastest per phase and dtype, and the card's name
 and power limit.
 
 With ``--tree PATH`` it imports the port from the checkout at PATH instead
@@ -21,6 +22,7 @@ for a comparison within one call.  Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import itertools
 import subprocess
 import sys
 import time
@@ -29,12 +31,12 @@ import torch
 
 TILES = [(1, 32), (2, 32), (4, 32), (8, 32), (1, 64), (2, 64), (4, 64),
          (1, 128), (2, 128), (1, 256)]
-PHASES = ("tke", "tracer")
+PHASES = ("lat", "tke", "tracer", "mom")
 
 
 def operands(n: int, kb: int) -> tuple:
-    """(grid, cfg, {phase: arguments}) of the tke and tracer phases in the
-    second step of an n x n x kb float32 seamount run on the card."""
+    """(grid, cfg, {phase: arguments}) of the tiled phases in the second
+    step of an n x n x kb float32 seamount run on the card."""
     from extpom_tpu_torch.cases.seamount import seamount_model
     from extpom_tpu_torch.kernels import phases
     m = seamount_model(im=n, jm=n, kb=kb)
@@ -136,9 +138,11 @@ def main() -> int:
                       f"ms={ms:.4f} host_ms={issue:.4f}", flush=True)
                 continue
             rows = []
-            for ti, tj in TILES:
+            keeps = (False, True) if phase == "mom" else (None,)
+            for (ti, tj), keep in itertools.product(TILES, keeps):
                 try:
-                    tile = phases.column_tile(cfg.kb, dtype, phase, ti, tj)
+                    tile = phases.column_tile(cfg.kb, dtype, phase, ti, tj,
+                                              keep)
                 except ValueError:
                     continue
                 info = phases.tile_info(phase, dtype, tile)
@@ -152,7 +156,7 @@ def main() -> int:
                 ms = device_ms(run, args.reps)
                 rows.append((ms, tile))
                 print(f"[phase_sweep] {where} grid={grid_name} dtype={dname} "
-                      f"phase={phase} tile={ti}x{tj} "
+                      f"phase={phase} tile={ti}x{tj} keep={tile.keep} "
                       f"smem_bytes={tile.smem} "
                       f"registers={info['registers']} "
                       f"spill_bytes={info['spill_bytes']} "

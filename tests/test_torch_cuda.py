@@ -188,6 +188,9 @@ def test_orlanski_raises_on_the_card(card):
 
 
 PHASE_TOL = {torch.float64: 1e-10, torch.float32: 1e-5}
+# phase kernels held to their plain versions bit for bit: their math is
+# +, -, *, / and sqrt, each correctly rounded on the card
+BIT_EQUAL = ("lat", "mom")
 _PHASE_CASES = {}
 
 
@@ -260,6 +263,8 @@ def test_phase_kernel_matches_plain(card, phase, shape, dtype):
     for a, b in zip(got, want):
         assert bool(torch.isfinite(a).all())
         _close(a, b, PHASE_TOL[dtype])
+        if phase in BIT_EQUAL:
+            assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -284,21 +289,32 @@ def test_tracer_kernel_surface_conditions(card, nbc, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("phase", ["tke", "tracer"])
-def test_column_tiles_agree(card, phase, dtype):
-    """Every tile shape gives the default tile's bits, on a ragged grid;
-    the card gives the planned tile the shared memory the planner counted,
-    and in f32 at least 16 warps per SM."""
-    g, cfg, args = _phase_case(33, 65, 9)
+@pytest.mark.parametrize("shape", [(33, 65, 9), (24, 40, 41), (17, 33, 4)],
+                         ids=["ragged", "kb41", "kb4"])
+@pytest.mark.parametrize("phase", ["lat", "tke", "tracer", "mom"])
+def test_column_tiles_agree(card, phase, shape, dtype):
+    """Every tile of the sweep (tools/phase_sweep.py TILES) that fits gives
+    the default tile's bits, and mom's with and without its levels kept in
+    shared memory, on a ragged grid and at kb 41 and 4; the card gives the
+    planned tile the shared memory the planner counted, and in f32 at
+    least 16 warps per SM."""
+    from extpom_tpu_torch.tools.phase_sweep import TILES
+    g, cfg, args = _phase_case(*shape)
     g = _to(g, card, dtype)
     cfg = cfg.replace(dtype=str(dtype).split(".")[1])
     args = [_to(x, card, dtype) for x in args[phase]]
     fn = getattr(phases, f"phase_{phase}")
     want = fn(g, cfg, *args)
-    for ti, tj in ((1, 32), (2, 64), (8, 32), (4, 64)):
-        tile = phases.column_tile(cfg.kb, dtype, phase, ti, tj)
-        for a, b in zip(fn(g, cfg, *args, tile=tile), want):
-            assert torch.equal(a, b), (ti, tj)
+    for ti, tj in TILES:
+        for keep in ((False, True) if phase == "mom" else (None,)):
+            try:
+                tile = phases.column_tile(cfg.kb, dtype, phase, ti, tj, keep)
+            except ValueError:
+                continue
+            if phases.tile_info(phase, dtype, tile)["blocks_per_sm"] < 1:
+                continue
+            for a, b in zip(fn(g, cfg, *args, tile=tile), want):
+                assert torch.equal(a, b), (ti, tj, keep)
     tile = phases.column_tile(cfg.kb, dtype, phase)
     info = phases.tile_info(phase, dtype, tile)
     assert info["dynamic_smem"] == tile.smem
@@ -358,7 +374,8 @@ def _to_any(x, card, dtype):
 @pytest.mark.parametrize("phase", ["lat", "uvw", "tke", "tracer", "mom"])
 def test_phase_mesh_kernel_matches_plain(card, phase, dtype):
     """Each block's phase on the card (phase_<p>_mesh) against the plain
-    phase on the same block, on the block's own cells."""
+    phase on the same block, on the block's own cells: every block of the
+    2x4 mesh, its four corners among them."""
     rec = _mesh_calls()
     name = f"phase_{phase}_mesh"
     for (g, cfg, *args), kw in rec["calls"][phase]:
@@ -373,6 +390,8 @@ def test_phase_mesh_kernel_matches_plain(card, phase, dtype):
             a, b = _trim(rec["blocks"], a), _trim(rec["blocks"], b)
             assert bool(torch.isfinite(a).all())
             _close(a, b, PHASE_TOL[dtype])
+            if phase in BIT_EQUAL:
+                assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])

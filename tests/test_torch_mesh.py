@@ -151,6 +151,26 @@ def test_one_block_mesh_is_the_single_device_path():
         assert torch.equal(getattr(m.state, name), getattr(ref.state, name))
 
 
+def test_run_returns_the_state_on_a_mesh():
+    """Model.run on a 2x4 mesh returns the State, as on one device: the
+    gathered one, bit-equal to the single-device run; run_segment gathers
+    nothing and returns None there."""
+    import dataclasses
+    from extpom_tpu_torch.core.state import State
+    kw = dict(im=32, jm=64, kb=5, isplit=4, dtype="float64", device="cpu")
+    want = pt_model(**kw).run(n_steps=2)
+    m = pt_model(**kw).shard(Mesh(2, 4, device="cpu"))
+    got = m.run(n_steps=2)
+    assert isinstance(got, State) and m.state is None
+    gathered = m.gathered_state()
+    for f in dataclasses.fields(State):
+        assert torch.equal(getattr(got, f.name), getattr(gathered, f.name)), \
+            f.name
+    for name in CHECK:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert m.run_segment(1) is None and m.state is None
+
+
 @pytest.mark.parametrize("kw", [dict(ext_halo_sub=9), dict(phase_halo=9),
                                 dict(phase_halo=3)],
                          ids=["ext-ring", "phase-ring", "phase-margin"])

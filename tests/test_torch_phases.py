@@ -125,14 +125,15 @@ def case():
     return _make_case(KW, ARGS)
 
 
-# config5's depth, where the card's tke and tracer kernels hold their level
-# ring and ee/gg rows for 41 levels, on a small grid
+# config5's depth, where the card's tile kernels hold their level ring,
+# ee/gg rows and (mom) kept levels for 41 levels, on a small grid
 DEEP_KW = dict(im=24, jm=16, kb=41, dtype="float64", isplit=6)
+TILED = ["lat", "tke", "tracer", "mom"]
 
 
 @pytest.fixture(scope="module")
 def deep_case():
-    return _make_case(DEEP_KW, ("tke", "tracer"))
+    return _make_case(DEEP_KW, TILED)
 
 
 def _pt_args(case, phase):
@@ -190,10 +191,11 @@ def test_plain_phase_matches_jax_kernel(case, phase, kw):
     _compare(got, _jax_phase(case, phase), f"{phase} {kw}")
 
 
-@pytest.mark.parametrize("phase", ["tke", "tracer"])
+@pytest.mark.parametrize("phase", TILED)
 def test_plain_phase_matches_jax_kernel_kb41(deep_case, phase):
-    """At kb = 41 the plain tke and tracer phases, which the card holds its
-    kernels to at that depth, agree with the JAX Pallas phase kernel."""
+    """At kb = 41 the plain phases of the tile kernels, which the card holds
+    those kernels to at that depth, agree with the JAX Pallas phase
+    kernel."""
     args = _pt_args(deep_case, phase)
     got = PLAIN[phase](deep_case["pgrid"], deep_case["pcfg"], *args)
     _compare(got, _jax_phase(deep_case, phase), f"{phase} kb=41")

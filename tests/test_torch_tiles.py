@@ -1,8 +1,8 @@
-"""The column-tile planner of the tke and tracer kernels
+"""The column-tile planner of the lat, tke, tracer and mom kernels
 (kernels/phases.py:column_tile): every depth the configurations use fits a
 Hopper block with the planned tile, the planner raises where nothing fits,
 and its shared-memory count is the one the card reports for the kernels'
-own layout (csrc/phase_{tke,tracer}.cu ``layout``)."""
+own layout (csrc/phase_{lat,tke,tracer,mom}.cu ``layout``)."""
 
 import pathlib
 
@@ -12,25 +12,60 @@ import torch
 from extpom_tpu_torch.kernels import build, phases
 
 CSRC = pathlib.Path(phases.__file__).resolve().parent.parent / "csrc"
+TILED = ["lat", "tke", "tracer", "mom"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("kb", [4, 7, 31, 41, 64])
-@pytest.mark.parametrize("phase", ["tke", "tracer"])
+@pytest.mark.parametrize("phase", TILED)
 def test_column_tile_fits_a_block(phase, kb, dtype):
     tile = phases.column_tile(kb, dtype, phase)
+    c = phases.layout_constants(phase)
     item = torch.finfo(dtype).bits // 8
     assert tile.tj % 32 == 0
-    assert 32 <= tile.ti * tile.tj <= \
-        phases.layout_constants(phase)["kMaxThreads"]
+    assert 32 <= tile.ti * tile.tj <= c["kMaxThreads"]
     assert 0 < tile.smem <= phases.SMEM_BYTES
-    # ee/gg are kb x 4 rows of the tile's columns in device scratch, so the
-    # block's shared memory is the same at every depth
-    assert tile.scratch == kb * 4 * tile.ti * tile.tj * item
+    assert tile.kb == kb
+    # ee/gg are kb x kScratch rows of the tile's columns in device scratch
+    # (none for lat, which solves nothing), so the block's shared memory is
+    # the same at every depth unless the tile keeps its levels (mom)
+    assert tile.scratch == kb * c["kScratch"] * tile.ti * tile.tj * item
+    assert (tile.scratch > 0) == (phase != "lat")
+    assert not tile.keep
     assert tile.smem == phases.column_tile(4, dtype, phase).smem
+    kept = phases.column_tile(kb, dtype, phase, keep=True)
+    assert kept.keep == (phase == "mom")
+    assert kept.smem == tile.smem + c["kKeep"] * kb * tile.ti * tile.tj * item
 
 
-@pytest.mark.parametrize("phase", ["tke", "tracer"])
+@pytest.mark.parametrize("shape,keep", [((256, 256), True),
+                                        ((2048, 2048), False),
+                                        ((144, 80), True)],
+                         ids=["main-path", "config5", "mesh-block"])
+def test_mom_keeps_its_levels_where_one_wave_runs_the_grid(monkeypatch,
+                                                           shape, keep):
+    """The planner keeps mom's levels in shared memory where the blocks an
+    SM then holds (two 8x32 f32 tiles with 31 kept levels, 98,240 bytes
+    each, as the H100 reports) cover every tile at once: the main path's
+    256 tiles and a mesh block's 54, not config5's 16,384; lat never keeps
+    any.  tile_info is the card's answer, here a stand-in with the H100's
+    132 SMs and its occupancy by shared memory."""
+    def tile_info(phase, dtype, tile, mesh=False, device=None):
+        return {"blocks_per_sm": min(4, phases.SMEM_BYTES // tile.smem),
+                "sms": 132}
+
+    monkeypatch.setattr(phases, "tile_info", tile_info)
+    plan = phases.plan_tile.__wrapped__
+    tile, blocks = plan("mom", torch.float32, 31, *shape, device="cpu")
+    assert tile.keep == keep
+    tiles = -(-shape[0] // 8) * -(-shape[1] // 32)
+    assert blocks == min(tiles, (2 if keep else 4) * 132)
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        phases.column_tile(64, torch.float64, "mom", ti=8, tj=32, keep=True)
+    assert not plan("lat", torch.float32, 31, *shape, device="cpu")[0].keep
+
+
+@pytest.mark.parametrize("phase", TILED)
 def test_column_tile_raises_where_nothing_fits(phase):
     with pytest.raises(ValueError, match="multiple of 32"):
         phases.column_tile(31, torch.float32, phase, ti=4, tj=48)
@@ -50,18 +85,35 @@ def test_column_tile_raises_where_shared_memory_runs_out():
 
 def test_column_tile_raises_for_other_phases():
     with pytest.raises(ValueError, match="no tile kernel"):
-        phases.column_tile(31, torch.float32, "mom")
+        phases.column_tile(31, torch.float32, "uvw")
 
 
-# dynamic shared bytes the H100 reported for the default tiles through the
-# kernels' own layout (chip_smoke.py [phases], tile_info's dynamic_smem)
+def test_lat_counts_its_two_cell_window():
+    """lat's layout: a ring of two levels of seven one-cell windows, eleven
+    arrays on the one-cell window, dt/dx/dy on the two-cell window and two
+    face pairs; an 8x32 tile in f32 is 43,600 bytes."""
+    c = phases.layout_constants("lat")
+    assert (c["kStages"], c["kHalo"], c["kOwn"], c["k2D"], c["kWide"],
+            c["kFaces"], c["kScratch"], c["kKeep"]) == (2, 7, 0, 11, 3, 2,
+                                                         0, 0)
+    hc, w2 = 10 * 34, 12 * 36
+    faces = 2 * (9 * 32 + 8 * 33)
+    assert phases.column_tile(41, torch.float32, "lat").smem == \
+        (2 * 7 * hc + 11 * hc + 3 * w2 + faces) * 4 == 43_600
+
+
+# dynamic shared bytes the H100 reported for the default tiles at kb=41
+# through the kernels' own layout (chip_smoke.py [phases], tile_info's
+# dynamic_smem)
 CARD_SMEM = {("tke", torch.float32): 79_328, ("tke", torch.float64): 88_832,
              ("tracer", torch.float32): 55_440,
-             ("tracer", torch.float64): 64_672}
+             ("tracer", torch.float64): 64_672,
+             ("lat", torch.float32): 43_600, ("lat", torch.float64): 52_384,
+             ("mom", torch.float32): 34_752, ("mom", torch.float64): 38_016}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("phase", ["tke", "tracer"])
+@pytest.mark.parametrize("phase", TILED)
 def test_planner_counts_the_kernel_layout(phase, dtype):
     """The planner's bytes, counted from the constants it reads from the
     kernel's source, are the bytes the kernel's own layout gave the card."""
@@ -69,16 +121,16 @@ def test_planner_counts_the_kernel_layout(phase, dtype):
         CARD_SMEM[phase, dtype]
 
 
-@pytest.mark.parametrize("phase", ["tke", "tracer"])
+@pytest.mark.parametrize("phase", TILED)
 def test_tile_entry_points_take_the_geometry(phase):
     """The C signatures carry TI, TJ and the block count after the phase
     options, and the info entry exists."""
-    plain = build.SIGNATURES["extpom_phase_lat_f32"]
+    plain = build.SIGNATURES["extpom_phase_uvw_f32"]
     for t in ("f32", "f64"):
         assert len(build.SIGNATURES[f"extpom_phase_{phase}_{t}"]) == \
             len(plain) + 3
         assert len(build.SIGNATURES[f"extpom_phase_{phase}_mesh_{t}"]) == \
-            len(build.SIGNATURES["extpom_phase_lat_mesh_f32"]) + 3
+            len(build.SIGNATURES["extpom_phase_uvw_mesh_f32"]) + 3
     assert f"extpom_phase_{phase}_info" in build.SIGNATURES
     src = (CSRC / f"phase_{phase}.cu").read_text()
     assert f'extern "C" int extpom_phase_{phase}_info(' in src
