@@ -15,9 +15,9 @@ mesh with every block on the card (``Model.shard``).  The lat, tke, tracer
 and mom kernels (column tiles) are also held to their plain versions at
 config5's depth on a small grid and on two ragged grids (kb 9 and 4), lat
 and mom bit for bit, and timed on the large-grid path's operands
-(``[large_phases]``) and on its decomposed blocks
-(``[large_mesh_phases]``), with the registers, shared memory and resident
-blocks the card gives them.  It checks the
+(``[large_phases]``) and, with the window chunks, on every call of one
+step of its decomposed blocks (``[large_mesh_phases]``), with the
+registers, shared memory and resident blocks the card gives them.  It checks the
 results, prints the dispatch echo of the four, one ``kernels`` JSON line,
 the card's name and power limit, and a last JSON line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -836,15 +836,32 @@ def large_phases(flush: L2Flush, m) -> dict:
     return out
 
 
+def extwin_info() -> None:
+    """What the compiler and the card give ``k_window`` at the geometry
+    each path launches it with: the whole-grid kernel at config5's isplit,
+    the block variant at the 2048x2048 mesh's ring chunk of 10 substeps."""
+    from extpom_tpu_torch.kernels import extwin
+    for variant, n_substeps in (("whole", 30), ("block", 10)):
+        for dtype in (torch.float32, torch.float64):
+            geo = extwin.win_geometry(n_substeps,
+                                      torch.finfo(dtype).bits // 8)
+            info = extwin.window_info(dtype, geo, block=variant == "block")
+            say("extwin_info", kernel=f"k_window<{str(dtype)[6:]},"
+                f"{str(variant == 'block').lower()}>", variant=variant,
+                C=geo.C, H=geo.H, tile=f"{geo.ti}x{geo.tj}",
+                threads=geo.threads, **info)
+
+
 def extwin_phase(flush: L2Flush, large) -> dict:
-    """The window kernel against its plain version on the card, in f64 and
-    f32 with ispadv 1 and 2, at 2048x2048 (the operands of ``large_phase``),
-    at 520x392 (im != jm, not a whole number of tiles) and at 40x56 (a few
-    tiles), each from a seamount run's third step.  At 2048x2048
-    ispadv=1 it also times the kernel, the plain loop and, in f32, the
-    whole-grid chain on the same operands, which must agree bit for bit."""
+    """The window kernel against its plain version and the whole-grid
+    chain on the card, bit for bit, in f64 and f32 with ispadv 1 and 2, at
+    2048x2048 (the operands of ``large_phase``), at 520x392 (im != jm, not
+    a whole number of tiles) and at 40x56 (a few tiles), each from a
+    seamount run's third step.  At 2048x2048 ispadv=1 it also times the
+    kernel, the plain loop and the chain on the same operands."""
     from extpom_tpu_torch.cases.seamount import seamount_model
     from extpom_tpu_torch.kernels import extloop, extwin
+    extwin_info()
     cases = [("2048x2048", large)]
     for im, jm in ((520, 392), (40, 56)):
         m = seamount_model(im=im, jm=jm, kb=5, dtype="float64")
@@ -862,8 +879,18 @@ def extwin_phase(flush: L2Flush, large) -> dict:
                                                                 fc, aux)
                 plain = lambda: extwin.run_external_loop_windowed_plain(
                     g, cfg, c0, fc, aux)
+                chain = lambda: extloop.run_external_loop(g, cfg, c0, fc,
+                                                          aux)
                 got, want = run(), plain()
+                same_chain = all(torch.equal(a, b)
+                                 for a, b in zip(got, chain()))
+                same_plain = all(torch.equal(a, b) for a, b in zip(got, want))
                 torch.cuda.synchronize()
+                if not (same_chain and same_plain):
+                    raise AssertionError(
+                        f"extwin kernel not bit-equal ({grid_name}, {dtype}, "
+                        f"ispadv={ispadv}): chain {same_chain}, plain "
+                        f"{same_plain}")
                 tol = TOL["extloop"][dtype]
                 worst = (0.0, 0.0, "none")
                 for name, a, b in zip(extloop.CARRY_FIELDS, got, want):
@@ -884,7 +911,8 @@ def extwin_phase(flush: L2Flush, large) -> dict:
                             smem_bytes=geo.smem,
                             max_abs_err=f"{worst[0]:.3e}",
                             rel_err=f"{worst[1]:.3e}",
-                            worst_field=worst[2], tol=tol)
+                            worst_field=worst[2], tol=tol,
+                            chain_equal=same_chain, plain_equal=same_plain)
                 if grid_name == "2048x2048" and ispadv == 1:
                     n = cfg.im * cfg.jm
                     ms = device_ms(run, 10, flush)
@@ -898,26 +926,21 @@ def extwin_phase(flush: L2Flush, large) -> dict:
                     line.update(ms=f"{ms:.4f}", call_ms=f"{wall_ms:.4f}",
                                 plain_ms=f"{plain_ms:.3f}",
                                 bound_ms=f"{max(bound_bytes, bound_ops):.5f}")
+                    chain_ms = device_ms(chain, 5, flush)
+                    line.update(chain_ms=f"{chain_ms:.4f}",
+                                vs_chain=f"{ms / chain_ms:.4f}")
                     if dtype == torch.float64:
                         entry["f64_max_abs_err"] = worst[0]
                         entry["f64_ms"] = ms
+                        entry["f64_chain_ms"] = chain_ms
                     else:
-                        chain = lambda: extloop.run_external_loop(g, cfg, c0,
-                                                                  fc, aux)
-                        same = all(torch.equal(a, b)
-                                   for a, b in zip(got, chain()))
-                        if not same:
-                            raise AssertionError("extwin and the extloop "
-                                                 "chain differ at 2048x2048")
-                        chain_ms = device_ms(chain, 5, flush)
-                        line.update(chain_ms=f"{chain_ms:.4f}",
-                                    chain_equal=same)
                         entry.update(
                             grid=grid_name, max_abs_err=worst[0], ms=ms,
                             call_ms=wall_ms, plain_ms=plain_ms,
                             bound_ms=max(bound_bytes, bound_ops),
                             bound_by="bytes" if bound_bytes >= bound_ops
-                            else "operations", chain_ms=chain_ms)
+                            else "operations", chain_ms=chain_ms,
+                            vs_chain=ms / chain_ms)
                 say("extwin", **line)
     return entry
 
@@ -937,15 +960,17 @@ def mesh_of(run: dict):
 
 
 def record_calls(steps_fn, kinds=PHASES + ("chunk",)):
-    """Every call of a phase wrapper or of the block chunk's that
-    ``steps_fn()`` makes, as {"lat", ..., "mom", "chunk": [(args, kwargs)]}
-    for those of ``kinds``: the wrappers pass through, the operands are
-    kept."""
-    from extpom_tpu_torch.kernels import extloop, phases
+    """Every call of a phase wrapper or of a block chunk's that
+    ``steps_fn()`` makes, as {"lat", ..., "mom", "chunk", "extwin_chunk":
+    [(args, kwargs)]} for those of ``kinds``: the wrappers pass through, the
+    operands are kept."""
+    from extpom_tpu_torch.kernels import extloop, extwin, phases
     calls = {}
     saved = [(phases, f"phase_{p}", p) for p in PHASES if p in kinds]
     if "chunk" in kinds:
         saved.append((extloop, "run_external_chunk", "chunk"))
+    if "extwin_chunk" in kinds:
+        saved.append((extwin, "run_external_chunk_windowed", "extwin_chunk"))
     fns = [getattr(mod, name) for mod, name, _ in saved]
 
     def spy(key, fn):
@@ -1302,12 +1327,13 @@ def large_mesh_phase(card: str, flush: L2Flush, large_ref: dict):
 
 
 def large_mesh_phases(flush: L2Flush, m) -> dict:
-    """The tile kernels' block variants timed on every block of the next
-    step of the decomposed large-grid model (2048x2048x41 f32 on 2x4): the
-    sum over the blocks of each call's device time (CUDA events after an L2
-    flush) and of its bound.  Returns {phase: (ms, bound ms)} per step."""
-    from extpom_tpu_torch.kernels import phases
-    calls = record_calls(lambda: m.run_segment(1), TILED)
+    """The tile kernels' block variants and the window chunks timed on every
+    block of the next step of the decomposed large-grid model (2048x2048x41
+    f32 on 2x4): the sum over the step's calls of each call's device time
+    (CUDA events after an L2 flush) and of its bound.  Returns {phase or
+    "extwin_chunk": (ms, bound ms)} per step."""
+    from extpom_tpu_torch.kernels import extwin, phases
+    calls = record_calls(lambda: m.run_segment(1), TILED + ("extwin_chunk",))
     out = {}
     for phase in TILED:
         ms = bound = 0.0
@@ -1326,6 +1352,18 @@ def large_mesh_phases(flush: L2Flush, m) -> dict:
             **tile_fields(phase, torch.float32, c.kb, a[0].shape,
                           mesh=True))
         out[phase] = (ms, bound)
+    ms = bound = 0.0
+    chunks = calls.pop("extwin_chunk")
+    for a, kw in chunks:
+        ms += device_ms(lambda: extwin.run_external_chunk_windowed(*a, **kw),
+                        3, flush)
+        b, by = chunk_bound(a[2], a[5], 4, torch.float32)
+        bound += b
+    say("large_mesh_phases", phase="extwin_chunk", chunks=len(chunks),
+        blocks=m.mesh.px * m.mesh.py, dtype="float32",
+        ms_per_step=f"{ms:.4f}", bound_ms_per_step=f"{bound:.5f}",
+        bound_by=by)
+    out["extwin_chunk"] = (ms, bound)
     return out
 
 
@@ -1343,7 +1381,12 @@ def window_chunk_check(flush: L2Flush, blocks, args) -> dict:
         run = lambda: extwin.run_external_chunk_windowed(*a)
         plain = lambda: extloop.run_external_chunk_plain(*a)
         got, want = run(), plain()
+        same_chain = all(torch.equal(trim_to(blocks, x), trim_to(blocks, y))
+                         for x, y in zip(got, extloop.run_external_chunk(*a)))
         torch.cuda.synchronize()
+        if not same_chain:
+            raise AssertionError(f"extwin_chunk is not bit-equal to extchunk "
+                                 f"on block (0, 1) ({dtype})")
         worst = (0.0, 0.0, 0)
         for i, (x, y) in enumerate(zip(got, want)):
             x, y = trim_to(blocks, x), trim_to(blocks, y)
@@ -1358,7 +1401,8 @@ def window_chunk_check(flush: L2Flush, blocks, args) -> dict:
         line = dict(kernel="extwin_chunk", dtype=str(dtype).split(".")[1],
                     block=f"'(0, 1) {R}x{L}'",
                     C=C, iext0=iext0, max_abs_err=f"{worst[0]:.3e}",
-                    rel_err=f"{worst[1]:.3e}", worst_output=worst[2])
+                    rel_err=f"{worst[1]:.3e}", worst_output=worst[2],
+                    chain_equal=same_chain)
         if dtype == torch.float64:
             entry["f64_max_abs_err"] = worst[0]
         else:
@@ -1432,8 +1476,9 @@ def main() -> int:
     by_path = lambda k: {p: c[k] for p, c in paths.items()}
     mesh_k["extwin_chunk"] = win_chunk
     for p, (ms, bound) in large_mesh_tiled.items():
-        mesh_k[f"phase_{p}_mesh"].update(large_2048_ms_per_step=ms,
-                                         large_2048_bound_ms_per_step=bound)
+        key = p if p == "extwin_chunk" else f"phase_{p}_mesh"
+        mesh_k[key].update(large_2048_ms_per_step=ms,
+                           large_2048_bound_ms_per_step=bound)
 
     kernels_line = {"kernels": [
         dict(name="tridiag", route="cuda",

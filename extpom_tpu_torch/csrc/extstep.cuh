@@ -1,9 +1,9 @@
 // Per-point arithmetic of one external (2-D barotropic) substep,
 // core/stepper.py:mode_external_substep, shared by the whole-grid kernel
 // chain (extloop.cu) and the halo-window kernel (extwin.cu).  Both call the
-// same device functions, so a value rounds the same way in the same order
-// in both, and both match the plain loop bit for bit (built with
-// -fmad=false).
+// same device functions (the window through its own reader of the
+// operands, below), so a value rounds the same way in the same order in
+// both, and both match the plain loop bit for bit (built with -fmad=false).
 //
 // Operands fall in two groups:
 //   ExtArgs  the read-only fields (grid, step-constant 2-D terms, forcing,
@@ -290,38 +290,259 @@ __global__ void k_metrics(ExtArgs<T, O> s) {
   s.rdy4[p] = one / (dy4 == T(0) ? one : dy4);
 }
 
-// ---- free surface (advance.f:211-229) ----
+// ---- reading a point's operands ----
+//
+// The per-point functions below read the operands of cell (x.i, x.j)
+// through a reader x (x.s the read-only fields, x.c the carry):
+//   x.r(a, di, dj)  read-only field a at (i + di, j + dj)
+//   x.w(a, di, dj)  field a of the carry there
+//   x.d(di, dj)     d = h + el there
+//   x.asum()        aam2d summed over (i, j), (i, j-1), (i-1, j), (i-1, j-1)
+//   x.fu(di, dj), x.fv, x.fua3, x.fva3, x.fua6, x.fva6
+//                   the face flux_u, flux_v, adv_fua3, ... there
+// At (below) reads every operand where it lies and forms a face where it is
+// asked for: the chain.  extwin.cu's reader takes d, the aam2d sums and the
+// faces from a window staged in shared memory, formed once per substep by
+// these same functions, so a value rounds alike in both.
+//
+// A face is its function's value on the face's put region and 0 off it.
+// The functions below form the value; the caller tests the region (At's
+// face readers, extwin.cu's faces), so that faces of one region share one
+// test and the reads under it:
+//   on_face  1:, 1:    flux_u, flux_v, adv_tps, adv_fva3, adv_fua6
+//   on_fua3  1:-1, 1:  adv_fua3
+//   on_fva6  1:, 1:-1  adv_fva6
 
-// fluxua = put(z2, .25 (d + d_w) dyu ua, 1:, 1:)
-template <typename T, bool O, bool W>
-__device__ T flux_u(const ExtArgs<T, O>& s, const Carry<T, W>& c, int i,
-                    int j) {
-  if (i < 1 || i >= s.im || j < 1 || j >= s.jm) return T(0);
-  return T(0.25) * (dd(s, c, i, j) + dd(s, c, i - 1, j)) *
-         rn(s, s.dyu, pix(s, i, j), i, j) *
-         cn(s, c, c.ua, at(s, c, i, j), i, j);
+template <class X>
+__device__ __forceinline__ bool on_face(const X& x) {
+  return x.i >= 1 && x.i < x.s.im && x.j >= 1 && x.j < x.s.jm;
 }
 
-// fluxva = put(z2, .25 (d + d_s) dxv va, 1:, 1:)
-template <typename T, bool O, bool W>
-__device__ T flux_v(const ExtArgs<T, O>& s, const Carry<T, W>& c, int i,
-                    int j) {
-  if (i < 1 || i >= s.im || j < 1 || j >= s.jm) return T(0);
-  return T(0.25) * (dd(s, c, i, j) + dd(s, c, i, j - 1)) *
-         rn(s, s.dxv, pix(s, i, j), i, j) *
-         cn(s, c, c.va, at(s, c, i, j), i, j);
+template <class X>
+__device__ __forceinline__ bool on_fua3(const X& x) {
+  return on_face(x) && x.i <= x.s.im - 2;
+}
+
+template <class X>
+__device__ __forceinline__ bool on_fva6(const X& x) {
+  return on_face(x) && x.j <= x.s.jm - 2;
+}
+
+// ---- free surface (advance.f:211-229) ----
+
+// fluxua = put(z2, .25 (d + d_w) dyu ua, 1:, 1:), on on_face
+template <class X>
+__device__ __forceinline__ typename X::type flux_u(const X& x) {
+  using T = typename X::type;
+  const auto& s = x.s;
+  return T(0.25) * (x.d() + x.d(-1, 0)) * x.r(s.dyu) * x.w(x.c.ua);
+}
+
+// fluxva = put(z2, .25 (d + d_s) dxv va, 1:, 1:), on on_face
+template <class X>
+__device__ __forceinline__ typename X::type flux_v(const X& x) {
+  using T = typename X::type;
+  const auto& s = x.s;
+  return T(0.25) * (x.d() + x.d(0, -1)) * x.r(s.dxv) * x.w(x.c.va);
 }
 
 // elf before bc_el, on its put region 1:-1, 1:-1
-template <typename T, bool O, bool W>
-__device__ T elf_interior(const ExtArgs<T, O>& s, const Carry<T, W>& c, int i,
-                          int j) {
-  const int p = pix(s, i, j);
-  const T div = flux_u(s, c, i + 1, j) - flux_u(s, c, i, j) +
-                flux_v(s, c, i, j + 1) - flux_v(s, c, i, j);
-  return cn(s, c, c.elb, at(s, c, i, j), i, j) +
-         s.dte2 * (-div * rn(s, s.rart, p, i, j) - rn(s, s.vflux, p, i, j));
+template <class X>
+__device__ __forceinline__ typename X::type elf_interior(const X& x) {
+  using T = typename X::type;
+  const auto& s = x.s;
+  const T div = x.fu(1, 0) - x.fu() + x.fv(0, 1) - x.fv();
+  return x.w(x.c.elb) + s.dte2 * (-div * x.r(s.rart) - x.r(s.vflux));
 }
+
+// ---- advave, mode != 2 (solver.f:16-121) ----
+
+// the viscous cross term of advave, put(z, ..., 1:, 1:), on on_face
+template <class X>
+__device__ __forceinline__ typename X::type adv_tps(const X& x) {
+  using T = typename X::type;
+  const auto& s = x.s;
+  const auto& c = x.c;
+  const T dsum = x.d() + x.d(-1, 0) + x.d(0, -1) + x.d(-1, -1);
+  return T(0.25) * dsum * x.asum() *
+         ((x.w(c.uab) - x.w(c.uab, 0, -1)) * x.r(s.rdy4) +
+          (x.w(c.vab) - x.w(c.vab, -1, 0)) * x.r(s.rdx4));
+}
+
+// u-part fluxua after viscous term and * dy, on on_fua3
+template <class X>
+__device__ __forceinline__ typename X::type adv_fua3(const X& x) {
+  using T = typename X::type;
+  const auto& s = x.s;
+  const auto& c = x.c;
+  const T d = x.d();
+  const T ue = x.w(c.ua, 1, 0), ua = x.w(c.ua);
+  T f = T(0.125) * ((x.d(1, 0) + d) * ue + (d + x.d(-1, 0)) * ua) * (ue + ua);
+  f = f - d * T(2) * x.r(s.aam2d) * (x.w(c.uab, 1, 0) - x.w(c.uab)) *
+              x.r(s.rdx);
+  return f * x.r(s.dy);
+}
+
+// u-part fluxva after the cross term and * dx4/4, tps = adv_tps(x), on
+// on_face
+template <class X>
+__device__ __forceinline__ typename X::type adv_fva3(const X& x,
+                                                     typename X::type tps) {
+  using T = typename X::type;
+  const auto& s = x.s;
+  const auto& c = x.c;
+  const T f = T(0.125) *
+              ((x.d() + x.d(0, -1)) * x.w(c.va) +
+               (x.d(-1, 0) + x.d(-1, -1)) * x.w(c.va, -1, 0)) *
+              (x.w(c.ua) + x.w(c.ua, 0, -1));
+  return (f - tps) * T(0.25) * x.r(s.dx4);
+}
+
+// v-part fluxua after the cross term and * dy4/4, tps = adv_tps(x), on
+// on_face
+template <class X>
+__device__ __forceinline__ typename X::type adv_fua6(const X& x,
+                                                     typename X::type tps) {
+  using T = typename X::type;
+  const auto& s = x.s;
+  const auto& c = x.c;
+  const T f = T(0.125) *
+              ((x.d() + x.d(-1, 0)) * x.w(c.ua) +
+               (x.d(0, -1) + x.d(-1, -1)) * x.w(c.ua, 0, -1)) *
+              (x.w(c.va, -1, 0) + x.w(c.va));
+  return (f - tps) * T(0.25) * x.r(s.dy4);
+}
+
+// v-part fluxva after viscous term and * dx, on on_fva6
+template <class X>
+__device__ __forceinline__ typename X::type adv_fva6(const X& x) {
+  using T = typename X::type;
+  const auto& s = x.s;
+  const auto& c = x.c;
+  const T d = x.d();
+  const T vn = x.w(c.va, 0, 1), va = x.w(c.va);
+  T f = T(0.125) * ((x.d(0, 1) + d) * vn + (d + x.d(0, -1)) * va) * (vn + va);
+  f = f - d * T(2) * x.r(s.aam2d) * (x.w(c.vab, 0, 1) - x.w(c.vab)) *
+              x.r(s.rdy);
+  return f * x.r(s.dx);
+}
+
+// advua and advva at one point (0 off their put region 1:-1, 1:-1); they
+// read d/ua/va/uab/vab only
+template <class X>
+__device__ __forceinline__ void adv_point(const X& x, typename X::type& advua,
+                                          typename X::type& advva) {
+  using T = typename X::type;
+  const auto& s = x.s;
+  const bool inside =
+      x.i >= 1 && x.i <= s.im - 2 && x.j >= 1 && x.j <= s.jm - 2;
+  advua = inside ? x.fua3() - x.fua3(-1, 0) + x.fva3(0, 1) - x.fva3() : T(0);
+  advva = inside ? x.fua6(1, 0) - x.fua6() + x.fva6() - x.fva6(0, -1) : T(0);
+}
+
+// ---- depth-mean momentum (advance.f:237-288) ----
+
+// uaf on its put region 1:, 1:-1
+template <class X>
+__device__ __forceinline__ typename X::type uaf_interior(const X& x) {
+  using T = typename X::type;
+  const auto& s = x.s;
+  const auto& c = x.c;
+  const T d = x.d(), dw = x.d(-1, 0);
+  const T aru = x.r(s.aru), hu = x.r(s.hu);
+  const T elb = x.w(c.elb), elbw = x.w(c.elb, -1, 0);
+  const T elf = x.w(c.elf), elfw = x.w(c.elf, -1, 0);
+  const T cori = aru * T(0.25) *
+                 (x.r(s.cor) * d * (x.w(c.va, 0, 1) + x.w(c.va)) +
+                  x.r(s.corw) * dw * (x.w(c.va, -1, 1) + x.w(c.va, -1, 0)));
+  const T slope = s.ralpha * (x.w(c.el) - x.w(c.el, -1, 0)) +
+                  s.alpha * (elb - elbw + elf - elfw) + x.r(s.e_atmos) -
+                  x.r(s.e_atmos, -1, 0);
+  const T u1 = x.r(s.adx2d) + x.w(c.advua) - cori +
+               s.c025g * x.r(s.dyu) * (d + dw) * slope + x.r(s.drx2d) +
+               aru * (x.r(s.wusurf) - x.r(s.wubot));
+  return ((hu + elb + elbw) * aru * x.w(c.uab) - s.c4dte * u1) /
+         ((hu + elf + elfw) * aru);
+}
+
+// vaf on its put region 1:-1, 1:
+template <class X>
+__device__ __forceinline__ typename X::type vaf_interior(const X& x) {
+  using T = typename X::type;
+  const auto& s = x.s;
+  const auto& c = x.c;
+  const T d = x.d(), ds = x.d(0, -1);
+  const T arv = x.r(s.arv), hv = x.r(s.hv);
+  const T elb = x.w(c.elb), elbs = x.w(c.elb, 0, -1);
+  const T elf = x.w(c.elf), elfs = x.w(c.elf, 0, -1);
+  const T cori = arv * T(0.25) *
+                 (x.r(s.cor) * d * (x.w(c.ua, 1, 0) + x.w(c.ua)) +
+                  x.r(s.cors) * ds * (x.w(c.ua, 1, -1) + x.w(c.ua, 0, -1)));
+  const T slope = s.ralpha * (x.w(c.el) - x.w(c.el, 0, -1)) +
+                  s.alpha * (elb - elbs + elf - elfs) + x.r(s.e_atmos) -
+                  x.r(s.e_atmos, 0, -1);
+  const T v1 = x.r(s.ady2d) + x.w(c.advva) + cori +
+               s.c025g * x.r(s.dxv) * (d + ds) * slope + x.r(s.dry2d) +
+               arv * (x.r(s.wvsurf) - x.r(s.wvbot));
+  return ((hv + elb + elbs) * arv * x.w(c.vab) - s.c4dte * v1) /
+         ((hv + elf + elfs) * arv);
+}
+
+// The chain's reader of cell (i, j), whose index is p in the read-only
+// arrays and q in the carry's: reads are unguarded on the domain, whose
+// region tests keep them inside it, and zero-filled on a block (rn, cn);
+// d is zero outside the carry's arrays (dd)
+template <typename T, bool O, bool W>
+struct At {
+  using type = T;
+  const ExtArgs<T, O>& s;
+  const Carry<T, W>& c;
+  int i, j, p, q;
+
+  __device__ __forceinline__ At(const ExtArgs<T, O>& s_, const Carry<T, W>& c_,
+                                int i_, int j_)
+      : s(s_), c(c_), i(i_), j(j_), p(pix(s_, i_, j_)), q(at(s_, c_, i_, j_)) {}
+  __device__ __forceinline__ T r(const T* a, int di = 0, int dj = 0) const {
+    return rn(s, a, p, i, j, di, dj);
+  }
+  __device__ __forceinline__ T w(const T* a, int di = 0, int dj = 0) const {
+    return cn(s, c, a, q, i, j, di, dj);
+  }
+  __device__ __forceinline__ T d(int di = 0, int dj = 0) const {
+    return dd(s, c, i + di, j + dj);
+  }
+  __device__ __forceinline__ T asum() const {
+    return r(s.aam2d) + r(s.aam2d, 0, -1) + r(s.aam2d, -1, 0) +
+           r(s.aam2d, -1, -1);
+  }
+  __device__ __forceinline__ At to(int di, int dj) const {
+    return At(s, c, i + di, j + dj);
+  }
+  __device__ __forceinline__ T fu(int di = 0, int dj = 0) const {
+    const At y = to(di, dj);
+    return on_face(y) ? flux_u(y) : T(0);
+  }
+  __device__ __forceinline__ T fv(int di = 0, int dj = 0) const {
+    const At y = to(di, dj);
+    return on_face(y) ? flux_v(y) : T(0);
+  }
+  __device__ __forceinline__ T fua3(int di = 0, int dj = 0) const {
+    const At y = to(di, dj);
+    return on_fua3(y) ? adv_fua3(y) : T(0);
+  }
+  __device__ __forceinline__ T fva3(int di = 0, int dj = 0) const {
+    const At y = to(di, dj);
+    return on_face(y) ? adv_fva3(y, adv_tps(y)) : T(0);
+  }
+  __device__ __forceinline__ T fua6(int di = 0, int dj = 0) const {
+    const At y = to(di, dj);
+    return on_face(y) ? adv_fua6(y, adv_tps(y)) : T(0);
+  }
+  __device__ __forceinline__ T fva6(int di = 0, int dj = 0) const {
+    const At y = to(di, dj);
+    return on_fva6(y) ? adv_fva6(y) : T(0);
+  }
+};
 
 // elf + bc_el: edges copy the clamped interior value (see header); 0
 // outside the domain
@@ -331,158 +552,14 @@ __device__ T elf_point(const ExtArgs<T, O>& s, const Carry<T, W>& c, int i,
   if constexpr (O)
     if (!in_domain(s, i, j)) return T(0);
   const int ci = min(max(i, 1), s.im - 2), cj = min(max(j, 1), s.jm - 2);
-  return elf_interior(s, c, ci, cj) * rn(s, s.fsm, pix(s, i, j), i, j);
+  return elf_interior(At<T, O, W>(s, c, ci, cj)) *
+         rn(s, s.fsm, pix(s, i, j), i, j);
 }
 
-// ---- advave, mode != 2 (solver.f:16-121) ----
-
-template <typename T, bool O, bool W>
-__device__ T adv_tps(const ExtArgs<T, O>& s, const Carry<T, W>& c, int i,
-                     int j) {
-  // put(z, ..., 1:, 1:)
-  if (i < 1 || i >= s.im || j < 1 || j >= s.jm) return T(0);
-  const int p = pix(s, i, j), q = at(s, c, i, j);
-  const T dsum = dd(s, c, i, j) + dd(s, c, i - 1, j) + dd(s, c, i, j - 1) +
-                 dd(s, c, i - 1, j - 1);
-  const T asum = rn(s, s.aam2d, p, i, j) + ld(s.aam2d, s, i, j - 1) +
-                 ld(s.aam2d, s, i - 1, j) + ld(s.aam2d, s, i - 1, j - 1);
-  return T(0.25) * dsum * asum *
-         ((cn(s, c, c.uab, q, i, j) - ldc(s, c, c.uab, i, j - 1)) *
-              rn(s, s.rdy4, p, i, j) +
-          (cn(s, c, c.vab, q, i, j) - ldc(s, c, c.vab, i - 1, j)) *
-              rn(s, s.rdx4, p, i, j));
-}
-
-// u-part fluxua after viscous term and * dy; region 1:-1, 1:
-template <typename T, bool O, bool W>
-__device__ T adv_fua3(const ExtArgs<T, O>& s, const Carry<T, W>& c, int i,
-                      int j) {
-  if (i < 1 || i > s.im - 2 || j < 1 || j >= s.jm) return T(0);
-  const int p = pix(s, i, j), q = at(s, c, i, j);
-  const T d = dd(s, c, i, j);
-  const T ue = ldc(s, c, c.ua, i + 1, j), ua = cn(s, c, c.ua, q, i, j);
-  T f = T(0.125) *
-        ((dd(s, c, i + 1, j) + d) * ue + (d + dd(s, c, i - 1, j)) * ua) *
-        (ue + ua);
-  f = f - d * T(2) * rn(s, s.aam2d, p, i, j) *
-              (ldc(s, c, c.uab, i + 1, j) - cn(s, c, c.uab, q, i, j)) *
-              rn(s, s.rdx, p, i, j);
-  return f * rn(s, s.dy, p, i, j);
-}
-
-// u-part fluxva after the cross term and * dx4/4; region 1:, 1:
-template <typename T, bool O, bool W>
-__device__ T adv_fva3(const ExtArgs<T, O>& s, const Carry<T, W>& c, int i,
-                      int j) {
-  if (i < 1 || i >= s.im || j < 1 || j >= s.jm) return T(0);
-  const int p = pix(s, i, j), q = at(s, c, i, j);
-  const T f = T(0.125) *
-              ((dd(s, c, i, j) + dd(s, c, i, j - 1)) *
-                   cn(s, c, c.va, q, i, j) +
-               (dd(s, c, i - 1, j) + dd(s, c, i - 1, j - 1)) *
-                   ldc(s, c, c.va, i - 1, j)) *
-              (cn(s, c, c.ua, q, i, j) + ldc(s, c, c.ua, i, j - 1));
-  return (f - adv_tps(s, c, i, j)) * T(0.25) * rn(s, s.dx4, p, i, j);
-}
-
-// v-part fluxua after the cross term and * dy4/4; region 1:, 1:
-template <typename T, bool O, bool W>
-__device__ T adv_fua6(const ExtArgs<T, O>& s, const Carry<T, W>& c, int i,
-                      int j) {
-  if (i < 1 || i >= s.im || j < 1 || j >= s.jm) return T(0);
-  const int p = pix(s, i, j), q = at(s, c, i, j);
-  const T f = T(0.125) *
-              ((dd(s, c, i, j) + dd(s, c, i - 1, j)) *
-                   cn(s, c, c.ua, q, i, j) +
-               (dd(s, c, i, j - 1) + dd(s, c, i - 1, j - 1)) *
-                   ldc(s, c, c.ua, i, j - 1)) *
-              (ldc(s, c, c.va, i - 1, j) + cn(s, c, c.va, q, i, j));
-  return (f - adv_tps(s, c, i, j)) * T(0.25) * rn(s, s.dy4, p, i, j);
-}
-
-// v-part fluxva after viscous term and * dx; region 1:, 1:-1
-template <typename T, bool O, bool W>
-__device__ T adv_fva6(const ExtArgs<T, O>& s, const Carry<T, W>& c, int i,
-                      int j) {
-  if (i < 1 || i >= s.im || j < 1 || j > s.jm - 2) return T(0);
-  const int p = pix(s, i, j), q = at(s, c, i, j);
-  const T d = dd(s, c, i, j);
-  const T vn = ldc(s, c, c.va, i, j + 1), va = cn(s, c, c.va, q, i, j);
-  T f = T(0.125) *
-        ((dd(s, c, i, j + 1) + d) * vn + (d + dd(s, c, i, j - 1)) * va) *
-        (vn + va);
-  f = f - d * T(2) * rn(s, s.aam2d, p, i, j) *
-              (ldc(s, c, c.vab, i, j + 1) - cn(s, c, c.vab, q, i, j)) *
-              rn(s, s.rdy, p, i, j);
-  return f * rn(s, s.dx, p, i, j);
-}
-
-// advua and advva at one point (0 off their put region 1:-1, 1:-1); they
-// read d/ua/va/uab/vab only
 template <typename T, bool O, bool W>
 __device__ void adv_point(const ExtArgs<T, O>& s, const Carry<T, W>& c, int i,
                           int j, T& advua, T& advva) {
-  const bool inside = i >= 1 && i <= s.im - 2 && j >= 1 && j <= s.jm - 2;
-  advua = inside ? adv_fua3(s, c, i, j) - adv_fua3(s, c, i - 1, j) +
-                   adv_fva3(s, c, i, j + 1) - adv_fva3(s, c, i, j)
-             : T(0);
-  advva = inside ? adv_fua6(s, c, i + 1, j) - adv_fua6(s, c, i, j) +
-                   adv_fva6(s, c, i, j) - adv_fva6(s, c, i, j - 1)
-             : T(0);
-}
-
-// ---- depth-mean momentum (advance.f:237-288) ----
-
-// uaf on its put region 1:, 1:-1
-template <typename T, bool O, bool W>
-__device__ T uaf_interior(const ExtArgs<T, O>& s, const Carry<T, W>& c, int i,
-                          int j) {
-  const int p = pix(s, i, j), q = at(s, c, i, j);
-  // (i - 1, j) and its neighbour (i - 1, j + 1)
-  auto w = [&](const T* a, int dj) { return cn(s, c, a, q, i, j, -1, dj); };
-  auto h = [&](const T* a, int dj) { return cn(s, c, a, q, i, j, 0, dj); };
-  auto g = [&](const T* a, int di) { return rn(s, a, p, i, j, di, 0); };
-  const T d = dd(s, c, i, j), dw = dd(s, c, i - 1, j);
-  const T cori = g(s.aru, 0) * T(0.25) *
-                 (g(s.cor, 0) * d * (h(c.va, 1) + h(c.va, 0)) +
-                  g(s.corw, 0) * dw * (w(c.va, 1) + w(c.va, 0)));
-  const T slope = s.ralpha * (h(c.el, 0) - w(c.el, 0)) +
-                  s.alpha * (h(c.elb, 0) - w(c.elb, 0) + h(c.elf, 0) -
-                             w(c.elf, 0)) +
-                  g(s.e_atmos, 0) - g(s.e_atmos, -1);
-  const T u1 = g(s.adx2d, 0) + h(c.advua, 0) - cori +
-               s.c025g * g(s.dyu, 0) * (d + dw) * slope + g(s.drx2d, 0) +
-               g(s.aru, 0) * (g(s.wusurf, 0) - g(s.wubot, 0));
-  return ((g(s.hu, 0) + h(c.elb, 0) + w(c.elb, 0)) * g(s.aru, 0) *
-              h(c.uab, 0) -
-          s.c4dte * u1) /
-         ((g(s.hu, 0) + h(c.elf, 0) + w(c.elf, 0)) * g(s.aru, 0));
-}
-
-// vaf on its put region 1:-1, 1:
-template <typename T, bool O, bool W>
-__device__ T vaf_interior(const ExtArgs<T, O>& s, const Carry<T, W>& c, int i,
-                          int j) {
-  const int p = pix(s, i, j), q = at(s, c, i, j);
-  // (i, j - 1) and its neighbour (i + 1, j - 1)
-  auto v = [&](const T* a, int di) { return cn(s, c, a, q, i, j, di, -1); };
-  auto h = [&](const T* a, int di) { return cn(s, c, a, q, i, j, di, 0); };
-  auto g = [&](const T* a, int dj) { return rn(s, a, p, i, j, 0, dj); };
-  const T d = dd(s, c, i, j), ds = dd(s, c, i, j - 1);
-  const T cori = g(s.arv, 0) * T(0.25) *
-                 (g(s.cor, 0) * d * (h(c.ua, 1) + h(c.ua, 0)) +
-                  g(s.cors, 0) * ds * (v(c.ua, 1) + v(c.ua, 0)));
-  const T slope = s.ralpha * (h(c.el, 0) - v(c.el, 0)) +
-                  s.alpha * (h(c.elb, 0) - v(c.elb, 0) + h(c.elf, 0) -
-                             v(c.elf, 0)) +
-                  g(s.e_atmos, 0) - g(s.e_atmos, -1);
-  const T v1 = g(s.ady2d, 0) + h(c.advva, 0) + cori +
-               s.c025g * g(s.dxv, 0) * (d + ds) * slope + g(s.dry2d, 0) +
-               g(s.arv, 0) * (g(s.wvsurf, 0) - g(s.wvbot, 0));
-  return ((g(s.hv, 0) + h(c.elb, 0) + v(c.elb, 0)) * g(s.arv, 0) *
-              h(c.vab, 0) -
-          s.c4dte * v1) /
-         ((g(s.hv, 0) + h(c.elf, 0) + v(c.elf, 0)) * g(s.arv, 0));
+  adv_point(At<T, O, W>(s, c, i, j), advua, advva);
 }
 
 // Flather radiation value with d/el read at (i, j): sqrt(g/d) is taken as
@@ -520,7 +597,7 @@ __device__ void velocity_point(const ExtArgs<T, O>& s, const Carry<T, W>& c,
       u = flather(s, c, im - 2, j, s.rfe, T(1), at_j(s, s.uabe, j),
                   at_j(s, s.ele, j));
     else
-      u = uaf_interior(s, c, i, j);
+      u = uaf_interior(At<T, O, W>(s, c, i, j));
   } else if (iin) {
     u = j == 0 ? at_i(s, s.uabs, i) : at_i(s, s.uabn, i);
   }
@@ -535,7 +612,7 @@ __device__ void velocity_point(const ExtArgs<T, O>& s, const Carry<T, W>& c,
       v = flather(s, c, i, jm - 2, s.rfn, T(1), at_i(s, s.vabn, i),
                   at_i(s, s.eln, i));
     else
-      v = vaf_interior(s, c, i, j);
+      v = vaf_interior(At<T, O, W>(s, c, i, j));
   } else if (jin) {
     v = i == 0 ? at_j(s, s.vabw, j) : at_j(s, s.vabe, j);
   }

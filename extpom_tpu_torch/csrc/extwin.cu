@@ -12,35 +12,49 @@
 // 2-D fields.  Once the working set (50 fields of (im, jm), 840 MB at
 // 2048x2048 f32) no longer fits the 50 MB L2, the whole-grid chain of
 // extloop.cu streams it from device memory three times per substep.  This
-// kernel reads the carry from device memory once per C substeps instead:
-// the operation count, not the bytes, is then the least time.  As built it
-// is no faster than the chain at 2048x2048 on an H100 (PERF.md §6): both
-// still read the 33 read-only operands at every point of every substep.
+// kernel reads the carry from device memory once per C substeps instead;
+// the read-only operands are still read at every substep, through L1/L2.
+// What bounded the first design (one thread per cell calling the chain's
+// per-point functions) was arithmetic done several times over: every flux
+// face was formed by both cells that share it, advave's tps four times per
+// cell, and d = h + el re-read at every use (PERF.md §6).
 //
-// Design (simple first, not tuned):
+// Design:
 //   * a block owns a ti x tj tile of the output and keeps the window of the
 //     tile grown by a halo of H = 2C cells on each side in shared memory:
 //     the eight carry fields that a substep reads at neighbours (el, elb,
-//     ua, uab, va, vab, advua, advva) and the substep's elf, uaf, vaf;
-//   * the read-only operands (grid, step-constant terms, forcing, the
-//     metrics, which k_metrics computes once per call) are read from device
-//     memory, where neighbouring blocks share them through L2;
+//     ua, uab, va, vab, advua, advva), the substep's elf, d = h + el, the
+//     aam2d sums of advave's tps (constant over the launch), and a pool of
+//     six face fields;
+//   * per substep, one pass forms every face once per window cell into the
+//     pool: the free-surface fluxes (flux_u, flux_v) and, on substeps where
+//     iext % ispadv == 0, tps and advave's four fluxes; the next pass
+//     differences them into elf and advua/advva; the velocity pass writes
+//     uaf/vaf over the two free-surface faces (dead by then); the last pass
+//     accumulates, rotates and restages d = h + el from the new el;
+//   * a thread owns one column of the window (and every rstep-th row of
+//     it), fixed for the launch, so no pass divides per cell;
 //   * a substep's stencil radius is 2 (extstep.cuh), so after substep s of
 //     C only the margin 2(C-1-s) around the tile is still needed: each
-//     substep computes elf on that margin + 1 and everything else on that
-//     margin, and reads no cell outside the window;
+//     substep computes faces on that margin + 1, elf on the margin + 1 below
+//     and left (uaf/utf read it at i-1, vaf/vtf at j-1), everything else on
+//     the margin, and reads no cell outside the window;
 //   * the accumulators etf/egf/utf/vtf are read and written only on the
 //     tile, in the output buffer, which no other block touches;
 //   * blocks read their neighbours' halo from the input carry while others
 //     write their tiles, so input and output are separate buffers that
 //     swap between launches (ping-pong), where the chain updates in place.
-// Every per-point value comes from the device functions of extstep.cuh, so
-// the results equal the chain's and the plain loop's bit for bit.
+// Every value is formed by extstep.cuh's per-point functions themselves,
+// called with a reader (Cell) that takes d, the aam2d sums and the faces
+// from the window (a face formed once rounds as the same face formed twice),
+// and the domain's edge cells call elf_point and velocity_point on the
+// window's carry, so the results equal the chain's and the plain loop's bit
+// for bit.
 //
 // Where an off-by-one would hide, beyond extstep.cuh's list:
-//   * a window cell outside the domain is never loaded or computed; reads
-//     there give 0 through ldc/dd as sft does, and edge tiles apply
-//     bc_el/bc_vel2d at the global (i, j) exactly as the chain does;
+//   * a window cell outside the domain (the block) is never loaded or
+//     computed; its d is 0 and reads there give 0 as sft does; edge tiles
+//     apply bc_el/bc_vel2d at the global (i, j) exactly as the chain does;
 //   * iext of the chunk's first substep is ic*C + 1, so the ispadv branch,
 //     the etf tail on substeps isplit-2..isplit (which may span two chunks)
 //     and the last-substep skip of the accumulators follow the global
@@ -54,9 +68,8 @@
 // global (oi, oj) instead of the domain; a window is bounded by the block,
 // cells keep their global (i, j) for masks and boundary conditions, and a
 // chunk of nsub substeps (one ring exchange) runs as nsub/C launches, the
-// metrics computed once.  Bound as the whole-domain kernel: at 2048x2048 on
-// a 2x4 mesh the extended block (1084x572) is 124 MB of working set, past
-// the L2.
+// metrics computed once.  Every read there is zero-filled outside the
+// block.
 
 #include <cuda_runtime.h>
 
@@ -68,7 +81,10 @@ using extpom::Carry;
 using extpom::ExtArgs;
 
 constexpr int kMaxThreads = 512;  // a block's threads, at most
-constexpr int kShared = 11;       // window fields in shared memory
+// window fields in shared memory: el, elb, ua, uab, va, vab, advua, advva,
+// elf, d, the tps aam2d sums, six faces
+constexpr int kShared = 17;
+constexpr int kPool = 11;         // the first face field
 
 // carry field indices (CARRY_FIELDS order)
 enum {
@@ -78,34 +94,190 @@ enum {
 // carry field of the k-th shared-memory field, k < 8
 __device__ __forceinline__ int loaded(int k) { return k < 6 ? k : k + 4; }
 
-// f(i, j) on rows [r0, r1) x columns [c0, c1), the block's threads in turn
+// The pool of face fields: field k of the window at p + k * wn
+template <typename T>
+struct Pool {
+  T* p;
+  int wn;
+  __device__ __forceinline__ T* operator[](int k) const { return p + k * wn; }
+};
+
+// A thread's cells: window column oj + tc, and rows oi + tr, oi + tr +
+// rstep, ...; threads past rstep whole rows of the window have none.
+struct Map {
+  int oi, oj, tr, tc, rstep;
+};
+
+// f(i, j) on the thread's cells of rows [r0, r1) x columns [c0, c1)
 template <typename F>
-__device__ __forceinline__ void for_rect(int r0, int r1, int c0, int c1,
-                                         F f) {
-  const int nc = c1 - c0, n = (r1 - r0) * nc;
-  for (int q = threadIdx.x; q < n; q += blockDim.x) f(r0 + q / nc, c0 + q % nc);
+__device__ __forceinline__ void for_rect(const Map& mp, int r0, int r1, int c0,
+                                         int c1, F f) {
+  const int j = mp.oj + mp.tc;
+  if (mp.tr >= mp.rstep || j < c0 || j >= c1) return;
+  for (int i = mp.oi + mp.tr; i < r1; i += mp.rstep)
+    if (i >= r0) f(i, j);
+}
+
+// extstep.cuh's reader of window cell (i, j), whose index is p in the
+// read-only arrays and q in the window: d, the tps sums of aam2d and the
+// faces come from the window (d is 0 wherever it may not be read; a face is
+// read only where it was formed); the other reads are zero-filled as
+// extstep.cuh's ld/ldc on a block (O), whose window may leave the block,
+// and plain on the whole domain, whose region tests keep every read inside
+// it.
+template <typename T, bool O>
+struct Cell {
+  using type = T;
+  const ExtArgs<T, O>& s;
+  const Carry<T, true>& c;
+  int i, j, p, q;
+  const T *dw, *as;
+  Pool<T> pool;
+
+  __device__ __forceinline__ T r(const T* a, int di = 0, int dj = 0) const {
+    if constexpr (O) return extpom::ld(a, s, i + di, j + dj);
+    return a[p + di * extpom::prow(s) + dj];
+  }
+  __device__ __forceinline__ T w(const T* a, int di = 0, int dj = 0) const {
+    if constexpr (O) return extpom::ldc(s, c, a, i + di, j + dj);
+    return a[q + di * c.stride + dj];
+  }
+  __device__ __forceinline__ T d(int di = 0, int dj = 0) const {
+    return dw[q + di * c.stride + dj];
+  }
+  __device__ __forceinline__ T asum() const { return as[q]; }
+  __device__ __forceinline__ T face(int k, int di, int dj) const {
+    return pool[k][q + di * c.stride + dj];
+  }
+  __device__ __forceinline__ T fu(int di = 0, int dj = 0) const {
+    return face(0, di, dj);
+  }
+  __device__ __forceinline__ T fv(int di = 0, int dj = 0) const {
+    return face(1, di, dj);
+  }
+  __device__ __forceinline__ T fua3(int di = 0, int dj = 0) const {
+    return face(2, di, dj);
+  }
+  __device__ __forceinline__ T fva3(int di = 0, int dj = 0) const {
+    return face(3, di, dj);
+  }
+  __device__ __forceinline__ T fua6(int di = 0, int dj = 0) const {
+    return face(4, di, dj);
+  }
+  __device__ __forceinline__ T fva6(int di = 0, int dj = 0) const {
+    return face(5, di, dj);
+  }
+};
+
+// The faces of cell x into the pool: flux_u and flux_v and, with adv,
+// advave's four fluxes (adv_tps once for the two that subtract it), each 0
+// off its put region; the faces are formed under one test of their
+// regions, so that their shared reads are read once
+template <typename T, bool O>
+__device__ __forceinline__ void faces(const Cell<T, O>& x, bool adv) {
+  const bool ij = extpom::on_face(x);
+  T fu = T(0), fv = T(0);
+  if (ij) {
+    fu = extpom::flux_u(x);
+    fv = extpom::flux_v(x);
+  }
+  x.pool[0][x.q] = fu;
+  x.pool[1][x.q] = fv;
+  if (!adv) return;
+  // on_fua3 and on_fva6 lie inside on_face
+  T fua3 = T(0), fva3 = T(0), fua6 = T(0), fva6 = T(0);
+  if (ij) {
+    if (extpom::on_fua3(x)) fua3 = extpom::adv_fua3(x);
+    const T tps = extpom::adv_tps(x);
+    fva3 = extpom::adv_fva3(x, tps);
+    fua6 = extpom::adv_fua6(x, tps);
+    if (extpom::on_fva6(x)) fva6 = extpom::adv_fva6(x);
+  }
+  x.pool[2][x.q] = fua3;
+  x.pool[3][x.q] = fva3;
+  x.pool[4][x.q] = fua6;
+  x.pool[5][x.q] = fva6;
+}
+
+// The tile's nsub substeps, once its window is loaded into c and d.
+template <typename T, bool O>
+__device__ void substeps(const ExtArgs<T, O>& s, const Carry<T, true>& c,
+                         const Map& mp, T* d, const T* asum,
+                         const Pool<T>& pool,
+                         T* cout, long n, int iext0, int isplit, int ispadv,
+                         int nsub, int i0, int j0, int ie, int je, int lo_i,
+                         int lo_j, int hi_i, int hi_j) {
+  const int im = s.im, jm = s.jm;
+  for (int sub = 0; sub < nsub; ++sub) {
+    const int iext = iext0 + sub;
+    const int m = 2 * (nsub - 1 - sub);  // margin still needed afterwards
+    const int r0 = max(i0 - m, lo_i), r1 = min(ie + m, hi_i);
+    const int c0 = max(j0 - m, lo_j), c1 = min(je + m, hi_j);
+    const bool adv = iext % ispadv == 0;
+    const auto cell = [&](int i, int j) {
+      return Cell<T, O>{s, c, i, j, extpom::pix(s, i, j),
+                        extpom::at(s, c, i, j), d, asum, pool};
+    };
+    // faces on the margin + 1, up to the face beyond the last cell (row or
+    // column hi of a block's edge tile, which elf differences)
+    for_rect(mp, max(r0 - 1, lo_i), r1 + 1, max(c0 - 1, lo_j), c1 + 1,
+             [&](int i, int j) { faces(cell(i, j), adv); });
+    __syncthreads();
+    // elf one cell further out below and left: uaf and utf read it at
+    // i-1, vaf and vtf at j-1; the domain's edge cells by elf_point, which
+    // forms the faces of the clamped cell itself
+    for_rect(mp, max(r0 - 1, lo_i), r1, max(c0 - 1, lo_j), c1,
+             [&](int i, int j) {
+               const Cell<T, O> x = cell(i, j);
+               c.elf[x.q] = i >= 1 && i <= im - 2 && j >= 1 && j <= jm - 2
+                                ? extpom::elf_interior(x) * x.r(s.fsm)
+                                : extpom::elf_point(s, c, i, j);
+               if (adv && i >= r0 && j >= c0)
+                 extpom::adv_point(x, c.advua[x.q], c.advva[x.q]);
+             });
+    __syncthreads();
+    // uaf/vaf over the free-surface faces; the domain's edge cells by
+    // velocity_point (bc_vel2d)
+    for_rect(mp, r0, r1, c0, c1, [&](int i, int j) {
+      const Cell<T, O> x = cell(i, j);
+      if (i >= 2 && i <= im - 2 && j >= 2 && j <= jm - 2) {
+        c.uaf[x.q] = extpom::uaf_interior(x) * s.dum[x.p];
+        c.vaf[x.q] = extpom::vaf_interior(x) * s.dvm[x.p];
+      } else {
+        extpom::velocity_point(s, c, i, j, c.uaf[x.q], c.vaf[x.q]);
+      }
+    });
+    __syncthreads();
+    for_rect(mp, r0, r1, c0, c1, [&](int i, int j) {
+      const int p = extpom::pix(s, i, j), q = extpom::at(s, c, i, j);
+      if (i >= i0 && i < ie && j >= j0 && j < je)
+        extpom::accumulate(s, c, i, j, iext, isplit, cout + ETF * n,
+                           cout + EGF * n, cout + UTF * n, cout + VTF * n);
+      extpom::rotate(s, c, q);
+      d[q] = s.h[p] + c.el[q];
+    });
+    __syncthreads();
+  }
 }
 
 // Tiles cover rows [lo_i, hi_i) and columns [lo_j, hi_j): the domain, or
-// the block (O).
+// the block (O).  The kernel is bound by the latency of its passes' loads
+// (PERF.md §6), so the register cap is set for resident warps: 3 blocks of
+// 512 threads per SM in f32 (40 registers), 2 in f64 (64 registers).
 template <typename T, bool O>
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 4 ? 3 : 2)
     k_window(ExtArgs<T, O> s, const T* __restrict__ cin, T* __restrict__ cout,
              int iext0, int isplit, int ispadv, int nsub, int halo, int ti,
              int tj) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* sm = reinterpret_cast<T*>(smem);
   const int lo_i = O ? s.oi : 0, lo_j = O ? s.oj : 0;
-  // hi_i, hi_j; the domain's own extents when O is false, so that the
-  // whole-domain kernel keeps its parent code
-  const int im = O ? s.oi + s.R : s.im, jm = O ? s.oj + s.L : s.jm;
-  const long n = O ? (long)s.R * s.L : (long)im * jm;
+  const int hi_i = O ? s.oi + s.R : s.im, hi_j = O ? s.oj + s.L : s.jm;
+  const long n = O ? (long)s.R * s.L : (long)s.im * s.jm;
   const int i0 = lo_i + blockIdx.y * ti, j0 = lo_j + blockIdx.x * tj;
-  const int ie = min(i0 + ti, im), je = min(j0 + tj, jm);
-  const int wj = tj + 2 * halo, wn = (ti + 2 * halo) * wj;
+  const int ie = min(i0 + ti, hi_i), je = min(j0 + tj, hi_j);
+  const int wr = ti + 2 * halo, wj = tj + 2 * halo, wn = wr * wj;
 
-  // shared memory: el, elb, ua, uab, va, vab, advua, advva (carry fields
-  // k < 6 and 10, 11, loaded and stored), then elf, uaf, vaf
   Carry<T, true> c;
   c.el = sm;
   c.elb = sm + wn;
@@ -116,25 +288,47 @@ __global__ void __launch_bounds__(kMaxThreads)
   c.advua = sm + 6 * wn;
   c.advva = sm + 7 * wn;
   c.elf = sm + 8 * wn;
-  c.uaf = sm + 9 * wn;
-  c.vaf = sm + 10 * wn;
+  T* d = sm + 9 * wn;
+  T* asum = sm + 10 * wn;
+  const Pool<T> pool{sm + kPool * wn, wn};
+  c.uaf = pool[0];
+  c.vaf = pool[1];
   c.oi = i0 - halo;
   c.oj = j0 - halo;
   c.stride = wj;
   c.i0 = max(i0 - halo, lo_i);
-  c.i1 = min(ie + halo, im);
+  c.i1 = min(ie + halo, hi_i);
   c.j0 = max(j0 - halo, lo_j);
-  c.j1 = min(je + halo, jm);
+  c.j1 = min(je + halo, hi_j);
   s.wubot = cin + WUBOT * n;
   s.wvbot = cin + WVBOT * n;
+  const int rstep = blockDim.x / wj;
+  const Map mp{c.oi, c.oj, (int)threadIdx.x / wj, (int)threadIdx.x % wj,
+               rstep};
 
-  for_rect(c.i0, c.i1, c.j0, c.j1, [&](int i, int j) {
-    const int p = extpom::pix(s, i, j), q = extpom::at(s, c, i, j);
+  // the window's carry and d = h + el (0 where the window may not be
+  // read); the tps sums of aam2d on every cell of tps's region, zero-filled
+  // as adv_tps reads (a block's edge tile forms a face one cell beyond the
+  // block)
+  for_rect(mp, c.oi, c.oi + wr, c.oj, c.oj + wj, [&](int i, int j) {
+    const int q = extpom::at(s, c, i, j);
+    asum[q] = i >= 1 && i < s.im && j >= 1 && j < s.jm
+                  ? extpom::ld(s.aam2d, s, i, j) +
+                        extpom::ld(s.aam2d, s, i, j - 1) +
+                        extpom::ld(s.aam2d, s, i - 1, j) +
+                        extpom::ld(s.aam2d, s, i - 1, j - 1)
+                  : T(0);
+    if (!extpom::in(s, c, i, j)) {
+      d[q] = T(0);
+      return;
+    }
+    const int p = extpom::pix(s, i, j);
 #pragma unroll
     for (int k = 0; k < 8; ++k) sm[k * wn + q] = cin[loaded(k) * n + p];
+    d[q] = s.h[p] + c.el[q];
   });
   // the tile's accumulators and bottom stress start from the input
-  for_rect(i0, ie, j0, je, [&](int i, int j) {
+  for_rect(mp, i0, ie, j0, je, [&](int i, int j) {
     const int p = extpom::pix(s, i, j);
 #pragma unroll
     for (int k = ETF; k <= WVBOT; ++k)
@@ -142,38 +336,10 @@ __global__ void __launch_bounds__(kMaxThreads)
   });
   __syncthreads();
 
-  for (int sub = 0; sub < nsub; ++sub) {
-    const int iext = iext0 + sub;
-    const int m = 2 * (nsub - 1 - sub);  // margin still needed afterwards
-    const int r0 = max(i0 - m, lo_i), r1 = min(ie + m, im);
-    const int c0 = max(j0 - m, lo_j), c1 = min(je + m, jm);
-    const bool adv = iext % ispadv == 0;
-    // elf one cell further out: uaf and utf read it at i-1, vaf and vtf at
-    // j-1
-    for_rect(max(r0 - 1, lo_i), min(r1 + 1, im), max(c0 - 1, lo_j),
-             min(c1 + 1, jm),
-             [&](int i, int j) {
-               const int q = extpom::at(s, c, i, j);
-               c.elf[q] = extpom::elf_point(s, c, i, j);
-               if (adv && i >= r0 && i < r1 && j >= c0 && j < c1)
-                 extpom::adv_point(s, c, i, j, c.advua[q], c.advva[q]);
-             });
-    __syncthreads();
-    for_rect(r0, r1, c0, c1, [&](int i, int j) {
-      const int q = extpom::at(s, c, i, j);
-      extpom::velocity_point(s, c, i, j, c.uaf[q], c.vaf[q]);
-    });
-    __syncthreads();
-    for_rect(r0, r1, c0, c1, [&](int i, int j) {
-      if (i >= i0 && i < ie && j >= j0 && j < je)
-        extpom::accumulate(s, c, i, j, iext, isplit, cout + ETF * n,
-                           cout + EGF * n, cout + UTF * n, cout + VTF * n);
-      extpom::rotate(s, c, extpom::at(s, c, i, j));
-    });
-    __syncthreads();
-  }
+  substeps(s, c, mp, d, asum, pool, cout, n, iext0, isplit, ispadv, nsub, i0,
+           j0, ie, je, lo_i, lo_j, hi_i, hi_j);
 
-  for_rect(i0, ie, j0, je, [&](int i, int j) {
+  for_rect(mp, i0, ie, j0, je, [&](int i, int j) {
     const int p = extpom::pix(s, i, j), q = extpom::at(s, c, i, j);
 #pragma unroll
     for (int k = 0; k < 8; ++k) cout[loaded(k) * n + p] = sm[k * wn + q];
@@ -192,8 +358,8 @@ int run(void* const* ptr, const double* prm, int im, int jm, int R, int L,
         int nsub, int halo, int ti, int tj, int threads, void* stream) {
   if (nsub < 1 || total % nsub != 0 || iext0 < 1 ||
       iext0 + total - 1 > isplit || halo < 2 * nsub || ti < 1 || tj < 1 ||
-      threads < 32 || threads > kMaxThreads || threads % 32 != 0 || R < 1 ||
-      L < 1)
+      threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
+      threads < tj + 2 * halo || R < 1 || L < 1)
     return (int)cudaErrorInvalidValue;
   T* a = (T*)ptr[0];
   T* b = (T*)ptr[1];
@@ -226,7 +392,22 @@ int run(void* const* ptr, const double* prm, int im, int jm, int R, int L,
   return (int)err;
 }
 
+// What the compiler and the card give k_window (the block variant with
+// blk) for `threads` threads and `smem` bytes of dynamic shared memory:
+// column.cuh's tile_info.
+template <typename T>
+int info(int blk, int threads, int smem, int* out) {
+  return blk ? extpom::tile_info(k_window<T, true>, threads, smem, out)
+             : extpom::tile_info(k_window<T, false>, threads, smem, out);
+}
+
 }  // namespace
+
+extern "C" int extpom_extwin_info(int f64, int blk, int threads, int smem,
+                                  void* out) {
+  return f64 ? info<double>(blk, threads, smem, (int*)out)
+             : info<float>(blk, threads, smem, (int*)out);
+}
 
 extern "C" int extpom_extwin_f32(void* const* ptr, const double* prm, int im,
                                  int jm, int isplit, int ispadv, int nsub,

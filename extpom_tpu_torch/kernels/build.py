@@ -63,6 +63,9 @@ SIGNATURES = {
     # f64, block variant, TI, TJ, kb, keep; the six ints of column.cuh
     # tile_info
     **{f"extpom_phase_{ph}_info": [_I] * 6 + [_P] for ph in TILED},
+    # f64, block variant, threads, dynamic shared bytes; the six ints of
+    # column.cuh tile_info
+    "extpom_extwin_info": [_I] * 4 + [_P],
     "extpom_error_string": [_I],
 }
 

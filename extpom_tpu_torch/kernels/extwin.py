@@ -35,7 +35,10 @@ from extpom_tpu_torch.kernels.extloop import (
 RADIUS = 2          # cells a substep's new carry reads of the old one
 C_MAX = 2           # substeps per launch, at most
 THREADS = 512       # threads of a window block (csrc/extwin.cu allows 512)
-N_SHARED = 11       # window fields of csrc/extwin.cu in shared memory
+TILE = (8, 32)      # (ti, tj), j fastest, in both variants and dtypes
+# window fields of csrc/extwin.cu in shared memory: eight carry fields,
+# elf, d = h + el, the tps sums of aam2d and six faces
+N_SHARED = 17
 SMEM_BYTES = 232_448    # shared memory a block may use on Hopper (227 KB)
 # fields of (im, jm) the loop keeps live: carry, grid, aux, 2-D forcing,
 # metrics and the substep's elf/uaf/vaf
@@ -57,11 +60,29 @@ class Geometry(NamedTuple):
 def chunk_geometry(cfg, itemsize: int) -> Geometry:
     """The window kernel's geometry for ``cfg`` in a dtype of ``itemsize``
     bytes: C is the largest divisor of ``isplit`` up to :data:`C_MAX`, H
-    covers C substeps of radius :data:`RADIUS`, and the tile is 16x64 in
-    f32 and 8x32 in f64 (j fastest), the fastest of a sweep of C, tile and
-    block size at 2048x2048 on the H100
+    covers C substeps of radius :data:`RADIUS`, and the tile (j fastest)
+    and the threads are :data:`TILE` and :data:`THREADS`, the fastest of a
+    sweep of C, tile and block size at 2048x2048 and on a 1084x572 block of
+    its 2x4 mesh on the H100
     (``python -m extpom_tpu_torch.tools.extwin_sweep``)."""
     return win_geometry(cfg.isplit, itemsize)
+
+
+def geometry(C: int, ti: int, tj: int, threads: int,
+             itemsize: int) -> Geometry:
+    """The :class:`Geometry` of C substeps per launch on ti x tj tiles;
+    raises where the window does not fit a block's shared memory or a
+    window row has more cells than the block has threads (a thread owns
+    one column of the window)."""
+    H = RADIUS * C
+    smem = N_SHARED * (ti + 2 * H) * (tj + 2 * H) * itemsize
+    if smem > SMEM_BYTES:
+        raise ValueError(f"extwin: a {ti}x{tj} tile with halo {H} needs "
+                         f"{smem} bytes of shared memory")
+    if threads < tj + 2 * H:
+        raise ValueError(f"extwin: {threads} threads for a window row of "
+                         f"{tj + 2 * H} cells")
+    return Geometry(C, H, ti, tj, threads, smem)
 
 
 def win_geometry(n_substeps: int, itemsize: int) -> Geometry:
@@ -69,13 +90,25 @@ def win_geometry(n_substeps: int, itemsize: int) -> Geometry:
     loop, or one ring chunk of the decomposed step)."""
     C = max(c for c in range(1, min(C_MAX, n_substeps) + 1)
             if n_substeps % c == 0)
-    H = RADIUS * C
-    ti, tj = (16, 64) if itemsize <= 4 else (8, 32)
-    smem = N_SHARED * (ti + 2 * H) * (tj + 2 * H) * itemsize
-    if smem > SMEM_BYTES:
-        raise ValueError(f"extwin: a {ti}x{tj} tile with halo {H} needs "
-                         f"{smem} bytes of shared memory")
-    return Geometry(C, H, ti, tj, THREADS, smem)
+    return geometry(C, *TILE, THREADS, itemsize)
+
+
+def window_info(dtype: torch.dtype, geo: Geometry, block: bool = False,
+                device=None) -> dict:
+    """What the compiler and the card give ``k_window`` (the block
+    variant with ``block``) at ``geo``: registers per thread, static and
+    dynamic shared bytes, resident blocks per SM, spill bytes per thread
+    and the SMs of the card (``cudaFuncGetAttributes``,
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).  Builds the
+    kernels; needs a CUDA device."""
+    out = (ctypes.c_int * 6)()
+    with torch.cuda.device(device or torch.cuda.current_device()):
+        status = build.library().extpom_extwin_info(
+            int(dtype == torch.float64), int(block), geo.threads, geo.smem,
+            ctypes.cast(out, ctypes.c_void_p))
+    build.check(status, "extwin info")
+    return dict(zip(("registers", "static_smem", "dynamic_smem",
+                     "blocks_per_sm", "spill_bytes", "sms"), out))
 
 
 def working_set_bytes(im: int, jm: int, itemsize: int) -> int:

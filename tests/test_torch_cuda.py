@@ -85,11 +85,12 @@ def test_extloop_kernel_matches_plain(card, dtype):
         _close(a, b, TOL[dtype] * 10)
 
 
-def _ext_operands(card, im, jm, dtype):
-    """External-loop operands at the second step of a float64 seamount run
-    on the card, cast to ``dtype``: (grid, cfg, carry, forcing, aux)."""
+def _ext_operands(card, im, jm, dtype, steps=1):
+    """External-loop operands at step ``steps`` + 1 of a float64 seamount
+    run on the card, cast to ``dtype``: (grid, cfg, carry, forcing, aux).
+    The lateral viscosity (aam2d) is 0 before the third step."""
     m = seamount_model(device=card, im=im, jm=jm, kb=5, dtype="float64")
-    m.run_segment(1)
+    m.run_segment(steps)
     g, cfg, st = m.grid, m.cfg, m.state
     fc = m.base_forcing.replace(ramp=torch.tensor(0.7, dtype=torch.float64,
                                                   device=card))
@@ -129,6 +130,26 @@ def test_extwin_kernel_matches_plain(card, shape, ispadv):
     # the chain and the window share their per-point arithmetic
     for a, b in zip(got, extloop.run_external_loop(g, cfg, c0, fc, aux)):
         assert torch.equal(a, b)
+
+
+# at the default 8x32 tiles: a ragged last row and column (520x392); a few
+# tiles (40x56); two by two tiles, every one touching the domain's edges
+# (14x60)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", [(520, 392), (40, 56), (14, 60)])
+def test_extwin_kernel_bit_equal(card, shape, dtype):
+    """The window kernel at its default geometry gives the chain's and the
+    plain loop's bits, at the third step, where advave's viscous terms are
+    not 0."""
+    g, cfg, c0, fc, aux = _ext_operands(card, *shape, dtype, steps=2)
+    assert bool((aux[4] != 0).any())
+    got = extwin.run_external_loop_windowed(g, cfg, c0, fc, aux)
+    chain = extloop.run_external_loop(g, cfg, c0, fc, aux)
+    plain = extwin.run_external_loop_windowed_plain(g, cfg, c0, fc, aux)
+    for name, a, b, p in zip(extloop.CARRY_FIELDS, got, chain, plain):
+        assert bool(torch.isfinite(a).all()), name
+        assert torch.equal(a, b), name
+        assert torch.equal(a, p), name
 
 
 def test_extwin_kernel_raises(card):
@@ -448,3 +469,23 @@ def test_mesh_card_path_matches_cpu_path(card, monkeypatch, window):
     for name in want.field_names():
         _close(getattr(got, name).cpu(), getattr(want, name), 1e-10,
                floor=1.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("tile", [(4, 4, 32), (8, 16, 64)])
+def test_chunk_window_bit_equal(card, tile, dtype):
+    """extwin_chunk gives extchunk's bits on every block's own cells of a
+    2x4 mesh, with tiles smaller than a block's ring and larger."""
+    rec = _mesh_calls()
+    blocks = rec["blocks"]
+    for (g, cfg, c, fc, aux, C, iext0, off), _ in rec["calls"]["chunk"][:8]:
+        g, c, fc = (_to_any(x, card, dtype) for x in (g, c, fc))
+        aux = tuple(_to(x, card, dtype) for x in aux)
+        cfg = cfg.replace(dtype=str(dtype).split(".")[1])
+        geo = extwin.geometry(extwin.win_geometry(C, 8).C, *tile,
+                              c.el.element_size())
+        got = extwin.run_external_chunk_windowed(g, cfg, c, fc, aux, C,
+                                                 iext0, off, geo=geo)
+        want = extloop.run_external_chunk(g, cfg, c, fc, aux, C, iext0, off)
+        for a, b in zip(got, want):
+            assert torch.equal(_trim(blocks, a), _trim(blocks, b))

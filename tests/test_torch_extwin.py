@@ -7,12 +7,14 @@
   times each field's scale.  The carry comes from a seamount cold start plus
   noise drawn from a numpy seed, so every edge row and column carries a
   value of its own.
-* The kernel's geometry and the chain/window dispatch.
+* The kernel's geometry (shared memory, threads, C against isplit and the
+  ring chunk) and the chain/window dispatch.
 * The substep's stencil radius, on which the kernel's halo of 2 cells per
   substep rests.
 """
 
 import dataclasses
+import itertools
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +33,7 @@ from extpom_tpu_torch.core import stepper
 from extpom_tpu_torch.core.config import Config
 from extpom_tpu_torch.core.state import Forcing as PtForcing
 from extpom_tpu_torch.kernels import extloop, extwin, phases
+from extpom_tpu_torch.mesh import extchunk
 
 torch.set_num_threads(1)
 
@@ -195,3 +198,51 @@ def test_substep_radius(radius_case, C, cell, iext0):
     assert 1 <= reach <= extwin.RADIUS * C
     if C == 1 and cell == (12, 10):
         assert reach == extwin.RADIUS
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("n_substeps", [1, 2, 3, 5, 6, 10, 15, 30])
+def test_win_geometry_fits(n_substeps, itemsize):
+    """Every geometry the wrappers can pick fits a block's shared memory,
+    gives each window column a thread, and divides the substeps it runs."""
+    geo = extwin.win_geometry(n_substeps, itemsize)
+    assert n_substeps % geo.C == 0 and 1 <= geo.C <= extwin.C_MAX
+    assert geo.H == extwin.RADIUS * geo.C
+    assert geo.smem == (extwin.N_SHARED * (geo.ti + 2 * geo.H)
+                        * (geo.tj + 2 * geo.H) * itemsize)
+    assert geo.smem <= extwin.SMEM_BYTES
+    assert geo.tj + 2 * geo.H <= geo.threads <= 512 and geo.threads % 32 == 0
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_sweep_geometries_fit_or_raise(itemsize):
+    """``extwin.geometry`` refuses what the kernel cannot run and returns
+    the shared bytes it launches with otherwise, over the sweep's grid."""
+    from extpom_tpu_torch.tools.extwin_sweep import CS, THREADS, TILES
+    fits = 0
+    for C, (ti, tj), threads in itertools.product(CS, TILES, THREADS):
+        H = extwin.RADIUS * C
+        smem = extwin.N_SHARED * (ti + 2 * H) * (tj + 2 * H) * itemsize
+        ok = smem <= extwin.SMEM_BYTES and threads >= tj + 2 * H
+        if ok:
+            assert extwin.geometry(C, ti, tj, threads, itemsize).smem == smem
+            fits += 1
+        else:
+            with pytest.raises(ValueError, match="extwin"):
+                extwin.geometry(C, ti, tj, threads, itemsize)
+    assert fits > 0
+
+
+MESH_GRIDS = {2048: 41, 256: 31}
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("n", [2048, 256])
+def test_ring_chunk_geometry(n, itemsize):
+    """On config5's 2x4 mesh the kernel's C divides the ring chunk (the
+    substeps per exchange, mesh/extchunk.py) and isplit."""
+    cfg = Config(im=n, jm=n, kb=MESH_GRIDS[n], isplit=30)
+    plan = extchunk.chunk_plan(cfg, 2, 4, n // 2, n // 4, "cpu", itemsize)
+    geo = extwin.win_geometry(plan.C, itemsize)
+    assert plan.C % geo.C == 0 and cfg.isplit % geo.C == 0
+    assert geo.smem <= extwin.SMEM_BYTES
