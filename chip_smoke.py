@@ -8,15 +8,15 @@ and the decomposed step's block kernels extchunk, extwin_chunk and
 phase_<p>_mesh) against its plain PyTorch version at the shapes of the
 paths that run it, and drives four paths through ``seamount_model`` /
 ``Model.run_segment`` on the card in float32: the main path (256x256x31,
-whose external loop is the whole-grid chain), the large-grid path of
+whose external loop is the whole-grid loop), the large-grid path of
 ``configs/config5_2048.json`` (2048x2048x41 on one card, whose external
 loop is the window kernel), and each of them decomposed over config5's 2x4
 mesh with every block on the card (``Model.shard``).  The lat, tke, tracer
 and mom kernels (column tiles) are also held to their plain versions at
 config5's depth on a small grid and on two ragged grids (kb 9 and 4), lat
 and mom bit for bit, and timed on the large-grid path's operands
-(``[large_phases]``) and, with the window chunks, on every call of one
-step of its decomposed blocks (``[large_mesh_phases]``), with the
+(``[large_phases]``, uvw too) and, with the window chunks, on every call
+of one step of its decomposed blocks (``[large_mesh_phases]``), with the
 registers, shared memory and resident blocks the card gives them.  It checks the
 results, prints the dispatch echo of the four, one ``kernels`` JSON line,
 the card's name and power limit, and a last JSON line
@@ -48,9 +48,10 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}   # non-tensor
 # (core/stepper.py:mode_external_substep): d 1, fluxes 8, elf 8, bc_el 1,
 # advave 71, uaf 38, vaf 38, dum/dvm 2, tail + Asselin + accumulators 32
 EXTLOOP_FLOPS_PER_POINT = 199
-# device kernels of the external loops, as the profiler names them; both
-# machines launch k_metrics once per step
-EXT_KERNELS = {"extloop": ("::k_surface<", "::k_velocity<", "::k_update<"),
+# device kernels of the external loops, as the profiler names them: the
+# persistent loop is one launch per call (metrics included); the window
+# kernel launches k_metrics once per step
+EXT_KERNELS = {"extloop": ("::k_extloop<",),
                "extwin": ("::k_window<",), "ext_metrics": ("::k_metrics<",)}
 PHASES = ("lat", "uvw", "tke", "tracer", "mom")
 TILED = ("lat", "tke", "tracer", "mom")   # column tiles (kernels/phases.py)
@@ -311,6 +312,31 @@ def on_card(inputs, dtype):
             cast(fc, dtype), tuple(cast(x, dtype) for x in aux))
 
 
+def loop_fields(run, dtype, cells: int, block: bool, nsub: int,
+                flush: L2Flush) -> dict:
+    """The persistent external loop's launch: kernels the library launched
+    in one call of ``run``, the threads, grid and what the card gives the
+    kernel there (registers, shared bytes, blocks per SM, spill), its
+    barriers per substep and the barrier floor (an empty persistent
+    kernel passing the same barriers on the same grid)."""
+    from extpom_tpu_torch.kernels import extloop
+    before = extloop.device_launches()
+    run()
+    launches = extloop.device_launches() - before
+    threads, blocks = extloop.plan_grid(dtype, cells, block)
+    info = extloop.loop_info(dtype, block, threads)
+    n = extloop.BARRIERS * nsub
+    floor = device_ms(lambda: extloop.barrier_floor("cuda", threads, blocks,
+                                                    n), 20, flush)
+    return dict(device_launches=launches,
+                barriers_per_substep=extloop.BARRIERS,
+                barrier_floor_ms=floor, threads=threads, grid=blocks,
+                registers=info["registers"],
+                shared_bytes=info["static_smem"] + info["dynamic_smem"],
+                blocks_per_sm=info["blocks_per_sm"],
+                spill_bytes=info["spill_bytes"])
+
+
 def extloop_phase(flush: L2Flush, inputs) -> dict:
     from extpom_tpu_torch.kernels import extloop
     entry = {}
@@ -321,6 +347,10 @@ def extloop_phase(flush: L2Flush, inputs) -> dict:
         got = extloop.run_external_loop(grid, cfg, c0, fc, aux)
         want = extloop.run_external_loop_plain(grid, cfg, c0, fc, aux)
         torch.cuda.synchronize()
+        bit_equal = all(torch.equal(a, b) for a, b in zip(got, want))
+        if not bit_equal:
+            raise AssertionError(f"extloop kernel is not bit-equal to the "
+                                 f"plain loop ({dtype})")
         tol = TOL["extloop"][dtype]
         worst = (0.0, 0.0, "none")
         for name, a, b in zip(extloop.CARRY_FIELDS, got, want):
@@ -334,6 +364,7 @@ def extloop_phase(flush: L2Flush, inputs) -> dict:
                     f"extloop kernel disagrees with the plain loop on "
                     f"{name}: {rel} > {tol} ({dtype})")
         run = lambda: extloop.run_external_loop(grid, cfg, c0, fc, aux)
+        launch = loop_fields(run, dtype, n, False, cfg.isplit, flush)
         ms = device_ms(run, 20, flush)
         wall_ms = call_ms(run, 20, flush)
         plain_ms = device_ms(
@@ -347,10 +378,15 @@ def extloop_phase(flush: L2Flush, inputs) -> dict:
             max_abs_err=f"{worst[0]:.3e}", rel_err=f"{worst[1]:.3e}",
             worst_field=worst[2], tol=tol, ms=f"{ms:.4f}",
             call_ms=f"{wall_ms:.4f}", plain_ms=f"{plain_ms:.3f}",
-            bound_ms=f"{max(bound_bytes, bound_ops):.5f}")
+            bound_ms=f"{max(bound_bytes, bound_ops):.5f}",
+            bit_equal=bit_equal,
+            **{k: f"{v:.4f}" if isinstance(v, float) else v
+               for k, v in launch.items()})
         if dtype == torch.float64:
-            entry["f64_max_abs_err"] = worst[0]
+            entry.update(f64_max_abs_err=worst[0], f64_ms=ms,
+                         f64_barrier_floor_ms=launch["barrier_floor_ms"])
         else:
+            entry.update(**launch, bit_equal=bit_equal)
             entry.update(max_abs_err=worst[0], ms=ms, call_ms=wall_ms,
                          plain_ms=plain_ms,
                          bound_ms=max(bound_bytes, bound_ops),
@@ -814,23 +850,26 @@ def large_phase(card: str, flush: L2Flush):
 
 
 def large_phases(flush: L2Flush, m) -> dict:
-    """The tile kernels timed on the large-grid model's next step's
+    """The phase kernels timed on the large-grid model's next step's
     operands (2048x2048x41 f32): device time by CUDA events after an L2
-    flush, beside the bound.  Returns {phase: (ms, bound ms)}."""
+    flush, beside the bound; the tile kernels with their tiles.  Returns
+    {phase: (ms, bound ms)}."""
     from extpom_tpu_torch.kernels import phases
-    calls = record_calls(lambda: m.run_segment(1), TILED)
+    calls = record_calls(lambda: m.run_segment(1), PHASES)
     out = {}
-    for phase in TILED:
+    for phase in TILED + ("uvw",):
         (g, c, *a), _ = calls.pop(phase)[0]
         run = lambda: getattr(phases, f"phase_{phase}")(g, c, *a)
         got = run()
         ms = device_ms(run, 5, flush)
         bound, by, mb = phase_bound(phase, g, c, a, got, 4, torch.float32)
         del got
+        tiles = (tile_fields(phase, torch.float32, c.kb, a[0].shape)
+                 if phase in TILED else {})
         say("large_phases", phase=phase,
             grid=f"{c.im}x{c.jm}x{c.kb}", dtype="float32", ms=f"{ms:.4f}",
             bound_ms=f"{bound:.5f}", bound_by=by, mbytes=f"{mb:.1f}",
-            **tile_fields(phase, torch.float32, c.kb, a[0].shape))
+            **tiles)
         out[phase] = (ms, bound)
         del g, c, a, run
     return out
@@ -1092,19 +1131,29 @@ def mesh_kernels_phase(flush: L2Flush) -> tuple:
                         failed.append(f"{name} {dtype} output {i}: {rel}")
                     if not torch.equal(a, b):
                         equal = False
-                        if kind in BIT_EQUAL:
+                        if kind in BIT_EQUAL or kind == "extchunk":
                             failed.append(f"{name} {dtype} output {i} at "
                                           f"{off}: not bit-equal")
-                if (dtype == torch.float32 and timed is None
-                        and block_at(blocks, shape, off) == target):
+                if timed is None and block_at(blocks, shape, off) == target:
                     timed = (kernel, plain, args, got)
             line = dict(kernel=name, dtype=str(dtype).split(".")[1],
                         calls=len(recorded), max_abs_err=f"{worst[0]:.3e}",
                         rel_err=f"{worst[1]:.3e}", worst_output=worst[2],
                         tol=tol, bit_equal=equal)
+            launch = {}
+            if kind == "extchunk":
+                kernel, _, args, _ = timed
+                launch = loop_fields(kernel, dtype, args[2].el.numel(), True,
+                                     args[5], flush)
+                line.update({k: f"{v:.4f}" if isinstance(v, float) else v
+                             for k, v in launch.items()})
             if dtype == torch.float64:
                 entries[name] = {"f64_max_abs_err": worst[0]}
+                if launch:
+                    entries[name]["f64_barrier_floor_ms"] = \
+                        launch["barrier_floor_ms"]
             else:
+                entries[name].update(**launch, bit_equal=equal)
                 kernel, plain, args, got = timed
                 ms = device_ms(kernel, 20, flush)
                 wall_ms = call_ms(kernel, 20, flush)

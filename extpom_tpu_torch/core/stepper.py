@@ -7,8 +7,8 @@ One :func:`step` advances the model by one internal step ``dti``, as
     -> internal phases uvw, tke, tracer, mom
 
 The isplit external substeps run in ``kernels.extloop.run_external_loop``
-(one CUDA kernel chain per step on the card) or, on the card for grids whose
-external working set exceeds its L2, in
+(one persistent CUDA kernel per step on the card) or, on the card for grids
+whose external working set exceeds its L2, in
 ``kernels.extwin.run_external_loop_windowed`` (isplit/C window launches);
 the phases lat, uvw, tke, tracer and mom run in ``kernels.phases`` (one CUDA
 kernel chain each on the card).

@@ -263,11 +263,9 @@ __device__ __forceinline__ T dd(const ExtArgs<T, O>& s, const Carry<T, W>& c,
   return in(s, c, i, j) ? s.h[pix(s, i, j)] + c.el[at(s, c, i, j)] : T(0);
 }
 
-// ext_precompute, one point
+// ext_precompute at cell p of the read-only arrays
 template <typename T, bool O>
-__global__ void k_metrics(ExtArgs<T, O> s) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= cells(s)) return;
+__device__ __forceinline__ void metrics_point(const ExtArgs<T, O>& s, int p) {
   int i, j;
   cell(s, p, i, j);
   const T one = T(1);
@@ -288,6 +286,13 @@ __global__ void k_metrics(ExtArgs<T, O> s) {
   s.dy4[p] = dy4;
   s.rdx4[p] = one / (dx4 == T(0) ? one : dx4);
   s.rdy4[p] = one / (dy4 == T(0) ? one : dy4);
+}
+
+// ext_precompute, one point per thread
+template <typename T, bool O>
+__global__ void k_metrics(ExtArgs<T, O> s) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p < cells(s)) metrics_point(s, p);
 }
 
 // ---- reading a point's operands ----
@@ -656,14 +661,24 @@ __device__ void accumulate(const ExtArgs<T, O>& s, const Carry<T, W>& c,
                           s.isp2i;
 }
 
-// Asselin filter and time-level rotation at array cell q
+// Asselin filter at array cell q: the new b levels of el, ua and va into
+// elb[q], uab[q] and vab[q] (c's own b levels, or another slot)
+template <typename T, bool O, bool W>
+__device__ __forceinline__ void asselin(const ExtArgs<T, O>& s,
+                                        const Carry<T, W>& c, int q, T* elb,
+                                        T* uab, T* vab) {
+  const T elf = c.elf[q], uaf = c.uaf[q], vaf = c.vaf[q];
+  const T ua = c.ua[q], va = c.va[q], el = c.el[q];
+  uab[q] = ua + s.hsmoth * (c.uab[q] - T(2) * ua + uaf);
+  vab[q] = va + s.hsmoth * (c.vab[q] - T(2) * va + vaf);
+  elb[q] = el + s.hsmoth * (c.elb[q] - T(2) * el + elf);
+}
+
+// Asselin filter and time-level rotation at array cell q, in place
 template <typename T, bool O, bool W>
 __device__ void rotate(const ExtArgs<T, O>& s, const Carry<T, W>& c, int q) {
   const T elf = c.elf[q], uaf = c.uaf[q], vaf = c.vaf[q];
-  const T ua = c.ua[q], va = c.va[q], el = c.el[q];
-  c.uab[q] = ua + s.hsmoth * (c.uab[q] - T(2) * ua + uaf);
-  c.vab[q] = va + s.hsmoth * (c.vab[q] - T(2) * va + vaf);
-  c.elb[q] = el + s.hsmoth * (c.elb[q] - T(2) * el + elf);
+  asselin(s, c, q, c.elb, c.uab, c.vab);
   c.ua[q] = uaf;
   c.va[q] = vaf;
   c.el[q] = elf;

@@ -33,17 +33,24 @@ SIGNATURES = {
     # kb, n, k0, k_last; stream
     "extpom_tridiag_f32": [_P] * 13 + [_I] * 4 + [_P],
     "extpom_tridiag_f64": [_P] * 13 + [_I] * 4 + [_P],
-    # pointer table, parameter table; im, jm, isplit, ispadv; stream
-    "extpom_extloop_f32": [_P, _P] + [_I] * 4 + [_P],
-    "extpom_extloop_f64": [_P, _P] + [_I] * 4 + [_P],
+    # pointer table, parameter table; im, jm, isplit, ispadv, threads,
+    # blocks; stream
+    "extpom_extloop_f32": [_P, _P] + [_I] * 6 + [_P],
+    "extpom_extloop_f64": [_P, _P] + [_I] * 6 + [_P],
+    # f64, block variant, threads; the six ints of column.cuh tile_info
+    "extpom_extloop_info": [_I] * 3 + [_P],
+    # kernels launched by the two entries above and extchunk's
+    "extpom_extloop_launches": [],
+    # threads, blocks, barriers, hand-written; counter, stream
+    "extpom_extloop_floor": [_I] * 4 + [_P, _P],
     # pointer table, parameter table; im, jm, isplit, ispadv, C, H, ti, tj,
     # threads; stream
     "extpom_extwin_f32": [_P, _P] + [_I] * 9 + [_P],
     "extpom_extwin_f64": [_P, _P] + [_I] * 9 + [_P],
     # extloop's on a block: pointer table, parameter table; im, jm, R, L, C,
-    # iext0, oi, oj, isplit, ispadv; stream
-    "extpom_extchunk_f32": [_P, _P] + [_I] * 10 + [_P],
-    "extpom_extchunk_f64": [_P, _P] + [_I] * 10 + [_P],
+    # iext0, oi, oj, isplit, ispadv, threads, blocks; stream
+    "extpom_extchunk_f32": [_P, _P] + [_I] * 12 + [_P],
+    "extpom_extchunk_f64": [_P, _P] + [_I] * 12 + [_P],
     # extwin's on a block: pointer table, parameter table; im, jm, R, L, C,
     # iext0, oi, oj, isplit, ispadv, C per launch, H, ti, tj, threads; stream
     "extpom_extwin_chunk_f32": [_P, _P] + [_I] * 15 + [_P],

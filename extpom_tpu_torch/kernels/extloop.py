@@ -1,19 +1,21 @@
-"""External-mode loop: the CUDA kernel chain ``csrc/extloop.cu`` (the
+"""External-mode loop: the persistent CUDA kernel ``csrc/extloop.cu`` (the
 counterpart of ``extpom_tpu/pallas/extloop.py:_kernel``) and its plain
 PyTorch version, the Python loop over ``stepper.mode_external_substep``.
 
-One call runs all ``isplit`` substeps of an internal step and returns the
-final :class:`~extpom_tpu_torch.core.stepper.ExtCarry`.
+One call runs all ``isplit`` substeps of an internal step in one cooperative
+launch and returns the final
+:class:`~extpom_tpu_torch.core.stepper.ExtCarry`.
 
 :func:`run_external_chunk` is the decomposed step's variant (the
 counterpart of ``extpom_tpu/pallas/extloop.py:_chunk_kernel``, via
 ``run_external_chunk_vmem``): C substeps on one ring-extended block, the
-same chain in ``csrc/extloop.cu`` built for blocks.
+same kernel built for blocks.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -32,6 +34,10 @@ FC_1D_J = ("elw", "ele", "uabw", "uabe", "vabw", "vabe")
 FC_1D_I = ("els", "eln", "vabs", "vabn", "uabs", "uabn")
 N_METRICS = 13      # ext_precompute fields
 N_SUBSTEP = 3       # elf, uaf, vaf
+N_SLOTS = 3         # the fourth time-level slots of el, ua, va (extloop.cu)
+N_SCRATCH = N_METRICS + N_SUBSTEP + N_SLOTS
+MAX_THREADS = 512   # threads of a block, at most (csrc/extloop.cu)
+BARRIERS = 2        # grid-wide barriers per substep (csrc/extloop.cu)
 
 _DTYPES = (torch.float32, torch.float64)
 
@@ -93,9 +99,10 @@ def check_operands(grid, cfg, c0, fc, aux, what: str = "extloop",
             raise ValueError(f"{what}: {name} must be contiguous")
 
 
-def run_external_loop(grid, cfg, c0, fc, aux):
-    """All isplit substeps; CUDA tensors launch the kernel chain, CPU
-    tensors run :func:`run_external_loop_plain`."""
+def run_external_loop(grid, cfg, c0, fc, aux, threads=None):
+    """All isplit substeps; CUDA tensors launch the persistent kernel (with
+    ``threads`` per block, or as :func:`plan_grid` plans), CPU tensors run
+    :func:`run_external_loop_plain`."""
     check_operands(grid, cfg, c0, fc, aux)
     device = c0[0].device
     if device.type == "cpu":
@@ -107,22 +114,23 @@ def run_external_loop(grid, cfg, c0, fc, aux):
     if cfg.bc_scheme == "orlanski":
         raise NotImplementedError("extloop kernel: bc_scheme='orlanski' "
                                   "(orl_el/orl_vel2d) is not ported yet")
-    return _launch(grid, cfg, c0, fc, aux)
+    return _launch(grid, cfg, c0, fc, aux, threads=threads)
 
 
-def run_external_chunk(grid, cfg, c0, fc, aux, C: int, iext0: int, off):
+def run_external_chunk(grid, cfg, c0, fc, aux, C: int, iext0: int, off,
+                       threads=None):
     """Substeps iext0 .. iext0+C-1 on a ring-extended (R, L) block whose
     cell (0, 0) is global ``off``: every 2-D operand is (R, L), the j-side
     series (L,) and the i-side series (R,), ``cfg.im``/``cfg.jm`` are the
     global extents.  Only the cells the ring covers come out right (the
-    caller trims the rest).  CUDA tensors launch the chain of
+    caller trims the rest).  CUDA tensors launch the kernel of
     ``csrc/extloop.cu`` built for blocks, CPU tensors run
     :func:`run_external_chunk_plain`."""
     check_chunk(grid, cfg, c0, fc, aux, C, iext0, off, "extchunk")
     if c0[0].device.type == "cpu":
         return run_external_chunk_plain(grid, cfg, c0, fc, aux, C, iext0,
                                         off)
-    return _launch(grid, cfg, c0, fc, aux, (C, iext0, *off))
+    return _launch(grid, cfg, c0, fc, aux, (C, iext0, *off), threads)
 
 
 def check_chunk(grid, cfg, c0, fc, aux, C, iext0, off, what):
@@ -142,7 +150,73 @@ def check_chunk(grid, cfg, c0, fc, aux, C, iext0, off, what):
                                   "(orl_el/orl_vel2d) is not ported yet")
 
 
-def _launch(grid, cfg, c0, fc, aux, chunk=None):
+def block_threads(cells: int, sms: int) -> int:
+    """Threads of a block: the fewest (whole warps) with which one block
+    per SM covers ``cells`` cells, at most ``MAX_THREADS``.  Fewer blocks
+    pass a grid barrier sooner, and one block per SM spreads the cells
+    over the card (``tools/extloop_sweep.py --threads``; PERF.md §6)."""
+    return min(MAX_THREADS, 32 * -(-cells // (32 * sms)))
+
+
+def persistent_grid(cells: int, threads: int, blocks_per_sm: int,
+                    sms: int) -> int:
+    """Blocks of a cooperative launch over ``cells`` cells: as many as the
+    card holds at once, and no more than one cell per thread needs; the
+    blocks visit the cells grid-stride."""
+    if blocks_per_sm < 1:
+        raise RuntimeError(f"extloop: a block of {threads} threads does not "
+                           f"fit an SM")
+    return min(blocks_per_sm * sms, -(-cells // threads))
+
+
+@functools.lru_cache(maxsize=None)
+def _loop_info(f64: bool, block: bool, threads: int, index: int) -> tuple:
+    out = (ctypes.c_int * 6)()
+    with torch.cuda.device(index):
+        status = build.library().extpom_extloop_info(
+            int(f64), int(block), threads, ctypes.cast(out, ctypes.c_void_p))
+    build.check(status, "extloop info")
+    return tuple(zip(("registers", "static_smem", "dynamic_smem",
+                      "blocks_per_sm", "spill_bytes", "sms"), out))
+
+
+def _index(device) -> int:
+    device = torch.device("cuda" if device is None else device)
+    return device.index if device.index is not None else \
+        torch.cuda.current_device()
+
+
+def loop_info(dtype: torch.dtype, block: bool, threads: int,
+              device=None) -> dict:
+    """What the compiler and the card give ``k_extloop`` (the block variant
+    with ``block``) at ``threads`` threads per block: registers per thread,
+    static and dynamic shared bytes, resident blocks per SM, spill bytes
+    per thread and the SMs of the card.  Builds the kernels; needs a CUDA
+    device."""
+    return dict(_loop_info(dtype == torch.float64, block, threads,
+                           _index(device)))
+
+
+def plan_grid(dtype: torch.dtype, cells: int, block: bool = False,
+              device=None, threads=None) -> tuple:
+    """(threads, blocks) of the launch over ``cells`` cells: ``threads``
+    per block, or :func:`block_threads`; the blocks from
+    :func:`persistent_grid`."""
+    index = _index(device)
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    threads = threads or block_threads(cells, sms)
+    info = loop_info(dtype, block, threads, index)
+    return threads, persistent_grid(cells, threads, info["blocks_per_sm"],
+                                    info["sms"])
+
+
+def device_launches() -> int:
+    """Kernels launched by the external-loop entry points of the library
+    so far (one per call of either wrapper)."""
+    return build.library().extpom_extloop_launches()
+
+
+def _launch(grid, cfg, c0, fc, aux, chunk=None, threads=None):
     """Launch the whole loop, or with ``chunk`` = (C, iext0, oi, oj) the
     block variant (``extpom_extchunk_*``)."""
     from extpom_tpu_torch.core.stepper import ExtCarry
@@ -151,7 +225,7 @@ def _launch(grid, cfg, c0, fc, aux, chunk=None):
     # the kernel updates the carry in place: work on a fresh copy so the
     # caller's state tensors are left as they were
     carry = torch.stack(list(c0))
-    scratch = torch.empty((N_METRICS + N_SUBSTEP, R, L), dtype=el.dtype,
+    scratch = torch.empty((N_SCRATCH, R, L), dtype=el.dtype,
                           device=el.device)
     tensors = (list(carry)
                + [getattr(grid, f) for f in GRID_FIELDS]
@@ -168,11 +242,30 @@ def _launch(grid, cfg, c0, fc, aux, chunk=None):
     name = "extloop" if chunk is None else "extchunk"
     fn = getattr(lib, f"extpom_{name}_{suffix}")
     block = () if chunk is None else (R, L, *chunk)
+    threads, blocks = plan_grid(el.dtype, R * L, chunk is not None,
+                                el.device, threads)
     stream = torch.cuda.current_stream(el.device).cuda_stream
     with torch.cuda.device(el.device):
         status = fn(ctypes.cast(ptrs, ctypes.c_void_p),
                     ctypes.cast(prm, ctypes.c_void_p),
-                    cfg.im, cfg.jm, *block, cfg.isplit, cfg.ispadv, stream)
+                    cfg.im, cfg.jm, *block, cfg.isplit, cfg.ispadv, threads,
+                    blocks, stream)
     build.check(status, f"{name} kernel")
     kernels.LAUNCHES[name] += 1
     return ExtCarry(*carry.unbind(0))
+
+
+def barrier_floor(device, threads: int, blocks: int, n: int,
+                  counter: torch.Tensor | None = None) -> None:
+    """Launch the empty persistent kernel of ``csrc/extloop.cu`` that only
+    passes ``n`` grid-wide barriers on ``blocks`` blocks of ``threads``:
+    cooperative_groups' grid sync, or with ``counter`` (one zeroed int32 on
+    the card) the hand-written barrier."""
+    lib = build.library()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    ptr = 0 if counter is None else counter.data_ptr()
+    with torch.cuda.device(device):
+        status = lib.extpom_extloop_floor(threads, blocks, n,
+                                          int(counter is not None), ptr,
+                                          stream)
+    build.check(status, "barrier floor")

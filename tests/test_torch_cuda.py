@@ -56,10 +56,18 @@ def test_tridiag_kernel_matches_plain(card, dtype, k0, k_last):
     _close(got, tridiag.thomas_plain(*ops, k0, k_last), TOL[dtype])
 
 
+# the persistent kernel's grid-stride loop: a few cells per thread (32x48),
+# a ragged grid with an odd substep count (37x53, isplit 5: the first pass
+# moves the carry's levels to the second pair of slots), and more cells
+# than the grid has threads (520x392)
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_extloop_kernel_matches_plain(card, dtype):
-    m = seamount_model(device=card, im=32, jm=48, kb=7, dtype="float64",
-                       isplit=6)
+@pytest.mark.parametrize("ispadv", [1, 2])
+@pytest.mark.parametrize("shape", [(32, 48, 6), (37, 53, 5), (520, 392, 6)],
+                         ids=["32x48", "37x53", "520x392"])
+def test_extloop_kernel_matches_plain(card, shape, ispadv, dtype):
+    im, jm, isplit = shape
+    m = seamount_model(device=card, im=im, jm=jm, kb=7, dtype="float64",
+                       isplit=isplit)
     m.run_segment(1)
     g, cfg, st = m.grid, m.cfg, m.state
     fc = m.base_forcing
@@ -76,13 +84,50 @@ def test_extloop_kernel_matches_plain(card, dtype):
     fc = fc.__class__(**{k: cast(v) for k, v in vars(fc).items()})
     c0 = stepper.ExtCarry(*(cast(x) for x in c0))
     aux = tuple(cast(x) for x in out[:5])
-    cfg = cfg.replace(dtype=str(dtype).split(".")[1])
+    cfg = cfg.replace(dtype=str(dtype).split(".")[1], ispadv=ispadv)
+    threads, blocks = extloop.plan_grid(dtype, im * jm)
+    if shape[0] == 520:
+        assert im * jm > threads * blocks
     before = kernels.LAUNCHES["extloop"]
     got = extloop.run_external_loop(g, cfg, c0, fc, aux)
     assert kernels.LAUNCHES["extloop"] == before + 1
     want = extloop.run_external_loop_plain(g, cfg, c0, fc, aux)
     for name, a, b in zip(extloop.CARRY_FIELDS, got, want):
-        _close(a, b, TOL[dtype] * 10)
+        assert bool(torch.isfinite(a).all()), name
+        assert torch.equal(a, b), name
+
+
+def test_extloop_refused_launch_raises(card, monkeypatch):
+    """A cooperative launch of more blocks than the card holds at once is
+    refused, and the wrapper raises: no other path computes the loop."""
+    g, cfg, c0, fc, aux = _ext_operands(card, 37, 53, torch.float32)
+    monkeypatch.setattr(extloop, "persistent_grid", lambda *a: 100_000)
+    before = (extloop.device_launches(), kernels.LAUNCHES["extloop"])
+    with pytest.raises(RuntimeError):
+        extloop.run_external_loop(g, cfg, c0, fc, aux)
+    assert (extloop.device_launches(),
+            kernels.LAUNCHES["extloop"]) == before
+    monkeypatch.undo()
+    extloop.run_external_loop(g, cfg, c0, fc, aux)   # the next one runs
+    assert extloop.device_launches() == before[0] + 1
+
+
+def test_extloop_one_device_launch(card):
+    """One call of either wrapper is one kernel launch of the library (the
+    library counts them; the profiler records no device events on some
+    machines)."""
+    g, cfg, c0, fc, aux = _ext_operands(card, 37, 53, torch.float32)
+    before = extloop.device_launches()
+    extloop.run_external_loop(g, cfg, c0, fc, aux)
+    assert extloop.device_launches() == before + 1
+    rec = _mesh_calls()
+    (g, cfg, c, fc, aux, C, iext0, off), _ = rec["calls"]["chunk"][0]
+    g, c, fc = (_to_any(x, card, torch.float32) for x in (g, c, fc))
+    aux = tuple(_to(x, card, torch.float32) for x in aux)
+    cfg = cfg.replace(dtype="float32")
+    before = extloop.device_launches()
+    extloop.run_external_chunk(g, cfg, c, fc, aux, C, iext0, off)
+    assert extloop.device_launches() == before + 1
 
 
 def _ext_operands(card, im, jm, dtype, steps=1):
@@ -444,6 +489,8 @@ def test_chunk_kernel_matches_plain(card, kernel, ispadv, dtype):
             a, b = _trim(rec["blocks"], a), _trim(rec["blocks"], b)
             assert bool(torch.isfinite(a).all())
             _close(a, b, PHASE_TOL[dtype])
+            if kernel == "extchunk":
+                assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("window", [False, True], ids=["chain", "window"])

@@ -120,3 +120,44 @@ def test_orlanski_not_ported(loop):
     with pytest.raises(NotImplementedError):
         extloop.run_external_loop(grid, cfg.replace(bc_scheme="orlanski"),
                                   c0, fc, aux)
+
+
+@pytest.mark.parametrize("cells,sms,threads", [
+    (65536, 132, 512),      # 256x256: 128 blocks, one per SM
+    (23312, 132, 192),      # a 188x124 block of the 256² mesh: 122 blocks
+    (203840, 132, 512),     # 520x392: capped, the cells visited grid-stride
+    (1536, 132, 32),        # 32x48: one warp per block
+    (1, 132, 32),
+])
+def test_block_threads(cells, sms, threads):
+    """The fewest whole warps per block with which one block per SM covers
+    the cells, at most MAX_THREADS."""
+    assert extloop.block_threads(cells, sms) == threads
+    assert threads % 32 == 0 and threads <= extloop.MAX_THREADS
+    if threads < extloop.MAX_THREADS:
+        assert -(-cells // threads) <= sms
+
+
+@pytest.mark.parametrize("cells,threads,per_sm,sms,blocks", [
+    (65536, 256, 2, 132, 256),      # 256x256: one cell per thread
+    (203840, 256, 2, 132, 264),     # 520x392: every resident block
+    (23312, 256, 4, 132, 92),       # a 188x124 block of the 256² mesh
+    (1536, 512, 1, 132, 3),         # 32x48
+    (1, 128, 8, 132, 1),
+])
+def test_persistent_grid(cells, threads, per_sm, sms, blocks):
+    """A cooperative launch takes the blocks the card holds at once, and no
+    more than one cell per thread needs."""
+    assert extloop.persistent_grid(cells, threads, per_sm, sms) == blocks
+
+
+def test_persistent_grid_refuses_a_block_that_does_not_fit():
+    with pytest.raises(RuntimeError):
+        extloop.persistent_grid(65536, 512, 0, 132)
+
+
+def test_scratch_holds_metrics_and_four_level_slots():
+    """The kernel's scratch: the metrics, elf/uaf/vaf (the third slot of
+    each time level) and the fourth slots of el, ua and va."""
+    assert extloop.N_SCRATCH == 13 + 3 + 3
+    assert extloop.N_SUBSTEP == 3 and extloop.N_SLOTS == 3
