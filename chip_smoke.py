@@ -11,13 +11,16 @@ paths that run it, and drives four paths through ``seamount_model`` /
 whose external loop is the whole-grid loop), the large-grid path of
 ``configs/config5_2048.json`` (2048x2048x41 on one card, whose external
 loop is the window kernel), and each of them decomposed over config5's 2x4
-mesh with every block on the card (``Model.shard``).  The lat, tke, tracer
-and mom kernels (column tiles) are also held to their plain versions at
-config5's depth on a small grid and on two ragged grids (kb 9 and 4), lat
-and mom bit for bit, and timed on the large-grid path's operands
-(``[large_phases]``, uvw too) and, with the window chunks, on every call
-of one step of its decomposed blocks (``[large_mesh_phases]``), with the
-registers, shared memory and resident blocks the card gives them.  It checks the
+mesh with every block on the card (``Model.shard``).  The phase kernels
+(column tiles) are also held to their plain versions at config5's depth on
+a small grid and on two ragged grids (kb 9 and 4), lat, uvw and mom bit
+for bit (uvw with one device launch per call, by the library's count),
+and timed on the large-grid path's operands (``[large_phases]``) and, with
+the window chunks, on every call of one step of its decomposed blocks
+(``[large_mesh_phases]``), with the registers, shared memory and resident
+blocks the card gives them.  The Thomas kernel is held to its plain
+version bit for bit and timed at 256x256x31, 256x256x41 and
+2048x2048x41.  It checks the
 results, prints the dispatch echo of the four, one ``kernels`` JSON line,
 the card's name and power limit, and a last JSON line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -54,15 +57,15 @@ EXTLOOP_FLOPS_PER_POINT = 199
 EXT_KERNELS = {"extloop": ("::k_extloop<",),
                "extwin": ("::k_window<",), "ext_metrics": ("::k_metrics<",)}
 PHASES = ("lat", "uvw", "tke", "tracer", "mom")
-TILED = ("lat", "tke", "tracer", "mom")   # column tiles (kernels/phases.py)
+TILED = PHASES   # every phase kernel is a column tile (kernels/phases.py)
 # phase kernels held to their plain versions bit for bit (+, -, *, / and
 # sqrt only, each correctly rounded on the card)
-BIT_EQUAL = ("lat", "mom")
+BIT_EQUAL = ("lat", "uvw", "mom")
 # config5's depth on a small grid; ragged grids (one-row and one-column
 # last tiles) at kb 9 and the smallest solve's kb 4
 DEEP = ((96, 80, 41), (33, 65, 9), (17, 33, 4))
 # device kernels of each phase (csrc/phase_*.cu), as the profiler names them
-PHASE_KERNELS = {"lat": ("::k_lat_tile<",), "uvw": ("::k_uv<", "::k_w<"),
+PHASE_KERNELS = {"lat": ("::k_lat_tile<",), "uvw": ("::k_uvw_tile<",),
                  "tke": ("::k_tke_tile<",),
                  "tracer": ("::k_tracer_tile<",),
                  "mom": ("::k_mom_tile<", "::k_mom_edge<")}
@@ -196,63 +199,116 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
                                                   float("inf")))
 
 
+def tridiag_operands(kb: int, im: int, jm: int, dtype, variant, scalar: bool,
+                     gen: torch.Generator) -> list:
+    """The ten operands of one solve on the card, from ``gen``: diagonally
+    dominant coefficients, and for a ``variant`` without a bottom row
+    coupling (profq's) cl = 0, db = 1 and mask = 1, as 0-d tensors when
+    ``scalar`` (the kernel reads them by stride, broadcast)."""
+    k0, k_last, use_cl, use_mask = variant
+    r = lambda shape, s, o: o + s * torch.rand(shape, generator=gen,
+                                               device="cuda", dtype=dtype)
+    r3 = lambda s=1.0, o=0.0: r((kb, im, jm), s, o)
+    r2 = lambda s=1.0, o=0.0: r((im, jm), s, o)
+    const = lambda x: (torch.tensor(x, dtype=dtype, device="cuda") if scalar
+                       else torch.full((im, jm), x, dtype=dtype,
+                                       device="cuda"))
+    a, c = -r3(0.5, 0.1), -r3(0.5, 0.1)
+    den, rhs = r3(0.2, 1.0), r3(2.0, -1.0)
+    ee0, gg0 = r2(0.5), r2(1.0)
+    cl = a[k_last] if use_cl else const(0.0)
+    rb = r2(1.0)
+    db = r2(0.5, -1.5) if use_cl else const(1.0)
+    mask = ((r2() > 0.3).to(dtype) if use_mask else const(1.0))
+    return [a, c, den, rhs, ee0, gg0, cl, rb, db, mask]
+
+
 def tridiag_phase(flush: L2Flush) -> dict:
+    """The Thomas kernel against thomas_plain, bit for bit, and timed beside
+    its bound: at the main path's 256x256x31 the three (k0, k_last)
+    variants of the vertical solvers (profq's also with scalar cl, db and
+    mask), at 256x256x41 and at config5's 2048x2048x41 the proft/profu
+    variant, f64 and f32."""
     from extpom_tpu_torch.kernels import tridiag
-    rng = np.random.default_rng(5)
-    n = IM * JM
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
     entry = {}
-    # (k0, k_last, use_cl, use_mask): proft/profu/profv, profq q2, profq q2l
-    variants = [(1, KB - 2, True, True), (1, KB - 1, False, False),
-                (2, KB - 1, False, False)]
-    for dtype in (torch.float64, torch.float32):
-        item = torch.finfo(dtype).bits // 8
-        for k0, k_last, use_cl, use_mask in variants:
-            r3 = lambda s=1.0, o=0.0: o + s * rng.random((KB, IM, JM))
-            r2 = lambda s=1.0, o=0.0: o + s * rng.random((IM, JM))
-            a, c = -r3(0.5, 0.1), -r3(0.5, 0.1)
-            den, rhs = r3(0.2, 1.0), r3(2.0, -1.0)
-            ee0, gg0 = r2(0.5), r2(1.0)
-            cl = a[k_last] if use_cl else np.zeros((IM, JM))
-            rb = r2(1.0)
-            db = r2(0.5, -1.5) if use_cl else np.ones((IM, JM))
-            mask = ((rng.random((IM, JM)) > 0.3).astype(float) if use_mask
-                    else np.ones((IM, JM)))
-            args = [torch.tensor(x, dtype=dtype, device="cuda")
-                    for x in (a, c, den, rhs, ee0, gg0, cl, rb, db, mask)]
-            got = tridiag.thomas(*args, k0, k_last)
-            want = tridiag.thomas_plain(*args, k0, k_last)
-            torch.cuda.synchronize()
-            err, rel = rel_err(got, want)
-            tol = TOL["tridiag"][dtype]
-            run = lambda: tridiag.thomas(*args, k0, k_last)
-            ms = device_ms(run, 20, flush)
-            wall_ms = call_ms(run, 20, flush)
-            plain_ms = device_ms(
-                lambda: tridiag.thomas_plain(*args, k0, k_last), 5, flush)
-            nbytes = (4 * KB * n + 6 * n + KB * n) * item
-            flops = n * (9 * (k_last - k0) + 7 + 3 * k_last)
-            bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            bound_ops = flops / PEAK_FLOPS[dtype] * 1e3
-            say("tridiag", dtype=str(dtype).split(".")[1], k0=k0,
-                k_last=k_last, max_abs_err=f"{err:.3e}",
-                rel_err=f"{rel:.3e}", tol=tol, ms=f"{ms:.5f}",
-                call_ms=f"{wall_ms:.5f}", plain_ms=f"{plain_ms:.4f}",
-                bound_ms=f"{max(bound_bytes, bound_ops):.5f}")
-            if not rel <= tol:
-                raise AssertionError(
-                    f"tridiag kernel disagrees with thomas_plain: {rel} > "
-                    f"{tol} ({dtype}, k0={k0}, k_last={k_last})")
-            if (k0, k_last) == (1, KB - 2):   # 4 of the 6 solves of a step
+    for kb, im, jm in ((KB, IM, JM), (41, IM, JM), (41, 2048, 2048)):
+        n = im * jm
+        main = (kb, im, jm) == (KB, IM, JM)
+        # (k0, k_last, use_cl, use_mask, scalar): proft/profu/profv, profq
+        # q2, profq q2l
+        cases = [(1, kb - 2, True, True, False)]
+        if main:
+            cases += [(1, kb - 1, False, False, s) for s in (False, True)]
+            cases += [(2, kb - 1, False, False, s) for s in (False, True)]
+        for dtype in (torch.float64, torch.float32):
+            item = torch.finfo(dtype).bits // 8
+            info = tridiag.kernel_info(kb, dtype)
+            for k0, k_last, use_cl, use_mask, scalar in cases:
+                args = tridiag_operands(kb, im, jm, dtype,
+                                        (k0, k_last, use_cl, use_mask),
+                                        scalar, gen)
+                # the plain version takes (im, jm) operands: the
+                # broadcast views of the scalars (no copy either)
+                full = [x if i < 4 else torch.broadcast_to(x, (im, jm))
+                        for i, x in enumerate(args)]
+                got = tridiag.thomas(*args, k0, k_last)
+                want = tridiag.thomas_plain(*full, k0, k_last)
+                torch.cuda.synchronize()
+                err, rel = rel_err(got, want)
+                equal = torch.equal(got, want)
+                del got, want
+                run = lambda: tridiag.thomas(*args, k0, k_last)
+                reps = 20 if n <= IM * JM else 5
+                ms = device_ms(run, reps, flush)
+                wall_ms = call_ms(run, reps, flush)
+                plain_ms = device_ms(
+                    lambda: tridiag.thomas_plain(*full, k0, k_last), 3,
+                    flush)
+                # each operand read once as the caller keeps it, out once
+                nbytes = (sum(x.numel() for x in args) + kb * n) * item
+                flops = n * (9 * (k_last - k0) + 7 + 3 * k_last)
+                bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                bound_ops = flops / PEAK_FLOPS[dtype] * 1e3
+                bound = max(bound_bytes, bound_ops)
+                say("tridiag", grid=f"{im}x{jm}x{kb}",
+                    dtype=str(dtype).split(".")[1], k0=k0, k_last=k_last,
+                    scalar_2d=scalar, max_abs_err=f"{err:.3e}",
+                    rel_err=f"{rel:.3e}", bit_equal=equal, ms=f"{ms:.5f}",
+                    call_ms=f"{wall_ms:.5f}", plain_ms=f"{plain_ms:.4f}",
+                    bound_ms=f"{bound:.5f}", threads=info["threads"],
+                    registers=info["registers"],
+                    shared_bytes=info["static_smem"] + info["dynamic_smem"],
+                    blocks_per_sm=info["blocks_per_sm"],
+                    spill_bytes=info["spill_bytes"])
+                if not equal:
+                    raise AssertionError(
+                        f"tridiag kernel is not bit-equal to thomas_plain "
+                        f"({im}x{jm}x{kb} {dtype}, k0={k0}, "
+                        f"k_last={k_last}, scalar={scalar}): rel {rel}")
+                del args, full
+                if (k0, k_last) != (1, kb - 2):   # 4 of the 6 solves
+                    continue
                 if dtype == torch.float64:
-                    entry["f64_max_abs_err"] = err
-                else:
+                    if main:
+                        entry["f64_max_abs_err"] = err
+                elif main:
                     entry.update(
                         max_abs_err=err, ms=ms, call_ms=wall_ms,
-                        plain_ms=plain_ms,
-                        bound_ms=max(bound_bytes, bound_ops),
+                        plain_ms=plain_ms, bound_ms=bound,
                         bound_by="bytes" if bound_bytes >= bound_ops
-                        else "operations",
-                        variant=f"k0=1,k_last={KB - 2}")
+                        else "operations", bit_equal=equal,
+                        variant=f"k0=1,k_last={kb - 2}",
+                        threads=info["threads"],
+                        registers=info["registers"],
+                        shared_bytes=info["dynamic_smem"],
+                        blocks_per_sm=info["blocks_per_sm"])
+                else:
+                    key = "kb41" if im == IM else "large_2048"
+                    entry.update({f"{key}_ms": ms, f"{key}_bound_ms": bound,
+                                  f"{key}_plain_ms": plain_ms})
+        torch.cuda.empty_cache()
     return entry
 
 
@@ -412,13 +468,42 @@ def tile_fields(phase: str, dtype, kb: int, shape, mesh: bool = False) -> dict:
                 spill_bytes=info["spill_bytes"])
 
 
-def phase_bound(phase: str, g, c, a, got, item: int, dtype) -> tuple:
+def edge_columns(c, shape, off) -> int:
+    """Columns of an (R, L) array at global ``off`` (the domain's when
+    None) on the domain's edge rows or columns."""
+    R, L = shape
+    oi, oj = off or (0, 0)
+    gi, gj = torch.arange(oi, oi + R), torch.arange(oj, oj + L)
+    ei = (gi == 0) | (gi == c.im - 1)
+    ej = (gj == 0) | (gj == c.jm - 1)
+    return int((ei[:, None] | ej[None, :]).sum())
+
+
+def device_launches(phase: str, run) -> tuple:
+    """(result, kernels the library launched) of one call of ``run``; the
+    count is the library's own, kept by the uvw entries (None for the
+    other kernels)."""
+    from extpom_tpu_torch.kernels import phases
+    if phase != "uvw":
+        return run(), None
+    before = phases.uvw_device_launches()
+    got = run()
+    return got, phases.uvw_device_launches() - before
+
+
+def phase_bound(phase: str, g, c, a, got, item: int, dtype,
+                off=None) -> tuple:
     """(bound ms, bound_by, MB moved) of one phase call: each operand read
     once and each output written once over the HBM rate, or its flops over
-    the non-tensor peak."""
+    the non-tensor peak.  uvw reads w only where it passes through, on the
+    domain's edge columns (vertvl replaces the rest)."""
     from extpom_tpu_torch.kernels import phases
     ins = phases.kernel_inputs(phase, g, c, *a)
-    nbytes = sum(x.numel() for x in list(ins) + list(got)) * item
+    elems = sum(x.numel() for x in list(ins) + list(got))
+    if phase == "uvw":
+        w = ins[2]
+        elems -= w.numel() - w.shape[0] * edge_columns(c, w.shape[-2:], off)
+    nbytes = elems * item
     bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ops = (PHASE_FLOPS_PER_POINT[phase] * got[0].numel()
                  / PEAK_FLOPS[dtype] * 1e3)
@@ -440,7 +525,10 @@ def phases_phase(flush: L2Flush, grid, cfg, args) -> dict:
             g = cast(grid, dtype)
             c = cfg.replace(dtype=str(dtype).split(".")[1])
             a = [cast(x, dtype) for x in args[phase]]
-            got = kernel(g, c, *a)
+            got, launched = device_launches(phase, lambda: kernel(g, c, *a))
+            if launched not in (None, 1):
+                failed.append(f"phase_{phase} {dtype}: {launched} device "
+                              f"launches in one call")
             want = plain(g, c, *a)
             torch.cuda.synchronize()
             tol = TOL["phase"][dtype]
@@ -470,6 +558,8 @@ def phases_phase(flush: L2Flush, grid, cfg, args) -> dict:
             bound, by, mb = phase_bound(phase, g, c, a, got, item, dtype)
             tiles = (tile_fields(phase, dtype, KB, a[0].shape)
                      if phase in TILED else {})
+            if launched is not None:
+                tiles["device_launches"] = launched
             say("phases", phase=phase, dtype=str(dtype).split(".")[1],
                 max_abs_err=f"{worst[0]:.3e}", rel_err=f"{worst[1]:.3e}",
                 worst_output=worst[2], tol=tol, bit_equal=equal,
@@ -857,7 +947,7 @@ def large_phases(flush: L2Flush, m) -> dict:
     from extpom_tpu_torch.kernels import phases
     calls = record_calls(lambda: m.run_segment(1), PHASES)
     out = {}
-    for phase in TILED + ("uvw",):
+    for phase in TILED:
         (g, c, *a), _ = calls.pop(phase)[0]
         run = lambda: getattr(phases, f"phase_{phase}")(g, c, *a)
         got = run()
@@ -1116,11 +1206,16 @@ def mesh_kernels_phase(flush: L2Flush) -> tuple:
             item = torch.finfo(dtype).bits // 8
             tol = TOL["phase" if kind in PHASES else "extloop"][dtype]
             worst, timed, equal = (0.0, 0.0, "none"), None, True
+            launched = None
             for args, k in recorded:
                 args = [cast_any(x, dtype) for x in args]
                 args[1] = args[1].replace(dtype=str(dtype).split(".")[1])
                 kernel, plain, shape, off = block_call(kind, args, k)
-                got, want = kernel(), plain()
+                got, launched = device_launches(kind, kernel)
+                if launched not in (None, 1):
+                    failed.append(f"{name} {dtype} at {off}: {launched} "
+                                  f"device launches in one call")
+                want = plain()
                 torch.cuda.synchronize()
                 for i, (a, b) in enumerate(zip(got, want)):
                     a, b = trim_to(blocks, a), trim_to(blocks, b)
@@ -1135,14 +1230,16 @@ def mesh_kernels_phase(flush: L2Flush) -> tuple:
                             failed.append(f"{name} {dtype} output {i} at "
                                           f"{off}: not bit-equal")
                 if timed is None and block_at(blocks, shape, off) == target:
-                    timed = (kernel, plain, args, got)
+                    timed = (kernel, plain, args, got, off)
             line = dict(kernel=name, dtype=str(dtype).split(".")[1],
                         calls=len(recorded), max_abs_err=f"{worst[0]:.3e}",
                         rel_err=f"{worst[1]:.3e}", worst_output=worst[2],
                         tol=tol, bit_equal=equal)
+            if launched is not None:
+                line["device_launches_per_call"] = launched
             launch = {}
             if kind == "extchunk":
-                kernel, _, args, _ = timed
+                kernel, _, args, _, _ = timed
                 launch = loop_fields(kernel, dtype, args[2].el.numel(), True,
                                      args[5], flush)
                 line.update({k: f"{v:.4f}" if isinstance(v, float) else v
@@ -1154,13 +1251,14 @@ def mesh_kernels_phase(flush: L2Flush) -> tuple:
                         launch["barrier_floor_ms"]
             else:
                 entries[name].update(**launch, bit_equal=equal)
-                kernel, plain, args, got = timed
+                kernel, plain, args, got, off = timed
                 ms = device_ms(kernel, 20, flush)
                 wall_ms = call_ms(kernel, 20, flush)
                 plain_ms = device_ms(plain, 3, flush)
                 if kind in PHASES:
                     bound, by, _ = phase_bound(kind, args[0], args[1],
-                                               args[2:], got, item, dtype)
+                                               args[2:], got, item, dtype,
+                                               off)
                     shape = "x".join(map(str, got[0].shape))
                 else:
                     bound, by = chunk_bound(args[2], args[5], item, dtype)
@@ -1391,7 +1489,8 @@ def large_mesh_phases(flush: L2Flush, m) -> dict:
             run = lambda: getattr(phases, f"phase_{phase}")(g, c, *a, **kw)
             got = run()
             ms += device_ms(run, 5, flush)
-            b, by, _ = phase_bound(phase, g, c, a, got, 4, torch.float32)
+            b, by, _ = phase_bound(phase, g, c, a, got, 4, torch.float32,
+                                   kw.get("off"))
             bound += b
             shape = "x".join(map(str, got[0].shape))
             del got

@@ -222,6 +222,15 @@ __device__ __forceinline__ void cp_async_wait_all() {
 #endif
 }
 
+// wait until at most N committed groups are still in flight (the thread's
+// own copies of the older groups have landed)
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+#endif
+}
+
 // Stage one plane (level base) of a field into a window of shared memory.
 template <typename T>
 __device__ __forceinline__ void stage_window(T* dst, const T* plane,

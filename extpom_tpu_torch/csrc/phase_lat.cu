@@ -79,6 +79,10 @@ constexpr int kFaces = 2;
 // ee/gg rows per level in device scratch, levels kept per column: none
 constexpr int kScratch = 0;
 constexpr int kKeep = 0;
+// face pairs staged per level, and a ring that holds every level when
+// the tile keeps them (phase_uvw.cu's layout): none
+constexpr int kStageFaces = 0;
+constexpr int kKeepRing = 0;
 
 // Shared memory of a tile, in elements: kStages stages, the 2-D arrays,
 // the wide window, the faces.  kernels/phases.py:column_tile counts the

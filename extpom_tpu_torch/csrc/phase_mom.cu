@@ -81,6 +81,10 @@ constexpr int kFaces = 0;
 constexpr int kScratch = 4;
 // levels kept per column in shared memory (keep): uf + ub - 2u, vf + vb - 2v
 constexpr int kKeep = 2;
+// face pairs staged per level, and a ring that holds every level when
+// the tile keeps them (phase_uvw.cu's layout): none
+constexpr int kStageFaces = 0;
+constexpr int kKeepRing = 0;
 
 // Shared memory of a tile, in elements: kStages stages, then (keep) kb
 // levels of kKeep values per column.  kernels/phases.py:column_tile counts

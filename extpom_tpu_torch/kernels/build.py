@@ -26,13 +26,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-fmad=false"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-TILED = ("lat", "tke", "tracer", "mom")   # the column-tile phase kernels
+# the column-tile phase kernels: every phase
+TILED = ("lat", "uvw", "tke", "tracer", "mom")
 # C entry points: (argument types); each returns a cudaError_t as int
 SIGNATURES = {
-    # a, c, den, rhs, ee0, gg0, cl, rb, db, mask, out, ee, gg;
-    # kb, n, k0, k_last; stream
-    "extpom_tridiag_f32": [_P] * 13 + [_I] * 4 + [_P],
-    "extpom_tridiag_f64": [_P] * 13 + [_I] * 4 + [_P],
+    # pointer table (a, c, den, rhs, ee0, gg0, cl, rb, db, mask, out),
+    # stride table (i and j strides of the six 2-D operands); kb, im, jm,
+    # k0, k_last, threads; stream
+    "extpom_tridiag_f32": [_P, _P] + [_I] * 6 + [_P],
+    "extpom_tridiag_f64": [_P, _P] + [_I] * 6 + [_P],
+    # f64, threads, kb; the six ints of column.cuh tile_info
+    "extpom_tridiag_info": [_I] * 3 + [_P],
     # pointer table, parameter table; im, jm, isplit, ispadv, threads,
     # blocks; stream
     "extpom_extloop_f32": [_P, _P] + [_I] * 6 + [_P],
@@ -55,21 +59,19 @@ SIGNATURES = {
     # iext0, oi, oj, isplit, ispadv, C per launch, H, ti, tj, threads; stream
     "extpom_extwin_chunk_f32": [_P, _P] + [_I] * 15 + [_P],
     "extpom_extwin_chunk_f64": [_P, _P] + [_I] * 15 + [_P],
-    # pointer table, parameter table; kb, im, jm, two phase options; stream
-    **{f"extpom_phase_uvw_{t}": [_P, _P] + [_I] * 5 + [_P]
-       for t in ("f32", "f64")},
-    # on a block: kb, im, jm, R, L, oi, oj, two phase options; stream
-    **{f"extpom_phase_uvw_mesh_{t}": [_P, _P] + [_I] * 9 + [_P]
-       for t in ("f32", "f64")},
-    # the column-tile kernels take the tile after the phase options: TI, TJ,
-    # blocks
+    # pointer table, parameter table; kb, im, jm, two phase options, then
+    # the tile: TI, TJ, blocks; stream
     **{f"extpom_phase_{ph}_{t}": [_P, _P] + [_I] * 8 + [_P]
        for ph in TILED for t in ("f32", "f64")},
+    # on a block: kb, im, jm, R, L, oi, oj, two phase options, TI, TJ,
+    # blocks; stream
     **{f"extpom_phase_{ph}_mesh_{t}": [_P, _P] + [_I] * 12 + [_P]
        for ph in TILED for t in ("f32", "f64")},
     # f64, block variant, TI, TJ, kb, keep; the six ints of column.cuh
     # tile_info
     **{f"extpom_phase_{ph}_info": [_I] * 6 + [_P] for ph in TILED},
+    # kernels launched by the uvw entries since the library loaded
+    "extpom_phase_uvw_launches": [],
     # f64, block variant, threads, dynamic shared bytes; the six ints of
     # column.cuh tile_info
     "extpom_extwin_info": [_I] * 4 + [_P],

@@ -41,23 +41,27 @@ from extpom_tpu_torch.bc import orlanski as bco
 
 _DTYPES = (torch.float32, torch.float64)
 # cells next to a split edge of a block that the last launch of a block
-# phase kernel skips (csrc/column.cuh GeomT; phase_uvw and mom skip 2, then
-# 4): the ring must be at least this wide for the block's own cells to come
-# out
+# phase kernel skips (csrc/column.cuh GeomT; mom skips 2, then 4): the ring
+# must be at least this wide for the block's own cells to come out
 MESH_MARGIN = 4
 
 # ---------------------------------------------------------------------------
-# the column tiles of the lat, tke, tracer and mom kernels (csrc/column.cuh
-# Tiles)
+# the column tiles of the phase kernels (csrc/column.cuh Tiles)
 # ---------------------------------------------------------------------------
 
 SMEM_BYTES = 232_448     # shared memory a block may use on Hopper (227 KB)
 # the tile (TI, TJ) by itemsize: the fastest of
 # `python -m extpom_tpu_torch.tools.phase_sweep` at 2048x2048x41 on the H100
 TILE = {4: (8, 32), 8: (4, 32)}
+# ... of uvw, from its own sweep there (2048x2048x41 and 256x256x31)
+UVW_TILE = {4: (2, 64), 8: (4, 32)}
+# uvw keeps its levels where this many blocks of the kept tile fit an SM:
+# in the sweep the kept default tiles beat the ones that read u and v
+# again, and a kept tile of one block per SM lost
+UVW_KEEP_BLOCKS = 2
 TILED = build.TILED
-_LAYOUT = ("kStages", "kHalo", "kOwn", "k2D", "kWide", "kFaces", "kScratch",
-           "kKeep", "kMaxThreads")
+_LAYOUT = ("kStages", "kHalo", "kOwn", "k2D", "kWide", "kFaces",
+           "kStageFaces", "kScratch", "kKeep", "kKeepRing", "kMaxThreads")
 
 
 @functools.lru_cache(maxsize=None)
@@ -66,10 +70,12 @@ def layout_constants(phase: str) -> dict:
     its source ``csrc/phase_<phase>.cu``: kStages (levels in the ring),
     kHalo (fields staged as the one-cell window), kOwn (fields staged at
     the own column), k2D (arrays on the one-cell window), kWide (2-D fields
-    on the two-cell window), kFaces (face pairs per level), kScratch (ee/gg
-    rows per level in device scratch), kKeep (values per level a column
-    keeps in shared memory when the tile keeps its levels) and
-    kMaxThreads."""
+    on the two-cell window), kFaces (face pairs, (TI+1) x TJ x faces and
+    TI x (TJ+1) y faces, once per tile), kStageFaces (face pairs per level
+    of the ring), kScratch (ee/gg rows per level in device scratch), kKeep
+    (values per level a column keeps in shared memory when the tile keeps
+    its levels), kKeepRing (1: a tile that keeps its levels holds kb-1
+    levels of the ring's fields instead of kStages) and kMaxThreads."""
     src = (build.CSRC / f"phase_{phase}.cu").read_text()
     return {name: int(re.search(rf"constexpr int {name} = (\d+);",
                                 src).group(1))
@@ -80,7 +86,8 @@ class Tile(NamedTuple):
     """TI x TJ columns per block (TJ along j), the block's dynamic shared
     bytes, its ee/gg scratch bytes in device memory (kb x kScratch rows of
     its columns), the depth kb it was planned for and whether it keeps the
-    kb levels of each column in shared memory (mom's Asselin pass)."""
+    kb levels of each column in shared memory (mom's Asselin pass; uvw's
+    u and v between its two passes)."""
     ti: int
     tj: int
     smem: int
@@ -91,32 +98,41 @@ class Tile(NamedTuple):
 
 def _smem(c: dict, ti: int, tj: int, kb: int, keep: bool) -> int:
     """Shared elements of a ti x tj tile by the kernel's ``layout``: the
-    level ring, the 2-D arrays, the wide window, the faces and the kept
-    levels."""
+    level ring (kb-1 levels deep where a kept tile keeps it), the 2-D
+    arrays, the wide window, the faces and the kept levels."""
     hc, tc = (ti + 2) * (tj + 2), ti * tj
-    return (c["kStages"] * (c["kHalo"] * hc + c["kOwn"] * tc)
+    fp = (ti + 1) * tj + ti * (tj + 1)
+    stages = kb - 1 if keep and c["kKeepRing"] else c["kStages"]
+    return (stages * (c["kHalo"] * hc + c["kOwn"] * tc
+                      + c["kStageFaces"] * fp)
             + c["k2D"] * hc + c["kWide"] * (ti + 4) * (tj + 4)
-            + c["kFaces"] * ((ti + 1) * tj + ti * (tj + 1))
-            + (c["kKeep"] * kb * tc if keep else 0))
+            + c["kFaces"] * fp + (c["kKeep"] * kb * tc if keep else 0))
+
+
+def _keeps(c: dict) -> bool:
+    """Whether a tile of the kernel with layout ``c`` can keep its
+    levels."""
+    return bool(c["kKeep"] or c["kKeepRing"])
 
 
 def column_tile(kb: int, dtype: torch.dtype, phase: str, ti=None, tj=None,
                 keep: bool = False) -> Tile:
     """The tile of the ``phase`` kernel (one of :data:`TILED`) at ``kb``
-    levels in ``dtype``: :data:`TILE` unless ``ti``/``tj`` are given; with
-    ``keep`` a kernel that can (mom) keeps each column's levels in shared
-    memory.  Raises ValueError where the tile breaks the kernel's rules or
-    does not fit a block's shared memory."""
+    levels in ``dtype``: :data:`TILE` (uvw :data:`UVW_TILE`) unless
+    ``ti``/``tj`` are given; with ``keep`` a kernel that can (mom, uvw)
+    keeps each column's levels in shared memory.  Raises ValueError where
+    the tile breaks the kernel's rules or does not fit a block's shared
+    memory."""
     if phase not in TILED:
         raise ValueError(f"column_tile: no tile kernel for phase {phase!r}")
     c = layout_constants(phase)
     item = torch.finfo(dtype).bits // 8
-    dti, dtj = TILE[item]
+    dti, dtj = (UVW_TILE if phase == "uvw" else TILE)[item]
     ti, tj = ti or dti, tj or dtj
     if ti < 1 or tj < 32 or tj % 32 or ti * tj > c["kMaxThreads"]:
         raise ValueError(f"column_tile: a {ti}x{tj} tile needs TJ a multiple "
                          f"of 32 and at most {c['kMaxThreads']} columns")
-    keep = bool(keep and c["kKeep"])
+    keep = bool(keep) and _keeps(c)
     smem = _smem(c, ti, tj, kb, keep) * item
     if smem > SMEM_BYTES:
         raise ValueError(
@@ -161,27 +177,34 @@ def plan_tile(phase: str, dtype: torch.dtype, kb: int, R: int, L: int,
               keep=None) -> tuple:
     """(tile, blocks) of a launch of the ``phase`` tile kernel on (kb, R, L)
     operands: the resident blocks the card gives the tile, at most one per
-    tile.  Unless ``keep`` says, a kernel that can keep its levels in
-    shared memory (mom) keeps them where the blocks the card then holds at
-    once still cover every tile: the kept levels save device traffic, and
-    the fewer blocks per SM cost nothing when one wave runs the grid."""
+    tile; uvw one block per tile (its blocks, persistent, drifted apart in
+    k and lost 15 % at 2048x2048).  Unless ``keep`` says, mom keeps its
+    levels in shared memory where the blocks the card then holds at once
+    still cover every tile: the kept levels save device traffic, and the
+    fewer blocks per SM cost nothing when one wave runs the grid.  uvw
+    keeps them where :data:`UVW_KEEP_BLOCKS` blocks of the kept tile fit an
+    SM."""
     device = torch.device("cuda" if device is None else device)
     tiles = lambda t: -(-R // t.ti) * -(-L // t.tj)
     if keep is None:
         keep = False
-        if layout_constants(phase)["kKeep"]:
+        if _keeps(layout_constants(phase)):
             try:
                 kept = column_tile(kb, dtype, phase, ti, tj, keep=True)
             except ValueError:
                 kept = None
             if kept is not None:
                 info = tile_info(phase, dtype, kept, mesh, device)
-                keep = info["blocks_per_sm"] * info["sms"] >= tiles(kept)
+                keep = (info["blocks_per_sm"] >= UVW_KEEP_BLOCKS
+                        if phase == "uvw" else
+                        info["blocks_per_sm"] * info["sms"] >= tiles(kept))
     tile = column_tile(kb, dtype, phase, ti, tj, keep)
     info = tile_info(phase, dtype, tile, mesh, device)
     if info["blocks_per_sm"] < 1:
         raise RuntimeError(f"phase_{phase}: a {tile.ti}x{tile.tj} tile does "
                            f"not fit an SM ({info})")
+    if phase == "uvw":
+        return tile, tiles(tile)
     return tile, min(tiles(tile), info["blocks_per_sm"] * info["sms"])
 
 
@@ -511,16 +534,24 @@ def phase_lat(grid, cfg: Config, u, v, ub, vb, aam0, rho, rmean, dt, ramp,
 
 
 def phase_uvw(grid, cfg: Config, u, v, w, dt, utb, vtb, utf, vtf, etb, etf,
-              vfluxb, vflux, off=None):
-    """-> (u, v, w); CUDA tensors launch ``csrc/phase_uvw.cu``, CPU tensors
-    run :func:`phase_uvw_plain`."""
+              vfluxb, vflux, off=None, tile=None):
+    """-> (u, v, w); CUDA tensors launch ``csrc/phase_uvw.cu`` with ``tile``
+    (:func:`column_tile`'s by default), CPU tensors run
+    :func:`phase_uvw_plain`."""
     args = (u, v, w, dt, utb, vtb, utf, vtf, etb, etf, vfluxb, vflux)
     if _check("uvw", grid, cfg, args, off).type == "cpu":
         return _plain("uvw", grid, cfg, args, off)
     out = _empty(u, 3)
+    geo, _, keep = _tile_launch("uvw", cfg.kb, u, off, tile)
     _launch("uvw", kernel_inputs("uvw", grid, cfg, *args) + out, [cfg.dti2],
-            cfg, off=off)
+            cfg, int(keep), off=off, geo=geo)
     return tuple(out)
+
+
+def uvw_device_launches() -> int:
+    """Kernels the library's uvw entries launched so far (one per call of
+    :func:`phase_uvw`, on the grid or on a block)."""
+    return build.library().extpom_phase_uvw_launches()
 
 
 def phase_tke(grid, cfg: Config, q2, q2b, q2l, q2lb, u, v, w, aam, t, s, rho,

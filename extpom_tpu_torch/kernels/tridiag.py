@@ -10,9 +10,16 @@ the closed-form bottom row
 back substitution to k=0 with every level times ``mask`` (0/1, so this
 equals masking once at the end), and rows > ``k_last`` zero.  3-D operands
 are (kb, im, jm); 2-D operands are anything that broadcasts to (im, jm).
+The kernel reads a 2-D operand where the caller keeps it, through its
+strides (0 along a broadcast axis), and keeps its elimination stacks in
+shared memory: a launch allocates its output and nothing else.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+import re
 
 import torch
 
@@ -116,21 +123,87 @@ def thomas(a, c, den, rhs, ee0, gg0, cl, rb, db, mask,
     return _launch(three, two, k0, k_last)
 
 
+SM_SMEM = 233_472      # shared memory of an SM on Hopper (228 KB)
+BLOCK_SMEM = 232_448   # ... of which one block may use (227 KB)
+SMEM_RESERVED = 1_024  # the runtime's share of each resident block
+THREADS = (256, 128, 64, 32)
+
+
+@functools.lru_cache(maxsize=None)
+def ring_levels() -> int:
+    """Levels of the coefficient ring of ``csrc/tridiag.cu`` (kStages)."""
+    src = (build.CSRC / "tridiag.cu").read_text()
+    return int(re.search(r"constexpr int kStages = (\d+);", src).group(1))
+
+
+def smem_bytes(kb: int, dtype: torch.dtype, threads: int) -> int:
+    """Shared bytes of a block of ``threads`` columns: ee and gg, kb rows
+    each, and the ring of four coefficients (the kernel's smem_elems)."""
+    item = torch.finfo(dtype).bits // 8
+    return (2 * kb + 4 * ring_levels()) * threads * item
+
+
+def block_threads(kb: int, dtype: torch.dtype) -> int:
+    """Threads per block of the kernel: the most of :data:`THREADS` with
+    which two blocks fit an SM's shared memory, else one that fits a block.
+    Raises ValueError where the stacks of 32 columns do not fit."""
+    for blocks in (2, 1):
+        for t in THREADS:
+            smem = smem_bytes(kb, dtype, t)
+            if (smem <= BLOCK_SMEM
+                    and blocks * (smem + SMEM_RESERVED) <= SM_SMEM):
+                return t
+    raise ValueError(f"thomas: the elimination stacks of kb={kb} in {dtype} "
+                     f"do not fit a block's shared memory")
+
+
+def operand_table(three, two, out) -> tuple:
+    """(pointers, strides) of a launch: a, c, den, rhs, the six 2-D
+    operands and ``out`` by address, and each 2-D operand's element
+    strides along i and j, 0 along an axis it is broadcast on (the views
+    ``_check`` made, which share the caller's memory)."""
+    ptrs = [x.data_ptr() for x in (*three, *two, out)]
+    strides = [s for x in two for s in x.stride()]
+    return ptrs, strides
+
+
 def _launch(three, two, k0, k_last):
     a = three[0]
     kb, im, jm = a.shape
-    n = im * jm
-    two = [x.contiguous() for x in two]
     out = torch.empty_like(a)
-    scratch = torch.empty((2, kb, im, jm), dtype=a.dtype, device=a.device)
+    ptrs, strides = operand_table(three, two, out)
     lib = build.library()
     fn = lib.extpom_tridiag_f32 if a.dtype == torch.float32 \
         else lib.extpom_tridiag_f64
-    ptrs = [x.data_ptr() for x in (*three, *two, out, scratch[0],
-                                    scratch[1])]
     stream = torch.cuda.current_stream(a.device).cuda_stream
     with torch.cuda.device(a.device):
-        status = fn(*ptrs, kb, n, k0, k_last, stream)
+        status = fn((ctypes.c_void_p * len(ptrs))(*ptrs),
+                    (ctypes.c_longlong * len(strides))(*strides), kb, im, jm,
+                    k0, k_last, block_threads(kb, a.dtype), stream)
     build.check(status, "tridiag kernel")
     kernels.LAUNCHES["tridiag"] += 1
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _info(f64: bool, threads: int, kb: int, device: int) -> dict:
+    out = (ctypes.c_int * 6)()
+    with torch.cuda.device(device):
+        status = build.library().extpom_tridiag_info(
+            int(f64), threads, kb, ctypes.cast(out, ctypes.c_void_p))
+    build.check(status, "tridiag info")
+    return dict(zip(("registers", "static_smem", "dynamic_smem",
+                     "blocks_per_sm", "spill_bytes", "sms"), out))
+
+
+def kernel_info(kb: int, dtype: torch.dtype, device=None) -> dict:
+    """The threads per block of a launch at ``kb`` levels in ``dtype`` and
+    what the compiler and the card give the kernel there: registers,
+    static and dynamic shared bytes, resident blocks per SM, spill bytes,
+    SMs.  Builds the kernels; needs a CUDA device."""
+    device = torch.device("cuda" if device is None else device)
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    threads = block_threads(kb, dtype)
+    return dict(threads=threads, **_info(dtype == torch.float64, threads, kb,
+                                         index))

@@ -1,21 +1,21 @@
-"""Sweep the column tiles of the lat, tke, tracer and mom kernels on the
-card.
+"""Sweep the column tiles of the phase kernels on the card.
 
     python -m extpom_tpu_torch.tools.phase_sweep [--grid 2048] [--kb 41]
-        [--reps 3] [--dtypes float32,float64] [--tree PATH]
+        [--reps 3] [--dtypes float32,float64] [--phases uvw,mom]
+        [--tree PATH]
 
-Times one call of ``csrc/phase_{lat,tke,tracer,mom}.cu`` for each tile
-(TI x TJ) that fits a block, mom's with and without its levels kept in
-shared memory, on the phases' operands of the second step of a seamount
-run of GRID x GRID x KB cells in float32 (cast for float64).  Every tile's
+Times one call of ``csrc/phase_{lat,uvw,tke,tracer,mom}.cu`` for each tile
+(TI x TJ) that fits a block, uvw's and mom's with and without their levels
+kept in shared memory, on the phases' operands of the second step of a
+seamount run of GRID x GRID x KB cells in float32 (cast for float64).  Every tile's
 result must equal the default tile's bit for bit.  Prints one line per
 geometry with the registers, shared bytes and resident blocks per SM the
 card gives it, then the fastest per phase and dtype, and the card's name
 and power limit.
 
 With ``--tree PATH`` it imports the port from the checkout at PATH instead
-and times only its default kernels (a parent commit without tiles), on the
-card and on the host (the time to issue one call while the card is busy),
+and times only its default kernels (a parent commit whose kernel has no
+tile), on the card and on the host (the time to issue one call while the card is busy),
 for a comparison within one call.  Needs a CUDA device.
 """
 
@@ -31,7 +31,7 @@ import torch
 
 TILES = [(1, 32), (2, 32), (4, 32), (8, 32), (1, 64), (2, 64), (4, 64),
          (1, 128), (2, 128), (1, 256)]
-PHASES = ("lat", "tke", "tracer", "mom")
+PHASES = ("lat", "uvw", "tke", "tracer", "mom")
 
 
 def operands(n: int, kb: int) -> tuple:
@@ -109,6 +109,7 @@ def main() -> int:
     ap.add_argument("--kb", type=int, default=41)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--dtypes", default="float32,float64")
+    ap.add_argument("--phases", default=",".join(PHASES))
     ap.add_argument("--tree", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -126,7 +127,7 @@ def main() -> int:
         dtype = getattr(torch, dname)
         g = cast(g0, dtype)
         cfg = cfg0.replace(dtype=dname)
-        for phase in PHASES:
+        for phase in args.phases.split(","):
             a = [cast(x, dtype) for x in ops[phase]]
             fn = getattr(phases, f"phase_{phase}")
             want = fn(g, cfg, *a)
@@ -138,7 +139,7 @@ def main() -> int:
                       f"ms={ms:.4f} host_ms={issue:.4f}", flush=True)
                 continue
             rows = []
-            keeps = (False, True) if phase == "mom" else (None,)
+            keeps = (False, True) if phase in ("uvw", "mom") else (None,)
             for (ti, tj), keep in itertools.product(TILES, keeps):
                 try:
                     tile = phases.column_tile(cfg.kb, dtype, phase, ti, tj,

@@ -5,6 +5,8 @@ card and skip without one; on a machine with one, run
     python -m pytest tests/test_torch_cuda.py -q -n 0 -m cuda
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -39,21 +41,34 @@ def _close(got, want, tol, floor=0.0):
     assert err <= tol * scale or err == 0.0, (err, tol * scale)
 
 
+@pytest.mark.parametrize("form", ["full", "scalar", "row"])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("k0,k_last", [(1, 7), (1, 8), (2, 8)])
-def test_tridiag_kernel_matches_plain(card, dtype, k0, k_last):
+def test_tridiag_kernel_matches_plain(card, dtype, k0, k_last, form):
+    """The kernel gives thomas_plain's bits, with 2-D operands as (im, jm)
+    arrays, as 0-d scalars (ee0, db, mask) and broadcast along a row or a
+    column (gg0 a row, rb a column, cl a level of a), which it reads by
+    stride; at kb 9 and at config5's 41 on a ragged grid."""
     rng = np.random.default_rng(5)
-    kb, im, jm = 9, 13, 17
-    r3 = lambda s, o: o + s * rng.random((kb, im, jm))
-    r2 = lambda s, o: o + s * rng.random((im, jm))
-    ops = [-r3(0.5, 0.1), -r3(0.5, 0.1), r3(0.2, 1.0), r3(2.0, -1.0),
-           r2(0.5, 0.0), r2(1.0, 0.0), r2(0.3, -0.4), r2(1.0, 0.0),
-           r2(0.5, -1.5), (rng.random((im, jm)) > 0.3).astype(float)]
-    ops = [torch.tensor(x, dtype=dtype, device=card) for x in ops]
-    before = kernels.LAUNCHES["tridiag"]
-    got = tridiag.thomas(*ops, k0, k_last)
-    assert kernels.LAUNCHES["tridiag"] == before + 1
-    _close(got, tridiag.thomas_plain(*ops, k0, k_last), TOL[dtype])
+    for kb, im, jm in ((9, 13, 17), (41, 37, 70)):
+        r3 = lambda s, o: o + s * rng.random((kb, im, jm))
+        r2 = lambda s, o: o + s * rng.random((im, jm))
+        ops = [-r3(0.5, 0.1), -r3(0.5, 0.1), r3(0.2, 1.0), r3(2.0, -1.0),
+               r2(0.5, 0.0), r2(1.0, 0.0), r2(0.3, -0.4), r2(1.0, 0.0),
+               r2(0.5, -1.5), (rng.random((im, jm)) > 0.3).astype(float)]
+        ops = [torch.tensor(x, dtype=dtype, device=card) for x in ops]
+        kl = k_last + kb - 9
+        if form == "scalar":
+            for i, x in ((4, 0.25), (8, -1.2), (9, 1.0)):
+                ops[i] = torch.tensor(x, dtype=dtype, device=card)
+        if form == "row":
+            ops[5], ops[7], ops[6] = ops[5][0], ops[7][:, :1], ops[0][kl]
+        before = kernels.LAUNCHES["tridiag"]
+        got = tridiag.thomas(*ops, k0, kl)
+        assert kernels.LAUNCHES["tridiag"] == before + 1
+        ops = [x if i < 4 else torch.broadcast_to(x, (im, jm))
+               for i, x in enumerate(ops)]
+        assert torch.equal(got, tridiag.thomas_plain(*ops, k0, kl)), kb
 
 
 # the persistent kernel's grid-stride loop: a few cells per thread (32x48),
@@ -256,7 +271,7 @@ def test_orlanski_raises_on_the_card(card):
 PHASE_TOL = {torch.float64: 1e-10, torch.float32: 1e-5}
 # phase kernels held to their plain versions bit for bit: their math is
 # +, -, *, / and sqrt, each correctly rounded on the card
-BIT_EQUAL = ("lat", "mom")
+BIT_EQUAL = ("lat", "uvw", "mom")
 _PHASE_CASES = {}
 
 
@@ -357,13 +372,13 @@ def test_tracer_kernel_surface_conditions(card, nbc, dtype):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("shape", [(33, 65, 9), (24, 40, 41), (17, 33, 4)],
                          ids=["ragged", "kb41", "kb4"])
-@pytest.mark.parametrize("phase", ["lat", "tke", "tracer", "mom"])
+@pytest.mark.parametrize("phase", ["lat", "uvw", "tke", "tracer", "mom"])
 def test_column_tiles_agree(card, phase, shape, dtype):
     """Every tile of the sweep (tools/phase_sweep.py TILES) that fits gives
-    the default tile's bits, and mom's with and without its levels kept in
-    shared memory, on a ragged grid and at kb 41 and 4; the card gives the
-    planned tile the shared memory the planner counted, and in f32 at
-    least 16 warps per SM."""
+    the default tile's bits, and uvw's and mom's with and without their
+    levels kept in shared memory, on a ragged grid and at kb 41 and 4; the
+    card gives the planned tile the shared memory the planner counted, and
+    in f32 at least 16 warps per SM."""
     from extpom_tpu_torch.tools.phase_sweep import TILES
     g, cfg, args = _phase_case(*shape)
     g = _to(g, card, dtype)
@@ -372,7 +387,8 @@ def test_column_tiles_agree(card, phase, shape, dtype):
     fn = getattr(phases, f"phase_{phase}")
     want = fn(g, cfg, *args)
     for ti, tj in TILES:
-        for keep in ((False, True) if phase == "mom" else (None,)):
+        for keep in ((False, True) if phase in ("uvw", "mom")
+                     else (None,)):
             try:
                 tile = phases.column_tile(cfg.kb, dtype, phase, ti, tj, keep)
             except ValueError:
@@ -387,6 +403,56 @@ def test_column_tiles_agree(card, phase, shape, dtype):
     assert info["blocks_per_sm"] >= 1
     if dtype == torch.float32:
         assert info["blocks_per_sm"] * tile.ti * tile.tj >= 16 * 32
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", [(96, 80, 41), (40, 72, 31)],
+                         ids=["kb41", "kb31"])
+def test_uvw_tiles_bit_equal(card, shape, dtype):
+    """uvw's every tile of the sweep, with and without its levels kept, is
+    the plain phase bit for bit at config5's depth on a ragged 96x80 grid
+    and at the main path's kb 31, one device launch each."""
+    from extpom_tpu_torch.tools.phase_sweep import TILES
+    g, cfg, args = _phase_case(*shape)
+    g = _to(g, card, dtype)
+    cfg = cfg.replace(dtype=str(dtype).split(".")[1])
+    args = [_to(x, card, dtype) for x in args["uvw"]]
+    want = phases.phase_uvw_plain(g, cfg, *args)
+    ran = 0
+    for (ti, tj), keep in itertools.product(TILES, (False, True)):
+        try:
+            tile = phases.column_tile(cfg.kb, dtype, "uvw", ti, tj, keep)
+        except ValueError:
+            continue
+        if phases.tile_info("uvw", dtype, tile)["blocks_per_sm"] < 1:
+            continue
+        before = phases.uvw_device_launches()
+        got = phases.phase_uvw(g, cfg, *args, tile=tile)
+        assert phases.uvw_device_launches() == before + 1
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), (ti, tj, keep)
+        ran += 1
+    assert ran >= len(TILES)
+
+
+def test_uvw_one_device_launch(card):
+    """One call of phase_uvw, on the grid or on a block, is one kernel
+    launch of the library (the library counts them)."""
+    g, cfg, args = _phase_case(33, 65, 9)
+    g = _to(g, card, torch.float32)
+    cfg = cfg.replace(dtype="float32")
+    args = [_to(x, card, torch.float32) for x in args["uvw"]]
+    before = phases.uvw_device_launches()
+    phases.phase_uvw(g, cfg, *args)
+    assert phases.uvw_device_launches() == before + 1
+    rec = _mesh_calls()
+    (g, cfg, *args), kw = rec["calls"]["uvw"][0]
+    g = _to(g, card, torch.float32)
+    cfg = cfg.replace(dtype="float32")
+    args = [_to(x, card, torch.float32) for x in args]
+    before = phases.uvw_device_launches()
+    phases.phase_uvw(g, cfg, *args, **kw)
+    assert phases.uvw_device_launches() == before + 1
 
 
 # ---- the decomposed step's block kernels (extchunk, extwin_chunk and

@@ -126,9 +126,9 @@ def case():
 
 
 # config5's depth, where the card's tile kernels hold their level ring,
-# ee/gg rows and (mom) kept levels for 41 levels, on a small grid
+# ee/gg rows and (uvw, mom) kept levels for 41 levels, on a small grid
 DEEP_KW = dict(im=24, jm=16, kb=41, dtype="float64", isplit=6)
-TILED = ["lat", "tke", "tracer", "mom"]
+TILED = ["lat", "uvw", "tke", "tracer", "mom"]
 
 
 @pytest.fixture(scope="module")

@@ -4,6 +4,8 @@ JAX package's Pallas kernel (interpret mode) and its scan pair, on the
 four (k0, k_last, bottom-row) variants of the vertical solvers, at a
 lane-unaligned 13x17x9 in float64 (atol 1e-12)."""
 
+from contextlib import nullcontext
+
 import numpy as np
 import pytest
 import torch
@@ -120,3 +122,64 @@ def test_thomas_never_hands_other_devices_to_the_plain_version():
     ops = [x.to("meta") for x in _good()]
     with pytest.raises(TypeError):
         tridiag.thomas(*ops, 1, KB - 2)
+
+
+class _FakeLibrary:
+    """Stands in for the kernel library: records what a launch passes."""
+
+    def __init__(self):
+        self.calls = []
+
+    def extpom_tridiag_f64(self, ptrs, strides, *ints):
+        self.calls.append((list(ptrs), list(strides), ints))
+        return 0
+
+
+def test_launch_reads_broadcast_operands_in_place(monkeypatch):
+    """The launch path hands the kernel each 2-D operand where the caller
+    keeps it, with its element strides (0 along a broadcast axis): a 0-d
+    ee0, a row gg0, a column rb and a level of a as cl go in uncopied, and
+    the output is the one tensor it allocates (no ee/gg scratch)."""
+    ops = _good()
+    a = ops[0]
+    ops[4] = torch.tensor(0.25, dtype=torch.float64)
+    ops[5] = ops[5][0]
+    ops[7] = ops[7][:, :1]
+    ops[6] = a[KB - 2]
+    lib = _FakeLibrary()
+    monkeypatch.setattr(tridiag.build, "library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 0}))
+    monkeypatch.setattr(torch.cuda, "device", lambda device: nullcontext())
+    empty = torch.empty_like
+    made = []
+    monkeypatch.setattr(torch, "empty_like",
+                        lambda *x, **k: made.append(empty(*x, **k))
+                        or made[-1])
+    monkeypatch.setattr(torch, "empty", None)    # nothing else allocates
+    three, two = tridiag._check(*ops, 1, KB - 2)
+    out = tridiag._launch(three, two, 1, KB - 2)
+    (ptrs, strides, ints), = lib.calls
+    assert [m.data_ptr() for m in made] == [out.data_ptr()] == ptrs[10:]
+    assert ptrs[:10] == [x.data_ptr() for x in ops]
+    assert strides == [0, 0, 0, 1, JM, 1, JM, 0, JM, 1, JM, 1]
+    assert ints == (KB, IM, JM, 1, KB - 2,
+                    tridiag.block_threads(KB, torch.float64), 0)
+
+
+@pytest.mark.parametrize("kb,dtype,threads", [
+    (31, torch.float32, 256), (41, torch.float32, 128),
+    (31, torch.float64, 128), (41, torch.float64, 64),
+    (200, torch.float64, 32)])
+def test_block_threads_fit_two_blocks_an_sm(kb, dtype, threads):
+    """The stacks and the coefficient ring of a block fit twice into an
+    SM's shared memory with the most threads that allow it (f64 at kb=41:
+    64 columns, 58,368 bytes)."""
+    assert tridiag.block_threads(kb, dtype) == threads
+    smem = tridiag.smem_bytes(kb, dtype, threads)
+    assert 2 * (smem + tridiag.SMEM_RESERVED) <= tridiag.SM_SMEM
+    if threads < 256:
+        bigger = tridiag.smem_bytes(kb, dtype, 2 * threads)
+        assert 2 * (bigger + tridiag.SMEM_RESERVED) > tridiag.SM_SMEM
+    with pytest.raises(ValueError, match="do not fit"):
+        tridiag.block_threads(500, torch.float64)
