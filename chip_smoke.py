@@ -18,10 +18,20 @@ for bit (uvw with one device launch per call, by the library's count),
 and timed on the large-grid path's operands (``[large_phases]``) and, with
 the window chunks, on every call of one step of its decomposed blocks
 (``[large_mesh_phases]``), with the registers, shared memory and resident
-blocks the card gives them.  The Thomas kernel is held to its plain
+blocks the card gives them.  Two more paths go through the run driver
+``extpom_tpu_torch.run.main`` with NetCDF output, each resumed from its
+mid-run restart and held equal to the whole run: the main path's seamount
+(``[cli]``, 48 steps) and the tidal channel at 512x512x31, whose lateral
+series are staged on the card a window per segment and interpolated at
+every step (``[channel]``, 120 steps; the window kernel where the L2
+dispatch picks it), each of whose kernels is held to its plain version on
+the operands of steps after the restart (``[channel_kernels]``);
+``[channel_check]`` holds the channel's float64 kernel path, with the
+whole-grid loop and with the window kernel, to the plain path on the CPU,
+beside the plain path on the card and a one-ulp change of T.  The Thomas kernel is held to its plain
 version bit for bit and timed at 256x256x31, 256x256x41 and
 2048x2048x41.  It checks the
-results, prints the dispatch echo of the four, one ``kernels`` JSON line,
+results, prints the dispatch echo of five, one ``kernels`` JSON line,
 the card's name and power limit, and a last JSON line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero; without a CUDA device it exits 1 and prints no result.
@@ -29,10 +39,14 @@ exits non-zero; without a CUDA device it exits 1 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1089,10 +1103,11 @@ def mesh_of(run: dict):
 
 
 def record_calls(steps_fn, kinds=PHASES + ("chunk",)):
-    """Every call of a phase wrapper or of a block chunk's that
-    ``steps_fn()`` makes, as {"lat", ..., "mom", "chunk", "extwin_chunk":
-    [(args, kwargs)]} for those of ``kinds``: the wrappers pass through, the
-    operands are kept."""
+    """Every call of a phase wrapper, of a block chunk's or of a whole-grid
+    external loop's that ``steps_fn()`` makes, as {"lat", ..., "mom",
+    "chunk", "extwin_chunk", "extloop", "extwin": [(args, kwargs)]} for
+    those of ``kinds``: the wrappers pass through, the operands are
+    kept."""
     from extpom_tpu_torch.kernels import extloop, extwin, phases
     calls = {}
     saved = [(phases, f"phase_{p}", p) for p in PHASES if p in kinds]
@@ -1100,6 +1115,10 @@ def record_calls(steps_fn, kinds=PHASES + ("chunk",)):
         saved.append((extloop, "run_external_chunk", "chunk"))
     if "extwin_chunk" in kinds:
         saved.append((extwin, "run_external_chunk_windowed", "extwin_chunk"))
+    if "extloop" in kinds:
+        saved.append((extloop, "run_external_loop", "extloop"))
+    if "extwin" in kinds:
+        saved.append((extwin, "run_external_loop_windowed", "extwin"))
     fns = [getattr(mod, name) for mod, name, _ in saved]
 
     def spy(key, fn):
@@ -1567,6 +1586,448 @@ def window_chunk_check(flush: L2Flush, blocks, args) -> dict:
     return entry
 
 
+STEP_S = 180.0                 # dti of the CLI paths (dte 6 s x isplit 30)
+CLI_STEPS, CLI_PRINT, CLI_RESTART = 48, 12, 24      # [cli], 256x256x31
+CHANNEL = (512, 512, 31)                            # [channel]
+CHANNEL_STEPS, CHANNEL_PRINT, CHANNEL_RESTART = 120, 30, 60
+
+
+def run_cli(conf: dict, tmp: str, tag: str, **extra) -> tuple:
+    """``extpom_tpu_torch.run.main`` on ``conf`` (with ``extra``) written to
+    a file under ``tmp``, on the card, its output captured.  Returns (the
+    driver's lines, the launch counts of the run, its peak device
+    memory)."""
+    from extpom_tpu_torch import kernels, run
+    conf = {**conf, **extra, "out_dir": os.path.join(tmp, tag)}
+    path = os.path.join(tmp, f"{tag}.json")
+    with open(path, "w") as f:
+        json.dump(conf, f)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = run.main([path])
+    if rc != 0:
+        raise AssertionError(f"{tag}: run.main returned {rc}:\n"
+                             + buf.getvalue())
+    return (buf.getvalue().splitlines(), dict(kernels.LAUNCHES),
+            torch.cuda.max_memory_allocated())
+
+
+def driver_numbers(lines) -> dict:
+    """The numbers of the driver's closing lines: wall seconds and steps,
+    the writes, the writer thread's seconds and the driver's blocked
+    seconds; the diagnostics lines; the external machine it echoed."""
+    text = "\n".join(lines)
+    wall, steps = re.search(r"wall clock: ([\d.]+) s for (\d+) steps",
+                            text).groups()
+    n, busy, blocked = re.search(
+        r"writes: (\d+) in ([\d.]+) s on the writer thread, ([\d.]+) s",
+        text).groups()
+    machine = re.search(r"external mode: (\S+)", text).group(1)
+    return dict(wall=float(wall), steps=int(steps), writes=int(n),
+                busy=float(busy), blocked=float(blocked), machine=machine,
+                prints=[l for l in lines if l.startswith("time =")])
+
+
+def records(path: str) -> int:
+    from scipy.io import netcdf_file
+    f = netcdf_file(path, "r", mmap=False)
+    try:
+        return f.variables["time"].shape[0]
+    finally:
+        f.close()
+
+
+def restart_state(path: str, cfg):
+    """The State of a restart file the driver wrote, on the card."""
+    from extpom_tpu_torch.io import netcdf as ncio
+    return ncio.read_restart_nc(path, cfg, "cuda")
+
+
+def assert_states_equal(a, b, what: str) -> None:
+    for f in a.field_names():
+        if not torch.equal(getattr(a, f), getattr(b, f)):
+            raise AssertionError(f"{what}: {f} differs")
+
+
+def say_driver(tag: str, nums: dict, cells: int, peak: int, card: str,
+               **kv) -> None:
+    steps = nums["steps"]
+    hidden = (1.0 - nums["blocked"] / nums["busy"]) if nums["busy"] else 0.0
+    say(tag, wall_s=f"{nums['wall']:.3f}", steps=steps,
+        ms_per_step=f"{nums['wall'] / steps * 1e3:.3f}",
+        ms_per_step_not_blocked=(
+            f"{(nums['wall'] - nums['blocked']) / steps * 1e3:.3f}"),
+        mgrid_pt_steps_per_s=f"{cells * steps / nums['wall'] / 1e6:.2f}",
+        writes=nums["writes"], write_s=f"{nums['busy']:.3f}",
+        driver_blocked_s=f"{nums['blocked']:.3f}",
+        write_share_hidden=f"{hidden:.3f}",
+        peak_mem_gb=f"{peak / 1e9:.3f}", external=nums["machine"], **kv,
+        card=f"'{card}'")
+
+
+def cli_phase(card: str) -> tuple:
+    """The run driver on the main path's configuration: ``run.main`` on the
+    seamount case at 256x256x31 float32 (mode 3, extpom, isplit 30),
+    CLI_STEPS steps with a print every CLI_PRINT, a restart every
+    CLI_RESTART and NetCDF output; then resumed from the restart at
+    CLI_RESTART to the end.  The two runs' final restarts are held equal
+    field by field, and to a ``Model.run_segment`` run of the same steps;
+    one snapshot per print, saver, and the exact launch counts of each run.
+    Returns (the whole run's launch counts, the resumed run's)."""
+    from extpom_tpu_torch.cases.seamount import seamount_model
+    from extpom_tpu_torch.diag import stats
+    from extpom_tpu_torch.io import netcdf as ncio
+    conf = {"run_name": "cli", "case": "seamount",
+            "case_args": {"im": IM, "jm": JM, "kb": KB},
+            "config": {"dtype": "float32",
+                       "days": CLI_STEPS * STEP_S / 86400,
+                       "prtd1": CLI_PRINT * STEP_S / 86400,
+                       "write_rst": CLI_RESTART * STEP_S / 86400},
+            "out_format": "nc"}
+    with tempfile.TemporaryDirectory() as tmp:
+        lines, launches, peak = run_cli(conf, tmp, "whole")
+        nums = driver_numbers(lines)
+        n = CLI_STEPS
+        want = {**dict.fromkeys(launches, 0), "extloop": n, "phase_lat": n,
+                **{f"phase_{p}": n - 1 for p in PHASES[1:]}}
+        if launches != want or nums["machine"] != "cuda-chain":
+            raise AssertionError(f"cli: {nums['machine']}, launch counts "
+                                 f"{launches} != {want}")
+        n_rec = records(os.path.join(tmp, "whole", "cli.nc"))
+        if n_rec != n // CLI_PRINT or len(nums["prints"]) != n_rec:
+            raise AssertionError(f"cli: {n_rec} snapshots, "
+                                 f"{len(nums['prints'])} prints")
+        rst = os.path.join(tmp, "whole", f"cli.rst.{n:06d}.nc")
+        ref = seamount_model(im=IM, jm=JM, kb=KB)
+        cfg = ref.cfg
+        whole, iint, _ = restart_state(rst, cfg)
+        s = {k: float(v) for k, v in
+             stats.domain_stats(ref.grid, cfg, whole).items()}
+        if iint != n or not abs(s["saver"] - 15.0) <= 1e-4:
+            raise AssertionError(f"cli: iint {iint}, saver {s['saver']}")
+        # the restart holds the fields the reference checkpoints; the others
+        # are seeded when it is read
+        ref.run_segment(n)
+        for f in ncio.RESTART_FIELDS:
+            if not torch.equal(getattr(whole, f), getattr(ref.state, f)):
+                raise AssertionError(f"cli vs run_segment: {f} differs")
+        del ref
+        r_lines, r_launches, _ = run_cli(
+            conf, tmp, "resumed", nread_rst=1,
+            read_rst_path=os.path.join(tmp, "whole",
+                                       f"cli.rst.{CLI_RESTART:06d}.nc"))
+        r_nums = driver_numbers(r_lines)
+        half = n - CLI_RESTART
+        r_want = {**dict.fromkeys(r_launches, 0), "extloop": half,
+                  **{f"phase_{p}": half for p in PHASES}}
+        if r_launches != r_want:
+            raise AssertionError(f"cli resumed: launch counts {r_launches} "
+                                 f"!= {r_want}")
+        if r_nums["prints"] != nums["prints"][-len(r_nums["prints"]):]:
+            raise AssertionError("cli resumed: its prints differ")
+        resumed, _, _ = restart_state(
+            os.path.join(tmp, "resumed", f"cli.rst.{n:06d}.nc"), cfg)
+        assert_states_equal(resumed, whole, "cli resumed vs whole")
+    for line in nums["prints"]:
+        print(f"[cli] {line}", flush=True)
+    say_driver("cli", nums, IM * JM * KB, peak, card,
+               grid=f"{IM}x{JM}x{KB}", dtype="float32",
+               saver=f"{s['saver']:.7f}", snapshots=n_rec,
+               resumed_from=CLI_RESTART, resumed_equal=True,
+               run_segment_equal=True,
+               launches=json.dumps(launches, separators=(",", ":")),
+               resumed_launches=json.dumps(r_launches,
+                                           separators=(",", ":")))
+    return launches, r_launches
+
+
+class OpCount:
+    """Counts the ATen operations that are not views (each launches a
+    kernel on the card) while it is entered."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        outer = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if not getattr(func, "is_view", False):
+                    outer.n += 1
+                return func(*args, **(kwargs or {}))
+
+        self.n = 0
+        self._mode = Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+
+
+@contextlib.contextmanager
+def plain_path():
+    """While entered, the stepper calls each kernel's plain PyTorch version
+    in place of its wrapper, so that a model on the card runs no kernel of
+    its own (the module attributes ``stepper`` reads are swapped)."""
+    from extpom_tpu_torch.kernels import extloop, extwin, phases
+    swaps = [(phases, f"phase_{p}", getattr(phases, f"phase_{p}_plain"))
+             for p in PHASES]
+    swaps += [(extloop, "run_external_loop", extloop.run_external_loop_plain),
+              (extwin, "run_external_loop_windowed",
+               extwin.run_external_loop_windowed_plain)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    try:
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def channel_kernels(m, steps: int = 3) -> dict:
+    """Each kernel of the channel's path held to its plain version on the
+    card, on the operands of ``steps`` steps of ``m`` (the 512x512x31 f32
+    channel resumed from a restart, its lateral series staged as a window
+    for each one-step segment and interpolated): the external loop (the
+    window kernel where the L2 dispatch picks it), lat, uvw and mom bit for
+    bit, tke and tracer within TOL["phase"] of each output's scale, as in
+    ``[phases]``.  The boundary series the external loop reads must change
+    from step to step.  Returns {kernel: (worst relative error, bit
+    equal)} over the steps."""
+    from extpom_tpu_torch.kernels import extloop, extwin, phases
+    plain = {"extwin": extwin.run_external_loop_windowed_plain,
+             "extloop": extloop.run_external_loop_plain,
+             **{p: getattr(phases, f"phase_{p}_plain") for p in PHASES}}
+    wrapper = {"extwin": lambda: extwin.run_external_loop_windowed,
+               "extloop": lambda: extloop.run_external_loop,
+               **{p: (lambda p=p: getattr(phases, f"phase_{p}"))
+                  for p in PHASES}}
+    tol = TOL["phase"][torch.float32]
+    out, failed, series = {}, [], []
+    for step in range(steps):
+        calls = record_calls(lambda: m.run_segment(1),
+                             PHASES + ("extloop", "extwin"))
+        for key, recorded in calls.items():
+            (args, kw), = recorded
+            got = wrapper[key]()(*args, **kw)
+            want = plain[key](*args)
+            torch.cuda.synchronize()
+            rel = max(rel_err(x, y)[1] for x, y in zip(got, want))
+            equal = all(torch.equal(x, y) for x, y in zip(got, want))
+            bit = key in BIT_EQUAL or key in ("extloop", "extwin")
+            if (bit and not equal) or not rel <= tol:
+                failed.append(f"{key} at step {m.iint}: rel {rel:.3e}, "
+                              f"bit_equal {equal}")
+            worst, all_equal = out.get(key, (0.0, True))
+            out[key] = (max(worst, rel), all_equal and equal)
+            if key in ("extloop", "extwin"):
+                fc = args[3]
+                series.append((fc.elw.clone(), fc.ele.clone()))
+        del calls
+    if any(torch.equal(a[0], b[0]) for a, b in zip(series, series[1:])):
+        failed.append("elw did not change from step to step")
+    if failed:
+        raise AssertionError("channel kernels disagree with their plain "
+                             "versions:\n" + "\n".join(failed))
+    for key, (rel, equal) in out.items():
+        say("channel_kernels", kernel=key, grid="x".join(map(str, CHANNEL)),
+            dtype="float32", steps=steps, rel_err=f"{rel:.3e}",
+            bit_equal=equal, tol="torch.equal" if key in BIT_EQUAL
+            or key in ("extloop", "extwin") else tol)
+    return out
+
+
+def channel_phase(card: str, flush: L2Flush) -> dict:
+    """The tidal channel at CHANNEL (512x512x31) float32 through
+    ``run.main`` (``case: "channel"``) with ``forcing_hbm_mb: 0``, so that
+    the lateral series are staged as a window for every segment:
+    CHANNEL_STEPS steps of 180 s with a print every CHANNEL_PRINT, a
+    restart every CHANNEL_RESTART, NetCDF output; then resumed from the
+    restart at CHANNEL_RESTART and held equal to the whole run.  Gates:
+    finite fields, the tide in the western tenth, salinity 15, the dispatch
+    echo's machine and its exact launch counts.  Then each kernel of the
+    path against its plain version on the operands of steps after the
+    restart (``channel_kernels``), the device busy time of a few more steps,
+    and the plain kernels and time per step of the forcing interpolation.
+    Returns the whole run's launch counts."""
+    from extpom_tpu_torch.core.config import Config
+    from extpom_tpu_torch.forcing import device as fdev
+    from extpom_tpu_torch.kernels import extwin
+    from extpom_tpu_torch import run
+    im, jm, kb = CHANNEL
+    conf = {"run_name": "channel", "case": "channel",
+            "case_args": {"im": im, "jm": jm, "kb": kb},
+            "config": {"dtype": "float32", "forcing_hbm_mb": 0,
+                       "days": CHANNEL_STEPS * STEP_S / 86400,
+                       "prtd1": CHANNEL_PRINT * STEP_S / 86400,
+                       "write_rst": CHANNEL_RESTART * STEP_S / 86400},
+            "out_format": "nc"}
+    n = CHANNEL_STEPS
+    with tempfile.TemporaryDirectory() as tmp:
+        lines, launches, peak = run_cli(conf, tmp, "whole")
+        nums = driver_numbers(lines)
+        cfg = Config(im=im, jm=jm, kb=kb, dtype="float32")
+        windowed = extwin.use_windowed(im, jm, 4, extwin.l2_bytes(
+            torch.device("cuda")))
+        if nums["machine"] != ("cuda-window" if windowed else "cuda-chain"):
+            raise AssertionError(f"channel: the echo names "
+                                 f"{nums['machine']}, windowed={windowed}")
+        ext = ({"extwin": n * (cfg.isplit
+                               // extwin.chunk_geometry(cfg, 4).C)}
+               if windowed else {"extloop": n})
+        want = {**dict.fromkeys(launches, 0), **ext, "phase_lat": n,
+                **{f"phase_{p}": n - 1 for p in PHASES[1:]}}
+        if launches != want:
+            raise AssertionError(f"channel: launch counts {launches} != "
+                                 f"{want}")
+        n_rec = records(os.path.join(tmp, "whole", "channel.nc"))
+        if n_rec != n // CHANNEL_PRINT:
+            raise AssertionError(f"channel: {n_rec} snapshots")
+        os.remove(os.path.join(tmp, "whole", "channel.nc"))
+        whole, iint, _ = restart_state(
+            os.path.join(tmp, "whole", f"channel.rst.{n:06d}.nc"), cfg)
+        for f in whole.field_names():
+            if not bool(torch.isfinite(getattr(whole, f)).all()):
+                raise AssertionError(f"channel: {f} is not finite")
+        west = (im - 2) // 10
+        tide = float(whole.el[1:1 + west, 1:-1].abs().max())
+        if not tide > 0.005:
+            raise AssertionError(f"channel: no tide in the west: {tide}")
+        salt = float((whole.s[:kb - 1, :, 1:-1] - 15.0).abs().max())
+        if not salt <= 1e-4:
+            raise AssertionError(f"channel: salinity drifted by {salt}")
+        r_lines, r_launches, _ = run_cli(
+            conf, tmp, "resumed", nread_rst=1,
+            read_rst_path=os.path.join(tmp, "whole",
+                                       f"channel.rst.{CHANNEL_RESTART:06d}.nc"))
+        resumed, _, _ = restart_state(
+            os.path.join(tmp, "resumed", f"channel.rst.{n:06d}.nc"), cfg)
+        assert_states_equal(resumed, whole, "channel resumed vs whole")
+        if driver_numbers(r_lines)["prints"] != nums["prints"][-2:]:
+            raise AssertionError("channel resumed: its prints differ")
+        m = run.build_model({**conf, "nread_rst": 1,
+                             "read_rst_path": os.path.join(
+                                 tmp, "whole",
+                                 f"channel.rst.{CHANNEL_RESTART:06d}.nc")})
+        channel_kernels(m)
+        del m
+        m = run.build_model({**conf, "nread_rst": 1,
+                             "read_rst_path": os.path.join(
+                                 tmp, "whole", f"channel.rst.{n:06d}.nc")})
+        del whole, resumed
+    for line in nums["prints"]:
+        print(f"[channel] {line}", flush=True)
+    # the interpolation's own cost: the Forcing of one step from the plan
+    plan = m._device_plan(m.time_days, m.time_days + STEP_S / 86400)
+    t = fdev.t_days_at(m.cfg, m.iint + 1, m.time0, torch.float32)
+    interp = lambda: fdev.forcing_at(plan, m.base_forcing, m.cfg, m.grid.dz,
+                                     t)
+    with OpCount() as ops:
+        interp()
+    interp_ms = device_ms(interp, 20, flush)
+    say_driver("channel", nums, im * jm * kb, peak, card,
+               grid=f"{im}x{jm}x{kb}", dtype="float32",
+               series=",".join(plan.names),
+               window_records=plan.stacks[0].shape[0],
+               tide_west_max_m=f"{tide:.4f}", salinity_drift=f"{salt:.3e}",
+               snapshots=n_rec, resumed_from=CHANNEL_RESTART,
+               resumed_equal=True, interp_kernels_per_step=ops.n,
+               interp_ms_per_step=f"{interp_ms:.4f}",
+               launches=json.dumps(launches, separators=(",", ":")))
+    profile_phase(m, steps=3, tag="channel_profile")
+    return launches
+
+
+def state_errors(a, b) -> dict:
+    """{field: max |a - b| / max(1, max |b|)} over every State field, on
+    the host."""
+    out = {}
+    for name in b.field_names():
+        x, y = getattr(a, name).cpu(), getattr(b, name).cpu()
+        out[name] = float((x - y).abs().max()) / max(1.0,
+                                                     float(y.abs().max()))
+    return out
+
+
+# the channel_check runs, each compared with the second of its pair
+CHECK_PAIRS = (("kernels", "cpu"), ("window", "cpu"), ("plain", "cpu"),
+               ("kernels", "plain"), ("cpu_ulp", "cpu"))
+
+
+def channel_check() -> None:
+    """The channel at its case size (97x33x16) in float64 with its staged
+    plan, 4 and then 16 more steps of ``run_segment``.  Gates at step 20:
+    the kernel path on the card against the plain path on the CPU, every
+    field within 1e-9 of its scale (the golden check's limit for the
+    float64 kernel path); the same with the window kernel in place of the
+    whole-grid loop (the dispatch's choice forced, as the L2 rule makes it
+    at 512x512 f32), which must also end bit-equal to the whole-grid loop's
+    run.  Reported at steps 4 and 20, to show where the difference between
+    the card and the CPU comes from: the plain path on the card against the
+    CPU, the kernels against the plain path on the card, and the CPU
+    against itself with T raised by one ulp; each with its worst field, the
+    errors of the baroclinic depth sums drx2d/dry2d and dry2d's size."""
+    from extpom_tpu_torch import kernels
+    from extpom_tpu_torch.cases.channel import channel_model
+    from extpom_tpu_torch.kernels import extwin
+    runs = {name: channel_model(device=dev, dtype="float64")
+            for name, dev in (("kernels", "cuda"), ("window", "cuda"),
+                              ("plain", "cuda"), ("cpu", "cpu"),
+                              ("cpu_ulp", "cpu"))}
+    ulp = 1.0 + 2.0 ** -52
+    m = runs["cpu_ulp"]
+    m.state = m.state.replace(t=m.state.t * ulp, tb=m.state.tb * ulp)
+    use_windowed = extwin.use_windowed
+    window_launches = 0
+    for n in (4, 16):
+        for name, m in runs.items():
+            if name == "plain":
+                with plain_path():
+                    m.run_segment(n)
+                continue
+            if name == "window":
+                extwin.use_windowed = lambda *a: True
+                before = kernels.LAUNCHES["extwin"]
+            try:
+                m.run_segment(n)
+            finally:
+                extwin.use_windowed = use_windowed
+            if name == "window":
+                window_launches += kernels.LAUNCHES["extwin"] - before
+        step = runs["cpu"].iint
+        errs = {pair: state_errors(runs[pair[0]].state, runs[pair[1]].state)
+                for pair in CHECK_PAIRS}
+        for (a, b), err in errs.items():
+            worst = max(err, key=err.get)
+            say("channel_check", grid="97x33x16", step=step, dtype="float64",
+                compare=f"{a}-{b}", worst_rel_err=f"{err[worst]:.3e}",
+                worst_field=worst, drx2d_err=f"{err['drx2d']:.3e}",
+                dry2d_err=f"{err['dry2d']:.3e}",
+                dry2d_max=f"{float(runs[b].state.dry2d.abs().max()):.3e}")
+    for a in ("kernels", "window"):
+        err = errs[(a, "cpu")]
+        worst = max(err, key=err.get)
+        if not err[worst] <= 1e-9:
+            raise AssertionError(f"channel {a} on the card vs the CPU, "
+                                 f"{worst}: {err[worst]}")
+    cfg = runs["window"].cfg
+    want = 20 * cfg.isplit // extwin.chunk_geometry(cfg, 8).C
+    if window_launches != want:
+        raise AssertionError(f"channel window run: {window_launches} window "
+                             f"launches, not {want}")
+    assert_states_equal(runs["window"].state, runs["kernels"].state,
+                        "channel window vs whole-grid loop")
+    say("channel_check", grid="97x33x16", steps=20, dtype="float64",
+        worst_rel_err=f"{max(errs[('kernels', 'cpu')].values()):.3e}",
+        window_worst_rel_err=f"{max(errs[('window', 'cpu')].values()):.3e}",
+        window_launches=window_launches, window_equal_to_loop=True,
+        tol="1e-9")
+
+
 def dispatch_echo(*runs) -> None:
     """The dispatch report of each (configuration, mesh block or None) in
     float32 on the card."""
@@ -1614,13 +2075,19 @@ def main() -> int:
     large_mesh_launches, win_chunk, large_mesh_tiled = large_mesh_phase(
         card, flush, large_ref)
     del large_ref
+    cli_launches, _ = cli_phase(card)
+    channel_launches = channel_phase(card, flush)
+    channel_check()
     with open(LARGE) as f:
         mesh_block = json.load(f)["mesh"]
+    channel_cfg = cfg.replace(dtype="float32", im=CHANNEL[0], jm=CHANNEL[1],
+                              kb=CHANNEL[2])
     dispatch_echo((cfg.replace(dtype="float32"), None), (large_cfg, None),
                   (cfg.replace(dtype="float32"), mesh_block),
-                  (large_cfg, mesh_block))
+                  (large_cfg, mesh_block), (channel_cfg, None))
     paths = {"slice_256": launches, "large_2048": large_launches,
-             "mesh_256": mesh_launches, "mesh_2048": large_mesh_launches}
+             "mesh_256": mesh_launches, "mesh_2048": large_mesh_launches,
+             "cli_256": cli_launches, "channel_512": channel_launches}
     by_path = lambda k: {p: c[k] for p, c in paths.items()}
     mesh_k["extwin_chunk"] = win_chunk
     for p, (ms, bound) in large_mesh_tiled.items():

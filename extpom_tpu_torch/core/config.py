@@ -88,6 +88,10 @@ class Config:
     ext_halo_sub: int = 3      # ring cells a substep consumes (radius 2,
                                # + 1 for the metrics of ext_precompute)
 
+    # -- forcing series (forcing/device.py) --
+    forcing_hbm_mb: int = 512  # device budget of a staged series: beyond
+                               # it run_segment stages a window per segment
+
     # derived quantities (initialize.f:177-191)
     @property
     def dti(self) -> float:

@@ -16,7 +16,8 @@ from extpom_tpu_torch.core.state import Forcing, State
 
 
 def _tensor(a, device, dtype) -> torch.Tensor:
-    return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
+    return torch.from_numpy(np.array(a, order="C")).to(device=device,
+                                                       dtype=dtype)
 
 
 def _fields(cls, src: Mapping[str, np.ndarray], device, dtype) -> dict:
@@ -37,3 +38,16 @@ def from_numpy(cfg: Config, grid: Mapping, state: Mapping,
             State(**_fields(State, state, device, dtype)),
             Forcing(**_fields(Forcing, forcing, device, dtype)),
             t(rmean), t(tclim), t(sclim))
+
+
+def plan_from_numpy(names, cadences, offsets, interp, stacks, starts,
+                    device, dtype):
+    """A ``forcing.device.DevicePlan`` from the fields of the JAX
+    package's (its record stacks as numpy arrays, its window starts as
+    ints), so that both packages interpolate the same records."""
+    from extpom_tpu_torch.forcing.device import DevicePlan
+    return DevicePlan(tuple(names), tuple(float(c) for c in cadences),
+                      tuple(float(o) for o in offsets),
+                      tuple(bool(i) for i in interp),
+                      tuple(_tensor(s, device, dtype) for s in stacks),
+                      tuple(int(s) for s in starts))

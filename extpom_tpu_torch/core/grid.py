@@ -177,8 +177,8 @@ def make_grid(cfg: Config, z, zz, dx, dy, h, fsm,
     hmax = (np.max(np.asarray(h) * np.asarray(fsm))
             if np.any(np.asarray(fsm) > 0) else np.max(h))
 
-    def dev(a):
-        return torch.from_numpy(np.array(a, dtype=np.float64)).to(
+    def dev(a):     # C order: a field read from a file may be transposed
+        return torch.from_numpy(np.array(a, dtype=np.float64, order="C")).to(
             device=device, dtype=dtype)
 
     return Grid(

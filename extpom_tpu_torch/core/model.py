@@ -1,6 +1,9 @@
 """High-level model driver (``extpom_tpu/core/model.py``): cold start, the
 time loop, print-interval diagnostics and the blow-up guard, on one device
-or decomposed over a mesh (:meth:`Model.shard`)."""
+or decomposed over a mesh (:meth:`Model.shard`), with time-varying forcing
+from a ``forcing_fn`` (a ``forcing.provider.ForcingProvider``: staged on
+the device for :meth:`Model.run_segment`, assembled on the host per step
+for :meth:`Model.step_once` and :meth:`Model.run`)."""
 
 from __future__ import annotations
 
@@ -19,7 +22,11 @@ from extpom_tpu_torch.diag import stats as diag_stats
 
 
 def _as(x, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=like.dtype, device=like.device)
+    """``x`` as a contiguous tensor of ``like``'s dtype and device (an
+    initial field read from a file may be a strided view; the kernels take
+    contiguous operands)."""
+    return torch.as_tensor(x, dtype=like.dtype,
+                           device=like.device).contiguous()
 
 
 def cold_start(grid: Grid, cfg: Config, tb, sb, tclim, sclim, elb=None,
@@ -91,8 +98,9 @@ def edge_forcing(fc: Forcing, tb, sb, elb, uab, vab, ub, vb) -> Forcing:
 
 
 class Model:
-    """Owns (grid, cfg, state, climatology) and drives the time loop with
-    the static edge-seeded forcing of the cold start.
+    """Owns (grid, cfg, state, climatology) and drives the time loop.  The
+    forcing is the static edge-seeded forcing of the cold start
+    (``base_forcing``) unless ``forcing_fn(model, iint)`` is set.
 
     A model resumed from a carried-across state (``core.convert``) passes
     ``state``, ``rmean``, ``tclim``, ``sclim``, ``base_forcing`` and
@@ -126,6 +134,9 @@ class Model:
         self.time0 = 0.0
         self.mesh = None       # set by shard()
         self.blocks = None     # the decomposed model, on a mesh of > 1 block
+        self.forcing_fn: Optional[Callable] = None
+        self._plan = None          # (provider, whole staged plan)
+        self._plan_bytes = None    # (provider, its whole staging's bytes)
         try:
             self.period = grid.inertial_period_days()
         except ValueError:
@@ -134,6 +145,38 @@ class Model:
     @property
     def time_days(self) -> float:
         return self.cfg.dti * self.iint / 86400.0 + self.time0
+
+    def _period(self) -> float:
+        return self.period if math.isfinite(self.period) else 1.0
+
+    def ramp_value(self, iint: int) -> float:
+        """Inertial ramp factor of internal step ``iint`` (advance.f:62-75),
+        as :meth:`run_segment` forms it."""
+        return stepper.ramp_at(self.cfg, iint, self._period(), self.time0)
+
+    def forcing_at(self, iint: int) -> Forcing:
+        """The Forcing of internal step ``iint``, assembled on the host by
+        ``forcing_fn`` (``base_forcing`` without one), with its ramp."""
+        fc = (self.forcing_fn(self, iint) if self.forcing_fn is not None
+              else self.base_forcing)
+        return fc.replace(ramp=torch.full(
+            (), self.ramp_value(iint), dtype=self.grid.dtype,
+            device=self.grid.device))
+
+    def compute_wr(self) -> torch.Tensor:
+        """Physical (z-coordinate) vertical velocity ``wr`` of the current
+        state (realvertvl, solver.f:2024-2067), computed on demand at output
+        time from the post-step time levels."""
+        from extpom_tpu_torch.ops import continuity
+        st = self.gathered_state()
+        return continuity.realvertvl(self.grid, self.cfg, st.w, st.u, st.v,
+                                     self.grid.h + st.et, st.et, st.etf,
+                                     st.etb)
+
+    def _no_forcing_on_mesh(self) -> None:
+        if self.blocks is not None and self.forcing_fn is not None:
+            raise NotImplementedError(
+                "time-varying forcing on a mesh is not ported yet")
 
     def shard(self, mesh, mode: str = "shardmap") -> "Model":
         """Decompose the model over ``mesh`` (``mesh.shardmap.Mesh``; the
@@ -149,6 +192,9 @@ class Model:
                                       f"ported; the port has 'shardmap'")
         if self.blocks is not None:
             raise ValueError("the model is already decomposed")
+        if mesh.px * mesh.py > 1 and self.forcing_fn is not None:
+            raise NotImplementedError(
+                "time-varying forcing on a mesh is not ported yet")
         device = mesh.device
         if device != self.grid.device and not (
                 device.type == self.grid.device.type == "cuda"
@@ -171,28 +217,71 @@ class Model:
         from extpom_tpu_torch.mesh import shardmap
         return shardmap.gather_state(self.blocks)
 
+    def _device_plan(self, t0_days=None, t1_days=None):
+        """The staged forcing series of a ``ForcingProvider`` forcing_fn
+        (``forcing.device``), or None.  Within ``cfg.forcing_hbm_mb`` the
+        whole series is staged once and kept; beyond it the records of
+        ``[t0_days, t1_days]`` are staged anew for each call."""
+        from extpom_tpu_torch.forcing import device as fdev
+        from extpom_tpu_torch.forcing.provider import ForcingProvider
+        p = self.forcing_fn
+        if not isinstance(p, ForcingProvider):
+            return None
+        budget = self.cfg.forcing_hbm_mb * 2 ** 20
+        # plan_bytes reads record 0 of every series: once per provider
+        if self._plan_bytes is None or self._plan_bytes[0] is not p:
+            self._plan_bytes = (p, fdev.plan_bytes(p))
+        if self._plan_bytes[1] > budget and t0_days is not None:
+            return fdev.make_device_plan(p, budget_bytes=budget,
+                                         t0_days=t0_days, t1_days=t1_days)
+        if self._plan is None or self._plan[0] is not p:
+            self._plan = (p, fdev.make_device_plan(p))
+        return self._plan[1]
+
     def run_segment(self, n_steps: int) -> Optional[State]:
         """Advance ``n_steps`` internal steps (``stepper.run_steps``, or on
         a mesh the decomposed step); returns ``state``.  On a mesh that is
         None: the segment gathers nothing (a gather copies a whole State,
         ~14 GB at 2048x2048x41 f32), so call :meth:`gathered_state` for the
-        global state."""
-        period = self.period if math.isfinite(self.period) else 1.0
+        global state.  A ``ForcingProvider`` forcing_fn is staged on the
+        device and interpolated at every step; any other forcing_fn needs
+        :meth:`run`."""
+        from extpom_tpu_torch.forcing.provider import ForcingProvider
+        if not (self.forcing_fn is None
+                or isinstance(self.forcing_fn, ForcingProvider)):
+            raise ValueError("run_segment needs a ForcingProvider-backed "
+                             "forcing_fn (or none); use run() for "
+                             "arbitrary per-step forcing")
+        self._no_forcing_on_mesh()
+        period = self._period()
         if self.blocks is not None:
             from extpom_tpu_torch.mesh import shardmap
             shardmap.make_shardmap_run(self.blocks, self.cfg, period,
                                        self.time0)(
                 self.iint, n_steps, first=(self.iint == 0))
         else:
+            t0 = self.time_days
+            plan = self._device_plan(
+                t0, t0 + n_steps * self.cfg.dti / 86400.0)
             self.state = stepper.run_steps(
                 self.grid, self.cfg, self.state, self.base_forcing,
                 self.rmean, self.tclim, self.sclim, self.iint, n_steps,
-                period, self.time0, first=(self.iint == 0))
+                period, self.time0, first=(self.iint == 0), plan=plan)
         self.iint += n_steps
         return self.state
 
     def step_once(self) -> Optional[State]:
-        return self.run_segment(1)
+        """One internal step; with a forcing_fn its Forcing is assembled on
+        the host (:meth:`forcing_at`)."""
+        if self.forcing_fn is None:
+            return self.run_segment(1)
+        self._no_forcing_on_mesh()
+        self.state = stepper.step(self.grid, self.cfg, self.state,
+                                  self.forcing_at(self.iint + 1), self.rmean,
+                                  self.tclim, self.sclim,
+                                  first=(self.iint == 0))
+        self.iint += 1
+        return self.state
 
     def run(self, n_steps: Optional[int] = None,
             log: Optional[Callable[[str], None]] = None,

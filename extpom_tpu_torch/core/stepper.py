@@ -428,13 +428,22 @@ def ramp_at(cfg: Config, iint: int, period_days: float,
 
 def run_steps(grid: Grid, cfg: Config, st: State, fc: Forcing, rmean,
               tclim, sclim, iint0: int, n_steps: int, period_days: float,
-              time0_days: float = 0.0, first: bool = False) -> State:
-    """Advance ``n_steps`` internal steps with ``fc`` held constant; the
-    first step of a cold start (``first``) skips the internal 3-D block."""
+              time0_days: float = 0.0, first: bool = False,
+              plan=None) -> State:
+    """Advance ``n_steps`` internal steps; the first step of a cold start
+    (``first``) skips the internal 3-D block.  With a staged
+    ``forcing.device.DevicePlan`` the forcing of each step is interpolated
+    from it on the device; otherwise ``fc`` is held constant."""
+    from extpom_tpu_torch.forcing import device as fdev
     for n in range(n_steps):
         i = iint0 + 1 + n
         ramp = torch.full((), ramp_at(cfg, i, period_days, time0_days),
                           dtype=st.dtype, device=st.el.device)
-        st = step(grid, cfg, st, fc.replace(ramp=ramp), rmean, tclim, sclim,
-                  first=first and n == 0)
+        fc_i = fc
+        if plan is not None:
+            fc_i = fdev.forcing_at(
+                plan, fc, cfg, grid.dz,
+                fdev.t_days_at(cfg, i, time0_days, st.dtype))
+        st = step(grid, cfg, st, fc_i.replace(ramp=ramp), rmean, tclim,
+                  sclim, first=first and n == 0)
     return st

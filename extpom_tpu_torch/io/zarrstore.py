@@ -1,0 +1,238 @@
+"""Chunked Zarr datasets through TensorStore (``extpom_tpu/io/zarrstore.py``).
+
+The reference's datasets — grid, initial T/S, forcing series, restart,
+output (io_pnetcdf.F) — as Zarr arrays, one directory per dataset with an
+``attrs.json``:
+
+* :func:`write_restart` / :func:`read_restart` — every State field and the
+  step counter: a bit-seamless checkpoint (io_pnetcdf.F:1661-2083);
+* :func:`write_output` / :func:`read_output` — a snapshot with the grid,
+  the prognostic fields and the scalar diagnostics (io_pnetcdf.F:57-410);
+* :func:`write_grid` / :func:`read_grid`, :func:`write_initial_ts` /
+  :func:`read_initial_ts`;
+* :class:`ZarrSource` / :func:`write_forcing_series` — forcing record
+  series (io_pnetcdf.F:2912-3622).
+
+TensorStore is imported at first use.  Where it is not installed, every
+Zarr path raises and names the NetCDF alternative; nothing falls back to
+another format.  Writes from several processes are not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib.util
+import json
+import os
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from extpom_tpu_torch.core.config import Config
+from extpom_tpu_torch.core.grid import Grid, make_grid
+from extpom_tpu_torch.core.state import State
+from extpom_tpu_torch.io.netcdf import OUTPUT_FIELDS
+
+HAVE_TS = importlib.util.find_spec("tensorstore") is not None
+
+
+def _ts():
+    try:
+        import tensorstore
+    except ImportError as e:
+        raise RuntimeError(
+            'Zarr I/O needs the tensorstore package, which is not installed; '
+            'write NetCDF instead ("out_format": "nc", .nc grid, init, '
+            'forcing and restart paths)') from e
+    return tensorstore
+
+
+def _spec(path: str, create: bool = False, shape=None, dtype=None,
+          chunks=None):
+    spec = {"driver": "zarr",
+            "kvstore": {"driver": "file", "path": path}}
+    kw = {}
+    if create:
+        kw = dict(create=True, delete_existing=True,
+                  dtype=np.dtype(dtype).name, shape=list(shape))
+        if chunks is not None:
+            spec["metadata"] = {"chunks": list(chunks)}
+    return spec, kw
+
+
+def write_array(root: str, name: str, arr,
+                chunks: Optional[tuple] = None) -> None:
+    """Write one array (a tensor on any device, or numpy) as
+    ``root/name``, chunked by horizontal tiles of at most 256."""
+    ts = _ts()
+    if (torch.distributed.is_available() and torch.distributed.is_initialized()
+            and torch.distributed.get_world_size() > 1):
+        raise NotImplementedError(
+            "cooperative Zarr writes from several processes are not ported")
+    a = (arr.detach().cpu().numpy() if isinstance(arr, torch.Tensor)
+         else np.asarray(arr))
+    if chunks is None:
+        chunks = tuple(min(s, 256) for s in a.shape) if a.ndim else (1,)
+    if a.ndim == 0:
+        a = a[None]
+        chunks = (1,)
+    spec, kw = _spec(os.path.join(root, name), create=True, shape=a.shape,
+                     dtype=a.dtype, chunks=chunks)
+    ts.open(spec, **kw).result()[...] = a
+
+
+def read_array(root: str, name: str) -> np.ndarray:
+    spec, _ = _spec(os.path.join(root, name))
+    return np.asarray(_ts().open(spec).result().read().result())
+
+
+def _write_attrs(root: str, attrs: Dict) -> None:
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "attrs.json"), "w") as f:
+        json.dump(attrs, f)
+
+
+def _read_attrs(root: str) -> Dict:
+    with open(os.path.join(root, "attrs.json")) as f:
+        return json.load(f)
+
+
+def _tensor(a, cfg: Config, device) -> torch.Tensor:
+    return torch.tensor(np.asarray(a), dtype=cfg.torch_dtype, device=device)
+
+
+# -- restart (io_pnetcdf.F:1661-2083 / 2420-2769) --------------------------
+
+def write_restart(path: str, state: State, iint: int,
+                  time0: float = 0.0) -> None:
+    """Checkpoint every State field and the step counter: bit-seamless,
+    since State carries every leapfrog time level and the closure state."""
+    for f in dataclasses.fields(State):
+        write_array(path, f.name, getattr(state, f.name))
+    _write_attrs(path, {"iint": int(iint), "time0": float(time0),
+                        "format": "extpom_tpu.restart.v1"})
+
+
+def read_restart(path: str, cfg: Config, device):
+    """Returns (state, iint, time0), the state in cfg's dtype on
+    ``device``."""
+    attrs = _read_attrs(path)
+    fields = {f.name: _tensor(read_array(path, f.name), cfg, device)
+              for f in dataclasses.fields(State)}
+    return State(**fields), attrs["iint"], attrs["time0"]
+
+
+# -- output snapshots (io_pnetcdf.F:57-410) --------------------------------
+
+OUTPUT_GRID_VARS = ("z", "zz", "dx", "dy", "east_e", "north_e", "east_c",
+                    "north_c", "east_u", "north_u", "east_v", "north_v",
+                    "rot", "h", "fsm", "dum", "dvm")
+
+
+def write_output(path: str, grid: Grid, cfg: Config, state,
+                 time_days: float, stats: Optional[Dict] = None,
+                 extra: Optional[Dict] = None) -> None:
+    """One snapshot dataset: grid, prognostic fields and the diagnostics of
+    ``stats``; ``extra`` adds derived fields (``wr`` under calc_wr)."""
+    for name in OUTPUT_GRID_VARS:
+        write_array(path, name, getattr(grid, name))
+    for name in OUTPUT_FIELDS:
+        write_array(path, name, getattr(state, name))
+    for name, arr in (extra or {}).items():
+        write_array(path, name, arr)
+    attrs = {"time_days": float(time_days), "tbias": cfg.tbias,
+             "sbias": cfg.sbias, "format": "extpom_tpu.output.v1"}
+    if stats:
+        attrs["stats"] = {k: float(v) for k, v in stats.items()}
+    _write_attrs(path, attrs)
+
+
+def read_output(path: str) -> Dict[str, np.ndarray]:
+    out = {name: read_array(path, name)
+           for name in OUTPUT_GRID_VARS + OUTPUT_FIELDS}
+    out["attrs"] = _read_attrs(path)
+    return out
+
+
+# -- grid and initial conditions (io_pnetcdf.F:2084-2264, 2771-2844) --------
+
+GRID_VARS = ("z", "zz", "dx", "dy", "east_e", "north_e", "rot", "h", "fsm")
+
+
+def write_grid(path: str, grid: Grid) -> None:
+    """The primary grid variables; masks, metrics and cbc are derived again
+    on read, as read_grid_pnetcdf derives dum/dvm from fsm."""
+    for name in GRID_VARS:
+        write_array(path, name, getattr(grid, name))
+    _write_attrs(path, {"format": "extpom_tpu.grid.v1"})
+
+
+def read_grid(path: str, cfg: Config, device) -> Grid:
+    v = {name: read_array(path, name) for name in GRID_VARS}
+    return make_grid(cfg, v["z"], v["zz"], v["dx"], v["dy"], v["h"],
+                     v["fsm"], east_e=v["east_e"], north_e=v["north_e"],
+                     rot=v["rot"], device=device)
+
+
+def write_initial_ts(path: str, tb, sb, tclim=None, sclim=None) -> None:
+    write_array(path, "tb", tb)
+    write_array(path, "sb", sb)
+    if tclim is not None:
+        write_array(path, "tclim", tclim)
+    if sclim is not None:
+        write_array(path, "sclim", sclim)
+    _write_attrs(path, {"format": "extpom_tpu.init.v1",
+                        "has_clim": tclim is not None})
+
+
+def read_initial_ts(path: str):
+    """Numpy (tb, sb, tclim, sclim); tclim/sclim are tb/sb without a
+    climatology."""
+    attrs = _read_attrs(path)
+    tb = read_array(path, "tb")
+    sb = read_array(path, "sb")
+    if attrs.get("has_clim"):
+        return tb, sb, read_array(path, "tclim"), read_array(path, "sclim")
+    return tb, sb, tb, sb
+
+
+# -- forcing record source (the .sfrc/.lbry series readers) ----------------
+
+class ZarrSource:
+    """Record source over a Zarr dataset directory: each variable has a
+    leading record dimension; ``read(name, n)`` fetches one record (the
+    index clamped to the series)."""
+
+    def __init__(self, root: str):
+        _ts()
+        self.root = root
+        self._handles: Dict[str, object] = {}
+        self._names = [d for d in os.listdir(root)
+                       if os.path.isdir(os.path.join(root, d))]
+
+    def names(self):
+        return list(self._names)
+
+    def _handle(self, name: str):
+        h = self._handles.get(name)
+        if h is None:
+            spec, _ = _spec(os.path.join(self.root, name))
+            h = self._handles[name] = _ts().open(spec).result()
+        return h
+
+    def nrec(self, name: str) -> int:
+        return self._handle(name).shape[0]
+
+    def read(self, name: str, n: int) -> np.ndarray:
+        h = self._handle(name)
+        n = min(max(n, 0), h.shape[0] - 1)
+        return np.asarray(h[n].read().result())
+
+
+def write_forcing_series(root: str, data: Dict[str, np.ndarray]) -> None:
+    """A forcing series dataset for :class:`ZarrSource` (record dimension
+    leading, one chunk per record)."""
+    for name, arr in data.items():
+        a = np.asarray(arr)
+        write_array(root, name, a, chunks=(1,) + a.shape[1:])

@@ -1,0 +1,286 @@
+"""Run driver: ``python -m extpom_tpu_torch.run config.json [--device cpu]``
+(``extpom_tpu/run.py``).
+
+The ``program pom`` equivalent (pom.f:8-39, read_input initialize.f:67-244):
+reads a JSON run configuration (the namelist analogue), builds the model
+from a built-in case or from NetCDF/Zarr datasets, and drives the time loop
+in segments between print, restart and ``iswtch`` boundaries, with the
+diagnostics print and blow-up guard, snapshots and restarts written by a
+background writer, and resume from a restart (nread_rst, initialize.f:39).
+It runs on the card unless ``--device cpu`` is given, and raises when there
+is no card.
+
+Config schema (all keys optional unless noted)::
+
+    {
+      "run_name": "seamount01",
+      "case": "seamount" | "channel",        # built-in generator ...
+      "case_args": {"im": 65, "jm": 49},     # ... and its arguments
+      "grid": "in/grid.nc", "init": "in/init.nc",
+      #   (or Zarr dataset directories; .nc files are the reference's
+      #    formats, io/netcdf.py)
+      "sfrc": "in/sfrc.nc", "lbry": "in/lbry.nc",
+      #   surface and lateral forcing series: a .nc series file, a
+      #   directory of .efr files (native/recordio) or a Zarr dataset
+      "config": {"mode": 3, "dte": 6.0, "days": 1.0, ...},
+      "out_dir": "out",
+      "out_format": "zarr" | "nc",
+      #   snapshots AND restarts: Zarr directories, or with "nc" one
+      #   {run}.nc record stream and {run}.rst.NNNNNN.nc restarts
+      #   (Zarr needs tensorstore)
+      "nread_rst": 0, "read_rst_path": "out/run.rst.000024.nc",
+      "cont_bry": 0,
+      "mesh": {"px": 2, "py": 4}             # Model.shard blocks, one card
+    }
+
+Not ported, and raising ``NotImplementedError``: the ``distributed``
+block, ``"mode": "gspmd"`` in the mesh block, and forcing series on a
+mesh.  A fresh run (``nread_rst`` 0) writes its ``{run}.nc`` anew.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import sys
+import time
+import types
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+
+def _open_source(path: str):
+    """Forcing record source by format: a ``.nc`` series file, a directory
+    of ``.efr`` files (the native record store), else a Zarr dataset."""
+    if path.endswith(".nc"):
+        from extpom_tpu_torch.io.netcdf import NcForcingSource
+        return NcForcingSource(path)
+    if (os.path.isdir(path)
+            and any(fn.endswith(".efr") for fn in os.listdir(path))):
+        from extpom_tpu_torch.native import recordio
+        return recordio.NativeRecordSource(path)
+    from extpom_tpu_torch.io import zarrstore as zio
+    return zio.ZarrSource(path)
+
+
+def build_model(conf: dict, device=None):
+    """The Model of a run configuration on ``device`` (the card unless
+    given): case or datasets, forcing sources, restart, mesh."""
+    from extpom_tpu_torch.cases.seamount import resolve_device
+    from extpom_tpu_torch.core.config import Config
+    from extpom_tpu_torch.core.model import Model
+    from extpom_tpu_torch.forcing.provider import ForcingProvider, MultiSource
+    from extpom_tpu_torch.io import netcdf as ncio
+    from extpom_tpu_torch.io import zarrstore as zio
+
+    if "distributed" in conf:
+        raise NotImplementedError(
+            "the 'distributed' block (several processes) is not ported yet")
+    device = resolve_device(device)
+    cfg_kw = dict(conf.get("config", {}))
+    case = conf.get("case")
+    src = None
+    if case == "seamount":
+        from extpom_tpu_torch.cases.seamount import seamount_case
+        cfg, grid, ics = seamount_case(device=device,
+                                       **conf.get("case_args", {}), **cfg_kw)
+    elif case == "channel":
+        from extpom_tpu_torch.cases.channel import channel_case
+        cfg, grid, ics, src = channel_case(
+            device=device, **conf.get("case_args", {}), **cfg_kw)
+    elif "grid" in conf:
+        cfg = Config(**cfg_kw)
+        if conf["grid"].endswith(".nc"):
+            grid = ncio.read_grid_nc(conf["grid"], cfg, device)
+        else:
+            grid = zio.read_grid(conf["grid"], cfg, device)
+        if conf["init"].endswith(".nc"):
+            tb, sb, tclim, sclim = ncio.read_initial_ts_nc(conf["init"])
+        else:
+            tb, sb, tclim, sclim = zio.read_initial_ts(conf["init"])
+        ics = dict(tb=tb, sb=sb, tclim=tclim, sclim=sclim)
+    else:
+        raise ValueError("config needs 'case' or 'grid'")
+
+    m = Model(grid, cfg, tb=ics["tb"], sb=ics["sb"], tclim=ics.get("tclim"),
+              sclim=ics.get("sclim"), elb=ics.get("elb"),
+              uab=ics.get("uab"), vab=ics.get("vab"))
+
+    sources = [] if src is None else [src]
+    sources += [_open_source(conf[k]) for k in ("sfrc", "lbry") if k in conf]
+    if sources:
+        src = sources[0] if len(sources) == 1 else MultiSource(sources)
+        m.forcing_fn = ForcingProvider(
+            grid, cfg, m.base_forcing, src,
+            cont_bry_offset=int(conf.get("cont_bry", 0)))
+
+    # restart resume (initialize.f:39; read_restart_pnetcdf)
+    if conf.get("nread_rst"):
+        path = conf["read_rst_path"]
+        if path.endswith(".nc"):
+            m.state, m.iint, m.time0 = ncio.read_restart_nc(path, cfg,
+                                                            device)
+        else:
+            m.state, m.iint, m.time0 = zio.read_restart(path, cfg, device)
+
+    # blocks on the one device (distribute_mpi analogue, parallel_mpi.f)
+    if "mesh" in conf:
+        from extpom_tpu_torch.mesh.shardmap import Mesh
+        mk = conf["mesh"]
+        m.shard(Mesh(int(mk["px"]), int(mk["py"]), device=device),
+                mode=mk.get("mode", "shardmap"))
+    return m
+
+
+@dataclasses.dataclass
+class RunResult:
+    """What :func:`execute` did: its exit code, the model at the end, the
+    steps it ran and the writes it made."""
+    rc: int
+    model: object
+    steps: int
+    writes: int
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def execute(conf: dict, device=None,
+            log: Callable[[str], None] = print) -> RunResult:
+    """Run a configuration (see the module docstring); ``log`` takes each
+    line the driver prints."""
+    from extpom_tpu_torch.core import dispatch
+    from extpom_tpu_torch.core.grid import Grid
+    from extpom_tpu_torch.diag import stats as diag_stats
+    from extpom_tpu_torch.io import netcdf as ncio
+    from extpom_tpu_torch.io import zarrstore as zio
+    from extpom_tpu_torch.io.asyncwriter import AsyncWriter
+
+    out_format = conf.get("out_format", "zarr")
+    if out_format not in ("zarr", "nc"):
+        raise ValueError(f"out_format must be 'zarr' or 'nc', not "
+                         f"{out_format!r}")
+    if out_format == "zarr":
+        zio._ts()                 # raises here, not in the writer thread
+    m = build_model(conf, device)
+    cfg = m.cfg
+    device = m.grid.device
+    run = conf.get("run_name", "run")
+    out_dir = conf.get("out_dir", "out")
+    os.makedirs(out_dir, exist_ok=True)
+    nc_out = os.path.join(out_dir, f"{run}.nc")
+    if out_format == "nc" and not conf.get("nread_rst") \
+            and os.path.exists(nc_out):
+        os.remove(nc_out)         # a fresh run starts its record stream
+
+    # config echo (read_input's summary print, initialize.f:201-241)
+    log(f"run: {run}")
+    for k in ("mode", "nadv", "nitera", "sw", "npg", "dte", "isplit",
+              "days", "prtd1", "smoth", "horcon", "ntp", "nbct", "nbcs"):
+        log(f"  {k} = {getattr(cfg, k)}")
+    log(f"  dti = {cfg.dti}  iend = {cfg.iend}  iprint = {cfg.iprint}")
+    log(f"  CFL advisory: min dt_ext = "
+        f"{float(diag_stats.cfl_min(m.grid, cfg)):.2f} s (dte = {cfg.dte} s)")
+    log("dispatch:")
+    log(dispatch.format_report(dispatch.dispatch_report(
+        cfg, cfg.torch_dtype, device, mesh=conf.get("mesh"))))
+
+    # the grid as host arrays, once: every snapshot reads it
+    grid_host = types.SimpleNamespace(**{
+        f.name: getattr(m.grid, f.name).cpu().numpy()
+        for f in dataclasses.fields(Grid)})
+    writer = AsyncWriter()
+    iint0 = m.iint
+    rc = 0
+    _sync(device)
+    t0 = time.perf_counter()
+    try:
+        while m.iint < cfg.iend:
+            # next boundary: print, restart, iswtch or the end
+            iprint = cfg.iprint if m.iint < cfg.iswtch else cfg.iprint2
+            nxt = min(((m.iint // iprint) + 1) * iprint,
+                      ((m.iint // cfg.irestart) + 1) * cfg.irestart,
+                      cfg.iend)
+            if m.iint < cfg.iswtch:
+                nxt = min(nxt, cfg.iswtch)
+            m.run_segment(nxt - m.iint)
+            # the print cadence switches at iswtch (advance.f:65-68)
+            iprint = cfg.iprint if m.iint < cfg.iswtch else cfg.iprint2
+            st = None
+            if m.iint % iprint == 0 or m.iint == cfg.iend:
+                st = m.gathered_state()
+                s = {k: float(v) for k, v in diag_stats.domain_stats(
+                    m.grid, cfg, st).items()}
+                vamax, (iloc, jloc) = diag_stats.check_velocity(cfg, st.va)
+                vamax = float(vamax)
+                if not np.isfinite(vamax) or vamax > cfg.vmaxl:
+                    log("POM terminated with error: velocity condition "
+                        f"violated, vamax={vamax:.3e} at (i,j)="
+                        f"({int(iloc)},{int(jloc)}), iint={m.iint}")
+                    rc = 1
+                    break
+                log(f"time = {m.time_days:9.4f}  iint = {m.iint:8d}  "
+                    f"vtot = {s['vtot']:.7e}  eaver = {s['eaver']:.7e}  "
+                    f"taver = {s['taver']:.7e}  saver = {s['saver']:.7e}")
+                extra = {"wr": m.compute_wr()} if cfg.calc_wr else None
+                snap = types.SimpleNamespace(**{
+                    n: getattr(st, n) for n in ncio.OUTPUT_FIELDS})
+                if out_format == "nc":
+                    # one record stream per run (io_pnetcdf.F:180-410); the
+                    # writer's single worker keeps the order
+                    writer.submit(ncio.write_output_nc, nc_out, grid_host,
+                                  cfg, snap, m.time_days, s, extra=extra,
+                                  append=True)
+                else:
+                    writer.submit(
+                        zio.write_output,
+                        os.path.join(out_dir, f"{run}.{m.iint:06d}"),
+                        grid_host, cfg, snap, m.time_days, s, extra=extra)
+            if m.iint % cfg.irestart == 0:
+                st = st if st is not None else m.gathered_state()
+                rst = os.path.join(out_dir, f"{run}.rst.{m.iint:06d}")
+                if out_format == "nc":
+                    writer.submit(ncio.write_restart_nc, rst + ".nc", st,
+                                  m.time_days, m.iint, m.time0)
+                else:
+                    writer.submit(zio.write_restart, rst, st, m.iint,
+                                  m.time0)
+    finally:
+        writer.close()            # drain the last interval's writes
+    _sync(device)
+    wall = time.perf_counter() - t0
+    steps = m.iint - iint0
+    if rc == 0:
+        gps = cfg.im * cfg.jm * cfg.kb * steps / max(wall, 1e-9)
+        log(f"wall clock: {wall:.3f} s for {steps} steps (segments + async "
+            f"writes; {gps / 1e6:.1f} Mgrid-pt-steps/s)")
+        log(f"writes: {writer.n_writes} in {writer.busy_s:.3f} s on the "
+            f"writer thread, {writer.blocked_s:.3f} s of the driver's time")
+    return RunResult(rc, m, steps, writer.n_writes)
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    device: Optional[str] = None
+    if "--device" in argv:
+        k = argv.index("--device")
+        if k + 1 >= len(argv):
+            print("--device needs a value (cpu, cuda)", file=sys.stderr)
+            return 2
+        device = argv[k + 1]
+        del argv[k:k + 2]
+    if len(argv) != 1:
+        print(__doc__)
+        return 2
+    with open(argv[0]) as f:
+        conf = json.load(f)
+    return execute(conf, device).rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())
