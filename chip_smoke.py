@@ -1189,7 +1189,9 @@ def block_call(kind: str, args, kw):
         g, cfg, *rest = args
         kernel = lambda: getattr(phases, f"phase_{kind}")(g, cfg, *rest,
                                                           **kw)
-        plain = lambda: phases._plain(kind, g, cfg, rest, kw["off"])
+        plain = lambda: phases._plain(
+            kind, g, cfg, rest, kw["off"],
+            **{k: v for k, v in kw.items() if k == "ub"})
         return kernel, plain, rest[0].shape[-2:], kw["off"]
     wrapper = (extloop.run_external_chunk if kind == "extchunk"
                else extwin.run_external_chunk_windowed)
@@ -2028,6 +2030,434 @@ def channel_check() -> None:
         tol="1e-9")
 
 
+# ---- the orlanski scheme and mode 2 ----
+
+BASIN = (512, 512, 31)                              # [basin]
+# the case's own cell of its default 51x51 basin (1,000 km over 49 cells,
+# 20.41 km), kept at 512x512: cfl_min 103 s against the case's dte of 60 s
+BASIN_LENGTH = 1.0e6 * (BASIN[0] - 2) / 49
+BASIN_DAYS = 12.0
+BASIN_CHECK = (48, 48, 5, 200)                      # [basin_check]
+ORL_MESH_STEPS = 5                                  # [orlanski_mesh]
+# flops per grid point per external substep that mode 2 adds to
+# EXTLOOP_FLOPS_PER_POINT (advection2d.py's mode-2 branch): wubot and wvbot
+# 12 each, curv2d at three points 9 each, advua's and advva's terms 10 each
+EXTLOOP_MODE2_FLOPS = 71
+
+
+def ext_bound(n: int, ni: int, nj: int, nsub: int, item: int, dtype,
+              mode2: bool) -> tuple:
+    """(bound ms, bound_by) of ``nsub`` external substeps on an (ni, nj)
+    grid of n cells: the chain's operands read once and the carry written
+    once, or its operations (mode 2's too)."""
+    nbytes = ((34 + 14) * n + 6 * nj + 6 * ni + 1) * item
+    flops = (EXTLOOP_FLOPS_PER_POINT
+             + (EXTLOOP_MODE2_FLOPS if mode2 else 0)) * nsub * n
+    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (max(bound_bytes, bound_ops),
+            "bytes" if bound_bytes >= bound_ops else "operations")
+
+
+def hold(tag: str, kernel: str, got, want, names, bit: bool, tol: float,
+         **kv) -> float:
+    """Hold a kernel's outputs to its plain version's on the card: each
+    output's largest difference over its scale, reported; raises where an
+    output is not finite, differs by more than ``tol`` of its scale, or
+    (``bit``) is not bit-equal.  Returns the worst absolute error."""
+    torch.cuda.synchronize()
+    rels, worst = {}, 0.0
+    for name, a, b in zip(names, got, want):
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{tag} {kernel}: {name} is not finite")
+        err, rel = rel_err(a, b)
+        rels[name] = float(f"{rel:.3e}")
+        worst = max(worst, err)
+        if not rel <= tol:
+            raise AssertionError(f"{tag} {kernel}: {name} differs from the "
+                                 f"plain version by {rel} of its scale")
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    if bit and not equal:
+        raise AssertionError(f"{tag} {kernel}: not bit-equal to the plain "
+                             f"version")
+    say(tag, kernel=kernel, bit_equal=equal,
+        tol="torch.equal" if bit else tol, max_abs_err=f"{worst:.3e}",
+        field_rel_err=json.dumps(rels, separators=(",", ":")), **kv)
+    return worst
+
+
+def assert_finite(st, tag: str, names=None) -> None:
+    for f in names or st.field_names():
+        if not bool(torch.isfinite(getattr(st, f)).all()):
+            raise AssertionError(f"{tag}: state field {f} is not finite")
+
+
+def orlanski_phase(card: str) -> tuple:
+    """The main path's configuration under Orlanski edges: 256x256x31
+    float32 seamount with bc_scheme="orlanski", SEG_WARM + SEG_TIMED steps
+    from a cold start through ``Model.run_segment`` (the whole-grid loop
+    with orl_el/orl_vel2d, tke with orl_turb, tracer with orl_ts).  Gates:
+    every field finite, saver 15 within 1e-4, the launch counts.  Returns
+    (launches, the model)."""
+    from extpom_tpu_torch import kernels
+    from extpom_tpu_torch.cases.seamount import seamount_model
+    from extpom_tpu_torch.diag import stats
+    m = seamount_model(im=IM, jm=JM, kb=KB, bc_scheme="orlanski")
+    kernels.reset_launches()
+    m.run_segment(SEG_WARM)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m.run_segment(SEG_TIMED)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    n = SEG_WARM + SEG_TIMED
+    want = {**dict.fromkeys(launches, 0), "extloop": n, "phase_lat": n,
+            **{f"phase_{p}": n - 1 for p in PHASES[1:]}}
+    if launches != want:
+        raise AssertionError(f"orlanski: launch counts {launches} != {want}")
+    assert_finite(m.state, "orlanski")
+    s = {k: float(v) for k, v in
+         stats.domain_stats(m.grid, m.cfg, m.state).items()}
+    if not abs(s["saver"] - 15.0) <= 1e-4:
+        raise AssertionError(f"orlanski: saver drifted: {s['saver']}")
+    say("orlanski", grid=f"{IM}x{JM}x{KB}", dtype="float32",
+        bc_scheme="orlanski", steps=n, timed_steps=SEG_TIMED,
+        ms_per_step=f"{wall / SEG_TIMED * 1e3:.3f}",
+        grid_point_steps_per_s=f"{IM * JM * KB * SEG_TIMED / wall:.4e}",
+        saver=f"{s['saver']:.7f}", taver=f"{s['taver']:.7f}",
+        launches=json.dumps(launches, separators=(",", ":")),
+        card=f"'{card}'")
+    profile_phase(m, tag="orlanski_profile")
+    return launches, m
+
+
+def orlanski_kernels(m, flush: L2Flush) -> dict:
+    """On the operands of one mid-run step of ``[orlanski]``'s model: the
+    whole-grid loop (orl_el, orl_vel2d) bit for bit, tke (orl_turb) and
+    tracer (orl_ts, the tile launch and the perimeter launch) within
+    TOL["phase"] of each output's scale; each timed (CUDA events, L2
+    flush) beside its plain version, with what the card gives it.
+    Returns {kernel: entry}."""
+    from extpom_tpu_torch.kernels import extloop, phases
+    calls = record_calls(lambda: m.run_segment(1), ("tke", "tracer",
+                                                    "extloop"))
+    out = {}
+    (args, _), = calls["extloop"]
+    cfg = args[1]
+    run = lambda: extloop.run_external_loop(*args)
+    flags = extloop.ext_flags(cfg)
+    worst = hold("orlanski_kernels", "extloop", run(),
+                 extloop.run_external_loop_plain(*args), extloop.CARRY_FIELDS,
+                 True, 0.0)
+    ms = device_ms(run, 20, flush)
+    plain_ms = device_ms(lambda: extloop.run_external_loop_plain(*args), 3,
+                         flush)
+    bound, by = ext_bound(IM * JM, IM, JM, cfg.isplit, 4, torch.float32,
+                          False)
+    threads, blocks = extloop.plan_grid(torch.float32, IM * JM, False,
+                                        flags=flags)
+    info = extloop.loop_info(torch.float32, False, threads, flags=flags)
+    say("orlanski_kernels", kernel="extloop", ms=f"{ms:.4f}",
+        plain_ms=f"{plain_ms:.3f}", bound_ms=f"{bound:.5f}", bound_by=by,
+        threads=threads, grid=blocks, registers=info["registers"],
+        blocks_per_sm=info["blocks_per_sm"],
+        spill_bytes=info["spill_bytes"])
+    out["extloop"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound, bound_by=by,
+                          registers=info["registers"])
+    tol = TOL["phase"][torch.float32]
+    for phase in ("tke", "tracer"):
+        (args, kw), = calls[phase]
+        g, cfg, *rest = args
+        kernel = getattr(phases, f"phase_{phase}")
+        plain = getattr(phases, f"phase_{phase}_plain")
+        run = lambda: kernel(g, cfg, *rest, **kw)
+        worst = hold("orlanski_kernels", phase, run(), plain(g, cfg, *rest,
+                                                             **kw),
+                     PHASE_OUTPUTS[phase], False, tol)
+        ms = device_ms(run, 20, flush)
+        plain_ms = device_ms(lambda: plain(g, cfg, *rest, **kw), 3, flush)
+        bound, by, mb = phase_bound(phase, g, cfg, rest, run(), 4,
+                                    torch.float32)
+        tile, _ = phases.plan_tile(phase, torch.float32, KB, IM, JM)
+        info = phases.tile_info(phase, torch.float32, tile, orl=True)
+        say("orlanski_kernels", kernel=phase, ms=f"{ms:.4f}",
+            plain_ms=f"{plain_ms:.3f}", bound_ms=f"{bound:.5f}",
+            bound_by=by, registers=info["registers"],
+            dynamic_smem=info["dynamic_smem"],
+            blocks_per_sm=info["blocks_per_sm"],
+            spill_bytes=info["spill_bytes"])
+        out[phase] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound, bound_by=by,
+                          registers=info["registers"])
+    return out
+
+
+def orlanski_mesh_phase(card: str) -> dict:
+    """``[orlanski]``'s model on config5's 2x4 mesh, every block on the
+    card, ORL_MESH_STEPS steps (extchunk, phase_tke_mesh and
+    phase_tracer_mesh under the options), held to the same steps on one
+    device (1e-5 of each field's scale; bit-equal so far).  Returns the
+    launches."""
+    from extpom_tpu_torch import kernels
+    from extpom_tpu_torch.cases.seamount import seamount_model
+    from extpom_tpu_torch.diag import stats
+    with open(LARGE) as f:
+        mesh = mesh_of(json.load(f))
+    kw = dict(im=IM, jm=JM, kb=KB, bc_scheme="orlanski")
+    m = seamount_model(**kw).shard(mesh)
+    nb = mesh.px * mesh.py
+    n = ORL_MESH_STEPS
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m.run_segment(n)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    chunks = nb * m.cfg.isplit // chunk_plan(m).C
+    want = {**dict.fromkeys(launches, 0), "extchunk": n * chunks,
+            "phase_lat_mesh": n * nb,
+            **{f"phase_{p}_mesh": (n - 1) * nb for p in PHASES[1:]}}
+    if launches != want:
+        raise AssertionError(f"orlanski_mesh: launch counts {launches} != "
+                             f"{want}")
+    st = m.gathered_state()
+    ref = seamount_model(**kw)
+    ref.run_segment(n)
+    worst, equal = (0.0, "none"), True
+    for f in st.field_names():
+        a, b = getattr(st, f), getattr(ref.state, f)
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"orlanski_mesh: {f} is not finite")
+        _, rel = rel_err(a, b)
+        equal = equal and torch.equal(a, b)
+        if not rel <= TOL["phase"][torch.float32]:
+            raise AssertionError(f"orlanski_mesh vs one device, {f}: {rel}")
+        if rel >= worst[0]:
+            worst = (rel, f)
+    s = {k: float(v) for k, v in
+         stats.domain_stats(m.grid, m.cfg, st).items()}
+    say("orlanski_mesh", grid=f"{IM}x{JM}x{KB}", mesh=f"{mesh.px}x{mesh.py}",
+        dtype="float32", bc_scheme="orlanski", steps=n,
+        ms_per_step=f"{wall / n * 1e3:.3f}", saver=f"{s['saver']:.7f}",
+        vs_single_device_max_rel_err=f"{worst[0]:.3e}",
+        worst_field=worst[1], bit_equal=equal,
+        launches=json.dumps(launches, separators=(",", ":")),
+        card=f"'{card}'")
+    return launches
+
+
+def basin_stats(st, grid) -> dict:
+    """The closed basin's mean level and the gyre's numbers of
+    test_physics.py's western-intensification test on ``va``."""
+    va = st.va.double()
+    im, jm = va.shape
+    third = im // 3
+    w = float(va[1:third, 1:-1].abs().max())
+    e = float(va[-third:-1, 1:-1].abs().max())
+    wet = (grid.art * grid.fsm).double()
+    return dict(mean_level_m=float((st.el.double() * wet).sum() / wet.sum()),
+                west_max=w, east_max=e, ratio=w / e if e > 0 else float("inf"),
+                interior_mean=float(va[third:-third,
+                                       jm // 3:2 * jm // 3].mean()),
+                western_strip_mean=float(va[2:6, jm // 3:2 * jm // 3].mean()))
+
+
+def basin_phase(card: str, flush: L2Flush) -> tuple:
+    """The wind-driven basin at BASIN (512x512x31) float32, mode 2 under
+    Orlanski edges, BASIN_DAYS model days (1,728 steps of 600 s) from a
+    cold start through ``basin_model`` / ``Model.run_segment``: the
+    external kernel the L2 dispatch picks and no phase.  Halfway, the
+    operands of one step are kept for ``basin_kernels``.  Gates: el and va
+    finite, the mean level of the closed basin within 1e-4 m of its start,
+    the launch counts.  Reports the gyre's numbers (not gated at this
+    size).  Returns (launches, the model, the kept call)."""
+    from extpom_tpu_torch import kernels
+    from extpom_tpu_torch.cases.basin import basin_model
+    from extpom_tpu_torch.diag import stats
+    from extpom_tpu_torch.kernels import extwin
+    im, jm, kb = BASIN
+    m = basin_model(im=im, jm=jm, kb=kb, length=BASIN_LENGTH,
+                    dtype="float32")
+    cfg = m.cfg
+    l2 = extwin.l2_bytes(torch.device("cuda"))
+    ws = extwin.working_set_bytes(im, jm, 4)
+    windowed = extwin.use_windowed(im, jm, 4, l2)
+    n = int(BASIN_DAYS * 86400 / cfg.dti)
+    level0 = basin_stats(m.state, m.grid)["mean_level_m"]
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    m.run_segment(2)
+    half = n // 2 - 2
+    w1 = timed_window(m, half)
+    kept = record_calls(lambda: m.run_segment(1), ("extloop", "extwin"))
+    w2 = timed_window(m, n - 3 - half)
+    peak = torch.cuda.max_memory_allocated()
+    timed = n - 3
+    wall = w1["wall"] + w2["wall"]
+    launches = dict(kernels.LAUNCHES)
+    ext = ({"extwin": n * (cfg.isplit // extwin.chunk_geometry(cfg, 4).C)}
+           if windowed else {"extloop": n})
+    want = {**dict.fromkeys(launches, 0), **ext}
+    if launches != want:
+        raise AssertionError(f"basin: launch counts {launches} != {want}")
+    assert_finite(m.state, "basin", ("el", "va"))
+    b = basin_stats(m.state, m.grid)
+    if not abs(b["mean_level_m"] - level0) <= 1e-4:
+        raise AssertionError(f"basin: the mean level moved from {level0} "
+                             f"to {b['mean_level_m']}")
+    say("basin", grid=f"{im}x{jm}x{kb}", dtype="float32", mode=cfg.mode,
+        bc_scheme=cfg.bc_scheme, dx_m=f"{float(m.grid.dx[0, 0]):.1f}",
+        dte_s=cfg.dte, isplit=cfg.isplit,
+        cfl_min_s=f"{float(stats.cfl_min(m.grid, cfg)):.4f}", days=BASIN_DAYS,
+        steps=n, timed_steps=timed,
+        ms_per_step=f"{wall / timed * 1e3:.4f}",
+        grid_point_steps_per_s=f"{im * jm * kb * timed / wall:.4e}",
+        external=("cuda-window" if windowed else "cuda-chain"),
+        working_set_bytes=ws, l2_bytes=l2,
+        peak_mem_gb=f"{peak / 1e9:.3f}",
+        mean_level_drift_m=f"{b['mean_level_m'] - level0:.3e}",
+        va_west_max=f"{b['west_max']:.5e}", va_east_max=f"{b['east_max']:.5e}",
+        west_east_ratio=f"{b['ratio']:.3f}",
+        va_interior_mean=f"{b['interior_mean']:.5e}",
+        va_western_strip_mean=f"{b['western_strip_mean']:.5e}",
+        launches=json.dumps(launches, separators=(",", ":")),
+        card=f"'{card}'")
+    profile_phase(m, steps=20, tag="basin_profile",
+                  groups=dict(EXT_KERNELS))
+    return launches, m, kept
+
+
+def basin_kernels(m, kept, flush: L2Flush) -> dict:
+    """The basin's external kernels on the operands of its mid-run step
+    (512x512 f32, mode 2 and orlanski): the window kernel and the
+    whole-grid loop, each bit-equal to the plain loop and timed (CUDA
+    events, spin, L2 flush) beside its bound, mode 2's operations
+    included; then, on ``m`` decomposed 2x4, extchunk and extwin_chunk on
+    the first block's chunk (the domain's west and south edges) held to
+    the plain chunk bit for bit on the block's own cells.  Returns
+    {kernel: entry}."""
+    from extpom_tpu_torch.kernels import extloop, extwin
+    (args, _), = kept.get("extwin", kept.get("extloop"))
+    cfg = args[1]
+    im, jm = cfg.im, cfg.jm
+    flags = extloop.ext_flags(cfg)
+    plain = extloop.run_external_loop_plain(*args)
+    out = {}
+    bound, by = ext_bound(im * jm, im, jm, cfg.isplit, 4, torch.float32,
+                          cfg.mode == 2)
+    for name, fn in (("extwin", extwin.run_external_loop_windowed),
+                     ("extloop", extloop.run_external_loop)):
+        run = lambda: fn(*args)
+        worst = hold("basin_kernels", name, run(), plain,
+                     extloop.CARRY_FIELDS, True, 0.0)
+        ms = device_ms(run, 20, flush)
+        if name == "extwin":
+            geo = extwin.chunk_geometry(cfg, 4)
+            info = extwin.window_info(torch.float32, geo, flags=flags)
+            extra = dict(C=geo.C, H=geo.H, tile=f"{geo.ti}x{geo.tj}",
+                         threads=geo.threads, smem=geo.smem)
+        else:
+            threads, blocks = extloop.plan_grid(torch.float32, im * jm,
+                                                flags=flags)
+            info = extloop.loop_info(torch.float32, False, threads,
+                                     flags=flags)
+            extra = dict(threads=threads, launch_grid=blocks)
+        say("basin_kernels", kernel=name, grid=f"{im}x{jm}",
+            dtype="float32", ms=f"{ms:.4f}", bound_ms=f"{bound:.5f}",
+            bound_by=by, registers=info["registers"],
+            blocks_per_sm=info["blocks_per_sm"],
+            spill_bytes=info["spill_bytes"], **extra)
+        out[name] = dict(max_abs_err=worst, ms=ms, bound_ms=bound,
+                         bound_by=by)
+    out["extwin"]["plain_ms"] = device_ms(
+        lambda: extloop.run_external_loop_plain(*args), 3, flush)
+    del plain, args
+    with open(LARGE) as f:
+        mesh = mesh_of(json.load(f))
+    m.shard(mesh)
+    calls = record_calls(lambda: m.run_segment(1), ("chunk",))
+    (args, _) = calls["chunk"][0]
+    C, off = args[5], args[7]
+    want = extloop.run_external_chunk_plain(*args)
+    geo = extwin.win_geometry(C, 4, flags)
+    for name, run in (
+            ("extchunk", lambda: extloop.run_external_chunk(*args)),
+            ("extwin_chunk", lambda: extwin.run_external_chunk_windowed(
+                *args, geo=geo))):
+        got = run()
+        worst = hold("basin_kernels", name,
+                     [trim_to(m.blocks, x) for x in got],
+                     [trim_to(m.blocks, x) for x in want],
+                     extloop.CARRY_FIELDS, True, 0.0,
+                     block="x".join(map(str, args[2].el.shape)),
+                     off=f"{off[0]},{off[1]}", C=C)
+        out[name] = dict(max_abs_err=worst, ms=device_ms(run, 5, flush))
+    return out
+
+
+def basin_check() -> None:
+    """The basin at BASIN_CHECK (48x48x5) in float64 for 200 steps on the
+    card through the whole-grid loop and through the window kernel (the
+    dispatch forced), against the plain path on the CPU.  Gates: both
+    within 1e-9 of each field's scale of the CPU run, the channel_check's
+    limit, and bit-equal to each other."""
+    from extpom_tpu_torch import kernels
+    from extpom_tpu_torch.cases.basin import basin_model
+    from extpom_tpu_torch.kernels import extwin
+    im, jm, kb, n = BASIN_CHECK
+    kw = dict(im=im, jm=jm, kb=kb, dtype="float64")
+    runs = {"kernels": basin_model(device="cuda", **kw),
+            "window": basin_model(device="cuda", **kw),
+            "cpu": basin_model(device="cpu", **kw)}
+    use_windowed = extwin.use_windowed
+    kernels.reset_launches()
+    for name, m in runs.items():
+        extwin.use_windowed = lambda *a, w=name == "window": w
+        try:
+            m.run_segment(n)
+        finally:
+            extwin.use_windowed = use_windowed
+    cfg = runs["cpu"].cfg
+    want = {**dict.fromkeys(kernels.LAUNCHES, 0), "extloop": n,
+            "extwin": n * cfg.isplit // extwin.chunk_geometry(cfg, 8).C}
+    if kernels.LAUNCHES != want:
+        raise AssertionError(f"basin_check: launches {kernels.LAUNCHES}")
+    worst = {}
+    for a in ("kernels", "window"):
+        err = state_errors(runs[a].state, runs["cpu"].state)
+        f = max(err, key=err.get)
+        worst[a] = err[f]
+        say("basin_check", grid=f"{im}x{jm}x{kb}", steps=n, dtype="float64",
+            compare=f"{a}-cpu", worst_rel_err=f"{err[f]:.3e}",
+            worst_field=f, **{k: f"{err[k]:.3e}" for k in
+                              ("el", "ua", "va", "wubot", "advua")})
+        if not err[f] <= 1e-9:
+            raise AssertionError(f"basin_check {a} vs the CPU, {f}: {err[f]}")
+    assert_states_equal(runs["window"].state, runs["kernels"].state,
+                        "basin_check window vs whole-grid loop")
+    say("basin_check", grid=f"{im}x{jm}x{kb}", steps=n, dtype="float64",
+        worst_rel_err=f"{worst['kernels']:.3e}",
+        window_worst_rel_err=f"{worst['window']:.3e}",
+        window_equal_to_loop=True, tol="1e-9")
+
+
+def breakdown_phase() -> None:
+    """``diag.profiling.step_breakdown`` at the main path's 256x256x31
+    float32 on the card: the external-only (mode 2) step against the full
+    (mode 3) step, seconds per step on the host clock after a drained
+    queue."""
+    from extpom_tpu_torch.diag import profiling
+    out = profiling.step_breakdown(im=IM, jm=JM, kb=KB, n=20,
+                                   dtype="float32")
+    say("breakdown", grid=f"{IM}x{JM}x{KB}", dtype="float32", steps=20,
+        full_step_ms=f"{out['full_step'] * 1e3:.4f}",
+        external_only_ms=f"{out['external_only'] * 1e3:.4f}",
+        internal_est_ms=f"{out['internal_est'] * 1e3:.4f}")
+
+
 def dispatch_echo(*runs) -> None:
     """The dispatch report of each (configuration, mesh block or None) in
     float32 on the card."""
@@ -2078,18 +2508,41 @@ def main() -> int:
     cli_launches, _ = cli_phase(card)
     channel_launches = channel_phase(card, flush)
     channel_check()
+    orl_launches, m = orlanski_phase(card)
+    orl_k = orlanski_kernels(m, flush)
+    del m
+    orl_mesh_launches = orlanski_mesh_phase(card)
+    basin_launches, m, kept = basin_phase(card, flush)
+    basin_cfg = m.cfg
+    basin_k = basin_kernels(m, kept, flush)
+    del m, kept
+    basin_check()
+    breakdown_phase()
     with open(LARGE) as f:
         mesh_block = json.load(f)["mesh"]
     channel_cfg = cfg.replace(dtype="float32", im=CHANNEL[0], jm=CHANNEL[1],
                               kb=CHANNEL[2])
     dispatch_echo((cfg.replace(dtype="float32"), None), (large_cfg, None),
                   (cfg.replace(dtype="float32"), mesh_block),
-                  (large_cfg, mesh_block), (channel_cfg, None))
+                  (large_cfg, mesh_block), (channel_cfg, None),
+                  (basin_cfg, None))
     paths = {"slice_256": launches, "large_2048": large_launches,
              "mesh_256": mesh_launches, "mesh_2048": large_mesh_launches,
-             "cli_256": cli_launches, "channel_512": channel_launches}
+             "cli_256": cli_launches, "channel_512": channel_launches,
+             "orlanski_256": orl_launches,
+             "orlanski_mesh_256": orl_mesh_launches,
+             "basin_512": basin_launches}
+    # the new paths' own numbers, under their path's name
+    ext.update({f"orlanski_256_{k}": v for k, v in orl_k["extloop"].items()})
+    ext.update({f"basin_512_{k}": v for k, v in basin_k["extloop"].items()})
+    win.update({f"basin_512_{k}": v for k, v in basin_k["extwin"].items()})
+    for p in ("tke", "tracer"):
+        phs[p].update({f"orlanski_256_{k}": v for k, v in orl_k[p].items()})
     by_path = lambda k: {p: c[k] for p, c in paths.items()}
     mesh_k["extwin_chunk"] = win_chunk
+    for k in ("extchunk", "extwin_chunk"):
+        mesh_k[k].update({f"basin_512_block_{f}": v
+                          for f, v in basin_k[k].items()})
     for p, (ms, bound) in large_mesh_tiled.items():
         key = p if p == "extwin_chunk" else f"phase_{p}_mesh"
         mesh_k[key].update(large_2048_ms_per_step=ms,

@@ -51,3 +51,17 @@ def plan_from_numpy(names, cadences, offsets, interp, stacks, starts,
                       tuple(bool(i) for i in interp),
                       tuple(_tensor(s, device, dtype) for s in stacks),
                       tuple(int(s) for s in starts))
+
+
+def model_from_numpy(cfg: Config, grid: Mapping, state: Mapping,
+                     forcing: Mapping, rmean, tclim, sclim, device,
+                     iint: int = 0, dtype=None):
+    """The port's Model resumed from the JAX model's dicts (see
+    :func:`from_numpy`): every grid field (cbc and cor included), the State
+    and the base Forcing (a case's wind in ``wusurf`` included), so that
+    both models step from the same arrays."""
+    from extpom_tpu_torch.core.model import Model
+    g, st, fc, rm, tc, sc = from_numpy(cfg, grid, state, forcing, rmean,
+                                       tclim, sclim, device, dtype)
+    return Model(g, cfg, state=st, rmean=rm, tclim=tc, sclim=sc,
+                 base_forcing=fc, iint=iint)

@@ -45,11 +45,24 @@ def dispatch_report(cfg: Config, dtype: torch.dtype, device,
         phase = "cuda"
     else:
         external, phase = {"machine": "plain"}, "plain"
-    return {"external": external,
-            "phases": {p: {"machine": phase} for p in PHASES},
+    return {"external": _with_options(external, cfg),
+            "phases": _phases(cfg, {"machine": phase}),
             "mesh": {"px": 1, "py": 1, "mode": "single-device"},
             "grid": (cfg.im, cfg.jm, cfg.kb), "dtype": str(dtype),
             "device": str(device)}
+
+
+def _with_options(external: dict, cfg: Config) -> dict:
+    """The external loop's report with the options its kernels compile in
+    (the orlanski scheme's edges, mode 2's advave), where any is set."""
+    opts = [name for name, on in (("orlanski", cfg.bc_scheme == "orlanski"),
+                                  ("mode2", cfg.mode == 2)) if on]
+    return {**external, "options": "+".join(opts)} if opts else external
+
+
+def _phases(cfg: Config, machine: dict) -> dict:
+    """The phases' machines: none run in mode 2 (external only)."""
+    return {} if cfg.mode == 2 else {p: dict(machine) for p in PHASES}
 
 
 def _mesh_shape(mesh) -> tuple:
@@ -90,8 +103,8 @@ def _mesh_report(cfg: Config, dtype: torch.dtype, device, px: int,
                         threads=plan.geo.threads)
     ring = (cfg.phase_halo if px > 1 else 0, cfg.phase_halo if py > 1 else 0)
     phase = "cuda-mesh" if device.type == "cuda" else "plain"
-    return {"external": external,
-            "phases": {p: {"machine": phase, "ring": ring} for p in PHASES},
+    return {"external": _with_options(external, cfg),
+            "phases": _phases(cfg, {"machine": phase, "ring": ring}),
             "mesh": {"px": px, "py": py, "mode": "shardmap", "devices": 1,
                      "local_tile": (ni, nj, cfg.kb)},
             "grid": (cfg.im, cfg.jm, cfg.kb), "dtype": str(dtype),
@@ -113,6 +126,8 @@ def format_report(rep: dict) -> str:
     for (machine, geo), names in sorted(by_machine.items()):
         lines.append(f"  phases [{machine}]: {', '.join(names)}"
                      + (f"  [{geo}]" if geo else ""))
+    if not by_machine:
+        lines.append("  phases: none (mode 2, external only)")
     mk = rep["mesh"]
     line = f"  mesh: {mk['px']}x{mk['py']} {mk['mode']}"
     if "local_tile" in mk:

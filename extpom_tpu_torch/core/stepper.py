@@ -28,6 +28,7 @@ from extpom_tpu_torch.kernels import phases
 from extpom_tpu_torch.ops.stencil import domain, sft, put
 from extpom_tpu_torch.ops import advection2d
 from extpom_tpu_torch.bc import bcond as bcf
+from extpom_tpu_torch.bc import orlanski as bco
 
 
 INTERACTION_RADIUS = 2
@@ -37,7 +38,12 @@ def mode_interaction(grid: Grid, cfg: Config, st: State, aam, advx, advy,
                      drhox, drhoy):
     """Vertical integrals feeding the external mode (advance.f:144-202).
     Returns (adx2d, ady2d, drx2d, dry2d, aam2d, advua, advva, wubot, wvbot,
-    egf, utf, vtf)."""
+    egf, utf, vtf).  Mode 2 has no 3-D terms: the 2-D terms are the
+    state's, and advave runs at every substep instead."""
+    if cfg.mode == 2:
+        egf, utf, vtf = averages(grid, cfg, st.el, st.ua, st.va)
+        return (st.adx2d, st.ady2d, st.drx2d, st.dry2d, st.aam2d, st.advua,
+                st.advva, st.wubot, st.wvbot, egf, utf, vtf)
     adx2d, ady2d, drx2d, dry2d, aam2d = depth_integrals(
         grid, cfg, aam, advx, advy, drhox, drhoy)
     advua, advva, wubot, wvbot, egf, utf, vtf = interaction_2d(
@@ -50,8 +56,6 @@ def mode_interaction(grid: Grid, cfg: Config, st: State, aam, advx, advy,
 def depth_integrals(grid: Grid, cfg: Config, aam, advx, advy, drhox, drhoy):
     """The pointwise part of ``mode_interaction``: (adx2d, ady2d, drx2d,
     dry2d, aam2d) before advave's terms come off adx2d and ady2d."""
-    if cfg.mode == 2:
-        raise NotImplementedError("mode=2 is not ported yet")
     dz3 = grid.dz3[:cfg.kbm1]
     return tuple(torch.sum(x[:cfg.kbm1] * dz3, dim=0)
                  for x in (advx, advy, drhox, drhoy, aam))
@@ -65,13 +69,20 @@ def interaction_2d(grid: Grid, cfg: Config, el, ua, va, uab, vab, aam2d,
     d = grid.h + el
     advua, advva, wubot, wvbot = advection2d.advave(
         grid, cfg, d, ua, va, uab, vab, aam2d, wubot, wvbot)
+    return (advua, advva, wubot, wvbot) + averages(grid, cfg, el, ua, va)
+
+
+def averages(grid: Grid, cfg: Config, el, ua, va):
+    """The seeds of the dti averages of the external loop: (egf, utf,
+    vtf)."""
+    d = grid.h + el
     egf = el * cfg.ispi
     z2 = torch.zeros_like(d)
     utf = put(z2, ua * (d + sft(d, -1, 0)) * cfg.isp2i,
               slice(1, None), slice(None))
     vtf = put(z2, va * (d + sft(d, 0, -1)) * cfg.isp2i,
               slice(None), slice(1, None))
-    return advua, advva, wubot, wvbot, egf, utf, vtf
+    return egf, utf, vtf
 
 
 def ext_precompute(grid) -> SimpleNamespace:
@@ -122,9 +133,7 @@ def mode_external_substep(grid: Grid, cfg: Config, c: ExtCarry, iext: int,
     """One external (2-D) leapfrog substep (advance.f:205-353); ``iext`` is
     the 1-based substep counter, ``aux`` = (adx2d, ady2d, drx2d, dry2d,
     aam2d)."""
-    if cfg.bc_scheme == "orlanski":
-        raise NotImplementedError(
-            "bc_scheme='orlanski' (orl_el/orl_vel2d) is not ported yet")
+    orl = cfg.bc_scheme == "orlanski"
     (adx2d, ady2d, drx2d, dry2d, aam2d) = aux
     if em is None:
         em = ext_precompute(grid)
@@ -141,7 +150,7 @@ def mode_external_substep(grid: Grid, cfg: Config, c: ExtCarry, iext: int,
         -(sft(fluxua, 1, 0) - fluxua + sft(fluxva, 0, 1) - fluxva) * em.rart
         - fc.vflux),
         slice(1, -1), slice(1, -1))
-    elf = bcf.bc_el(grid, cfg, elf, fc)
+    elf = bco.orl_el(grid, cfg, elf) if orl else bcf.bc_el(grid, cfg, elf, fc)
 
     # external advection terms every ispadv substeps (advance.f:235)
     if iext % cfg.ispadv == 0:
@@ -189,7 +198,11 @@ def mode_external_substep(grid: Grid, cfg: Config, c: ExtCarry, iext: int,
               / ((em.hv + elf + sft(elf, 0, -1)) * arv),
               slice(1, -1), slice(1, None))
 
-    uaf, vaf = bcf.bc_vel2d(grid, cfg, uaf, vaf, c.el, d, fc, fc.ramp)
+    if orl:
+        uaf, vaf = bco.orl_vel2d(grid, cfg, uaf, vaf, c.ua, c.uab, c.va,
+                                 c.vab)
+    else:
+        uaf, vaf = bcf.bc_vel2d(grid, cfg, uaf, vaf, c.el, d, fc, fc.ramp)
 
     # etf tail averaging over the last three substeps (advance.f:295-318)
     isplit = cfg.isplit
@@ -231,7 +244,8 @@ def mode_internal(grid: Grid, cfg: Config, st: State, fc: Forcing,
                   c: ExtCarry, aam, advx, advy, drhox, drhoy, tclim, sclim,
                   first: bool) -> State:
     """Internal (3-D) mode update (advance.f:356-537); the first step of a
-    cold start skips the 3-D block, as the reference does (advance.f:362)."""
+    cold start skips the 3-D block, as the reference does (advance.f:362),
+    and mode 2 skips it at every step, keeping the final copies."""
     h = grid.h
     dt = h + st.et
     etf = c.etf
@@ -241,7 +255,7 @@ def mode_internal(grid: Grid, cfg: Config, st: State, fc: Forcing,
     km, kh, kq, l = st.km, st.kh, st.kq, st.l
     wubot, wvbot = c.wubot, c.wvbot
 
-    if not first:
+    if not first and cfg.mode != 2:
         u, v, w = phases.phase_uvw(grid, cfg, u, v, w, dt, st.utb, st.vtb,
                                    c.utf, c.vtf, st.etb, etf, st.vfluxb,
                                    fc.vflux)
@@ -251,7 +265,7 @@ def mode_internal(grid: Grid, cfg: Config, st: State, fc: Forcing,
         if cfg.mode != 4:
             t, tb, s, sb, rho = phases.phase_tracer(
                 grid, cfg, t, tb, s, sb, tclim, sclim, u, v, w,
-                aam, kh, dt, st.etb, etf, fc)
+                aam, kh, dt, st.etb, etf, fc, ub=ub)
         u, ub, v, vb, wubot, wvbot = phases.phase_mom(
             grid, cfg, u, ub, v, vb, w, advx, advy, drhox, drhoy,
             km, dt, c.egf, st.egb, st.etb, etf, fc)
@@ -273,12 +287,12 @@ def step(grid: Grid, cfg: Config, st: State, fc: Forcing, rmean, tclim,
          sclim, first: bool = False) -> State:
     """Advance one internal time step (advance.f:6-59)."""
     from extpom_tpu_torch.kernels import extloop, extwin
-    if cfg.mode == 2:
-        raise NotImplementedError("mode=2 is not ported yet")
-    dt = grid.h + st.et
-    aam, advx, advy, drhox, drhoy = phases.phase_lat(
-        grid, cfg, st.u, st.v, st.ub, st.vb, st.aam, st.rho, rmean, dt,
-        fc.ramp)
+    if cfg.mode == 2:   # no 3-D terms (advance.f:21 skips them)
+        aam, advx, advy, drhox, drhoy = st.aam, None, None, None, None
+    else:
+        aam, advx, advy, drhox, drhoy = phases.phase_lat(
+            grid, cfg, st.u, st.v, st.ub, st.vb, st.aam, st.rho, rmean,
+            grid.h + st.et, fc.ramp)
 
     (adx2d, ady2d, drx2d, dry2d, aam2d, advua, advva, wubot, wvbot,
      egf, utf, vtf) = mode_interaction(grid, cfg, st, aam, advx, advy,
@@ -320,43 +334,63 @@ def mesh_step(blocks, cfg: Config, ramp, first: bool = False) -> None:
     trim = lambda outs, h=hp: [blocks.trim(x, h) for x in outs]
     dt = {b: blocks.grid[b].h + st[b].et for b in ids}
 
-    def phase(fn, b, operands, extra=(), fc=False):
+    def phase(fn, b, operands, extra=(), fc=False, **kw):
         """Phase ``fn`` on block ``b``, its trimmed outputs: ``operands``
-        are state field names or per-block dicts, both ring-extended, then
-        come the ``extra`` tensors as they are and the extended forcing."""
-        args = [ext(blocks.field(x) if isinstance(x, str) else x, b)
-                for x in operands]
+        (and the keywords ``kw``) are state field names or per-block
+        dicts, both ring-extended, then come the ``extra`` tensors as they
+        are and the extended forcing."""
+        field = lambda x: ext(blocks.field(x) if isinstance(x, str) else x, b)
+        args = [field(x) for x in operands]
         args += list(extra)
         if fc:
             args.append(blocks.fc_ext(b, hp).replace(ramp=ramp))
         return trim(fn(blocks.grid_ext(b, hp), cfg, *args,
-                       off=blocks.goff(b, hp)))
+                       off=blocks.goff(b, hp),
+                       **{k: field(x) for k, x in kw.items()}))
 
+    m2 = cfg.mode == 2
     lat = {}
-    for b in ids:
-        rmean = blocks.clim_ext(b, hp)[0]
-        lat[b] = phase(phases.phase_lat, b, ("u", "v", "ub", "vb", "aam",
-                                             "rho"),
-                       (rmean, ext(dt, b), ramp))
-    aam = {b: lat[b][0] for b in ids}
+    if not m2:      # mode 2 has no 3-D terms
+        for b in ids:
+            rmean = blocks.clim_ext(b, hp)[0]
+            lat[b] = phase(phases.phase_lat, b, ("u", "v", "ub", "vb", "aam",
+                                                 "rho"),
+                           (rmean, ext(dt, b), ramp))
+    aam = {b: st[b].aam if m2 else lat[b][0] for b in ids}
 
-    # mode_interaction: depth integrals in place, advave on the ring
-    ints = {b: depth_integrals(blocks.grid[b], cfg, *lat[b]) for b in ids}
+    # mode_interaction: depth integrals in place, advave on the ring; in
+    # mode 2 the 2-D terms are the state's and only the averages run
+    if m2:
+        ints = {b: (st[b].adx2d, st[b].ady2d, st[b].drx2d, st[b].dry2d,
+                    st[b].aam2d) for b in ids}
+    else:
+        ints = {b: depth_integrals(blocks.grid[b], cfg, *lat[b])
+                for b in ids}
     aam2d = {b: ints[b][4] for b in ids}
     carry, aux = {}, {}
     for b in ids:
         e = lambda vals: ext(vals, b, hm)
-        with domain(_local_ctx(cfg, blocks.goff(b, hm))):
-            advua, advva, _, _, egf, utf, vtf = interaction_2d(
-                blocks.grid_ext(b, hm), cfg, e(blocks.field("el")),
-                e(blocks.field("ua")), e(blocks.field("va")),
-                e(blocks.field("uab")), e(blocks.field("vab")), e(aam2d),
-                None, None)
-        advua, advva, egf, utf, vtf = trim((advua, advva, egf, utf, vtf),
-                                           hm)
         s = st[b]
+        with domain(_local_ctx(cfg, blocks.goff(b, hm))):
+            g = blocks.grid_ext(b, hm)
+            el, ua, va = (e(blocks.field(k)) for k in ("el", "ua", "va"))
+            if m2:
+                out = averages(g, cfg, el, ua, va)
+            else:
+                out = interaction_2d(g, cfg, el, ua, va,
+                                     e(blocks.field("uab")),
+                                     e(blocks.field("vab")), e(aam2d),
+                                     None, None)
+                out = out[:2] + out[4:]
+        out = trim(out, hm)
         adx2d, ady2d, drx2d, dry2d, _ = ints[b]
-        aux[b] = (adx2d - advua, ady2d - advva, drx2d, dry2d, aam2d[b])
+        if m2:
+            egf, utf, vtf = out
+            advua, advva = s.advua, s.advva
+            aux[b] = ints[b]
+        else:
+            advua, advva, egf, utf, vtf = out
+            aux[b] = (adx2d - advua, ady2d - advva, drx2d, dry2d, aam2d[b])
         carry[b] = ExtCarry(el=s.el, elb=s.elb, ua=s.ua, uab=s.uab, va=s.va,
                             vab=s.vab, etf=s.etf, egf=egf, utf=utf, vtf=vtf,
                             advua=advua, advva=advva, wubot=s.wubot,
@@ -370,7 +404,7 @@ def mesh_step(blocks, cfg: Config, ramp, first: bool = False) -> None:
                    kh=st[b].kh, kq=st[b].kq, l=st[b].l,
                    wubot=carry[b].wubot, wvbot=carry[b].wvbot)
            for b in ids}
-    if not first:
+    if not first and not m2:
         cget = lambda k: {b: getattr(carry[b], k) for b in ids}
         nget = lambda k: {b: new[b][k] for b in ids}
 
@@ -394,7 +428,7 @@ def mesh_step(blocks, cfg: Config, ramp, first: bool = False) -> None:
                 phases.phase_tracer, b, ("t", "tb", "s", "sb"),
                 blocks.clim_ext(b, hp)[1:] + tuple(ext(x, b) for x in (
                     nget("u"), nget("v"), nget("w"), aam, nget("kh"), dt,
-                    blocks.field("etb"), cget("etf"))), fc=True)
+                    blocks.field("etb"), cget("etf"))), fc=True, ub="ub")
                 for b in ids})
         lat_out = lambda k: {b: lat[b][k] for b in ids}
         stage(("u", "ub", "v", "vb", "wubot", "wvbot"), {b: phase(

@@ -296,4 +296,23 @@ int tile_info(Kernel kernel, int threads, int smem, int* out) {
   return 0;
 }
 
+// ---- Orlanski radiation (bc/orlanski.py) ----
+
+// Orlanski phase speed (fb - ff) / (ff + fb - 2 f_i), a zero denominator
+// read as 0.01, clamped to [0, 1] (a NaN passes through, as torch.clamp
+// lets it)
+template <typename T>
+__device__ __forceinline__ T phase_speed(T ff_b, T fb_b, T f_i) {
+  T denom = ff_b + fb_b - T(2) * f_i;
+  denom = denom == T(0) ? T(0.01) : denom;
+  const T x = (fb_b - ff_b) / denom;
+  return x != x ? x : (x < T(0) ? T(0) : (x > T(1) ? T(1) : x));
+}
+
+// radiated value (fb (1 - cl) + 2 cl f_in) / (1 + cl)
+template <typename T>
+__device__ __forceinline__ T radiate(T cl, T fb, T f_in) {
+  return (fb * (T(1) - cl) + T(2) * cl * f_in) / (T(1) + cl);
+}
+
 }  // namespace extpom

@@ -60,6 +60,13 @@
 // neighbours are what each pass waits on.  The carry order is CARRY_FIELDS
 // of the TPU kernel (extloop.py:48).
 //
+// The options of extstep.cuh (kOrl, the orlanski scheme's edges; kMode2,
+// mode 2's advave) are template flags chosen per call (`flags` of the
+// entries, extpom::with_flags): in mode 2 the surface pass also writes the
+// bottom stress of its cell, which the velocity pass reads at that cell
+// after the barrier; an Orlanski edge cell forms the interior velocity one
+// row in itself, so neither option adds a barrier.
+//
 // extpom_extchunk_f32/f64, the same kernel on one ring-extended block of
 // the decomposed step (the O variant of extstep.cuh), replace
 // extpom_tpu/pallas/extloop.py:_chunk_kernel (via run_external_chunk_vmem),
@@ -99,7 +106,7 @@ struct Levels {
 };
 
 // substeps iext0 .. iext0+nsub-1 of isplit, cells grid-stride
-template <typename T, bool O>
+template <typename T, int O>
 __global__ void __launch_bounds__(kMaxThreads)
     k_extloop(ExtArgs<T, O> s, Levels<T> lv, T* advua, T* advva, T* etf,
               T* egf, T* utf, T* vtf, int iext0, int nsub, int isplit,
@@ -143,13 +150,17 @@ __global__ void __launch_bounds__(kMaxThreads)
     T* const vab = odd ? lv.va[1] : lv.va[3];
     c.advua = advua;
     c.advva = advva;
+    // mode 2 rewrites the bottom stress in the surface pass; a cell's is
+    // read by the thread that wrote it
+    c.wubot = const_cast<T*>(s.wubot);
+    c.wvbot = const_cast<T*>(s.wvbot);
     const bool adv = iext % ispadv == 0;
     for (int p = p0; p < n; p += step) {
       int i, j;
       extpom::cell(s, p, i, j);
       c.elf[p] = extpom::elf_point(s, c, i, j);
-      // advave reads d/ua/va/uab/vab only; advua/advva are read at their
-      // own cell, by the velocity pass
+      // advave reads d/ua/va/uab/vab only; advua/advva (and in mode 2
+      // wubot/wvbot) are read at their own cell, by the velocity pass
       if (adv) extpom::adv_point(s, c, i, j, c.advua[p], c.advva[p]);
     }
     grid.sync();
@@ -168,10 +179,11 @@ __global__ void __launch_bounds__(kMaxThreads)
 // and fourth slots of el, ua, va (kernels/extloop.py:N_SCRATCH); all
 // (im, jm), or (R, L) on a block (O).  Runs substeps iext0 .. iext0+nsub-1
 // of isplit in one cooperative launch of `blocks` blocks of `threads`.
-template <typename T, bool O>
+template <typename T, int O>
 int run(void* const* ptr, const double* prm, int im, int jm, int R, int L,
         int oi, int oj, int iext0, int nsub, int isplit, int ispadv,
         int threads, int blocks, void* stream) {
+  static_assert(O >= 0 && O < 8, "flags: kBlock | kOrl | kMode2");
   if (nsub < 1 || iext0 < 1 || iext0 + nsub - 1 > isplit || R < 1 || L < 1 ||
       ispadv < 1 || threads < 32 || threads > kMaxThreads ||
       threads % 32 != 0 || blocks < 1)
@@ -235,18 +247,26 @@ __global__ void k_floor(unsigned* bar, int n) {
   }
 }
 
+template <typename T, int B>
+int loop_info(int flags, int threads, int* o) {
+  return extpom::with_flags<B>(flags, [&](auto c) {
+    return extpom::tile_info(k_extloop<T, decltype(c)::value>, threads, 0, o);
+  });
+}
+
 }  // namespace
 
 // What the compiler and the card give k_extloop (the block variant with
-// blk) for `threads` threads: column.cuh's tile_info (no shared memory)
-extern "C" int extpom_extloop_info(int f64, int blk, int threads,
+// blk, the options of `flags`, kOrl | kMode2) for `threads` threads:
+// column.cuh's tile_info (no shared memory)
+extern "C" int extpom_extloop_info(int f64, int blk, int flags, int threads,
                                    void* out) {
   int* o = (int*)out;
   if (f64)
-    return blk ? extpom::tile_info(k_extloop<double, true>, threads, 0, o)
-               : extpom::tile_info(k_extloop<double, false>, threads, 0, o);
-  return blk ? extpom::tile_info(k_extloop<float, true>, threads, 0, o)
-             : extpom::tile_info(k_extloop<float, false>, threads, 0, o);
+    return blk ? loop_info<double, extpom::kBlock>(flags, threads, o)
+               : loop_info<double, 0>(flags, threads, o);
+  return blk ? loop_info<float, extpom::kBlock>(flags, threads, o)
+             : loop_info<float, 0>(flags, threads, o);
 }
 
 extern "C" int extpom_extloop_launches() { return launches; }
@@ -267,32 +287,47 @@ extern "C" int extpom_extloop_floor(int threads, int blocks, int n, int hand,
   return (int)err;
 }
 
+// `flags`: the options kOrl | kMode2 (extstep.cuh)
 extern "C" int extpom_extloop_f32(void* const* ptr, const double* prm, int im,
-                                  int jm, int isplit, int ispadv, int threads,
-                                  int blocks, void* stream) {
-  return run<float, false>(ptr, prm, im, jm, im, jm, 0, 0, 1, isplit, isplit,
-                           ispadv, threads, blocks, stream);
+                                  int jm, int isplit, int ispadv, int flags,
+                                  int threads, int blocks, void* stream) {
+  return extpom::with_flags<0>(flags, [&](auto c) {
+    return run<float, decltype(c)::value>(ptr, prm, im, jm, im, jm, 0, 0, 1,
+                                          isplit, isplit, ispadv, threads,
+                                          blocks, stream);
+  });
 }
 
 extern "C" int extpom_extloop_f64(void* const* ptr, const double* prm, int im,
-                                  int jm, int isplit, int ispadv, int threads,
-                                  int blocks, void* stream) {
-  return run<double, false>(ptr, prm, im, jm, im, jm, 0, 0, 1, isplit, isplit,
-                            ispadv, threads, blocks, stream);
+                                  int jm, int isplit, int ispadv, int flags,
+                                  int threads, int blocks, void* stream) {
+  return extpom::with_flags<0>(flags, [&](auto c) {
+    return run<double, decltype(c)::value>(ptr, prm, im, jm, im, jm, 0, 0, 1,
+                                           isplit, isplit, ispadv, threads,
+                                           blocks, stream);
+  });
 }
 
 extern "C" int extpom_extchunk_f32(void* const* ptr, const double* prm, int im,
                                    int jm, int R, int L, int nsub, int iext0,
                                    int oi, int oj, int isplit, int ispadv,
-                                   int threads, int blocks, void* stream) {
-  return run<float, true>(ptr, prm, im, jm, R, L, oi, oj, iext0, nsub, isplit,
-                          ispadv, threads, blocks, stream);
+                                   int flags, int threads, int blocks,
+                                   void* stream) {
+  return extpom::with_flags<extpom::kBlock>(flags, [&](auto c) {
+    return run<float, decltype(c)::value>(ptr, prm, im, jm, R, L, oi, oj,
+                                          iext0, nsub, isplit, ispadv,
+                                          threads, blocks, stream);
+  });
 }
 
 extern "C" int extpom_extchunk_f64(void* const* ptr, const double* prm, int im,
                                    int jm, int R, int L, int nsub, int iext0,
                                    int oi, int oj, int isplit, int ispadv,
-                                   int threads, int blocks, void* stream) {
-  return run<double, true>(ptr, prm, im, jm, R, L, oi, oj, iext0, nsub,
-                           isplit, ispadv, threads, blocks, stream);
+                                   int flags, int threads, int blocks,
+                                   void* stream) {
+  return extpom::with_flags<extpom::kBlock>(flags, [&](auto c) {
+    return run<double, decltype(c)::value>(ptr, prm, im, jm, R, L, oi, oj,
+                                           iext0, nsub, isplit, ispadv,
+                                           threads, blocks, stream);
+  });
 }

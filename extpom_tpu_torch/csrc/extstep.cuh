@@ -33,7 +33,22 @@
 // cells per substep for that reason (tests/test_torch_extwin.py checks it
 // on the plain loop).
 //
-// Blocks (the template flag O, "offset"): the decomposed step runs the same
+// Template flags O of ExtArgs, the readers and the kernels: kBlock, a
+// ring-extended block (below); kOrl, the orlanski scheme's edges (orl_el,
+// which is bc_el's clamp-and-copy, and orl_vel2d); kMode2, mode 2, whose
+// advave adds the bottom stress of the depth-mean flow (then a carry
+// field, rewritten every advave substep and read at its own cell by the
+// velocity pass) and the curvature terms.  Each is a compile-time flag, so
+// the kernels of the main path (O = 0 or kBlock) compile to the code they
+// had without the options.
+//
+// orl_vel2d's edge value reads the same substep's interior uaf (vaf) one
+// row (column) in: the edge cell forms that value itself with
+// uaf_interior (vaf_interior), from the elf and advua/advva that the
+// surface pass finished, so the velocity pass needs no further barrier;
+// its stencil reaches 3 cells in from a domain edge, normal to it.
+//
+// Blocks (the flag kBlock, "offset"): the decomposed step runs the same
 // substep on a ring-extended (R, L) block of the domain whose cell (0, 0) is
 // global (oi, oj) (extchunk in extloop.cu, extwin_chunk in extwin.cu).
 // Cells keep their global (i, j), so every region test and boundary
@@ -49,15 +64,39 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "column.cuh"
 
 namespace extpom {
+
+// template flags of the external kernels (see the header)
+constexpr int kBlock = 1;
+constexpr int kOrl = 2;
+constexpr int kMode2 = 4;
+
+// The instantiation of the options in `flags` (kOrl | kMode2) on top of B
+// (0 or kBlock): f is called with an integral_constant of the template
+// flags
+template <int B, class F>
+int with_flags(int flags, F f) {
+  switch (flags & (kOrl | kMode2)) {
+    case 0:
+      return f(std::integral_constant<int, B>{});
+    case kOrl:
+      return f(std::integral_constant<int, B | kOrl>{});
+    case kMode2:
+      return f(std::integral_constant<int, B | kMode2>{});
+    default:
+      return f(std::integral_constant<int, B | kOrl | kMode2>{});
+  }
+}
 
 // operand order of the read-only block of a pointer table: grid, aux, 2-D
 // forcing, 1-D series (j-sides, then i-sides), ramp, metrics
 constexpr int kExtOperands = 11 + 5 + 4 + 12 + 1 + 13;
 
-template <typename T, bool O = false>
+template <typename T, int O = 0>
 struct ExtArgs {
   // grid
   const T *h, *dx, *dy, *art, *aru, *arv, *cor, *fsm, *dum, *dvm, *cbc;
@@ -84,7 +123,7 @@ struct ExtArgs {
 // Fills the read-only block from ptr[0 .. kExtOperands) and the constants
 // from prm = (dte, grav, smoth, alpha, isplit, rfe, rfw, rfn, rfs); each
 // constant is formed in double as the Python expression forms it.
-template <typename T, bool O>
+template <typename T, int O>
 void set_ext_args(ExtArgs<T, O>& s, void* const* ptr, const double* prm,
                   int im, int jm) {
   int k = 0;
@@ -134,49 +173,50 @@ void set_ext_args(ExtArgs<T, O>& s, void* const* ptr, const double* prm,
 template <typename T, bool kWindow>
 struct Carry {
   T *el, *elb, *ua, *uab, *va, *vab, *advua, *advva, *elf, *uaf, *vaf;
+  T *wubot, *wvbot;  // kMode2: the bottom stress, a carry field
   int oi, oj, stride;
   int i0, i1, j0, j1;
 };
 
 // index of cell (i, j) in the read-only arrays
-template <typename T, bool O>
+template <typename T, int O>
 __device__ __forceinline__ int pix(const ExtArgs<T, O>& s, int i, int j) {
-  if constexpr (O) return (i - s.oi) * s.L + (j - s.oj);
+  if constexpr (O & kBlock) return (i - s.oi) * s.L + (j - s.oj);
   return i * s.jm + j;
 }
 
 // distance between rows of the read-only arrays
-template <typename T, bool O>
+template <typename T, int O>
 __device__ __forceinline__ int prow(const ExtArgs<T, O>& s) {
-  if constexpr (O) return s.L;
+  if constexpr (O & kBlock) return s.L;
   return s.jm;
 }
 
 // whether cell (i, j) lies in the read-only arrays (the domain or the block)
-template <typename T, bool O>
+template <typename T, int O>
 __device__ __forceinline__ bool inb(const ExtArgs<T, O>& s, int i, int j) {
-  if constexpr (O)
+  if constexpr (O & kBlock)
     return i >= s.oi && i < s.oi + s.R && j >= s.oj && j < s.oj + s.L;
   return i >= 0 && i < s.im && j >= 0 && j < s.jm;
 }
 
 // whether cell (i, j) lies in the domain
-template <typename T, bool O>
+template <typename T, int O>
 __device__ __forceinline__ bool in_domain(const ExtArgs<T, O>& s, int i,
                                           int j) {
   return i >= 0 && i < s.im && j >= 0 && j < s.jm;
 }
 
 // cells of the read-only arrays, and the (i, j) of cell p of them
-template <typename T, bool O>
+template <typename T, int O>
 __device__ __forceinline__ int cells(const ExtArgs<T, O>& s) {
-  return O ? s.R * s.L : s.im * s.jm;
+  return (O & kBlock) ? s.R * s.L : s.im * s.jm;
 }
 
-template <typename T, bool O>
+template <typename T, int O>
 __device__ __forceinline__ void cell(const ExtArgs<T, O>& s, int p, int& i,
                                      int& j) {
-  if constexpr (O) {
+  if constexpr (O & kBlock) {
     i = p / s.L + s.oi;
     j = p % s.L + s.oj;
   } else {
@@ -186,18 +226,18 @@ __device__ __forceinline__ void cell(const ExtArgs<T, O>& s, int p, int& i,
 }
 
 // boundary series at column j (j-sides) or row i (i-sides)
-template <typename T, bool O>
+template <typename T, int O>
 __device__ __forceinline__ T at_j(const ExtArgs<T, O>& s, const T* a, int j) {
-  return a[O ? j - s.oj : j];
+  return a[(O & kBlock) ? j - s.oj : j];
 }
 
-template <typename T, bool O>
+template <typename T, int O>
 __device__ __forceinline__ T at_i(const ExtArgs<T, O>& s, const T* a, int i) {
-  return a[O ? i - s.oi : i];
+  return a[(O & kBlock) ? i - s.oi : i];
 }
 
 // index of cell (i, j) in the arrays of c
-template <typename T, bool O, bool W>
+template <typename T, int O, bool W>
 __device__ __forceinline__ int at(const ExtArgs<T, O>& s,
                                   const Carry<T, W>& c, int i, int j) {
   if constexpr (W) return (i - c.oi) * c.stride + (j - c.oj);
@@ -205,7 +245,7 @@ __device__ __forceinline__ int at(const ExtArgs<T, O>& s,
 }
 
 // distance between rows of the arrays of c
-template <typename T, bool O, bool W>
+template <typename T, int O, bool W>
 __device__ __forceinline__ int rows(const ExtArgs<T, O>& s,
                                     const Carry<T, W>& c) {
   if constexpr (W) return c.stride;
@@ -213,7 +253,7 @@ __device__ __forceinline__ int rows(const ExtArgs<T, O>& s,
 }
 
 // whether cell (i, j) of c may be read
-template <typename T, bool O, bool W>
+template <typename T, int O, bool W>
 __device__ __forceinline__ bool in(const ExtArgs<T, O>& s,
                                    const Carry<T, W>& c, int i, int j) {
   if constexpr (W) return i >= c.i0 && i < c.i1 && j >= c.j0 && j < c.j1;
@@ -222,7 +262,7 @@ __device__ __forceinline__ bool in(const ExtArgs<T, O>& s,
 
 // zero-filled read of a field of c: 0 outside the domain (the block), as
 // sft reads
-template <typename T, bool O, bool W>
+template <typename T, int O, bool W>
 __device__ __forceinline__ T ldc(const ExtArgs<T, O>& s,
                                  const Carry<T, W>& c, const T* a, int i,
                                  int j) {
@@ -230,41 +270,41 @@ __device__ __forceinline__ T ldc(const ExtArgs<T, O>& s,
 }
 
 // zero-filled read of a read-only field
-template <typename T, bool O>
+template <typename T, int O>
 __device__ __forceinline__ T ld(const T* a, const ExtArgs<T, O>& s, int i,
                                 int j) {
-  if constexpr (O) return inb(s, i, j) ? a[pix(s, i, j)] : T(0);
+  if constexpr (O & kBlock) return inb(s, i, j) ? a[pix(s, i, j)] : T(0);
   return ld2(a, s.im, s.jm, i, j);
 }
 
 // read-only field at (i + di, j + dj), p the index of (i, j): unguarded on
 // the domain, whose region tests keep such reads inside it; zero-filled on
 // a block
-template <typename T, bool O>
+template <typename T, int O>
 __device__ __forceinline__ T rn(const ExtArgs<T, O>& s, const T* a, int p,
                                 int i, int j, int di = 0, int dj = 0) {
-  if constexpr (O) return ld(a, s, i + di, j + dj);
+  if constexpr (O & kBlock) return ld(a, s, i + di, j + dj);
   return a[p + di * s.jm + dj];
 }
 
 // the same for a field of c, q the index of (i, j) in its arrays
-template <typename T, bool O, bool W>
+template <typename T, int O, bool W>
 __device__ __forceinline__ T cn(const ExtArgs<T, O>& s, const Carry<T, W>& c,
                                 const T* a, int q, int i, int j, int di = 0,
                                 int dj = 0) {
-  if constexpr (O) return ldc(s, c, a, i + di, j + dj);
+  if constexpr (O & kBlock) return ldc(s, c, a, i + di, j + dj);
   return a[q + di * rows(s, c) + dj];
 }
 
 // d = h + el (zero outside the array, as sft(d, ...) reads)
-template <typename T, bool O, bool W>
+template <typename T, int O, bool W>
 __device__ __forceinline__ T dd(const ExtArgs<T, O>& s, const Carry<T, W>& c,
                                 int i, int j) {
   return in(s, c, i, j) ? s.h[pix(s, i, j)] + c.el[at(s, c, i, j)] : T(0);
 }
 
 // ext_precompute at cell p of the read-only arrays
-template <typename T, bool O>
+template <typename T, int O>
 __device__ __forceinline__ void metrics_point(const ExtArgs<T, O>& s, int p) {
   int i, j;
   cell(s, p, i, j);
@@ -289,7 +329,7 @@ __device__ __forceinline__ void metrics_point(const ExtArgs<T, O>& s, int p) {
 }
 
 // ext_precompute, one point per thread
-template <typename T, bool O>
+template <typename T, int O>
 __global__ void k_metrics(ExtArgs<T, O> s) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p < cells(s)) metrics_point(s, p);
@@ -445,7 +485,77 @@ __device__ __forceinline__ void adv_point(const X& x, typename X::type& advua,
   advva = inside ? x.fua6(1, 0) - x.fua6() + x.fva6() - x.fva6(0, -1) : T(0);
 }
 
+// ---- advave, mode 2 (solver.f:123-193) ----
+
+// curv2d at (i + di, j + dj), on its put region 1:-1, 1:-1; every read a
+// caller makes lies in the array where the region holds
+template <class X>
+__device__ __forceinline__ typename X::type curv(const X& x, int di, int dj) {
+  using T = typename X::type;
+  const auto& s = x.s;
+  const auto& c = x.c;
+  const int i = x.i + di, j = x.j + dj;
+  if (i < 1 || i > s.im - 2 || j < 1 || j > s.jm - 2) return T(0);
+  return T(0.25) *
+         ((x.w(c.va, di, dj + 1) + x.w(c.va, di, dj)) *
+              (x.r(s.dy, di + 1, dj) - x.r(s.dy, di - 1, dj)) -
+          (x.w(c.ua, di + 1, dj) + x.w(c.ua, di, dj)) *
+              (x.r(s.dx, di, dj + 1) - x.r(s.dx, di, dj - 1))) *
+         x.r(s.rart, di, dj);
+}
+
+// advave's mode-2 branch at one point, after adv_point: the bottom stress
+// of the depth-mean flow into wubot/wvbot on 1:-1, 1:-1 (left as they are
+// elsewhere), and the curvature terms into advua on global i >= 2 and
+// advva on global j >= 2
+template <class X>
+__device__ __forceinline__ void mode2_point(const X& x,
+                                            typename X::type& advua,
+                                            typename X::type& advva,
+                                            typename X::type& wubot,
+                                            typename X::type& wvbot) {
+  using T = typename X::type;
+  const auto& s = x.s;
+  const auto& c = x.c;
+  const int i = x.i, j = x.j, im = s.im, jm = s.jm;
+  if (i < 1 || i > im - 2 || j < 1 || j > jm - 2) return;
+  const T uab = x.w(c.uab), vab = x.w(c.vab);
+  const T vq = T(0.25) * (vab + x.w(c.vab, 0, 1) + x.w(c.vab, -1, 0) +
+                          x.w(c.vab, -1, 1));
+  wubot = T(-0.5) * (x.r(s.cbc) + x.r(s.cbc, -1, 0)) *
+          sqrt(uab * uab + vq * vq) * uab;
+  const T uq = T(0.25) * (uab + x.w(c.uab, 1, 0) + x.w(c.uab, 0, -1) +
+                          x.w(c.uab, 1, -1));
+  wvbot = T(-0.5) * (x.r(s.cbc) + x.r(s.cbc, 0, -1)) *
+          sqrt(vab * vab + uq * uq) * vab;
+  const T cv = curv(x, 0, 0), d = x.d();
+  if (i >= 2)
+    advua = advua - x.r(s.aru) * T(0.25) *
+                        (cv * d * (x.w(c.va, 0, 1) + x.w(c.va)) +
+                         curv(x, -1, 0) * x.d(-1, 0) *
+                             (x.w(c.va, -1, 1) + x.w(c.va, -1, 0)));
+  if (j >= 2)
+    advva = advva + x.r(s.arv) * T(0.25) *
+                        (cv * d * (x.w(c.ua, 1, 0) + x.w(c.ua)) +
+                         curv(x, 0, -1) * x.d(0, -1) *
+                             (x.w(c.ua, 1, -1) + x.w(c.ua, 0, -1)));
+}
+
 // ---- depth-mean momentum (advance.f:237-288) ----
+
+// the bottom stress uaf/vaf read at their own cell: the carry's in mode 2,
+// the step's constant one otherwise
+template <class X>
+__device__ __forceinline__ typename X::type bottom_u(const X& x) {
+  if constexpr (X::kFlags & kMode2) return x.w(x.c.wubot);
+  return x.r(x.s.wubot);
+}
+
+template <class X>
+__device__ __forceinline__ typename X::type bottom_v(const X& x) {
+  if constexpr (X::kFlags & kMode2) return x.w(x.c.wvbot);
+  return x.r(x.s.wvbot);
+}
 
 // uaf on its put region 1:, 1:-1
 template <class X>
@@ -465,7 +575,7 @@ __device__ __forceinline__ typename X::type uaf_interior(const X& x) {
                   x.r(s.e_atmos, -1, 0);
   const T u1 = x.r(s.adx2d) + x.w(c.advua) - cori +
                s.c025g * x.r(s.dyu) * (d + dw) * slope + x.r(s.drx2d) +
-               aru * (x.r(s.wusurf) - x.r(s.wubot));
+               aru * (x.r(s.wusurf) - bottom_u(x));
   return ((hu + elb + elbw) * aru * x.w(c.uab) - s.c4dte * u1) /
          ((hu + elf + elfw) * aru);
 }
@@ -488,7 +598,7 @@ __device__ __forceinline__ typename X::type vaf_interior(const X& x) {
                   x.r(s.e_atmos, 0, -1);
   const T v1 = x.r(s.ady2d) + x.w(c.advva) + cori +
                s.c025g * x.r(s.dxv) * (d + ds) * slope + x.r(s.dry2d) +
-               arv * (x.r(s.wvsurf) - x.r(s.wvbot));
+               arv * (x.r(s.wvsurf) - bottom_v(x));
   return ((hv + elb + elbs) * arv * x.w(c.vab) - s.c4dte * v1) /
          ((hv + elf + elfs) * arv);
 }
@@ -497,9 +607,10 @@ __device__ __forceinline__ typename X::type vaf_interior(const X& x) {
 // arrays and q in the carry's: reads are unguarded on the domain, whose
 // region tests keep them inside it, and zero-filled on a block (rn, cn);
 // d is zero outside the carry's arrays (dd)
-template <typename T, bool O, bool W>
+template <typename T, int O, bool W>
 struct At {
   using type = T;
+  static constexpr int kFlags = O;
   const ExtArgs<T, O>& s;
   const Carry<T, W>& c;
   int i, j, p, q;
@@ -551,25 +662,30 @@ struct At {
 
 // elf + bc_el: edges copy the clamped interior value (see header); 0
 // outside the domain
-template <typename T, bool O, bool W>
+template <typename T, int O, bool W>
 __device__ T elf_point(const ExtArgs<T, O>& s, const Carry<T, W>& c, int i,
                        int j) {
-  if constexpr (O)
+  if constexpr (O & kBlock)
     if (!in_domain(s, i, j)) return T(0);
   const int ci = min(max(i, 1), s.im - 2), cj = min(max(j, 1), s.jm - 2);
   return elf_interior(At<T, O, W>(s, c, ci, cj)) *
          rn(s, s.fsm, pix(s, i, j), i, j);
 }
 
-template <typename T, bool O, bool W>
+// advave at one point: advua and advva, and in mode 2 the bottom stress
+// into the carry's wubot/wvbot at the point
+template <typename T, int O, bool W>
 __device__ void adv_point(const ExtArgs<T, O>& s, const Carry<T, W>& c, int i,
                           int j, T& advua, T& advva) {
-  adv_point(At<T, O, W>(s, c, i, j), advua, advva);
+  const At<T, O, W> x(s, c, i, j);
+  adv_point(x, advua, advva);
+  if constexpr (O & kMode2)
+    mode2_point(x, advua, advva, c.wubot[x.q], c.wvbot[x.q]);
 }
 
 // Flather radiation value with d/el read at (i, j): sqrt(g/d) is taken as
 // sqrt((1/d)*g), PyTorch's form of a Python float over a tensor
-template <typename T, bool O, bool W>
+template <typename T, int O, bool W>
 __device__ __forceinline__ T flather(const ExtArgs<T, O>& s,
                                      const Carry<T, W>& c, int i, int j, T rf,
                                      T sign, T vb, T eb) {
@@ -580,10 +696,10 @@ __device__ __forceinline__ T flather(const ExtArgs<T, O>& s,
 
 // uaf and vaf at one point, bc_vel2d included, times dum/dvm; 0 outside
 // the domain
-template <typename T, bool O, bool W>
+template <typename T, int O, bool W>
 __device__ void velocity_point(const ExtArgs<T, O>& s, const Carry<T, W>& c,
                                int i, int j, T& uaf, T& vaf) {
-  if constexpr (O) {
+  if constexpr (O & kBlock) {
     if (!in_domain(s, i, j)) {
       uaf = vaf = T(0);
       return;
@@ -591,35 +707,69 @@ __device__ void velocity_point(const ExtArgs<T, O>& s, const Carry<T, W>& c,
   }
   const int im = s.im, jm = s.jm;
   const bool jin = j >= 1 && j <= jm - 2, iin = i >= 1 && i <= im - 2;
-  // uaf: west rows 0/1 and east row im-1 on j in 1..jm-2, then the south
-  // and north columns on i in 1..im-2; the corners keep 0
-  T u = T(0);
-  if (jin) {
-    if (i <= 1)
-      u = flather(s, c, 1, j, s.rfw, T(-1), at_j(s, s.uabw, j),
-                  at_j(s, s.elw, j));
-    else if (i == im - 1)
-      u = flather(s, c, im - 2, j, s.rfe, T(1), at_j(s, s.uabe, j),
-                  at_j(s, s.ele, j));
-    else
-      u = uaf_interior(At<T, O, W>(s, c, i, j));
-  } else if (iin) {
-    u = j == 0 ? at_i(s, s.uabs, i) : at_i(s, s.uabn, i);
-  }
-  // vaf: west/east rows on j in 1..jm-2, then columns 0/1 and jm-1 on
-  // i in 1..im-2
-  T v = T(0);
-  if (iin) {
-    if (j <= 1)
-      v = flather(s, c, i, 1, s.rfs, T(-1), at_i(s, s.vabs, i),
-                  at_i(s, s.els, i));
-    else if (j == jm - 1)
-      v = flather(s, c, i, jm - 2, s.rfn, T(1), at_i(s, s.vabn, i),
-                  at_i(s, s.eln, i));
-    else
-      v = vaf_interior(At<T, O, W>(s, c, i, j));
-  } else if (jin) {
-    v = i == 0 ? at_j(s, s.vabw, j) : at_j(s, s.vabe, j);
+  T u = T(0), v = T(0);
+  if constexpr (O & kOrl) {
+    // orl_vel2d, written east, west (row 0 copies row 1), south (column 0
+    // copies column 1), north: each edge value from the interior value one
+    // row (column) in, which this cell forms; the tangential component at
+    // an edge and the corners keep 0
+    using A = At<T, O, W>;
+    if (jin) {
+      if (i == im - 1) {
+        const A e(s, c, im - 2, j);
+        u = radiate(phase_speed(uaf_interior(e), e.w(c.uab), e.w(c.ua, -1, 0)),
+                    e.w(c.uab, 1, 0), e.w(c.ua));
+      } else if (i <= 1) {
+        const A w(s, c, 2, j);
+        u = radiate(phase_speed(uaf_interior(w), w.w(c.uab), w.w(c.ua, 1, 0)),
+                    w.w(c.uab, -1, 0), w.w(c.ua));
+      } else {
+        u = uaf_interior(A(s, c, i, j));
+      }
+    }
+    if (iin) {
+      if (j == jm - 1) {
+        const A n(s, c, i, jm - 2);
+        v = radiate(phase_speed(vaf_interior(n), n.w(c.vab), n.w(c.va, 0, -1)),
+                    n.w(c.vab, 0, 1), n.w(c.va));
+      } else if (j <= 1) {
+        const A so(s, c, i, 2);
+        v = radiate(
+            phase_speed(vaf_interior(so), so.w(c.vab), so.w(c.va, 0, 1)),
+            so.w(c.vab, 0, -1), so.w(c.va));
+      } else {
+        v = vaf_interior(A(s, c, i, j));
+      }
+    }
+  } else {
+    // uaf: west rows 0/1 and east row im-1 on j in 1..jm-2, then the
+    // south and north columns on i in 1..im-2; the corners keep 0
+    if (jin) {
+      if (i <= 1)
+        u = flather(s, c, 1, j, s.rfw, T(-1), at_j(s, s.uabw, j),
+                    at_j(s, s.elw, j));
+      else if (i == im - 1)
+        u = flather(s, c, im - 2, j, s.rfe, T(1), at_j(s, s.uabe, j),
+                    at_j(s, s.ele, j));
+      else
+        u = uaf_interior(At<T, O, W>(s, c, i, j));
+    } else if (iin) {
+      u = j == 0 ? at_i(s, s.uabs, i) : at_i(s, s.uabn, i);
+    }
+    // vaf: west/east rows on j in 1..jm-2, then columns 0/1 and jm-1 on
+    // i in 1..im-2
+    if (iin) {
+      if (j <= 1)
+        v = flather(s, c, i, 1, s.rfs, T(-1), at_i(s, s.vabs, i),
+                    at_i(s, s.els, i));
+      else if (j == jm - 1)
+        v = flather(s, c, i, jm - 2, s.rfn, T(1), at_i(s, s.vabn, i),
+                    at_i(s, s.eln, i));
+      else
+        v = vaf_interior(At<T, O, W>(s, c, i, j));
+    } else if (jin) {
+      v = i == 0 ? at_j(s, s.vabw, j) : at_j(s, s.vabe, j);
+    }
   }
   const int p = pix(s, i, j);
   uaf = u * s.dum[p];
@@ -631,7 +781,7 @@ __device__ void velocity_point(const ExtArgs<T, O>& s, const Carry<T, W>& c,
 // etf tail and the egf/utf/vtf accumulators at (i, j); the four fields are
 // whole arrays indexed like the read-only fields.  Reads elf/uaf/vaf only,
 // so it may run before or after rotate() at the same point.
-template <typename T, bool O, bool W>
+template <typename T, int O, bool W>
 __device__ void accumulate(const ExtArgs<T, O>& s, const Carry<T, W>& c,
                            int i, int j, int iext, int isplit, T* etf, T* egf,
                            T* utf, T* vtf) {
@@ -663,7 +813,7 @@ __device__ void accumulate(const ExtArgs<T, O>& s, const Carry<T, W>& c,
 
 // Asselin filter at array cell q: the new b levels of el, ua and va into
 // elb[q], uab[q] and vab[q] (c's own b levels, or another slot)
-template <typename T, bool O, bool W>
+template <typename T, int O, bool W>
 __device__ __forceinline__ void asselin(const ExtArgs<T, O>& s,
                                         const Carry<T, W>& c, int q, T* elb,
                                         T* uab, T* vab) {
@@ -675,7 +825,7 @@ __device__ __forceinline__ void asselin(const ExtArgs<T, O>& s,
 }
 
 // Asselin filter and time-level rotation at array cell q, in place
-template <typename T, bool O, bool W>
+template <typename T, int O, bool W>
 __device__ void rotate(const ExtArgs<T, O>& s, const Carry<T, W>& c, int q) {
   const T elf = c.elf[q], uaf = c.uaf[q], vaf = c.vaf[q];
   asselin(s, c, q, c.elb, c.uab, c.vab);

@@ -60,6 +60,13 @@
 //     and the last-substep skip of the accumulators follow the global
 //     substep count.
 //
+// The options of extstep.cuh are template flags, chosen per call (`flags`
+// of the entries): mode 2 keeps the bottom stress in the window as two
+// more carry fields (19 fields); under the orlanski scheme an edge cell
+// forms the interior velocity one cell in from the window, so a substep
+// reaches 3 cells (H = 3C) and forms faces, elf and advave one cell
+// further out on every side (kernels/extwin.py:geometry counts both).
+//
 // extpom_extwin_chunk_f32/f64, the same kernel on one ring-extended block of
 // the decomposed step (the O variant of extstep.cuh), replace
 // extpom_tpu/pallas/extwin.py:_kernel with has_off (via
@@ -82,16 +89,22 @@ using extpom::ExtArgs;
 
 constexpr int kMaxThreads = 512;  // a block's threads, at most
 // window fields in shared memory: el, elb, ua, uab, va, vab, advua, advva,
-// elf, d, the tps aam2d sums, six faces
-constexpr int kShared = 17;
-constexpr int kPool = 11;         // the first face field
+// (mode 2: wubot, wvbot,) elf, d, the tps aam2d sums, six faces
+template <int O>
+constexpr int kLoaded = (O & extpom::kMode2) ? 10 : 8;  // carry fields
+template <int O>
+constexpr int kShared = kLoaded<O> + 9;
+// cells of halo a substep consumes: its stencil radius, 3 under the
+// orlanski scheme (extstep.cuh)
+template <int O>
+constexpr int kRadius = (O & extpom::kOrl) ? 3 : 2;
 
 // carry field indices (CARRY_FIELDS order)
 enum {
   EL, ELB, UA, UAB, VA, VAB, ETF, EGF, UTF, VTF, ADVUA, ADVVA, WUBOT, WVBOT
 };
 
-// carry field of the k-th shared-memory field, k < 8
+// carry field of the k-th shared-memory field, k < kLoaded
 __device__ __forceinline__ int loaded(int k) { return k < 6 ? k : k + 4; }
 
 // The pool of face fields: field k of the window at p + k * wn
@@ -125,9 +138,10 @@ __device__ __forceinline__ void for_rect(const Map& mp, int r0, int r1, int c0,
 // extstep.cuh's ld/ldc on a block (O), whose window may leave the block,
 // and plain on the whole domain, whose region tests keep every read inside
 // it.
-template <typename T, bool O>
+template <typename T, int O>
 struct Cell {
   using type = T;
+  static constexpr int kFlags = O;
   const ExtArgs<T, O>& s;
   const Carry<T, true>& c;
   int i, j, p, q;
@@ -135,11 +149,11 @@ struct Cell {
   Pool<T> pool;
 
   __device__ __forceinline__ T r(const T* a, int di = 0, int dj = 0) const {
-    if constexpr (O) return extpom::ld(a, s, i + di, j + dj);
+    if constexpr (O & extpom::kBlock) return extpom::ld(a, s, i + di, j + dj);
     return a[p + di * extpom::prow(s) + dj];
   }
   __device__ __forceinline__ T w(const T* a, int di = 0, int dj = 0) const {
-    if constexpr (O) return extpom::ldc(s, c, a, i + di, j + dj);
+    if constexpr (O & extpom::kBlock) return extpom::ldc(s, c, a, i + di, j + dj);
     return a[q + di * c.stride + dj];
   }
   __device__ __forceinline__ T d(int di = 0, int dj = 0) const {
@@ -173,7 +187,7 @@ struct Cell {
 // advave's four fluxes (adv_tps once for the two that subtract it), each 0
 // off its put region; the faces are formed under one test of their
 // regions, so that their shared reads are read once
-template <typename T, bool O>
+template <typename T, int O>
 __device__ __forceinline__ void faces(const Cell<T, O>& x, bool adv) {
   const bool ij = extpom::on_face(x);
   T fu = T(0), fv = T(0);
@@ -200,7 +214,7 @@ __device__ __forceinline__ void faces(const Cell<T, O>& x, bool adv) {
 }
 
 // The tile's nsub substeps, once its window is loaded into c and d.
-template <typename T, bool O>
+template <typename T, int O>
 __device__ void substeps(const ExtArgs<T, O>& s, const Carry<T, true>& c,
                          const Map& mp, T* d, const T* asum,
                          const Pool<T>& pool,
@@ -208,9 +222,15 @@ __device__ void substeps(const ExtArgs<T, O>& s, const Carry<T, true>& c,
                          int nsub, int i0, int j0, int ie, int je, int lo_i,
                          int lo_j, int hi_i, int hi_j) {
   const int im = s.im, jm = s.jm;
+  // under the orlanski scheme an edge cell forms the interior uaf (vaf)
+  // one row (column) in, from elf and advua/advva there: each substep
+  // forms faces, elf and advave one cell further out on every side, and
+  // the halo is 3 cells per substep
+  constexpr int E = (O & extpom::kOrl) ? 1 : 0;
   for (int sub = 0; sub < nsub; ++sub) {
     const int iext = iext0 + sub;
-    const int m = 2 * (nsub - 1 - sub);  // margin still needed afterwards
+    // margin still needed afterwards
+    const int m = kRadius<O> * (nsub - 1 - sub);
     const int r0 = max(i0 - m, lo_i), r1 = min(ie + m, hi_i);
     const int c0 = max(j0 - m, lo_j), c1 = min(je + m, hi_j);
     const bool adv = iext % ispadv == 0;
@@ -220,24 +240,33 @@ __device__ void substeps(const ExtArgs<T, O>& s, const Carry<T, true>& c,
     };
     // faces on the margin + 1, up to the face beyond the last cell (row or
     // column hi of a block's edge tile, which elf differences)
-    for_rect(mp, max(r0 - 1, lo_i), r1 + 1, max(c0 - 1, lo_j), c1 + 1,
-             [&](int i, int j) { faces(cell(i, j), adv); });
+    for_rect(mp, max(r0 - 1 - E, lo_i), r1 + 1 + E, max(c0 - 1 - E, lo_j),
+             c1 + 1 + E, [&](int i, int j) { faces(cell(i, j), adv); });
     __syncthreads();
     // elf one cell further out below and left: uaf and utf read it at
     // i-1, vaf and vtf at j-1; the domain's edge cells by elf_point, which
     // forms the faces of the clamped cell itself
-    for_rect(mp, max(r0 - 1, lo_i), r1, max(c0 - 1, lo_j), c1,
+    int er1 = r1, ec1 = c1;
+    if constexpr (E != 0) {
+      er1 = min(r1 + E, hi_i);
+      ec1 = min(c1 + E, hi_j);
+    }
+    for_rect(mp, max(r0 - 1 - E, lo_i), er1, max(c0 - 1 - E, lo_j), ec1,
              [&](int i, int j) {
                const Cell<T, O> x = cell(i, j);
                c.elf[x.q] = i >= 1 && i <= im - 2 && j >= 1 && j <= jm - 2
                                 ? extpom::elf_interior(x) * x.r(s.fsm)
                                 : extpom::elf_point(s, c, i, j);
-               if (adv && i >= r0 && j >= c0)
+               if (adv && i >= r0 - E && j >= c0 - E) {
                  extpom::adv_point(x, c.advua[x.q], c.advva[x.q]);
+                 if constexpr (O & extpom::kMode2)
+                   extpom::mode2_point(x, c.advua[x.q], c.advva[x.q],
+                                       c.wubot[x.q], c.wvbot[x.q]);
+               }
              });
     __syncthreads();
     // uaf/vaf over the free-surface faces; the domain's edge cells by
-    // velocity_point (bc_vel2d)
+    // velocity_point (bc_vel2d or orl_vel2d)
     for_rect(mp, r0, r1, c0, c1, [&](int i, int j) {
       const Cell<T, O> x = cell(i, j);
       if (i >= 2 && i <= im - 2 && j >= 2 && j <= jm - 2) {
@@ -264,16 +293,17 @@ __device__ void substeps(const ExtArgs<T, O>& s, const Carry<T, true>& c,
 // the block (O).  The kernel is bound by the latency of its passes' loads
 // (PERF.md §6), so the register cap is set for resident warps: 3 blocks of
 // 512 threads per SM in f32 (40 registers), 2 in f64 (64 registers).
-template <typename T, bool O>
+template <typename T, int O>
 __global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 4 ? 3 : 2)
     k_window(ExtArgs<T, O> s, const T* __restrict__ cin, T* __restrict__ cout,
              int iext0, int isplit, int ispadv, int nsub, int halo, int ti,
              int tj) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* sm = reinterpret_cast<T*>(smem);
-  const int lo_i = O ? s.oi : 0, lo_j = O ? s.oj : 0;
-  const int hi_i = O ? s.oi + s.R : s.im, hi_j = O ? s.oj + s.L : s.jm;
-  const long n = O ? (long)s.R * s.L : (long)s.im * s.jm;
+  constexpr bool B = O & extpom::kBlock;
+  const int lo_i = B ? s.oi : 0, lo_j = B ? s.oj : 0;
+  const int hi_i = B ? s.oi + s.R : s.im, hi_j = B ? s.oj + s.L : s.jm;
+  const long n = B ? (long)s.R * s.L : (long)s.im * s.jm;
   const int i0 = lo_i + blockIdx.y * ti, j0 = lo_j + blockIdx.x * tj;
   const int ie = min(i0 + ti, hi_i), je = min(j0 + tj, hi_j);
   const int wr = ti + 2 * halo, wj = tj + 2 * halo, wn = wr * wj;
@@ -287,10 +317,15 @@ __global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 4 ? 3 : 2)
   c.vab = sm + 5 * wn;
   c.advua = sm + 6 * wn;
   c.advva = sm + 7 * wn;
-  c.elf = sm + 8 * wn;
-  T* d = sm + 9 * wn;
-  T* asum = sm + 10 * wn;
-  const Pool<T> pool{sm + kPool * wn, wn};
+  constexpr int nl = kLoaded<O>;
+  if constexpr (O & extpom::kMode2) {
+    c.wubot = sm + 8 * wn;
+    c.wvbot = sm + 9 * wn;
+  }
+  c.elf = sm + nl * wn;
+  T* d = sm + (nl + 1) * wn;
+  T* asum = sm + (nl + 2) * wn;
+  const Pool<T> pool{sm + (nl + 3) * wn, wn};
   c.uaf = pool[0];
   c.vaf = pool[1];
   c.oi = i0 - halo;
@@ -324,14 +359,15 @@ __global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 4 ? 3 : 2)
     }
     const int p = extpom::pix(s, i, j);
 #pragma unroll
-    for (int k = 0; k < 8; ++k) sm[k * wn + q] = cin[loaded(k) * n + p];
+    for (int k = 0; k < nl; ++k) sm[k * wn + q] = cin[loaded(k) * n + p];
     d[q] = s.h[p] + c.el[q];
   });
-  // the tile's accumulators and bottom stress start from the input
+  // the tile's accumulators and (outside mode 2, where it is a window
+  // field) bottom stress start from the input
   for_rect(mp, i0, ie, j0, je, [&](int i, int j) {
     const int p = extpom::pix(s, i, j);
 #pragma unroll
-    for (int k = ETF; k <= WVBOT; ++k)
+    for (int k = ETF; k <= (nl > 8 ? VTF : WVBOT); ++k)
       if (k < ADVUA || k > ADVVA) cout[k * n + p] = cin[k * n + p];
   });
   __syncthreads();
@@ -342,7 +378,7 @@ __global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 4 ? 3 : 2)
   for_rect(mp, i0, ie, j0, je, [&](int i, int j) {
     const int p = extpom::pix(s, i, j), q = extpom::at(s, c, i, j);
 #pragma unroll
-    for (int k = 0; k < 8; ++k) cout[loaded(k) * n + p] = sm[k * wn + q];
+    for (int k = 0; k < nl; ++k) cout[loaded(k) * n + p] = sm[k * wn + q];
   });
 }
 
@@ -352,12 +388,13 @@ __global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 4 ? 3 : 2)
 // iext0 .. iext0+total-1 of isplit as total/nsub launches of nsub each;
 // launch ic reads one buffer and writes the other, so the result is in A
 // when total/nsub is even and in B when it is odd.
-template <typename T, bool O>
+template <typename T, int O>
 int run(void* const* ptr, const double* prm, int im, int jm, int R, int L,
         int oi, int oj, int iext0, int total, int isplit, int ispadv,
         int nsub, int halo, int ti, int tj, int threads, void* stream) {
   if (nsub < 1 || total % nsub != 0 || iext0 < 1 ||
-      iext0 + total - 1 > isplit || halo < 2 * nsub || ti < 1 || tj < 1 ||
+      iext0 + total - 1 > isplit || halo < kRadius<O> * nsub || ti < 1 ||
+      tj < 1 ||
       threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
       threads < tj + 2 * halo || R < 1 || L < 1)
     return (int)cudaErrorInvalidValue;
@@ -370,7 +407,7 @@ int run(void* const* ptr, const double* prm, int im, int jm, int R, int L,
   s.oi = oi;
   s.oj = oj;
   const size_t smem =
-      sizeof(T) * kShared * (size_t)(ti + 2 * halo) * (tj + 2 * halo);
+      sizeof(T) * kShared<O> * (size_t)(ti + 2 * halo) * (tj + 2 * halo);
   cudaError_t err = cudaFuncSetAttribute(
       k_window<T, O>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -393,53 +430,73 @@ int run(void* const* ptr, const double* prm, int im, int jm, int R, int L,
 }
 
 // What the compiler and the card give k_window (the block variant with
-// blk) for `threads` threads and `smem` bytes of dynamic shared memory:
-// column.cuh's tile_info.
-template <typename T>
-int info(int blk, int threads, int smem, int* out) {
-  return blk ? extpom::tile_info(k_window<T, true>, threads, smem, out)
-             : extpom::tile_info(k_window<T, false>, threads, smem, out);
+// blk, the options of `flags`) for `threads` threads and `smem` bytes of
+// dynamic shared memory: column.cuh's tile_info.
+template <typename T, int B>
+int info(int flags, int threads, int smem, int* out) {
+  return extpom::with_flags<B>(flags, [&](auto c) {
+    return extpom::tile_info(k_window<T, decltype(c)::value>, threads, smem,
+                             out);
+  });
 }
 
 }  // namespace
 
-extern "C" int extpom_extwin_info(int f64, int blk, int threads, int smem,
-                                  void* out) {
-  return f64 ? info<double>(blk, threads, smem, (int*)out)
-             : info<float>(blk, threads, smem, (int*)out);
+// `flags`: the options kOrl | kMode2 (extstep.cuh)
+extern "C" int extpom_extwin_info(int f64, int blk, int flags, int threads,
+                                  int smem, void* out) {
+  int* o = (int*)out;
+  if (f64)
+    return blk ? info<double, extpom::kBlock>(flags, threads, smem, o)
+               : info<double, 0>(flags, threads, smem, o);
+  return blk ? info<float, extpom::kBlock>(flags, threads, smem, o)
+             : info<float, 0>(flags, threads, smem, o);
 }
 
 extern "C" int extpom_extwin_f32(void* const* ptr, const double* prm, int im,
-                                 int jm, int isplit, int ispadv, int nsub,
-                                 int halo, int ti, int tj, int threads,
-                                 void* stream) {
-  return run<float, false>(ptr, prm, im, jm, im, jm, 0, 0, 1, isplit, isplit,
-                           ispadv, nsub, halo, ti, tj, threads, stream);
+                                 int jm, int isplit, int ispadv, int flags,
+                                 int nsub, int halo, int ti, int tj,
+                                 int threads, void* stream) {
+  return extpom::with_flags<0>(flags, [&](auto c) {
+    return run<float, decltype(c)::value>(ptr, prm, im, jm, im, jm, 0, 0, 1,
+                                          isplit, isplit, ispadv, nsub, halo,
+                                          ti, tj, threads, stream);
+  });
 }
 
 extern "C" int extpom_extwin_f64(void* const* ptr, const double* prm, int im,
-                                 int jm, int isplit, int ispadv, int nsub,
-                                 int halo, int ti, int tj, int threads,
-                                 void* stream) {
-  return run<double, false>(ptr, prm, im, jm, im, jm, 0, 0, 1, isplit, isplit,
-                            ispadv, nsub, halo, ti, tj, threads, stream);
+                                 int jm, int isplit, int ispadv, int flags,
+                                 int nsub, int halo, int ti, int tj,
+                                 int threads, void* stream) {
+  return extpom::with_flags<0>(flags, [&](auto c) {
+    return run<double, decltype(c)::value>(ptr, prm, im, jm, im, jm, 0, 0, 1,
+                                           isplit, isplit, ispadv, nsub, halo,
+                                           ti, tj, threads, stream);
+  });
 }
 
 extern "C" int extpom_extwin_chunk_f32(void* const* ptr, const double* prm,
                                        int im, int jm, int R, int L, int total,
                                        int iext0, int oi, int oj, int isplit,
-                                       int ispadv, int nsub, int halo, int ti,
-                                       int tj, int threads, void* stream) {
-  return run<float, true>(ptr, prm, im, jm, R, L, oi, oj, iext0, total,
-                          isplit, ispadv, nsub, halo, ti, tj, threads, stream);
+                                       int ispadv, int flags, int nsub,
+                                       int halo, int ti, int tj, int threads,
+                                       void* stream) {
+  return extpom::with_flags<extpom::kBlock>(flags, [&](auto c) {
+    return run<float, decltype(c)::value>(ptr, prm, im, jm, R, L, oi, oj,
+                                          iext0, total, isplit, ispadv, nsub,
+                                          halo, ti, tj, threads, stream);
+  });
 }
 
 extern "C" int extpom_extwin_chunk_f64(void* const* ptr, const double* prm,
                                        int im, int jm, int R, int L, int total,
                                        int iext0, int oi, int oj, int isplit,
-                                       int ispadv, int nsub, int halo, int ti,
-                                       int tj, int threads, void* stream) {
-  return run<double, true>(ptr, prm, im, jm, R, L, oi, oj, iext0, total,
-                           isplit, ispadv, nsub, halo, ti, tj, threads,
-                           stream);
+                                       int ispadv, int flags, int nsub,
+                                       int halo, int ti, int tj, int threads,
+                                       void* stream) {
+  return extpom::with_flags<extpom::kBlock>(flags, [&](auto c) {
+    return run<double, decltype(c)::value>(ptr, prm, im, jm, R, L, oi, oj,
+                                           iext0, total, isplit, ispadv, nsub,
+                                           halo, ti, tj, threads, stream);
+  });
 }

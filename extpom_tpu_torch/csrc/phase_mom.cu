@@ -60,6 +60,8 @@
 namespace {
 
 using extpom::GeomT;
+using extpom::phase_speed;
+using extpom::radiate;
 using extpom::Tiles;
 
 constexpr int kMaxThreads = 256;
@@ -423,22 +425,6 @@ __global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 4 ? 4 : 2)
 }
 
 // ---- k_mom_edge ---------------------------------------------------------
-
-// Orlanski phase speed, clamped to [0, 1] (a NaN passes through, as
-// torch.clamp lets it)
-template <typename T>
-__device__ __forceinline__ T phase_speed(T ff_b, T fb_b, T f_i) {
-  T denom = ff_b + fb_b - T(2) * f_i;
-  denom = denom == T(0) ? T(0.01) : denom;
-  const T x = (fb_b - ff_b) / denom;
-  return x != x ? x : (x < T(0) ? T(0) : (x > T(1) ? T(1) : x));
-}
-
-// radiated value (fb (1 - cl) + 2 cl f_in) / (1 + cl)
-template <typename T>
-__device__ __forceinline__ T radiate(T cl, T fb, T f_in) {
-  return (fb * (T(1) - cl) + T(2) * cl * f_in) / (T(1) + cl);
-}
 
 // uf after orl_vel3d at level k < kbm1, before the dum mask; at(a, ii)
 // reads global row ii of the cell's column, the strip the solved uf one

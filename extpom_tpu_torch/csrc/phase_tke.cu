@@ -38,7 +38,11 @@
 //     value times the edge column's fsm there.  Every value comes from old
 //     fields, so no block waits for another.
 // An edge column takes bc_turb's value from the staged halo (bc_turb reads
-// only the OLD q2/q2l/u/v).  Every per-point expression is the one of the
+// only the OLD q2/q2l/u/v).  Under the orlanski scheme (template flag B,
+// orl_turb) the west and east edge columns take 1e-10 times fsm at every
+// level, the south and north ones run profq's solve as the interior does,
+// with advq's and the production's 0 there, and no value gains bc_turb's
+// 1e-10.  Every per-point expression is the one of the
 // plain version, operand for operand, and the sources build with
 // -fmad=false, so each operation rounds as the plain PyTorch version's.
 //
@@ -181,7 +185,7 @@ __device__ __forceinline__ T sound(const Tke<T, O>& s, int k, T t, T sal,
          sqrt((T(1) - T(0.01642) * pr / cc) * (T(1) - T(0.40) * pr / (cc * cc)));
 }
 
-template <typename T, bool O>
+template <typename T, bool O, bool B>
 __global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 4 ? 2 : 1)
     k_tke_tile(Tke<T, O> s) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -219,6 +223,9 @@ __global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 4 ? 2 : 1)
     const int gi = g.gi(i), gj = g.gj(j);
     const bool inner =
         act && gi >= 1 && gi <= g.GI() - 2 && gj >= 1 && gj <= g.GJ() - 2;
+    // B (orl_turb): the south and north edge columns keep profq's solve,
+    // whose advection and production are 0 there
+    const bool ns = B && act && !inner && gi >= 1 && gi <= g.GI() - 2;
     int off[extpom::kWindowCells];
     extpom::window_cells(off, t, nt, i0, j0, TI, TJ, g.im, jm);
     auto stage = [&](int k) {
@@ -269,6 +276,9 @@ __global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 4 ? 2 : 1)
     if (inner) {
       art = s.art[p];
       etb = s.etb[p];
+    }
+    // the bottom value on the bottom stress's region :-1, :-1
+    if (inner || (ns && gj == 0)) {
       const T bu = T(0.5) * (s.wubot[p] + s.wubot[p + jm]);
       const T bv = T(0.5) * (s.wvbot[p] + s.wvbot[p + 1]);
       bot = sqrt(bu * bu + bv * bv) * s.const1;
@@ -366,11 +376,16 @@ __global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 4 ? 2 : 1)
         lk = s.z[k] > T(-0.5) ? nan_max(lm, kl0) : lm;
       }
       s.lo[q] = lk;
-      if (!inner) {
-        commit(q2k, q2bk, s.q2o, s.q2bo, k,
-               turb_edge(win(k, HQ2), k) * fsm + T(1.0e-10));
-        commit(q2lk, q2lbk, s.q2lo, s.q2lbo, k,
-               turb_edge(win(k, HQ2L), k) * fsm + T(1.0e-10));
+      if (!inner && !ns) {
+        if constexpr (B) {  // orl_turb: the west and east edges
+          commit(q2k, q2bk, s.q2o, s.q2bo, k, T(1.0e-10) * fsm);
+          commit(q2lk, q2lbk, s.q2lo, s.q2lbo, k, T(1.0e-10) * fsm);
+        } else {
+          commit(q2k, q2bk, s.q2o, s.q2bo, k,
+                 turb_edge(win(k, HQ2), k) * fsm + T(1.0e-10));
+          commit(q2lk, q2lbk, s.q2lo, s.q2lbo, k,
+                 turb_edge(win(k, HQ2L), k) * fsm + T(1.0e-10));
+        }
         continue;
       }
       const T kmk = *own(k, OKM), khk = *own(k, OKH), kqk = *own(k, OKQ);
@@ -381,6 +396,8 @@ __global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 4 ? 2 : 1)
         by = s.grav * (*own(k - 1, ORHO) - *own(k, ORHO)) /
                  (s.dzz[k - 1] * h) +
              T(1) / (cm * cm + c0 * c0) * s.g2x2;
+      }
+      if (mid(k) && (!B || inner)) {  // prod's region is 1:-1, 1:-1
         const T *u0 = win(k, HU), *u1 = win(k - 1, HU);
         const T *v0 = win(k, HV), *v1 = win(k - 1, HV);
         const T du = u0[wc] - u1[wc] + u0[wc + HJ] - u1[wc + HJ];
@@ -414,8 +431,10 @@ __global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 4 ? 2 : 1)
           const T fm = win(k - 1, HQ2)[wc], fp = win(k + 1, HQ2)[wc];
           const T qf = (wm * fm - wp * fp) * art / (s.dz[k] + s.dz[k - 1]) +
                        xq2[fe] - xq2[fw] + yq2[fn] - yq2[fs];
-          const T adv = ((h + etb) * art * q2bk - s.dti2 * qf) /
-                        ((h + etf) * art);
+          // advq leaves the edge columns 0
+          const T adv = ns ? T(0)
+                           : ((h + etb) * art * q2bk - s.dti2 * qf) /
+                                 ((h + etf) * art);
           const T den = s.dti2x2 * dtef + T(1);
           const T rhs = s.mdti2x2 * pk - adv;
           const T gk = T(1) / (a + c * (T(1) - ee1) - den);
@@ -440,7 +459,9 @@ __global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 4 ? 2 : 1)
             const T fm = win(k - 1, HQ2L)[wc], fp = win(k + 1, HQ2L)[wc];
             const T qf = (wm * fm - wp * fp) * art / (s.dz[k] + s.dz[k - 1]) +
                          xq2l[fe] - xq2l[fw] + yq2l[fn] - yq2l[fs];
-            fin = ((h + etb) * art * q2lbk - s.dti2 * qf) / ((h + etf) * art);
+            fin = ns ? T(0)
+                     : ((h + etb) * art * q2lbk - s.dti2 * qf) /
+                           ((h + etf) * art);
           }
           const T den = s.dti2 * (dtef * wallfac) + T(1);
           const T rhs = s.dti2 * (-pk * lk * s.e1) - fin;
@@ -464,9 +485,11 @@ __global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 4 ? 2 : 1)
       const T kqv = (kn * T(0.41) * sh + kqk) * T(0.5);
       const T kmv = (kn * sm_ + kmk) * T(0.5);
       const T khv = (kn * sh + khk) * T(0.5);
-      s.kqo[q] = kqv * fsm;
-      s.kmo[q] = kmv * fsm;
-      s.kho[q] = khv * fsm;
+      if (!B || inner) {  // an edge column takes its neighbour's (push)
+        s.kqo[q] = kqv * fsm;
+        s.kmo[q] = kmv * fsm;
+        s.kho[q] = khv * fsm;
+      }
       // not unrolled: unrolled, the compiler keeps the addresses of all
       // eight candidate edge cells live across the sweep, and at 128
       // registers that spills (40 bytes against 16 per thread, 12 % slower
@@ -494,7 +517,7 @@ __global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 4 ? 2 : 1)
     }
 
     // ---- the descending pass: both back substitutions, the commits ----
-    if (inner) {
+    if (inner || ns) {
       T f1 = (T(0) * gg1 + bot) / (T(0) * (T(1) - ee1) + T(1)) * T(1);
       T f2 = (T(0) * gg2 + T(0)) / (T(0) * (T(1) - ee2) + T(1)) * T(1);
       for (int k = kb - 1; k >= 0; --k) {
@@ -503,10 +526,15 @@ __global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 4 ? 2 : 1)
           f2 = (row(k, 2) * f2 + row(k, 3)) * T(1);
         }
         const long q = k * n + p;
-        commit(s.q2[q], s.q2b[q], s.q2o, s.q2bo, k,
-               (mid(k) ? fabs(f1) : f1) * fsm + T(1.0e-10));
-        commit(s.q2l[q], s.q2lb[q], s.q2lo, s.q2lbo, k,
-               (mid(k) ? fabs(f2) : T(0)) * fsm + T(1.0e-10));
+        // bc_turb adds 1e-10 after the fsm mask; orl_turb does not
+        T f1n = (mid(k) ? fabs(f1) : f1) * fsm;
+        T f2n = (mid(k) ? fabs(f2) : T(0)) * fsm;
+        if constexpr (!B) {
+          f1n = f1n + T(1.0e-10);
+          f2n = f2n + T(1.0e-10);
+        }
+        commit(s.q2[q], s.q2b[q], s.q2o, s.q2bo, k, f1n);
+        commit(s.q2l[q], s.q2lb[q], s.q2lo, s.q2lbo, k, f2n);
       }
     }
   }
@@ -517,7 +545,7 @@ constexpr int kPointers = 41;
 // ptr: the operands, outputs and scratch; the domain is (im, jm), the
 // arrays the domain or (O) the (R, L) block at global (oi, oj); the tiles
 // TI x TJ, walked by `grid` blocks
-template <typename T, bool O>
+template <typename T, bool O, bool B>
 int run(void* const* ptr, const double* prm, int kb, int im, int jm, int R,
         int L, int oi, int oj, int TI, int TJ, int grid, void* stream) {
   Tke<T, O> s;
@@ -582,59 +610,72 @@ int run(void* const* ptr, const double* prm, int kb, int im, int jm, int R,
   s.coef5 = T(prm[30]);
   const int smem = layout(TI, TJ).total * (int)sizeof(T);
   const cudaError_t e = cudaFuncSetAttribute(
-      k_tke_tile<T, O>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      k_tke_tile<T, O, B>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  k_tke_tile<T, O><<<grid, threads, smem, (cudaStream_t)stream>>>(s);
+  k_tke_tile<T, O, B><<<grid, threads, smem, (cudaStream_t)stream>>>(s);
   return (int)cudaGetLastError();
 }
 
 template <typename T, bool O>
-int info(int TI, int TJ, int* out) {
-  return extpom::tile_info(k_tke_tile<T, O>, TI * TJ,
-                           layout(TI, TJ).total * (int)sizeof(T), out);
+int info(int TI, int TJ, int orl, int* out) {
+  const int smem = layout(TI, TJ).total * (int)sizeof(T);
+  return orl ? extpom::tile_info(k_tke_tile<T, O, true>, TI * TJ, smem, out)
+             : extpom::tile_info(k_tke_tile<T, O, false>, TI * TJ, smem, out);
+}
+
+// the entry of the options: orl, the orlanski scheme's orl_turb
+template <typename T, bool O>
+int run_opt(int orl, void* const* ptr, const double* prm, int kb, int im,
+            int jm, int R, int L, int oi, int oj, int TI, int TJ, int grid,
+            void* stream) {
+  return orl ? run<T, O, true>(ptr, prm, kb, im, jm, R, L, oi, oj, TI, TJ,
+                               grid, stream)
+             : run<T, O, false>(ptr, prm, kb, im, jm, R, L, oi, oj, TI, TJ,
+                                grid, stream);
 }
 
 }  // namespace
 
+// the two phase options: orl (the orlanski scheme), unused
 extern "C" int extpom_phase_tke_f32(void* const* ptr, const double* prm,
-                                    int kb, int im, int jm, int, int, int TI,
-                                    int TJ, int grid, void* stream) {
-  return run<float, false>(ptr, prm, kb, im, jm, im, jm, 0, 0, TI, TJ, grid,
-                           stream);
+                                    int kb, int im, int jm, int orl, int,
+                                    int TI, int TJ, int grid, void* stream) {
+  return run_opt<float, false>(orl, ptr, prm, kb, im, jm, im, jm, 0, 0, TI,
+                               TJ, grid, stream);
 }
 
 extern "C" int extpom_phase_tke_f64(void* const* ptr, const double* prm,
-                                    int kb, int im, int jm, int, int, int TI,
-                                    int TJ, int grid, void* stream) {
-  return run<double, false>(ptr, prm, kb, im, jm, im, jm, 0, 0, TI, TJ, grid,
-                            stream);
+                                    int kb, int im, int jm, int orl, int,
+                                    int TI, int TJ, int grid, void* stream) {
+  return run_opt<double, false>(orl, ptr, prm, kb, im, jm, im, jm, 0, 0, TI,
+                                TJ, grid, stream);
 }
 
 extern "C" int extpom_phase_tke_mesh_f32(void* const* ptr, const double* prm,
                                          int kb, int im, int jm, int R, int L,
-                                         int oi, int oj, int, int, int TI,
+                                         int oi, int oj, int orl, int, int TI,
                                          int TJ, int grid, void* stream) {
-  return run<float, true>(ptr, prm, kb, im, jm, R, L, oi, oj, TI, TJ, grid,
-                          stream);
+  return run_opt<float, true>(orl, ptr, prm, kb, im, jm, R, L, oi, oj, TI,
+                              TJ, grid, stream);
 }
 
 extern "C" int extpom_phase_tke_mesh_f64(void* const* ptr, const double* prm,
                                          int kb, int im, int jm, int R, int L,
-                                         int oi, int oj, int, int, int TI,
+                                         int oi, int oj, int orl, int, int TI,
                                          int TJ, int grid, void* stream) {
-  return run<double, true>(ptr, prm, kb, im, jm, R, L, oi, oj, TI, TJ, grid,
-                           stream);
+  return run_opt<double, true>(orl, ptr, prm, kb, im, jm, R, L, oi, oj, TI,
+                               TJ, grid, stream);
 }
 
 // registers, static and dynamic shared bytes, resident blocks per SM,
-// spill bytes and SMs of the tile kernel (column.cuh tile_info); f64 and
-// mesh pick the instantiation (its shared memory does not depend on the
-// depth and the keep option of phase_mom.cu's entry)
+// spill bytes and SMs of the tile kernel (column.cuh tile_info); f64, mesh
+// and orl (the orlanski variant, in the slot of phase_mom.cu's keep) pick
+// the instantiation (its shared memory does not depend on the depth)
 extern "C" int extpom_phase_tke_info(int f64, int mesh, int TI, int TJ,
-                                     int, int, int* out) {
+                                     int, int orl, int* out) {
   if (f64)
-    return mesh ? info<double, true>(TI, TJ, out)
-                : info<double, false>(TI, TJ, out);
-  return mesh ? info<float, true>(TI, TJ, out)
-              : info<float, false>(TI, TJ, out);
+    return mesh ? info<double, true>(TI, TJ, orl, out)
+                : info<double, false>(TI, TJ, orl, out);
+  return mesh ? info<float, true>(TI, TJ, orl, out)
+              : info<float, false>(TI, TJ, orl, out);
 }

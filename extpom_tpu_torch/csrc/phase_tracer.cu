@@ -36,7 +36,14 @@
 //     scratch is sized by them, not by the grid of columns.
 // An edge column takes bc_ts's value, read from device memory with the
 // zero-fill guards (bc_ts reads only the OLD t/s/u/v/w/dt), and its
-// equation of state in the same sweep.  Every per-point expression is the
+// equation of state in the same sweep.  Under the orlanski scheme
+// (template flag B, orl_ts) an edge value reads the NEW tracer one cell in:
+// the tile launch skips the edge columns and also writes the solved values
+// of the columns one in (before fsm) to a strip, and a perimeter launch
+// (k_tracer_edge, one thread per edge column) then forms orl_ts's values
+// from the strip and the old t/tb/s/sb/ub, which no launch overwrites (the
+// outputs are separate arrays), and commits the Asselin filter and dens of
+// those columns.  Every per-point expression is the
 // one of the plain version, operand for operand, and the sources build
 // with -fmad=false, so each operation rounds as the plain PyTorch
 // version's does; exp and pow come from CUDA's math library, which may
@@ -121,6 +128,12 @@ struct Trc {
   T *to, *tbo, *so, *sbo, *rho;                  // outputs
   // ee/gg rows of the two solves, kb x 4 x TI*TJ per block
   T* egs;
+  // the orlanski scheme (orl_ts; null otherwise): the old u (kb, im, jm),
+  // and the strip of the solved T and S one cell inside each edge, before
+  // the fsm mask: [tracer][side][k][j] of rows 1 and im-2 (side 0, 1),
+  // then [tracer][side][k][i] of columns 1 and jm-2
+  const T* ub;
+  T* strip;
   GeomT<O> g;
   Tiles tl;
   int kbm1, kbm2, nbct, nbcs;
@@ -255,7 +268,121 @@ struct Fwd {
   T last;    // the solution at level kbm2
 };
 
+// ---- orl_ts (bc/orlanski.py) ----
+
+// the strip's element of tracer c, level k, side `side` (0: the low row or
+// column, 1: the high one) at array column j (EW) or array row i (NS)
 template <typename T, bool O>
+__device__ __forceinline__ T& strip_ew(const Trc<T, O>& s, int c, int side,
+                                       int k, int j) {
+  const auto& g = s.g;
+  return s.strip[((long)(c * 2 + side) * g.kb + k) * g.jm + j];
+}
+
+template <typename T, bool O>
+__device__ __forceinline__ T& strip_ns(const Trc<T, O>& s, int c, int side,
+                                       int k, int i) {
+  const auto& g = s.g;
+  return s.strip[4L * g.kb * g.jm + ((long)(c * 2 + side) * g.kb + k) * g.im +
+                 i];
+}
+
+// the solved (unmasked) value f of tracer c at level k of inner column
+// (i, j), global (gi, gj), into the strip where orl_ts reads it
+template <typename T, bool O>
+__device__ __forceinline__ void strip_put(const Trc<T, O>& s, int c, int k,
+                                          int gi, int gj, int i, int j, T f) {
+  const auto& g = s.g;
+  if (gi == 1) strip_ew(s, c, 0, k, j) = f;
+  if (gi == g.GI() - 2) strip_ew(s, c, 1, k, j) = f;
+  if (gj == 1) strip_ns(s, c, 0, k, i) = f;
+  if (gj == g.GJ() - 2) strip_ns(s, c, 1, k, i) = f;
+}
+
+// orl_ts's east (side 1) or west (side 0) value of tracer c at level k,
+// array column j, before fsm: the radiated value from the solved value one
+// row in (the strip) and the old values one and two rows in, clamped to
+// the boundary series where the phase speed is 0 and the flow enters
+template <typename T, bool O>
+__device__ T orl_ew(const Trc<T, O>& s, const View<T>& v, int c, int side,
+                    int k, int j) {
+  const auto& g = s.g;
+  const int e = side ? g.li(g.GI() - 1) : g.li(0);  // the edge row
+  const int d = side ? -1 : 1;                      // towards the interior
+  const long b = (long)k * g.n + j;
+  auto at = [&](const T* a, int i) { return a[b + (long)i * g.jm]; };
+  const T cl = extpom::phase_speed(strip_ew(s, c, side, k, j),
+                                   at(v.fb, e + d), at(v.f, e + 2 * d));
+  const T val = extpom::radiate(cl, at(v.fb, e), at(v.f, e + d));
+  // inflow: ub of the edge row (east) or of row 1 (west)
+  const T ubc = at(s.ub, side ? e : e + d);
+  const bool clamp = cl == T(0) && (side ? ubc <= T(0) : ubc >= T(0));
+  return clamp ? (side ? v.be : v.bw)[k * g.jm + j] : val;
+}
+
+// orl_ts at array column (i, j) of the perimeter, level k < kbm1, before
+// fsm: east and west over every column, then the north and south rows
+// copy the column one in, where an east/west value has been written
+template <typename T, bool O>
+__device__ T orl_value(const Trc<T, O>& s, const View<T>& v, int c, int k,
+                       int i, int j) {
+  const auto& g = s.g;
+  const int gi = g.gi(i), gj = g.gj(j), GI = g.GI(), GJ = g.GJ();
+  if (gj == 0 || gj == GJ - 1) {
+    const int side = gj == 0 ? 0 : 1;
+    const int jj = g.lj(side ? GJ - 2 : 1);
+    if (gi == 0) return orl_ew(s, v, c, 0, k, jj);
+    if (gi == GI - 1) return orl_ew(s, v, c, 1, k, jj);
+    return strip_ns(s, c, side, k, i);
+  }
+  return orl_ew(s, v, c, gi == 0 ? 0 : 1, k, j);
+}
+
+// One thread per column of the domain's perimeter in the block: rows 0 and
+// im-1 across its columns, then columns 0 and jm-1 across its rows between
+// them.  orl_ts, the fsm mask, the Asselin commit and dens of the column,
+// after k_tracer_tile (which solved the columns one in and skipped these).
+template <typename T, bool O>
+__global__ void k_tracer_edge(Trc<T, O> s) {
+  const auto& g = s.g;
+  const long e = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int GI = g.GI(), GJ = g.GJ();
+  int i, j;
+  if (e < 2L * g.jm) {
+    i = g.li(e < g.jm ? 0 : GI - 1);
+    j = (int)(e % g.jm);
+    if (i < 0 || i >= g.im) return;
+  } else {
+    const long f = e - 2L * g.jm;
+    if (f >= 2L * g.im) return;
+    i = (int)(f % g.im);
+    j = g.lj(f < g.im ? 0 : GJ - 1);
+    const int gi = g.gi(i);
+    if (j < 0 || j >= g.jm || gi <= 0 || gi >= GI - 1) return;
+  }
+  if (g.skip(i, j)) return;
+  const long n = g.n, p = (long)i * g.jm + j;
+  const T fsm = s.fsm[p], h = s.h[p];
+  const View<T> tv[2] = {{s.t, s.tb, s.tclim, s.wtsurf, s.tsurf, s.tbw,
+                          s.tbe, s.tbs, s.tbn, s.to, s.tbo, s.nbct},
+                         {s.s, s.sb, s.sclim, s.wssurf, s.ssurf, s.sbw,
+                          s.sbe, s.sbs, s.sbn, s.so, s.sbo, s.nbcs}};
+  for (int k = 0; k < g.kb; ++k) {
+    const long q = k * n + p;
+    T fnew[2];
+    for (int c = 0; c < 2; ++c) {
+      const View<T>& v = tv[c];
+      const T fv = k < s.kbm1 ? orl_value(s, v, c, k, i, j) * fsm : T(0);
+      const T f = v.f[q], fb = v.fb[q];
+      v.fo[q] = fv;
+      v.fbo[q] = f + s.hsmoth * (fv + fb - T(2) * f);
+      fnew[c] = fv;
+    }
+    s.rho[q] = k == g.kb - 1 ? T(0) : dens(s, k, fnew[0], fnew[1], h, fsm);
+  }
+}
+
+template <typename T, bool O, bool B>
 __global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 4 ? 2 : 1)
     k_tracer_tile(Trc<T, O> s) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -375,6 +502,7 @@ __global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 4 ? 2 : 1)
       if (!act) continue;
       const long q = k * n + p;
       if (!inner) {  // bc_ts, Asselin and dens at this edge column
+        if constexpr (B) continue;  // k_tracer_edge finishes it
         T fnew[2];
         for (int c = 0; c < 2; ++c) {
           const T f = win(k, c ? HS : HT)[wc], fb = win(k, c ? HSB : HTB)[wc];
@@ -460,6 +588,7 @@ __global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 4 ? 2 : 1)
           }
           if (k < kbm2)
             f[c] = (row(k, 2 * c) * f[c] + row(k, 2 * c + 1)) * T(1);
+          if constexpr (B) strip_put(s, c, k, gi, gj, i, j, f[c]);
           fnew[c] = f[c] * fsm;
           v.fo[q] = fnew[c];
           v.fbo[q] = fo + s.hsmoth * (fnew[c] + fbo - T(2) * fo);
@@ -470,11 +599,13 @@ __global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 4 ? 2 : 1)
   }
 }
 
-constexpr int kPointers = 44;
+constexpr int kPointers = 46;
+constexpr int kEdgeThreads = 128;
 
-// ptr: the operands, outputs and scratch; the domain is (im, jm), the
-// arrays the domain or (O) the (R, L) block at global (oi, oj); the tiles
-// TI x TJ, walked by `grid` blocks
+// ptr: the operands, outputs and scratch, then ub and the strip (both
+// null outside the orlanski scheme, whose orl_ts they select); the domain
+// is (im, jm), the arrays the domain or (O) the (R, L) block at global
+// (oi, oj); the tiles TI x TJ, walked by `grid` blocks
 template <typename T, bool O>
 int run(void* const* ptr, const double* prm, int kb, int im, int jm, int R,
         int L, int oi, int oj, int nbct, int nbcs, int TI, int TJ, int grid,
@@ -492,11 +623,13 @@ int run(void* const* ptr, const double* prm, int kb, int im, int jm, int R,
   NEXT(z); NEXT(zz); NEXT(dz); NEXT(dzz);
   NEXT(to); NEXT(tbo); NEXT(so); NEXT(sbo); NEXT(rho);
   NEXT(egs);
+  NEXT(ub); NEXT(strip);
 #undef NEXT
   if (k != kPointers) return (int)cudaErrorInvalidValue;
   const int threads = TI * TJ;
+  const bool orl = s.ub != nullptr;
   if (TI < 1 || TJ < 32 || TJ % 32 || threads > kMaxThreads || grid < 1 ||
-      s.egs == nullptr)
+      s.egs == nullptr || (s.strip == nullptr) == orl)
     return (int)cudaErrorInvalidValue;
   s.g = extpom::geometry<O>(kb, im, jm, R, L, oi, oj, 2);
   s.tl.TI = TI;
@@ -526,17 +659,33 @@ int run(void* const* ptr, const double* prm, int kb, int im, int jm, int R,
   s.rad1 = T(1) / T(prm[10]);
   s.rad2 = T(1) / T(prm[11]);
   const int smem = layout(TI, TJ).total * (int)sizeof(T);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (!orl) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        k_tracer_tile<T, O, false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    k_tracer_tile<T, O, false><<<grid, threads, smem, st>>>(s);
+    return (int)cudaGetLastError();
+  }
   const cudaError_t e = cudaFuncSetAttribute(
-      k_tracer_tile<T, O>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      k_tracer_tile<T, O, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (e != cudaSuccess) return (int)e;
-  k_tracer_tile<T, O><<<grid, threads, smem, (cudaStream_t)stream>>>(s);
+  k_tracer_tile<T, O, true><<<grid, threads, smem, st>>>(s);
+  const long cols = 2L * (s.g.im + s.g.jm);
+  k_tracer_edge<T, O><<<(int)((cols + kEdgeThreads - 1) / kEdgeThreads),
+                        kEdgeThreads, 0, st>>>(s);
   return (int)cudaGetLastError();
 }
 
 template <typename T, bool O>
-int info(int TI, int TJ, int* out) {
-  return extpom::tile_info(k_tracer_tile<T, O>, TI * TJ,
-                           layout(TI, TJ).total * (int)sizeof(T), out);
+int info(int TI, int TJ, int orl, int* out) {
+  const int smem = layout(TI, TJ).total * (int)sizeof(T);
+  return orl
+             ? extpom::tile_info(k_tracer_tile<T, O, true>, TI * TJ, smem, out)
+             : extpom::tile_info(k_tracer_tile<T, O, false>, TI * TJ, smem,
+                                 out);
 }
 
 }  // namespace
@@ -578,14 +727,14 @@ extern "C" int extpom_phase_tracer_mesh_f64(void* const* ptr,
 }
 
 // registers, static and dynamic shared bytes, resident blocks per SM,
-// spill bytes and SMs of the tile kernel (column.cuh tile_info); f64 and
-// mesh pick the instantiation (its shared memory does not depend on the
-// depth and the keep option of phase_mom.cu's entry)
+// spill bytes and SMs of the tile kernel (column.cuh tile_info); f64, mesh
+// and orl (the orlanski variant, in the slot of phase_mom.cu's keep) pick
+// the instantiation (its shared memory does not depend on the depth)
 extern "C" int extpom_phase_tracer_info(int f64, int mesh, int TI, int TJ,
-                                        int, int, int* out) {
+                                        int, int orl, int* out) {
   if (f64)
-    return mesh ? info<double, true>(TI, TJ, out)
-                : info<double, false>(TI, TJ, out);
-  return mesh ? info<float, true>(TI, TJ, out)
-              : info<float, false>(TI, TJ, out);
+    return mesh ? info<double, true>(TI, TJ, orl, out)
+                : info<double, false>(TI, TJ, orl, out);
+  return mesh ? info<float, true>(TI, TJ, orl, out)
+              : info<float, false>(TI, TJ, orl, out);
 }

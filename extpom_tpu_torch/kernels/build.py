@@ -37,28 +37,30 @@ SIGNATURES = {
     "extpom_tridiag_f64": [_P, _P] + [_I] * 6 + [_P],
     # f64, threads, kb; the six ints of column.cuh tile_info
     "extpom_tridiag_info": [_I] * 3 + [_P],
-    # pointer table, parameter table; im, jm, isplit, ispadv, threads,
-    # blocks; stream
-    "extpom_extloop_f32": [_P, _P] + [_I] * 6 + [_P],
-    "extpom_extloop_f64": [_P, _P] + [_I] * 6 + [_P],
-    # f64, block variant, threads; the six ints of column.cuh tile_info
-    "extpom_extloop_info": [_I] * 3 + [_P],
+    # pointer table, parameter table; im, jm, isplit, ispadv, the options
+    # (csrc/extstep.cuh kOrl | kMode2), threads, blocks; stream
+    "extpom_extloop_f32": [_P, _P] + [_I] * 7 + [_P],
+    "extpom_extloop_f64": [_P, _P] + [_I] * 7 + [_P],
+    # f64, block variant, options, threads; the six ints of column.cuh
+    # tile_info
+    "extpom_extloop_info": [_I] * 4 + [_P],
     # kernels launched by the two entries above and extchunk's
     "extpom_extloop_launches": [],
     # threads, blocks, barriers, hand-written; counter, stream
     "extpom_extloop_floor": [_I] * 4 + [_P, _P],
-    # pointer table, parameter table; im, jm, isplit, ispadv, C, H, ti, tj,
-    # threads; stream
-    "extpom_extwin_f32": [_P, _P] + [_I] * 9 + [_P],
-    "extpom_extwin_f64": [_P, _P] + [_I] * 9 + [_P],
+    # pointer table, parameter table; im, jm, isplit, ispadv, options, C,
+    # H, ti, tj, threads; stream
+    "extpom_extwin_f32": [_P, _P] + [_I] * 10 + [_P],
+    "extpom_extwin_f64": [_P, _P] + [_I] * 10 + [_P],
     # extloop's on a block: pointer table, parameter table; im, jm, R, L, C,
-    # iext0, oi, oj, isplit, ispadv, threads, blocks; stream
-    "extpom_extchunk_f32": [_P, _P] + [_I] * 12 + [_P],
-    "extpom_extchunk_f64": [_P, _P] + [_I] * 12 + [_P],
+    # iext0, oi, oj, isplit, ispadv, options, threads, blocks; stream
+    "extpom_extchunk_f32": [_P, _P] + [_I] * 13 + [_P],
+    "extpom_extchunk_f64": [_P, _P] + [_I] * 13 + [_P],
     # extwin's on a block: pointer table, parameter table; im, jm, R, L, C,
-    # iext0, oi, oj, isplit, ispadv, C per launch, H, ti, tj, threads; stream
-    "extpom_extwin_chunk_f32": [_P, _P] + [_I] * 15 + [_P],
-    "extpom_extwin_chunk_f64": [_P, _P] + [_I] * 15 + [_P],
+    # iext0, oi, oj, isplit, ispadv, options, C per launch, H, ti, tj,
+    # threads; stream
+    "extpom_extwin_chunk_f32": [_P, _P] + [_I] * 16 + [_P],
+    "extpom_extwin_chunk_f64": [_P, _P] + [_I] * 16 + [_P],
     # pointer table, parameter table; kb, im, jm, two phase options, then
     # the tile: TI, TJ, blocks; stream
     **{f"extpom_phase_{ph}_{t}": [_P, _P] + [_I] * 8 + [_P]
@@ -67,14 +69,14 @@ SIGNATURES = {
     # blocks; stream
     **{f"extpom_phase_{ph}_mesh_{t}": [_P, _P] + [_I] * 12 + [_P]
        for ph in TILED for t in ("f32", "f64")},
-    # f64, block variant, TI, TJ, kb, keep; the six ints of column.cuh
-    # tile_info
+    # f64, block variant, TI, TJ, kb, keep (tke, tracer: the orlanski
+    # variant); the six ints of column.cuh tile_info
     **{f"extpom_phase_{ph}_info": [_I] * 6 + [_P] for ph in TILED},
     # kernels launched by the uvw entries since the library loaded
     "extpom_phase_uvw_launches": [],
-    # f64, block variant, threads, dynamic shared bytes; the six ints of
-    # column.cuh tile_info
-    "extpom_extwin_info": [_I] * 4 + [_P],
+    # f64, block variant, options, threads, dynamic shared bytes; the six
+    # ints of column.cuh tile_info
+    "extpom_extwin_info": [_I] * 5 + [_P],
     "extpom_error_string": [_I],
 }
 

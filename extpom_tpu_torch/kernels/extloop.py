@@ -4,7 +4,9 @@ PyTorch version, the Python loop over ``stepper.mode_external_substep``.
 
 One call runs all ``isplit`` substeps of an internal step in one cooperative
 launch and returns the final
-:class:`~extpom_tpu_torch.core.stepper.ExtCarry`.
+:class:`~extpom_tpu_torch.core.stepper.ExtCarry`.  The ``orlanski`` scheme's
+edges and mode 2's advave are compile-time options of the kernel
+(:func:`ext_flags`).
 
 :func:`run_external_chunk` is the decomposed step's variant (the
 counterpart of ``extpom_tpu/pallas/extloop.py:_chunk_kernel``, via
@@ -38,6 +40,9 @@ N_SLOTS = 3         # the fourth time-level slots of el, ua, va (extloop.cu)
 N_SCRATCH = N_METRICS + N_SUBSTEP + N_SLOTS
 MAX_THREADS = 512   # threads of a block, at most (csrc/extloop.cu)
 BARRIERS = 2        # grid-wide barriers per substep (csrc/extloop.cu)
+# the options of the external kernels, compile-time flags of
+# csrc/extstep.cuh (kOrl, kMode2)
+ORL, MODE2 = 2, 4
 
 _DTYPES = (torch.float32, torch.float64)
 
@@ -62,6 +67,13 @@ def run_external_chunk_plain(grid, cfg, c0, fc, aux, C: int, iext0: int,
             c = stepper.mode_external_substep(grid, cfg, c, iext, fc, aux,
                                               em=em)
     return c
+
+
+def ext_flags(cfg) -> int:
+    """The options of ``cfg`` that the external kernels compile in: the
+    orlanski scheme's edges (orl_el, orl_vel2d) and mode 2's advave."""
+    return ((ORL if cfg.bc_scheme == "orlanski" else 0)
+            | (MODE2 if cfg.mode == 2 else 0))
 
 
 def check_operands(grid, cfg, c0, fc, aux, what: str = "extloop",
@@ -109,11 +121,6 @@ def run_external_loop(grid, cfg, c0, fc, aux, threads=None):
         return run_external_loop_plain(grid, cfg, c0, fc, aux)
     if device.type != "cuda":
         raise TypeError(f"extloop: unsupported device {device}")
-    if cfg.mode == 2:
-        raise NotImplementedError("extloop kernel: mode=2 is not ported yet")
-    if cfg.bc_scheme == "orlanski":
-        raise NotImplementedError("extloop kernel: bc_scheme='orlanski' "
-                                  "(orl_el/orl_vel2d) is not ported yet")
     return _launch(grid, cfg, c0, fc, aux, threads=threads)
 
 
@@ -145,9 +152,6 @@ def check_chunk(grid, cfg, c0, fc, aux, C, iext0, off, what):
     device = c0[0].device
     if device.type not in ("cpu", "cuda"):
         raise TypeError(f"{what}: unsupported device {device}")
-    if device.type == "cuda" and cfg.bc_scheme == "orlanski":
-        raise NotImplementedError(f"{what} kernel: bc_scheme='orlanski' "
-                                  "(orl_el/orl_vel2d) is not ported yet")
 
 
 def block_threads(cells: int, sms: int) -> int:
@@ -170,11 +174,13 @@ def persistent_grid(cells: int, threads: int, blocks_per_sm: int,
 
 
 @functools.lru_cache(maxsize=None)
-def _loop_info(f64: bool, block: bool, threads: int, index: int) -> tuple:
+def _loop_info(f64: bool, block: bool, threads: int, index: int,
+               flags: int) -> tuple:
     out = (ctypes.c_int * 6)()
     with torch.cuda.device(index):
         status = build.library().extpom_extloop_info(
-            int(f64), int(block), threads, ctypes.cast(out, ctypes.c_void_p))
+            int(f64), int(block), flags, threads,
+            ctypes.cast(out, ctypes.c_void_p))
     build.check(status, "extloop info")
     return tuple(zip(("registers", "static_smem", "dynamic_smem",
                       "blocks_per_sm", "spill_bytes", "sms"), out))
@@ -187,25 +193,25 @@ def _index(device) -> int:
 
 
 def loop_info(dtype: torch.dtype, block: bool, threads: int,
-              device=None) -> dict:
+              device=None, flags: int = 0) -> dict:
     """What the compiler and the card give ``k_extloop`` (the block variant
-    with ``block``) at ``threads`` threads per block: registers per thread,
-    static and dynamic shared bytes, resident blocks per SM, spill bytes
-    per thread and the SMs of the card.  Builds the kernels; needs a CUDA
-    device."""
+    with ``block``, the options ``flags`` of :func:`ext_flags`) at
+    ``threads`` threads per block: registers per thread, static and dynamic
+    shared bytes, resident blocks per SM, spill bytes per thread and the
+    SMs of the card.  Builds the kernels; needs a CUDA device."""
     return dict(_loop_info(dtype == torch.float64, block, threads,
-                           _index(device)))
+                           _index(device), flags))
 
 
 def plan_grid(dtype: torch.dtype, cells: int, block: bool = False,
-              device=None, threads=None) -> tuple:
+              device=None, threads=None, flags: int = 0) -> tuple:
     """(threads, blocks) of the launch over ``cells`` cells: ``threads``
     per block, or :func:`block_threads`; the blocks from
-    :func:`persistent_grid`."""
+    :func:`persistent_grid` for the kernel of the options ``flags``."""
     index = _index(device)
     sms = torch.cuda.get_device_properties(index).multi_processor_count
     threads = threads or block_threads(cells, sms)
-    info = loop_info(dtype, block, threads, index)
+    info = loop_info(dtype, block, threads, index, flags)
     return threads, persistent_grid(cells, threads, info["blocks_per_sm"],
                                     info["sms"])
 
@@ -242,14 +248,15 @@ def _launch(grid, cfg, c0, fc, aux, chunk=None, threads=None):
     name = "extloop" if chunk is None else "extchunk"
     fn = getattr(lib, f"extpom_{name}_{suffix}")
     block = () if chunk is None else (R, L, *chunk)
+    flags = ext_flags(cfg)
     threads, blocks = plan_grid(el.dtype, R * L, chunk is not None,
-                                el.device, threads)
+                                el.device, threads, flags)
     stream = torch.cuda.current_stream(el.device).cuda_stream
     with torch.cuda.device(el.device):
         status = fn(ctypes.cast(ptrs, ctypes.c_void_p),
                     ctypes.cast(prm, ctypes.c_void_p),
-                    cfg.im, cfg.jm, *block, cfg.isplit, cfg.ispadv, threads,
-                    blocks, stream)
+                    cfg.im, cfg.jm, *block, cfg.isplit, cfg.ispadv, flags,
+                    threads, blocks, stream)
     build.check(status, f"{name} kernel")
     kernels.LAUNCHES[name] += 1
     return ExtCarry(*carry.unbind(0))

@@ -33,12 +33,15 @@ from extpom_tpu_torch.kernels.extloop import (
     N_METRICS, N_SUBSTEP)
 
 RADIUS = 2          # cells a substep's new carry reads of the old one
+RADIUS_ORL = 3      # ... under the orlanski scheme (csrc/extstep.cuh)
 C_MAX = 2           # substeps per launch, at most
 THREADS = 512       # threads of a window block (csrc/extwin.cu allows 512)
 TILE = (8, 32)      # (ti, tj), j fastest, in both variants and dtypes
 # window fields of csrc/extwin.cu in shared memory: eight carry fields,
-# elf, d = h + el, the tps sums of aam2d and six faces
+# elf, d = h + el, the tps sums of aam2d and six faces; mode 2 keeps the
+# bottom stress too (N_SHARED_MODE2)
 N_SHARED = 17
+N_SHARED_MODE2 = 19
 SMEM_BYTES = 232_448    # shared memory a block may use on Hopper (227 KB)
 # fields of (im, jm) the loop keeps live: carry, grid, aux, 2-D forcing,
 # metrics and the substep's elf/uaf/vaf
@@ -65,17 +68,19 @@ def chunk_geometry(cfg, itemsize: int) -> Geometry:
     sweep of C, tile and block size at 2048x2048 and on a 1084x572 block of
     its 2x4 mesh on the H100
     (``python -m extpom_tpu_torch.tools.extwin_sweep``)."""
-    return win_geometry(cfg.isplit, itemsize)
+    return win_geometry(cfg.isplit, itemsize, extloop.ext_flags(cfg))
 
 
-def geometry(C: int, ti: int, tj: int, threads: int,
-             itemsize: int) -> Geometry:
-    """The :class:`Geometry` of C substeps per launch on ti x tj tiles;
-    raises where the window does not fit a block's shared memory or a
-    window row has more cells than the block has threads (a thread owns
-    one column of the window)."""
-    H = RADIUS * C
-    smem = N_SHARED * (ti + 2 * H) * (tj + 2 * H) * itemsize
+def geometry(C: int, ti: int, tj: int, threads: int, itemsize: int,
+             flags: int = 0) -> Geometry:
+    """The :class:`Geometry` of C substeps per launch on ti x tj tiles of
+    the kernel of the options ``flags`` (``extloop.ext_flags``); raises
+    where the window does not fit a block's shared memory or a window row
+    has more cells than the block has threads (a thread owns one column of
+    the window)."""
+    H = (RADIUS_ORL if flags & extloop.ORL else RADIUS) * C
+    fields = N_SHARED_MODE2 if flags & extloop.MODE2 else N_SHARED
+    smem = fields * (ti + 2 * H) * (tj + 2 * H) * itemsize
     if smem > SMEM_BYTES:
         raise ValueError(f"extwin: a {ti}x{tj} tile with halo {H} needs "
                          f"{smem} bytes of shared memory")
@@ -85,27 +90,30 @@ def geometry(C: int, ti: int, tj: int, threads: int,
     return Geometry(C, H, ti, tj, threads, smem)
 
 
-def win_geometry(n_substeps: int, itemsize: int) -> Geometry:
+def win_geometry(n_substeps: int, itemsize: int,
+                 flags: int = 0) -> Geometry:
     """:func:`chunk_geometry` for a run of ``n_substeps`` substeps (a whole
-    loop, or one ring chunk of the decomposed step)."""
+    loop, or one ring chunk of the decomposed step) of the kernel of the
+    options ``flags``."""
     C = max(c for c in range(1, min(C_MAX, n_substeps) + 1)
             if n_substeps % c == 0)
-    return geometry(C, *TILE, THREADS, itemsize)
+    return geometry(C, *TILE, THREADS, itemsize, flags)
 
 
 def window_info(dtype: torch.dtype, geo: Geometry, block: bool = False,
-                device=None) -> dict:
+                device=None, flags: int = 0) -> dict:
     """What the compiler and the card give ``k_window`` (the block
-    variant with ``block``) at ``geo``: registers per thread, static and
-    dynamic shared bytes, resident blocks per SM, spill bytes per thread
-    and the SMs of the card (``cudaFuncGetAttributes``,
+    variant with ``block``, the options ``flags``) at ``geo``: registers
+    per thread, static and dynamic shared bytes, resident blocks per SM,
+    spill bytes per thread and the SMs of the card
+    (``cudaFuncGetAttributes``,
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).  Builds the
     kernels; needs a CUDA device."""
     out = (ctypes.c_int * 6)()
     with torch.cuda.device(device or torch.cuda.current_device()):
         status = build.library().extpom_extwin_info(
-            int(dtype == torch.float64), int(block), geo.threads, geo.smem,
-            ctypes.cast(out, ctypes.c_void_p))
+            int(dtype == torch.float64), int(block), flags, geo.threads,
+            geo.smem, ctypes.cast(out, ctypes.c_void_p))
     build.check(status, "extwin info")
     return dict(zip(("registers", "static_smem", "dynamic_smem",
                      "blocks_per_sm", "spill_bytes", "sms"), out))
@@ -155,7 +163,8 @@ def run_external_chunk_windowed(grid, cfg, c0, fc, aux, C: int, iext0: int,
     if c0[0].device.type == "cpu":
         return extloop.run_external_chunk_plain(grid, cfg, c0, fc, aux, C,
                                                 iext0, off)
-    geo = geo or win_geometry(C, c0[0].element_size())
+    geo = geo or win_geometry(C, c0[0].element_size(),
+                              extloop.ext_flags(cfg))
     if C % geo.C:
         raise ValueError(f"extwin_chunk: {geo.C} substeps per launch do not "
                          f"divide the chunk's {C}")
@@ -173,11 +182,6 @@ def run_external_loop_windowed(grid, cfg, c0, fc, aux, geo=None):
         return run_external_loop_windowed_plain(grid, cfg, c0, fc, aux)
     if device.type != "cuda":
         raise TypeError(f"extwin: unsupported device {device}")
-    if cfg.mode == 2:
-        raise NotImplementedError("extwin kernel: mode=2 is not ported yet")
-    if cfg.bc_scheme == "orlanski":
-        raise NotImplementedError("extwin kernel: bc_scheme='orlanski' "
-                                  "(orl_el/orl_vel2d) is not ported yet")
     return _launch(grid, cfg, c0, fc, aux, geo)
 
 
@@ -214,8 +218,8 @@ def _launch(grid, cfg, c0, fc, aux, geo, chunk=None):
     with torch.cuda.device(el.device):
         status = fn(ctypes.cast(ptrs, ctypes.c_void_p),
                     ctypes.cast(prm, ctypes.c_void_p), cfg.im, cfg.jm,
-                    *block, cfg.isplit, cfg.ispadv, geo.C, geo.H, geo.ti,
-                    geo.tj, geo.threads, stream)
+                    *block, cfg.isplit, cfg.ispadv, extloop.ext_flags(cfg),
+                    geo.C, geo.H, geo.ti, geo.tj, geo.threads, stream)
     build.check(status, f"{name} kernel")
     n_launch = (cfg.isplit if chunk is None else chunk[0]) // geo.C
     # the whole loop counts its launches; the block variant its calls

@@ -5,7 +5,8 @@ their plain PyTorch versions.
 
 Each ``phase_*`` has the signature of ``core/stepper.py``'s phase of the
 JAX package without the operands no kernel reads (``d`` of ``lat`` and
-``mom``, ``ub`` of ``tracer``, ``l`` of ``tke``) and returns the same tuple.
+``mom``, ``l`` of ``tke``; ``tracer`` takes ``ub`` as a keyword, read by
+the ``orlanski`` scheme only) and returns the same tuple.
 The ``*_plain`` versions run the ops of ``ops/`` and ``bc/``, whose Thomas
 solves are ``tridiag.thomas_plain``, so a plain phase launches no
 hand-written kernel, on the card either.
@@ -157,18 +158,21 @@ def _tile_info(phase: str, f64: bool, mesh: bool, ti: int, tj: int, kb: int,
 
 
 def tile_info(phase: str, dtype: torch.dtype, tile: Tile, mesh: bool = False,
-              device=None) -> dict:
+              device=None, orl: bool = False) -> dict:
     """What the compiler and the card give the ``phase`` tile kernel with
     ``tile``: registers per thread, static and dynamic shared bytes,
     resident blocks per SM, spill bytes per thread and the SMs of the card
     (from ``cudaFuncGetAttributes`` and
-    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).  Builds the kernels;
-    needs a CUDA device."""
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); with ``orl`` of tke
+    or tracer, their orlanski variant's.  Builds the kernels; needs a CUDA
+    device."""
     device = torch.device("cuda" if device is None else device)
     index = device.index if device.index is not None else \
         torch.cuda.current_device()
+    # the entry's last option is mom's and uvw's keep, tke's and tracer's
+    # orlanski variant
     return dict(_tile_info(phase, dtype == torch.float64, mesh, tile.ti,
-                           tile.tj, tile.kb, tile.keep, index))
+                           tile.tj, tile.kb, tile.keep or orl, index))
 
 
 @functools.lru_cache(maxsize=None)
@@ -237,12 +241,6 @@ def _plain_checks(phase: str, cfg: Config) -> None:
             raise NotImplementedError("nadv=2 (MPDATA) is not ported yet")
         if cfg.do_restore:
             raise NotImplementedError("interior restoring is not ported yet")
-        if cfg.bc_scheme == "orlanski":
-            raise NotImplementedError("orl_ts (bc_scheme='orlanski') is not "
-                                      "ported yet")
-    if phase == "tke" and cfg.bc_scheme == "orlanski":
-        raise NotImplementedError("orl_turb (bc_scheme='orlanski') is not "
-                                  "ported yet")
     if phase == "mom" and cfg.bc_scheme == "file":
         raise NotImplementedError("bc_vel3d (bc_scheme='file') is not "
                                   "ported yet")
@@ -308,16 +306,20 @@ def phase_tke_plain(grid, cfg: Config, q2, q2b, q2l, q2lb, u, v, w, aam, t,
     (q2f, q2lf, km, kh, kq, l, q2b, q2lb) = vertical.profq(
         grid, cfg, q2f, q2lf, q2, q2b, q2lb, u, v, t, s, rho,
         km, kh, kq, etf, fc.wusurf, fc.wvsurf, wubot, wvbot)
-    q2f, q2lf = bcf.bc_turb(grid, cfg, q2f, q2lf, q2, q2l, u, v)
+    if cfg.bc_scheme == "orlanski":
+        q2f, q2lf = bco.orl_turb(grid, cfg, q2f, q2lf)
+    else:
+        q2f, q2lf = bcf.bc_turb(grid, cfg, q2f, q2lf, q2, q2l, u, v)
     q2 = q2 + 0.5 * cfg.smoth * (q2f + q2b - 2.0 * q2)
     q2l = q2l + 0.5 * cfg.smoth * (q2lf + q2lb - 2.0 * q2l)
     return q2f, q2, q2lf, q2l, km, kh, kq, l
 
 
 def phase_tracer_plain(grid, cfg: Config, t, tb, s, sb, tclim, sclim, u, v,
-                       w, aam, kh, dt, etb, etf, fc):
+                       w, aam, kh, dt, etb, etf, fc, ub=None):
     """Tracer advection + implicit diffusion + BC + Asselin + EOS
-    (advance.f:424-456) -> (t, tb, s, sb, rho)."""
+    (advance.f:424-456) -> (t, tb, s, sb, rho); ``ub`` (the old u) is read
+    by the ``orlanski`` scheme's edges only."""
     _plain_checks("tracer", cfg)
     tf = tracers.advt1(grid, cfg, tb, t, tclim, u, v, w, aam, dt, etb, etf)
     sf = tracers.advt1(grid, cfg, sb, s, sclim, u, v, w, aam, dt, etb, etf)
@@ -325,7 +327,10 @@ def phase_tracer_plain(grid, cfg: Config, t, tb, s, sb, tclim, sclim, u, v,
                         etf, fc.swrad)
     sf = vertical.proft(grid, cfg, sf, fc.wssurf, fc.ssurf, cfg.nbcs, kh,
                         etf, fc.swrad)
-    tf, sf = bcf.bc_ts(grid, cfg, tf, sf, t, s, u, v, w, dt, fc)
+    if cfg.bc_scheme == "orlanski":
+        tf, sf = bco.orl_ts(grid, cfg, tf, sf, t, tb, s, sb, ub, fc)
+    else:
+        tf, sf = bcf.bc_ts(grid, cfg, tf, sf, t, s, u, v, w, dt, fc)
 
     t = t + 0.5 * cfg.smoth * (tf + tb - 2.0 * t)
     s = s + 0.5 * cfg.smoth * (sf + sb - 2.0 * s)
@@ -496,14 +501,14 @@ def _launch(phase: str, tensors, prm, cfg: Config, opt0=0, opt1=0,
     kernels.LAUNCHES[name] += 1
 
 
-def _plain(phase: str, grid, cfg: Config, args, off):
+def _plain(phase: str, grid, cfg: Config, args, off, **kw):
     """The plain phase, on a block under its DomainCtx when ``off`` is
-    given."""
+    given; ``kw`` are its keyword operands (tracer's ub)."""
     fn = globals()[f"phase_{phase}_plain"]
     if off is None:
-        return fn(grid, cfg, *args)
+        return fn(grid, cfg, *args, **kw)
     with domain(DomainCtx(cfg.im, cfg.jm, *off)):
-        return fn(grid, cfg, *args)
+        return fn(grid, cfg, *args, **kw)
 
 
 def _empty(like: torch.Tensor, n: int) -> list:
@@ -568,18 +573,27 @@ def phase_tke(grid, cfg: Config, q2, q2b, q2l, q2lb, u, v, w, aam, t, s, rho,
     out = _empty(q2, 8)
     geo, eg, _ = _tile_launch("tke", cfg.kb, q2, off, tile)
     _launch("tke", kernel_inputs("tke", grid, cfg, *args) + out + eg,
-            _tke_params(cfg), cfg, off=off, geo=geo)
+            _tke_params(cfg), cfg, int(cfg.bc_scheme == "orlanski"),
+            off=off, geo=geo)
     return tuple(out)
 
 
 def phase_tracer(grid, cfg: Config, t, tb, s, sb, tclim, sclim, u, v, w,
-                 aam, kh, dt, etb, etf, fc, off=None, tile=None):
+                 aam, kh, dt, etb, etf, fc, off=None, tile=None, ub=None):
     """-> (t, tb, s, sb, rho); CUDA tensors launch ``csrc/phase_tracer.cu``
     with ``tile`` (:func:`column_tile`'s by default), CPU tensors run
-    :func:`phase_tracer_plain`."""
+    :func:`phase_tracer_plain`.  ``ub`` (kb, im, jm), the old u, is an
+    operand of the ``orlanski`` scheme only."""
     args = (t, tb, s, sb, tclim, sclim, u, v, w, aam, kh, dt, etb, etf, fc)
-    if _check("tracer", grid, cfg, args, off).type == "cpu":
-        return _plain("tracer", grid, cfg, args, off)
+    device = _check("tracer", grid, cfg, args, off)
+    orl = cfg.bc_scheme == "orlanski"
+    if orl and (not isinstance(ub, torch.Tensor) or ub.shape != t.shape
+                or ub.dtype != t.dtype or ub.device != t.device
+                or not ub.is_contiguous()):
+        raise ValueError("phase_tracer: the orlanski scheme needs ub, a "
+                         "contiguous tensor like t")
+    if device.type == "cpu":
+        return _plain("tracer", grid, cfg, args, off, ub=ub)
     _plain_checks("tracer", cfg)
     for nbc in (cfg.nbct, cfg.nbcs):
         if nbc not in (1, 2, 3, 4):
@@ -587,8 +601,13 @@ def phase_tracer(grid, cfg: Config, t, tb, s, sb, tclim, sclim, u, v, w,
     out = _empty(t, 5)
     ntp = cfg.ntp - 1
     geo, eg, _ = _tile_launch("tracer", cfg.kb, t, off, tile)
+    # orl_ts (selected by a non-null ub): the old u, and the strip of the
+    # solved T and S one cell inside each edge for the perimeter launch
+    # (2 tracers x 2 sides x kb rows of L, then of R)
+    R, L = t.shape[-2:]
+    edge = [ub, t.new_empty(4 * cfg.kb * (R + L))] if orl else [None, None]
     _launch("tracer",
-            kernel_inputs("tracer", grid, cfg, *args) + out + eg,
+            kernel_inputs("tracer", grid, cfg, *args) + out + eg + edge,
             [cfg.dti2, cfg.dti, cfg.tprni, cfg.umol, cfg.smoth, cfg.tbias,
              cfg.sbias, cfg.grav, cfg.rhoref, vertical._R_JERLOV[ntp],
              vertical._AD1_JERLOV[ntp], vertical._AD2_JERLOV[ntp]],

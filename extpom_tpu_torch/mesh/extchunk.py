@@ -127,7 +127,8 @@ def chunk_plan(cfg, px: int, py: int, ni: int, nj: int, device,
     if device.type != "cuda":
         machine = "plain"
     elif extwin.use_win_chunk(R, L, itemsize, extwin.l2_bytes(device)):
-        machine, geo = "cuda-extwin-chunk", extwin.win_geometry(C, itemsize)
+        machine, geo = "cuda-extwin-chunk", extwin.win_geometry(
+            C, itemsize, extloop.ext_flags(cfg))
     else:
         machine = "cuda-extchunk"
     return ChunkPlan(C, hx, hy, R, L, machine, geo)

@@ -1,6 +1,6 @@
 """External-mode advection and diffusion (``extpom_tpu/ops/advection2d.py``
-``advave``; solver.f:6-121).  The mode-2 bottom-stress and curvature
-branch (solver.f:123-193) is not ported yet."""
+``advave``; solver.f:6-193), with the mode-2 depth-mean bottom stress and
+curvature terms."""
 
 from __future__ import annotations
 
@@ -17,10 +17,9 @@ def advave(grid: Grid, cfg: Config, d, ua, va, uab, vab, aam2d, wubot,
            wvbot, em=None
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (advua, advva, wubot, wvbot); wubot/wvbot pass through
-    (they change only in mode 2).  ``em`` carries the loop-invariant
-    metrics of ``core.stepper.ext_precompute``."""
-    if cfg.mode == 2:
-        raise NotImplementedError("advave for mode=2 is not ported yet")
+    outside mode 2, where they are the bottom stress of the depth-mean flow
+    (solver.f:123-143).  ``em`` carries the loop-invariant metrics of
+    ``core.stepper.ext_precompute``."""
     dx, dy = grid.dx, grid.dy
     z = torch.zeros_like(d)
     if em is None:
@@ -72,4 +71,42 @@ def advave(grid: Grid, cfg: Config, d, ua, va, uab, vab, aam2d, wubot,
 
     advva = put(z, sft(fluxua, 1, 0) - fluxua + fluxva - sft(fluxva, 0, -1),
                 slice(1, -1), slice(1, -1))
+
+    if cfg.mode == 2:
+        cbc = grid.cbc
+        # depth-mean bottom stress (solver.f:125-143)
+        wubot = put(wubot,
+                    -0.5 * (cbc + sft(cbc, -1, 0))
+                    * torch.sqrt(uab ** 2
+                                 + (0.25 * (vab + sft(vab, 0, 1)
+                                            + sft(vab, -1, 0)
+                                            + sft(vab, -1, 1))) ** 2) * uab,
+                    slice(1, -1), slice(1, -1))
+        wvbot = put(wvbot,
+                    -0.5 * (cbc + sft(cbc, 0, -1))
+                    * torch.sqrt(vab ** 2
+                                 + (0.25 * (uab + sft(uab, 1, 0)
+                                            + sft(uab, 0, -1)
+                                            + sft(uab, 1, -1))) ** 2) * vab,
+                    slice(1, -1), slice(1, -1))
+        # curvature terms (solver.f:145-193); advua's range starts at
+        # global i = 2 and advva's at global j = 2
+        curv2d = put(z, 0.25 * ((sft(va, 0, 1) + va)
+                                * (sft(dy, 1, 0) - sft(dy, -1, 0))
+                                - (sft(ua, 1, 0) + ua)
+                                * (sft(dx, 0, 1) - sft(dx, 0, -1)))
+                     * em.rart,
+                     slice(1, -1), slice(1, -1))
+        advua = put(advua,
+                    advua - grid.aru * 0.25
+                    * (curv2d * d * (sft(va, 0, 1) + va)
+                       + sft(curv2d, -1, 0) * sft(d, -1, 0)
+                       * (sft(va, -1, 1) + sft(va, -1, 0))),
+                    slice(2, -1), slice(1, -1))
+        advva = put(advva,
+                    advva + grid.arv * 0.25
+                    * (curv2d * d * (sft(ua, 1, 0) + ua)
+                       + sft(curv2d, 0, -1) * sft(d, 0, -1)
+                       * (sft(ua, 1, -1) + sft(ua, 0, -1))),
+                    slice(1, -1), slice(2, -1))
     return advua, advva, wubot, wvbot

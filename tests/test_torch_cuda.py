@@ -22,6 +22,10 @@ torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+# the options the external, tke and tracer kernels compile in
+OPTIONS = [dict(bc_scheme="orlanski"), dict(mode=2),
+           dict(mode=2, bc_scheme="orlanski")]
+OPTION_IDS = ["orlanski", "mode2", "mode2-orlanski"]
 
 
 @pytest.fixture
@@ -213,13 +217,16 @@ def test_extwin_kernel_bit_equal(card, shape, dtype):
 
 
 def test_extwin_kernel_raises(card):
+    """The options compute (the window kernel held to the plain loop), and
+    operands on two devices raise."""
     g, cfg, c0, fc, aux = _ext_operands(card, 37, 53, torch.float64)
-    with pytest.raises(NotImplementedError):
-        extwin.run_external_loop_windowed(
-            g, cfg.replace(bc_scheme="orlanski"), c0, fc, aux)
-    with pytest.raises(NotImplementedError):
-        extwin.run_external_loop_windowed(g, cfg.replace(mode=2), c0, fc,
-                                          aux)
+    for kw in OPTIONS:
+        got = extwin.run_external_loop_windowed(g, cfg.replace(**kw), c0, fc,
+                                                aux)
+        want = extwin.run_external_loop_windowed_plain(g, cfg.replace(**kw),
+                                                       c0, fc, aux)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), kw
     with pytest.raises(TypeError):        # a CPU operand among CUDA ones
         extwin.run_external_loop_windowed(
             g, cfg, c0._replace(uab=c0.uab.cpu()), fc, aux)
@@ -261,11 +268,77 @@ def test_card_path_matches_cpu_path(card):
                1e-10, floor=1.0)
 
 
-def test_orlanski_raises_on_the_card(card):
-    m = seamount_model(device=card, im=9, jm=9, kb=5, dtype="float64",
-                       bc_scheme="orlanski")
-    with pytest.raises(NotImplementedError):
-        m.run_segment(1)
+@pytest.mark.parametrize("kw", OPTIONS, ids=OPTION_IDS)
+def test_orlanski_card_path_matches_cpu_path(card, kw):
+    """The seamount under the options on the card (kernels) against the
+    CPU (plain), over 3 steps, float64."""
+    m = dict(im=24, jm=40, kb=7, dtype="float64", **kw)
+    gpu = seamount_model(device=card, **m)
+    cpu = seamount_model(device="cpu", **m)
+    gpu.run_segment(3)
+    cpu.run_segment(3)
+    for name in cpu.state.field_names():
+        _close(getattr(gpu.state, name).cpu(), getattr(cpu.state, name),
+               1e-10, floor=1.0)
+
+
+@pytest.mark.parametrize("window", [False, True], ids=["loop", "window"])
+def test_basin_card_path_matches_cpu_path(card, window, monkeypatch):
+    """The basin (mode 2, orlanski, a land ring) on the card, through the
+    whole-grid loop or the window kernel, against the CPU over 20 steps."""
+    from extpom_tpu_torch.cases.basin import basin_model
+    monkeypatch.setattr(extwin, "use_windowed", lambda *a: window)
+    m = dict(im=41, jm=33, kb=4, dtype="float64")
+    gpu = basin_model(device=card, **m)
+    cpu = basin_model(device="cpu", **m)
+    gpu.run_segment(20)
+    cpu.run_segment(20)
+    for name in ("el", "ua", "va", "uab", "vab", "wubot", "wvbot", "advua"):
+        _close(getattr(gpu.state, name).cpu(), getattr(cpu.state, name),
+               1e-10, floor=1.0)
+
+
+# shapes with a one-row (41) and a one-column (65) last tile of the window
+# kernel, whose Orlanski edges read cells one and two in
+@pytest.mark.parametrize("kw", OPTIONS, ids=OPTION_IDS)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", [(40, 56), (41, 41), (33, 65), (14, 60)])
+def test_external_kernels_options_bit_equal(card, shape, dtype, kw):
+    """Under the options, the whole-grid loop and the window kernel give
+    the plain loop's bits."""
+    g, cfg, c0, fc, aux = _ext_operands(card, *shape, dtype, steps=2)
+    cfg = cfg.replace(**kw)
+    chain = extloop.run_external_loop(g, cfg, c0, fc, aux)
+    win = extwin.run_external_loop_windowed(g, cfg, c0, fc, aux)
+    plain = extwin.run_external_loop_windowed_plain(g, cfg, c0, fc, aux)
+    for name, a, b, p in zip(extloop.CARRY_FIELDS, chain, win, plain):
+        assert bool(torch.isfinite(a).all()), name
+        assert torch.equal(a, p), name
+        assert torch.equal(b, p), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", [(24, 24, 7), (33, 65, 9), (17, 33, 4)],
+                         ids=["square", "ragged", "kb4"])
+@pytest.mark.parametrize("phase", ["tke", "tracer"])
+def test_phase_kernel_orlanski_matches_plain(card, phase, shape, dtype):
+    """orl_turb and orl_ts in the tke and tracer kernels (tracer: the tile
+    launch, then the perimeter launch) against the plain phases."""
+    g, cfg, args = _phase_case(*shape)
+    g = _to(g, card, dtype)
+    cfg = cfg.replace(dtype=str(dtype).split(".")[1], bc_scheme="orlanski")
+    args = [_to(x, card, dtype) for x in args[phase]]
+    kw = {}
+    if phase == "tracer":
+        kw["ub"] = args[6] - 0.02     # the old u, with inflow and outflow
+    name = f"phase_{phase}"
+    before = kernels.LAUNCHES[name]
+    got = getattr(phases, name)(g, cfg, *args, **kw)
+    assert kernels.LAUNCHES[name] == before + 1
+    want = getattr(phases, name + "_plain")(g, cfg, *args, **kw)
+    for a, b in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        _close(a, b, PHASE_TOL[dtype])
 
 
 PHASE_TOL = {torch.float64: 1e-10, torch.float32: 1e-5}
@@ -602,3 +675,52 @@ def test_chunk_window_bit_equal(card, tile, dtype):
         want = extloop.run_external_chunk(g, cfg, c, fc, aux, C, iext0, off)
         for a, b in zip(got, want):
             assert torch.equal(_trim(blocks, a), _trim(blocks, b))
+
+
+@pytest.mark.parametrize("kw", OPTIONS, ids=OPTION_IDS)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_chunk_kernels_options_match_plain(card, dtype, kw):
+    """extchunk and extwin_chunk (8x16 tiles, several per block) under the
+    options against the plain chunk, bit for bit on each block's own
+    cells: the first and last chunks of every block of the 2x4 mesh."""
+    rec = _mesh_calls()
+    calls = rec["calls"]["chunk"]
+    for (g, cfg, c, fc, aux, C, iext0, off), _ in calls[:8] + calls[-8:]:
+        g, c, fc = (_to_any(x, card, dtype) for x in (g, c, fc))
+        aux = tuple(_to(x, card, dtype) for x in aux)
+        cfg = cfg.replace(dtype=str(dtype).split(".")[1], **kw)
+        want = extloop.run_external_chunk_plain(g, cfg, c, fc, aux, C, iext0,
+                                                off)
+        geo = extwin.win_geometry(C, c.el.element_size(),
+                                  extloop.ext_flags(cfg))
+        for got in (extloop.run_external_chunk(g, cfg, c, fc, aux, C, iext0,
+                                               off),
+                    extwin.run_external_chunk_windowed(
+                        g, cfg, c, fc, aux, C, iext0, off,
+                        geo=geo._replace(ti=8, tj=16))):
+            for a, b in zip(got, want):
+                assert torch.equal(_trim(rec["blocks"], a),
+                                   _trim(rec["blocks"], b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("phase", ["tke", "tracer"])
+def test_phase_mesh_kernel_orlanski_matches_plain(card, phase, dtype):
+    """phase_tke_mesh and phase_tracer_mesh under orlanski against the
+    plain phase on each block of the 2x4 mesh, on the block's own cells."""
+    rec = _mesh_calls()
+    for (g, cfg, *args), kw in rec["calls"][phase]:
+        g = _to(g, card, dtype)
+        cfg = cfg.replace(dtype=str(dtype).split(".")[1],
+                          bc_scheme="orlanski")
+        args = [_to(x, card, dtype) for x in args]
+        if phase == "tracer":
+            kw = dict(kw, ub=args[6] - 0.02)
+        got = getattr(phases, f"phase_{phase}")(g, cfg, *args, **kw)
+        want = phases._plain(phase, g, cfg, args, kw["off"],
+                             **({"ub": kw["ub"]} if phase == "tracer"
+                                else {}))
+        for a, b in zip(got, want):
+            a, b = _trim(rec["blocks"], a), _trim(rec["blocks"], b)
+            assert bool(torch.isfinite(a).all())
+            _close(a, b, PHASE_TOL[dtype])

@@ -65,7 +65,8 @@ def loop():
                        for f in dataclasses.fields(PtForcing)})
     pc0 = stepper.ExtCarry(*(_t(x) for x in c0))
     paux = tuple(_t(x) for x in aux)
-    return dict(want=want, args=(pgrid, pcfg, pc0, pfc, paux))
+    return dict(want=want, args=(pgrid, pcfg, pc0, pfc, paux),
+                jax=(grid, cfg, c0, fc, aux))
 
 
 def test_plain_loop_matches_pallas_kernel(loop):
@@ -115,11 +116,21 @@ def test_rejects_noncontiguous(loop):
         extloop.run_external_loop(grid, cfg, c0, fc.replace(wusurf=wus), aux)
 
 
-def test_orlanski_not_ported(loop):
+def test_orlanski_loop_matches_jax(loop):
+    """Under the orlanski scheme (orl_el, orl_vel2d) the plain loop gives
+    the JAX package's Pallas kernel's carry (interpret mode)."""
     grid, cfg, c0, fc, aux = loop["args"]
-    with pytest.raises(NotImplementedError):
-        extloop.run_external_loop(grid, cfg.replace(bc_scheme="orlanski"),
-                                  c0, fc, aux)
+    jgrid, jcfg, jc0, jfc, jaux = loop["jax"]
+    jcfg = jcfg.replace(bc_scheme="orlanski")
+    want = jax.jit(lambda c, a: jx_extloop.run_external_loop(
+        jgrid, jcfg, c, jfc, a, interpret=True))(jc0, jaux)
+    got = extloop.run_external_loop(grid, cfg.replace(bc_scheme="orlanski"),
+                                    c0, fc, aux)
+    for name, g, w in zip(extloop.CARRY_FIELDS, got, want):
+        w = np.asarray(w)
+        scale = max(1.0, float(np.abs(w).max()))
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-12 * scale,
+                                   err_msg=name)
 
 
 @pytest.mark.parametrize("cells,sms,threads", [

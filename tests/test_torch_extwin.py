@@ -246,3 +246,54 @@ def test_ring_chunk_geometry(n, itemsize):
     geo = extwin.win_geometry(plan.C, itemsize)
     assert plan.C % geo.C == 0 and cfg.isplit % geo.C == 0
     assert geo.smem <= extwin.SMEM_BYTES
+
+
+@pytest.mark.parametrize("kw", [dict(bc_scheme="orlanski"), dict(mode=2),
+                                dict(mode=2, bc_scheme="orlanski")],
+                         ids=["orlanski", "mode2", "mode2-orlanski"])
+@pytest.mark.parametrize("cell", [(12, 10), (1, 1), (0, 9), (2, 18),
+                                  (21, 10), (12, 17)])
+@pytest.mark.parametrize("C", [1, 2])
+def test_substep_radius_options(radius_case, C, cell, kw):
+    """Under the options a change of the carry at one cell reaches no cell
+    more than R C away after C substeps, R the halo per substep of the
+    kernel of those options (extwin.geometry: 3 under the orlanski scheme,
+    whose edge value forms the interior value one cell in; 2 in mode 2)."""
+    g, cfg, c0, fc, aux = radius_case
+    cfg = cfg.replace(**kw)
+    em = stepper.ext_precompute(g)
+
+    def run(c):
+        for s in range(C):
+            c = stepper.mode_external_substep(g, cfg, c, 1 + s, fc, aux,
+                                              em=em)
+        return c
+
+    base = run(c0)
+    pert = stepper.ExtCarry(*(x.clone() for x in c0))
+    for x in pert:
+        x[cell] += 1e-2
+    got = run(pert)
+    ii, jj = np.meshgrid(np.arange(cfg.im), np.arange(cfg.jm), indexing="ij")
+    dist = np.maximum(np.abs(ii - cell[0]), np.abs(jj - cell[1]))
+    reach = max((int(dist[(a != b).numpy()].max())
+                 for a, b in zip(base, got) if bool((a != b).any())),
+                default=0)
+    geo = extwin.win_geometry(C, 8, extloop.ext_flags(cfg))
+    assert geo.H == (extwin.RADIUS_ORL if cfg.bc_scheme == "orlanski"
+                     else extwin.RADIUS) * C
+    assert 1 <= reach <= geo.H
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("flags", [2, 4, 6])
+def test_win_geometry_options_fit(flags, itemsize):
+    """The window of each option's kernel fits a block's shared memory and
+    gives each window column a thread: mode 2 keeps the bottom stress in
+    the window (19 fields), the orlanski scheme a halo of 3 per substep."""
+    geo = extwin.win_geometry(30, itemsize, flags)
+    fields = extwin.N_SHARED_MODE2 if flags & 4 else extwin.N_SHARED
+    assert geo.H == (3 if flags & 2 else 2) * geo.C
+    assert geo.smem == fields * (geo.ti + 2 * geo.H) * (
+        geo.tj + 2 * geo.H) * itemsize <= extwin.SMEM_BYTES
+    assert geo.threads >= geo.tj + 2 * geo.H

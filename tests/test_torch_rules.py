@@ -62,14 +62,32 @@ def test_config_matches_jax_fields():
         assert getattr(cfg, prop) == getattr(jcfg, prop), prop
 
 
-@pytest.mark.parametrize("kw", [dict(mode=2), dict(npg=2), dict(nadv=2),
-                                dict(bc_scheme="orlanski"),
+@pytest.mark.parametrize("kw", [dict(npg=2), dict(nadv=2),
                                 dict(bc_scheme="file")])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError):
         m = seamount_model(device="cpu", im=9, jm=9, kb=5, dtype="float64",
                            **kw)
         m.run_segment(2)
+
+
+@pytest.mark.parametrize("kw", [dict(mode=2), dict(bc_scheme="orlanski")],
+                         ids=["mode=2", "bc_scheme=orlanski"])
+def test_ported_options_match_jax(kw):
+    """mode=2 and the orlanski scheme run in the port as in the JAX
+    package: three steps of the 9x9x5 seamount within 1e-10 of scale."""
+    import numpy as np
+    from extpom_tpu.cases.seamount import seamount_model as jx_model
+    jm = jx_model(donate=False, im=9, jm=9, kb=5, dtype="float64", **kw)
+    for _ in range(3):
+        jm.step_once()
+    m = seamount_model(device="cpu", im=9, jm=9, kb=5, dtype="float64", **kw)
+    m.run_segment(3)
+    for name in ("el", "ua", "va", "u", "t", "q2"):
+        want = np.asarray(getattr(jm.state, name))
+        tol = 1e-10 * max(1.0, float(np.abs(want).max()))
+        np.testing.assert_allclose(getattr(m.state, name).numpy(), want,
+                                   rtol=0, atol=tol, err_msg=name)
 
 
 def test_kernels_not_built_at_import():
@@ -166,10 +184,33 @@ def test_mode4_skips_the_tracer_phase(mode, monkeypatch):
 
 
 @pytest.mark.parametrize("phase", ["tke", "tracer"])
-def test_phase_raises_for_orlanski_boundaries(phase):
-    """Under bc_scheme='orlanski' the reference runs orl_turb/orl_ts, which
-    are not ported: the phase raises rather than run bc_turb/bc_ts."""
-    fn, g, _, args = _phase_operands(phase)
-    cfg = Config(im=9, jm=11, kb=5, dtype="float64", bc_scheme="orlanski")
-    with pytest.raises(NotImplementedError):
-        fn(g, cfg, *args)
+def test_phase_orlanski_boundaries_match_jax(phase):
+    """Under bc_scheme='orlanski' the phase runs orl_turb/orl_ts, as the
+    JAX stepper's phase does, on a cold start's operands."""
+    import numpy as np
+    from extpom_tpu.cases.seamount import seamount_model as jx_model
+    from extpom_tpu.core import stepper as jx_stepper
+    from extpom_tpu.ops import stencil as jx_stencil
+    fn, g, cfg, args = _phase_operands(phase)
+    cfg = cfg.replace(bc_scheme="orlanski")
+    jm = jx_model(donate=False, im=9, jm=11, kb=5, dtype="float64",
+                  bc_scheme="orlanski")
+    st, jfc = jm.state, jm.base_forcing
+    jargs = {
+        "tke": (st.q2, st.q2b, st.q2l, st.q2lb, st.u, st.v, st.w, st.aam,
+                st.t, st.s, st.rho, st.km, st.kh, st.kq, st.l,
+                jm.grid.h + st.et, st.etb, st.et, st.wubot, st.wvbot),
+        "tracer": (st.t, st.tb, st.s, st.sb, jm.tclim, jm.sclim, st.u,
+                   st.ub, st.v, st.w, st.aam, st.kh, jm.grid.h + st.et,
+                   st.etb, st.et),
+    }[phase]
+    with jx_stencil.domain_of(jm.cfg):
+        want = getattr(jx_stepper, f"phase_{phase}")(jm.grid, jm.cfg,
+                                                     *jargs, jfc)
+    kw = {"ub": args[6]} if phase == "tracer" else {}
+    got = fn(g, cfg, *args, **kw)
+    for k, (a, b) in enumerate(zip(got, want)):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a.numpy(), b, rtol=0,
+                                   atol=1e-12 * max(1.0, np.abs(b).max()),
+                                   err_msg=f"{phase} output {k}")
