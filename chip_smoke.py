@@ -28,10 +28,21 @@ dispatch picks it), each of whose kernels is held to its plain version on
 the operands of steps after the restart (``[channel_kernels]``);
 ``[channel_check]`` holds the channel's float64 kernel path, with the
 whole-grid loop and with the window kernel, to the plain path on the CPU,
-beside the plain path on the card and a one-ulp change of T.  The Thomas kernel is held to its plain
+beside the plain path on the card and a one-ulp change of T.  Then the
+options: ``[orlanski]`` and ``[orlanski_mesh]`` (the main path under
+Orlanski edges), ``[basin]`` (mode 2 at 512x512x31), and the phase
+options of lat, tracer and mom: ``[options]`` (the main path under
+McCalpin's pressure gradient and MPDATA, 22 steps, lat, tracer and
+MPDATA's launches held to their plain versions on step 3's operands),
+``[options_mesh]`` (the same on the 2x4 mesh, bit-equal to one device) and
+``[file_restore]`` (the 512x512x31 channel through ``run.main`` under the
+file scheme with interior restoring from an lbry file written from a
+seed; mom and tracer held to their plain versions on steps whose series
+change), with their float64 checks against the CPU (``[options_check]``,
+``[file_restore_check]``).  The Thomas kernel is held to its plain
 version bit for bit and timed at 256x256x31, 256x256x41 and
 2048x2048x41.  It checks the
-results, prints the dispatch echo of five, one ``kernels`` JSON line,
+results, prints the dispatch echo of eight, one ``kernels`` JSON line,
 the card's name and power limit, and a last JSON line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero; without a CUDA device it exits 1 and prints no result.
@@ -81,7 +92,8 @@ DEEP = ((96, 80, 41), (33, 65, 9), (17, 33, 4))
 # device kernels of each phase (csrc/phase_*.cu), as the profiler names them
 PHASE_KERNELS = {"lat": ("::k_lat_tile<",), "uvw": ("::k_uvw_tile<",),
                  "tke": ("::k_tke_tile<",),
-                 "tracer": ("::k_tracer_tile<",),
+                 "tracer": ("::k_tracer_tile<", "::k_tracer_edge<",
+                            "::k_mpdata_"),
                  "mom": ("::k_mom_tile<", "::k_mom_edge<")}
 # the block kernels of the decomposed step, as the profiler names them
 MESH_KERNELS = {"extchunk": EXT_KERNELS["extloop"],
@@ -341,8 +353,10 @@ def step_inputs():
     fc = m.base_forcing.replace(ramp=torch.tensor(
         stepper.ramp_at(cfg, 3, m.period), dtype=torch.float64))
     dt = g.h + st.et
+    # d = h + el only where the phase reads it, as core/stepper.py passes it
+    depth = lambda p, el: g.h + el if phases.reads_depth(p, cfg) else None
     args = {"lat": (st.u, st.v, st.ub, st.vb, st.aam, st.rho, m.rmean, dt,
-                    fc.ramp)}
+                    depth("lat", st.el), fc.ramp)}
     aam, advx, advy, drhox, drhoy = phases.phase_lat(g, cfg, *args["lat"])
     (adx2d, ady2d, drx2d, dry2d, aam2d, advua, advva, wubot, wvbot,
      egf, utf, vtf) = stepper.mode_interaction(g, cfg, st, aam, advx, advy,
@@ -362,12 +376,15 @@ def step_inputs():
     args["tracer"] = (st.t, st.tb, st.s, st.sb, m.tclim, m.sclim, u, v, w,
                       aam, kh, dt, st.etb, c.etf, fc)
     args["mom"] = (u, st.ub, v, st.vb, w, advx, advy, drhox, drhoy, km, dt,
-                   c.egf, st.egb, st.etb, c.etf, fc)
+                   c.egf, st.egb, st.etb, c.etf, depth("mom", c.el), fc)
     return (g, cfg, c0, fc, aux), g, cfg, args
 
 
 def cast(x, dtype):
-    """A tensor, or a Grid/Forcing of tensors, on the card in ``dtype``."""
+    """A tensor, or a Grid/Forcing of tensors, on the card in ``dtype``
+    (None stays None)."""
+    if x is None:
+        return None
     if isinstance(x, torch.Tensor):
         return x.to(device="cuda", dtype=dtype).contiguous()
     return x.__class__(**{k: cast(v, dtype) for k, v in vars(x).items()})
@@ -508,12 +525,17 @@ def device_launches(phase: str, run) -> tuple:
 def phase_bound(phase: str, g, c, a, got, item: int, dtype,
                 off=None) -> tuple:
     """(bound ms, bound_by, MB moved) of one phase call: each operand read
-    once and each output written once over the HBM rate, or its flops over
-    the non-tensor peak.  uvw reads w only where it passes through, on the
-    domain's edge columns (vertvl replaces the rest)."""
+    once (the options' too) and each output written once over the HBM rate,
+    or its flops over the non-tensor peak.  uvw reads w only where it
+    passes through, on the domain's edge columns (vertvl replaces the
+    rest)."""
     from extpom_tpu_torch.kernels import phases
     ins = phases.kernel_inputs(phase, g, c, *a)
-    elems = sum(x.numel() for x in list(ins) + list(got))
+    ins += phases.option_inputs(phase, g, c, a[-1])
+    elems = sum(x.numel() for x in list(ins) + list(got) if x is not None)
+    # lat's dzz: read by McCalpin's pressure gradient only
+    if phase == "lat" and c.npg == 1:
+        elems -= g.dzz.numel()
     if phase == "uvw":
         w = ins[2]
         elems -= w.numel() - w.shape[0] * edge_columns(c, w.shape[-2:], off)
@@ -871,7 +893,8 @@ def ext_operands(m):
         stepper.ramp_at(cfg, m.iint + 1, period), dtype=st.dtype,
         device=g.h.device))
     lat = phases.phase_lat_plain(g, cfg, st.u, st.v, st.ub, st.vb, st.aam,
-                                 st.rho, m.rmean, g.h + st.et, fc.ramp)
+                                 st.rho, m.rmean, g.h + st.et, g.h + st.el,
+                                 fc.ramp)
     (adx2d, ady2d, drx2d, dry2d, aam2d, advua, advva, wubot, wvbot,
      egf, utf, vtf) = stepper.mode_interaction(g, cfg, st, *lat)
     del lat
@@ -2444,6 +2467,504 @@ def basin_check() -> None:
         window_equal_to_loop=True, tol="1e-9")
 
 
+# ---- the phase options: McCalpin, MPDATA, restoring, bc_vel3d ----
+
+OPTIONS = dict(npg=2, nadv=2, nitera=2, sw=0.5)     # [options]
+OPT_MESH_STEPS = 5                                  # [options_mesh]
+FILE_RESTORE = (512, 512, 31)                       # [file_restore]
+FILE_RESTORE_STEPS, FILE_RESTORE_PRINT = 60, 30
+OPTIONS_CHECK = (33, 33, 11, 10)                    # [options_check]
+FILE_RESTORE_CHECK = (97, 33, 16, 10)               # [file_restore_check]
+# flops per grid point of one MPDATA launch, T and S (csrc/phase_tracer.cu
+# k_mpdata_upwind: four upwind face fluxes, two vertical ones and the step;
+# k_mpdata_adif: the three antidiffusive velocities)
+MPDATA_FLOPS = {"upwind": 110, "adif": 90}
+# ... and what McCalpin adds to lat's PHASE_FLOPS_PER_POINT (the
+# corrections and the second-order building blocks of both components)
+MCC_FLOPS = 60
+
+
+def option_want(launches: dict, cfg, n: int, nb: int = 0,
+                chunks: int = 0) -> dict:
+    """The launch counts of n steps from a cold start under cfg's options:
+    lat every step, the other phases from the second, each under the name
+    of the instantiation cfg runs (``phases.counter``), MPDATA's
+    2 nitera - 1 launches per tracer phase; on nb blocks (chunks external
+    chunks per step) the block variants'."""
+    from extpom_tpu_torch.kernels import phases
+    mp = (2 * cfg.nitera - 1) if cfg.nadv == 2 else 0
+    sfx = "_mesh" if nb else ""
+    nb = nb or 1
+    name = lambda p: phases.counter(p, cfg) + sfx
+    ext = {"extchunk": n * chunks} if chunks else {"extloop": n}
+    return {**dict.fromkeys(launches, 0), **ext, name("lat"): n * nb,
+            **{name(p): (n - 1) * nb for p in PHASES[1:]},
+            f"phase_tracer_mpdata{sfx}": (n - 1) * nb * mp}
+
+
+def options_phase(card: str) -> tuple:
+    """The main path's widths under the options of test_features.py's
+    MPDATA and McCalpin tests together: 256x256x31 float32 seamount with
+    npg=2, nadv=2, nitera=2, sw=0.5, SEG_WARM + SEG_TIMED steps through
+    ``Model.run_segment`` (the whole-grid loop; lat with McCalpin, tracer
+    with MPDATA's launches).  Gates: saver 15 within 1e-4, every field
+    finite, the launch counts.  Returns (launches, the model)."""
+    from extpom_tpu_torch import kernels
+    from extpom_tpu_torch.cases.seamount import seamount_model
+    from extpom_tpu_torch.diag import stats
+    m = seamount_model(im=IM, jm=JM, kb=KB, **OPTIONS)
+    kernels.reset_launches()
+    m.run_segment(SEG_WARM)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m.run_segment(SEG_TIMED)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    n = SEG_WARM + SEG_TIMED
+    want = option_want(launches, m.cfg, n)
+    if launches != want:
+        raise AssertionError(f"options: launch counts {launches} != {want}")
+    assert_finite(m.state, "options")
+    s = {k: float(v) for k, v in
+         stats.domain_stats(m.grid, m.cfg, m.state).items()}
+    if not abs(s["saver"] - 15.0) <= 1e-4:
+        raise AssertionError(f"options: saver drifted: {s['saver']}")
+    say("options", grid=f"{IM}x{JM}x{KB}", dtype="float32",
+        options=json.dumps(OPTIONS, separators=(",", ":")), steps=n,
+        timed_steps=SEG_TIMED, ms_per_step=f"{wall / SEG_TIMED * 1e3:.3f}",
+        grid_point_steps_per_s=f"{IM * JM * KB * SEG_TIMED / wall:.4e}",
+        saver=f"{s['saver']:.7f}", taver=f"{s['taver']:.7f}",
+        launches=json.dumps(launches, separators=(",", ":")),
+        card=f"'{card}'")
+    profile_phase(m, tag="options_profile")
+    return launches, m
+
+
+def mpdata_work(cfg, n: int, item: int) -> tuple:
+    """(bytes, flops) of MPDATA's 2 nitera - 1 launches on n points: each
+    launch's reads (3-D: the step's field of T and S, the mass fluxes or
+    u, v, w; the first step tb, sb and the surface of t, s) and writes (the
+    new field, or the six fluxes), and their operations."""
+    n3 = 0
+    for it in range(cfg.nitera):
+        n3 += (2 + 3 if it == 0 else 2 + 6) + 2          # upwind
+        if it + 1 < cfg.nitera:
+            n3 += 2 + (3 if it == 0 else 6) + 6          # adif
+    n2 = n // cfg.kb
+    nbytes = (n3 * n + 12 * n2 * (2 * cfg.nitera - 1)) * item
+    flops = (MPDATA_FLOPS["upwind"] * cfg.nitera
+             + MPDATA_FLOPS["adif"] * (cfg.nitera - 1)) * n
+    return nbytes, flops
+
+
+def mpdata_bound(cfg, n: int, item: int, dtype) -> tuple:
+    """(bound ms, bound_by) of MPDATA's launches on n points
+    (:func:`mpdata_work`)."""
+    nbytes, flops = mpdata_work(cfg, n, item)
+    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (max(bound_bytes, bound_ops),
+            "bytes" if bound_bytes >= bound_ops else "operations")
+
+
+def option_entry(tag: str, phase: str, key: str, run, plain, g, cfg, rest,
+                 flush: L2Flush, dtype, extra=None,
+                 mesh: bool = False, raw=None, **kv) -> dict:
+    """Hold one option variant to its plain version (lat and mom bit for
+    bit, tracer's t, tb, s, sb bit for bit and rho within TOL["phase"]),
+    time it with CUDA events beside the plain version, and count its bound
+    from its own operands (kernel_inputs under cfg, the outputs) and its
+    operations (PHASE_FLOPS_PER_POINT), plus ``extra(points)``'s (bytes,
+    flops) of the work the variant adds; on a block ``run`` and ``plain``
+    give the block's own cells and ``raw`` the kernel's whole outputs,
+    which the bound counts and which is timed."""
+    from extpom_tpu_torch.kernels import phases
+    item = torch.finfo(dtype).bits // 8
+    got, want = run(), plain()
+    names = PHASE_OUTPUTS[phase]
+    if phase == "tracer":
+        worst = hold(tag, key, got[:4], want[:4], names[:4], True, 0.0)
+        worst = max(worst, hold(tag, key + "_rho", got[4:], want[4:],
+                                names[4:], False, TOL["phase"][dtype]))
+    else:
+        worst = hold(tag, key, got, want, names, True, 0.0)
+    ms = device_ms(raw or run, 20, flush)
+    plain_ms = device_ms(plain, 3, flush)
+    outs = raw() if raw else got
+    bound, by, mb = phase_bound(phase, g, cfg, rest, outs, item, dtype)
+    if extra:
+        nbytes, flops = extra(outs[0].numel())
+        mb += nbytes / 1e6
+        ops = PHASE_FLOPS_PER_POINT[phase] * outs[0].numel() + flops
+        bound_ops = ops / PEAK_FLOPS[dtype] * 1e3
+        bound_bytes = mb * 1e6 / HBM_BYTES_PER_S * 1e3
+        bound, by = (max(bound_bytes, bound_ops),
+                     "bytes" if bound_bytes >= bound_ops else "operations")
+    tile, blocks = phases.plan_tile(phase, dtype, cfg.kb, *rest[0].shape[-2:],
+                                    mesh, opt=phases.variant(phase, cfg))
+    info = phases.tile_info(phase, dtype, tile, mesh,
+                            opt=phases.variant(phase, cfg),
+                            orl=cfg.bc_scheme == "orlanski")
+    say(tag, kernel=key, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.3f}",
+        bound_ms=f"{bound:.5f}", bound_by=by, mbytes=f"{mb:.2f}",
+        tile=f"{tile.ti}x{tile.tj}", launch_blocks=blocks,
+        registers=info["registers"], dynamic_smem=info["dynamic_smem"],
+        blocks_per_sm=info["blocks_per_sm"],
+        spill_bytes=info["spill_bytes"], **kv)
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, registers=info["registers"],
+                dynamic_smem=info["dynamic_smem"])
+
+
+def mcc_extra(n: int) -> tuple:
+    """(bytes, flops) McCalpin adds to lat on n points: its operations (d
+    and dzz are among lat's operands)."""
+    return 0, MCC_FLOPS * n
+
+
+def mpdata_extra(cfg, item: int):
+    """n -> (bytes, flops) MPDATA adds to the tracer phase on n points:
+    its launches' work (:func:`mpdata_work`) and the tile's reads of
+    their two fields; the entry then covers the whole phase."""
+    def extra(n):
+        nbytes, flops = mpdata_work(cfg, n, item)
+        return nbytes + 2 * n * item, flops
+    return extra
+
+
+def mpdata_entry(tag: str, key: str, g, cfg, mops, flush: L2Flush,
+                 off=None, trim=None) -> dict:
+    """MPDATA's launches (``phases.mpdata`` on the operands ``mops``, on
+    a block at ``off``) held bit for bit to ``mpdata_plain`` (on a block's
+    own cells, ``trim``), timed beside it, with :func:`mpdata_bound`."""
+    from extpom_tpu_torch.kernels import phases
+    from extpom_tpu_torch.ops.stencil import DomainCtx, domain
+    trim = trim or (lambda x: x)
+    raw = lambda: phases.mpdata(g, cfg, *mops, off=off)
+
+    def plain():
+        with (contextlib.nullcontext() if off is None else
+              domain(DomainCtx(cfg.im, cfg.jm, *off))):
+            return phases.mpdata_plain(g, cfg, *mops)
+    worst = hold(tag, key, [trim(x) for x in raw()],
+                 [trim(x) for x in plain()], ("ff_t", "ff_s"), True, 0.0)
+    ms = device_ms(raw, 20, flush)
+    plain_ms = device_ms(plain, 3, flush)
+    t = mops[0]
+    bound, by = mpdata_bound(cfg, t.numel(), t.element_size(), t.dtype)
+    say(tag, kernel=key, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.3f}",
+        bound_ms=f"{bound:.5f}", bound_by=by,
+        device_launches=2 * cfg.nitera - 1, points=t.numel())
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by)
+
+
+def mpdata_operands(rest) -> tuple:
+    """MPDATA's operands (t, tb, s, sb, u, v, w, dt, etb, etf) among the
+    tracer phase's."""
+    t, tb, s_, sb, _, _, u, v, w, _, _, dt, etb, etf, _ = rest
+    return (t, tb, s_, sb, u, v, w, dt, etb, etf)
+
+
+def options_kernels(flush: L2Flush) -> dict:
+    """On the operands of step 3 of ``[options]``'s configuration (a fresh
+    model: two steps, then the third recorded): lat with McCalpin and the
+    whole tracer phase with MPDATA (its launches and the tile) against
+    their plain versions, MPDATA's launches alone against mpdata_plain bit
+    for bit; each timed beside its plain version, with its bound.  Returns
+    {kernel: entry}."""
+    from extpom_tpu_torch.cases.seamount import seamount_model
+    from extpom_tpu_torch.kernels import phases
+    m = seamount_model(im=IM, jm=JM, kb=KB, **OPTIONS)
+    m.run_segment(2)
+    calls = record_calls(lambda: m.run_segment(1), ("lat", "tracer"))
+    del m
+    out = {}
+    (args, kw), = calls["lat"]
+    g, cfg, *rest = args
+    out["lat"] = option_entry(
+        "options_kernels", "lat", "phase_lat_npg2",
+        lambda: phases.phase_lat(g, cfg, *rest, **kw),
+        lambda: phases.phase_lat_plain(g, cfg, *rest), g, cfg, rest, flush,
+        torch.float32, extra=mcc_extra)
+    (args, kw), = calls["tracer"]
+    g, cfg, *rest = args
+    out["mpdata"] = mpdata_entry("options_kernels", "phase_tracer_mpdata", g,
+                                 cfg, mpdata_operands(rest), flush)
+    out["tracer"] = option_entry(
+        "options_kernels", "tracer", "phase_tracer_options",
+        lambda: phases.phase_tracer(g, cfg, *rest, **kw),
+        lambda: phases.phase_tracer_plain(g, cfg, *rest, **kw), g, cfg,
+        rest, flush, torch.float32, extra=mpdata_extra(cfg, 4))
+    return out
+
+
+def options_mesh_phase(card: str, flush: L2Flush) -> tuple:
+    """``[options]``'s configuration on config5's 2x4 mesh (blocks
+    128x64x31), every block on the card, OPT_MESH_STEPS steps (extchunk,
+    lat with McCalpin and tracer with MPDATA on each block), held bit for
+    bit to the same steps on one device; then lat's and tracer's block
+    variants and MPDATA's block launches timed on block (0, 1)'s operands
+    of one more step.  Returns
+    (launches, {kernel: entry})."""
+    from extpom_tpu_torch import kernels
+    from extpom_tpu_torch.cases.seamount import seamount_model
+    from extpom_tpu_torch.diag import stats
+    from extpom_tpu_torch.kernels import phases
+    with open(LARGE) as f:
+        mesh = mesh_of(json.load(f))
+    kw = dict(im=IM, jm=JM, kb=KB, **OPTIONS)
+    m = seamount_model(**kw).shard(mesh)
+    nb = mesh.px * mesh.py
+    n = OPT_MESH_STEPS
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m.run_segment(n)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    want = option_want(launches, m.cfg, n, nb,
+                       nb * m.cfg.isplit // chunk_plan(m).C)
+    if launches != want:
+        raise AssertionError(f"options_mesh: launch counts {launches} != "
+                             f"{want}")
+    st = m.gathered_state()
+    ref = seamount_model(**kw)
+    ref.run_segment(n)
+    for f in st.field_names():
+        if not bool(torch.isfinite(getattr(st, f)).all()):
+            raise AssertionError(f"options_mesh: {f} is not finite")
+        if not torch.equal(getattr(st, f), getattr(ref.state, f)):
+            raise AssertionError(f"options_mesh: {f} differs from the "
+                                 f"single-device run")
+    s = {k: float(v) for k, v in
+         stats.domain_stats(m.grid, m.cfg, st).items()}
+    del st, ref
+    say("options_mesh", grid=f"{IM}x{JM}x{KB}", mesh=f"{mesh.px}x{mesh.py}",
+        local_tile=f"{m.blocks.ni}x{m.blocks.nj}x{KB}", dtype="float32",
+        steps=n, ms_per_step=f"{wall / n * 1e3:.3f}",
+        saver=f"{s['saver']:.7f}", bit_equal=True,
+        launches=json.dumps(launches, separators=(",", ":")),
+        card=f"'{card}'")
+    calls = record_calls(lambda: m.run_segment(1), ("lat", "tracer"))
+    blocks = m.blocks
+    out = {}
+    for phase, key, extra in (("lat", "phase_lat_npg2_mesh", mcc_extra),
+                              ("tracer", "phase_tracer_options_mesh",
+                               mpdata_extra(m.cfg, 4))):
+        for (args, kwb) in calls[phase]:
+            if block_at(blocks, args[2].shape, kwb["off"]) != (0, 1):
+                continue
+            g, cfg, *rest = args
+            kernel, plain, _, _ = block_call(phase, args, kwb)
+            trim = lambda fn: (lambda: [trim_to(blocks, x) for x in fn()])
+            out[phase] = option_entry(
+                "options_mesh_kernels", phase, key, trim(kernel),
+                trim(plain), g, cfg, rest, flush, torch.float32,
+                extra=extra, mesh=True, raw=kernel, block="(0,1)")
+            if phase == "tracer":
+                out["mpdata"] = mpdata_entry(
+                    "options_mesh_kernels", "phase_tracer_mpdata_mesh", g,
+                    cfg, mpdata_operands(rest), flush, kwb["off"],
+                    lambda x: trim_to(blocks, x))
+    return launches, out
+
+
+def lbry_series(grid, st, rng) -> dict:
+    """An lbry file's series for the file scheme with restoring: the
+    velocity profiles of all four sides (ub*, vb*) as two records at the
+    lateral cadence, a smooth inflow plus seeded noise; trstr/srstr as two
+    30-day records, the initial T/S plus a seeded offset in [0, 0.5)."""
+    kb, im, jm = st.t.shape
+    prof = np.cos(np.pi * 0.5 * np.asarray(grid.zz.cpu()))[:, None]
+    side = lambda n: np.stack([(0.02 * (1 + r) * prof
+                                + 0.005 * rng.standard_normal((kb, n)))
+                               for r in range(2)])
+    data = {f"{v}b{s}": side(jm if s in ("w", "e") else im)
+            for v in ("u", "v") for s in ("w", "e", "s", "n")}
+    t0, s0 = st.t.double().cpu().numpy(), st.s.double().cpu().numpy()
+    data["trstr"] = np.stack([t0 + 0.5 * rng.random(t0.shape)
+                              for _ in range(2)])
+    data["srstr"] = np.stack([s0 + 0.5 * rng.random(s0.shape)
+                              for _ in range(2)])
+    return data
+
+
+def wet_mean(f, grid, kbm1: int) -> float:
+    """The mean of f over the wet cells of levels k < kbm1."""
+    w = grid.fsm.double().cpu()
+    return float((f[:kbm1].double().cpu() * w).sum() / (w.sum() * kbm1))
+
+
+def file_restore_kernels(m, steps: int = 2) -> dict:
+    """mom (bc_vel3d) and tracer (restoring) held to their plain versions
+    on the operands of ``steps`` steps of ``m`` in the first hour, whose
+    velocity profiles and restoring series change from step to step: mom
+    and tracer's t, tb, s, sb bit for bit, rho within TOL["phase"].
+    Returns {phase: (worst abs error, mom and tracer calls of the last
+    step)}."""
+    from extpom_tpu_torch.kernels import phases
+    out, series = {}, []
+    for _ in range(steps):
+        calls = record_calls(lambda: m.run_segment(1), ("mom", "tracer"))
+        for phase, ((args, kw),) in calls.items():
+            g, cfg, *rest = args
+            got = getattr(phases, f"phase_{phase}")(g, cfg, *rest, **kw)
+            want = getattr(phases, f"phase_{phase}_plain")(g, cfg, *rest,
+                                                           **kw)
+            names = PHASE_OUTPUTS[phase]
+            n_bit = 4 if phase == "tracer" else len(names)
+            worst = hold("file_restore_kernels", phase, got[:n_bit],
+                         want[:n_bit], names[:n_bit], True, 0.0,
+                         step=m.iint)
+            if phase == "tracer":
+                worst = max(worst, hold(
+                    "file_restore_kernels", "tracer_rho", got[4:], want[4:],
+                    names[4:], False, TOL["phase"][torch.float32],
+                    step=m.iint))
+                series.append((rest[-1].trstr.clone(),
+                               rest[-1].ubw.clone()))
+            out[phase] = (max(worst, out.get(phase, (0.0,))[0]), args, kw)
+    for (a, b), (c, d) in zip(series, series[1:]):
+        if torch.equal(a, c) or torch.equal(b, d):
+            raise AssertionError("file_restore: the series did not change "
+                                 "from step to step")
+    return out
+
+
+def file_restore_phase(card: str, flush: L2Flush) -> tuple:
+    """The tidal channel at FILE_RESTORE (512x512x31) float32 through
+    ``run.main`` under the file scheme with interior restoring: an lbry
+    NetCDF file written here from a fixed seed (``lbry_series``; no
+    taurstr, so the default 1/TRST applies; the channel's own elw/ele
+    stay), FILE_RESTORE_STEPS steps with a print every FILE_RESTORE_PRINT.
+    Gates: every field finite, the launch counts, the domain mean of T
+    moving toward trstr's (which lies above it).  Then mom (bc_vel3d) and
+    tracer (restoring) against their plain versions on steps whose series
+    change, each timed beside its plain version.  Returns (launches,
+    {kernel: entry})."""
+    from extpom_tpu_torch import run
+    from extpom_tpu_torch.io import netcdf as ncio
+    from extpom_tpu_torch.kernels import extwin, phases
+    im, jm, kb = FILE_RESTORE
+    n = FILE_RESTORE_STEPS
+    cfg_kw = {"dtype": "float32", "bc_scheme": "file", "do_restore": True,
+              "days": n * STEP_S / 86400,
+              "prtd1": FILE_RESTORE_PRINT * STEP_S / 86400,
+              "write_rst": n * STEP_S / 86400}
+    conf = {"run_name": "file_restore", "case": "channel",
+            "case_args": {"im": im, "jm": jm, "kb": kb}, "config": cfg_kw,
+            "out_format": "nc"}
+    with tempfile.TemporaryDirectory() as tmp:
+        base = run.build_model(conf)
+        rng = np.random.default_rng(2026)
+        data = lbry_series(base.grid, base.state, rng)
+        t_start = wet_mean(base.state.t, base.grid, kb - 1)
+        tr_mean = wet_mean(torch.from_numpy(data["trstr"][0]), base.grid,
+                           kb - 1)
+        cfg = base.cfg
+        del base
+        lbry = os.path.join(tmp, "file_restore.lbry.nc")
+        ncio.write_forcing_series_nc(lbry, data, im, jm, kb)
+        conf["lbry"] = lbry
+        lines, launches, peak = run_cli(conf, tmp, "run")
+        nums = driver_numbers(lines)
+        windowed = extwin.use_windowed(im, jm, 4, extwin.l2_bytes(
+            torch.device("cuda")))
+        ext = ({"extwin": n * (cfg.isplit
+                               // extwin.chunk_geometry(cfg, 4).C)}
+               if windowed else {"extloop": n})
+        want = {**dict.fromkeys(launches, 0), **ext,
+                phases.counter("lat", cfg): n,
+                **{phases.counter(p, cfg): n - 1 for p in PHASES[1:]}}
+        if launches != want:
+            raise AssertionError(f"file_restore: launch counts {launches} "
+                                 f"!= {want}")
+        end, _, _ = restart_state(
+            os.path.join(tmp, "run", f"file_restore.rst.{n:06d}.nc"), cfg)
+        assert_finite(end, "file_restore")
+        m = run.build_model(conf)
+        t_end = wet_mean(end.t, m.grid, kb - 1)
+        del end
+        if not t_end - t_start > 1e-4:
+            raise AssertionError(f"file_restore: mean T {t_start} -> "
+                                 f"{t_end} does not move toward trstr's "
+                                 f"{tr_mean}")
+        m.run_segment(4)
+        k = file_restore_kernels(m)
+        del m
+    for line in nums["prints"]:
+        print(f"[file_restore] {line}", flush=True)
+    say_driver("file_restore", nums, im * jm * kb, peak, card,
+               grid=f"{im}x{jm}x{kb}", dtype="float32", bc_scheme="file",
+               do_restore=True, lbry_series=len(data),
+               mean_t_start=f"{t_start:.6f}", mean_t_end=f"{t_end:.6f}",
+               trstr_mean=f"{tr_mean:.6f}",
+               launches=json.dumps(launches, separators=(",", ":")))
+    out = {}
+    for phase, key in (("mom", "phase_mom_file"),
+                       ("tracer", "phase_tracer_options")):
+        _, args, kw = k[phase]
+        g, cfg, *rest = args
+        out[phase] = option_entry(
+            "file_restore_kernels", phase, key,
+            lambda: getattr(phases, f"phase_{phase}")(g, cfg, *rest, **kw),
+            lambda: getattr(phases, f"phase_{phase}_plain")(g, cfg, *rest,
+                                                            **kw),
+            g, cfg, rest, flush, torch.float32)
+    return launches, out
+
+
+def state_check(tag: str, make, steps: int, tol: float = 1e-10) -> None:
+    """``make(device)``'s model in float64 on the card against the CPU
+    after ``steps`` steps of ``run_segment``: every field within ``tol`` of
+    max(1, its scale)."""
+    runs = {dev: make(dev) for dev in ("cuda", "cpu")}
+    for m in runs.values():
+        m.run_segment(steps)
+    err = state_errors(runs["cuda"].state, runs["cpu"].state)
+    worst = max(err, key=err.get)
+    cfg = runs["cpu"].cfg
+    say(tag, grid=f"{cfg.im}x{cfg.jm}x{cfg.kb}", steps=steps,
+        dtype="float64", worst_rel_err=f"{err[worst]:.3e}",
+        worst_field=worst, tol=tol)
+    if not err[worst] <= tol:
+        raise AssertionError(f"{tag}: the card vs the CPU, {worst}: "
+                             f"{err[worst]}")
+
+
+def options_check() -> None:
+    """``[options]``'s options on the 33x33x11 seamount in float64: the
+    card against the CPU after 10 steps, 1e-10 of each field's scale."""
+    from extpom_tpu_torch.cases.seamount import seamount_model
+    im, jm, kb, n = OPTIONS_CHECK
+    state_check("options_check", lambda dev: seamount_model(
+        device=dev, im=im, jm=jm, kb=kb, dtype="float64", **OPTIONS), n)
+
+
+def file_restore_check() -> None:
+    """The channel at its case size (97x33x16) in float64 under the file
+    scheme with interior restoring from ``lbry_series`` (staged, with the
+    default taurstr): the card against the CPU after 10 steps, 1e-10 of
+    each field's scale."""
+    from extpom_tpu_torch.cases.channel import channel_model
+    from extpom_tpu_torch.forcing import provider as prov
+    im, jm, kb, n = FILE_RESTORE_CHECK
+
+    def make(dev):
+        m = channel_model(device=dev, im=im, jm=jm, kb=kb, dtype="float64",
+                          bc_scheme="file", do_restore=True)
+        data = lbry_series(m.grid, m.state, np.random.default_rng(2026))
+        data.update(m.forcing_fn.source.data)
+        m.forcing_fn = prov.ForcingProvider(m.grid, m.cfg, m.base_forcing,
+                                            prov.ArraySource(data))
+        return m
+
+    state_check("file_restore_check", make, n)
+
+
 def breakdown_phase() -> None:
     """``diag.profiling.step_breakdown`` at the main path's 256x256x31
     float32 on the card: the external-only (mode 2) step against the full
@@ -2517,6 +3038,13 @@ def main() -> int:
     basin_k = basin_kernels(m, kept, flush)
     del m, kept
     basin_check()
+    opt_launches, m = options_phase(card)
+    del m
+    opt_k = options_kernels(flush)
+    opt_mesh_launches, opt_mesh_k = options_mesh_phase(card, flush)
+    fr_launches, fr_k = file_restore_phase(card, flush)
+    options_check()
+    file_restore_check()
     breakdown_phase()
     with open(LARGE) as f:
         mesh_block = json.load(f)["mesh"]
@@ -2525,13 +3053,18 @@ def main() -> int:
     dispatch_echo((cfg.replace(dtype="float32"), None), (large_cfg, None),
                   (cfg.replace(dtype="float32"), mesh_block),
                   (large_cfg, mesh_block), (channel_cfg, None),
-                  (basin_cfg, None))
+                  (basin_cfg, None),
+                  (cfg.replace(dtype="float32", **OPTIONS), None),
+                  (channel_cfg.replace(bc_scheme="file", do_restore=True),
+                   None))
     paths = {"slice_256": launches, "large_2048": large_launches,
              "mesh_256": mesh_launches, "mesh_2048": large_mesh_launches,
              "cli_256": cli_launches, "channel_512": channel_launches,
              "orlanski_256": orl_launches,
              "orlanski_mesh_256": orl_mesh_launches,
-             "basin_512": basin_launches}
+             "basin_512": basin_launches, "options_256": opt_launches,
+             "options_mesh_256": opt_mesh_launches,
+             "file_restore_512": fr_launches}
     # the new paths' own numbers, under their path's name
     ext.update({f"orlanski_256_{k}": v for k, v in orl_k["extloop"].items()})
     ext.update({f"basin_512_{k}": v for k, v in basin_k["extloop"].items()})
@@ -2592,6 +3125,33 @@ def main() -> int:
              launches_by_path=by_path(f"phase_{p}_mesh"), library_ms=None,
              **mesh_k[f"phase_{p}_mesh"])
         for p in PHASES]}
+    # the option instantiations of lat, tracer and mom and MPDATA's
+    # launches, each counted under its own name (phases.counter); the
+    # tracer's is timed on [options] (with MPDATA's launches) and on
+    # [file_restore] (restoring), under that path's name
+    opt_k["tracer"].update({f"file_restore_512_{k}": v
+                            for k, v in fr_k["tracer"].items()})
+    option_kernels = (
+        ("phase_lat_npg2", "lat", "options_256", opt_k["lat"],
+         "extpom_tpu/pallas/phases.py:803"),
+        ("phase_tracer_options", "tracer", "options_256", opt_k["tracer"],
+         "extpom_tpu/pallas/phases.py:770"),
+        ("phase_tracer_mpdata", "tracer", "options_256", opt_k["mpdata"],
+         "extpom_tpu/pallas/phases.py:770"),
+        ("phase_mom_file", "mom", "file_restore_512", fr_k["mom"],
+         "extpom_tpu/pallas/phases.py:823"),
+        ("phase_lat_npg2_mesh", "lat", "options_mesh_256", opt_mesh_k["lat"],
+         "extpom_tpu/pallas/phases.py:904"),
+        ("phase_tracer_options_mesh", "tracer", "options_mesh_256",
+         opt_mesh_k["tracer"], "extpom_tpu/pallas/phases.py:904"),
+        ("phase_tracer_mpdata_mesh", "tracer", "options_mesh_256",
+         opt_mesh_k["mpdata"], "extpom_tpu/pallas/phases.py:904"))
+    for name, p, path, entry, replaces in option_kernels:
+        kernels_line["kernels"].append(dict(
+            name=name, route="cuda",
+            source=f"extpom_tpu_torch/csrc/phase_{p}.cu",
+            replaces=replaces, launches=paths[path][name],
+            launches_by_path=by_path(name), library_ms=None, **entry))
     print(json.dumps(kernels_line), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

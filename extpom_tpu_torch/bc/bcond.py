@@ -1,8 +1,8 @@
 """Open lateral boundary conditions, file-driven set
 (``extpom_tpu/bc/bcond.py``; bounds_forcing.f:6-328): the ones the extpom
 scheme runs, ``bc_el`` (idx 1), ``bc_vel2d`` (idx 2), ``bc_ts`` (idx 4) and
-``bc_turb`` (idx 6).  ``bc_vel3d`` (idx 3 of the ``file`` scheme) is not
-ported yet.
+``bc_turb`` (idx 6), and ``bc_vel3d`` (idx 3), which only the ``file``
+scheme runs.
 
 Each edge write commits row/column ``i`` of a full-array expression built
 from zero-filled :func:`sft` reads.  The order of the side writes matches
@@ -81,6 +81,42 @@ def bc_vel2d(grid: Grid, cfg: Config, uaf, vaf, el, d, fc: Forcing,
         * (sft(el, 0, -1) - _bi(fc.eln))), i=I)
     uaf = set_j(uaf, -1, _bi(fc.uabn), i=I)
     return uaf * grid.dum, vaf * grid.dvm
+
+
+def bc_vel3d(grid: Grid, cfg: Config, uf, vf, u, v, d,
+             fc: Forcing) -> Tuple[torch.Tensor, torch.Tensor]:
+    """idx=3: internal velocity, a depth-weighted blend of the old
+    velocity one cell in and the boundary profile, each smoothed 1-2-1
+    along the edge, on levels k < kbm1, then the dum/dvm mask
+    (bounds_forcing.f:85-149; ``grid.hmax`` is the reference's
+    ``maxval(d)``).  Written east, west, south, north."""
+    K = slice(0, cfg.kbm1)
+    J = slice(1, -1)
+    I = slice(1, -1)
+    hmax = grid.hmax
+    # east: the edge row reads u one row in
+    ga = torch.sqrt(d / hmax)
+    uf = set_i(uf, -1, ga * _smooth_j(sft(u, -1, 0))
+               + (1.0 - ga) * _smooth_j(_bj(fc.ube)), j=J, k=K)
+    vf = set_i(vf, -1, _bj(fc.vbe), j=J, k=K)
+    # west: the u-face at i=1 reads d at i=0 and u at i=2
+    ga_w = torch.sqrt(sft(d, -1, 0) / hmax)
+    uf = set_i(uf, 1, ga_w * _smooth_j(sft(u, 1, 0))
+               + (1.0 - ga_w) * _smooth_j(_bj(fc.ubw)), j=J, k=K)
+    uf = set_i(uf, 0, sft(uf, 1, 0), j=J, k=K)
+    vf = set_i(vf, 0, _bj(fc.vbw), j=J, k=K)
+    # south: the v-face at j=1 reads d at j=0 and v at j=2
+    ga_s = torch.sqrt(sft(d, 0, -1) / hmax)
+    vf = set_j(vf, 1, ga_s * _smooth_i(sft(v, 0, 1))
+               + (1.0 - ga_s) * _smooth_i(_bi(fc.vbs)), i=I, k=K)
+    vf = set_j(vf, 0, sft(vf, 0, 1), i=I, k=K)
+    uf = set_j(uf, 0, _bi(fc.ubs), i=I, k=K)
+    # north
+    ga_n = torch.sqrt(d / hmax)
+    vf = set_j(vf, -1, ga_n * _smooth_i(sft(v, 0, -1))
+               + (1.0 - ga_n) * _smooth_i(_bi(fc.vbn)), i=I, k=K)
+    uf = set_j(uf, -1, _bi(fc.ubn), i=I, k=K)
+    return uf * grid.dum, vf * grid.dvm
 
 
 def bc_ts(grid: Grid, cfg: Config, uf, vf, t, s, u, v, w, dt,

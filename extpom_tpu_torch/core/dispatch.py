@@ -60,9 +60,31 @@ def _with_options(external: dict, cfg: Config) -> dict:
     return {**external, "options": "+".join(opts)} if opts else external
 
 
+def phase_options(cfg: Config) -> dict:
+    """Phase -> the options its kernels run under ``cfg``, where any is
+    set: lat McCalpin's pressure gradient (``npg2``), tracer MPDATA with
+    its upstream steps (``mpdata<nitera>``) and interior restoring
+    (``restore``), mom the file scheme's ``bc_vel3d`` (``file``)."""
+    opts = {"lat": [("npg2", cfg.npg == 2)],
+            "tracer": [(f"mpdata{cfg.nitera}", cfg.nadv == 2),
+                       ("restore", cfg.do_restore)],
+            "mom": [("file", cfg.bc_scheme == "file")]}
+    out = {}
+    for p, names in opts.items():
+        on = [n for n, x in names if x]
+        if on:
+            out[p] = "+".join(on)
+    return out
+
+
 def _phases(cfg: Config, machine: dict) -> dict:
-    """The phases' machines: none run in mode 2 (external only)."""
-    return {} if cfg.mode == 2 else {p: dict(machine) for p in PHASES}
+    """The phases' machines, each with the options its kernels run: none
+    run in mode 2 (external only)."""
+    if cfg.mode == 2:
+        return {}
+    opts = phase_options(cfg)
+    return {p: {**machine, **({"options": opts[p]} if p in opts else {})}
+            for p in PHASES}
 
 
 def _mesh_shape(mesh) -> tuple:

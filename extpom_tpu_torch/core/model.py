@@ -64,10 +64,12 @@ def cold_start(grid: Grid, cfg: Config, tb, sb, tclim, sclim, elb=None,
         l=l0, q2=q2b, q2b=q2b, q2l=q2lb, q2lb=q2lb,
         kh=kh, km=kh, kq=kh, aam=aam,
     )
-    if cfg.npg != 1:
-        raise NotImplementedError("npg=2 (baropg_mcc) is not ported yet")
     ramp = torch.ones((), dtype=h.dtype, device=h.device)
-    drhox, drhoy = pressure.baropg(grid, cfg, rho, rmean, dt2, ramp)
+    if cfg.npg == 1:
+        drhox, drhoy = pressure.baropg(grid, cfg, rho, rmean, dt2, ramp)
+    else:
+        drhox, drhoy = pressure.baropg_mcc(grid, cfg, rho, rmean, h + elb,
+                                           dt2, ramp)
     dz3 = grid.dz3[:cfg.kbm1]
     st = st.replace(drx2d=torch.sum(drhox[:cfg.kbm1] * dz3, dim=0),
                     dry2d=torch.sum(drhoy[:cfg.kbm1] * dz3, dim=0))

@@ -268,7 +268,8 @@ def mode_internal(grid: Grid, cfg: Config, st: State, fc: Forcing,
                 aam, kh, dt, st.etb, etf, fc, ub=ub)
         u, ub, v, vb, wubot, wvbot = phases.phase_mom(
             grid, cfg, u, ub, v, vb, w, advx, advy, drhox, drhoy,
-            km, dt, c.egf, st.egb, st.etb, etf, fc)
+            km, dt, c.egf, st.egb, st.etb, etf,
+            h + c.el if phases.reads_depth("mom", cfg) else None, fc)
 
     return st.replace(
         u=u, ub=ub, v=v, vb=vb, w=w, t=t, tb=tb, s=s, sb=sb, rho=rho,
@@ -292,7 +293,9 @@ def step(grid: Grid, cfg: Config, st: State, fc: Forcing, rmean, tclim,
     else:
         aam, advx, advy, drhox, drhoy = phases.phase_lat(
             grid, cfg, st.u, st.v, st.ub, st.vb, st.aam, st.rho, rmean,
-            grid.h + st.et, fc.ramp)
+            grid.h + st.et,
+            grid.h + st.el if phases.reads_depth("lat", cfg) else None,
+            fc.ramp)
 
     (adx2d, ady2d, drx2d, dry2d, aam2d, advua, advva, wubot, wvbot,
      egf, utf, vtf) = mode_interaction(grid, cfg, st, aam, advx, advy,
@@ -333,13 +336,16 @@ def mesh_step(blocks, cfg: Config, ramp, first: bool = False) -> None:
     ext = lambda vals, b, h=hp: blocks.ext(vals, b, h)
     trim = lambda outs, h=hp: [blocks.trim(x, h) for x in outs]
     dt = {b: blocks.grid[b].h + st[b].et for b in ids}
+    d = ({b: blocks.grid[b].h + st[b].el for b in ids}
+         if phases.reads_depth("lat", cfg) else None)
 
     def phase(fn, b, operands, extra=(), fc=False, **kw):
         """Phase ``fn`` on block ``b``, its trimmed outputs: ``operands``
         (and the keywords ``kw``) are state field names or per-block
         dicts, both ring-extended, then come the ``extra`` tensors as they
-        are and the extended forcing."""
-        field = lambda x: ext(blocks.field(x) if isinstance(x, str) else x, b)
+        are and the extended forcing; a None operand stays None."""
+        field = lambda x: None if x is None else ext(
+            blocks.field(x) if isinstance(x, str) else x, b)
         args = [field(x) for x in operands]
         args += list(extra)
         if fc:
@@ -355,7 +361,7 @@ def mesh_step(blocks, cfg: Config, ramp, first: bool = False) -> None:
             rmean = blocks.clim_ext(b, hp)[0]
             lat[b] = phase(phases.phase_lat, b, ("u", "v", "ub", "vb", "aam",
                                                  "rho"),
-                           (rmean, ext(dt, b), ramp))
+                           (rmean, ext(dt, b), d and ext(d, b), ramp))
     aam = {b: st[b].aam if m2 else lat[b][0] for b in ids}
 
     # mode_interaction: depth integrals in place, advave on the ring; in
@@ -431,11 +437,13 @@ def mesh_step(blocks, cfg: Config, ramp, first: bool = False) -> None:
                     blocks.field("etb"), cget("etf"))), fc=True, ub="ub")
                 for b in ids})
         lat_out = lambda k: {b: lat[b][k] for b in ids}
+        dn = ({b: blocks.grid[b].h + carry[b].el for b in ids}
+              if phases.reads_depth("mom", cfg) else None)
         stage(("u", "ub", "v", "vb", "wubot", "wvbot"), {b: phase(
             phases.phase_mom, b,
             (nget("u"), "ub", nget("v"), "vb", nget("w"), lat_out(1),
              lat_out(2), lat_out(3), lat_out(4), nget("km"), dt,
-             cget("egf"), "egb", "etb", cget("etf")), fc=True)
+             cget("egf"), "egb", "etb", cget("etf"), dn), fc=True)
             for b in ids})
 
     fc = {b: blocks.fc[b] for b in ids}

@@ -33,6 +33,15 @@
 // operand, and the sources build with -fmad=false, so each operation
 // rounds as the plain PyTorch version's does.
 //
+// McCalpin's 4th-order pressure gradient (npg=2, ops/pressure.py:
+// baropg_mcc; template flag M) replaces baropg: rho - rmean is read at i-1,
+// i+1 and i-2 (j-1, j+1, j-2) of each level, from the window, and for the tile's first row (column) i-2 (j-2) from device
+// memory; d = h + el is staged once per tile into the wide window
+// (kWideOpt), and dum (dvm) one cell either way is read once per column;
+// the k-independent ddx and d4 of each component are formed once per
+// column, drho and rhou of level k-1 are carried in registers, and the
+// 4th-order corrections commit on i 2..im-2 (x) and j 2..jm-2 (y).
+//
 // Where an off-by-one would hide (ops/momentum.py:16-69):
 //   * the flux regions differ per term: xflux of advx lives on [1:-1, :]
 //     and is 0 at i=0 (read by the interior's i-1 face), yflux of advy on
@@ -71,9 +80,11 @@ constexpr int kOwn = 0;
 // tile, and curv, formed per level
 constexpr int k2D = 11;
 enum { DSX, DSY, DQT4, DX4, DY4, DQX4, DQY4, DCY, DCX, DXY, DCURV };
-// 2-D fields staged once per tile with a two-cell halo: dt, dx, dy
+// 2-D fields staged once per tile with a two-cell halo: dt, dx, dy, and d
+// in the McCalpin variant (MC)
 constexpr int kWide = 3;
-enum { WDT, WDX, WDY };
+constexpr int kWideOpt = 1;
+enum { WDT, WDX, WDY, WD };
 // face pairs per level: xflux and yflux of advx, of advy
 constexpr int kFaces = 2;
 // ee/gg rows per level in device scratch, levels kept per column: none
@@ -91,13 +102,14 @@ struct Layout {
   int HC, W2, TC, stage, total;
 };
 
-__host__ __device__ inline Layout layout(int TI, int TJ) {
+__host__ __device__ inline Layout layout(int TI, int TJ, bool mcc) {
   Layout L;
   L.HC = (TI + 2) * (TJ + 2);
   L.W2 = (TI + 4) * (TJ + 4);
   L.TC = TI * TJ;
   L.stage = kHalo * L.HC + kOwn * L.TC;
-  L.total = kStages * L.stage + k2D * L.HC + kWide * L.W2 +
+  L.total = kStages * L.stage + k2D * L.HC +
+            (kWide + (mcc ? kWideOpt : 0)) * L.W2 +
             kFaces * ((TI + 1) * TJ + TI * (TJ + 1));
   return L;
 }
@@ -105,17 +117,66 @@ __host__ __device__ inline Layout layout(int TI, int TJ) {
 template <typename T, bool O>
 struct Lat {
   const T *u, *v, *ub, *vb, *aam0, *rho, *rmean;  // (kb, im, jm)
-  const T *dt, *ramp;                             // (im, jm), 0-d
+  const T *dt, *d, *ramp;                         // (im, jm), 0-d
   const T *dx, *dy, *aru, *arv, *dum, *dvm;       // (im, jm)
-  const T* zz;                                    // (kb,)
+  const T *zz, *dzz;                              // (kb,)
   T *aam, *advx, *advy, *drhox, *drhoy;           // outputs
   GeomT<O> g;
   Tiles tl;
   int kbm1;
   T horcon, g025, g05;  // horcon, grav*0.25, 0.5*grav
+  T grav, c24, c16;     // grav, 1/24, 1/16 (McCalpin)
 };
 
-template <typename T, bool O>
+// McCalpin's terms of one component at a column, k-independent: the mask
+// and its neighbours downstream (mp) and upstream (mm), ddx and d4
+template <typename T>
+struct Mcc {
+  T mp, mm, ddx, d4;
+  T drho, rhou;  // drho and rhou of level k-1
+};
+
+// ddx and d4 of a component at a column from d at the column (d0), one
+// and two cells upstream (d1, d2) and one downstream (dp); the corrections
+// where corr (pressure.py:baropg_mcc)
+template <typename T>
+__device__ __forceinline__ void mcc_column(Mcc<T>& c, T mask, T d0, T d1,
+                                           T d2, T dp, bool corr, T c24,
+                                           T c16) {
+  c.ddx = (d0 - d1) * mask;
+  c.d4 = T(0.5) * (d0 + d1) * mask;
+  if (corr) {
+    c.ddx = c.ddx - c24 * (c.mp * (dp - d0) - T(2) * (d0 - d1) +
+                           c.mm * (d1 - d2));
+    c.d4 = c.d4 + c16 * (c.mp * (d0 - dp) + c.mm * (d1 - d2));
+  }
+}
+
+// The McCalpin running sum of one component at level k from rr at the
+// column (r0), one and two cells upstream (r1, r2) and one downstream
+// (rp)
+template <typename T>
+__device__ __forceinline__ void mcc_level(Mcc<T>& c, T& dr, int k, T mask,
+                                          T r0, T r1, T r2, T rp, bool corr,
+                                          const T* zz, const T* dzz, T grav,
+                                          T g05, T c24, T c16) {
+  T drho = (r0 - r1) * mask;
+  T rhou = T(0.5) * (r0 + r1) * mask;
+  if (corr) {
+    drho = drho - c24 * (c.mp * (rp - r0) - T(2) * (r0 - r1) +
+                         c.mm * (r1 - r2));
+    rhou = rhou + c16 * (c.mp * (r0 - rp) + c.mm * (r1 - r2));
+  }
+  if (k == 0)
+    dr = grav * (-zz[0]) * c.d4 * drho;
+  else
+    dr = dr + (g05 * dzz[k - 1] * c.d4 * (c.drho + drho) +
+               g05 * (zz[k - 1] + zz[k]) * c.ddx * (rhou - c.rhou));
+  c.drho = drho;
+  c.rhou = rhou;
+}
+
+template <typename T, bool O, bool MC>
 __global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 4 ? 4 : 2)
     k_lat_tile(Lat<T, O> s) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -126,7 +187,7 @@ __global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 4 ? 4 : 2)
   const int t = threadIdx.x, ti = t / TJ, tj = t % TJ;
   const int kbm1 = s.kbm1, jm = g.jm;
   const long n = g.n;
-  const Layout L = layout(TI, TJ);
+  const Layout L = layout(TI, TJ, MC);
   const int HC = L.HC;
   const int oc = (ti + 1) * HJ + tj + 1;  // own window cell
   // the window cells a thread computes, c = t + m nt at row a, column b:
@@ -144,6 +205,7 @@ __global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 4 ? 4 : 2)
   const T* const dtw = wd + WDT * L.W2;
   const T* const dxw = wd + WDX * L.W2;
   const T* const dyw = wd + WDY * L.W2;
+  const T* const dw = wd + WD * L.W2;  // MC only
   T* const sx = d2 + DSX * HC;
   T* const sy = d2 + DSY * HC;
   T* const qdt4 = d2 + DQT4 * HC;
@@ -192,6 +254,9 @@ __global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 4 ? 4 : 2)
                        g.im, jm);
     extpom::stage_halo(wd + WDY * L.W2, s.dy, t, nt, i0, j0, TI, TJ, 2,
                        g.im, jm);
+    if constexpr (MC)
+      extpom::stage_halo(wd + WD * L.W2, s.d, t, nt, i0, j0, TI, TJ, 2, g.im,
+                         jm);
     stage(0);
     extpom::cp_async_wait_all();
     __syncthreads();
@@ -241,6 +306,18 @@ __global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 4 ? 4 : 2)
       hdd = s.horcon * dx * dy;
     }
     T drx = T(0), dry = T(0), rrm = T(0), rrwm = T(0), rrsm = T(0);
+    // McCalpin's column terms of x and y
+    Mcc<T> mx{}, my{};
+    if (MC && inner) {
+      mx.mp = extpom::ld2(s.dum, g, i + 1, j);
+      mx.mm = extpom::ld2(s.dum, g, i - 1, j);
+      my.mp = extpom::ld2(s.dvm, g, i, j + 1);
+      my.mm = extpom::ld2(s.dvm, g, i, j - 1);
+      mcc_column(mx, dum, dw[ow], dw[ow - WJ], dw[ow - 2 * WJ], dw[ow + WJ],
+                 gi >= 2, s.c24, s.c16);
+      mcc_column(my, dvm, dw[ow], dw[ow - 1], dw[ow - 2], dw[ow + 1],
+                 gj >= 2, s.c24, s.c16);
+    }
 
     // ---- the ascending sweep ----
     for (int k = 0; k < kbm1; ++k) {
@@ -344,7 +421,21 @@ __global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 4 ? 4 : 2)
       const T rr = R[oc] - M[oc];
       const T rrw = R[oc - HJ] - M[oc - HJ];
       const T rrs = R[oc - 1] - M[oc - 1];
-      if (k == 0) {
+      if constexpr (MC) {
+        // rr two cells upstream: the window's, or device memory's for the
+        // tile's first row (column)
+        auto far = [&](long o, bool ok) {
+          return ok ? s.rho[q - o] - s.rmean[q - o] : T(0);
+        };
+        const T rrww = ti >= 1 ? R[oc - 2 * HJ] - M[oc - 2 * HJ]
+                               : far(2L * jm, i >= 2);
+        const T rrss = tj >= 1 ? R[oc - 2] - M[oc - 2] : far(2, j >= 2);
+        mcc_level(mx, drx, k, dum, rr, rrw, rrww,
+                  R[oc + HJ] - M[oc + HJ], gi >= 2, s.zz, s.dzz, s.grav,
+                  s.g05, s.c24, s.c16);
+        mcc_level(my, dry, k, dvm, rr, rrs, rrss, R[oc + 1] - M[oc + 1],
+                  gj >= 2, s.zz, s.dzz, s.grav, s.g05, s.c24, s.c16);
+      } else if (k == 0) {
         drx = s.g05 * (-zz0) * dtsx * (rr - rrw);
         dry = s.g05 * (-zz0) * dtsy * (rr - rrs);
       } else {
@@ -384,26 +475,28 @@ __global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 4 ? 4 : 2)
   }
 }
 
-constexpr int kPointers = 21;
+constexpr int kPointers = 23;
 
 // ptr: the operands and outputs; the domain is (im, jm), the arrays the
 // domain or (O) the (R, L) block at global (oi, oj); the tiles TI x TJ,
-// walked by `grid` blocks
+// walked by `grid` blocks; mcc the McCalpin variant
 template <typename T, bool O>
 int run(void* const* ptr, const double* prm, int kb, int im, int jm, int R,
-        int L, int oi, int oj, int TI, int TJ, int grid, void* stream) {
+        int L, int oi, int oj, int mcc, int TI, int TJ, int grid,
+        void* stream) {
   Lat<T, O> s;
   int k = 0;
 #define NEXT(f) s.f = (decltype(s.f))ptr[k++]
   NEXT(u); NEXT(v); NEXT(ub); NEXT(vb); NEXT(aam0); NEXT(rho); NEXT(rmean);
-  NEXT(dt); NEXT(ramp);
+  NEXT(dt); NEXT(d); NEXT(ramp);
   NEXT(dx); NEXT(dy); NEXT(aru); NEXT(arv); NEXT(dum); NEXT(dvm); NEXT(zz);
+  NEXT(dzz);
   NEXT(aam); NEXT(advx); NEXT(advy); NEXT(drhox); NEXT(drhoy);
 #undef NEXT
   if (k != kPointers) return (int)cudaErrorInvalidValue;
   const int threads = TI * TJ;
   if (TI < 1 || TJ < 32 || TJ % 32 || threads > kMaxThreads || grid < 1 ||
-      kb < 2)
+      kb < 2 || (mcc && (s.d == nullptr || s.dzz == nullptr)))
     return (int)cudaErrorInvalidValue;
   s.g = extpom::geometry<O>(kb, im, jm, R, L, oi, oj, 2);
   s.tl.TI = TI;
@@ -416,61 +509,72 @@ int run(void* const* ptr, const double* prm, int kb, int im, int jm, int R,
   s.horcon = T(prm[0]);
   s.g025 = T(prm[1] * 0.25);
   s.g05 = T(0.5 * prm[1]);
-  const int smem = layout(TI, TJ).total * (int)sizeof(T);
-  const cudaError_t e = cudaFuncSetAttribute(
-      k_lat_tile<T, O>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  k_lat_tile<T, O><<<grid, threads, smem, (cudaStream_t)stream>>>(s);
-  return (int)cudaGetLastError();
+  s.grav = T(prm[1]);
+  s.c24 = T(1.0 / 24.0);
+  s.c16 = T(1.0 / 16.0);
+  const int smem = layout(TI, TJ, mcc != 0).total * (int)sizeof(T);
+  auto go = [&](auto kernel) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(s);
+    return (int)cudaGetLastError();
+  };
+  return mcc ? go(k_lat_tile<T, O, true>) : go(k_lat_tile<T, O, false>);
 }
 
 template <typename T, bool O>
-int info(int TI, int TJ, int* out) {
-  return extpom::tile_info(k_lat_tile<T, O>, TI * TJ,
-                           layout(TI, TJ).total * (int)sizeof(T), out);
+int info(int TI, int TJ, bool mcc, int* out) {
+  const int smem = layout(TI, TJ, mcc).total * (int)sizeof(T);
+  return mcc ? extpom::tile_info(k_lat_tile<T, O, true>, TI * TJ, smem, out)
+             : extpom::tile_info(k_lat_tile<T, O, false>, TI * TJ, smem,
+                                 out);
 }
 
 }  // namespace
 
 extern "C" int extpom_phase_lat_f32(void* const* ptr, const double* prm,
-                                    int kb, int im, int jm, int, int, int TI,
-                                    int TJ, int grid, void* stream) {
-  return run<float, false>(ptr, prm, kb, im, jm, im, jm, 0, 0, TI, TJ, grid,
-                           stream);
+                                    int kb, int im, int jm, int mcc, int,
+                                    int TI, int TJ, int grid, void* stream) {
+  return run<float, false>(ptr, prm, kb, im, jm, im, jm, 0, 0, mcc, TI, TJ,
+                           grid, stream);
 }
 
 extern "C" int extpom_phase_lat_f64(void* const* ptr, const double* prm,
-                                    int kb, int im, int jm, int, int, int TI,
-                                    int TJ, int grid, void* stream) {
-  return run<double, false>(ptr, prm, kb, im, jm, im, jm, 0, 0, TI, TJ, grid,
-                            stream);
+                                    int kb, int im, int jm, int mcc, int,
+                                    int TI, int TJ, int grid, void* stream) {
+  return run<double, false>(ptr, prm, kb, im, jm, im, jm, 0, 0, mcc, TI, TJ,
+                            grid, stream);
 }
 
 extern "C" int extpom_phase_lat_mesh_f32(void* const* ptr, const double* prm,
                                          int kb, int im, int jm, int R, int L,
-                                         int oi, int oj, int, int, int TI,
-                                         int TJ, int grid, void* stream) {
-  return run<float, true>(ptr, prm, kb, im, jm, R, L, oi, oj, TI, TJ, grid,
-                          stream);
+                                         int oi, int oj, int mcc, int,
+                                         int TI, int TJ, int grid,
+                                         void* stream) {
+  return run<float, true>(ptr, prm, kb, im, jm, R, L, oi, oj, mcc, TI, TJ,
+                          grid, stream);
 }
 
 extern "C" int extpom_phase_lat_mesh_f64(void* const* ptr, const double* prm,
                                          int kb, int im, int jm, int R, int L,
-                                         int oi, int oj, int, int, int TI,
-                                         int TJ, int grid, void* stream) {
-  return run<double, true>(ptr, prm, kb, im, jm, R, L, oi, oj, TI, TJ, grid,
-                           stream);
+                                         int oi, int oj, int mcc, int,
+                                         int TI, int TJ, int grid,
+                                         void* stream) {
+  return run<double, true>(ptr, prm, kb, im, jm, R, L, oi, oj, mcc, TI, TJ,
+                           grid, stream);
 }
 
 // registers, static and dynamic shared bytes, resident blocks per SM,
-// spill bytes and SMs of the tile kernel (column.cuh tile_info); f64 and
-// mesh pick the instantiation (its shared memory does not depend on the
-// depth and the keep option of phase_mom.cu's entry)
+// spill bytes and SMs of the tile kernel (column.cuh tile_info); f64, mesh
+// and bit 1 of opt (the McCalpin variant; bit 0 is phase_mom.cu's keep)
+// pick the instantiation, whose shared memory does not depend on the depth
 extern "C" int extpom_phase_lat_info(int f64, int mesh, int TI, int TJ, int,
-                                     int, int* out) {
+                                     int opt, int* out) {
+  const bool mcc = (opt & 2) != 0;
   if (f64)
-    return mesh ? info<double, true>(TI, TJ, out)
-                : info<double, false>(TI, TJ, out);
-  return mesh ? info<float, true>(TI, TJ, out)
-              : info<float, false>(TI, TJ, out);
+    return mesh ? info<double, true>(TI, TJ, mcc, out)
+                : info<double, false>(TI, TJ, mcc, out);
+  return mesh ? info<float, true>(TI, TJ, mcc, out)
+              : info<float, false>(TI, TJ, mcc, out);
 }

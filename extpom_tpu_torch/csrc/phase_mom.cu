@@ -39,7 +39,15 @@
 //   k_mom_edge  one thread per column of the perimeter strips (rows 0, 1,
 //     im-1 and columns 0, 1, jm-1): the Orlanski edge values (east, west,
 //     south, north in the reference's order) from the strips, the dum/dvm
-//     mask on k < kbm1, and the Asselin filter of those columns.
+//     mask on k < kbm1, and the Asselin filter of those columns.  Under
+//     the file scheme (template flag F) it takes bc_vel3d's values
+//     instead (bc/bcond.py): a blend, weighted by sqrt(d / hmax), of the
+//     old u (v) one cell in and the boundary profile (ubw, ube, vbw, vbe
+//     (kb, jm); ubs, ubn, vbs, vbn (kb, im)), each smoothed 1-2-1 along
+//     the edge, for the normal component (the u-face at row 1 and its
+//     copy on row 0, the v-face at column 1 and its copy on column 0), the
+//     profile itself for the tangential one, written east, west, south,
+//     north, and the dum/dvm mask on every level.
 // Every per-point expression is the one of the plain version, operand for
 // operand, and the sources build with -fmad=false, so each operation
 // rounds as the plain PyTorch version's does.
@@ -107,7 +115,7 @@ __host__ __device__ inline Layout layout(int TI, int TJ, int kb, bool keep) {
 template <typename T, bool O>
 struct Mom {
   const T *u, *ub, *v, *vb, *w, *advx, *advy, *drhox, *drhoy, *km;  // 3-D
-  const T *dt, *egf, *egb, *etb, *etf;                              // 2-D
+  const T *dt, *egf, *egb, *etb, *etf, *d;                          // 2-D
   const T *e_atmos, *wusurf, *wvsurf;                               // 2-D
   const T *h, *dx, *dy, *aru, *arv, *cor, *cbc, *dum, *dvm;         // 2-D
   const T *dz, *dzz;                                                // (kb,)
@@ -117,6 +125,10 @@ struct Mom {
   // the solved uf at global rows 2 and im-2, (2, kb, jm), then vf at global
   // columns 2 and jm-2, (2, kb, im), in the arrays' (block's) extents
   T* strip;
+  // the file scheme's bc_vel3d (null otherwise; it also reads d = h + el):
+  // the velocity profiles of the east/west edges (kb, jm) and of the
+  // south/north edges (kb, im), hmax (0-d)
+  const T *ubw, *ube, *vbw, *vbe, *ubs, *ubn, *vbs, *vbn, *hmax;
   GeomT<O> g;
   Tiles tl;
   int kbm1, kbm2;
@@ -481,9 +493,75 @@ __device__ T vf_final(const Mom<T, O>& s, int k, int i, int j) {
   return s.vo[row + j];
 }
 
+// ---- bc_vel3d (the file scheme) ----
+
+// element n of level k of an edge profile of n cells, 0 outside
+template <typename T>
+__device__ __forceinline__ T prof(const T* a, int n, int k, int idx) {
+  return idx >= 0 && idx < n ? a[(long)k * n + idx] : T(0);
+}
+
+// sqrt(d / hmax) * (the 1-2-1 average of v0, v1, v2) + (1 - that weight)
+// * (the 1-2-1 average of b0, b1, b2)
+template <typename T>
+__device__ __forceinline__ T blend(T d, T hmax, T v0, T v1, T v2, T b0, T b1,
+                                   T b2) {
+  const T ga = sqrt(d / hmax);
+  return ga * (T(0.25) * v0 + T(0.5) * v1 + T(0.25) * v2) +
+         (T(1) - ga) * (T(0.25) * b0 + T(0.5) * b1 + T(0.25) * b2);
+}
+
+// uf after bc_vel3d at level k < kbm1, before the dum mask
+template <typename T, bool O>
+__device__ T uf_file(const Mom<T, O>& s, int k, int i, int j) {
+  const auto& g = s.g;
+  const int GI = g.GI(), GJ = g.GJ(), gi = g.gi(i), gj = g.gj(j);
+  if (gj >= 1 && gj <= GJ - 2) {
+    // east: d at the edge, u one row in; west: the u-face at 1 reads d at
+    // 0 and u at 2, and row 0 copies it
+    const bool east = gi == GI - 1;
+    if (east || gi <= 1) {
+      const int r = g.li(east ? GI - 2 : 2);
+      const T* b = east ? s.ube : s.ubw;
+      auto u = [&](int jj) { return extpom::ld3(s.u, g, k, r, jj); };
+      return blend(extpom::ld2(s.d, g, g.li(east ? GI - 1 : 0), j),
+                   s.hmax[0], u(j - 1), u(j), u(j + 1),
+                   prof(b, g.jm, k, j - 1), prof(b, g.jm, k, j),
+                   prof(b, g.jm, k, j + 1));
+    }
+  } else if (gi >= 1 && gi <= GI - 2) {  // south and north: the profile
+    return (gj == 0 ? s.ubs : s.ubn)[(long)k * g.im + i];
+  }
+  return s.uo[k * g.n + (long)i * g.jm + j];
+}
+
+// vf after bc_vel3d at level k < kbm1, before the dvm mask
+template <typename T, bool O>
+__device__ T vf_file(const Mom<T, O>& s, int k, int i, int j) {
+  const auto& g = s.g;
+  const int GI = g.GI(), GJ = g.GJ(), gi = g.gi(i), gj = g.gj(j);
+  if (gi >= 1 && gi <= GI - 2) {
+    // north: d at the edge, v one column in; south: the v-face at 1 reads
+    // d at 0 and v at 2, and column 0 copies it
+    const bool north = gj == GJ - 1;
+    if (north || gj <= 1) {
+      const int c = g.lj(north ? GJ - 2 : 2);
+      const T* b = north ? s.vbn : s.vbs;
+      auto v = [&](int ii) { return extpom::ld3(s.v, g, k, ii, c); };
+      return blend(extpom::ld2(s.d, g, i, g.lj(north ? GJ - 1 : 0)),
+                   s.hmax[0], v(i - 1), v(i), v(i + 1),
+                   prof(b, g.im, k, i - 1), prof(b, g.im, k, i),
+                   prof(b, g.im, k, i + 1));
+    }
+  } else if (gj >= 1 && gj <= GJ - 2) {  // west and east: the profile
+    return (gi == 0 ? s.vbw : s.vbe)[(long)k * g.jm + j];
+  }
+  return s.vo[k * g.n + (long)i * g.jm + j];
+}
+
 // the perimeter columns of the block: rows 0, 1, im-1 across its columns,
 // then columns 0, 1, jm-1 across its rows outside those rows
-template <typename T, bool O>
+template <typename T, bool O, bool F>
 __global__ void k_mom_edge(Mom<T, O> s) {
   const auto& g = s.g;
   const long e = (long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -513,8 +591,14 @@ __global__ void k_mom_edge(Mom<T, O> s) {
   T tpu = T(0), tpv = T(0);
   for (int k = 0; k < g.kb; ++k) {
     const long q = k * n + p;
-    const T uf = k < s.kbm1 ? uf_final(s, k, i, j) * dum : s.uo[q];
-    const T vf = k < s.kbm1 ? vf_final(s, k, i, j) * dvm : s.vo[q];
+    T uf, vf;
+    if constexpr (F) {  // bc_vel3d masks every level
+      uf = (k < s.kbm1 ? uf_file(s, k, i, j) : s.uo[q]) * dum;
+      vf = (k < s.kbm1 ? vf_file(s, k, i, j) : s.vo[q]) * dvm;
+    } else {
+      uf = k < s.kbm1 ? uf_final(s, k, i, j) * dum : s.uo[q];
+      vf = k < s.kbm1 ? vf_final(s, k, i, j) * dvm : s.vo[q];
+    }
     s.uo[q] = uf;
     s.vo[q] = vf;
     if (k < s.kbm1) {
@@ -531,34 +615,41 @@ __global__ void k_mom_edge(Mom<T, O> s) {
   }
 }
 
-constexpr int kPointers = 37;
+constexpr int kPointers = 47;
 constexpr int kEdgeThreads = 128;
 
-// ptr: the operands, outputs and scratch; the domain is (im, jm), the
-// arrays the domain or (O) the (R, L) block at global (oi, oj); the tiles
-// TI x TJ, walked by `grid` blocks, with the levels kept in shared memory
-// when keep
+// ptr: the operands, outputs and scratch, then (file scheme; null
+// otherwise) the eight velocity profiles and hmax; the domain is (im, jm),
+// the arrays the domain or (O) the (R, L) block at global (oi, oj); the
+// tiles TI x TJ, walked by `grid` blocks, with the levels kept in shared
+// memory when keep; file: the file scheme's bc_vel3d
 template <typename T, bool O>
 int run(void* const* ptr, const double* prm, int kb, int im, int jm, int R,
-        int L, int oi, int oj, int keep, int TI, int TJ, int grid,
+        int L, int oi, int oj, int keep, int file, int TI, int TJ, int grid,
         void* stream) {
   Mom<T, O> s;
   int k = 0;
 #define NEXT(f) s.f = (decltype(s.f))ptr[k++]
   NEXT(u); NEXT(ub); NEXT(v); NEXT(vb); NEXT(w); NEXT(advx); NEXT(advy);
   NEXT(drhox); NEXT(drhoy); NEXT(km);
-  NEXT(dt); NEXT(egf); NEXT(egb); NEXT(etb); NEXT(etf);
+  NEXT(dt); NEXT(egf); NEXT(egb); NEXT(etb); NEXT(etf); NEXT(d);
   NEXT(e_atmos); NEXT(wusurf); NEXT(wvsurf);
   NEXT(h); NEXT(dx); NEXT(dy); NEXT(aru); NEXT(arv); NEXT(cor); NEXT(cbc);
   NEXT(dum); NEXT(dvm);
   NEXT(dz); NEXT(dzz);
   NEXT(uo); NEXT(ubo); NEXT(vo); NEXT(vbo); NEXT(wubot); NEXT(wvbot);
   NEXT(egs); NEXT(strip);
+  NEXT(ubw); NEXT(ube); NEXT(vbw); NEXT(vbe); NEXT(ubs); NEXT(ubn);
+  NEXT(vbs); NEXT(vbn); NEXT(hmax);
 #undef NEXT
   if (k != kPointers) return (int)cudaErrorInvalidValue;
   const int threads = TI * TJ;
   if (TI < 1 || TJ < 32 || TJ % 32 || threads > kMaxThreads || grid < 1 ||
-      kb < 4 || s.egs == nullptr || s.strip == nullptr)
+      kb < 4 || s.egs == nullptr || s.strip == nullptr ||
+      (file && (s.d == nullptr || s.hmax == nullptr || s.ubw == nullptr ||
+                s.ube == nullptr || s.vbw == nullptr || s.vbe == nullptr ||
+                s.ubs == nullptr || s.ubn == nullptr || s.vbs == nullptr ||
+                s.vbn == nullptr)))
     return (int)cudaErrorInvalidValue;
   s.g = extpom::geometry<O>(kb, im, jm, R, L, oi, oj, 2);
   s.tl.TI = TI;
@@ -583,8 +674,11 @@ int run(void* const* ptr, const double* prm, int kb, int im, int jm, int R,
   k_mom_tile<T, O><<<grid, threads, smem, st>>>(s);
   s.g = extpom::geometry<O>(kb, im, jm, R, L, oi, oj, 4);
   const long cols = 3L * (s.g.im + s.g.jm);
-  k_mom_edge<T, O><<<(int)((cols + kEdgeThreads - 1) / kEdgeThreads),
-                     kEdgeThreads, 0, st>>>(s);
+  const int eblocks = (int)((cols + kEdgeThreads - 1) / kEdgeThreads);
+  if (file)
+    k_mom_edge<T, O, true><<<eblocks, kEdgeThreads, 0, st>>>(s);
+  else
+    k_mom_edge<T, O, false><<<eblocks, kEdgeThreads, 0, st>>>(s);
   return (int)cudaGetLastError();
 }
 
@@ -599,35 +693,37 @@ int info(int TI, int TJ, int kb, int keep, int* out) {
 }  // namespace
 
 extern "C" int extpom_phase_mom_f32(void* const* ptr, const double* prm,
-                                    int kb, int im, int jm, int keep, int,
-                                    int TI, int TJ, int grid, void* stream) {
-  return run<float, false>(ptr, prm, kb, im, jm, im, jm, 0, 0, keep, TI, TJ,
-                           grid, stream);
+                                    int kb, int im, int jm, int keep,
+                                    int file, int TI, int TJ, int grid,
+                                    void* stream) {
+  return run<float, false>(ptr, prm, kb, im, jm, im, jm, 0, 0, keep, file,
+                           TI, TJ, grid, stream);
 }
 
 extern "C" int extpom_phase_mom_f64(void* const* ptr, const double* prm,
-                                    int kb, int im, int jm, int keep, int,
-                                    int TI, int TJ, int grid, void* stream) {
-  return run<double, false>(ptr, prm, kb, im, jm, im, jm, 0, 0, keep, TI, TJ,
-                            grid, stream);
+                                    int kb, int im, int jm, int keep,
+                                    int file, int TI, int TJ, int grid,
+                                    void* stream) {
+  return run<double, false>(ptr, prm, kb, im, jm, im, jm, 0, 0, keep, file,
+                            TI, TJ, grid, stream);
 }
 
 extern "C" int extpom_phase_mom_mesh_f32(void* const* ptr, const double* prm,
                                          int kb, int im, int jm, int R, int L,
-                                         int oi, int oj, int keep, int,
+                                         int oi, int oj, int keep, int file,
                                          int TI, int TJ, int grid,
                                          void* stream) {
-  return run<float, true>(ptr, prm, kb, im, jm, R, L, oi, oj, keep, TI, TJ,
-                          grid, stream);
+  return run<float, true>(ptr, prm, kb, im, jm, R, L, oi, oj, keep, file, TI,
+                          TJ, grid, stream);
 }
 
 extern "C" int extpom_phase_mom_mesh_f64(void* const* ptr, const double* prm,
                                          int kb, int im, int jm, int R, int L,
-                                         int oi, int oj, int keep, int,
+                                         int oi, int oj, int keep, int file,
                                          int TI, int TJ, int grid,
                                          void* stream) {
-  return run<double, true>(ptr, prm, kb, im, jm, R, L, oi, oj, keep, TI, TJ,
-                           grid, stream);
+  return run<double, true>(ptr, prm, kb, im, jm, R, L, oi, oj, keep, file,
+                           TI, TJ, grid, stream);
 }
 
 // registers, static and dynamic shared bytes, resident blocks per SM,

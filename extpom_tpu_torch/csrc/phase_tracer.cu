@@ -49,7 +49,30 @@
 // version's does; exp and pow come from CUDA's math library, which may
 // differ from PyTorch's in the last bit.
 //
+// The options (template flag X, selected by non-null operands):
+//   * MPDATA (nadv=2, ops/tracers.py:advt2) does not fit the tile's single
+//     upward sweep: each of its nitera upstream steps couples level k with
+//     k-1 and k+1 and widens the horizontal reach by a cell.  Its steps run
+//     first as launches of their own over the whole grid (or block), one
+//     thread per point and T and S in each launch, into device scratch
+//     (k_mpdata_upwind: the upstream step and smol_adif's fsm mask;
+//     k_mpdata_adif: the antidiffusive velocities, between two steps: the
+//     last step's are read by nothing).  The tile then takes the field of
+//     the last step (mt, ms) in place of advt1's and forms only the closing
+//     climatology-deviation diffusion from its staged planes (fb - fclim,
+//     aam and the 2-D window); the ghost level kb-1 and the edge columns
+//     below kbm1 keep MPDATA's field, which proft passes through.
+//   * Interior restoring (do_restore, core/stepper.py:328-336) commits after
+//     the Asselin filter, on levels k < kbm1 of every column, edges
+//     included (and k_tracer_edge's), before the equation of state reads
+//     the restored t and s; taurstr may be one broadcast value.
+//
 // Where an off-by-one would hide:
+//   * MPDATA's work field starts as fb with its ghost level, not zeros
+//     (tracers.py:182); the first step alone has eta = etb and the surface
+//     flux w[0] f[0] art; smol_adif masks the whole field by fsm before its
+//     x (k < kbm1, i 1.., j 1..jm-2), y (i 1..im-2, j 1..) and z (1 <= k <
+//     kbm1, interior) regions;
 //   * advt1's ghost bottom layer (tracers.py:65-66) is never read by the
 //     levels k < kbm1 it commits; the k=0 zflux is f[0] w[0] art
 //     (tracers.py:75);
@@ -134,13 +157,19 @@ struct Trc {
   // then [tracer][side][k][i] of columns 1 and jm-2
   const T* ub;
   T* strip;
+  // the options (X): the restoring series (null without do_restore;
+  // taurstr one value where tau_one), MPDATA's field of T and S (null:
+  // advt1)
+  const T *trstr, *srstr, *taurstr;
+  const T *mt, *ms;
   GeomT<O> g;
   Tiles tl;
   int kbm1, kbm2, nbct, nbcs;
+  bool tau_one;
   // constants, each formed in double as the Python expression forms it and
   // rounded to T as PyTorch rounds a Python float operand
   T dti2, mdti2, dti, tprni, umol, hsmoth, tbias, sbias, grho, rrhoref, r,
-      omr, rad1, rad2;
+      omr, rad1, rad2, rfac;
 };
 
 // One tracer's operands: f (time n), fb (n-1), fclim, the surface flux and
@@ -188,6 +217,57 @@ __device__ __forceinline__ T yface(const T* f, const T* fb, const T* fc,
                ((fb[c] - fc[c]) - (fb[s] - fc[s])) * d[DDVM * HC + c] /
                (dy[c] + dy[s]);
   return T(0.5) * (dx[c] + dx[s]) * (y1 + yd);
+}
+
+// MPDATA's closing diffusion flux across the x face between window cells
+// c - HJ and c (tracers.py:advt2, solver.f:691-726): fb, fclim and aam at
+// the level, the 2-D window d
+template <typename T>
+__device__ __forceinline__ T xdiff(const T* fb, const T* fc, const T* a,
+                                   const T* d, T tprni, int HC, int c,
+                                   int HJ) {
+  const int w = c - HJ;
+  const T* h = d + DH * HC;
+  const T* dx = d + DDX * HC;
+  const T* dy = d + DDY * HC;
+  const T aamx = T(0.5) * (a[c] + a[w]);
+  return -aamx * (h[c] + h[w]) * tprni * ((fb[c] - fc[c]) - (fb[w] - fc[w])) *
+         d[DDUM * HC + c] * (dy[c] + dy[w]) * T(0.5) / (dx[c] + dx[w]);
+}
+
+// ... across the y face between window cells c - 1 and c
+template <typename T>
+__device__ __forceinline__ T ydiff(const T* fb, const T* fc, const T* a,
+                                   const T* d, T tprni, int HC, int c) {
+  const int s = c - 1;
+  const T* h = d + DH * HC;
+  const T* dx = d + DDX * HC;
+  const T* dy = d + DDY * HC;
+  const T aamy = T(0.5) * (a[c] + a[s]);
+  return -aamy * (h[c] + h[s]) * tprni * ((fb[c] - fc[c]) - (fb[s] - fc[s])) *
+         d[DDVM * HC + c] * (dx[c] + dx[s]) * T(0.5) / (dy[c] + dy[s]);
+}
+
+// Interior restoring of tracer c's new value f and new fb at point q
+// (k < kbm1), times fsm
+template <typename T, bool O>
+__device__ __forceinline__ void restore(const Trc<T, O>& s, int c, long q,
+                                        T fsm, T& f, T& fb) {
+  const T fac = s.rfac * s.taurstr[s.tau_one ? 0 : q];
+  const T r = (c ? s.srstr : s.trstr)[q];
+  f = (f + fac * (r - f)) * fsm;
+  fb = (fb + fac * (r - fb)) * fsm;
+}
+
+// The value of tracer c below the solved levels (k >= kbm1): proft passes
+// its input through, advt1's 0 or MPDATA's field
+template <typename T, bool O, bool X>
+__device__ __forceinline__ T ghost(const Trc<T, O>& s, int c, long q) {
+  if constexpr (X) {
+    const T* m = c ? s.ms : s.mt;
+    if (m != nullptr) return m[q];
+  }
+  return T(0);
 }
 
 // bc_ts's value at edge column (i, j), level k < kbm1, before fsm; the
@@ -342,7 +422,7 @@ __device__ T orl_value(const Trc<T, O>& s, const View<T>& v, int c, int k,
 // im-1 across its columns, then columns 0 and jm-1 across its rows between
 // them.  orl_ts, the fsm mask, the Asselin commit and dens of the column,
 // after k_tracer_tile (which solved the columns one in and skipped these).
-template <typename T, bool O>
+template <typename T, bool O, bool X>
 __global__ void k_tracer_edge(Trc<T, O> s) {
   const auto& g = s.g;
   const long e = (long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -372,17 +452,20 @@ __global__ void k_tracer_edge(Trc<T, O> s) {
     T fnew[2];
     for (int c = 0; c < 2; ++c) {
       const View<T>& v = tv[c];
-      const T fv = k < s.kbm1 ? orl_value(s, v, c, k, i, j) * fsm : T(0);
+      T fv = k < s.kbm1 ? orl_value(s, v, c, k, i, j) * fsm
+                        : ghost<T, O, X>(s, c, q);
       const T f = v.f[q], fb = v.fb[q];
+      T fbn = f + s.hsmoth * (fv + fb - T(2) * f);
+      if (X && s.trstr != nullptr && k < s.kbm1) restore(s, c, q, fsm, fv, fbn);
       v.fo[q] = fv;
-      v.fbo[q] = f + s.hsmoth * (fv + fb - T(2) * f);
+      v.fbo[q] = fbn;
       fnew[c] = fv;
     }
     s.rho[q] = k == g.kb - 1 ? T(0) : dens(s, k, fnew[0], fnew[1], h, fsm);
   }
 }
 
-template <typename T, bool O, bool B>
+template <typename T, bool O, bool B, bool X>
 __global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 4 ? 2 : 1)
     k_tracer_tile(Trc<T, O> s) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -414,6 +497,8 @@ __global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 4 ? 2 : 1)
                           s.sbe, s.sbs, s.sbn, s.so, s.sbo, s.nbcs}};
   const bool any_rad = s.nbct == 2 || s.nbct == 4 || s.nbcs == 2 ||
                        s.nbcs == 4;
+  const bool mp = X && s.mt != nullptr;        // MPDATA's field, not advt1
+  const bool rst = X && s.trstr != nullptr;    // interior restoring
 
   for (int tile = blockIdx.x; tile < tl.count; tile += gridDim.x) {
     const int i0 = (tile / tl.nj) * TI, j0 = (tile % tl.nj) * TJ;
@@ -490,6 +575,15 @@ __global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 4 ? 2 : 1)
           const T* fc = win(k, c ? HSC : HTC);
           T* x = fxy + c * nface;
           T* y = x + (TI + 1) * TJ;
+          if (mp) {  // MPDATA's closing diffusion
+            x[fw] = xdiff(fb, fc, a, d2, s.tprni, HC, wc, HJ);
+            y[fs] = ydiff(fb, fc, a, d2, s.tprni, HC, wc);
+            if (ti == TI - 1)
+              x[fe] = xdiff(fb, fc, a, d2, s.tprni, HC, wc + HJ, HJ);
+            if (tj == TJ - 1)
+              y[fn] = ydiff(fb, fc, a, d2, s.tprni, HC, wc + 1);
+            continue;
+          }
           x[fw] = xface(f, fb, fc, u, a, d2, s.tprni, HC, wc, HJ);
           y[fs] = yface(f, fb, fc, v, a, d2, s.tprni, HC, wc);
           if (ti == TI - 1)
@@ -506,9 +600,12 @@ __global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 4 ? 2 : 1)
         T fnew[2];
         for (int c = 0; c < 2; ++c) {
           const T f = win(k, c ? HS : HT)[wc], fb = win(k, c ? HSB : HTB)[wc];
-          const T fv = k < kbm1 ? edge_value(s, tv[c], k, i, j) * fsm : T(0);
+          T fv = k < kbm1 ? edge_value(s, tv[c], k, i, j) * fsm
+                          : ghost<T, O, X>(s, c, q);
+          T fbn = f + s.hsmoth * (fv + fb - T(2) * f);
+          if (rst && k < kbm1) restore(s, c, q, fsm, fv, fbn);
           tv[c].fo[q] = fv;
-          tv[c].fbo[q] = f + s.hsmoth * (fv + fb - T(2) * f);
+          tv[c].fbo[q] = fbn;
           fnew[c] = fv;
         }
         s.rho[q] = k == kb - 1 ? T(0) : dens(s, k, fnew[0], fnew[1], h, fsm);
@@ -535,9 +632,15 @@ __global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 4 ? 2 : 1)
             k + 1 < kbm1 ? T(0.5) * (fk + fp) * wp * art : T(0);
         const T* x = fxy + c * nface;
         const T* y = x + (TI + 1) * TJ;
-        const T ff = x[fe] - x[fw] + y[fn] - y[fs] + (st.zf - zf1) / s.dz[k];
-        const T adv =
-            (fbk * (h + etb) * art - s.dti2 * ff) / ((h + etf) * art);
+        T adv;
+        if (mp) {
+          adv = (c ? s.ms : s.mt)[k * n + p] -
+                s.dti2 * (x[fe] - x[fw] + y[fn] - y[fs]) / ((h + etf) * art);
+        } else {
+          const T ff =
+              x[fe] - x[fw] + y[fn] - y[fs] + (st.zf - zf1) / s.dz[k];
+          adv = (fbk * (h + etb) * art - s.dti2 * ff) / ((h + etf) * art);
+        }
         st.zf = zf1;
         const bool wr = with_rad(c);
         const T r0 = wr ? rk : T(0), r1 = wr ? rk1 : T(0);
@@ -581,17 +684,20 @@ __global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 4 ? 2 : 1)
         for (int c = 0; c < 2; ++c) {
           const View<T>& v = tv[c];
           const T fo = v.f[q], fbo = v.fb[q];
-          if (k > kbm2) {  // proft keeps advt1's 0 there
-            v.fo[q] = T(0);
-            v.fbo[q] = fo + s.hsmoth * (T(0) + fbo - T(2) * fo);
+          if (k > kbm2) {  // proft keeps its input there: advt1's 0
+            const T gv = ghost<T, O, X>(s, c, q);
+            v.fo[q] = gv;
+            v.fbo[q] = fo + s.hsmoth * (gv + fbo - T(2) * fo);
             continue;
           }
           if (k < kbm2)
             f[c] = (row(k, 2 * c) * f[c] + row(k, 2 * c + 1)) * T(1);
           if constexpr (B) strip_put(s, c, k, gi, gj, i, j, f[c]);
           fnew[c] = f[c] * fsm;
+          T fbn = fo + s.hsmoth * (fnew[c] + fbo - T(2) * fo);
+          if (rst) restore(s, c, q, fsm, fnew[c], fbn);
           v.fo[q] = fnew[c];
-          v.fbo[q] = fo + s.hsmoth * (fnew[c] + fbo - T(2) * fo);
+          v.fbo[q] = fbn;
         }
         s.rho[q] = k == kb - 1 ? T(0) : dens(s, k, fnew[0], fnew[1], h, fsm);
       }
@@ -599,13 +705,238 @@ __global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 4 ? 2 : 1)
   }
 }
 
-constexpr int kPointers = 46;
+// ---- MPDATA's upstream steps (ops/tracers.py:advt2 before its closing
+// diffusion; mpdata_upwind, smol_adif) ----------------------------------
+
+template <typename T, bool O>
+struct Mpd {
+  const T *t, *s, *tb, *sb, *u, *v, *w, *dt, *etb, *etf;  // 3-D, then 2-D
+  const T *h, *dx, *dy, *art, *aru, *arv, *fsm;           // (im, jm)
+  const T *dz, *dzz;                                      // (kb,)
+  // the field of the previous step of T and S (null in the first step:
+  // fb with its ghost level); the field this step writes (upwind)
+  const T* fin[2];
+  T* fout[2];
+  // xm, ym, zw of T, then of S (read from the formula and w in the first
+  // step's antidiffusion, which writes them)
+  T* flux[6];
+  GeomT<O> g;
+  int kbm1;
+  bool first;
+  T dti2, sw, vmin, eps;
+};
+
+template <typename T, bool O>
+struct MpdPoint {
+  const Mpd<T, O>& m;
+  int c;  // tracer
+
+  __device__ bool in(int i, int j) const {
+    return i >= 0 && i < m.g.im && j >= 0 && j < m.g.jm;
+  }
+  __device__ long at(int k, int i, int j) const {
+    return k * m.g.n + (long)i * m.g.jm + j;
+  }
+  // the step's input field, 0 outside the array
+  __device__ T fbmem(int k, int i, int j) const {
+    if (k < 0 || k >= m.g.kb || !in(i, j)) return T(0);
+    if (!m.first) return m.fin[c][at(k, i, j)];
+    const T* fb = c ? m.sb : m.tb;
+    return fb[at(k == m.g.kb - 1 ? m.g.kb - 2 : k, i, j)];
+  }
+  // the x mass flux (k, i, j) in the array
+  __device__ T xm(int k, int i, int j) const {
+    if (!m.first) return m.flux[3 * c][at(k, i, j)];
+    const auto& g = m.g;
+    const int gi = g.gi(i), gj = g.gj(j);
+    if (k >= m.kbm1 || gi < 1 || gj < 1 || gj > g.GJ() - 2) return T(0);
+    const long p = (long)i * g.jm + j;
+    return T(0.25) * (extpom::ld2(m.dy, g, i - 1, j) + m.dy[p]) *
+           (extpom::ld2(m.dt, g, i - 1, j) + m.dt[p]) * m.u[at(k, i, j)];
+  }
+  __device__ T ym(int k, int i, int j) const {
+    if (!m.first) return m.flux[3 * c + 1][at(k, i, j)];
+    const auto& g = m.g;
+    const int gi = g.gi(i), gj = g.gj(j);
+    if (k >= m.kbm1 || gj < 1 || gi < 1 || gi > g.GI() - 2) return T(0);
+    const long p = (long)i * g.jm + j;
+    return T(0.25) * (extpom::ld2(m.dx, g, i, j - 1) + m.dx[p]) *
+           (extpom::ld2(m.dt, g, i, j - 1) + m.dt[p]) * m.v[at(k, i, j)];
+  }
+  __device__ T zw(int k, int i, int j) const {
+    return m.first ? m.w[at(k, i, j)] : m.flux[3 * c + 2][at(k, i, j)];
+  }
+  // the upwind fluxes across the x face of (k, i, j) (region k < kbm1,
+  // i 1.., j 1..; 0 outside the array)
+  __device__ T xflux(int k, int i, int j) const {
+    if (!in(i, j) || k >= m.kbm1 || m.g.gi(i) < 1 || m.g.gj(j) < 1)
+      return T(0);
+    const T x = xm(k, i, j);
+    return T(0.5) * ((x + fabs(x)) * fbmem(k, i - 1, j) +
+                     (x - fabs(x)) * fbmem(k, i, j));
+  }
+  __device__ T yflux(int k, int i, int j) const {
+    if (!in(i, j) || k >= m.kbm1 || m.g.gi(i) < 1 || m.g.gj(j) < 1)
+      return T(0);
+    const T y = ym(k, i, j);
+    return T(0.5) * ((y + fabs(y)) * fbmem(k, i, j - 1) +
+                     (y - fabs(y)) * fbmem(k, i, j));
+  }
+  // the vertical flux at the top face of level k of an interior column
+  __device__ T zflux(int k, int i, int j, T art) const {
+    if (k == 0) {
+      if (!m.first) return T(0);
+      const long q = at(0, i, j);
+      return m.w[q] * (c ? m.s : m.t)[q] * art;
+    }
+    if (k >= m.kbm1) return T(0);
+    const T z = zw(k, i, j);
+    return T(0.5) * ((z + fabs(z)) * fbmem(k, i, j) +
+                     (z - fabs(z)) * fbmem(k - 1, i, j)) *
+           art;
+  }
+};
+
+// One point (k, i, j) per thread, T and S: the upstream step into fout,
+// times fsm (the mask smol_adif applies first)
+template <typename T, bool O>
+__global__ void k_mpdata_upwind(Mpd<T, O> m) {
+  const auto& g = m.g;
+  const long e = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= g.kb * g.n) return;
+  const int k = (int)(e / g.n);
+  const long p = e % g.n;
+  const int i = (int)(p / g.jm), j = (int)(p % g.jm);
+  const int gi = g.gi(i), gj = g.gj(j);
+  const bool interior = k < m.kbm1 && gi >= 1 && gi <= g.GI() - 2 &&
+                        gj >= 1 && gj <= g.GJ() - 2;
+  const T fsm = m.fsm[p];
+  for (int c = 0; c < 2; ++c) {
+    const MpdPoint<T, O> pt{m, c};
+    const T fb = pt.fbmem(k, i, j);
+    T f = fb;
+    if (interior) {
+      const T art = m.art[p], h = m.h[p];
+      const T eta = m.first ? m.etb[p] : m.etf[p];
+      T ff = pt.xflux(k, i + 1, j) - pt.xflux(k, i, j) +
+             pt.yflux(k, i, j + 1) - pt.yflux(k, i, j) +
+             (pt.zflux(k, i, j, art) - pt.zflux(k + 1, i, j, art)) /
+                 m.dz[k];
+      f = (fb * (h + eta) * art - m.dti2 * ff) / ((h + m.etf[p]) * art);
+    }
+    m.fout[c][e] = f * fsm;
+  }
+}
+
+// One point (k, i, j) per thread, T and S: smol_adif's antidiffusive
+// velocities from the masked field fin, in place of the old ones (read
+// from the formula and w in the first step)
+template <typename T, bool O>
+__global__ void k_mpdata_adif(Mpd<T, O> m) {
+  const auto& g = m.g;
+  const long e = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= g.kb * g.n) return;
+  const int k = (int)(e / g.n);
+  const long p = e % g.n;
+  const int i = (int)(p / g.jm), j = (int)(p % g.jm);
+  const int gi = g.gi(i), gj = g.gj(j), GI = g.GI(), GJ = g.GJ();
+  const T dt = m.dt[p];
+  for (int c = 0; c < 2; ++c) {
+    const MpdPoint<T, O> pt{m, c};
+    const T* F = m.fin[c];
+    const T f = F[e];
+    auto ok = [&](T a, T b) { return f < m.vmin || a < m.vmin || b; };
+    // x, region k < kbm1, i 1.., j 1..jm-2
+    T x = pt.xm(k, i, j);
+    if (k < m.kbm1 && gi >= 1 && gj >= 1 && gj <= GJ - 2) {
+      const T fw = extpom::ld3(F, g, k, i - 1, j);
+      const T udx = fabs(x);
+      const T u2dt = m.dti2 * x * x * T(2) /
+                     (m.aru[p] * (extpom::ld2(m.dt, g, i - 1, j) + dt));
+      const T mol = (f - fw) / (fw + f + m.eps);
+      x = ok(fw, udx < u2dt) ? T(0) : (udx - u2dt) * mol * m.sw;
+    }
+    // y, region k < kbm1, i 1..im-2, j 1..
+    T y = pt.ym(k, i, j);
+    if (k < m.kbm1 && gj >= 1 && gi >= 1 && gi <= GI - 2) {
+      const T fs = extpom::ld3(F, g, k, i, j - 1);
+      const T vdy = fabs(y);
+      const T v2dt = m.dti2 * y * y * T(2) /
+                     (m.arv[p] * (extpom::ld2(m.dt, g, i, j - 1) + dt));
+      const T mol = (f - fs) / (fs + f + m.eps);
+      y = ok(fs, vdy < v2dt) ? T(0) : (vdy - v2dt) * mol * m.sw;
+    }
+    // z, region 1 <= k < kbm1 of the interior
+    T z = pt.zw(k, i, j);
+    if (k >= 1 && k < m.kbm1 && gi >= 1 && gi <= GI - 2 && gj >= 1 &&
+        gj <= GJ - 2) {
+      const T fu = F[e - g.n];
+      const T wdz = fabs(z);
+      const T w2dt = m.dti2 * z * z / m.dzz[k - 1] / dt;
+      const T mol = (fu - f) / (f + fu + m.eps);
+      z = ok(fu, wdz < w2dt) ? T(0) : (wdz - w2dt) * mol * m.sw;
+    }
+    m.flux[3 * c][e] = x;
+    m.flux[3 * c + 1][e] = y;
+    m.flux[3 * c + 2][e] = z;
+  }
+}
+
+constexpr int kMpdPointers = 29;
+constexpr int kMpdThreads = 256;
+
+// ptr: t, s, tb, sb, u, v, w, dt, etb, etf, h, dx, dy, art, aru, arv, fsm,
+// dz, dzz, the field of T and S in (null in the first upwind step), the
+// field of T and S out (upwind; null for adif), the six mass fluxes;
+// adif 0: the upstream step, 1: the antidiffusive velocities
+template <typename T, bool O>
+int run_mpdata(void* const* ptr, const double* prm, int kb, int im, int jm,
+               int R, int L, int oi, int oj, int adif, int first,
+               void* stream) {
+  Mpd<T, O> m;
+  int k = 0;
+#define NEXT(f) m.f = (decltype(m.f))ptr[k++]
+  NEXT(t); NEXT(s); NEXT(tb); NEXT(sb); NEXT(u); NEXT(v); NEXT(w); NEXT(dt);
+  NEXT(etb); NEXT(etf);
+  NEXT(h); NEXT(dx); NEXT(dy); NEXT(art); NEXT(aru); NEXT(arv); NEXT(fsm);
+  NEXT(dz); NEXT(dzz);
+  NEXT(fin[0]); NEXT(fin[1]); NEXT(fout[0]); NEXT(fout[1]);
+  for (int f = 0; f < 6; ++f) NEXT(flux[f]);
+#undef NEXT
+  if (k != kMpdPointers || kb < 4) return (int)cudaErrorInvalidValue;
+  for (int f = 0; f < 6; ++f)
+    if (m.flux[f] == nullptr) return (int)cudaErrorInvalidValue;
+  if (adif ? (m.fin[0] == nullptr || m.fin[1] == nullptr)
+           : (m.fout[0] == nullptr || m.fout[1] == nullptr ||
+              (!first && (m.fin[0] == nullptr || m.fin[1] == nullptr))))
+    return (int)cudaErrorInvalidValue;
+  m.g = extpom::geometry<O>(kb, im, jm, R, L, oi, oj, 0);
+  m.kbm1 = kb - 1;
+  m.first = first != 0;
+  // prm: dti2, sw, value_min, epsilon
+  m.dti2 = T(prm[0]);
+  m.sw = T(prm[1]);
+  m.vmin = T(prm[2]);
+  m.eps = T(prm[3]);
+  const long pts = (long)kb * m.g.n;
+  const int blocks = (int)((pts + kMpdThreads - 1) / kMpdThreads);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (adif)
+    k_mpdata_adif<T, O><<<blocks, kMpdThreads, 0, st>>>(m);
+  else
+    k_mpdata_upwind<T, O><<<blocks, kMpdThreads, 0, st>>>(m);
+  return (int)cudaGetLastError();
+}
+
+constexpr int kPointers = 51;
 constexpr int kEdgeThreads = 128;
 
 // ptr: the operands, outputs and scratch, then ub and the strip (both
-// null outside the orlanski scheme, whose orl_ts they select); the domain
-// is (im, jm), the arrays the domain or (O) the (R, L) block at global
-// (oi, oj); the tiles TI x TJ, walked by `grid` blocks
+// null outside the orlanski scheme, whose orl_ts they select), then the
+// options: trstr, srstr, taurstr (null without restoring) and MPDATA's
+// field of T and S (null: advt1); the domain is (im, jm), the arrays the
+// domain or (O) the (R, L) block at global (oi, oj); the tiles TI x TJ,
+// walked by `grid` blocks
 template <typename T, bool O>
 int run(void* const* ptr, const double* prm, int kb, int im, int jm, int R,
         int L, int oi, int oj, int nbct, int nbcs, int TI, int TJ, int grid,
@@ -624,12 +955,17 @@ int run(void* const* ptr, const double* prm, int kb, int im, int jm, int R,
   NEXT(to); NEXT(tbo); NEXT(so); NEXT(sbo); NEXT(rho);
   NEXT(egs);
   NEXT(ub); NEXT(strip);
+  NEXT(trstr); NEXT(srstr); NEXT(taurstr);
+  NEXT(mt); NEXT(ms);
 #undef NEXT
   if (k != kPointers) return (int)cudaErrorInvalidValue;
   const int threads = TI * TJ;
   const bool orl = s.ub != nullptr;
+  const bool rst = s.trstr != nullptr, mp = s.mt != nullptr;
   if (TI < 1 || TJ < 32 || TJ % 32 || threads > kMaxThreads || grid < 1 ||
-      s.egs == nullptr || (s.strip == nullptr) == orl)
+      s.egs == nullptr || (s.strip == nullptr) == orl ||
+      (rst && (s.srstr == nullptr || s.taurstr == nullptr)) ||
+      (mp && s.ms == nullptr))
     return (int)cudaErrorInvalidValue;
   s.g = extpom::geometry<O>(kb, im, jm, R, L, oi, oj, 2);
   s.tl.TI = TI;
@@ -641,7 +977,8 @@ int run(void* const* ptr, const double* prm, int kb, int im, int jm, int R,
   s.nbct = nbct;
   s.nbcs = nbcs;
   // prm: dti2, dti, tprni, umol, smoth, tbias, sbias, grav, rhoref,
-  //      r, ad1, ad2 (the Jerlov parameters of ntp)
+  //      r, ad1, ad2 (the Jerlov parameters of ntp), 2 dti / 86400 (the
+  //      restoring factor of taurstr) and whether taurstr is one value
   s.dti2 = T(prm[0]);
   s.mdti2 = T(-prm[0]);
   s.dti = T(prm[1]);
@@ -658,34 +995,47 @@ int run(void* const* ptr, const double* prm, int kb, int im, int jm, int R,
   s.omr = T(1.0 - prm[9]);
   s.rad1 = T(1) / T(prm[10]);
   s.rad2 = T(1) / T(prm[11]);
+  s.rfac = T(prm[12]);
+  s.tau_one = prm[13] != 0.0;
   const int smem = layout(TI, TJ).total * (int)sizeof(T);
   cudaStream_t st = (cudaStream_t)stream;
-  if (!orl) {
+  auto go = [&](auto tile, auto edge) {
     const cudaError_t e = cudaFuncSetAttribute(
-        k_tracer_tile<T, O, false>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        tile, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
-    k_tracer_tile<T, O, false><<<grid, threads, smem, st>>>(s);
+    tile<<<grid, threads, smem, st>>>(s);
+    if (orl) {
+      const long cols = 2L * (s.g.im + s.g.jm);
+      edge<<<(int)((cols + kEdgeThreads - 1) / kEdgeThreads), kEdgeThreads,
+             0, st>>>(s);
+    }
     return (int)cudaGetLastError();
-  }
-  const cudaError_t e = cudaFuncSetAttribute(
-      k_tracer_tile<T, O, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (e != cudaSuccess) return (int)e;
-  k_tracer_tile<T, O, true><<<grid, threads, smem, st>>>(s);
-  const long cols = 2L * (s.g.im + s.g.jm);
-  k_tracer_edge<T, O><<<(int)((cols + kEdgeThreads - 1) / kEdgeThreads),
-                        kEdgeThreads, 0, st>>>(s);
-  return (int)cudaGetLastError();
+  };
+  if (rst || mp)
+    return orl ? go(k_tracer_tile<T, O, true, true>,
+                    k_tracer_edge<T, O, true>)
+               : go(k_tracer_tile<T, O, false, true>,
+                    k_tracer_edge<T, O, true>);
+  return orl ? go(k_tracer_tile<T, O, true, false>,
+                  k_tracer_edge<T, O, false>)
+             : go(k_tracer_tile<T, O, false, false>,
+                  k_tracer_edge<T, O, false>);
 }
 
 template <typename T, bool O>
-int info(int TI, int TJ, int orl, int* out) {
+int info(int TI, int TJ, int opt, int* out) {
   const int smem = layout(TI, TJ).total * (int)sizeof(T);
-  return orl
-             ? extpom::tile_info(k_tracer_tile<T, O, true>, TI * TJ, smem, out)
-             : extpom::tile_info(k_tracer_tile<T, O, false>, TI * TJ, smem,
-                                 out);
+  const int n = TI * TJ;
+  switch (opt & 3) {
+    case 1: return extpom::tile_info(k_tracer_tile<T, O, true, false>, n,
+                                     smem, out);
+    case 2: return extpom::tile_info(k_tracer_tile<T, O, false, true>, n,
+                                     smem, out);
+    case 3: return extpom::tile_info(k_tracer_tile<T, O, true, true>, n,
+                                     smem, out);
+    default: return extpom::tile_info(k_tracer_tile<T, O, false, false>, n,
+                                      smem, out);
+  }
 }
 
 }  // namespace
@@ -722,19 +1072,52 @@ extern "C" int extpom_phase_tracer_mesh_f64(void* const* ptr,
                                             int oj, int nbct, int nbcs,
                                             int TI, int TJ, int grid,
                                             void* stream) {
-  return run<double, true>(ptr, prm, kb, im, jm, R, L, oi, oj, nbct, nbcs,
-                           TI, TJ, grid, stream);
+  return run<double, true>(ptr, prm, kb, im, jm, R, L, oi, oj, nbct, nbcs, TI,
+                           TJ, grid, stream);
+}
+
+// MPDATA's steps: adif 0 the upstream step, 1 the antidiffusive velocities;
+// first: the first step
+extern "C" int extpom_phase_tracer_mpdata_f32(void* const* ptr,
+                                              const double* prm, int kb,
+                                              int im, int jm, int adif,
+                                              int first, void* stream) {
+  return run_mpdata<float, false>(ptr, prm, kb, im, jm, im, jm, 0, 0, adif,
+                                  first, stream);
+}
+
+extern "C" int extpom_phase_tracer_mpdata_f64(void* const* ptr,
+                                              const double* prm, int kb,
+                                              int im, int jm, int adif,
+                                              int first, void* stream) {
+  return run_mpdata<double, false>(ptr, prm, kb, im, jm, im, jm, 0, 0, adif,
+                                   first, stream);
+}
+
+extern "C" int extpom_phase_tracer_mpdata_mesh_f32(
+    void* const* ptr, const double* prm, int kb, int im, int jm, int R, int L,
+    int oi, int oj, int adif, int first, void* stream) {
+  return run_mpdata<float, true>(ptr, prm, kb, im, jm, R, L, oi, oj, adif,
+                                 first, stream);
+}
+
+extern "C" int extpom_phase_tracer_mpdata_mesh_f64(
+    void* const* ptr, const double* prm, int kb, int im, int jm, int R, int L,
+    int oi, int oj, int adif, int first, void* stream) {
+  return run_mpdata<double, true>(ptr, prm, kb, im, jm, R, L, oi, oj, adif,
+                                  first, stream);
 }
 
 // registers, static and dynamic shared bytes, resident blocks per SM,
 // spill bytes and SMs of the tile kernel (column.cuh tile_info); f64, mesh
-// and orl (the orlanski variant, in the slot of phase_mom.cu's keep) pick
-// the instantiation (its shared memory does not depend on the depth)
+// and opt (bit 0 the orlanski variant, in the slot of phase_mom.cu's keep;
+// bit 1 the options' variant) pick the instantiation (its shared memory
+// does not depend on the depth)
 extern "C" int extpom_phase_tracer_info(int f64, int mesh, int TI, int TJ,
-                                        int, int orl, int* out) {
+                                        int, int opt, int* out) {
   if (f64)
-    return mesh ? info<double, true>(TI, TJ, orl, out)
-                : info<double, false>(TI, TJ, orl, out);
-  return mesh ? info<float, true>(TI, TJ, orl, out)
-              : info<float, false>(TI, TJ, orl, out);
+    return mesh ? info<double, true>(TI, TJ, opt, out)
+                : info<double, false>(TI, TJ, opt, out);
+  return mesh ? info<float, true>(TI, TJ, opt, out)
+              : info<float, false>(TI, TJ, opt, out);
 }

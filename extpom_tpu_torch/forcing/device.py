@@ -75,17 +75,28 @@ def make_device_plan(p: "prov.ForcingProvider", dtype=None,
                 and t0_days is not None and t1_days is not None)
     # (name, cadence, offset, interpolated), in the order forcing_at applies
     toff = p.cont_bry_offset * p.tbc
+    names = set(p.source.names())
     series = ([(v, p.tsurf_cad, 0.0, True)
                for v in prov.WIND_VARS + prov.HEAT_VARS]
               + [(v, p.twater_cad, 0.0, True) for v in prov.WATER_VARS]
               + [(v, p.tsurf_cad, 0.0, False) for v in prov.SURF_VARS]
+              + [(v, p.trst_cad, 0.0, v in names)
+                 for v in prov.RESTORE_VARS]
               + [(v, p.tbc, toff, True) for v in prov.BRY_2D + prov.BRY_3D])
-    names = set(p.source.names())
-    series = [x for x in series if x[0] in names]
+    # the default restoring rate, one constant record, where the restoring
+    # series come without one (the provider's default_taurstr)
+    tau = (("trstr" in names or "srstr" in names)
+           and "taurstr" not in names)
+    series = [x for x in series if x[0] in names
+              or (tau and x[0] == "taurstr")]
     if not series:
         return None
     stacks, starts = [], []
     for v, cad, off, _ in series:
+        if v not in names:
+            stacks.append(p.default_taurstr().to(dtype)[None])
+            starts.append(0)
+            continue
         nrec = p.source.nrec(v)
         if windowed:
             n0 = max(int(np.floor((t0_days + off) / cad)) - 1, 0)

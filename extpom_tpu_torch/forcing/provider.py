@@ -14,8 +14,10 @@ in-memory data, ``io.netcdf.NcForcingSource`` NetCDF series,
 ``native.recordio.NativeRecordSource`` directories of ``.efr`` files.
 
 A series name the provider does not know raises ``ValueError`` at
-construction; the interior restoring series raise ``NotImplementedError``
-until interior restoring is ported.
+construction.  The interior restoring series ``trstr``/``srstr``/``taurstr``
+(``do_restore``) come in 30-day records, interpolated linearly;
+``taurstr`` defaults to the constant 1/TRST [1/day] where the source has
+none (bounds_forcing.f:1036-1094).
 """
 
 from __future__ import annotations
@@ -46,19 +48,14 @@ RESTORE_VARS = ("trstr", "srstr", "taurstr")           # .clim restore series
 BRY_SIDES = ("w", "e", "s", "n")
 BRY_2D = tuple(f"el{s}" for s in BRY_SIDES)            # zeta.* series
 BRY_3D = tuple(f"{v}b{s}" for v in ("t", "s", "u", "v") for s in BRY_SIDES)
-KNOWN_VARS = WIND_VARS + HEAT_VARS + SURF_VARS + WATER_VARS + BRY_2D + BRY_3D
+KNOWN_VARS = (WIND_VARS + HEAT_VARS + SURF_VARS + WATER_VARS + RESTORE_VARS
+              + BRY_2D + BRY_3D)
 
 
 def check_names(names) -> None:
-    """Raise for a series the provider cannot serve: the restoring series
-    (``NotImplementedError``: interior restoring is not ported) and any
-    name it does not know (``ValueError``; it is not dropped)."""
+    """Raise ``ValueError`` for a series the provider does not know (it is
+    not dropped)."""
     names = set(names)
-    restore = sorted(names & set(RESTORE_VARS))
-    if restore:
-        raise NotImplementedError(
-            f"forcing series {restore}: interior restoring (do_restore) is "
-            f"not ported yet")
     unknown = sorted(names - set(KNOWN_VARS))
     if unknown:
         raise ValueError(f"unknown forcing series {unknown}; known names: "
@@ -140,6 +137,7 @@ class ForcingProvider:
                  source=None, bry_cadence_days: float = TBC,
                  surf_cadence_days: float = TSURF,
                  water_cadence_days: float = TWATER,
+                 restore_cadence_days: float = TRST,
                  cont_bry_offset: int = 0, prefetch: bool = True):
         if source is not None:
             check_names(source.names())
@@ -150,6 +148,7 @@ class ForcingProvider:
         self.tbc = bry_cadence_days
         self.tsurf_cad = surf_cadence_days
         self.twater_cad = water_cadence_days
+        self.trst_cad = restore_cadence_days
         self.cont_bry_offset = cont_bry_offset
         self._pool = ThreadPoolExecutor(max_workers=1) if prefetch else None
         self._prefetched: Dict[tuple, object] = {}
@@ -188,6 +187,12 @@ class ForcingProvider:
         f = self._read(name, n + 1)
         return (1.0 - frac) * b + frac * f
 
+    def default_taurstr(self) -> torch.Tensor:
+        """The restoring rate where the source has no ``taurstr``: 1/trst
+        [1/day], one value broadcast over (kb, im, jm)."""
+        return torch.full((1, 1, 1), 1.0 / self.trst_cad,
+                          dtype=self.cfg.torch_dtype, device=self.grid.device)
+
     def _tensor(self, a) -> torch.Tensor:
         return torch.tensor(np.ascontiguousarray(a),
                             dtype=self.cfg.torch_dtype,
@@ -213,6 +218,16 @@ class ForcingProvider:
             if v in names:                    # (bounds_forcing.f:963-983)
                 n = int(np.floor(t_days / self.tsurf_cad))
                 upd[v] = self._tensor(self._read(v, n))
+
+        # interior restoring series, linearly interpolated; taurstr
+        # defaults to the constant 1/trst [1/day] (bounds_forcing.f:1043)
+        if "trstr" in names or "srstr" in names:
+            for v in RESTORE_VARS:
+                if v in names:
+                    upd[v] = self._tensor(self._interp(v, t_days,
+                                                       self.trst_cad))
+            if "taurstr" not in names:
+                upd["taurstr"] = self.default_taurstr()
 
         # lateral boundary series, offset by cont_bry
         toff = self.cont_bry_offset * self.tbc

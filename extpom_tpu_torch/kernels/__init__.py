@@ -5,14 +5,24 @@ to the plain version, CUDA tensors to the kernel (built from ``csrc/`` at
 first use by :mod:`extpom_tpu_torch.kernels.build`).  Each wrapper counts
 its kernel launches in :data:`LAUNCHES`; the variants for blocks of the
 decomposed step (``extchunk``, ``extwin_chunk``, ``phase_<p>_mesh``) count
-one per wrapper call.
+one per wrapper call.  The option instantiations of three phase kernels
+count under their own names (:data:`OPTION_VARIANTS`): lat's McCalpin
+variant ``phase_lat_npg2``, tracer's MPDATA/restoring variant
+``phase_tracer_options``, mom's ``file`` scheme ``phase_mom_file`` (each
+``_mesh`` on a block).  MPDATA's upstream steps (``nadv=2``), launched by
+the tracer phase before its tile, count one per launch under
+``phase_tracer_mpdata`` (``_mesh``).
 """
 
 PHASES = ("lat", "uvw", "tke", "tracer", "mom")
+OPTION_VARIANTS = ("phase_lat_npg2", "phase_tracer_options",
+                   "phase_mom_file", "phase_tracer_mpdata")
 LAUNCHES = {"tridiag": 0, "extloop": 0, "extwin": 0,
             **{f"phase_{p}": 0 for p in PHASES},
+            **{v: 0 for v in OPTION_VARIANTS},
             "extchunk": 0, "extwin_chunk": 0,
-            **{f"phase_{p}_mesh": 0 for p in PHASES}}
+            **{f"phase_{p}_mesh": 0 for p in PHASES},
+            **{f"{v}_mesh": 0 for v in OPTION_VARIANTS}}
 
 
 def reset_launches() -> None:

@@ -69,7 +69,15 @@ SIGNATURES = {
     # blocks; stream
     **{f"extpom_phase_{ph}_mesh_{t}": [_P, _P] + [_I] * 12 + [_P]
        for ph in TILED for t in ("f32", "f64")},
-    # f64, block variant, TI, TJ, kb, keep (tke, tracer: the orlanski
+    # MPDATA's steps of the tracer phase (csrc/phase_tracer.cu): pointer
+    # table, parameter table; kb, im, jm, adif, first; stream; on a block
+    # kb, im, jm, R, L, oi, oj, adif, first; stream
+    **{f"extpom_phase_tracer_mpdata_{t}": [_P, _P] + [_I] * 5 + [_P]
+       for t in ("f32", "f64")},
+    **{f"extpom_phase_tracer_mpdata_mesh_{t}": [_P, _P] + [_I] * 9 + [_P]
+       for t in ("f32", "f64")},
+    # f64, block variant, TI, TJ, kb, keep (bit 0: mom's and uvw's keep,
+    # tke's and tracer's orlanski variant; bit 1: lat's and tracer's option
     # variant); the six ints of column.cuh tile_info
     **{f"extpom_phase_{ph}_info": [_I] * 6 + [_P] for ph in TILED},
     # kernels launched by the uvw entries since the library loaded

@@ -4,9 +4,14 @@ counterparts of the phases of ``extpom_tpu/pallas/phases.py:_kernel``) and
 their plain PyTorch versions.
 
 Each ``phase_*`` has the signature of ``core/stepper.py``'s phase of the
-JAX package without the operands no kernel reads (``d`` of ``lat`` and
-``mom``, ``l`` of ``tke``; ``tracer`` takes ``ub`` as a keyword, read by
-the ``orlanski`` scheme only) and returns the same tuple.
+JAX package without the operand no kernel reads (``l`` of ``tke``;
+``tracer`` takes ``ub`` as a keyword, read by the ``orlanski`` scheme only)
+and returns the same tuple.  ``lat`` and ``mom`` take the depth ``d = h +
+el``, read by McCalpin's pressure gradient (``npg=2``) and by the ``file``
+scheme's ``bc_vel3d``.  Every option of the JAX phases runs in both
+versions: ``npg=2``, MPDATA (``nadv=2``, whose ``nitera`` upstream steps
+run as launches of their own before the tracer tile, :func:`mpdata`),
+interior restoring (``do_restore``) and ``bc_scheme="file"``.
 The ``*_plain`` versions run the ops of ``ops/`` and ``bc/``, whose Thomas
 solves are ``tridiag.thomas_plain``, so a plain phase launches no
 hand-written kernel, on the card either.
@@ -63,6 +68,9 @@ UVW_KEEP_BLOCKS = 2
 TILED = build.TILED
 _LAYOUT = ("kStages", "kHalo", "kOwn", "k2D", "kWide", "kFaces",
            "kStageFaces", "kScratch", "kKeep", "kKeepRing", "kMaxThreads")
+# ... and, where the source has it, the wide planes its option variant
+# adds (lat: McCalpin's d)
+_LAYOUT_OPT = ("kWideOpt",)
 
 
 @functools.lru_cache(maxsize=None)
@@ -76,11 +84,16 @@ def layout_constants(phase: str) -> dict:
     of the ring), kScratch (ee/gg rows per level in device scratch), kKeep
     (values per level a column keeps in shared memory when the tile keeps
     its levels), kKeepRing (1: a tile that keeps its levels holds kb-1
-    levels of the ring's fields instead of kStages) and kMaxThreads."""
+    levels of the ring's fields instead of kStages), kMaxThreads, and
+    kWideOpt (the wide planes of the option variant; 0 where the source
+    has none)."""
     src = (build.CSRC / f"phase_{phase}.cu").read_text()
-    return {name: int(re.search(rf"constexpr int {name} = (\d+);",
-                                src).group(1))
-            for name in _LAYOUT}
+    find = lambda name: re.search(rf"constexpr int {name} = (\d+);", src)
+    out = {name: int(find(name).group(1)) for name in _LAYOUT}
+    for name in _LAYOUT_OPT:
+        m = find(name)
+        out[name] = int(m.group(1)) if m else 0
+    return out
 
 
 class Tile(NamedTuple):
@@ -97,16 +110,19 @@ class Tile(NamedTuple):
     keep: bool
 
 
-def _smem(c: dict, ti: int, tj: int, kb: int, keep: bool) -> int:
+def _smem(c: dict, ti: int, tj: int, kb: int, keep: bool,
+          opt: bool = False) -> int:
     """Shared elements of a ti x tj tile by the kernel's ``layout``: the
     level ring (kb-1 levels deep where a kept tile keeps it), the 2-D
-    arrays, the wide window, the faces and the kept levels."""
+    arrays, the wide window (with the option variant's planes when
+    ``opt``), the faces and the kept levels."""
     hc, tc = (ti + 2) * (tj + 2), ti * tj
     fp = (ti + 1) * tj + ti * (tj + 1)
     stages = kb - 1 if keep and c["kKeepRing"] else c["kStages"]
+    wide = c["kWide"] + (c["kWideOpt"] if opt else 0)
     return (stages * (c["kHalo"] * hc + c["kOwn"] * tc
                       + c["kStageFaces"] * fp)
-            + c["k2D"] * hc + c["kWide"] * (ti + 4) * (tj + 4)
+            + c["k2D"] * hc + wide * (ti + 4) * (tj + 4)
             + c["kFaces"] * fp + (c["kKeep"] * kb * tc if keep else 0))
 
 
@@ -117,13 +133,13 @@ def _keeps(c: dict) -> bool:
 
 
 def column_tile(kb: int, dtype: torch.dtype, phase: str, ti=None, tj=None,
-                keep: bool = False) -> Tile:
+                keep: bool = False, opt: bool = False) -> Tile:
     """The tile of the ``phase`` kernel (one of :data:`TILED`) at ``kb``
     levels in ``dtype``: :data:`TILE` (uvw :data:`UVW_TILE`) unless
     ``ti``/``tj`` are given; with ``keep`` a kernel that can (mom, uvw)
-    keeps each column's levels in shared memory.  Raises ValueError where
-    the tile breaks the kernel's rules or does not fit a block's shared
-    memory."""
+    keeps each column's levels in shared memory; ``opt`` sizes the option
+    variant (:func:`variant`).  Raises ValueError where the tile breaks
+    the kernel's rules or does not fit a block's shared memory."""
     if phase not in TILED:
         raise ValueError(f"column_tile: no tile kernel for phase {phase!r}")
     c = layout_constants(phase)
@@ -134,7 +150,7 @@ def column_tile(kb: int, dtype: torch.dtype, phase: str, ti=None, tj=None,
         raise ValueError(f"column_tile: a {ti}x{tj} tile needs TJ a multiple "
                          f"of 32 and at most {c['kMaxThreads']} columns")
     keep = bool(keep) and _keeps(c)
-    smem = _smem(c, ti, tj, kb, keep) * item
+    smem = _smem(c, ti, tj, kb, keep, opt) * item
     if smem > SMEM_BYTES:
         raise ValueError(
             f"column_tile: phase {phase} in {dtype} with a {ti}x{tj} tile "
@@ -158,27 +174,62 @@ def _tile_info(phase: str, f64: bool, mesh: bool, ti: int, tj: int, kb: int,
 
 
 def tile_info(phase: str, dtype: torch.dtype, tile: Tile, mesh: bool = False,
-              device=None, orl: bool = False) -> dict:
+              device=None, orl: bool = False, opt: bool = False) -> dict:
     """What the compiler and the card give the ``phase`` tile kernel with
     ``tile``: registers per thread, static and dynamic shared bytes,
     resident blocks per SM, spill bytes per thread and the SMs of the card
     (from ``cudaFuncGetAttributes`` and
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); with ``orl`` of tke
-    or tracer, their orlanski variant's.  Builds the kernels; needs a CUDA
+    or tracer, their orlanski variant's; with ``opt``, the option variant
+    of lat or tracer (:func:`variant`).  Builds the kernels; needs a CUDA
     device."""
     device = torch.device("cuda" if device is None else device)
     index = device.index if device.index is not None else \
         torch.cuda.current_device()
-    # the entry's last option is mom's and uvw's keep, tke's and tracer's
-    # orlanski variant
+    # the entry's last option: bit 0 mom's and uvw's keep, tke's and
+    # tracer's orlanski variant; bit 1 the option variant
     return dict(_tile_info(phase, dtype == torch.float64, mesh, tile.ti,
-                           tile.tj, tile.kb, tile.keep or orl, index))
+                           tile.tj, tile.kb,
+                           int(tile.keep or orl) | (2 if opt else 0), index))
+
+
+def variant(phase: str, cfg: Config) -> bool:
+    """Whether ``cfg`` runs the option variant of the ``phase`` tile
+    kernel: lat's McCalpin pressure gradient (``npg=2``), tracer's MPDATA
+    or restoring (``nadv=2``, ``do_restore``).  mom's ``file`` scheme
+    changes its perimeter launch only."""
+    if phase == "lat":
+        return cfg.npg == 2
+    if phase == "tracer":
+        return cfg.nadv == 2 or cfg.do_restore
+    return False
+
+
+def counter(phase: str, cfg: Config) -> str:
+    """The name a launch of the ``phase`` kernel under ``cfg`` counts under
+    in ``kernels.LAUNCHES`` (``_mesh`` added on a block): the option
+    instantiation's own (lat's McCalpin variant ``phase_lat_npg2``,
+    tracer's ``phase_tracer_options``, mom's ``file`` perimeter
+    ``phase_mom_file``), else ``phase_<phase>``."""
+    if variant(phase, cfg):
+        return "phase_lat_npg2" if phase == "lat" else "phase_tracer_options"
+    if phase == "mom" and cfg.bc_scheme == "file":
+        return "phase_mom_file"
+    return f"phase_{phase}"
+
+
+def reads_depth(phase: str, cfg: Config) -> bool:
+    """Whether the ``phase`` under ``cfg`` reads the depth ``d = h + el``:
+    lat's McCalpin pressure gradient, mom's ``file`` scheme ``bc_vel3d``;
+    elsewhere ``d`` may be None."""
+    return ((phase == "lat" and cfg.npg == 2)
+            or (phase == "mom" and cfg.bc_scheme == "file"))
 
 
 @functools.lru_cache(maxsize=None)
 def plan_tile(phase: str, dtype: torch.dtype, kb: int, R: int, L: int,
               mesh: bool = False, device=None, ti=None, tj=None,
-              keep=None) -> tuple:
+              keep=None, opt: bool = False) -> tuple:
     """(tile, blocks) of a launch of the ``phase`` tile kernel on (kb, R, L)
     operands: the resident blocks the card gives the tile, at most one per
     tile; uvw one block per tile (its blocks, persistent, drifted apart in
@@ -187,7 +238,7 @@ def plan_tile(phase: str, dtype: torch.dtype, kb: int, R: int, L: int,
     still cover every tile: the kept levels save device traffic, and the
     fewer blocks per SM cost nothing when one wave runs the grid.  uvw
     keeps them where :data:`UVW_KEEP_BLOCKS` blocks of the kept tile fit an
-    SM."""
+    SM.  ``opt`` plans the option variant (:func:`variant`)."""
     device = torch.device("cuda" if device is None else device)
     tiles = lambda t: -(-R // t.ti) * -(-L // t.tj)
     if keep is None:
@@ -202,8 +253,9 @@ def plan_tile(phase: str, dtype: torch.dtype, kb: int, R: int, L: int,
                 keep = (info["blocks_per_sm"] >= UVW_KEEP_BLOCKS
                         if phase == "uvw" else
                         info["blocks_per_sm"] * info["sms"] >= tiles(kept))
-    tile = column_tile(kb, dtype, phase, ti, tj, keep)
-    info = tile_info(phase, dtype, tile, mesh, device)
+    tile = column_tile(kb, dtype, phase, ti, tj, keep, opt)
+    info = tile_info(phase, dtype, tile, mesh, device,
+                     **({"opt": True} if opt else {}))
     if info["blocks_per_sm"] < 1:
         raise RuntimeError(f"phase_{phase}: a {tile.ti}x{tile.tj} tile does "
                            f"not fit an SM ({info})")
@@ -212,15 +264,17 @@ def plan_tile(phase: str, dtype: torch.dtype, kb: int, R: int, L: int,
     return tile, min(tiles(tile), info["blocks_per_sm"] * info["sms"])
 
 
-def _tile_launch(phase: str, kb: int, x: torch.Tensor, off, tile) -> tuple:
+def _tile_launch(phase: str, kb: int, x: torch.Tensor, off, tile,
+                 opt: bool = False) -> tuple:
     """(geometry ints, scratch, keep) of a launch of the ``phase`` tile
-    kernel with ``tile`` (the planned one when None) on operands like
-    ``x``: TI, TJ and the blocks; the ee/gg scratch of every block (none
-    for a kernel without a solve); whether the tile keeps its levels."""
+    kernel (its option variant when ``opt``) with ``tile`` (the planned one
+    when None) on operands like ``x``: TI, TJ and the blocks; the ee/gg
+    scratch of every block (none for a kernel without a solve); whether
+    the tile keeps its levels."""
     tile, blocks = plan_tile(phase, x.dtype, kb, *x.shape[-2:],
                              off is not None, x.device,
                              *(tile[:2] if tile else (None, None)),
-                             tile.keep if tile else None)
+                             tile.keep if tile else None, opt)
     scratch = [torch.empty(blocks * tile.scratch // x.element_size(),
                            dtype=x.dtype, device=x.device)] \
         if tile.scratch else []
@@ -230,20 +284,6 @@ def _tile_launch(phase: str, kb: int, x: torch.Tensor, off, tile) -> tuple:
 # ---------------------------------------------------------------------------
 # plain PyTorch versions
 # ---------------------------------------------------------------------------
-
-
-def _plain_checks(phase: str, cfg: Config) -> None:
-    """The options the port has not ported yet, in either version."""
-    if phase == "lat" and cfg.npg != 1:
-        raise NotImplementedError("npg=2 (baropg_mcc) is not ported yet")
-    if phase == "tracer":
-        if cfg.nadv != 1:
-            raise NotImplementedError("nadv=2 (MPDATA) is not ported yet")
-        if cfg.do_restore:
-            raise NotImplementedError("interior restoring is not ported yet")
-    if phase == "mom" and cfg.bc_scheme == "file":
-        raise NotImplementedError("bc_vel3d (bc_scheme='file') is not "
-                                  "ported yet")
 
 
 def _depth_sum(x, dz3, kbm1: int):
@@ -257,12 +297,15 @@ def _depth_sum(x, dz3, kbm1: int):
 
 
 def phase_lat_plain(grid, cfg: Config, u, v, ub, vb, aam0, rho, rmean, dt,
-                    ramp):
+                    d, ramp):
     """Lateral viscosity + 3-D advection/pressure terms (advance.f:96-141)
-    -> (aam, advx, advy, drhox, drhoy)."""
-    _plain_checks("lat", cfg)
+    -> (aam, advx, advy, drhox, drhoy); ``d`` is read by ``npg=2``."""
     advx, advy = momentum.advct(grid, cfg, u, v, ub, vb, aam0, dt)
-    drhox, drhoy = pressure.baropg(grid, cfg, rho, rmean, dt, ramp)
+    if cfg.npg == 1:
+        drhox, drhoy = pressure.baropg(grid, cfg, rho, rmean, dt, ramp)
+    else:
+        drhox, drhoy = pressure.baropg_mcc(grid, cfg, rho, rmean, d, dt,
+                                           ramp)
     dx, dy = grid.dx, grid.dy
     aam_new = (cfg.horcon * dx * dy
                * torch.sqrt(((sft(u, 1, 0) - u) / dx) ** 2
@@ -300,7 +343,6 @@ def phase_tke_plain(grid, cfg: Config, q2, q2b, q2l, q2lb, u, v, w, aam, t,
                     s, rho, km, kh, kq, dt, etb, etf, wubot, wvbot, fc):
     """TKE advection + MY-2.5 closure + BC + Asselin (advance.f:406-421)
     -> (q2, q2b, q2l, q2lb, km, kh, kq, l)."""
-    _plain_checks("tke", cfg)
     q2f = tracers.advq(grid, cfg, q2b, q2, u, v, w, aam, dt, etb, etf)
     q2lf = tracers.advq(grid, cfg, q2lb, q2l, u, v, w, aam, dt, etb, etf)
     (q2f, q2lf, km, kh, kq, l, q2b, q2lb) = vertical.profq(
@@ -317,12 +359,12 @@ def phase_tke_plain(grid, cfg: Config, q2, q2b, q2l, q2lb, u, v, w, aam, t,
 
 def phase_tracer_plain(grid, cfg: Config, t, tb, s, sb, tclim, sclim, u, v,
                        w, aam, kh, dt, etb, etf, fc, ub=None):
-    """Tracer advection + implicit diffusion + BC + Asselin + EOS
-    (advance.f:424-456) -> (t, tb, s, sb, rho); ``ub`` (the old u) is read
-    by the ``orlanski`` scheme's edges only."""
-    _plain_checks("tracer", cfg)
-    tf = tracers.advt1(grid, cfg, tb, t, tclim, u, v, w, aam, dt, etb, etf)
-    sf = tracers.advt1(grid, cfg, sb, s, sclim, u, v, w, aam, dt, etb, etf)
+    """Tracer advection + implicit diffusion + BC + Asselin + restoring +
+    EOS (advance.f:424-456) -> (t, tb, s, sb, rho); ``ub`` (the old u) is
+    read by the ``orlanski`` scheme's edges only."""
+    adv = tracers.advt1 if cfg.nadv == 1 else tracers.advt2
+    tf = adv(grid, cfg, tb, t, tclim, u, v, w, aam, dt, etb, etf)
+    sf = adv(grid, cfg, sb, s, sclim, u, v, w, aam, dt, etb, etf)
     tf = vertical.proft(grid, cfg, tf, fc.wtsurf, fc.tsurf, cfg.nbct, kh,
                         etf, fc.swrad)
     sf = vertical.proft(grid, cfg, sf, fc.wssurf, fc.ssurf, cfg.nbcs, kh,
@@ -335,16 +377,32 @@ def phase_tracer_plain(grid, cfg: Config, t, tb, s, sb, tclim, sclim, u, v,
     t = t + 0.5 * cfg.smoth * (tf + tb - 2.0 * t)
     s = s + 0.5 * cfg.smoth * (sf + sb - 2.0 * s)
     tb, t, sb, s = t, tf, s, sf
+    if cfg.do_restore:
+        t, tb, s, sb = restore(grid, cfg, t, tb, s, sb, fc)
     rho = density.dens(grid, cfg, s, t)
     return t, tb, s, sb, rho
 
 
+def restore(grid, cfg: Config, t, tb, s, sb, fc):
+    """Interior restoring toward ``fc.trstr``/``fc.srstr`` at the rate
+    ``fc.taurstr`` [1/day], on levels k < kbm1 of every column, times fsm
+    (bounds_forcing.f:1097-1118) -> (t, tb, s, sb)."""
+    fac = 2.0 * cfg.dti / 86400.0 * fc.taurstr
+    KM1 = slice(0, cfg.kbm1)
+    A = (slice(None), slice(None))
+    t = put(t, (t + fac * (fc.trstr - t)) * grid.fsm, KM1, *A)
+    tb = put(tb, (tb + fac * (fc.trstr - tb)) * grid.fsm, KM1, *A)
+    s = put(s, (s + fac * (fc.srstr - s)) * grid.fsm, KM1, *A)
+    sb = put(sb, (sb + fac * (fc.srstr - sb)) * grid.fsm, KM1, *A)
+    return t, tb, s, sb
+
+
 def phase_mom_plain(grid, cfg: Config, u, ub, v, vb, w, advx, advy, drhox,
-                    drhoy, km, dt, egf, egb, etb, etf, fc):
+                    drhoy, km, dt, egf, egb, etb, etf, d, fc):
     """Momentum advection + implicit vertical diffusion + BC + Asselin with
     depth-mean correction (advance.f:459-521)
-    -> (u, ub, v, vb, wubot, wvbot)."""
-    _plain_checks("mom", cfg)
+    -> (u, ub, v, vb, wubot, wvbot); ``d`` is read by the ``file``
+    scheme's ``bc_vel3d``."""
     kbm1 = cfg.kbm1
     dz3 = grid.dz3
     uf = momentum.advu(grid, cfg, u, ub, v, w, advx, drhox, dt,
@@ -353,7 +411,10 @@ def phase_mom_plain(grid, cfg: Config, u, ub, v, vb, w, advx, advy, drhox,
                        egf, egb, fc.e_atmos, etb, etf)
     uf, wubot = vertical.profu(grid, cfg, uf, ub, vb, km, etf, fc.wusurf)
     vf, wvbot = vertical.profv(grid, cfg, vf, ub, vb, km, etf, fc.wvsurf)
-    uf, vf = bco.orl_vel3d(grid, cfg, uf, vf, u, ub, v, vb)
+    if cfg.bc_scheme == "file":
+        uf, vf = bcf.bc_vel3d(grid, cfg, uf, vf, u, v, d, fc)
+    else:
+        uf, vf = bco.orl_vel3d(grid, cfg, uf, vf, u, ub, v, vb)
 
     tps = _depth_sum(uf + ub - 2.0 * u, dz3, kbm1)
     u = u + 0.5 * cfg.smoth * (uf + ub - 2.0 * u - tps)
@@ -369,7 +430,7 @@ def phase_mom_plain(grid, cfg: Config, u, ub, v, vb, w, advx, advy, drhox,
 # each phase's operands after (grid, cfg); the first _N3 are (kb, im, jm),
 # the others (im, jm) but for the 0-d ramp and the Forcing fc
 _ARGS = {
-    "lat": ("u", "v", "ub", "vb", "aam0", "rho", "rmean", "dt", "ramp"),
+    "lat": ("u", "v", "ub", "vb", "aam0", "rho", "rmean", "dt", "d", "ramp"),
     "uvw": ("u", "v", "w", "dt", "utb", "vtb", "utf", "vtf", "etb", "etf",
             "vfluxb", "vflux"),
     "tke": ("q2", "q2b", "q2l", "q2lb", "u", "v", "w", "aam", "t", "s", "rho",
@@ -377,7 +438,7 @@ _ARGS = {
     "tracer": ("t", "tb", "s", "sb", "tclim", "sclim", "u", "v", "w", "aam",
                "kh", "dt", "etb", "etf", "fc"),
     "mom": ("u", "ub", "v", "vb", "w", "advx", "advy", "drhox", "drhoy",
-            "km", "dt", "egf", "egb", "etb", "etf", "fc"),
+            "km", "dt", "egf", "egb", "etb", "etf", "d", "fc"),
 }
 _N3 = {"lat": 7, "uvw": 3, "tke": 14, "tracer": 11, "mom": 10}
 # forcing fields the kernel reads: (im, jm), (kb, jm), (kb, im)
@@ -387,9 +448,13 @@ _FC = {
                ("tbw", "tbe", "sbw", "sbe"), ("tbs", "tbn", "sbs", "sbn")),
     "mom": (("e_atmos", "wusurf", "wvsurf"), (), ()),
 }
+# ... and those the options add: the file scheme's velocity profiles (mom),
+# the restoring series (tracer; taurstr may be one broadcast value)
+_FC_FILE = ((), ("ubw", "ube", "vbw", "vbe"), ("ubs", "ubn", "vbs", "vbn"))
+RESTORE = ("trstr", "srstr", "taurstr")
 # grid fields the kernel reads: (im, jm), (kb,)
 _GRID = {
-    "lat": (("dx", "dy", "aru", "arv", "dum", "dvm"), ("zz",)),
+    "lat": (("dx", "dy", "aru", "arv", "dum", "dvm"), ("zz", "dzz")),
     "uvw": (("dx", "dy", "fsm"), ("dz",)),
     "tke": (("h", "dx", "dy", "art", "dum", "dvm", "fsm"),
             ("z", "zz", "dz", "dzz")),
@@ -400,10 +465,20 @@ _GRID = {
 }
 
 
+def _fc_groups(phase: str, cfg: Config) -> tuple:
+    """The forcing fields the ``phase`` kernel reads under ``cfg``, as
+    ((im, jm), (kb, jm), (kb, im)) name groups."""
+    groups = _FC.get(phase, ((), (), ()))
+    if phase == "mom" and cfg.bc_scheme == "file":
+        groups = tuple(a + b for a, b in zip(groups, _FC_FILE))
+    return groups
+
+
 def kernel_inputs(phase: str, grid, cfg: Config, *args) -> list:
     """The tensors the phase's kernel reads, in its pointer-table order:
-    the state operands, the ramp, the forcing fields, then the grid
-    fields."""
+    the state operands (``d`` may be None, a null pointer), the ramp, the
+    forcing fields, then the grid fields; :func:`option_inputs` gives the
+    operands the options add."""
     named = dict(zip(_ARGS[phase], args))
     fc, ramp = named.pop("fc", None), named.pop("ramp", None)
     out = list(named.values())
@@ -412,7 +487,23 @@ def kernel_inputs(phase: str, grid, cfg: Config, *args) -> list:
     for group in _FC.get(phase, ()):
         out += [getattr(fc, n) for n in group]
     two, one = _GRID[phase]
-    return out + [getattr(grid, n) for n in two + one]
+    out += [getattr(grid, n) for n in two + one]
+    return out
+
+
+def option_inputs(phase: str, grid, cfg: Config, fc) -> list:
+    """The operands the options add to the phase's pointer table, after
+    its outputs and scratch, None (a null pointer) where the option is
+    off: mom's ``file`` series and ``grid.hmax``, tracer's restoring
+    series."""
+    if phase == "mom":
+        on = cfg.bc_scheme == "file"
+        return ([getattr(fc, n) for n in _FC_FILE[1] + _FC_FILE[2]]
+                + [grid.hmax] if on else [None] * 9)
+    if phase == "tracer":
+        return ([getattr(fc, n) for n in RESTORE] if cfg.do_restore
+                else [None] * 3)
+    return []
 
 
 def _check(phase: str, grid, cfg: Config, args, off=None) -> torch.device:
@@ -437,14 +528,23 @@ def _check(phase: str, grid, cfg: Config, args, off=None) -> torch.device:
     for k, (n, x) in enumerate(zip(_ARGS[phase], args)):
         if n == "fc":
             sides = ((im, jm), (kb, jm), (kb, im))
-            for group, sh in zip(_FC.get(phase, ()), sides):
+            for group, sh in zip(_fc_groups(phase, cfg), sides):
                 named += [(f, getattr(x, f), sh) for f in group]
-        else:
+            if phase == "tracer" and cfg.do_restore:
+                tau = x.taurstr
+                one = isinstance(tau, torch.Tensor) and tau.numel() == 1
+                named += [(f, getattr(x, f), (kb, im, jm))
+                          for f in RESTORE[:2]]
+                named.append(("taurstr", tau,
+                              tuple(tau.shape) if one else (kb, im, jm)))
+        elif not (n == "d" and x is None and not reads_depth(phase, cfg)):
             named.append((n, x, shape.get(n, (kb, im, jm) if k < _N3[phase]
                                           else (im, jm))))
     two, one = _GRID[phase]
     named += ([(n, getattr(grid, n), (im, jm)) for n in two]
               + [(n, getattr(grid, n), (kb,)) for n in one])
+    if phase == "mom" and cfg.bc_scheme == "file":
+        named.append(("hmax", grid.hmax, ()))
     for name, x, sh in named:
         if not isinstance(x, torch.Tensor):
             raise TypeError(f"phase_{phase}: {name} must be a tensor")
@@ -478,18 +578,22 @@ def _tke_params(cfg: Config) -> list:
 
 
 def _launch(phase: str, tensors, prm, cfg: Config, opt0=0, opt1=0,
-            off=None, geo=()) -> None:
+            off=None, geo=(), entry=None, count=None) -> None:
     """Call ``extpom_phase_<phase>_<f32|f64>`` (``extpom_phase_<phase>_mesh_
-    <f32|f64>`` on a block at ``off``) with a pointer table of ``tensors``
-    (None a null pointer), a parameter table of the doubles ``prm`` and the
-    geometry integers ``geo`` of the tile kernels."""
-    x = tensors[0]
+    <f32|f64>`` on a block at ``off``; ``extpom_<entry>_...`` for another
+    entry of the phase's source) with a pointer table of ``tensors`` (None
+    a null pointer), a parameter table of the doubles ``prm`` and the
+    geometry integers ``geo`` of the tile kernels; counts one launch under
+    ``count`` (:func:`counter`'s name) or the entry's name, ``_mesh``
+    added on a block."""
+    x = next(t for t in tensors if t is not None)
     ptrs = (ctypes.c_void_p * len(tensors))(
         *[None if t is None else t.data_ptr() for t in tensors])
     params = (ctypes.c_double * len(prm))(*prm)
     lib = build.library()
     suffix = "f32" if x.dtype == torch.float32 else "f64"
-    name = f"phase_{phase}" if off is None else f"phase_{phase}_mesh"
+    name = entry or f"phase_{phase}"
+    name = name if off is None else f"{name}_mesh"
     fn = getattr(lib, f"extpom_{name}_{suffix}")
     block = () if off is None else (*x.shape[-2:], *off)
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -498,7 +602,8 @@ def _launch(phase: str, tensors, prm, cfg: Config, opt0=0, opt1=0,
                     ctypes.cast(params, ctypes.c_void_p), cfg.kb, cfg.im,
                     cfg.jm, *block, opt0, opt1, *geo, stream)
     build.check(status, f"{name} kernel")
-    kernels.LAUNCHES[name] += 1
+    count = count or entry or f"phase_{phase}"
+    kernels.LAUNCHES[count if off is None else f"{count}_mesh"] += 1
 
 
 def _plain(phase: str, grid, cfg: Config, args, off, **kw):
@@ -522,19 +627,21 @@ def _empty(like: torch.Tensor, n: int) -> list:
 # ---------------------------------------------------------------------------
 
 
-def phase_lat(grid, cfg: Config, u, v, ub, vb, aam0, rho, rmean, dt, ramp,
-              off=None, tile=None):
+def phase_lat(grid, cfg: Config, u, v, ub, vb, aam0, rho, rmean, dt, d,
+              ramp, off=None, tile=None):
     """-> (aam, advx, advy, drhox, drhoy); CUDA tensors launch
-    ``csrc/phase_lat.cu`` with ``tile`` (:func:`column_tile`'s by default),
-    CPU tensors run :func:`phase_lat_plain`."""
-    args = (u, v, ub, vb, aam0, rho, rmean, dt, ramp)
+    ``csrc/phase_lat.cu`` (its McCalpin variant under ``npg=2``) with
+    ``tile`` (:func:`column_tile`'s by default), CPU tensors run
+    :func:`phase_lat_plain`; ``d`` may be None unless ``npg=2``."""
+    args = (u, v, ub, vb, aam0, rho, rmean, dt, d, ramp)
     if _check("lat", grid, cfg, args, off).type == "cpu":
         return _plain("lat", grid, cfg, args, off)
-    _plain_checks("lat", cfg)
     out = _empty(u, 5)
-    geo, _, _ = _tile_launch("lat", cfg.kb, u, off, tile)
+    mcc = variant("lat", cfg)
+    geo, _, _ = _tile_launch("lat", cfg.kb, u, off, tile, mcc)
     _launch("lat", kernel_inputs("lat", grid, cfg, *args) + out,
-            [cfg.horcon, cfg.grav], cfg, off=off, geo=geo)
+            [cfg.horcon, cfg.grav], cfg, int(mcc), off=off, geo=geo,
+            count=counter("lat", cfg))
     return tuple(out)
 
 
@@ -569,7 +676,6 @@ def phase_tke(grid, cfg: Config, q2, q2b, q2l, q2lb, u, v, w, aam, t, s, rho,
             etf, wubot, wvbot, fc)
     if _check("tke", grid, cfg, args, off).type == "cpu":
         return _plain("tke", grid, cfg, args, off)
-    _plain_checks("tke", cfg)
     out = _empty(q2, 8)
     geo, eg, _ = _tile_launch("tke", cfg.kb, q2, off, tile)
     _launch("tke", kernel_inputs("tke", grid, cfg, *args) + out + eg,
@@ -578,10 +684,71 @@ def phase_tke(grid, cfg: Config, q2, q2b, q2l, q2lb, u, v, w, aam, t, s, rho,
     return tuple(out)
 
 
+def mpdata_radius(cfg: Config) -> int:
+    """Cells of the inputs that MPDATA's result at a cell reads along i
+    and j: each of the ``nitera`` upstream steps reads the previous field
+    and the antidiffusive velocities one cell either way, and those read
+    the previous field at i-1 (j-1) and i (j), so the field after n steps
+    reaches n cells; the closing diffusion reads fb and aam one cell
+    away."""
+    return max(cfg.nitera, 1)
+
+
+def mpdata(grid, cfg: Config, t, tb, s, sb, u, v, w, dt, etb, etf,
+           off=None) -> tuple:
+    """The ``nitera`` MPDATA upstream steps of T and S (``ops/tracers.py:
+    advt2`` before its closing diffusion) -> (F_t, F_s), ff after the last
+    step's fsm mask.  CUDA tensors launch ``csrc/phase_tracer.cu``'s
+    ``k_mpdata_upwind`` per step and ``k_mpdata_adif`` between steps (the
+    last step's antidiffusive velocities are read by nothing), T and S in
+    each launch: 2 nitera - 1 launches counted under
+    ``phase_tracer_mpdata`` (``_mesh`` on a block); CPU tensors run
+    :func:`mpdata_plain`.  ``off`` as the phases'."""
+    if t.device.type == "cpu":
+        if off is None:
+            return mpdata_plain(grid, cfg, t, tb, s, sb, u, v, w, dt, etb,
+                                etf)
+        with domain(DomainCtx(cfg.im, cfg.jm, *off)):
+            return mpdata_plain(grid, cfg, t, tb, s, sb, u, v, w, dt, etb,
+                                etf)
+    return _mpdata_launch(grid, cfg, t, tb, s, sb, u, v, w, dt, etb, etf,
+                          off)
+
+
+def mpdata_plain(grid, cfg: Config, t, tb, s, sb, u, v, w, dt, etb,
+                 etf) -> tuple:
+    """:func:`mpdata`'s plain version: advt2's upstream steps of T and
+    S."""
+    return tuple(tracers.mpdata_steps(grid, cfg, fb, f, u, v, w, dt, etb,
+                                      etf)[0] for f, fb in ((t, tb), (s, sb)))
+
+
+def _mpdata_launch(grid, cfg: Config, t, tb, s, sb, u, v, w, dt, etb, etf,
+                   off) -> tuple:
+    """:func:`mpdata` on CUDA tensors: the launches into fresh fields."""
+    ff = [_empty(t, 2), _empty(t, 2)]      # [step parity][tracer]
+    flux = _empty(t, 6)                    # xm, ym, zw of T, then of S
+    ins = [t, s, tb, sb, u, v, w, dt, etb, etf, grid.h, grid.dx, grid.dy,
+           grid.art, grid.aru, grid.arv, grid.fsm, grid.dz, grid.dzz]
+    prm = [cfg.dti2, cfg.sw, tracers.MPDATA_VALUE_MIN,
+           tracers.MPDATA_EPSILON]
+    for it in range(cfg.nitera):
+        prev = [None, None] if it == 0 else ff[(it - 1) % 2]
+        _launch("tracer", ins + prev + ff[it % 2] + flux, prm, cfg, 0,
+                int(it == 0), off=off, entry="phase_tracer_mpdata")
+        if it + 1 < cfg.nitera:
+            _launch("tracer", ins + ff[it % 2] + [None, None] + flux, prm,
+                    cfg, 1, int(it == 0), off=off,
+                    entry="phase_tracer_mpdata")
+    return tuple(ff[(cfg.nitera - 1) % 2])
+
+
 def phase_tracer(grid, cfg: Config, t, tb, s, sb, tclim, sclim, u, v, w,
                  aam, kh, dt, etb, etf, fc, off=None, tile=None, ub=None):
     """-> (t, tb, s, sb, rho); CUDA tensors launch ``csrc/phase_tracer.cu``
-    with ``tile`` (:func:`column_tile`'s by default), CPU tensors run
+    (under ``nadv=2`` after :func:`mpdata`'s launches, and its option
+    variant under ``nadv=2`` or ``do_restore``) with ``tile``
+    (:func:`column_tile`'s by default), CPU tensors run
     :func:`phase_tracer_plain`.  ``ub`` (kb, im, jm), the old u, is an
     operand of the ``orlanski`` scheme only."""
     args = (t, tb, s, sb, tclim, sclim, u, v, w, aam, kh, dt, etb, etf, fc)
@@ -594,44 +761,56 @@ def phase_tracer(grid, cfg: Config, t, tb, s, sb, tclim, sclim, u, v, w,
                          "contiguous tensor like t")
     if device.type == "cpu":
         return _plain("tracer", grid, cfg, args, off, ub=ub)
-    _plain_checks("tracer", cfg)
     for nbc in (cfg.nbct, cfg.nbcs):
         if nbc not in (1, 2, 3, 4):
             raise ValueError(f"invalid nbc {nbc}")
+    # MPDATA's upstream steps (null: the tile forms advt1 itself)
+    adv = list(_mpdata_launch(grid, cfg, t, tb, s, sb, u, v, w, dt, etb,
+                              etf, off)
+               if cfg.nadv == 2 else (None, None))
+    opt = variant("tracer", cfg)
     out = _empty(t, 5)
     ntp = cfg.ntp - 1
-    geo, eg, _ = _tile_launch("tracer", cfg.kb, t, off, tile)
+    geo, eg, _ = _tile_launch("tracer", cfg.kb, t, off, tile, opt)
     # orl_ts (selected by a non-null ub): the old u, and the strip of the
     # solved T and S one cell inside each edge for the perimeter launch
     # (2 tracers x 2 sides x kb rows of L, then of R)
     R, L = t.shape[-2:]
     edge = [ub, t.new_empty(4 * cfg.kb * (R + L))] if orl else [None, None]
-    _launch("tracer",
-            kernel_inputs("tracer", grid, cfg, *args) + out + eg + edge,
+    # the restoring series (selected by a non-null trstr), null otherwise
+    _launch("tracer", kernel_inputs("tracer", grid, cfg, *args) + out + eg
+            + edge + option_inputs("tracer", grid, cfg, fc) + adv,
             [cfg.dti2, cfg.dti, cfg.tprni, cfg.umol, cfg.smoth, cfg.tbias,
              cfg.sbias, cfg.grav, cfg.rhoref, vertical._R_JERLOV[ntp],
-             vertical._AD1_JERLOV[ntp], vertical._AD2_JERLOV[ntp]],
-            cfg, cfg.nbct, cfg.nbcs, off=off, geo=geo)
+             vertical._AD1_JERLOV[ntp], vertical._AD2_JERLOV[ntp],
+             2.0 * cfg.dti / 86400.0,
+             float(cfg.do_restore and fc.taurstr.numel() == 1)],
+            cfg, cfg.nbct, cfg.nbcs, off=off, geo=geo,
+            count=counter("tracer", cfg))
     return tuple(out)
 
 
 def phase_mom(grid, cfg: Config, u, ub, v, vb, w, advx, advy, drhox, drhoy,
-              km, dt, egf, egb, etb, etf, fc, off=None, tile=None):
+              km, dt, egf, egb, etb, etf, d, fc, off=None, tile=None):
     """-> (u, ub, v, vb, wubot, wvbot); CUDA tensors launch
-    ``csrc/phase_mom.cu`` with ``tile`` (:func:`column_tile`'s by default),
-    CPU tensors run :func:`phase_mom_plain`."""
+    ``csrc/phase_mom.cu`` (its perimeter launch takes ``bc_vel3d`` under
+    the ``file`` scheme) with ``tile`` (:func:`column_tile`'s by default),
+    CPU tensors run :func:`phase_mom_plain`; ``d`` may be None unless the
+    scheme is ``file``."""
     args = (u, ub, v, vb, w, advx, advy, drhox, drhoy, km, dt, egf, egb, etb,
-            etf, fc)
+            etf, d, fc)
     if _check("mom", grid, cfg, args, off).type == "cpu":
         return _plain("mom", grid, cfg, args, off)
-    _plain_checks("mom", cfg)
     out = _empty(u, 4) + _empty(dt, 2)
     geo, eg, keep = _tile_launch("mom", cfg.kb, u, off, tile)
     # the solved uf of rows 2 and im-2, vf of columns 2 and jm-2
     R, L = u.shape[-2:]
     strip = u.new_empty(2 * cfg.kb * (L + R))
-    _launch("mom",
-            kernel_inputs("mom", grid, cfg, *args) + out + eg + [strip],
+    # the operands, outputs and scratch, then (file scheme; null
+    # otherwise) the eight velocity profiles and hmax
+    _launch("mom", kernel_inputs("mom", grid, cfg, *args) + out + eg
+            + [strip] + option_inputs("mom", grid, cfg, fc),
             [cfg.dti2, cfg.grav, cfg.umol, cfg.smoth], cfg, int(keep),
-            off=off, geo=geo)
+            int(cfg.bc_scheme == "file"), off=off, geo=geo,
+            count=counter("mom", cfg))
     return tuple(out)

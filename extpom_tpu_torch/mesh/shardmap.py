@@ -100,6 +100,13 @@ class Blocks:
                 raise ValueError(f"a ring of {h} cells is wider than the "
                                  f"({self.ni}, {self.nj}) blocks it would "
                                  f"be read from")
+        # MPDATA's upstream steps widen the tracer phase's reach by a cell
+        # each: the ring must cover it
+        from extpom_tpu_torch.kernels.phases import mpdata_radius
+        if cfg.nadv == 2 and mpdata_radius(cfg) > cfg.phase_halo:
+            raise ValueError(f"nadv=2 with nitera={cfg.nitera} reads "
+                             f"{mpdata_radius(cfg)} cells, more than the "
+                             f"phase ring of {cfg.phase_halo}")
         extchunk._chunk(cfg, px, py, self.ni, self.nj)
         self.ids = [(bi, bj) for bi in range(px) for bj in range(py)]
         to = lambda a: a.to(device)

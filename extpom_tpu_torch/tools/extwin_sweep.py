@@ -42,7 +42,7 @@ def operands(n: int):
     fc = m.base_forcing.replace(ramp=torch.tensor(
         stepper.ramp_at(cfg, 3, m.period), dtype=st.dtype, device="cuda"))
     lat = phases.phase_lat(g, cfg, st.u, st.v, st.ub, st.vb, st.aam, st.rho,
-                           m.rmean, g.h + st.et, fc.ramp)
+                           m.rmean, g.h + st.et, g.h + st.el, fc.ramp)
     out = stepper.mode_interaction(g, cfg, st, *lat)
     c0 = stepper.ExtCarry(st.el, st.elb, st.ua, st.uab, st.va, st.vab,
                           st.etf, out[9], out[10], out[11], out[5], out[6],

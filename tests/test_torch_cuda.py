@@ -14,6 +14,7 @@ import torch
 from extpom_tpu_torch import kernels
 from extpom_tpu_torch.cases.seamount import seamount_model
 from extpom_tpu_torch.core import dispatch, stepper
+from extpom_tpu_torch.forcing import provider as prov
 from extpom_tpu_torch.kernels import extloop, extwin, phases, tridiag
 from extpom_tpu_torch.mesh.shardmap import Mesh
 
@@ -92,7 +93,7 @@ def test_extloop_kernel_matches_plain(card, shape, ispadv, dtype):
     fc = m.base_forcing
     aam, advx, advy, drhox, drhoy = phases.phase_lat(
         g, cfg, st.u, st.v, st.ub, st.vb, st.aam, st.rho, m.rmean,
-        g.h + st.et, fc.ramp)
+        g.h + st.et, g.h + st.el, fc.ramp)
     out = stepper.mode_interaction(g, cfg, st, aam, advx, advy, drhox,
                                    drhoy)
     c0 = stepper.ExtCarry(st.el, st.elb, st.ua, st.uab, st.va, st.vab,
@@ -162,7 +163,7 @@ def _ext_operands(card, im, jm, dtype, steps=1):
     n2 = lambda s: torch.from_numpy(s * rng.standard_normal((im, jm))).to(card)
     aam, advx, advy, drhox, drhoy = phases.phase_lat(
         g, cfg, st.u, st.v, st.ub, st.vb, st.aam, st.rho, m.rmean,
-        g.h + st.et, fc.ramp)
+        g.h + st.et, g.h + st.el, fc.ramp)
     out = stepper.mode_interaction(g, cfg, st, aam, advx, advy, drhox,
                                    drhoy)
     c0 = stepper.ExtCarry(st.el + n2(1e-2), st.elb, st.ua + n2(5e-2), st.uab,
@@ -366,7 +367,8 @@ def _phase_case(im, jm, kb):
         w = st.w + n3(1e-5)
         dt = g.h + st.et
         etf = st.et + n2(1e-3)
-        lat = (u, v, ub, vb, st.aam, st.rho, m.rmean, dt, fc.ramp)
+        lat = (u, v, ub, vb, st.aam, st.rho, m.rmean, dt, g.h + st.el,
+               fc.ramp)
         aam, advx, advy, drhox, drhoy = phases.phase_lat_plain(g, cfg, *lat)
         _PHASE_CASES[(im, jm, kb)] = (g, cfg, {
             "lat": lat,
@@ -377,7 +379,7 @@ def _phase_case(im, jm, kb):
                        st.kh + n3(1e-4).abs(), dt, st.etb, etf, fc),
             "mom": (u, ub, v, vb, w, advx, advy, drhox, drhoy,
                     st.km + n3(1e-4).abs(), dt, st.egb + n2(1e-3), st.egb,
-                    st.etb, etf, fc),
+                    st.etb, etf, g.h + st.el + n2(1e-3), fc),
             "tke": (st.q2 + n3(1e-6).abs(), st.q2b + n3(1e-6),
                     st.q2l + n3(1e-6).abs(), st.q2lb + n3(1e-6), u, v, w,
                     aam, st.t, st.s, st.rho, st.km, st.kh,
@@ -388,6 +390,8 @@ def _phase_case(im, jm, kb):
 
 
 def _to(x, card, dtype):
+    if x is None:
+        return None
     if isinstance(x, torch.Tensor):
         return x.to(device=card, dtype=dtype).contiguous()
     return x.__class__(**{k: _to(v, card, dtype) for k, v in vars(x).items()})
@@ -724,3 +728,207 @@ def test_phase_mesh_kernel_orlanski_matches_plain(card, phase, dtype):
             a, b = _trim(rec["blocks"], a), _trim(rec["blocks"], b)
             assert bool(torch.isfinite(a).all())
             _close(a, b, PHASE_TOL[dtype])
+
+
+# ---- the phase options: McCalpin (lat), MPDATA and restoring (tracer),
+# bc_vel3d (mom) ----
+
+# phase, options; the ragged grid has a one-row and a one-column last tile
+# (im = 1 mod TI, jm = 1 mod TJ)
+PHASE_OPTIONS = [("lat", dict(npg=2)), ("tracer", dict(nadv=2, nitera=1)),
+                 ("tracer", dict(nadv=2, nitera=2)),
+                 ("tracer", dict(nadv=2, nitera=3, do_restore=True)),
+                 ("tracer", dict(do_restore=True)),
+                 ("mom", dict(bc_scheme="file"))]
+PHASE_OPTION_IDS = ["lat-npg2", "tracer-mpdata1", "tracer-mpdata2",
+                    "tracer-mpdata3-restore", "tracer-restore", "mom-file"]
+
+
+def _with_options(phase, args, kw, seed=29):
+    """The phase's operands with what the options read: the depth d where
+    the caller's step formed none (dt = h + et, perturbed), the restoring
+    series (full fields, taurstr one value when ``tau1``), the file
+    scheme's velocity profiles, positive T for MPDATA's antidiffusion."""
+    rng = np.random.default_rng(seed)
+    args = list(args)
+    names = phases._ARGS[phase]
+    if ("d" in names and args[names.index("d")] is None
+            and (kw.get("npg") == 2 or kw.get("bc_scheme") == "file")):
+        dt = args[names.index("dt")]
+        args[names.index("d")] = dt + 1e-3 * torch.from_numpy(
+            rng.standard_normal(tuple(dt.shape)))
+    if phase not in ("tracer", "mom"):
+        return args
+    fc = args[-1]
+    kb, R, L = args[0].shape
+    noise = lambda *s: torch.from_numpy(rng.standard_normal(s))
+    upd = {}
+    if kw.get("do_restore"):
+        upd.update(trstr=args[0] + 0.5 * noise(kb, R, L),
+                   srstr=args[2] + 0.05 * noise(kb, R, L),
+                   taurstr=(100.0 * noise(kb, R, L)).abs())
+    if kw.get("bc_scheme") == "file":
+        for n in ("ubw", "ube", "vbw", "vbe"):
+            upd[n] = 0.05 * noise(kb, L)
+        for n in ("ubs", "ubn", "vbs", "vbn"):
+            upd[n] = 0.05 * noise(kb, R)
+    if phase == "tracer" and kw.get("nadv") == 2:
+        args[0], args[1] = args[0] + 20.0, args[1] + 20.0
+    args[-1] = fc.replace(**upd)
+    return args
+
+
+def _hold(phase, got, want, dtype):
+    """lat's and mom's outputs bit for bit; tracer's t, tb, s, sb bit for
+    bit and rho (CUDA's pow) within tolerance."""
+    for k, (a, b) in enumerate(zip(got, want)):
+        assert bool(torch.isfinite(a).all()), k
+        _close(a, b, PHASE_TOL[dtype])
+        if phase != "tracer" or k < 4:
+            assert torch.equal(a, b), (phase, k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", [(33, 65, 9), (17, 33, 4)],
+                         ids=["ragged", "kb4"])
+@pytest.mark.parametrize("phase,kw", PHASE_OPTIONS, ids=PHASE_OPTION_IDS)
+def test_phase_option_kernel_matches_plain(card, phase, kw, shape, dtype):
+    """Each option's kernel against its plain phase, with the launches the
+    wrapper counts: one launch of the option's instantiation, under its
+    own name, and 2 nitera - 1 MPDATA launches before it."""
+    g, cfg, args = _phase_case(*shape)
+    cfg = cfg.replace(dtype=str(dtype).split(".")[1], **kw)
+    args = _with_options(phase, args[phase], kw)
+    g = _to(g, card, dtype)
+    args = [_to(x, card, dtype) for x in args]
+    before = dict(kernels.LAUNCHES)
+    got = getattr(phases, f"phase_{phase}")(g, cfg, *args)
+    mp = 2 * cfg.nitera - 1 if cfg.nadv == 2 and phase == "tracer" else 0
+    name = phases.counter(phase, cfg)
+    assert name != f"phase_{phase}"
+    assert kernels.LAUNCHES == {
+        **before, name: before[name] + 1,
+        "phase_tracer_mpdata": before["phase_tracer_mpdata"] + mp}
+    want = getattr(phases, f"phase_{phase}_plain")(g, cfg, *args)
+    _hold(phase, got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("nitera", [1, 2, 4])
+def test_mpdata_kernels_match_plain(card, nitera, dtype):
+    """MPDATA's upstream steps on the card give mpdata_plain's bits, T and
+    S, on a ragged grid."""
+    g, cfg, args = _phase_case(33, 65, 9)
+    cfg = cfg.replace(dtype=str(dtype).split(".")[1], nadv=2, nitera=nitera)
+    t, tb, s, sb, _, _, u, v, w, _, _, dt, etb, etf, _ = _with_options(
+        "tracer", args["tracer"], dict(nadv=2))
+    ops = [_to(x, card, dtype) for x in (t, tb, s, sb, u, v, w, dt, etb,
+                                         etf)]
+    g = _to(g, card, dtype)
+    before = kernels.LAUNCHES["phase_tracer_mpdata"]
+    got = phases.mpdata(g, cfg, *ops)
+    assert kernels.LAUNCHES["phase_tracer_mpdata"] == before + 2 * nitera - 1
+    want = phases.mpdata_plain(g, cfg, *ops)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("phase,kw", PHASE_OPTIONS + [
+    ("tracer", dict(bc_scheme="orlanski", nadv=2, nitera=2,
+                    do_restore=True))],
+    ids=PHASE_OPTION_IDS + ["tracer-orlanski-mpdata-restore"])
+def test_phase_option_mesh_kernel_matches_plain(card, phase, kw, dtype):
+    """Each option's block kernel (phase_<p>_mesh, MPDATA's _mesh steps)
+    against the plain phase on every block of the 2x4 mesh, on the
+    block's own cells."""
+    rec = _mesh_calls()
+    for (g, cfg, *args), kwb in rec["calls"][phase]:
+        cfg = cfg.replace(dtype=str(dtype).split(".")[1], **kw)
+        args = _with_options(phase, args, kw)
+        g = _to(g, card, dtype)
+        args = [_to(x, card, dtype) for x in args]
+        kwb = {k: _to(x, card, dtype) if isinstance(x, torch.Tensor) else x
+               for k, x in kwb.items()}
+        if cfg.bc_scheme == "orlanski":
+            kwb = dict(kwb, ub=args[6] - 0.02)
+        before = dict(kernels.LAUNCHES)
+        got = getattr(phases, f"phase_{phase}")(g, cfg, *args, **kwb)
+        name = f"{phases.counter(phase, cfg)}_mesh"
+        mp = 2 * cfg.nitera - 1 if cfg.nadv == 2 and phase == "tracer" \
+            else 0
+        assert kernels.LAUNCHES == {
+            **before, name: before[name] + 1,
+            "phase_tracer_mpdata_mesh":
+                before["phase_tracer_mpdata_mesh"] + mp}
+        want = phases._plain(phase, g, cfg, args, kwb["off"],
+                             **({"ub": kwb["ub"]} if "ub" in kwb else {}))
+        _hold(phase, [_trim(rec["blocks"], a) for a in got],
+              [_trim(rec["blocks"], b) for b in want], dtype)
+
+
+OPTION_PATHS = [dict(npg=2, nadv=2, nitera=2), dict(bc_scheme="file")]
+
+
+@pytest.mark.parametrize("kw", OPTION_PATHS, ids=["npg2-mpdata", "file"])
+def test_option_card_path_matches_cpu_path(card, kw):
+    """The seamount under the options on the card (every kernel) against
+    the CPU over 4 steps in float64, with the launches it should make."""
+    shape = dict(im=33, jm=41, kb=7, dtype="float64", isplit=6)
+    gpu = seamount_model(device=card, **shape, **kw)
+    cpu = seamount_model(device="cpu", **shape, **kw)
+    kernels.reset_launches()
+    gpu.run_segment(4)
+    cpu.run_segment(4)
+    mp = 3 * (2 * gpu.cfg.nitera - 1) if gpu.cfg.nadv == 2 else 0
+    name = lambda p: phases.counter(p, gpu.cfg)
+    assert kernels.LAUNCHES == {
+        **{k: 0 for k in kernels.LAUNCHES}, "extloop": 4, name("lat"): 4,
+        **{name(p): 3 for p in ("uvw", "tke", "tracer", "mom")},
+        "phase_tracer_mpdata": mp}
+    for name in gpu.state.field_names():
+        _close(getattr(gpu.state, name).cpu(), getattr(cpu.state, name),
+               1e-10, floor=1.0)
+
+
+def test_restore_card_path_matches_cpu_path(card):
+    """The tidal channel under the file scheme with interior restoring
+    from staged series (default taurstr) on the card against the CPU
+    over 6 steps in float64."""
+    from extpom_tpu_torch.cases.channel import channel_model
+    runs = []
+    for device in (card, "cpu"):
+        m = channel_model(device=device, im=40, jm=18, kb=6,
+                          dtype="float64", bc_scheme="file",
+                          do_restore=True)
+        rng = np.random.default_rng(41)
+        t0 = m.state.t.cpu().numpy()
+        src = m.forcing_fn.source
+        data = dict(src.data, trstr=np.stack(
+            [t0 + 0.5 * rng.random(t0.shape) for _ in range(2)]),
+            srstr=np.stack([m.state.s.cpu().numpy()] * 2))
+        m.forcing_fn = prov.ForcingProvider(
+            m.grid, m.cfg, m.base_forcing, prov.ArraySource(data),
+            prefetch=False)
+        m.run_segment(6)
+        runs.append(m.state)
+    for name in runs[1].field_names():
+        _close(getattr(runs[0], name).cpu(), getattr(runs[1], name),
+               1e-10, floor=1.0)
+
+
+@pytest.mark.parametrize("kw", [dict(npg=2), dict(nadv=2, nitera=2)],
+                         ids=["npg2", "mpdata"])
+def test_option_mesh_card_path_bit_equal(card, kw):
+    """The 2x4 decomposed step under the options on the card gives the
+    single-device card run's bits after 3 steps in float32."""
+    shape = dict(MESH_KW, dtype="float32")
+    one = seamount_model(device=card, **shape, **kw)
+    one.run_segment(3)
+    mesh = seamount_model(device=card, **shape, **kw).shard(
+        Mesh(2, 4, device=card))
+    mesh.run_segment(3)
+    got = mesh.gathered_state()
+    for name in got.field_names():
+        assert torch.equal(getattr(got, name), getattr(one.state, name)), \
+            name

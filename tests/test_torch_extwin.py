@@ -157,7 +157,7 @@ def radius_case():
     m.run_segment(1)
     g, cfg, st, fc = m.grid, m.cfg, m.state, m.base_forcing
     lat = phases.phase_lat(g, cfg, st.u, st.v, st.ub, st.vb, st.aam, st.rho,
-                           m.rmean, g.h + st.et, fc.ramp)
+                           m.rmean, g.h + st.et, g.h + st.el, fc.ramp)
     out = stepper.mode_interaction(g, cfg, st, *lat)
     rng = np.random.default_rng(31)
     c0 = stepper.ExtCarry(st.el, st.elb, st.ua, st.uab, st.va, st.vab,

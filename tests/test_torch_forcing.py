@@ -175,7 +175,8 @@ def test_float32_record_index_at_boundaries():
 
 def test_unknown_and_restore_names_raise(models):
     """A series the provider does not know raises instead of being dropped;
-    the restoring series raise until interior restoring is ported."""
+    the restoring series are served: trstr and srstr interpolated at their
+    30-day cadence, taurstr from the source or 1/TRST by default."""
     _, pm = models
     src = prov.ArraySource({"wusurf": np.zeros((2, IM, JM)),
                             "sustr": np.zeros((2, IM, JM))})
@@ -183,9 +184,23 @@ def test_unknown_and_restore_names_raise(models):
         prov.ForcingProvider(pm.grid, pm.cfg, pm.base_forcing, src)
     with pytest.raises(ValueError, match="uabw"):
         prov.check_names(["uabw"])
-    for name in prov.RESTORE_VARS:
-        with pytest.raises(NotImplementedError, match="restor"):
-            prov.check_names(["elw", name])
+    kb = pm.cfg.kb
+    rec = lambda r: np.full((2, kb, IM, JM), 1.0) * np.arange(2)[
+        :, None, None, None] + r
+    for names in (("trstr", "srstr"), prov.RESTORE_VARS):
+        prov.check_names(["elw", *names])
+        data = {n: rec(10.0 * k) for k, n in enumerate(names)}
+        p = prov.ForcingProvider(pm.grid, pm.cfg, pm.base_forcing,
+                                 prov.ArraySource(data), prefetch=False)
+        iint = int(round(7.5 * 86400.0 / pm.cfg.dti))
+        fc = p(pm, iint)
+        frac = (pm.cfg.dti * iint / 86400.0 + pm.time0) / prov.TRST
+        for k, n in enumerate(names):
+            np.testing.assert_allclose(getattr(fc, n).numpy(),
+                                       10.0 * k + frac, atol=1e-12)
+        if "taurstr" not in names:
+            np.testing.assert_allclose(fc.taurstr.numpy(), 1.0 / prov.TRST)
+            assert tuple(fc.taurstr.shape) == (1, 1, 1)
 
 
 def test_multisource():

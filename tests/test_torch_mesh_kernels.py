@@ -150,7 +150,7 @@ PH_MESH = (3, 3)
 # each port phase's operands after (grid, cfg) ("FC": the Forcing, "RAMP":
 # its ramp), and the JAX phase's
 ARGS = {
-    "lat": ("u", "v", "ub", "vb", "aam", "rho", "rmean", "dt", "RAMP"),
+    "lat": ("u", "v", "ub", "vb", "aam", "rho", "rmean", "dt", "d", "RAMP"),
     "uvw": ("u", "v", "w", "dt", "utb", "vtb", "utf", "vtf", "etb", "etf",
             "vfluxb", "vflux"),
     "tke": ("q2", "q2b", "q2l", "q2lb", "u", "v", "w", "aam", "t", "s", "rho",
@@ -158,7 +158,7 @@ ARGS = {
     "tracer": ("t", "tb", "s", "sb", "tclim", "sclim", "u", "v", "w", "aam",
                "kh", "dt", "etb", "etf", "FC"),
     "mom": ("u", "ub", "v", "vb", "w", "advx", "advy", "drhox", "drhoy", "km",
-            "dt", "egf", "egb", "etb", "etf", "FC"),
+            "dt", "egf", "egb", "etb", "etf", "d", "FC"),
 }
 JX_ARGS = {
     "lat": ("u", "v", "ub", "vb", "aam", "rho", "rmean", "dt", "d", "RAMP"),
@@ -168,7 +168,7 @@ JX_ARGS = {
             "FC"),
     "tracer": ("t", "tb", "s", "sb", "tclim", "sclim", "u", "ub", "v", "w",
                "aam", "kh", "dt", "etb", "etf", "FC"),
-    "mom": ARGS["mom"][:-1] + ("d", "FC"),
+    "mom": ARGS["mom"],
 }
 
 

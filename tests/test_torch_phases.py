@@ -39,7 +39,7 @@ ATOL = 1e-12
 # each port phase's operands after (grid, cfg), by name; "FC" is the
 # Forcing, "RAMP" its ramp
 ARGS = {
-    "lat": ("u", "v", "ub", "vb", "aam", "rho", "rmean", "dt", "RAMP"),
+    "lat": ("u", "v", "ub", "vb", "aam", "rho", "rmean", "dt", "d", "RAMP"),
     "uvw": ("u", "v", "w", "dt", "utb", "vtb", "utf", "vtf", "etb", "etf",
             "vfluxb", "vflux"),
     "tke": ("q2", "q2b", "q2l", "q2lb", "u", "v", "w", "aam", "t", "s", "rho",
@@ -47,10 +47,10 @@ ARGS = {
     "tracer": ("t", "tb", "s", "sb", "tclim", "sclim", "u", "v", "w", "aam",
                "kh", "dt", "etb", "etf", "FC"),
     "mom": ("u", "ub", "v", "vb", "w", "advx", "advy", "drhox", "drhoy", "km",
-            "dt", "egf", "egb", "etb", "etf", "FC"),
+            "dt", "egf", "egb", "etb", "etf", "d", "FC"),
 }
 # the JAX runner's operands of each phase: those of the port and the ones
-# no kernel of the port reads (the depth d, tracer's ub, tke's old l)
+# no kernel of the port reads (tracer's ub, tke's old l)
 JX_ARGS = {
     "lat": ("u", "v", "ub", "vb", "aam", "rho", "rmean", "dt", "d"),
     "uvw": ARGS["uvw"],
@@ -58,7 +58,7 @@ JX_ARGS = {
             "km", "kh", "kq", "l", "dt", "etb", "etf", "wubot", "wvbot"),
     "tracer": ("t", "tb", "s", "sb", "tclim", "sclim", "u", "ub", "v", "w",
                "aam", "kh", "dt", "etb", "etf"),
-    "mom": ARGS["mom"][:-1] + ("d",),
+    "mom": ARGS["mom"][:-1],
 }
 
 

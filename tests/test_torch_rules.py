@@ -62,20 +62,15 @@ def test_config_matches_jax_fields():
         assert getattr(cfg, prop) == getattr(jcfg, prop), prop
 
 
-@pytest.mark.parametrize("kw", [dict(npg=2), dict(nadv=2),
-                                dict(bc_scheme="file")])
-def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError):
-        m = seamount_model(device="cpu", im=9, jm=9, kb=5, dtype="float64",
-                           **kw)
-        m.run_segment(2)
-
-
-@pytest.mark.parametrize("kw", [dict(mode=2), dict(bc_scheme="orlanski")],
-                         ids=["mode=2", "bc_scheme=orlanski"])
+@pytest.mark.parametrize("kw", [dict(mode=2), dict(bc_scheme="orlanski"),
+                                dict(npg=2), dict(nadv=2, nitera=2),
+                                dict(bc_scheme="file")],
+                         ids=["mode=2", "bc_scheme=orlanski", "npg=2",
+                              "nadv=2", "file"])
 def test_ported_options_match_jax(kw):
-    """mode=2 and the orlanski scheme run in the port as in the JAX
-    package: three steps of the 9x9x5 seamount within 1e-10 of scale."""
+    """mode=2, the orlanski scheme, McCalpin's pressure gradient, MPDATA
+    and the file scheme run in the port as in the JAX package: three steps
+    of the 9x9x5 seamount within 1e-10 of scale."""
     import numpy as np
     from extpom_tpu.cases.seamount import seamount_model as jx_model
     jm = jx_model(donate=False, im=9, jm=9, kb=5, dtype="float64", **kw)
@@ -111,7 +106,7 @@ def _phase_operands(phase: str):
     dt = g.h + st.et
     args = {
         "lat": (st.u, st.v, st.ub, st.vb, st.aam, st.rho, m.rmean, dt,
-                fc.ramp),
+                g.h + st.el, fc.ramp),
         "uvw": (st.u, st.v, st.w, dt, st.utb, st.vtb, st.utb, st.vtb,
                 st.etb, st.et, st.vfluxb, fc.vflux),
         "tke": (st.q2, st.q2b, st.q2l, st.q2lb, st.u, st.v, st.w, st.aam,
@@ -120,7 +115,7 @@ def _phase_operands(phase: str):
         "tracer": (st.t, st.tb, st.s, st.sb, m.tclim, m.sclim, st.u, st.v,
                    st.w, st.aam, st.kh, dt, st.etb, st.et, fc),
         "mom": (st.u, st.ub, st.v, st.vb, st.w, st.u, st.v, st.u, st.v,
-                st.km, dt, st.egb, st.egb, st.etb, st.et, fc),
+                st.km, dt, st.egb, st.egb, st.etb, st.et, g.h + st.el, fc),
     }[phase]
     return getattr(phases, f"phase_{phase}"), g, cfg, list(args)
 
