@@ -39,10 +39,18 @@ MPDATA's launches held to their plain versions on step 3's operands),
 file scheme with interior restoring from an lbry file written from a
 seed; mom and tracer held to their plain versions on steps whose series
 change), with their float64 checks against the CPU (``[options_check]``,
-``[file_restore_check]``).  The Thomas kernel is held to its plain
+``[file_restore_check]``).  Then the forced and the padded paths:
+``[channel_mesh]`` and ``[file_restore_mesh]`` (``[channel]`` and
+``[file_restore]`` with config5's 2x4 mesh block, their series staged and
+cut to the blocks; each bit-equal to its single-device run, mom's block
+variant with ``bc_vel3d`` held to its plain version) and ``[ragged]`` (the
+main path at 255x255x31, which ``Model.shard`` pads to 256x256 on the 2x4
+mesh, and ``pad_model`` on one device, held on the active region to the
+unpadded run; the block kernels on the corner block that holds pad cells
+on both axes).  The Thomas kernel is held to its plain
 version bit for bit and timed at 256x256x31, 256x256x41 and
 2048x2048x41.  It checks the
-results, prints the dispatch echo of eight, one ``kernels`` JSON line,
+results, prints the dispatch echo of ten, one ``kernels`` JSON line,
 the card's name and power limit, and a last JSON line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero; without a CUDA device it exits 1 and prints no result.
@@ -501,12 +509,14 @@ def tile_fields(phase: str, dtype, kb: int, shape, mesh: bool = False) -> dict:
 
 def edge_columns(c, shape, off) -> int:
     """Columns of an (R, L) array at global ``off`` (the domain's when
-    None) on the domain's edge rows or columns."""
+    None) on the domain's edge rows or columns (the active domain's of a
+    padded grid)."""
     R, L = shape
     oi, oj = off or (0, 0)
     gi, gj = torch.arange(oi, oi + R), torch.arange(oj, oj + L)
-    ei = (gi == 0) | (gi == c.im - 1)
-    ej = (gj == 0) | (gj == c.jm - 1)
+    ia, ja = c.active
+    ei = (gi == 0) | (gi == ia - 1)
+    ej = (gj == 0) | (gj == ja - 1)
     return int((ei[:, None] | ej[None, :]).sum())
 
 
@@ -1878,19 +1888,13 @@ def channel_phase(card: str, flush: L2Flush) -> dict:
     path against its plain version on the operands of steps after the
     restart (``channel_kernels``), the device busy time of a few more steps,
     and the plain kernels and time per step of the forcing interpolation.
-    Returns the whole run's launch counts."""
+    Returns (the whole run's launch counts, its State at the last step)."""
     from extpom_tpu_torch.core.config import Config
     from extpom_tpu_torch.forcing import device as fdev
     from extpom_tpu_torch.kernels import extwin
     from extpom_tpu_torch import run
     im, jm, kb = CHANNEL
-    conf = {"run_name": "channel", "case": "channel",
-            "case_args": {"im": im, "jm": jm, "kb": kb},
-            "config": {"dtype": "float32", "forcing_hbm_mb": 0,
-                       "days": CHANNEL_STEPS * STEP_S / 86400,
-                       "prtd1": CHANNEL_PRINT * STEP_S / 86400,
-                       "write_rst": CHANNEL_RESTART * STEP_S / 86400},
-            "out_format": "nc"}
+    conf = channel_conf()
     n = CHANNEL_STEPS
     with tempfile.TemporaryDirectory() as tmp:
         lines, launches, peak = run_cli(conf, tmp, "whole")
@@ -1943,7 +1947,7 @@ def channel_phase(card: str, flush: L2Flush) -> dict:
         m = run.build_model({**conf, "nread_rst": 1,
                              "read_rst_path": os.path.join(
                                  tmp, "whole", f"channel.rst.{n:06d}.nc")})
-        del whole, resumed
+        del resumed
     for line in nums["prints"]:
         print(f"[channel] {line}", flush=True)
     # the interpolation's own cost: the Forcing of one step from the plan
@@ -1964,6 +1968,122 @@ def channel_phase(card: str, flush: L2Flush) -> dict:
                interp_ms_per_step=f"{interp_ms:.4f}",
                launches=json.dumps(launches, separators=(",", ":")))
     profile_phase(m, steps=3, tag="channel_profile")
+    return launches, whole
+
+
+def channel_conf() -> dict:
+    """``[channel]``'s run file: the tidal channel at CHANNEL, float32,
+    its series staged a window per segment (``forcing_hbm_mb`` 0),
+    CHANNEL_STEPS steps with a print every CHANNEL_PRINT and a restart
+    every CHANNEL_RESTART, NetCDF output."""
+    im, jm, kb = CHANNEL
+    return {"run_name": "channel", "case": "channel",
+            "case_args": {"im": im, "jm": jm, "kb": kb},
+            "config": {"dtype": "float32", "forcing_hbm_mb": 0,
+                       "days": CHANNEL_STEPS * STEP_S / 86400,
+                       "prtd1": CHANNEL_PRINT * STEP_S / 86400,
+                       "write_rst": CHANNEL_RESTART * STEP_S / 86400},
+            "out_format": "nc"}
+
+
+def mesh_want(launches: dict, cfg, n: int, nb: int, plan) -> dict:
+    """The launch counts of n steps from a cold start on nb blocks: the
+    chunk kernel the plan names (``extchunk`` or ``extwin_chunk``, one
+    count per chunk call) nb x isplit / C times a step, lat's block
+    variant every step and the other phases' from the second, each under
+    the name of the instantiation cfg runs (``phases.counter``)."""
+    from extpom_tpu_torch.kernels import phases
+    chunk = ("extwin_chunk" if plan.machine == "cuda-extwin-chunk"
+             else "extchunk")
+    return {**dict.fromkeys(launches, 0),
+            chunk: n * nb * cfg.isplit // plan.C,
+            phases.counter("lat", cfg) + "_mesh": n * nb,
+            **{phases.counter(p, cfg) + "_mesh": (n - 1) * nb
+               for p in PHASES[1:]}}
+
+
+def west_series(m, steps: int) -> float:
+    """elw as the external chunks of the blocks on the west edge read it,
+    over ``steps`` one-step segments of the decomposed ``m``: it must
+    change from step to step in every such block.  Returns its largest
+    |value|."""
+    seen = []
+    for _ in range(steps):
+        calls = record_calls(lambda: m.run_segment(1),
+                             ("chunk", "extwin_chunk"))
+        west = {}
+        for recorded in calls.values():
+            for args, _ in recorded:
+                if args[7][0] < 0:        # the extension starts west of i=0
+                    west.setdefault(args[7], args[3].elw.clone())
+        if not west:
+            raise AssertionError("no chunk of a block on the west edge")
+        seen.append(west)
+    for a, b in zip(seen, seen[1:]):
+        for off, elw in a.items():
+            if torch.equal(elw, b[off]):
+                raise AssertionError(f"elw of the block at {off} did not "
+                                     f"change from step to step")
+    return max(float(e.abs().max()) for w in seen for e in w.values())
+
+
+def channel_mesh_phase(card: str, flush: L2Flush, want) -> dict:
+    """``[channel]``'s run file with config5's mesh block (2x4, blocks
+    256x128x31, every block on the card): the tidal series staged a window
+    per segment and cut to the blocks, CHANNEL_STEPS steps through
+    ``run.main``, then resumed from the restart at CHANNEL_RESTART.  Gates:
+    the state at the last step ``torch.equal`` to ``[channel]``'s
+    (``want``), the resume bit-equal, the launch counts, elw changing from
+    step to step in the blocks on the west edge; then the device busy time
+    and the plain kernels per step of a few more steps.  Returns the whole
+    run's launch counts."""
+    from extpom_tpu_torch import run
+    from extpom_tpu_torch.core.config import Config
+    im, jm, kb = CHANNEL
+    with open(LARGE) as f:
+        mesh_block = json.load(f)["mesh"]
+    conf = {**channel_conf(), "mesh": mesh_block}
+    n = CHANNEL_STEPS
+    rst = f"channel.rst.{CHANNEL_RESTART:06d}.nc"
+    with tempfile.TemporaryDirectory() as tmp:
+        lines, launches, peak = run_cli(conf, tmp, "whole")
+        nums = driver_numbers(lines)
+        cfg = Config(im=im, jm=jm, kb=kb, dtype="float32")
+        whole, _, _ = restart_state(
+            os.path.join(tmp, "whole", f"channel.rst.{n:06d}.nc"), cfg)
+        assert_states_equal(whole, want, "channel_mesh vs channel")
+        del whole
+        r_lines, _, _ = run_cli(conf, tmp, "resumed", nread_rst=1,
+                                read_rst_path=os.path.join(tmp, "whole",
+                                                           rst))
+        resumed, _, _ = restart_state(
+            os.path.join(tmp, "resumed", f"channel.rst.{n:06d}.nc"), cfg)
+        assert_states_equal(resumed, want, "channel_mesh resumed")
+        del resumed
+        if driver_numbers(r_lines)["prints"] != nums["prints"][-2:]:
+            raise AssertionError("channel_mesh resumed: its prints differ")
+        m = run.build_model({**conf, "nread_rst": 1,
+                             "read_rst_path": os.path.join(tmp, "whole",
+                                                           rst)})
+    plan = chunk_plan(m)
+    nb = m.blocks.px * m.blocks.py
+    expect = mesh_want(launches, m.cfg, n, nb, plan)
+    if launches != expect:
+        raise AssertionError(f"channel_mesh: launch counts {launches} != "
+                             f"{expect}")
+    elw_max = west_series(m, 3)
+    for line in nums["prints"]:
+        print(f"[channel_mesh] {line}", flush=True)
+    say_driver("channel_mesh", nums, im * jm * kb, peak, card,
+               grid=f"{im}x{jm}x{kb}", dtype="float32",
+               mesh=f"{mesh_block['px']}x{mesh_block['py']}",
+               local_tile=f"{m.blocks.ni}x{m.blocks.nj}x{kb}",
+               chunk=f"{plan.machine}:C={plan.C}:block={plan.R}x{plan.L}",
+               equal_to_channel=True, resumed_from=CHANNEL_RESTART,
+               resumed_equal=True, west_elw_max_m=f"{elw_max:.4f}",
+               launches=json.dumps(launches, separators=(",", ":")))
+    profile_phase(m, steps=3, tag="channel_mesh_profile",
+                  groups=MESH_KERNELS)
     return launches
 
 
@@ -2844,31 +2964,13 @@ def file_restore_phase(card: str, flush: L2Flush) -> tuple:
     moving toward trstr's (which lies above it).  Then mom (bc_vel3d) and
     tracer (restoring) against their plain versions on steps whose series
     change, each timed beside its plain version.  Returns (launches,
-    {kernel: entry})."""
+    {kernel: entry}, the State at the last step)."""
     from extpom_tpu_torch import run
-    from extpom_tpu_torch.io import netcdf as ncio
     from extpom_tpu_torch.kernels import extwin, phases
     im, jm, kb = FILE_RESTORE
     n = FILE_RESTORE_STEPS
-    cfg_kw = {"dtype": "float32", "bc_scheme": "file", "do_restore": True,
-              "days": n * STEP_S / 86400,
-              "prtd1": FILE_RESTORE_PRINT * STEP_S / 86400,
-              "write_rst": n * STEP_S / 86400}
-    conf = {"run_name": "file_restore", "case": "channel",
-            "case_args": {"im": im, "jm": jm, "kb": kb}, "config": cfg_kw,
-            "out_format": "nc"}
     with tempfile.TemporaryDirectory() as tmp:
-        base = run.build_model(conf)
-        rng = np.random.default_rng(2026)
-        data = lbry_series(base.grid, base.state, rng)
-        t_start = wet_mean(base.state.t, base.grid, kb - 1)
-        tr_mean = wet_mean(torch.from_numpy(data["trstr"][0]), base.grid,
-                           kb - 1)
-        cfg = base.cfg
-        del base
-        lbry = os.path.join(tmp, "file_restore.lbry.nc")
-        ncio.write_forcing_series_nc(lbry, data, im, jm, kb)
-        conf["lbry"] = lbry
+        conf, data, t_start, tr_mean, cfg = file_restore_conf(tmp)
         lines, launches, peak = run_cli(conf, tmp, "run")
         nums = driver_numbers(lines)
         windowed = extwin.use_windowed(im, jm, 4, extwin.l2_bytes(
@@ -2887,7 +2989,6 @@ def file_restore_phase(card: str, flush: L2Flush) -> tuple:
         assert_finite(end, "file_restore")
         m = run.build_model(conf)
         t_end = wet_mean(end.t, m.grid, kb - 1)
-        del end
         if not t_end - t_start > 1e-4:
             raise AssertionError(f"file_restore: mean T {t_start} -> "
                                  f"{t_end} does not move toward trstr's "
@@ -2914,7 +3015,302 @@ def file_restore_phase(card: str, flush: L2Flush) -> tuple:
             lambda: getattr(phases, f"phase_{phase}_plain")(g, cfg, *rest,
                                                             **kw),
             g, cfg, rest, flush, torch.float32)
+    return launches, out, end
+
+
+def file_restore_conf(tmp: str) -> tuple:
+    """``[file_restore]``'s run file, with its lbry NetCDF file written
+    under ``tmp`` from the fixed seed (``lbry_series``).  Returns (conf,
+    the series, the wet mean of the initial T, trstr's first record's,
+    the cfg)."""
+    from extpom_tpu_torch import run
+    from extpom_tpu_torch.io import netcdf as ncio
+    im, jm, kb = FILE_RESTORE
+    n = FILE_RESTORE_STEPS
+    cfg_kw = {"dtype": "float32", "bc_scheme": "file", "do_restore": True,
+              "days": n * STEP_S / 86400,
+              "prtd1": FILE_RESTORE_PRINT * STEP_S / 86400,
+              "write_rst": n * STEP_S / 86400}
+    conf = {"run_name": "file_restore", "case": "channel",
+            "case_args": {"im": im, "jm": jm, "kb": kb}, "config": cfg_kw,
+            "out_format": "nc"}
+    base = run.build_model(conf)
+    data = lbry_series(base.grid, base.state, np.random.default_rng(2026))
+    t_start = wet_mean(base.state.t, base.grid, kb - 1)
+    tr_mean = wet_mean(torch.from_numpy(data["trstr"][0]), base.grid, kb - 1)
+    cfg = base.cfg
+    del base
+    lbry = os.path.join(tmp, "file_restore.lbry.nc")
+    ncio.write_forcing_series_nc(lbry, data, im, jm, kb)
+    conf["lbry"] = lbry
+    return conf, data, t_start, tr_mean, cfg
+
+
+def file_restore_mesh_phase(card: str, flush: L2Flush, want) -> tuple:
+    """``[file_restore]``'s run file with config5's mesh block (2x4, blocks
+    256x128x31 on the card): the file scheme's velocity profiles and the
+    restoring series staged and cut to the blocks, FILE_RESTORE_STEPS
+    steps through ``run.main``.  Gates: the state at the last step
+    ``torch.equal`` to ``[file_restore]``'s (``want``), the mean T rising
+    toward trstr's, the launch counts.  Then, on the operands of one more
+    step of block (0, 0), which holds the west and south edges, mom's
+    block variant with ``bc_vel3d`` (``phase_mom_file_mesh``) held to its
+    plain version bit for bit and timed, and tracer's with restoring held.
+    Returns (launches, {kernel: entry})."""
+    from extpom_tpu_torch import run
+    im, jm, kb = FILE_RESTORE
+    n = FILE_RESTORE_STEPS
+    with open(LARGE) as f:
+        mesh_block = json.load(f)["mesh"]
+    with tempfile.TemporaryDirectory() as tmp:
+        conf, data, t_start, tr_mean, cfg = file_restore_conf(tmp)
+        conf["mesh"] = mesh_block
+        lines, launches, peak = run_cli(conf, tmp, "run")
+        nums = driver_numbers(lines)
+        end, _, _ = restart_state(
+            os.path.join(tmp, "run", f"file_restore.rst.{n:06d}.nc"), cfg)
+        assert_states_equal(end, want, "file_restore_mesh vs file_restore")
+        m = run.build_model(conf)
+    t_end = wet_mean(end.t, m.grid, kb - 1)
+    del end
+    if not t_end - t_start > 1e-4:
+        raise AssertionError(f"file_restore_mesh: mean T {t_start} -> "
+                             f"{t_end} does not move toward trstr's "
+                             f"{tr_mean}")
+    nb = m.blocks.px * m.blocks.py
+    expect = mesh_want(launches, m.cfg, n, nb, chunk_plan(m))
+    if launches != expect:
+        raise AssertionError(f"file_restore_mesh: launch counts {launches} "
+                             f"!= {expect}")
+    for line in nums["prints"]:
+        print(f"[file_restore_mesh] {line}", flush=True)
+    say_driver("file_restore_mesh", nums, im * jm * kb, peak, card,
+               grid=f"{im}x{jm}x{kb}", dtype="float32", bc_scheme="file",
+               do_restore=True, mesh=f"{mesh_block['px']}x{mesh_block['py']}",
+               local_tile=f"{m.blocks.ni}x{m.blocks.nj}x{kb}",
+               equal_to_file_restore=True, mean_t_start=f"{t_start:.6f}",
+               mean_t_end=f"{t_end:.6f}", trstr_mean=f"{tr_mean:.6f}",
+               launches=json.dumps(launches, separators=(",", ":")))
+    m.run_segment(4)
+    calls = record_calls(lambda: m.run_segment(1), ("mom", "tracer"))
+    blocks, target, out = m.blocks, (0, 0), {}
+    for phase, key in (("mom", "phase_mom_file_mesh"),
+                       ("tracer", "phase_tracer_options_mesh")):
+        for args, kwb in calls[phase]:
+            if block_at(blocks, args[2].shape, kwb["off"]) != target:
+                continue
+            g, cfg, *rest = args
+            kernel, plain, _, _ = block_call(phase, args, kwb)
+            trim = lambda fn: (lambda: [trim_to(blocks, x) for x in fn()])
+            out[phase] = option_entry(
+                "file_restore_mesh_kernels", phase, key, trim(kernel),
+                trim(plain), g, cfg, rest, flush, torch.float32, mesh=True,
+                raw=kernel, block=f"'{target}'")
+    profile_phase(m, steps=3, tag="file_restore_mesh_profile",
+                  groups=MESH_KERNELS)
     return launches, out
+
+
+RAGGED = (255, 255, 31)        # [ragged]: neither axis divides config5's mesh
+RAGGED_STEPS = 22
+# State fields whose pad cells hold exactly 0 on a padded grid (the
+# turbulence fields' pad holds the closure's floor values, read by no
+# active cell)
+PAD_ZERO = ("el", "elb", "et", "etb", "etf", "ua", "uab", "va", "vab", "u",
+            "ub", "v", "vb", "w", "t", "tb", "s", "sb", "rho")
+
+
+def timed_run(m, n: int) -> tuple:
+    """(launch counts of n steps from a zero count, wall ms per step of
+    the last n - SEG_WARM) of ``m.run_segment``."""
+    from extpom_tpu_torch import kernels
+    kernels.reset_launches()
+    m.run_segment(SEG_WARM)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m.run_segment(n - SEG_WARM)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / (n - SEG_WARM) * 1e3
+    return dict(kernels.LAUNCHES), ms
+
+
+def active_errors(st, cfg, ref) -> tuple:
+    """(every field bit-equal, worst relative error, its field) of the
+    active region of the padded State ``st`` against the unpadded ``ref``;
+    raises beyond 1e-10 of a field's scale (tests/test_ragged.py's gate)
+    or where the active region is not finite."""
+    from extpom_tpu_torch.mesh.padding import unpad
+    equal, worst = True, (0.0, "none")
+    for f in ref.field_names():
+        a, b = unpad(getattr(st, f), cfg), getattr(ref, f)
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"ragged: {f} is not finite")
+        _, rel = rel_err(a, b)
+        equal = equal and torch.equal(a, b)
+        if rel >= worst[0]:
+            worst = (rel, f)
+    if not worst[0] <= 1e-10:
+        raise AssertionError(f"ragged vs unpadded, {worst[1]}: {worst[0]}")
+    return equal, worst[0], worst[1]
+
+
+def pad_zero(st, cfg) -> None:
+    """The pad cells of the PAD_ZERO fields hold exactly 0."""
+    ia, ja = cfg.im_act, cfg.jm_act
+    bad = {}
+    for f in PAD_ZERO:
+        a = getattr(st, f)
+        pad = torch.cat([a[..., ia:, :].reshape(-1), a[..., :, ja:].reshape(-1)])
+        if pad.any():
+            bad[f] = float(pad.abs().max())
+    if bad:
+        raise AssertionError(f"ragged: pad cells not 0: {bad}")
+
+
+def ragged_kernels(m) -> dict:
+    """On the operands of one more step of the decomposed padded ``m``,
+    block (1, 3), the corner that holds pad cells on both axes: each
+    phase's block variant and the external chunk against their plain
+    versions on the block's active cells (lat, uvw, mom and the chunk
+    ``torch.equal``, tke and tracer within TOL["phase"]); whether they
+    also agree on its pad cells is printed.  Returns {kernel: (worst
+    relative error, bit equal)}."""
+    calls = record_calls(lambda: m.run_segment(1),
+                         PHASES + ("chunk", "extwin_chunk"))
+    blocks, cfg, target = m.blocks, m.cfg, (1, 3)
+    ia = cfg.im_act - target[0] * blocks.ni
+    ja = cfg.jm_act - target[1] * blocks.nj
+    kinds = [(p, calls[p]) for p in PHASES]
+    kinds += [("extchunk" if key == "chunk" else key, calls[key])
+              for key in ("chunk", "extwin_chunk") if key in calls]
+    out, failed = {}, []
+    for kind, recorded in kinds:
+        name = kind if kind.startswith("ext") else f"phase_{kind}_mesh"
+        for args, kw in recorded:
+            kernel, plain, shape, off = block_call(kind, args, kw)
+            if block_at(blocks, shape, off) != target:
+                continue
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            worst, equal, pad_equal = 0.0, True, True
+            for a, b in zip(got, want):
+                a, b = trim_to(blocks, a), trim_to(blocks, b)
+                _, rel = rel_err(a[..., :ia, :ja], b[..., :ia, :ja])
+                worst = max(worst, rel)
+                equal = equal and torch.equal(a[..., :ia, :ja],
+                                              b[..., :ia, :ja])
+                pad_equal = pad_equal and torch.equal(a, b)
+            bit = kind in BIT_EQUAL or kind in ("extchunk", "extwin_chunk")
+            if (bit and not equal) or not worst <= TOL["phase"][
+                    torch.float32]:
+                failed.append(f"{name}: rel {worst:.3e}, bit_equal {equal}")
+            say("ragged_kernels", kernel=name, block=f"'{target}'",
+                shape="x".join(map(str, shape)), off=f"'{off}'",
+                active=f"{ia}x{ja}", rel_err=f"{worst:.3e}",
+                bit_equal=equal, pad_cells_equal=pad_equal,
+                tol="torch.equal" if bit else TOL["phase"][torch.float32])
+            out[name] = (worst, equal)
+    if failed:
+        raise AssertionError("ragged: block kernels disagree with their "
+                             "plain versions:\n" + "\n".join(failed))
+    return out
+
+
+def ragged_phase(card: str) -> dict:
+    """Padding, at the main path's width: the seamount main path (extpom
+    scheme, nadv=1, npg=1) at RAGGED (255x255x31) float32, which neither
+    axis of config5's 2x4 mesh divides, RAGGED_STEPS steps from a cold
+    start: on the mesh (``Model.shard`` pads to 256x256; blocks 128x64),
+    with ``pad_model`` on one device (a 1x1 mesh whose padded axes carry a
+    ring), and a padded run whose pad cells start as NaN, each held on the
+    active region to the unpadded run on one device through the
+    whole-grid kernels (bit-equal expected; within 1e-10 of each field's
+    scale, or it fails); the pad cells of the prognostic fields stay 0.
+    Then the block kernels on the corner block (``ragged_kernels``).
+    Returns {path: launch counts} of the three padded-or-not runs."""
+    from extpom_tpu_torch.cases.seamount import seamount_model
+    from extpom_tpu_torch.core.state import State
+    from extpom_tpu_torch.diag import stats
+    from extpom_tpu_torch.mesh import extchunk
+    from extpom_tpu_torch.mesh.padding import pad_model
+    im, jm, kb = RAGGED
+    n = RAGGED_STEPS
+    with open(LARGE) as f:
+        mesh = mesh_of(json.load(f))
+    ref = seamount_model(im=im, jm=jm, kb=kb)
+    one_launches, one_ms = timed_run(ref, n)
+    want = {**dict.fromkeys(one_launches, 0), "extloop": n,
+            "phase_lat": n, **{f"phase_{p}": n - 1 for p in PHASES[1:]}}
+    if one_launches != want:
+        raise AssertionError(f"ragged one device: launch counts "
+                             f"{one_launches} != {want}")
+
+    m = seamount_model(im=im, jm=jm, kb=kb).shard(mesh)
+    if (m.cfg.im, m.cfg.jm) != (256, 256):
+        raise AssertionError(f"ragged: padded to {m.cfg.im}x{m.cfg.jm}")
+    nb = mesh.px * mesh.py
+    mesh_launches, mesh_ms = timed_run(m, n)
+    want = mesh_want(mesh_launches, m.cfg, n, nb, chunk_plan(m))
+    if mesh_launches != want:
+        raise AssertionError(f"ragged mesh: launch counts {mesh_launches} "
+                             f"!= {want}")
+    st = m.gathered_state()
+    mesh_equal, mesh_rel, mesh_field = active_errors(st, m.cfg, ref.state)
+    pad_zero(st, m.cfg)
+    s = {k: float(v) for k, v in
+         stats.domain_stats(m.grid, m.cfg, st).items()}
+    del st
+
+    p = seamount_model(im=im, jm=jm, kb=kb)
+    pad_model(p, mesh.px, mesh.py)
+    pad_launches, pad_ms = timed_run(p, n)
+    solo = extchunk.chunk_plan(p.cfg, 1, 1, p.cfg.im, p.cfg.jm, "cuda", 4)
+    want = mesh_want(pad_launches, p.cfg, n, 1, solo)
+    if pad_launches != want:
+        raise AssertionError(f"ragged pad_model: launch counts "
+                             f"{pad_launches} != {want}")
+    pad_equal, pad_rel, pad_field = active_errors(p.state, p.cfg, ref.state)
+    pad_zero(p.state, p.cfg)
+    profile_phase(p, steps=3, tag="ragged_pad_model_profile",
+                  groups=MESH_KERNELS)
+    del p
+
+    q = seamount_model(im=im, jm=jm, kb=kb)
+    pad_model(q, mesh.px, mesh.py)
+
+    def poison(a):
+        a = a.clone()
+        if a.dim() >= 2 and a.shape[-2:] == (q.cfg.im, q.cfg.jm):
+            a[..., im:, :] = float("nan")
+            a[..., :, jm:] = float("nan")
+        return a
+
+    q.state = State(**{f: poison(getattr(q.state, f))
+                       for f in State.field_names()})
+    q.run_segment(n)
+    nan_equal, _, _ = active_errors(q.state, q.cfg, ref.state)
+    del q, ref
+    say("ragged", grid=f"{im}x{jm}x{kb}", padded=f"{m.cfg.im}x{m.cfg.jm}",
+        mesh=f"{mesh.px}x{mesh.py}",
+        local_tile=f"{m.blocks.ni}x{m.blocks.nj}x{kb}", dtype="float32",
+        steps=n, timed_steps=n - SEG_WARM,
+        one_device_ms_per_step=f"{one_ms:.3f}",
+        mesh_ms_per_step=f"{mesh_ms:.3f}",
+        pad_model_ms_per_step=f"{pad_ms:.3f}",
+        pad_model_chunk=f"{solo.machine}:C={solo.C}:block={solo.R}x{solo.L}",
+        mesh_bit_equal=mesh_equal,
+        mesh_worst=f"'{mesh_field} {mesh_rel:.3e}'",
+        pad_model_bit_equal=pad_equal,
+        pad_model_worst=f"'{pad_field} {pad_rel:.3e}'",
+        nan_pad_finite=True, nan_pad_bit_equal=nan_equal,
+        pad_cells_zero=True, saver=f"{s['saver']:.7f}",
+        mesh_launches=json.dumps(mesh_launches, separators=(",", ":")),
+        pad_model_launches=json.dumps(pad_launches, separators=(",", ":")),
+        card=f"'{card}'")
+    profile_phase(m, steps=3, tag="ragged_profile", groups=MESH_KERNELS)
+    ragged_kernels(m)
+    return {"ragged_one_255": one_launches, "ragged_mesh_255": mesh_launches,
+            "ragged_pad_255": pad_launches}
 
 
 def state_check(tag: str, make, steps: int, tol: float = 1e-10) -> None:
@@ -3027,7 +3423,9 @@ def main() -> int:
         card, flush, large_ref)
     del large_ref
     cli_launches, _ = cli_phase(card)
-    channel_launches = channel_phase(card, flush)
+    channel_launches, channel_end = channel_phase(card, flush)
+    channel_mesh_launches = channel_mesh_phase(card, flush, channel_end)
+    del channel_end
     channel_check()
     orl_launches, m = orlanski_phase(card)
     orl_k = orlanski_kernels(m, flush)
@@ -3042,7 +3440,10 @@ def main() -> int:
     del m
     opt_k = options_kernels(flush)
     opt_mesh_launches, opt_mesh_k = options_mesh_phase(card, flush)
-    fr_launches, fr_k = file_restore_phase(card, flush)
+    fr_launches, fr_k, fr_end = file_restore_phase(card, flush)
+    frm_launches, frm_k = file_restore_mesh_phase(card, flush, fr_end)
+    del fr_end
+    ragged_launches = ragged_phase(card)
     options_check()
     file_restore_check()
     breakdown_phase()
@@ -3056,7 +3457,9 @@ def main() -> int:
                   (basin_cfg, None),
                   (cfg.replace(dtype="float32", **OPTIONS), None),
                   (channel_cfg.replace(bc_scheme="file", do_restore=True),
-                   None))
+                   None), (channel_cfg, mesh_block),
+                  (cfg.replace(dtype="float32", im=RAGGED[0], jm=RAGGED[1],
+                               kb=RAGGED[2]), mesh_block))
     paths = {"slice_256": launches, "large_2048": large_launches,
              "mesh_256": mesh_launches, "mesh_2048": large_mesh_launches,
              "cli_256": cli_launches, "channel_512": channel_launches,
@@ -3064,7 +3467,9 @@ def main() -> int:
              "orlanski_mesh_256": orl_mesh_launches,
              "basin_512": basin_launches, "options_256": opt_launches,
              "options_mesh_256": opt_mesh_launches,
-             "file_restore_512": fr_launches}
+             "file_restore_512": fr_launches,
+             "channel_mesh_512": channel_mesh_launches,
+             "file_restore_mesh_512": frm_launches, **ragged_launches}
     # the new paths' own numbers, under their path's name
     ext.update({f"orlanski_256_{k}": v for k, v in orl_k["extloop"].items()})
     ext.update({f"basin_512_{k}": v for k, v in basin_k["extloop"].items()})
@@ -3145,7 +3550,9 @@ def main() -> int:
         ("phase_tracer_options_mesh", "tracer", "options_mesh_256",
          opt_mesh_k["tracer"], "extpom_tpu/pallas/phases.py:904"),
         ("phase_tracer_mpdata_mesh", "tracer", "options_mesh_256",
-         opt_mesh_k["mpdata"], "extpom_tpu/pallas/phases.py:904"))
+         opt_mesh_k["mpdata"], "extpom_tpu/pallas/phases.py:904"),
+        ("phase_mom_file_mesh", "mom", "file_restore_mesh_512",
+         frm_k["mom"], "extpom_tpu/pallas/phases.py:904"))
     for name, p, path, entry, replaces in option_kernels:
         kernels_line["kernels"].append(dict(
             name=name, route="cuda",

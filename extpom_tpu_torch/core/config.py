@@ -12,7 +12,7 @@ computes on each block, not only how fast.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -145,6 +145,16 @@ class Config:
     def torch_dtype(self) -> torch.dtype:
         return {"float32": torch.float32, "float64": torch.float64}[self.dtype]
 
+    @property
+    def active(self) -> Tuple[int, int]:
+        """The physical extents (im_act, jm_act) of a possibly padded grid
+        (``mesh/padding.py``): the array's where it is not padded."""
+        return self.im_act or self.im, self.jm_act or self.jm
+
+    @property
+    def is_padded(self) -> bool:
+        return self.active != (self.im, self.jm)
+
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
 
@@ -167,6 +177,7 @@ class Config:
             raise ValueError(f"invalid ext_local_chunk {self.ext_local_chunk}")
         if self.kb < 3 or self.im < 5 or self.jm < 5:
             raise ValueError("domain too small")
-        if self.im_act not in (None, self.im) or self.jm_act not in (None, self.jm):
-            raise NotImplementedError(
-                "padded (im_act/jm_act) grids are not ported yet")
+        if self.im_act is not None and not 5 <= self.im_act <= self.im:
+            raise ValueError("im_act out of range")
+        if self.jm_act is not None and not 5 <= self.jm_act <= self.jm:
+            raise ValueError("jm_act out of range")

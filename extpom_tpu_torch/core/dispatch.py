@@ -23,15 +23,17 @@ def dispatch_report(cfg: Config, dtype: torch.dtype, device,
     with its C, H and tile), the phases ``cuda``; on the CPU everything is
     ``plain``.  ``mesh`` is a run file's mesh block ({"px", "py", "mode"})
     or a ``mesh.shardmap.Mesh``: a mesh of more than one block reports the
-    decomposed step (:func:`_mesh_report`); a 1x1 mesh runs the
-    single-device path."""
+    decomposed step (:func:`_mesh_report`), and so does a padded grid,
+    which runs it on one device as a 1x1 mesh; an unpadded 1x1 mesh runs
+    the single-device path."""
     device = torch.device(device)
     if device.type not in ("cuda", "cpu"):
         raise TypeError(f"dispatch: unsupported device {device}")
+    px = py = 1
     if mesh is not None:
         px, py, mode = _mesh_shape(mesh)
-        if px * py > 1:
-            return _mesh_report(cfg, dtype, device, px, py)
+    if px * py > 1 or cfg.is_padded:
+        return _mesh_report(cfg, dtype, device, px, py)
     if device.type == "cuda":
         itemsize = torch.empty((), dtype=dtype).element_size()
         if extwin.use_windowed(cfg.im, cfg.jm, itemsize,
@@ -107,12 +109,16 @@ def _mesh_report(cfg: Config, dtype: torch.dtype, device, px: int,
     """The decomposed step's decisions (``stepper.mesh_step``): the chunk
     plan of the external loop (``mesh.extchunk.chunk_plan``: C substeps per
     ring exchange, the ring, the extended block and, for the window kernel,
-    its C per launch, H and tile) and the phases' ring."""
-    from extpom_tpu_torch.mesh import extchunk
+    its C per launch, H and tile) and the phases' ring.  A grid that does
+    not divide the mesh is reported padded, as ``Model.shard`` pads it:
+    the padded extents, the active ones and the block."""
+    from extpom_tpu_torch.mesh import extchunk, padding
     if cfg.im % px or cfg.jm % py:
-        raise NotImplementedError(
-            f"grid {cfg.im}x{cfg.jm} does not divide mesh {px}x{py}: "
-            f"padding ragged grids is not ported yet")
+        if cfg.is_padded:
+            raise ValueError(f"padded grid {cfg.im}x{cfg.jm} does not "
+                             f"divide mesh {px}x{py}")
+        imp, jmp = padding.padded_dims(cfg.im, cfg.jm, px, py)
+        cfg = cfg.replace(im=imp, jm=jmp, im_act=cfg.im, jm_act=cfg.jm)
     ni, nj = cfg.im // px, cfg.jm // py
     itemsize = torch.empty((), dtype=dtype).element_size()
     plan = extchunk.chunk_plan(cfg, px, py, ni, nj, device, itemsize)
@@ -123,14 +129,18 @@ def _mesh_report(cfg: Config, dtype: torch.dtype, device, px: int,
         external.update(C_launch=plan.geo.C, H=plan.geo.H,
                         tile=f"{plan.geo.ti}x{plan.geo.tj}",
                         threads=plan.geo.threads)
-    ring = (cfg.phase_halo if px > 1 else 0, cfg.phase_halo if py > 1 else 0)
+    on_i, on_j = padding.ring_axes(cfg, px, py)
+    ring = (cfg.phase_halo if on_i else 0, cfg.phase_halo if on_j else 0)
     phase = "cuda-mesh" if device.type == "cuda" else "plain"
-    return {"external": _with_options(external, cfg),
-            "phases": _phases(cfg, {"machine": phase, "ring": ring}),
-            "mesh": {"px": px, "py": py, "mode": "shardmap", "devices": 1,
-                     "local_tile": (ni, nj, cfg.kb)},
-            "grid": (cfg.im, cfg.jm, cfg.kb), "dtype": str(dtype),
-            "device": str(device)}
+    out = {"external": _with_options(external, cfg),
+           "phases": _phases(cfg, {"machine": phase, "ring": ring}),
+           "mesh": {"px": px, "py": py, "mode": "shardmap", "devices": 1,
+                    "local_tile": (ni, nj, cfg.kb)},
+           "grid": (cfg.im, cfg.jm, cfg.kb), "dtype": str(dtype),
+           "device": str(device)}
+    if cfg.is_padded:
+        out["active"] = cfg.active
+    return out
 
 
 def format_report(rep: dict) -> str:
@@ -138,7 +148,9 @@ def format_report(rep: dict) -> str:
     ext = rep["external"]
     geo = " ".join(f"{k}={v}" for k, v in ext.items() if k != "machine")
     im, jm, kb = rep["grid"]
-    lines = [f"  grid {im}x{jm}x{kb} {rep['dtype']} on {rep['device']}",
+    pad = ("  padded from {}x{}".format(*rep["active"]) if "active" in rep
+           else "")
+    lines = [f"  grid {im}x{jm}x{kb} {rep['dtype']} on {rep['device']}{pad}",
              f"  external mode: {ext['machine']}"
              + (f"  [{geo}]" if geo else "")]
     by_machine: dict = {}

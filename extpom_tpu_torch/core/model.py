@@ -1,9 +1,15 @@
 """High-level model driver (``extpom_tpu/core/model.py``): cold start, the
 time loop, print-interval diagnostics and the blow-up guard, on one device
-or decomposed over a mesh (:meth:`Model.shard`), with time-varying forcing
-from a ``forcing_fn`` (a ``forcing.provider.ForcingProvider``: staged on
-the device for :meth:`Model.run_segment`, assembled on the host per step
-for :meth:`Model.step_once` and :meth:`Model.run`)."""
+or decomposed over a mesh (:meth:`Model.shard`, which pads a grid that does
+not divide it), with time-varying forcing from a ``forcing_fn`` (a
+``forcing.provider.ForcingProvider``: staged on the device for
+:meth:`Model.run_segment`, cut to the blocks on a mesh; assembled on the
+host per step for :meth:`Model.step_once` and :meth:`Model.run`).
+
+A padded model (``mesh.padding.pad_model``) keeps its padded global state
+in ``state`` on one device and runs the decomposed step on a 1x1 mesh of
+blocks; a padded model with a forcing_fn raises ``NotImplementedError``, as
+the reference cannot run one."""
 
 from __future__ import annotations
 
@@ -137,12 +143,19 @@ class Model:
         self.mesh = None       # set by shard()
         self.blocks = None     # the decomposed model, on a mesh of > 1 block
         self.forcing_fn: Optional[Callable] = None
-        self._plan = None          # (provider, whole staged plan)
-        self._plan_bytes = None    # (provider, its whole staging's bytes)
+        self.reset_plans()
         try:
             self.period = grid.inertial_period_days()
         except ValueError:
             self.period = math.inf
+
+    def reset_plans(self) -> None:
+        """Forget what was built for the arrays as they were: the staged
+        plan and the 1x1 blocks of a padded model (``padding.pad_model``
+        calls it)."""
+        self._plan = None          # (provider, whole staged plan)
+        self._plan_bytes = None    # (provider, its whole staging's bytes)
+        self._solo = None          # the 1x1 Blocks of a padded model
 
     @property
     def time_days(self) -> float:
@@ -170,50 +183,72 @@ class Model:
         state (realvertvl, solver.f:2024-2067), computed on demand at output
         time from the post-step time levels."""
         from extpom_tpu_torch.ops import continuity
+        from extpom_tpu_torch.ops.stencil import domain_of
         st = self.gathered_state()
-        return continuity.realvertvl(self.grid, self.cfg, st.w, st.u, st.v,
-                                     self.grid.h + st.et, st.et, st.etf,
-                                     st.etb)
+        with domain_of(self.cfg):
+            return continuity.realvertvl(self.grid, self.cfg, st.w, st.u,
+                                         st.v, self.grid.h + st.et, st.et,
+                                         st.etf, st.etb)
 
-    def _no_forcing_on_mesh(self) -> None:
-        if self.blocks is not None and self.forcing_fn is not None:
-            raise NotImplementedError(
-                "time-varying forcing on a mesh is not ported yet")
+    def _check_forcing(self) -> None:
+        from extpom_tpu_torch.mesh import padding
+        if self.forcing_fn is not None and self.cfg.is_padded:
+            raise NotImplementedError(padding.FORCED_PADDED)
+
+    def _step_blocks(self):
+        """The blocks the step runs on: the mesh's, the 1x1 blocks of a
+        padded model on one device (holding ``state``), or None."""
+        if self.blocks is not None:
+            return self.blocks
+        from extpom_tpu_torch.mesh import shardmap
+        if not self.cfg.is_padded:
+            return None
+        if self._solo is None:
+            self._solo = shardmap.shard_args(
+                shardmap.Mesh(1, 1, devices=[self.grid.device]), self.cfg,
+                self.grid, self.state, self.base_forcing, self.rmean,
+                self.tclim, self.sclim)
+        self._solo.state[(0, 0)] = self.state
+        return self._solo
 
     def shard(self, mesh, mode: str = "shardmap") -> "Model":
         """Decompose the model over ``mesh`` (``mesh.shardmap.Mesh``; the
         distribute_mpi analogue, parallel_mpi.f:34-122): the state, grid,
         forcing and climatology become px x py local blocks, and
         :meth:`run_segment` runs the decomposed step
-        (``stepper.mesh_step``).  A 1x1 mesh keeps the single-device path.
-        After it ``state`` is None: :meth:`gathered_state` assembles the
-        global state from the blocks."""
+        (``stepper.mesh_step``).  A grid that does not divide the mesh is
+        padded first (``mesh.padding.pad_model``).  A 1x1 mesh keeps the
+        single-device path.  After it ``state`` is None:
+        :meth:`gathered_state` assembles the global (padded) state from the
+        blocks."""
         from extpom_tpu_torch.mesh import shardmap
         if mode != "shardmap":
             raise NotImplementedError(f"parallel mode {mode!r} is not "
                                       f"ported; the port has 'shardmap'")
         if self.blocks is not None:
             raise ValueError("the model is already decomposed")
-        if mesh.px * mesh.py > 1 and self.forcing_fn is not None:
-            raise NotImplementedError(
-                "time-varying forcing on a mesh is not ported yet")
         device = mesh.device
         if device != self.grid.device and not (
                 device.type == self.grid.device.type == "cuda"
                 and (device.index or 0) == (self.grid.device.index or 0)):
             raise ValueError(f"the mesh is on {device}, the model on "
                              f"{self.grid.device}")
+        if self.cfg.im % mesh.px or self.cfg.jm % mesh.py:
+            from extpom_tpu_torch.mesh import padding
+            padding.pad_model(self, mesh.px, mesh.py)
         self.mesh = mesh
         if mesh.px * mesh.py > 1:
             self.blocks = shardmap.shard_args(
                 mesh, self.cfg, self.grid, self.state, self.base_forcing,
                 self.rmean, self.tclim, self.sclim)
             self.state = None
+            self._solo = None
         return self
 
     def gathered_state(self) -> State:
         """The global state: ``state`` itself on one device, assembled from
-        the blocks on a mesh."""
+        the blocks on a mesh; padded where the grid is (the active region
+        is ``mesh.padding.unpad`` of it)."""
         if self.blocks is None:
             return self.state
         from extpom_tpu_torch.mesh import shardmap
@@ -246,25 +281,27 @@ class Model:
         None: the segment gathers nothing (a gather copies a whole State,
         ~14 GB at 2048x2048x41 f32), so call :meth:`gathered_state` for the
         global state.  A ``ForcingProvider`` forcing_fn is staged on the
-        device and interpolated at every step; any other forcing_fn needs
-        :meth:`run`."""
+        device and interpolated at every step (on a mesh, on the whole grid,
+        then cut to the blocks); any other forcing_fn needs :meth:`run`."""
         from extpom_tpu_torch.forcing.provider import ForcingProvider
         if not (self.forcing_fn is None
                 or isinstance(self.forcing_fn, ForcingProvider)):
             raise ValueError("run_segment needs a ForcingProvider-backed "
                              "forcing_fn (or none); use run() for "
                              "arbitrary per-step forcing")
-        self._no_forcing_on_mesh()
+        self._check_forcing()
         period = self._period()
-        if self.blocks is not None:
+        t0 = self.time_days
+        plan = self._device_plan(t0, t0 + n_steps * self.cfg.dti / 86400.0)
+        blocks = self._step_blocks()
+        if blocks is not None:
             from extpom_tpu_torch.mesh import shardmap
-            shardmap.make_shardmap_run(self.blocks, self.cfg, period,
+            shardmap.make_shardmap_run(blocks, self.cfg, period,
                                        self.time0)(
-                self.iint, n_steps, first=(self.iint == 0))
+                self.iint, n_steps, first=(self.iint == 0), plan=plan)
+            if blocks is self._solo:
+                self.state = blocks.state[(0, 0)]
         else:
-            t0 = self.time_days
-            plan = self._device_plan(
-                t0, t0 + n_steps * self.cfg.dti / 86400.0)
             self.state = stepper.run_steps(
                 self.grid, self.cfg, self.state, self.base_forcing,
                 self.rmean, self.tclim, self.sclim, self.iint, n_steps,
@@ -274,10 +311,18 @@ class Model:
 
     def step_once(self) -> Optional[State]:
         """One internal step; with a forcing_fn its Forcing is assembled on
-        the host (:meth:`forcing_at`)."""
+        the host (:meth:`forcing_at`), on a mesh then cut to the blocks
+        (the JAX package's ``Model._shard_fc``)."""
         if self.forcing_fn is None:
             return self.run_segment(1)
-        self._no_forcing_on_mesh()
+        self._check_forcing()
+        if self.blocks is not None:
+            stepper.mesh_step(
+                self.blocks, self.cfg,
+                self.blocks.host_forcing(self.forcing_at(self.iint + 1)),
+                first=(self.iint == 0))
+            self.iint += 1
+            return self.state
         self.state = stepper.step(self.grid, self.cfg, self.state,
                                   self.forcing_at(self.iint + 1), self.rmean,
                                   self.tclim, self.sclim,

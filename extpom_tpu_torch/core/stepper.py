@@ -25,7 +25,7 @@ from extpom_tpu_torch.core.config import Config
 from extpom_tpu_torch.core.grid import Grid
 from extpom_tpu_torch.core.state import State, Forcing
 from extpom_tpu_torch.kernels import phases
-from extpom_tpu_torch.ops.stencil import domain, sft, put
+from extpom_tpu_torch.ops.stencil import domain_of, sft, put
 from extpom_tpu_torch.ops import advection2d
 from extpom_tpu_torch.bc import bcond as bcf
 from extpom_tpu_torch.bc import orlanski as bco
@@ -55,9 +55,16 @@ def mode_interaction(grid: Grid, cfg: Config, st: State, aam, advx, advy,
 
 def depth_integrals(grid: Grid, cfg: Config, aam, advx, advy, drhox, drhoy):
     """The pointwise part of ``mode_interaction``: (adx2d, ady2d, drx2d,
-    dry2d, aam2d) before advave's terms come off adx2d and ady2d."""
+    dry2d, aam2d) before advave's terms come off adx2d and ady2d.  On the
+    CPU the depth sums run in ascending k, so that a block's sums are the
+    whole grid's bit for bit: torch.sum there takes 8 cells of a level at a
+    time and the cells left at the end of the plane in another order, which
+    moves with the plane's size."""
     dz3 = grid.dz3[:cfg.kbm1]
-    return tuple(torch.sum(x[:cfg.kbm1] * dz3, dim=0)
+    if advx.is_cuda:
+        return tuple(torch.sum(x[:cfg.kbm1] * dz3, dim=0)
+                     for x in (advx, advy, drhox, drhoy, aam))
+    return tuple(phases._depth_sum(x, dz3, cfg.kbm1)
                  for x in (advx, advy, drhox, drhoy, aam))
 
 
@@ -286,8 +293,13 @@ def mode_internal(grid: Grid, cfg: Config, st: State, fc: Forcing,
 
 def step(grid: Grid, cfg: Config, st: State, fc: Forcing, rmean, tclim,
          sclim, first: bool = False) -> State:
-    """Advance one internal time step (advance.f:6-59)."""
+    """Advance one internal time step (advance.f:6-59).  A padded grid
+    raises, as the whole-grid kernels do: it runs :func:`mesh_step` on a
+    1x1 mesh of blocks (``Model``)."""
     from extpom_tpu_torch.kernels import extloop, extwin
+    if cfg.is_padded:
+        raise NotImplementedError("stepper.step on a padded grid: a padded "
+                                  "model runs mesh_step (Model.run_segment)")
     if cfg.mode == 2:   # no 3-D terms (advance.f:21 skips them)
         aam, advx, advy, drhox, drhoy = st.aam, None, None, None, None
     else:
@@ -318,7 +330,7 @@ def step(grid: Grid, cfg: Config, st: State, fc: Forcing, rmean, tclim,
                       aam2d=aam2d)
 
 
-def mesh_step(blocks, cfg: Config, ramp, first: bool = False) -> None:
+def mesh_step(blocks, cfg: Config, fc, first: bool = False) -> None:
     """One internal step of every block of ``blocks``
     (``mesh.shardmap.Blocks``), in the stages of :func:`step`: lat,
     mode_interaction, the external loop, uvw, tke, tracer, mom.  Each stage
@@ -326,9 +338,11 @@ def mesh_step(blocks, cfg: Config, ramp, first: bool = False) -> None:
     current values: ``cfg.phase_halo`` cells for the phases,
     :data:`INTERACTION_RADIUS` for mode_interaction, C x ext_halo_sub for
     a chunk of C external substeps (``mesh.extchunk``); then the ring is
-    trimmed.  Updates ``blocks.state`` in place of the old states."""
+    trimmed.  ``fc`` is the step's forcing on the blocks, with its ramp
+    (``mesh.shardmap.BlockForcing``), read by each stage at its ring.
+    Updates ``blocks.state`` in place of the old states."""
     from extpom_tpu_torch.mesh.extchunk import run_external_loop_chunked
-    from extpom_tpu_torch.mesh.shardmap import _local_ctx
+    ramp = fc.ramp
     ids = blocks.ids
     hp = blocks.ring(cfg.phase_halo)
     hm = blocks.ring(INTERACTION_RADIUS)
@@ -339,7 +353,7 @@ def mesh_step(blocks, cfg: Config, ramp, first: bool = False) -> None:
     d = ({b: blocks.grid[b].h + st[b].el for b in ids}
          if phases.reads_depth("lat", cfg) else None)
 
-    def phase(fn, b, operands, extra=(), fc=False, **kw):
+    def phase(fn, b, operands, extra=(), with_fc=False, **kw):
         """Phase ``fn`` on block ``b``, its trimmed outputs: ``operands``
         (and the keywords ``kw``) are state field names or per-block
         dicts, both ring-extended, then come the ``extra`` tensors as they
@@ -348,8 +362,8 @@ def mesh_step(blocks, cfg: Config, ramp, first: bool = False) -> None:
             blocks.field(x) if isinstance(x, str) else x, b)
         args = [field(x) for x in operands]
         args += list(extra)
-        if fc:
-            args.append(blocks.fc_ext(b, hp).replace(ramp=ramp))
+        if with_fc:
+            args.append(fc.ext(b, hp, phases.PHASE_FORCING))
         return trim(fn(blocks.grid_ext(b, hp), cfg, *args,
                        off=blocks.goff(b, hp),
                        **{k: field(x) for k, x in kw.items()}))
@@ -377,7 +391,7 @@ def mesh_step(blocks, cfg: Config, ramp, first: bool = False) -> None:
     for b in ids:
         e = lambda vals: ext(vals, b, hm)
         s = st[b]
-        with domain(_local_ctx(cfg, blocks.goff(b, hm))):
+        with domain_of(cfg, blocks.goff(b, hm)):
             g = blocks.grid_ext(b, hm)
             el, ua, va = (e(blocks.field(k)) for k in ("el", "ua", "va"))
             if m2:
@@ -401,7 +415,7 @@ def mesh_step(blocks, cfg: Config, ramp, first: bool = False) -> None:
                             vab=s.vab, etf=s.etf, egf=egf, utf=utf, vtf=vtf,
                             advua=advua, advva=advva, wubot=s.wubot,
                             wvbot=s.wvbot)
-    carry = run_external_loop_chunked(blocks, cfg, carry, aux, ramp)
+    carry = run_external_loop_chunked(blocks, cfg, carry, aux, fc)
 
     new = {b: dict(u=st[b].u, ub=st[b].ub, v=st[b].v, vb=st[b].vb,
                    w=st[b].w, t=st[b].t, tb=st[b].tb, s=st[b].s,
@@ -423,18 +437,19 @@ def mesh_step(blocks, cfg: Config, ramp, first: bool = False) -> None:
             phases.phase_uvw, b,
             ("u", "v", "w", dt, "utb", "vtb", cget("utf"), cget("vtf"),
              "etb", cget("etf"), "vfluxb"),
-            (blocks.fc_ext(b, hp).vflux,)) for b in ids})
+            (fc.ext(b, hp, phases.PHASE_FORCING).vflux,))
+            for b in ids})
         stage(("q2", "q2b", "q2l", "q2lb", "km", "kh", "kq", "l"), {b: phase(
             phases.phase_tke, b,
             ("q2", "q2b", "q2l", "q2lb", nget("u"), nget("v"), nget("w"),
              aam, "t", "s", "rho", "km", "kh", "kq", dt, "etb", cget("etf"),
-             cget("wubot"), cget("wvbot")), fc=True) for b in ids})
+             cget("wubot"), cget("wvbot")), with_fc=True) for b in ids})
         if cfg.mode != 4:
             stage(("t", "tb", "s", "sb", "rho"), {b: phase(
                 phases.phase_tracer, b, ("t", "tb", "s", "sb"),
                 blocks.clim_ext(b, hp)[1:] + tuple(ext(x, b) for x in (
                     nget("u"), nget("v"), nget("w"), aam, nget("kh"), dt,
-                    blocks.field("etb"), cget("etf"))), fc=True, ub="ub")
+                    blocks.field("etb"), cget("etf"))), with_fc=True, ub="ub")
                 for b in ids})
         lat_out = lambda k: {b: lat[b][k] for b in ids}
         dn = ({b: blocks.grid[b].h + carry[b].el for b in ids}
@@ -443,17 +458,17 @@ def mesh_step(blocks, cfg: Config, ramp, first: bool = False) -> None:
             phases.phase_mom, b,
             (nget("u"), "ub", nget("v"), "vb", nget("w"), lat_out(1),
              lat_out(2), lat_out(3), lat_out(4), nget("km"), dt,
-             cget("egf"), "egb", "etb", cget("etf"), dn), fc=True)
+             cget("egf"), "egb", "etb", cget("etf"), dn), with_fc=True)
             for b in ids})
 
-    fc = {b: blocks.fc[b] for b in ids}
+    vflux = {b: fc.ext(b, (0, 0), ("vflux",)).vflux for b in ids}
     for b in ids:
         s, c = st[b], carry[b]
         blocks.state[b] = s.replace(
             **new[b], aam=aam[b],
             el=c.el, elb=c.elb, ua=c.ua, uab=c.uab, va=c.va, vab=c.vab,
             egb=c.egf, etb=s.et, et=c.etf, etf=c.etf, utb=c.utf, vtb=c.vtf,
-            vfluxb=fc[b].vflux, vfluxf=fc[b].vflux,
+            vfluxb=vflux[b], vfluxf=vflux[b],
             advua=c.advua, advva=c.advva,
             adx2d=aux[b][0], ady2d=aux[b][1], drx2d=aux[b][2],
             dry2d=aux[b][3], aam2d=aux[b][4])

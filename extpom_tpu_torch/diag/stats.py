@@ -35,9 +35,10 @@ def _csum(x: torch.Tensor) -> torch.Tensor:
 def domain_stats(grid: Grid, cfg: Config, st: State) -> Dict[str, torch.Tensor]:
     """vtot, atot, mtot, tsalt, taver, saver, eaver, ekin; sums cover the
     interior plus the four edges without the corners (advance.f:669-745),
-    accumulated in float64."""
+    accumulated in float64, over the active region of a padded grid."""
     kbm1 = cfg.kbm1
-    wide = lambda a: a.to(torch.float64)
+    ia, ja = cfg.active
+    wide = lambda a: a[..., :ia, :ja].to(torch.float64)
     darea = wide(grid.dx) * wide(grid.dy) * wide(grid.fsm)
 
     def edge_sum(a2d):
@@ -50,7 +51,7 @@ def domain_stats(grid: Grid, cfg: Config, st: State) -> Dict[str, torch.Tensor]:
     eavg = torch.where(atot != 0, eavg / atot, 0.0)
 
     dt2 = wide(grid.h) + wide(st.et)
-    dvol = darea[None] * dt2[None] * wide(grid.dz3[:kbm1])
+    dvol = darea[None] * dt2[None] * grid.dz3[:kbm1].to(torch.float64)
 
     def edge_sum3(a3d):
         return _csum(torch.cat([
@@ -86,7 +87,9 @@ def cfl_min(grid: Grid, cfg: Config) -> torch.Tensor:
 
 def check_velocity(cfg: Config, vaf: torch.Tensor
                    ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Blow-up detector: (max |vaf|, (i, j) of the max)."""
-    a = torch.abs(vaf)
+    """Blow-up detector: (max |vaf|, (i, j) of the max) over the active
+    region."""
+    ia, ja = cfg.active
+    a = torch.abs(vaf[..., :ia, :ja])
     k = torch.argmax(a)
     return torch.max(a), (k // a.shape[1], k % a.shape[1])

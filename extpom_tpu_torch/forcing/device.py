@@ -10,6 +10,9 @@ kernels per series.  The record index and the interpolation fraction are
 host arithmetic on the step number (:func:`t_days_at`, in the model's
 dtype, as the JAX package forms them), so no step waits on the device.
 
+On a mesh the Forcing of a step is formed the same way, once on the whole
+grid, and then cut to the blocks (``mesh.shardmap.Blocks.host_forcing``).
+
 Within the budget ``cfg.forcing_hbm_mb`` a series is staged whole, once;
 beyond it, :func:`make_device_plan` stages the window of records a segment
 needs plus one record of margin each side, and the model stages a new
@@ -130,7 +133,7 @@ def forcing_at(plan: DevicePlan, base: Forcing, cfg: Config,
     staged series at its bracketing records, linearly interpolated; the
     boundary velocity profiles also depth-integrated to their barotropic
     values, in ascending k.  Every tensor it makes is contiguous, of the
-    stacks' dtype, on their device."""
+    stacks' dtype, on their device; the other fields are ``base``'s own."""
     d = type(t_days)
     upd = {}
     for name, cad, off, do_i, stack, start in zip(

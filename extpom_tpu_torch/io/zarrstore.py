@@ -10,6 +10,7 @@ output (io_pnetcdf.F) — as Zarr arrays, one directory per dataset with an
   the prognostic fields and the scalar diagnostics (io_pnetcdf.F:57-410);
 * :func:`write_grid` / :func:`read_grid`, :func:`write_initial_ts` /
   :func:`read_initial_ts`;
+* :func:`write_aux` — the full-state debug dump (io_pnetcdf.F:413-1658);
 * :class:`ZarrSource` / :func:`write_forcing_series` — forcing record
   series (io_pnetcdf.F:2912-3622).
 
@@ -195,6 +196,22 @@ def read_initial_ts(path: str):
     if attrs.get("has_clim"):
         return tb, sb, read_array(path, "tclim"), read_array(path, "sclim")
     return tb, sb, tb, sb
+
+
+def write_aux(path: str, grid: Grid, cfg: Config, state: State,
+              time_days: float = 0.0, extra: Optional[Dict] = None) -> None:
+    """Full-state debug dump (the write_aux_pnetcdf equivalent,
+    io_pnetcdf.F:413-1658): every State field, all time levels, the grid
+    fields of a snapshot and any derived arrays in ``extra``, each through
+    :func:`write_array`."""
+    for f in dataclasses.fields(State):
+        write_array(path, f.name, getattr(state, f.name))
+    for name in OUTPUT_GRID_VARS:
+        write_array(path, name, getattr(grid, name))
+    for name, arr in (extra or {}).items():
+        write_array(path, name, arr)
+    _write_attrs(path, {"time_days": float(time_days),
+                        "format": "extpom_tpu.aux.v1"})
 
 
 # -- forcing record source (the .sfrc/.lbry series readers) ----------------

@@ -25,6 +25,16 @@ LAUNCHES = {"tridiag": 0, "extloop": 0, "extwin": 0,
             **{f"{v}_mesh": 0 for v in OPTION_VARIANTS}}
 
 
+def whole_grid_only(cfg, what: str) -> None:
+    """Raise for a whole-grid kernel launch on a padded grid: the
+    whole-grid kernels take the array's extents as the domain's, so a
+    padded model runs the block kernels (``mesh/padding.py``)."""
+    if cfg.is_padded:
+        raise NotImplementedError(
+            f"{what}: the whole-grid kernel on a padded grid; a padded model "
+            f"runs the block kernels (Model.run_segment)")
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0

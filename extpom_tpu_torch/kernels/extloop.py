@@ -58,9 +58,8 @@ def run_external_chunk_plain(grid, cfg, c0, fc, aux, C: int, iext0: int,
     (0, 0) is global ``off`` when it is given (the XLA chunk body of
     ``extpom_tpu/mesh/extchunk.py``)."""
     from extpom_tpu_torch.core import stepper
-    from extpom_tpu_torch.ops.stencil import DomainCtx, domain
-    ctx = None if off is None else DomainCtx(cfg.im, cfg.jm, *off)
-    with domain(ctx):
+    from extpom_tpu_torch.ops.stencil import domain_of
+    with domain_of(cfg, off):
         em = stepper.ext_precompute(grid)
         c = c0
         for iext in range(iext0, iext0 + C):
@@ -121,6 +120,7 @@ def run_external_loop(grid, cfg, c0, fc, aux, threads=None):
         return run_external_loop_plain(grid, cfg, c0, fc, aux)
     if device.type != "cuda":
         raise TypeError(f"extloop: unsupported device {device}")
+    kernels.whole_grid_only(cfg, "extloop")
     return _launch(grid, cfg, c0, fc, aux, threads=threads)
 
 
@@ -128,8 +128,8 @@ def run_external_chunk(grid, cfg, c0, fc, aux, C: int, iext0: int, off,
                        threads=None):
     """Substeps iext0 .. iext0+C-1 on a ring-extended (R, L) block whose
     cell (0, 0) is global ``off``: every 2-D operand is (R, L), the j-side
-    series (L,) and the i-side series (R,), ``cfg.im``/``cfg.jm`` are the
-    global extents.  Only the cells the ring covers come out right (the
+    series (L,) and the i-side series (R,), ``cfg``'s active extents are
+    the domain's.  Only the cells the ring covers come out right (the
     caller trims the rest).  CUDA tensors launch the kernel of
     ``csrc/extloop.cu`` built for blocks, CPU tensors run
     :func:`run_external_chunk_plain`."""
@@ -255,7 +255,8 @@ def _launch(grid, cfg, c0, fc, aux, chunk=None, threads=None):
     with torch.cuda.device(el.device):
         status = fn(ctypes.cast(ptrs, ctypes.c_void_p),
                     ctypes.cast(prm, ctypes.c_void_p),
-                    cfg.im, cfg.jm, *block, cfg.isplit, cfg.ispadv, flags,
+                    *cfg.active, *block, cfg.isplit, cfg.ispadv,
+                    flags,
                     threads, blocks, stream)
     build.check(status, f"{name} kernel")
     kernels.LAUNCHES[name] += 1

@@ -182,6 +182,7 @@ def run_external_loop_windowed(grid, cfg, c0, fc, aux, geo=None):
         return run_external_loop_windowed_plain(grid, cfg, c0, fc, aux)
     if device.type != "cuda":
         raise TypeError(f"extwin: unsupported device {device}")
+    kernels.whole_grid_only(cfg, "extwin")
     return _launch(grid, cfg, c0, fc, aux, geo)
 
 
@@ -217,9 +218,9 @@ def _launch(grid, cfg, c0, fc, aux, geo, chunk=None):
     stream = torch.cuda.current_stream(el.device).cuda_stream
     with torch.cuda.device(el.device):
         status = fn(ctypes.cast(ptrs, ctypes.c_void_p),
-                    ctypes.cast(prm, ctypes.c_void_p), cfg.im, cfg.jm,
-                    *block, cfg.isplit, cfg.ispadv, extloop.ext_flags(cfg),
-                    geo.C, geo.H, geo.ti, geo.tj, geo.threads, stream)
+                    ctypes.cast(prm, ctypes.c_void_p),
+                    *cfg.active, *block, cfg.isplit, cfg.ispadv,
+                    extloop.ext_flags(cfg), geo.C, geo.H, geo.ti, geo.tj, geo.threads, stream)
     build.check(status, f"{name} kernel")
     n_launch = (cfg.isplit if chunk is None else chunk[0]) // geo.C
     # the whole loop counts its launches; the block variant its calls

@@ -20,11 +20,13 @@ With ``off=(oi, oj)`` a phase runs on one ring-extended block of the
 decomposed step (``mesh/shardmap.py``; the mesh variant of the TPU kernel,
 ``windowed_phase(..., rows, lanes, off)``): every field is (.., R, L), the
 grid and forcing are extended alike, ``off`` is the global (i, j) of the
-block's cell (0, 0), and ``cfg.im``/``cfg.jm`` stay the global extents.  Its
+block's cell (0, 0), and the domain's extents are ``cfg``'s active ones
+(``im_act``/``jm_act`` of a padded grid, ``mesh/padding.py``).  Its
 regions and edges are those of the global domain; only the cells whose
 inputs the ring covers come out right, and the caller trims the rest.  On
 the card it launches the ``*_mesh`` entry of the same source, counted
-under ``phase_<p>_mesh``.
+under ``phase_<p>_mesh``.  A padded grid runs only on blocks there: the
+whole-grid entries take the array's extents as the domain's.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ from extpom_tpu_torch.core.config import Config
 from extpom_tpu_torch.kernels import build
 from extpom_tpu_torch.ops import (continuity, density, momentum, pressure,
                                   tracers, vertical)
-from extpom_tpu_torch.ops.stencil import DomainCtx, domain, sft, put
+from extpom_tpu_torch.ops.stencil import domain_of, sft, put
 from extpom_tpu_torch.bc import bcond as bcf
 from extpom_tpu_torch.bc import orlanski as bco
 
@@ -452,6 +454,11 @@ _FC = {
 # the restoring series (tracer; taurstr may be one broadcast value)
 _FC_FILE = ((), ("ubw", "ube", "vbw", "vbe"), ("ubs", "ubn", "vbs", "vbn"))
 RESTORE = ("trstr", "srstr", "taurstr")
+# every forcing field a phase reads, under any option (the decomposed step
+# cuts only these at the phases' ring)
+PHASE_FORCING = frozenset(
+    [n for groups in list(_FC.values()) + [_FC_FILE] for g in groups
+     for n in g] + list(RESTORE) + ["vflux"])
 # grid fields the kernel reads: (im, jm), (kb,)
 _GRID = {
     "lat": (("dx", "dy", "aru", "arv", "dum", "dvm"), ("zz", "dzz")),
@@ -558,6 +565,8 @@ def _check(phase: str, grid, cfg: Config, args, off=None) -> torch.device:
             raise ValueError(f"phase_{phase}: {name} must be contiguous")
     if device.type not in ("cpu", "cuda"):
         raise TypeError(f"phase_{phase}: unsupported device {device}")
+    if device.type == "cuda" and off is None:
+        kernels.whole_grid_only(cfg, f"phase_{phase}")
     return device
 
 
@@ -599,8 +608,8 @@ def _launch(phase: str, tensors, prm, cfg: Config, opt0=0, opt1=0,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         status = fn(ctypes.cast(ptrs, ctypes.c_void_p),
-                    ctypes.cast(params, ctypes.c_void_p), cfg.kb, cfg.im,
-                    cfg.jm, *block, opt0, opt1, *geo, stream)
+                    ctypes.cast(params, ctypes.c_void_p), cfg.kb,
+                    *cfg.active, *block, opt0, opt1, *geo, stream)
     build.check(status, f"{name} kernel")
     count = count or entry or f"phase_{phase}"
     kernels.LAUNCHES[count if off is None else f"{count}_mesh"] += 1
@@ -609,16 +618,23 @@ def _launch(phase: str, tensors, prm, cfg: Config, opt0=0, opt1=0,
 def _plain(phase: str, grid, cfg: Config, args, off, **kw):
     """The plain phase, on a block under its DomainCtx when ``off`` is
     given; ``kw`` are its keyword operands (tracer's ub)."""
-    fn = globals()[f"phase_{phase}_plain"]
-    if off is None:
-        return fn(grid, cfg, *args, **kw)
-    with domain(DomainCtx(cfg.im, cfg.jm, *off)):
-        return fn(grid, cfg, *args, **kw)
+    with domain_of(cfg, off):
+        return globals()[f"phase_{phase}_plain"](grid, cfg, *args, **kw)
 
 
-def _empty(like: torch.Tensor, n: int) -> list:
+def _empty(like: torch.Tensor, n: int, cfg: Config = None,
+           off=None) -> list:
     """``n`` fresh tensors shaped like ``like`` (each its own allocation, so
-    an output kept in the state holds no other output alive)."""
+    an output kept in the state holds no other output alive).  A block
+    kernel leaves some of its cells outside the domain unwritten (the
+    caller trims them); on a padded grid the pad cells among them may be
+    the block's own, so where the block at ``off`` reaches the pad the
+    outputs start as 0, the pad's land value, which the plain versions
+    leave there too."""
+    if off is not None and cfg is not None and cfg.is_padded:
+        ia, ja = cfg.active
+        if off[0] + like.shape[-2] > ia or off[1] + like.shape[-1] > ja:
+            return [torch.zeros_like(like) for _ in range(n)]
     return [torch.empty_like(like) for _ in range(n)]
 
 
@@ -636,7 +652,7 @@ def phase_lat(grid, cfg: Config, u, v, ub, vb, aam0, rho, rmean, dt, d,
     args = (u, v, ub, vb, aam0, rho, rmean, dt, d, ramp)
     if _check("lat", grid, cfg, args, off).type == "cpu":
         return _plain("lat", grid, cfg, args, off)
-    out = _empty(u, 5)
+    out = _empty(u, 5, cfg, off)
     mcc = variant("lat", cfg)
     geo, _, _ = _tile_launch("lat", cfg.kb, u, off, tile, mcc)
     _launch("lat", kernel_inputs("lat", grid, cfg, *args) + out,
@@ -653,7 +669,7 @@ def phase_uvw(grid, cfg: Config, u, v, w, dt, utb, vtb, utf, vtf, etb, etf,
     args = (u, v, w, dt, utb, vtb, utf, vtf, etb, etf, vfluxb, vflux)
     if _check("uvw", grid, cfg, args, off).type == "cpu":
         return _plain("uvw", grid, cfg, args, off)
-    out = _empty(u, 3)
+    out = _empty(u, 3, cfg, off)
     geo, _, keep = _tile_launch("uvw", cfg.kb, u, off, tile)
     _launch("uvw", kernel_inputs("uvw", grid, cfg, *args) + out, [cfg.dti2],
             cfg, int(keep), off=off, geo=geo)
@@ -676,7 +692,7 @@ def phase_tke(grid, cfg: Config, q2, q2b, q2l, q2lb, u, v, w, aam, t, s, rho,
             etf, wubot, wvbot, fc)
     if _check("tke", grid, cfg, args, off).type == "cpu":
         return _plain("tke", grid, cfg, args, off)
-    out = _empty(q2, 8)
+    out = _empty(q2, 8, cfg, off)
     geo, eg, _ = _tile_launch("tke", cfg.kb, q2, off, tile)
     _launch("tke", kernel_inputs("tke", grid, cfg, *args) + out + eg,
             _tke_params(cfg), cfg, int(cfg.bc_scheme == "orlanski"),
@@ -705,12 +721,11 @@ def mpdata(grid, cfg: Config, t, tb, s, sb, u, v, w, dt, etb, etf,
     ``phase_tracer_mpdata`` (``_mesh`` on a block); CPU tensors run
     :func:`mpdata_plain`.  ``off`` as the phases'."""
     if t.device.type == "cpu":
-        if off is None:
+        with domain_of(cfg, off):
             return mpdata_plain(grid, cfg, t, tb, s, sb, u, v, w, dt, etb,
                                 etf)
-        with domain(DomainCtx(cfg.im, cfg.jm, *off)):
-            return mpdata_plain(grid, cfg, t, tb, s, sb, u, v, w, dt, etb,
-                                etf)
+    if off is None:
+        kernels.whole_grid_only(cfg, "mpdata")
     return _mpdata_launch(grid, cfg, t, tb, s, sb, u, v, w, dt, etb, etf,
                           off)
 
@@ -769,7 +784,7 @@ def phase_tracer(grid, cfg: Config, t, tb, s, sb, tclim, sclim, u, v, w,
                               etf, off)
                if cfg.nadv == 2 else (None, None))
     opt = variant("tracer", cfg)
-    out = _empty(t, 5)
+    out = _empty(t, 5, cfg, off)
     ntp = cfg.ntp - 1
     geo, eg, _ = _tile_launch("tracer", cfg.kb, t, off, tile, opt)
     # orl_ts (selected by a non-null ub): the old u, and the strip of the
@@ -801,7 +816,7 @@ def phase_mom(grid, cfg: Config, u, ub, v, vb, w, advx, advy, drhox, drhoy,
             etf, d, fc)
     if _check("mom", grid, cfg, args, off).type == "cpu":
         return _plain("mom", grid, cfg, args, off)
-    out = _empty(u, 4) + _empty(dt, 2)
+    out = _empty(u, 4, cfg, off) + _empty(dt, 2, cfg, off)
     geo, eg, keep = _tile_launch("mom", cfg.kb, u, off, tile)
     # the solved uf of rows 2 and im-2, vf of columns 2 and jm-2
     R, L = u.shape[-2:]

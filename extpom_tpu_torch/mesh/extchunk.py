@@ -25,6 +25,10 @@ import torch
 from extpom_tpu_torch.kernels import extloop, extwin
 
 
+# the forcing fields the external loop reads (csrc/extloop.cu's operands)
+EXT_FORCING = (extloop.FC_2D_FIELDS + extloop.FC_1D_J + extloop.FC_1D_I)
+
+
 def _ring_extend(vals: dict, b, hx: int, hy: int,
                  fill: float = 0.0) -> torch.Tensor:
     """Block ``b``'s (.., ni, nj) tensor of ``vals`` (block -> tensor)
@@ -80,12 +84,15 @@ def _ring_extend_1d(vals: dict, b, h: int, axis: str) -> torch.Tensor:
 
 def _chunk(cfg, px: int, py: int, ni: int, nj: int) -> int:
     """Substeps per ring exchange: the largest divisor C of isplit, up to
-    ``extwin_chunk``, whose ring C x ext_halo_sub fits the split extents
-    of a (ni, nj) block; 1 with ``ext_local_chunk="off"``."""
+    ``extwin_chunk``, whose ring C x ext_halo_sub fits the extents of a
+    (ni, nj) block on the axes that carry a ring (split or padded,
+    ``padding.ring_axes``); 1 with ``ext_local_chunk="off"``."""
+    from extpom_tpu_torch.mesh.padding import ring_axes
     lim = cfg.isplit * cfg.ext_halo_sub
-    if px > 1:
+    on_i, on_j = ring_axes(cfg, px, py)
+    if on_i:
         lim = min(lim, ni)
-    if py > 1:
+    if on_j:
         lim = min(lim, nj)
     top = 1 if cfg.ext_local_chunk == "off" else min(cfg.extwin_chunk,
                                                      cfg.isplit)
@@ -118,9 +125,11 @@ def chunk_plan(cfg, px: int, py: int, ni: int, nj: int, device,
     working set fits the L2, the window kernel beyond it (the choice
     ``extwin.use_windowed`` makes for a whole grid).  Shared by the runner
     and the dispatch report."""
+    from extpom_tpu_torch.mesh.padding import ring_axes
     C = _chunk(cfg, px, py, ni, nj)
     H = C * cfg.ext_halo_sub
-    hx, hy = (H if px > 1 else 0), (H if py > 1 else 0)
+    on_i, on_j = ring_axes(cfg, px, py)
+    hx, hy = (H if on_i else 0), (H if on_j else 0)
     R, L = ni + 2 * hx, nj + 2 * hy
     device = torch.device(device)
     geo = None
@@ -134,13 +143,16 @@ def chunk_plan(cfg, px: int, py: int, ni: int, nj: int, device,
     return ChunkPlan(C, hx, hy, R, L, machine, geo)
 
 
-def run_external_loop_chunked(blocks, cfg, carry: dict, aux: dict, ramp):
+def run_external_loop_chunked(blocks, cfg, carry: dict, aux: dict, fc):
     """The isplit external substeps of every block of ``blocks``
     (``mesh.shardmap.Blocks``): per C substeps, ring-extend each block's
     carry from its neighbours' current carry, run the chunk on the
     extended block and trim the ring.  ``carry`` and ``aux`` map a block
     to its ``ExtCarry`` and its (adx2d, ady2d, drx2d, dry2d, aam2d); the
-    static operands are extended once.  Returns the new carry dict."""
+    static operands are extended once, and the step's forcing ``fc``
+    (``mesh.shardmap.BlockForcing``: wind stress, vflux, e_atmos, the
+    lateral series of bcond and bc_el, and the ramp) is read at the
+    chunk's own ring.  Returns the new carry dict."""
     from extpom_tpu_torch.core.stepper import ExtCarry
     el = next(iter(carry.values())).el
     plan = chunk_plan(cfg, blocks.px, blocks.py, blocks.ni, blocks.nj,
@@ -156,7 +168,8 @@ def run_external_loop_chunked(blocks, cfg, carry: dict, aux: dict, ramp):
                                       b, h)
                            for k in range(len(ExtCarry._fields))))
             args = (blocks.grid_ext(b, h), cfg, c,
-                    blocks.fc_ext(b, h).replace(ramp=ramp), aux_e[b],
+                    fc.ext(b, h, EXT_FORCING),
+                    aux_e[b],
                     plan.C, ic * plan.C + 1, blocks.goff(b, h))
             if plan.machine == "cuda-extwin-chunk":
                 c = extwin.run_external_chunk_windowed(*args, geo=plan.geo)

@@ -10,6 +10,13 @@ under a ``DomainCtx`` that carries the block's global offset, and trims the
 ring.  Outputs are new tensors, so the blocks of a stage may run in any
 order, and only one block's extended operands are live at a time.
 
+The forcing of a step reaches the blocks as a :class:`BlockForcing`,
+which ``stepper.mesh_step`` hands to every stage: the static forcing, or a
+Forcing of the whole grid (host-assembled, or interpolated once per step
+from a staged plan) whose changed fields are cut to each block at the ring
+a stage reads them.  A grid that does not divide the mesh is padded first
+(``mesh/padding.py``, ``Model.shard``).
+
 Every block lives on one device in this slice; blocks on several devices,
 and processes that each own some blocks, are the next.
 """
@@ -17,7 +24,6 @@ and processes that each own some blocks, are the next.
 from __future__ import annotations
 
 import dataclasses
-
 import torch
 
 from extpom_tpu_torch.core.config import Config
@@ -26,8 +32,7 @@ from extpom_tpu_torch.core.state import State, Forcing
 from extpom_tpu_torch.mesh import extchunk
 from extpom_tpu_torch.mesh.extchunk import _ring_extend, _ring_extend_1d
 from extpom_tpu_torch.mesh.padding import (_GRID_PAD_ONE, FORCING_I_SERIES,
-                                           FORCING_J_SERIES)
-from extpom_tpu_torch.ops import stencil
+                                           FORCING_J_SERIES, ring_axes)
 
 
 class Mesh:
@@ -55,36 +60,69 @@ class Mesh:
         return self.devices[0]
 
 
-def _local_ctx(cfg: Config, goff) -> stencil.DomainCtx:
-    """The DomainCtx of an extended block whose cell (0, 0) is global
-    ``goff``: the stages of ``stepper.mesh_step`` that run plain PyTorch
-    on a block run under it (the block wrappers of ``kernels/`` build the
-    same from their ``off``)."""
-    return stencil.DomainCtx(cfg.im, cfg.jm, *goff)
-
-
 def _split(a: torch.Tensor, b, ni: int, nj: int) -> torch.Tensor:
     return a[..., b[0] * ni:(b[0] + 1) * ni,
              b[1] * nj:(b[1] + 1) * nj].contiguous()
 
 
+def _window(a: torch.Tensor, lo: int, n: int, h: int, axis: int,
+            fill: float) -> torch.Tensor:
+    """Cells ``lo - h`` .. ``lo + n + h`` of ``a`` along ``axis``, ``fill``
+    beyond its ends."""
+    size = a.shape[axis]
+    if h == 0 or (lo - h >= 0 and lo + n + h <= size):
+        return a.narrow(axis, lo - h, n + 2 * h)
+    shape = list(a.shape)
+    shape[axis] = n + 2 * h
+    out = a.new_full(shape, fill)
+    a0, a1 = max(lo - h, 0), min(lo + n + h, size)
+    out.narrow(axis, a0 - (lo - h), a1 - a0).copy_(a.narrow(axis, a0,
+                                                            a1 - a0))
+    return out
+
+
+class BlockForcing:
+    """The forcing of one step on the blocks, with its ``ramp``:
+    ``make(b, h, names)`` builds block ``b``'s Forcing grown by the ring
+    ``h``, for a stage that reads the fields ``names`` (all where None);
+    :meth:`ext` keeps each for the step and sets the ramp."""
+
+    def __init__(self, make, ramp: torch.Tensor):
+        self._make, self.ramp, self._memo = make, ramp, {}
+
+    def ext(self, b, h, names=None) -> Forcing:
+        key = (b, tuple(h), names)
+        if key not in self._memo:
+            self._memo[key] = self._make(b, tuple(h), names).replace(
+                ramp=self.ramp)
+        return self._memo[key]
+
+
 class Blocks:
     """A model decomposed over a :class:`Mesh`: per block (bi, bj) its local
     grid, state, forcing and climatology (``shard_args``), the ring
-    exchange (:meth:`ext`, :meth:`trim`) and the extended static operands,
+    exchange (:meth:`ext`, :meth:`trim`), the extended static operands,
     built once per ring width (:meth:`grid_ext`, :meth:`fc_ext`,
-    :meth:`clim_ext`)."""
+    :meth:`clim_ext`), and the forcing of a step on the blocks
+    (:meth:`static_forcing`, :meth:`host_forcing`).
+
+    A padded grid (``mesh/padding.py``) decomposes like any other; its
+    blocks carry a ring along each padded axis too, so that a padded model
+    on one device is a 1x1 mesh of blocks whose kernels skip no active
+    cell (``padding.ring_axes``)."""
 
     def __init__(self, mesh: Mesh, cfg: Config, grid: Grid, st: State,
                  fc: Forcing, rmean, tclim, sclim):
         px, py = mesh.px, mesh.py
         if cfg.im % px or cfg.jm % py:
-            raise NotImplementedError(
-                f"grid {cfg.im}x{cfg.jm} does not divide mesh {px}x{py}: "
-                f"padding ragged grids is not ported yet")
+            raise ValueError(f"grid {cfg.im}x{cfg.jm} does not divide mesh "
+                             f"{px}x{py}: pad it first "
+                             f"(padding.pad_model, Model.shard)")
         device = mesh.device
+        self.cfg = cfg
         self.px, self.py = px, py
         self.ni, self.nj = cfg.im // px, cfg.jm // py
+        self.axes = ring_axes(cfg, px, py)
         # every ring the step will read must fit a block: the phases', the
         # interaction's and (extchunk._chunk raises) the external loop's;
         # the phase kernels need a ring as wide as the cells they skip
@@ -112,27 +150,40 @@ class Blocks:
         to = lambda a: a.to(device)
         self.grid = {b: self._cut(grid, b, to) for b in self.ids}
         self.state = {b: self._cut(st, b, to) for b in self.ids}
+        self.base = fc
         self.fc = {b: self._cut(fc, b, to) for b in self.ids}
         self.clim = {b: tuple(to(_split(a, b, self.ni, self.nj))
                               for a in (rmean, tclim, sclim))
                      for b in self.ids}
         self._cache: dict = {}
 
+    def window(self, name: str, a: torch.Tensor, b, h,
+               fill: float = 0.0) -> torch.Tensor:
+        """Block ``b``'s cells of the global tensor ``a`` grown by the ring
+        ``h`` (``fill`` beyond the array), contiguous: a field over (..,
+        im, jm) on both axes, the per-side series ``name`` along its axis
+        (``FORCING_J_SERIES``/``FORCING_I_SERIES``), anything else as it
+        is.  The ring holds what :meth:`ext` gives from the blocks' own
+        cells."""
+        im, jm = self.ni * self.px, self.nj * self.py
+        if name in FORCING_J_SERIES:
+            a = _window(a, b[1] * self.nj, self.nj, h[1], -1, fill)
+        elif name in FORCING_I_SERIES:
+            a = _window(a, b[0] * self.ni, self.ni, h[0], -1, fill)
+        elif a.dim() >= 2 and a.shape[-2:] == (im, jm):
+            a = _window(_window(a, b[0] * self.ni, self.ni, h[0], -2, fill),
+                        b[1] * self.nj, self.nj, h[1], -1, fill)
+        else:
+            return a
+        return a.contiguous()
+
     def _cut(self, obj, b, to):
         """Block ``b`` of a Grid, State or Forcing: fields over (im, jm)
         and per-side series cut to the block, the rest shared."""
-        im, jm = self.ni * self.px, self.nj * self.py
-        out = {}
-        for f in dataclasses.fields(obj):
-            a = getattr(obj, f.name)
-            if f.name in FORCING_J_SERIES:
-                a = a[..., b[1] * self.nj:(b[1] + 1) * self.nj].contiguous()
-            elif f.name in FORCING_I_SERIES:
-                a = a[..., b[0] * self.ni:(b[0] + 1) * self.ni].contiguous()
-            elif a.dim() >= 2 and a.shape[-2:] == (im, jm):
-                a = _split(a, b, self.ni, self.nj)
-            out[f.name] = to(a)
-        return type(obj)(**out)
+        return type(obj)(**{f.name: to(self.window(f.name,
+                                                   getattr(obj, f.name), b,
+                                                   (0, 0)))
+                            for f in dataclasses.fields(obj)})
 
     # -- the ring -----------------------------------------------------------
 
@@ -153,9 +204,9 @@ class Blocks:
         return (b[0] * self.ni - h[0], b[1] * self.nj - h[1])
 
     def ring(self, width: int) -> tuple:
-        """A ring of ``width`` cells on the split axes, none on the
-        others."""
-        return (width if self.px > 1 else 0, width if self.py > 1 else 0)
+        """A ring of ``width`` cells on the split and the padded axes, none
+        on the others."""
+        return (width if self.axes[0] else 0, width if self.axes[1] else 0)
 
     def field(self, name: str) -> dict:
         """Block -> the state field ``name``."""
@@ -183,8 +234,9 @@ class Blocks:
         return self._static(("grid", h), build)[b]
 
     def fc_ext(self, b, h) -> Forcing:
-        """Block ``b``'s forcing extended by ``h``: 2-D and 3-D fields by
-        the ring, per-side series along their axis."""
+        """Block ``b``'s static forcing ``fc`` extended by ``h``: 2-D and
+        3-D fields by the ring, per-side series along their axis; built
+        once per ring width."""
         def build(q):
             out = {}
             for f in dataclasses.fields(Forcing):
@@ -207,6 +259,31 @@ class Blocks:
                                   q, h) for k in range(3))
         return self._static(("clim", h), build)[b]
 
+    # -- the forcing of a step ----------------------------------------------
+
+    def static_forcing(self, ramp: torch.Tensor) -> BlockForcing:
+        """The static forcing on the blocks, with the step's ``ramp``."""
+        return BlockForcing(lambda b, h, names: self.fc_ext(b, h), ramp)
+
+    def host_forcing(self, fc: Forcing) -> BlockForcing:
+        """A Forcing of the whole grid (host-assembled by ``Model.run``, or
+        ``forcing.device.forcing_at`` of a staged plan) on the blocks: each
+        field that is not the static forcing's own tensor (``base``) is
+        cut to the block and grown by the ring a stage reads it at, the
+        rest come from :meth:`fc_ext`.  A changed field that the stage does
+        not name is None, so that a reader missing from the stage's list
+        fails instead of reading the static value."""
+        changed = [f.name for f in dataclasses.fields(Forcing)
+                   if f.name != "ramp"
+                   and getattr(fc, f.name) is not getattr(self.base, f.name)]
+
+        def make(b, h, names):
+            return self.fc_ext(b, h).replace(**{
+                n: (self.window(n, getattr(fc, n), b, h)
+                    if names is None or n in names else None)
+                for n in changed})
+        return BlockForcing(make, fc.ramp)
+
 
 def shard_args(mesh: Mesh, cfg: Config, grid: Grid, st: State, fc: Forcing,
                rmean, tclim, sclim) -> Blocks:
@@ -227,18 +304,33 @@ def gather_state(blocks: Blocks) -> State:
 
 def make_shardmap_run(blocks: Blocks, cfg: Config, period_days: float,
                       time0_days: float = 0.0):
-    """A segment runner over ``blocks``: ``run(iint0, n_steps, first)``
-    advances every block ``n_steps`` internal steps from step ``iint0``
-    (``stepper.run_steps``'s contract on blocks); the first step of a cold
-    start (``first``) skips the internal 3-D block."""
+    """A segment runner over ``blocks``: ``run(iint0, n_steps, first,
+    plan)`` advances every block ``n_steps`` internal steps from step
+    ``iint0`` (``stepper.run_steps``'s contract on blocks); the first step
+    of a cold start (``first``) skips the internal 3-D block.  With a
+    staged ``forcing.device.DevicePlan`` each step's forcing is
+    interpolated from it once, on the whole grid, at the time
+    ``forcing.device.t_days_at`` gives as on one device, and cut to the
+    blocks (:meth:`Blocks.host_forcing`); otherwise the static forcing
+    holds."""
     from extpom_tpu_torch.core import stepper
+    from extpom_tpu_torch.forcing import device as fdev
 
-    def run(iint0: int, n_steps: int, first: bool = False) -> None:
+    def run(iint0: int, n_steps: int, first: bool = False,
+            plan=None) -> None:
         el = blocks.state[blocks.ids[0]].el
         for n in range(n_steps):
-            ramp = torch.full((), stepper.ramp_at(cfg, iint0 + 1 + n,
-                                                  period_days, time0_days),
+            i = iint0 + 1 + n
+            ramp = torch.full((), stepper.ramp_at(cfg, i, period_days,
+                                                  time0_days),
                               dtype=el.dtype, device=el.device)
-            stepper.mesh_step(blocks, cfg, ramp, first=first and n == 0)
+            if plan is None:
+                fc = blocks.static_forcing(ramp)
+            else:
+                fc = blocks.host_forcing(fdev.forcing_at(
+                    plan, blocks.base, cfg, blocks.grid[blocks.ids[0]].dz,
+                    fdev.t_days_at(cfg, i, time0_days, el.dtype)).replace(
+                        ramp=ramp))
+            stepper.mesh_step(blocks, cfg, fc, first=first and n == 0)
 
     return run

@@ -10,9 +10,11 @@ The i axis is ``-2`` and the j axis ``-1``; 3-D arrays are (kb, im, jm).
 
 Arrays are the whole domain unless a :class:`DomainCtx` is installed with
 :func:`domain`: then they are one ring-extended block of it (the decomposed
-step, ``mesh/shardmap.py``), shifts stay local to the block, and the
-regions of :func:`put`, :func:`set_i` and :func:`set_j` are read as regions
-of the GLOBAL domain and mapped onto the block's slice of it.
+step, ``mesh/shardmap.py``), or a whole domain padded beyond its active
+extents (:func:`domain_of`, ``mesh/padding.py``); shifts stay local to the
+array, and the regions of :func:`put`, :func:`set_i` and :func:`set_j` and
+the rows of :func:`row` and :func:`col` are read as those of the GLOBAL
+active domain and mapped onto the array's slice of it.
 """
 
 from __future__ import annotations
@@ -55,6 +57,18 @@ def domain(ctx: Optional[DomainCtx]):
         yield
     finally:
         _tls.domain = prev
+
+
+def domain_of(cfg, off=None):
+    """The context of the arrays of a possibly padded ``cfg``: with ``off``
+    the block whose cell (0, 0) is global ``off``; without, the whole
+    domain, under ``DomainCtx(im_act, jm_act)`` where it is padded and no
+    context where it is not.  Regions resolve against the active
+    extents."""
+    im, jm = cfg.active
+    if off is not None:
+        return domain(DomainCtx(im, jm, *off))
+    return domain(None if (im, jm) == (cfg.im, cfg.jm) else DomainCtx(im, jm))
 
 
 class _RegionBuilder:
@@ -203,20 +217,22 @@ def set_k(base: torch.Tensor, k: int, val) -> torch.Tensor:
     return out
 
 
-def _whole(what: str) -> None:
-    if domain_ctx() is not None:
-        raise RuntimeError(f"{what}() reads a global row or column; blocks "
-                           f"use sft and set_i/set_j instead")
+def _global_index(a: torch.Tensor, idx: int, axis: int, what: str) -> int:
+    """Global row (axis -2) or column (axis -1) ``idx`` as an index of
+    ``a``; under a DomainCtx a block that does not hold it raises."""
+    loc = _row(a, idx, axis)
+    if loc is None:
+        raise RuntimeError(f"{what}() reads global index {idx}, which this "
+                           f"block does not hold; blocks use sft and "
+                           f"set_i/set_j instead")
+    return loc
 
 
 def row(a: torch.Tensor, i: int) -> torch.Tensor:
-    """``a[..., i, :]`` of a whole-domain array."""
-    _whole("row")
-    return a[..., i % a.shape[-2], :]
+    """``a[..., i, :]``, ``i`` a row of the active domain."""
+    return a[..., _global_index(a, i, -2, "row"), :]
 
 
 def col(a: torch.Tensor, j: int) -> torch.Tensor:
-    """``a[..., :, j]`` of a whole-domain array."""
-    _whole("col")
-    return a[..., :, j % a.shape[-1]]
-
+    """``a[..., :, j]``, ``j`` a column of the active domain."""
+    return a[..., :, _global_index(a, j, -1, "col")]

@@ -33,9 +33,15 @@ Config schema (all keys optional unless noted)::
       "mesh": {"px": 2, "py": 4}             # Model.shard blocks, one card
     }
 
+A mesh block runs forced runs too: the staged series are cut to the
+blocks.  A grid that does not divide the mesh is padded (``Model.shard``,
+``mesh/padding.py``); its snapshots and restarts hold the active ``im x
+jm``, and a restart of it resumes into the padded model.
+
 Not ported, and raising ``NotImplementedError``: the ``distributed``
 block, ``"mode": "gspmd"`` in the mesh block, and forcing series on a
-mesh.  A fresh run (``nread_rst`` 0) writes its ``{run}.nc`` anew.
+padded grid (the JAX package cannot run them either).  A fresh run
+(``nread_rst`` 0) writes its ``{run}.nc`` anew.
 """
 
 from __future__ import annotations
@@ -160,6 +166,7 @@ def execute(conf: dict, device=None,
     from extpom_tpu_torch.io import netcdf as ncio
     from extpom_tpu_torch.io import zarrstore as zio
     from extpom_tpu_torch.io.asyncwriter import AsyncWriter
+    from extpom_tpu_torch.mesh.padding import unpad
 
     out_format = conf.get("out_format", "zarr")
     if out_format not in ("zarr", "nc"):
@@ -190,10 +197,13 @@ def execute(conf: dict, device=None,
     log(dispatch.format_report(dispatch.dispatch_report(
         cfg, cfg.torch_dtype, device, mesh=conf.get("mesh"))))
 
-    # the grid as host arrays, once: every snapshot reads it
+    # the grid as host arrays, once: every snapshot reads it; the writes of
+    # a padded run hold its active region, under the unpadded cfg
     grid_host = types.SimpleNamespace(**{
-        f.name: getattr(m.grid, f.name).cpu().numpy()
+        f.name: unpad(getattr(m.grid, f.name), cfg).cpu().numpy()
         for f in dataclasses.fields(Grid)})
+    ia, ja = cfg.active
+    out_cfg = cfg.replace(im=ia, jm=ja, im_act=None, jm_act=None)
     writer = AsyncWriter()
     iint0 = m.iint
     rc = 0
@@ -227,22 +237,25 @@ def execute(conf: dict, device=None,
                 log(f"time = {m.time_days:9.4f}  iint = {m.iint:8d}  "
                     f"vtot = {s['vtot']:.7e}  eaver = {s['eaver']:.7e}  "
                     f"taver = {s['taver']:.7e}  saver = {s['saver']:.7e}")
-                extra = {"wr": m.compute_wr()} if cfg.calc_wr else None
+                extra = ({"wr": unpad(m.compute_wr(), cfg)} if cfg.calc_wr
+                         else None)
                 snap = types.SimpleNamespace(**{
-                    n: getattr(st, n) for n in ncio.OUTPUT_FIELDS})
+                    n: unpad(getattr(st, n), cfg)
+                    for n in ncio.OUTPUT_FIELDS})
                 if out_format == "nc":
                     # one record stream per run (io_pnetcdf.F:180-410); the
                     # writer's single worker keeps the order
                     writer.submit(ncio.write_output_nc, nc_out, grid_host,
-                                  cfg, snap, m.time_days, s, extra=extra,
+                                  out_cfg, snap, m.time_days, s, extra=extra,
                                   append=True)
                 else:
                     writer.submit(
                         zio.write_output,
                         os.path.join(out_dir, f"{run}.{m.iint:06d}"),
-                        grid_host, cfg, snap, m.time_days, s, extra=extra)
+                        grid_host, out_cfg, snap, m.time_days, s,
+                        extra=extra)
             if m.iint % cfg.irestart == 0:
-                st = st if st is not None else m.gathered_state()
+                st = unpad(st if st is not None else m.gathered_state(), cfg)
                 rst = os.path.join(out_dir, f"{run}.rst.{m.iint:06d}")
                 if out_format == "nc":
                     writer.submit(ncio.write_restart_nc, rst + ".nc", st,
@@ -256,7 +269,7 @@ def execute(conf: dict, device=None,
     wall = time.perf_counter() - t0
     steps = m.iint - iint0
     if rc == 0:
-        gps = cfg.im * cfg.jm * cfg.kb * steps / max(wall, 1e-9)
+        gps = out_cfg.im * out_cfg.jm * cfg.kb * steps / max(wall, 1e-9)
         log(f"wall clock: {wall:.3f} s for {steps} steps (segments + async "
             f"writes; {gps / 1e6:.1f} Mgrid-pt-steps/s)")
         log(f"writes: {writer.n_writes} in {writer.busy_s:.3f} s on the "

@@ -95,17 +95,19 @@ def test_dispatch_report_names_what_runs():
 
 def test_dispatch_report_refuses_a_mesh():
     """The meshes the port cannot run yet raise: another parallel mode than
-    shard_map, a grid that does not divide the mesh, blocks on several
-    devices.  (config5's 2x4 shard_map mesh on one device is reported:
-    tests/test_torch_mesh.py.)"""
+    shard_map, blocks on several devices.  A grid that does not divide the
+    mesh is reported padded, as Model.shard pads it.  (config5's 2x4
+    shard_map mesh on one device is reported: tests/test_torch_mesh.py.)"""
     cfg = Config(im=2048, jm=2048, kb=41)
     with pytest.raises(NotImplementedError, match="gspmd"):
         dispatch.dispatch_report(cfg, torch.float32, "cpu",
                                  mesh={"px": 2, "py": 4, "mode": "gspmd"})
-    with pytest.raises(NotImplementedError, match="does not divide"):
-        dispatch.dispatch_report(Config(im=2046, jm=2048, kb=41),
-                                 torch.float32, "cpu",
-                                 mesh={"px": 4, "py": 4, "mode": "shardmap"})
+    rep = dispatch.dispatch_report(Config(im=2046, jm=2048, kb=41),
+                                   torch.float32, "cpu",
+                                   mesh={"px": 4, "py": 4, "mode": "shardmap"})
+    assert rep["grid"] == (2048, 2048, 41) and rep["active"] == (2046, 2048)
+    assert rep["mesh"]["local_tile"] == (512, 512, 41)
+    assert "padded from 2046x2048" in dispatch.format_report(rep)
     with pytest.raises(NotImplementedError, match="several devices"):
         dispatch.dispatch_report(cfg, torch.float32, "cpu",
                                  mesh=Mesh(1, 2, devices=["cpu", "meta"]))

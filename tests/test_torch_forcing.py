@@ -350,9 +350,15 @@ def test_compute_wr_matches_jax(jax_channel):
 
 
 def test_forcing_on_a_mesh_raises():
+    """Forcing on a mesh runs where the grid divides it and raises where
+    the mesh would pad it (the JAX package's forced padded run fails;
+    tests/test_torch_forcing_mesh.py holds the mesh runs)."""
     from extpom_tpu_torch.mesh.shardmap import Mesh
     m = channel_model(device="cpu", im=32, jm=16, kb=5, dtype="float64")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        m.shard(Mesh(2, 2, device="cpu"))
+    with pytest.raises(NotImplementedError, match="padded grid"):
+        m.shard(Mesh(3, 2, device="cpu"))
+    m.shard(Mesh(2, 2, device="cpu"))
+    m.run_segment(2)
+    m = channel_model(device="cpu", im=32, jm=16, kb=5, dtype="float64")
     m.shard(Mesh(1, 1, device="cpu"))      # a 1x1 mesh is one device
     m.run_segment(2)

@@ -66,9 +66,9 @@ def ext_case():
     rec = {}
     orig = extchunk.run_external_loop_chunked
 
-    def spy(blocks, cfg, carry, aux, ramp):
-        rec.update(blocks=blocks, carry=carry, aux=aux, ramp=ramp)
-        return orig(blocks, cfg, carry, aux, ramp)
+    def spy(blocks, cfg, carry, aux, fc):
+        rec.update(blocks=blocks, carry=carry, aux=aux, ramp=fc.ramp)
+        return orig(blocks, cfg, carry, aux, fc)
 
     m = pt_model(device="cpu", **EXT_KW).shard(Mesh(3, 3, device="cpu"))
     m.run_segment(2)
