@@ -47,7 +47,17 @@ variant with ``bc_vel3d`` held to its plain version) and ``[ragged]`` (the
 main path at 255x255x31, which ``Model.shard`` pads to 256x256 on the 2x4
 mesh, and ``pad_model`` on one device, held on the active region to the
 unpadded run; the block kernels on the corner block that holds pad cells
-on both axes).  The Thomas kernel is held to its plain
+on both axes).  Last, several processes: two ranks of this script
+(``--rank``, launched as torchrun would, the kernels built by this
+process) share the card over gloo, each holding its block row of
+config5's 2x4 mesh, built through ``run.build_model`` (the case on the
+host, each block cold-started on the card): ``[distributed]`` (the main
+path, 22 steps) and ``[distributed_large]`` (config5's case, config, mesh
+and two processes, 7 steps), each held bit for bit to ``[mesh]``'s or
+``[large_mesh]``'s blocks by fingerprints of every field, their launches
+summed to that run's, with each rank's ms per step, exchange, busy
+device time and peak memory; ``[nccl_refusal]`` shows nccl refusing two
+ranks on one card before a step.  The Thomas kernel is held to its plain
 version bit for bit and timed at 256x256x31, 256x256x41 and
 2048x2048x41.  It checks the
 results, prints the dispatch echo of ten, one ``kernels`` JSON line,
@@ -59,6 +69,7 @@ exits non-zero; without a CUDA device it exits 1 and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -1391,6 +1402,7 @@ def mesh_phase(card: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    prints = block_prints(m.blocks)     # [distributed] is held to them
     n = SEG_WARM + SEG_TIMED
     chunks = nb * m.cfg.isplit // chunk_plan(m).C
     want = {**dict.fromkeys(launches, 0), "extchunk": n * chunks,
@@ -1429,7 +1441,7 @@ def mesh_phase(card: str) -> dict:
         card=f"'{card}'")
     profile_phase(m, tag="mesh_profile", groups=MESH_KERNELS)
     parts_phase(m, tag="mesh_parts", parts=mesh_parts())
-    return launches
+    return launches, prints
 
 
 def large_mesh_phase(card: str, flush: L2Flush, large_ref: dict):
@@ -1481,6 +1493,7 @@ def large_mesh_phase(card: str, flush: L2Flush, large_ref: dict):
     wall = w1["wall"]
     peak = torch.cuda.max_memory_allocated()
     launches = dict(kernels.LAUNCHES)
+    prints = block_prints(blocks)       # [distributed_large] is held to them
     n = LARGE_WARM + LARGE_TIMED
     chunks = nb * cfg.isplit // chunk_plan(m).C
     want = {**dict.fromkeys(launches, 0), "extwin_chunk": n * chunks,
@@ -1524,7 +1537,7 @@ def large_mesh_phase(card: str, flush: L2Flush, large_ref: dict):
     del kept
     profile_phase(m, steps=2, tag="large_mesh_profile", groups=MESH_KERNELS)
     parts_phase(m, steps=2, tag="large_mesh_parts", parts=mesh_parts())
-    return launches, entry, large_mesh_phases(flush, m)
+    return launches, entry, large_mesh_phases(flush, m), prints
 
 
 def large_mesh_phases(flush: L2Flush, m) -> dict:
@@ -3375,6 +3388,214 @@ def breakdown_phase() -> None:
         internal_est_ms=f"{out['internal_est'] * 1e3:.4f}")
 
 
+# -- several processes on the one card ---------------------------------------
+
+DIST_RANKS = 2                 # [distributed], [distributed_large]
+DIST_TIMEOUT_S = 480.0         # each two-rank path, its set-up included
+DIST_PROFILE_STEPS = 2
+
+
+def fingerprint(x: torch.Tensor) -> str:
+    """The bits of a tensor as two int64 sums on the card: of its words,
+    and of its words weighted by their position (mod 65521, plus 1), so
+    that a changed or a moved word shows.  Integer sums wrap the same in
+    any order."""
+    v = x.detach().contiguous().view(-1)
+    v = v.view(torch.int32 if v.element_size() == 4 else torch.int64).to(
+        torch.int64)
+    w = torch.arange(v.numel(), device=v.device, dtype=torch.int64) % 65521
+    return f"{int(v.sum())}:{int((v * (w + 1)).sum())}"
+
+
+def block_prints(blocks) -> dict:
+    """"(bi, bj)" -> State field -> :func:`fingerprint`, for every block
+    this process holds."""
+    from extpom_tpu_torch.core.state import State
+    return {str(b): {f: fingerprint(getattr(blocks.state[b], f))
+                     for f in State.field_names()} for b in blocks.ids}
+
+
+def rank_main(spec: dict) -> int:
+    """One rank of a two-process path (``python3 chip_smoke.py --rank
+    SPEC``, started by :func:`distributed_phase` with torchrun's variables):
+    joins the gloo group with its blocks on the one card (``cuda:0``),
+    builds the run file ``spec["conf"]`` through ``run.build_model`` (the
+    case on the host, each block cold-started on the card), runs
+    ``spec["warm"]`` then ``spec["timed"]`` steps and prints one
+    ``RANK_RESULT`` JSON line: its blocks' fingerprints after those steps,
+    its launches, ms per step, what the exchange cost, the device's busy
+    time over DIST_PROFILE_STEPS more steps, its peak memory.  With
+    ``spec["nccl"]`` it asks for nccl instead, which must refuse two ranks
+    on one card before any step."""
+    from extpom_tpu_torch import kernels
+    from extpom_tpu_torch import run as ptrun
+    from extpom_tpu_torch.core import dispatch
+    from extpom_tpu_torch.kernels import build
+    from extpom_tpu_torch.mesh import distributed
+    torch.set_num_threads(max(1, (os.cpu_count() or 2)
+                              // int(os.environ["WORLD_SIZE"])))
+    if spec.get("nccl"):
+        try:
+            distributed.init_distributed(backend="nccl", device="cuda:0",
+                                         timeout_s=120)
+        except ValueError as e:
+            print("RANK_RESULT " + json.dumps({"refused": str(e)}),
+                  flush=True)
+            return 0
+        raise AssertionError("nccl took two ranks on one card")
+    p = distributed.init_distributed(backend="gloo", device="cuda:0",
+                                     timeout_s=DIST_TIMEOUT_S)
+    build.library()                # the parent built it
+    t0 = time.perf_counter()
+    m = ptrun.build_model(spec["conf"])
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    kernels.reset_launches()
+    m.run_segment(spec["warm"])
+    torch.cuda.synchronize()
+    distributed.process_barrier()  # the window starts together
+    distributed.EXCHANGE.reset()
+    t0 = time.perf_counter()
+    m.run_segment(spec["timed"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ex = dataclasses.replace(distributed.EXCHANGE)
+    launches = dict(kernels.LAUNCHES)
+    prints = block_prints(m.blocks)
+    peak = torch.cuda.max_memory_allocated()
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        m.run_segment(DIST_PROFILE_STEPS)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.self_device_time_total for e in _kernel_events(prof)) / 1e3
+    n = spec["timed"]
+    out = dict(rank=p.rank, blocks=[list(b) for b in m.blocks.ids],
+               launches=launches, prints=prints, setup_s=setup_s,
+               ms_per_step=wall / n * 1e3,
+               exchange_ms_per_step=ex.seconds / n * 1e3,
+               exchange_calls_per_step=ex.calls / n,
+               sent_mb_per_step=ex.sent_bytes / n / 1e6,
+               staged_mb_per_step=ex.staged_bytes / n / 1e6,
+               profiled_ms_per_step=prof_ms / DIST_PROFILE_STEPS,
+               device_busy_ms_per_step=(busy / DIST_PROFILE_STEPS
+                                        if busy else None),
+               peak_bytes=peak, device=str(m.device))
+    if p.rank == 0:
+        out["dispatch"] = dispatch.format_report(dispatch.dispatch_report(
+            m.cfg, m.cfg.torch_dtype, m.device, mesh=spec["conf"]["mesh"]))
+    print("RANK_RESULT " + json.dumps(out), flush=True)
+    distributed.destroy()
+    return 0
+
+
+def spawn_ranks(spec: dict, tag: str, n: int = DIST_RANKS) -> list:
+    """Run :func:`rank_main` as ``n`` processes on the one card; each
+    rank's RANK_RESULT.  A rank that exits with an error, or outlasts
+    DIST_TIMEOUT_S, fails the path (the others are killed)."""
+    from extpom_tpu_torch.mesh import distributed
+    res = distributed.spawn(
+        [sys.executable, os.path.abspath(__file__), "--rank",
+         json.dumps(spec)], n, DIST_TIMEOUT_S,
+        env=dict(os.environ, PYTHONPATH=ROOT), cwd=ROOT)
+    outs = []
+    for r, (rc, so, se) in enumerate(res):
+        if rc != 0:
+            raise AssertionError(f"{tag}: rank {r} exited {rc} (None: cut "
+                                 f"at {DIST_TIMEOUT_S} s):\n{so[-1500:]}\n"
+                                 f"{se[-3000:]}")
+        line = [ln for ln in so.splitlines() if ln.startswith("RANK_RESULT ")]
+        outs.append(json.loads(line[-1][len("RANK_RESULT "):]))
+    return outs
+
+
+def nccl_refusal_phase() -> None:
+    """Two ranks asking nccl for the one card: each must refuse at init,
+    before any step, and name gloo."""
+    outs = spawn_ranks({"nccl": True}, "nccl_refusal")
+    for r, o in enumerate(outs):
+        if "two ranks on one card" not in o.get("refused", ""):
+            raise AssertionError(f"nccl_refusal: rank {r}: {o}")
+    say("nccl_refusal", ranks=len(outs), refused=True,
+        reason=f"'{outs[0]['refused']}'")
+
+
+def distributed_phase(card: str, tag: str, conf: dict, warm: int,
+                      timed: int, want_prints: dict,
+                      want_launches: dict) -> tuple:
+    """A run file on ``conf``'s mesh split over two processes on the one
+    card (gloo, each ring staged through pinned host memory), ``warm`` +
+    ``timed`` steps; every block's fingerprints held bit-equal to
+    ``want_prints`` (the single-process mesh run's after the same steps)
+    and the ranks' launches summed to ``want_launches``.  Prints a line per
+    rank and one for the path; returns (summed launches, launches by
+    rank)."""
+    t0 = time.perf_counter()
+    outs = spawn_ranks(dict(conf=conf, warm=warm, timed=timed), tag)
+    wall = time.perf_counter() - t0
+    prints = {}
+    for o in outs:
+        prints.update(o["prints"])
+    if sorted(prints) != sorted(want_prints):
+        raise AssertionError(f"{tag}: blocks {sorted(prints)} != "
+                             f"{sorted(want_prints)}")
+    bad = [(b, f) for b in want_prints for f in want_prints[b]
+           if prints[b][f] != want_prints[b][f]]
+    if bad:
+        raise AssertionError(f"{tag}: not bit-equal to the single-process "
+                             f"mesh run in {bad[:8]} ({len(bad)} fields)")
+    launches = {k: sum(o["launches"][k] for o in outs)
+                for k in outs[0]["launches"]}
+    if launches != want_launches:
+        raise AssertionError(f"{tag}: launches of the ranks {launches} != "
+                             f"the single-process mesh's {want_launches}")
+    peak = sum(o["peak_bytes"] for o in outs)
+    if not peak < 80e9:
+        raise AssertionError(f"{tag}: the ranks' peaks sum to {peak}")
+    for o in outs:
+        busy = o["device_busy_ms_per_step"]
+        say(tag, rank=o["rank"], blocks=f"'{o['blocks']}'",
+            device=o["device"], transport="gloo",
+            ms_per_step=f"{o['ms_per_step']:.3f}",
+            exchange_ms_per_step=f"{o['exchange_ms_per_step']:.3f}",
+            exchange_calls_per_step=f"{o['exchange_calls_per_step']:.1f}",
+            staged_mb_per_step=f"{o['staged_mb_per_step']:.3f}",
+            sent_mb_per_step=f"{o['sent_mb_per_step']:.3f}",
+            device_busy_ms_per_step=("not measured" if busy is None
+                                     else f"{busy:.3f}"),
+            device_idle_share=("not measured" if busy is None else
+                               f"{1 - busy / o['profiled_ms_per_step']:.3f}"),
+            peak_mem_gb=f"{o['peak_bytes'] / 1e9:.3f}",
+            setup_s=f"{o['setup_s']:.1f}",
+            launches=json.dumps({k: v for k, v in o["launches"].items() if v},
+                                separators=(",", ":")))
+    say(tag, processes=len(outs), steps=warm + timed, timed_steps=timed,
+        bit_equal=True, blocks_checked=len(prints),
+        fields_checked=sum(len(v) for v in prints.values()),
+        launches_equal_single_process=True,
+        peak_sum_gb=f"{peak / 1e9:.3f}", wall_s=f"{wall:.1f}",
+        card=f"'{card}'")
+    for line in outs[0]["dispatch"].splitlines():
+        print(f"[dispatch] ({tag}) " + line.strip(), flush=True)
+    return launches, {k: [o["launches"][k] for o in outs] for k in launches}
+
+
+def distributed_conf(large: bool) -> dict:
+    """The run file of a two-process path: config5's case, config and mesh
+    blocks ([distributed_large]), or the main path's seamount on config5's
+    mesh ([distributed])."""
+    with open(LARGE) as f:
+        run = json.load(f)
+    if run["distributed"]["num_processes"] != DIST_RANKS:
+        raise AssertionError(f"config5 names {run['distributed']} processes")
+    if large:
+        return {k: run[k] for k in ("case", "case_args", "config", "mesh")}
+    return {"case": "seamount", "case_args": {"im": IM, "jm": JM, "kb": KB},
+            "config": {}, "mesh": run["mesh"]}
+
+
 def dispatch_echo(*runs) -> None:
     """The dispatch report of each (configuration, mesh block or None) in
     float32 on the card."""
@@ -3418,9 +3639,9 @@ def main() -> int:
     large_cfg = large_ops[1]
     del large_ops
     mesh_k, _ = mesh_kernels_phase(flush)
-    mesh_launches = mesh_phase(card)
-    large_mesh_launches, win_chunk, large_mesh_tiled = large_mesh_phase(
-        card, flush, large_ref)
+    mesh_launches, mesh_prints = mesh_phase(card)
+    large_mesh_launches, win_chunk, large_mesh_tiled, large_mesh_prints = \
+        large_mesh_phase(card, flush, large_ref)
     del large_ref
     cli_launches, _ = cli_phase(card)
     channel_launches, channel_end = channel_phase(card, flush)
@@ -3447,6 +3668,18 @@ def main() -> int:
     options_check()
     file_restore_check()
     breakdown_phase()
+    # several processes last, with the parent's cached device memory freed:
+    # two ranks share the card
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    nccl_refusal_phase()
+    dist_launches, dist_by_rank = distributed_phase(
+        card, "distributed", distributed_conf(False), SEG_WARM, SEG_TIMED,
+        mesh_prints, mesh_launches)
+    dist_large_launches, dist_large_by_rank = distributed_phase(
+        card, "distributed_large", distributed_conf(True), LARGE_WARM,
+        LARGE_TIMED, large_mesh_prints, large_mesh_launches)
     with open(LARGE) as f:
         mesh_block = json.load(f)["mesh"]
     channel_cfg = cfg.replace(dtype="float32", im=CHANNEL[0], jm=CHANNEL[1],
@@ -3469,7 +3702,11 @@ def main() -> int:
              "options_mesh_256": opt_mesh_launches,
              "file_restore_512": fr_launches,
              "channel_mesh_512": channel_mesh_launches,
-             "file_restore_mesh_512": frm_launches, **ragged_launches}
+             "file_restore_mesh_512": frm_launches, **ragged_launches,
+             "distributed_256": dist_launches,
+             "distributed_2048": dist_large_launches}
+    by_rank = {"distributed_256": dist_by_rank,
+               "distributed_2048": dist_large_by_rank}
     # the new paths' own numbers, under their path's name
     ext.update({f"orlanski_256_{k}": v for k, v in orl_k["extloop"].items()})
     ext.update({f"basin_512_{k}": v for k, v in basin_k["extloop"].items()})
@@ -3477,6 +3714,7 @@ def main() -> int:
     for p in ("tke", "tracer"):
         phs[p].update({f"orlanski_256_{k}": v for k, v in orl_k[p].items()})
     by_path = lambda k: {p: c[k] for p, c in paths.items()}
+    ranks = lambda k: {p: c[k] for p, c in by_rank.items()}
     mesh_k["extwin_chunk"] = win_chunk
     for k in ("extchunk", "extwin_chunk"):
         mesh_k[k].update({f"basin_512_block_{f}": v
@@ -3491,43 +3729,50 @@ def main() -> int:
              source="extpom_tpu_torch/csrc/tridiag.cu",
              replaces="extpom_tpu/pallas/tridiag.py:77",
              launches=launches["tridiag"], on_main_path=False,
-             launches_by_path=by_path("tridiag"), library_ms=None, **tri),
+             launches_by_path=by_path("tridiag"),
+             launches_by_rank=ranks("tridiag"), library_ms=None, **tri),
         dict(name="extloop", route="cuda",
              source="extpom_tpu_torch/csrc/extloop.cu",
              replaces="extpom_tpu/pallas/extloop.py:243",
              launches=launches["extloop"],
-             launches_by_path=by_path("extloop"), library_ms=None, **ext),
+             launches_by_path=by_path("extloop"),
+             launches_by_rank=ranks("extloop"), library_ms=None, **ext),
         dict(name="extwin", route="cuda",
              source="extpom_tpu_torch/csrc/extwin.cu",
              replaces="extpom_tpu/pallas/extwin.py:112",
              launches=large_launches["extwin"],
-             launches_by_path=by_path("extwin"), library_ms=None, **win),
+             launches_by_path=by_path("extwin"),
+             launches_by_rank=ranks("extwin"), library_ms=None, **win),
     ] + [
         dict(name=f"phase_{p}", route="cuda",
              source=f"extpom_tpu_torch/csrc/phase_{p}.cu",
              replaces="extpom_tpu/pallas/phases.py:315",
              launches=launches[f"phase_{p}"],
-             launches_by_path=by_path(f"phase_{p}"), library_ms=None,
+             launches_by_path=by_path(f"phase_{p}"),
+             launches_by_rank=ranks(f"phase_{p}"), library_ms=None,
              **phs[p])
         for p in PHASES] + [
         dict(name="extchunk", route="cuda",
              source="extpom_tpu_torch/csrc/extloop.cu",
              replaces="extpom_tpu/pallas/extloop.py:137",
              launches=mesh_launches["extchunk"],
-             launches_by_path=by_path("extchunk"), library_ms=None,
+             launches_by_path=by_path("extchunk"),
+             launches_by_rank=ranks("extchunk"), library_ms=None,
              **mesh_k["extchunk"]),
         dict(name="extwin_chunk", route="cuda",
              source="extpom_tpu_torch/csrc/extwin.cu",
              replaces="extpom_tpu/pallas/extwin.py:112",
              launches=large_mesh_launches["extwin_chunk"],
-             launches_by_path=by_path("extwin_chunk"), library_ms=None,
+             launches_by_path=by_path("extwin_chunk"),
+             launches_by_rank=ranks("extwin_chunk"), library_ms=None,
              **mesh_k["extwin_chunk"]),
     ] + [
         dict(name=f"phase_{p}_mesh", route="cuda",
              source=f"extpom_tpu_torch/csrc/phase_{p}.cu",
              replaces="extpom_tpu/pallas/phases.py:315",
              launches=mesh_launches[f"phase_{p}_mesh"],
-             launches_by_path=by_path(f"phase_{p}_mesh"), library_ms=None,
+             launches_by_path=by_path(f"phase_{p}_mesh"),
+             launches_by_rank=ranks(f"phase_{p}_mesh"), library_ms=None,
              **mesh_k[f"phase_{p}_mesh"])
         for p in PHASES]}
     # the option instantiations of lat, tracer and mom and MPDATA's
@@ -3558,7 +3803,8 @@ def main() -> int:
             name=name, route="cuda",
             source=f"extpom_tpu_torch/csrc/phase_{p}.cu",
             replaces=replaces, launches=paths[path][name],
-            launches_by_path=by_path(name), library_ms=None, **entry))
+            launches_by_path=by_path(name),
+            launches_by_rank=ranks(name), library_ms=None, **entry))
     print(json.dumps(kernels_line), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3568,4 +3814,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit(rank_main(json.loads(sys.argv[2])))
     sys.exit(main())

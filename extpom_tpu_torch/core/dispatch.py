@@ -1,6 +1,8 @@
 """Which machine each model component gets (``extpom_tpu/core/dispatch.py``):
-on one device, and for the decomposed step on a mesh whose blocks share
-one device.
+on one device, and for the decomposed step on a mesh, whose blocks lie on
+one device per process (``mesh/distributed.py``: the report then names
+the processes, the transport of their exchange, and each rank's blocks
+and device).
 
 :func:`dispatch_report` computes the decisions the step takes for a
 configuration, dtype and device without running anything, and
@@ -13,6 +15,7 @@ import torch
 
 from extpom_tpu_torch.core.config import Config
 from extpom_tpu_torch.kernels import PHASES, extwin
+from extpom_tpu_torch.mesh import distributed
 
 
 def dispatch_report(cfg: Config, dtype: torch.dtype, device,
@@ -140,6 +143,14 @@ def _mesh_report(cfg: Config, dtype: torch.dtype, device, px: int,
            "device": str(device)}
     if cfg.is_padded:
         out["active"] = cfg.active
+    procs = distributed.procs()
+    if procs.world > 1:
+        out["mesh"]["devices"] = len(set(procs.devices))
+        out["processes"] = {
+            "count": procs.world, "transport": procs.backend,
+            "staged": procs.staged, "printed_by": procs.rank,
+            "ranks": [(r, distributed.owned_blocks(px, py, r, procs.world),
+                       procs.devices[r]) for r in range(procs.world)]}
     return out
 
 
@@ -169,4 +180,14 @@ def format_report(rep: dict) -> str:
         line += (f" on {n} device{'s' if n > 1 else ''}  local tile "
                  + "x".join(map(str, mk["local_tile"])))
     lines.append(line)
+    pr = rep.get("processes")
+    if pr is not None:
+        how = ("each ring staged through pinned host memory" if pr["staged"]
+               else "device tensors")
+        lines.append(f"  processes: {pr['count']} over {pr['transport']} "
+                     f"({how})")
+        for r, blocks, dev in pr["ranks"]:
+            lines.append(f"    rank {r}: blocks {', '.join(map(str, blocks))}"
+                         f" on {dev}")
+        lines.append(f"  printed by rank {pr['printed_by']}")
     return "\n".join(lines)

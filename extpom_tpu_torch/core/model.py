@@ -13,6 +13,7 @@ the reference cannot run one."""
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Callable, Optional
 
@@ -40,7 +41,7 @@ def cold_start(grid: Grid, cfg: Config, tb, sb, tclim, sclim, elb=None,
     """Initial State + rmean, as ``initial_conditions`` + ``update_initial``
     (initialize.f:392-521).  Returns (state, rmean)."""
     h = grid.h
-    st = zero_state(cfg, device=h.device, dtype=h.dtype)
+    st = zero_state(cfg, device=h.device, dtype=h.dtype, shape=h.shape)
     z2 = torch.zeros_like(h)
     elb = z2 if elb is None else _as(elb, h)
     uab = z2 if uab is None else _as(uab, h)
@@ -53,7 +54,7 @@ def cold_start(grid: Grid, cfg: Config, tb, sb, tclim, sclim, elb=None,
     et = elb
     dt2 = h + et
     # MY-2.5 seeds (initialize.f:481-494)
-    l0 = torch.broadcast_to(0.1 * dt2, (cfg.kb, cfg.im, cfg.jm)).contiguous()
+    l0 = torch.broadcast_to(0.1 * dt2, (cfg.kb,) + h.shape).contiguous()
     q2b = torch.full_like(l0, cfg.small)
     q2lb = l0 * q2b
     kh = l0 * torch.sqrt(q2b)
@@ -105,6 +106,32 @@ def edge_forcing(fc: Forcing, tb, sb, elb, uab, vab, ub, vb) -> Forcing:
         ubn=c(ub[:, :, -1]))
 
 
+@dataclasses.dataclass
+class ColdInputs:
+    """The fields a cold start is computed from (:func:`cold_start`'s
+    arguments but the climatology), as the state of a model whose cold
+    start runs on its blocks (``Model(defer=True)``).  ``ub`` and ``vb``
+    default to zeros that take no memory."""
+    tb: torch.Tensor
+    sb: torch.Tensor
+    elb: torch.Tensor
+    uab: torch.Tensor
+    vab: torch.Tensor
+    ub: torch.Tensor
+    vb: torch.Tensor
+
+
+def cold_inputs(grid: Grid, cfg: Config, tb, sb, elb=None, uab=None,
+                vab=None, ub=None, vb=None) -> ColdInputs:
+    """:class:`ColdInputs` in the grid's dtype on its device."""
+    h = grid.h
+    z2 = torch.zeros((), dtype=h.dtype, device=h.device).expand(h.shape)
+    z3 = z2.expand((cfg.kb,) + h.shape)
+    f = lambda x, z: z if x is None else _as(x, h)
+    return ColdInputs(_as(tb, h), _as(sb, h), f(elb, z2), f(uab, z2),
+                      f(vab, z2), f(ub, z3), f(vb, z3))
+
+
 class Model:
     """Owns (grid, cfg, state, climatology) and drives the time loop.  The
     forcing is the static edge-seeded forcing of the cold start
@@ -112,18 +139,27 @@ class Model:
 
     A model resumed from a carried-across state (``core.convert``) passes
     ``state``, ``rmean``, ``tclim``, ``sclim``, ``base_forcing`` and
-    ``iint`` instead of the initial fields ``tb``/``sb``."""
+    ``iint`` instead of the initial fields ``tb``/``sb``.
+
+    With ``defer`` the cold start waits for :meth:`shard`, which runs it on
+    each block on the mesh's device: a model built on the host for a
+    process that owns a few blocks of a large grid holds no global state,
+    on the host or the card (``state`` holds the :class:`ColdInputs` until
+    then)."""
 
     def __init__(self, grid: Grid, cfg: Config, tb=None, sb=None, tclim=None,
                  sclim=None, elb=None, uab=None, vab=None, ub=None, vb=None,
                  state: Optional[State] = None, rmean=None,
-                 base_forcing: Optional[Forcing] = None, iint: int = 0):
+                 base_forcing: Optional[Forcing] = None, iint: int = 0,
+                 defer: bool = False):
         cfg.validate()
         self.grid = grid
         self.cfg = cfg
         tclim = tb if tclim is None else tclim
         sclim = sb if sclim is None else sclim
-        if state is None:
+        if state is None and defer:
+            state = cold_inputs(grid, cfg, tb, sb, elb, uab, vab, ub, vb)
+        elif state is None:
             state, rmean = cold_start(grid, cfg, tb, sb, tclim, sclim,
                                       elb=elb, uab=uab, vab=vab, ub=ub, vb=vb)
         elif rmean is None or tclim is None or sclim is None:
@@ -176,7 +212,7 @@ class Model:
               else self.base_forcing)
         return fc.replace(ramp=torch.full(
             (), self.ramp_value(iint), dtype=self.grid.dtype,
-            device=self.grid.device))
+            device=self.device))
 
     def compute_wr(self) -> torch.Tensor:
         """Physical (z-coordinate) vertical velocity ``wr`` of the current
@@ -190,6 +226,26 @@ class Model:
                                          st.v, self.grid.h + st.et, st.et,
                                          st.etf, st.etb)
 
+    def wr_blocks(self) -> dict:
+        """Block -> ``wr`` (:meth:`compute_wr`) of this process's blocks on a
+        mesh: realvertvl on each block grown by a ring of
+        ``stepper.INTERACTION_RADIUS`` cells (it reads one), the ring
+        trimmed."""
+        from extpom_tpu_torch.ops import continuity
+        from extpom_tpu_torch.ops.stencil import domain_of
+        bl = self.blocks
+        h = bl.ring(stepper.INTERACTION_RADIUS)
+        ext = bl.ext_all([bl.field(n) for n in ("w", "u", "v", "et", "etf",
+                                                 "etb")], h)
+        out = {}
+        for b in bl.ids:
+            g = bl.grid_ext(b, h)
+            w, u, v, et, etf, etb = (e[b] for e in ext)
+            with domain_of(self.cfg, bl.goff(b, h)):
+                out[b] = bl.trim(continuity.realvertvl(
+                    g, self.cfg, w, u, v, g.h + et, et, etf, etb), h)
+        return out
+
     def _check_forcing(self) -> None:
         from extpom_tpu_torch.mesh import padding
         if self.forcing_fn is not None and self.cfg.is_padded:
@@ -200,6 +256,9 @@ class Model:
         padded model on one device (holding ``state``), or None."""
         if self.blocks is not None:
             return self.blocks
+        if isinstance(self.state, ColdInputs):
+            raise RuntimeError("the cold start of this model runs on its "
+                               "blocks (defer=True): Model.shard it first")
         from extpom_tpu_torch.mesh import shardmap
         if not self.cfg.is_padded:
             return None
@@ -211,6 +270,20 @@ class Model:
         self._solo.state[(0, 0)] = self.state
         return self._solo
 
+    @property
+    def device(self) -> torch.device:
+        """The device the step runs on: the mesh's on a mesh (a model built
+        on the host and decomposed onto the card keeps its global arrays on
+        the host), else the grid's."""
+        return self.mesh.device if self.blocks is not None else \
+            self.grid.device
+
+    @property
+    def world(self) -> int:
+        """The processes that share the decomposed model (1 without
+        one)."""
+        return self.blocks.world if self.blocks is not None else 1
+
     def shard(self, mesh, mode: str = "shardmap") -> "Model":
         """Decompose the model over ``mesh`` (``mesh.shardmap.Mesh``; the
         distribute_mpi analogue, parallel_mpi.f:34-122): the state, grid,
@@ -220,19 +293,30 @@ class Model:
         padded first (``mesh.padding.pad_model``).  A 1x1 mesh keeps the
         single-device path.  After it ``state`` is None:
         :meth:`gathered_state` assembles the global (padded) state from the
-        blocks."""
+        blocks.
+
+        Under several processes (``mesh/distributed.py``) this process
+        keeps only its own blocks.  A model built on the host may be
+        decomposed onto the card: each block is cut from the host arrays
+        and moved, so that no process holds the global state on the card.
+        A model built with ``defer`` cold-starts each block there
+        (``Blocks``), bit-equal to a model built on the card."""
         from extpom_tpu_torch.mesh import shardmap
         if mode != "shardmap":
             raise NotImplementedError(f"parallel mode {mode!r} is not "
                                       f"ported; the port has 'shardmap'")
         if self.blocks is not None:
             raise ValueError("the model is already decomposed")
-        device = mesh.device
-        if device != self.grid.device and not (
-                device.type == self.grid.device.type == "cuda"
-                and (device.index or 0) == (self.grid.device.index or 0)):
-            raise ValueError(f"the mesh is on {device}, the model on "
-                             f"{self.grid.device}")
+        device, own = mesh.device, self.grid.device
+        same = device == own or (device.type == own.type == "cuda" and (
+            device.index or 0) == (own.index or 0))
+        deferred = isinstance(self.state, ColdInputs)
+        if not same and own.type != "cpu":
+            raise ValueError(f"the mesh is on {device}, the model on {own}: "
+                             f"build the model there or on the host")
+        if (not same or deferred) and mesh.px * mesh.py == 1:
+            raise ValueError("a 1x1 mesh runs the model where it was built: "
+                             "build it on the mesh's device, without defer")
         if self.cfg.im % mesh.px or self.cfg.jm % mesh.py:
             from extpom_tpu_torch.mesh import padding
             padding.pad_model(self, mesh.px, mesh.py)
@@ -240,7 +324,7 @@ class Model:
         if mesh.px * mesh.py > 1:
             self.blocks = shardmap.shard_args(
                 mesh, self.cfg, self.grid, self.state, self.base_forcing,
-                self.rmean, self.tclim, self.sclim)
+                self.rmean, self.tclim, self.sclim, cold=deferred)
             self.state = None
             self._solo = None
         return self
@@ -248,11 +332,36 @@ class Model:
     def gathered_state(self) -> State:
         """The global state: ``state`` itself on one device, assembled from
         the blocks on a mesh; padded where the grid is (the active region
-        is ``mesh.padding.unpad`` of it)."""
+        is ``mesh.padding.unpad`` of it).  Under several processes it
+        raises: each holds only its blocks."""
         if self.blocks is None:
             return self.state
         from extpom_tpu_torch.mesh import shardmap
         return shardmap.gather_state(self.blocks)
+
+    def stats(self, st: Optional[State] = None) -> dict:
+        """``diag.stats.domain_stats`` of the current state (or of the
+        gathered ``st``) as floats; under several processes from each
+        rank's blocks (``domain_stats_blocks``)."""
+        if self.world > 1:
+            s = diag_stats.domain_stats_blocks(self.blocks, self.cfg)
+        else:
+            s = diag_stats.domain_stats(
+                self.grid, self.cfg,
+                self.gathered_state() if st is None else st)
+        return {k: float(v) for k, v in s.items()}
+
+    def velocity_check(self, st: Optional[State] = None) -> tuple:
+        """(max |va| as a float, (i, j) of it) of the current state (or of
+        the gathered ``st``; ``diag.stats.check_velocity``), under several
+        processes from each rank's blocks (``check_velocity_blocks``)."""
+        if self.world > 1:
+            vamax, (i, j) = diag_stats.check_velocity_blocks(self.blocks,
+                                                             self.cfg)
+        else:
+            vamax, (i, j) = diag_stats.check_velocity(
+                self.cfg, (self.gathered_state() if st is None else st).va)
+        return float(vamax), (int(i), int(j))
 
     def _device_plan(self, t0_days=None, t1_days=None):
         """The staged forcing series of a ``ForcingProvider`` forcing_fn
@@ -270,9 +379,10 @@ class Model:
             self._plan_bytes = (p, fdev.plan_bytes(p))
         if self._plan_bytes[1] > budget and t0_days is not None:
             return fdev.make_device_plan(p, budget_bytes=budget,
-                                         t0_days=t0_days, t1_days=t1_days)
+                                         t0_days=t0_days, t1_days=t1_days,
+                                         device=self.device)
         if self._plan is None or self._plan[0] is not p:
-            self._plan = (p, fdev.make_device_plan(p))
+            self._plan = (p, fdev.make_device_plan(p, device=self.device))
         return self._plan[1]
 
     def run_segment(self, n_steps: int) -> Optional[State]:
@@ -332,11 +442,12 @@ class Model:
 
     def run(self, n_steps: Optional[int] = None,
             log: Optional[Callable[[str], None]] = None,
-            check_interval: Optional[int] = None) -> State:
+            check_interval: Optional[int] = None) -> Optional[State]:
         """Run the time loop with the print-interval diagnostics; raises
         ``FloatingPointError`` when |va| > vmaxl (advance.f:611-641).
         Returns the State, on a mesh the gathered one (one more gather at
-        the end)."""
+        the end); under several processes None (each holds only its blocks,
+        and the diagnostics come from their block forms)."""
         cfg = self.cfg
         n = cfg.iend if n_steps is None else n_steps
         for _ in range(n):
@@ -348,11 +459,9 @@ class Model:
             else:
                 iprint = cfg.iprint
             if self.iint % iprint == 0 or self.iint == n:
-                st = self.gathered_state()
-                vamax, (iloc, jloc) = diag_stats.check_velocity(cfg, st.va)
-                vamax = float(vamax)
+                st = self.gathered_state() if self.world == 1 else None
+                vamax, (i, j) = self.velocity_check(st)
                 if not np.isfinite(vamax) or vamax > cfg.vmaxl:
-                    i, j = int(iloc), int(jloc)
                     lon = float(self.grid.east_e[i, j])
                     lat = float(self.grid.north_e[i, j])
                     raise FloatingPointError(
@@ -360,10 +469,9 @@ class Model:
                         f"at (i,j)=({i},{j}) lon/lat=({lon:.4f},{lat:.4f}),"
                         f" iint={self.iint}")
                 if log is not None:
-                    s = {k: float(v) for k, v in
-                         diag_stats.domain_stats(self.grid, cfg, st).items()}
+                    s = self.stats(st)
                     log(f"time={self.time_days:9.4f} iint={self.iint:8d} "
                         f"vtot={s['vtot']:.7e} eaver={s['eaver']:.7e} "
                         f"taver={s['taver']:.7e} saver={s['saver']:.7e} "
                         f"ekin={s['ekin']:.7e}")
-        return self.gathered_state()
+        return self.gathered_state() if self.world == 1 else None

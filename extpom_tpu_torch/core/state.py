@@ -155,9 +155,12 @@ def zero_forcing(cfg: Config, device, dtype=None,
     return Forcing(**fields)
 
 
-def zero_state(cfg: Config, device, dtype=None) -> State:
+def zero_state(cfg: Config, device, dtype=None, shape=None) -> State:
+    """A State of zeros over ``shape`` = (im, jm) (cfg's by default: a
+    block's on a mesh)."""
     dtype = cfg.torch_dtype if dtype is None else dtype
-    im, jm, kb = cfg.im, cfg.jm, cfg.kb
+    im, jm = (cfg.im, cfg.jm) if shape is None else shape
+    kb = cfg.kb
     return State(**{
         f: torch.zeros((im, jm) if f in FIELDS_2D else (kb, im, jm),
                        dtype=dtype, device=device)

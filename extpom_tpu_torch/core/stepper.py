@@ -334,48 +334,57 @@ def mesh_step(blocks, cfg: Config, fc, first: bool = False) -> None:
     """One internal step of every block of ``blocks``
     (``mesh.shardmap.Blocks``), in the stages of :func:`step`: lat,
     mode_interaction, the external loop, uvw, tke, tracer, mom.  Each stage
-    of each block runs on the block grown by a ring of its neighbours'
-    current values: ``cfg.phase_halo`` cells for the phases,
-    :data:`INTERACTION_RADIUS` for mode_interaction, C x ext_halo_sub for
-    a chunk of C external substeps (``mesh.extchunk``); then the ring is
-    trimmed.  ``fc`` is the step's forcing on the blocks, with its ramp
+    first grows all of its ring operands on every block by a ring of the
+    neighbours' current values, in one exchange (``Blocks.ext_all``):
+    ``cfg.phase_halo`` cells for the phases, :data:`INTERACTION_RADIUS`
+    for mode_interaction, C x ext_halo_sub for a chunk of C external
+    substeps (``mesh.extchunk``); then it runs the blocks and trims the
+    ring.  ``fc`` is the step's forcing on the blocks, with its ramp
     (``mesh.shardmap.BlockForcing``), read by each stage at its ring.
-    Updates ``blocks.state`` in place of the old states."""
+    Under several processes every rank makes the same exchanges in the
+    same order: only operands that the configuration drops are None, and
+    then on every rank.  Updates ``blocks.state`` in place of the old
+    states."""
     from extpom_tpu_torch.mesh.extchunk import run_external_loop_chunked
     ramp = fc.ramp
     ids = blocks.ids
     hp = blocks.ring(cfg.phase_halo)
     hm = blocks.ring(INTERACTION_RADIUS)
     st = blocks.state
-    ext = lambda vals, b, h=hp: blocks.ext(vals, b, h)
     trim = lambda outs, h=hp: [blocks.trim(x, h) for x in outs]
     dt = {b: blocks.grid[b].h + st[b].et for b in ids}
     d = ({b: blocks.grid[b].h + st[b].el for b in ids}
          if phases.reads_depth("lat", cfg) else None)
+    forcing = lambda b: fc.ext(b, hp, phases.PHASE_FORCING)
 
-    def phase(fn, b, operands, extra=(), with_fc=False, **kw):
-        """Phase ``fn`` on block ``b``, its trimmed outputs: ``operands``
-        (and the keywords ``kw``) are state field names or per-block
-        dicts, both ring-extended, then come the ``extra`` tensors as they
-        are and the extended forcing; a None operand stays None."""
-        field = lambda x: None if x is None else ext(
-            blocks.field(x) if isinstance(x, str) else x, b)
-        args = [field(x) for x in operands]
-        args += list(extra)
-        if with_fc:
-            args.append(fc.ext(b, hp, phases.PHASE_FORCING))
-        return trim(fn(blocks.grid_ext(b, hp), cfg, *args,
-                       off=blocks.goff(b, hp),
-                       **{k: field(x) for k, x in kw.items()}))
+    def stage(fn, operands, **kw) -> dict:
+        """Phase ``fn`` on every block, block -> its trimmed outputs.  The
+        ``operands`` (then the keywords ``kw``) are state field names or
+        per-block dicts, grown by the phase ring in one exchange; a
+        callable is called with the block (static or forcing operands); a
+        None stays None."""
+        vals = list(operands) + list(kw.values())
+        ring = [None if x is None or callable(x) else
+                (blocks.field(x) if isinstance(x, str) else x) for x in vals]
+        ext = blocks.ext_all(ring, hp)
+        n = len(operands)
+
+        def run(b):
+            # a block's extended operands die with this call, before the
+            # next block's are formed
+            args = [x(b) if callable(x) else None if e is None else e[b]
+                    for x, e in zip(vals, ext)]
+            return trim(fn(blocks.grid_ext(b, hp), cfg, *args[:n],
+                           off=blocks.goff(b, hp), **dict(zip(kw, args[n:]))))
+        return {b: run(b) for b in ids}
 
     m2 = cfg.mode == 2
     lat = {}
     if not m2:      # mode 2 has no 3-D terms
-        for b in ids:
-            rmean = blocks.clim_ext(b, hp)[0]
-            lat[b] = phase(phases.phase_lat, b, ("u", "v", "ub", "vb", "aam",
-                                                 "rho"),
-                           (rmean, ext(dt, b), d and ext(d, b), ramp))
+        lat = stage(phases.phase_lat,
+                    ("u", "v", "ub", "vb", "aam", "rho",
+                     lambda b: blocks.clim_ext(b, hp)[0], dt, d,
+                     lambda b: ramp))
     aam = {b: st[b].aam if m2 else lat[b][0] for b in ids}
 
     # mode_interaction: depth integrals in place, advave on the ring; in
@@ -387,20 +396,19 @@ def mesh_step(blocks, cfg: Config, fc, first: bool = False) -> None:
         ints = {b: depth_integrals(blocks.grid[b], cfg, *lat[b])
                 for b in ids}
     aam2d = {b: ints[b][4] for b in ids}
+    names = ("el", "ua", "va") + (() if m2 else ("uab", "vab"))
+    ext = blocks.ext_all([blocks.field(k) for k in names]
+                         + ([] if m2 else [aam2d]), hm)
     carry, aux = {}, {}
     for b in ids:
-        e = lambda vals: ext(vals, b, hm)
         s = st[b]
         with domain_of(cfg, blocks.goff(b, hm)):
             g = blocks.grid_ext(b, hm)
-            el, ua, va = (e(blocks.field(k)) for k in ("el", "ua", "va"))
             if m2:
-                out = averages(g, cfg, el, ua, va)
+                out = averages(g, cfg, *(e[b] for e in ext))
             else:
-                out = interaction_2d(g, cfg, el, ua, va,
-                                     e(blocks.field("uab")),
-                                     e(blocks.field("vab")), e(aam2d),
-                                     None, None)
+                out = interaction_2d(g, cfg, *(e[b] for e in ext), None,
+                                     None)
                 out = out[:2] + out[4:]
         out = trim(out, hm)
         adx2d, ady2d, drx2d, dry2d, _ = ints[b]
@@ -415,6 +423,7 @@ def mesh_step(blocks, cfg: Config, fc, first: bool = False) -> None:
                             vab=s.vab, etf=s.etf, egf=egf, utf=utf, vtf=vtf,
                             advua=advua, advva=advva, wubot=s.wubot,
                             wvbot=s.wvbot)
+    del ext
     carry = run_external_loop_chunked(blocks, cfg, carry, aux, fc)
 
     new = {b: dict(u=st[b].u, ub=st[b].ub, v=st[b].v, vb=st[b].vb,
@@ -428,38 +437,35 @@ def mesh_step(blocks, cfg: Config, fc, first: bool = False) -> None:
         cget = lambda k: {b: getattr(carry[b], k) for b in ids}
         nget = lambda k: {b: new[b][k] for b in ids}
 
-        def stage(names, outs):
+        def merge(names, outs):
             """Merge a stage's outputs once every block has run it."""
             for b in ids:
                 new[b].update(zip(names, outs[b]))
 
-        stage(("u", "v", "w"), {b: phase(
-            phases.phase_uvw, b,
+        merge(("u", "v", "w"), stage(
+            phases.phase_uvw,
             ("u", "v", "w", dt, "utb", "vtb", cget("utf"), cget("vtf"),
-             "etb", cget("etf"), "vfluxb"),
-            (fc.ext(b, hp, phases.PHASE_FORCING).vflux,))
-            for b in ids})
-        stage(("q2", "q2b", "q2l", "q2lb", "km", "kh", "kq", "l"), {b: phase(
-            phases.phase_tke, b,
+             "etb", cget("etf"), "vfluxb", lambda b: forcing(b).vflux)))
+        merge(("q2", "q2b", "q2l", "q2lb", "km", "kh", "kq", "l"), stage(
+            phases.phase_tke,
             ("q2", "q2b", "q2l", "q2lb", nget("u"), nget("v"), nget("w"),
              aam, "t", "s", "rho", "km", "kh", "kq", dt, "etb", cget("etf"),
-             cget("wubot"), cget("wvbot")), with_fc=True) for b in ids})
+             cget("wubot"), cget("wvbot"), forcing)))
         if cfg.mode != 4:
-            stage(("t", "tb", "s", "sb", "rho"), {b: phase(
-                phases.phase_tracer, b, ("t", "tb", "s", "sb"),
-                blocks.clim_ext(b, hp)[1:] + tuple(ext(x, b) for x in (
-                    nget("u"), nget("v"), nget("w"), aam, nget("kh"), dt,
-                    blocks.field("etb"), cget("etf"))), with_fc=True, ub="ub")
-                for b in ids})
+            merge(("t", "tb", "s", "sb", "rho"), stage(
+                phases.phase_tracer,
+                ("t", "tb", "s", "sb", lambda b: blocks.clim_ext(b, hp)[1],
+                 lambda b: blocks.clim_ext(b, hp)[2], nget("u"), nget("v"),
+                 nget("w"), aam, nget("kh"), dt, "etb", cget("etf"),
+                 forcing), ub="ub"))
         lat_out = lambda k: {b: lat[b][k] for b in ids}
         dn = ({b: blocks.grid[b].h + carry[b].el for b in ids}
               if phases.reads_depth("mom", cfg) else None)
-        stage(("u", "ub", "v", "vb", "wubot", "wvbot"), {b: phase(
-            phases.phase_mom, b,
+        merge(("u", "ub", "v", "vb", "wubot", "wvbot"), stage(
+            phases.phase_mom,
             (nget("u"), "ub", nget("v"), "vb", nget("w"), lat_out(1),
              lat_out(2), lat_out(3), lat_out(4), nget("km"), dt,
-             cget("egf"), "egb", "etb", cget("etf"), dn), with_fc=True)
-            for b in ids})
+             cget("egf"), "egb", "etb", cget("etf"), dn, forcing)))
 
     vflux = {b: fc.ext(b, (0, 0), ("vflux",)).vflux for b in ids}
     for b in ids:

@@ -1,8 +1,15 @@
 """Global diagnostics and the blow-up guard (``extpom_tpu/diag/stats.py``;
-advance.f:611-756)."""
+advance.f:611-756).
+
+:func:`domain_stats` and :func:`check_velocity` read a whole state; their
+block forms (:func:`domain_stats_blocks`, :func:`check_velocity_blocks`)
+read the blocks of a model decomposed over several processes: each rank
+sums its blocks' cells of the same regions, and the ranks' partial sums
+are summed again (``mesh.distributed.host_all_gather``)."""
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Tuple
 
 import torch
@@ -15,10 +22,22 @@ from extpom_tpu_torch.core.state import State
 def _csum(x: torch.Tensor) -> torch.Tensor:
     """Compensated pairwise sum (a log2(N)-level TwoSum tree carrying an
     error channel): ~double-length totals in any float dtype."""
+    s, c = _csum2(x)
+    return s + c
+
+
+def _csum2(x: torch.Tensor) -> tuple:
+    """:func:`_csum` as (sum, error channel), whose sum stands for the total
+    to about twice the dtype's precision, so that partial totals (each
+    rank's) can be summed again without losing what cancels.  The error
+    of each addition is Knuth's TwoSum, exact; the JAX package's
+    ``(a - (t - b)) + (b - (t - a))`` is not (ROADMAP Queue 3), which cost
+    ~1e-12 of a total that cancels (eaver)."""
     x = x.reshape(-1)
     n = x.shape[0]
     if n == 0:
-        return torch.zeros((), dtype=x.dtype, device=x.device)
+        z = torch.zeros((), dtype=x.dtype, device=x.device)
+        return z, z
     p = 1 << max(n - 1, 1).bit_length()
     if p != n:
         x = torch.cat([x, x.new_zeros(p - n)])
@@ -26,10 +45,11 @@ def _csum(x: torch.Tensor) -> torch.Tensor:
     while s.shape[0] > 1:
         a, b = s[0::2], s[1::2]
         t = a + b
-        e = (a - (t - b)) + (b - (t - a))
+        bv = t - a
+        e = (a - (t - bv)) + (b - bv)
         s = t
         c = c[0::2] + c[1::2] + e
-    return s[0] + c[0]
+    return s[0], c[0]
 
 
 def domain_stats(grid: Grid, cfg: Config, st: State) -> Dict[str, torch.Tensor]:
@@ -93,3 +113,103 @@ def check_velocity(cfg: Config, vaf: torch.Tensor
     a = torch.abs(vaf[..., :ia, :ja])
     k = torch.argmax(a)
     return torch.max(a), (k // a.shape[1], k % a.shape[1])
+
+
+def _regions(ia: int, ja: int) -> dict:
+    """The global regions of :func:`domain_stats` on an active ia x ja
+    grid, as ((i0, i1), (j0, j1)): the interior and the four edges without
+    the corners (``edge``), the interior (``mass``), and the regions of
+    the kinetic energy with their weights (``ke``)."""
+    inner = ((1, ia - 1), (1, ja - 1))
+    south, north = ((0, 1), (1, ja - 1)), ((ia - 1, ia), (1, ja - 1))
+    west, east = ((1, ia - 1), (0, 1)), ((1, ia - 1), (ja - 1, ja))
+    return {"edge": (inner, south, north, west, east), "mass": (inner,),
+            "ke": ((inner, 0.5), (north, 1.0), (east, 1.0))}
+
+
+def _cells(a: torch.Tensor, region, off, n) -> torch.Tensor:
+    """The cells of global ``region`` in a block of ``n`` = (ni, nj) cells
+    at global ``off``, flattened (empty where they miss the block)."""
+    (i0, i1), (j0, j1) = region
+    li0, li1 = max(i0 - off[0], 0), min(i1 - off[0], n[0])
+    lj0, lj1 = max(j0 - off[1], 0), min(j1 - off[1], n[1])
+    if li1 <= li0 or lj1 <= lj0:
+        return a.new_zeros((0,))
+    return a[..., li0:li1, lj0:lj1].reshape(-1)
+
+
+def domain_stats_blocks(blocks, cfg: Config) -> Dict[str, torch.Tensor]:
+    """:func:`domain_stats` of a model decomposed over several processes
+    (``mesh.shardmap.Blocks``): each rank forms the compensated sums of its
+    blocks' cells of the same regions in float64 (:func:`_csum2`), and a
+    compensated sum of every rank's (sum, error) pairs combines them;
+    within 1e-12 of the single-process values.  CPU tensors of float64."""
+    from extpom_tpu_torch.mesh import distributed
+    kbm1 = cfg.kbm1
+    reg = _regions(*cfg.active)
+    n = (blocks.ni, blocks.nj)
+    parts: dict = {k: [] for k in ("atot", "eavg", "vtot", "mtot", "tavg",
+                                   "stot", "ekin")}
+    for b in blocks.ids:
+        g, st = blocks.grid[b], blocks.state[b]
+        off = blocks.goff(b, (0, 0))
+        w = lambda a: a.to(torch.float64)
+        edge = lambda a: [_cells(a, r, off, n) for r in reg["edge"]]
+        darea = w(g.dx) * w(g.dy) * w(g.fsm)
+        dvol = (darea[None] * (w(g.h) + w(st.et))[None]
+                * g.dz3[:kbm1].to(torch.float64))
+        dmass = dvol * (w(st.rho)[:kbm1] * cfg.rhoref + 1000.0)
+        ke = dmass * (w(st.u)[:kbm1] ** 2 + w(st.v)[:kbm1] ** 2)
+        parts["atot"] += edge(darea)
+        parts["eavg"] += edge(w(st.et) * darea)
+        parts["vtot"] += edge(dvol)
+        parts["mtot"] += [_cells(dmass, r, off, n) for r in reg["mass"]]
+        parts["tavg"] += edge(w(st.tb)[:kbm1] * dvol)
+        parts["stot"] += edge(w(st.sb)[:kbm1] * dvol)
+        parts["ekin"] += [c * _cells(ke, r, off, n) for r, c in reg["ke"]]
+    # each rank's totals as (sum, error) pairs, summed again over the
+    # ranks: a partial sum rounded to float64 would lose what cancels
+    mine = [torch.stack(_csum2(torch.cat(v))).cpu() for v in parts.values()]
+    every = distributed.host_all_gather(torch.stack(mine))
+    atot, eavg, vtot, mtot, tavg, stot, ekin = (
+        _csum(torch.cat([t[k] for t in every])) for k in range(len(mine)))
+    eavg = torch.where(atot != 0, eavg / atot, 0.0)
+    tavg = torch.where(vtot != 0, tavg / vtot, 0.0)
+    savg = torch.where(vtot != 0, stot / vtot, 0.0)
+    return dict(vtot=vtot, atot=atot, mtot=mtot, tsalt=stot,
+                taver=tavg, saver=savg, eaver=eavg, ekin=ekin)
+
+
+def check_velocity_blocks(blocks, cfg: Config) -> Tuple[torch.Tensor,
+                                                        Tuple[int, int]]:
+    """:func:`check_velocity` of a model decomposed over several processes:
+    each rank's largest |va| over its blocks' active cells and the global
+    (i, j) of it, then the largest over the ranks, the first in row-major
+    order among equals (as ``torch.argmax`` of the whole field) and a NaN
+    before any number."""
+    from extpom_tpu_torch.mesh import distributed
+    ia, ja = cfg.active
+    best = None
+    for b in blocks.ids:
+        (i0, i1), (j0, j1) = blocks.active_span(b)
+        if i1 <= i0 or j1 <= j0:
+            continue
+        a = torch.abs(blocks.state[b].va[..., :i1 - i0, :j1 - j0])
+        k = int(torch.argmax(a))
+        i, j = i0 + k // a.shape[1], j0 + k % a.shape[1]
+        cand = (float(torch.max(a)), i * ja + j)
+        best = cand if best is None else _larger(best, cand)
+    for cand in distributed.host_all_gather(best):
+        if cand is not None:
+            best = _larger(best, cand)
+    vamax, k = best
+    dtype = blocks.state[blocks.ids[0]].va.dtype
+    return torch.tensor(vamax, dtype=dtype), (k // ja, k % ja)
+
+
+def _larger(x: tuple, y: tuple) -> tuple:
+    """The larger of two (value, flat index): a NaN first, then the value,
+    then the lower index."""
+    key = lambda c: (math.isnan(c[0]), 0.0 if math.isnan(c[0]) else c[0],
+                     -c[1])
+    return x if key(x) >= key(y) else y

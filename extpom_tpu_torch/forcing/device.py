@@ -60,9 +60,10 @@ def plan_bytes(p: "prov.ForcingProvider") -> int:
 def make_device_plan(p: "prov.ForcingProvider", dtype=None,
                      budget_bytes: Optional[int] = None,
                      t0_days: Optional[float] = None,
-                     t1_days: Optional[float] = None,
+                     t1_days: Optional[float] = None, device=None,
                      ) -> Optional[DevicePlan]:
-    """Stage the provider's series on its grid's device.
+    """Stage the provider's series on ``device`` (its grid's by default;
+    the card for a model built on the host and decomposed onto it).
 
     When the whole staging exceeds ``budget_bytes`` (default
     ``cfg.forcing_hbm_mb``) and the segment ``[t0_days, t1_days]`` is
@@ -72,6 +73,7 @@ def make_device_plan(p: "prov.ForcingProvider", dtype=None,
     if p.source is None:
         return None
     dtype = dtype or p.cfg.torch_dtype
+    device = p.grid.device if device is None else device
     if budget_bytes is None:
         budget_bytes = p.cfg.forcing_hbm_mb * 2 ** 20
     windowed = (plan_bytes(p) > budget_bytes
@@ -97,7 +99,7 @@ def make_device_plan(p: "prov.ForcingProvider", dtype=None,
     stacks, starts = [], []
     for v, cad, off, _ in series:
         if v not in names:
-            stacks.append(p.default_taurstr().to(dtype)[None])
+            stacks.append(p.default_taurstr().to(device, dtype)[None])
             starts.append(0)
             continue
         nrec = p.source.nrec(v)
@@ -110,8 +112,7 @@ def make_device_plan(p: "prov.ForcingProvider", dtype=None,
             n0, recs = 0, range(nrec)
         stack = np.ascontiguousarray(
             np.stack([np.asarray(p.source.read(v, n)) for n in recs]))
-        stacks.append(torch.tensor(stack, dtype=dtype,
-                                   device=p.grid.device))
+        stacks.append(torch.tensor(stack, dtype=dtype, device=device))
         starts.append(n0)
     names, cadences, offsets, interp = zip(*series)
     return DevicePlan(tuple(names), tuple(float(c) for c in cadences),

@@ -16,7 +16,18 @@ output (io_pnetcdf.F) — as Zarr arrays, one directory per dataset with an
 
 TensorStore is imported at first use.  Where it is not installed, every
 Zarr path raises and names the NetCDF alternative; nothing falls back to
-another format.  Writes from several processes are not ported.
+another format.
+
+Under several processes (``mesh/distributed.py``) the writes are
+cooperative, as the JAX package's ``_write_array_multihost`` and the
+reference's per-rank hyperslab puts (io_pnetcdf.F:272-275): a decomposed
+array (``distributed.Slabs``) is created by rank 0, all ranks wait, each
+writes its own blocks' hyperslabs (a chunk of the store is a block, so no
+two ranks write one chunk), and all ranks wait again; an array every rank
+holds whole (the grid) and the attributes are written by rank 0.  The
+waits are on the I/O group, never on the group of the step's exchange, so
+the writer thread may run them.  :func:`read_restart` reads each rank's
+hyperslabs into its blocks.
 """
 
 from __future__ import annotations
@@ -34,6 +45,7 @@ from extpom_tpu_torch.core.config import Config
 from extpom_tpu_torch.core.grid import Grid, make_grid
 from extpom_tpu_torch.core.state import State
 from extpom_tpu_torch.io.netcdf import OUTPUT_FIELDS
+from extpom_tpu_torch.mesh import distributed
 
 HAVE_TS = importlib.util.find_spec("tensorstore") is not None
 
@@ -65,12 +77,16 @@ def _spec(path: str, create: bool = False, shape=None, dtype=None,
 def write_array(root: str, name: str, arr,
                 chunks: Optional[tuple] = None) -> None:
     """Write one array (a tensor on any device, or numpy) as
-    ``root/name``, chunked by horizontal tiles of at most 256."""
+    ``root/name``, chunked by horizontal tiles of at most 256; a
+    ``distributed.Slabs`` cooperatively (:func:`_write_slabs`).  Under
+    several processes an array that every rank holds whole is written by
+    rank 0."""
     ts = _ts()
-    if (torch.distributed.is_available() and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1):
-        raise NotImplementedError(
-            "cooperative Zarr writes from several processes are not ported")
+    if isinstance(arr, distributed.Slabs):
+        _write_slabs(root, name, arr)
+        return
+    if distributed.rank() != 0:
+        return
     a = (arr.detach().cpu().numpy() if isinstance(arr, torch.Tensor)
          else np.asarray(arr))
     if chunks is None:
@@ -83,15 +99,40 @@ def write_array(root: str, name: str, arr,
     ts.open(spec, **kw).result()[...] = a
 
 
+def _write_slabs(root: str, name: str, arr: "distributed.Slabs") -> None:
+    """Cooperative write of a decomposed array: rank 0 creates the store
+    (a chunk per block), all ranks wait, each writes its hyperslabs, and
+    all ranks wait again."""
+    ts = _ts()
+    path = os.path.join(root, name)
+    if distributed.rank() == 0:
+        spec, kw = _spec(path, create=True, shape=arr.shape,
+                         dtype=arr.dtype, chunks=arr.chunks)
+        ts.open(spec, **kw).result()
+    distributed.process_barrier(f"zarr-create:{name}")
+    h = ts.open(_spec(path)[0]).result()
+    writes = [h[..., i0:i1, j0:j1].write(
+        piece.detach().cpu().numpy() if isinstance(piece, torch.Tensor)
+        else np.asarray(piece))
+        for ((i0, i1), (j0, j1)), piece in arr.pieces.items()]
+    for w in writes:
+        w.result()
+    distributed.process_barrier(f"zarr-written:{name}")
+
+
 def read_array(root: str, name: str) -> np.ndarray:
     spec, _ = _spec(os.path.join(root, name))
     return np.asarray(_ts().open(spec).result().read().result())
 
 
 def _write_attrs(root: str, attrs: Dict) -> None:
-    os.makedirs(root, exist_ok=True)
-    with open(os.path.join(root, "attrs.json"), "w") as f:
-        json.dump(attrs, f)
+    """``attrs.json`` of a dataset, by rank 0; under several processes the
+    ranks then wait for it, so that a dataset is whole when they go on."""
+    if distributed.rank() == 0:
+        os.makedirs(root, exist_ok=True)
+        with open(os.path.join(root, "attrs.json"), "w") as f:
+            json.dump(attrs, f)
+    distributed.process_barrier("zarr-attrs")
 
 
 def _read_attrs(root: str) -> Dict:
@@ -115,10 +156,19 @@ def write_restart(path: str, state: State, iint: int,
                         "format": "extpom_tpu.restart.v1"})
 
 
-def read_restart(path: str, cfg: Config, device):
+def read_restart(path: str, cfg: Config, device, blocks=None):
     """Returns (state, iint, time0), the state in cfg's dtype on
-    ``device``."""
+    ``device``.  With ``blocks`` (``mesh.shardmap.Blocks``, under several
+    processes) each block's hyperslab of every field is read into it
+    instead (``Blocks.load_state``) and the state returned is None."""
     attrs = _read_attrs(path)
+    if blocks is not None:
+        ts = _ts()
+        handles = {f: ts.open(_spec(os.path.join(path, f))[0]).result()
+                   for f in State.field_names()}
+        blocks.load_state(lambda f, i, j: np.asarray(
+            handles[f][..., i[0]:i[1], j[0]:j[1]].read().result()))
+        return None, attrs["iint"], attrs["time0"]
     fields = {f.name: _tensor(read_array(path, f.name), cfg, device)
               for f in dataclasses.fields(State)}
     return State(**fields), attrs["iint"], attrs["time0"]

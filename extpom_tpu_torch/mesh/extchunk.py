@@ -29,6 +29,15 @@ from extpom_tpu_torch.kernels import extloop, extwin
 EXT_FORCING = (extloop.FC_2D_FIELDS + extloop.FC_1D_J + extloop.FC_1D_I)
 
 
+def _spans(n: int, h: int) -> dict:
+    """Along one axis of n cells grown by h: (source cells of the
+    neighbour, destination cells) for the neighbour before (-1), the block
+    itself (0) and the neighbour after (1)."""
+    return {-1: (slice(n - h, n), slice(0, h)),
+            0: (slice(0, n), slice(h, h + n)),
+            1: (slice(0, h), slice(h + n, 2 * h + n))}
+
+
 def _ring_extend(vals: dict, b, hx: int, hy: int,
                  fill: float = 0.0) -> torch.Tensor:
     """Block ``b``'s (.., ni, nj) tensor of ``vals`` (block -> tensor)
@@ -46,16 +55,9 @@ def _ring_extend(vals: dict, b, hx: int, hy: int,
         return a
     out = a.new_full(a.shape[:-2] + (ni + 2 * hx, nj + 2 * hy), fill)
     bi, bj = b
-    # (source cells of the neighbour, destination cells) along one axis,
-    # for the neighbour before, the block itself and the neighbour after
-    spans_i = [(slice(ni - hx, ni), slice(0, hx)),
-               (slice(0, ni), slice(hx, hx + ni)),
-               (slice(0, hx), slice(hx + ni, 2 * hx + ni))]
-    spans_j = [(slice(nj - hy, nj), slice(0, hy)),
-               (slice(0, nj), slice(hy, hy + nj)),
-               (slice(0, hy), slice(hy + nj, 2 * hy + nj))]
-    for di, (si, ti) in zip((-1, 0, 1), spans_i):
-        for dj, (sj, tj) in zip((-1, 0, 1), spans_j):
+    spans_i, spans_j = _spans(ni, hx), _spans(nj, hy)
+    for di, (si, ti) in spans_i.items():
+        for dj, (sj, tj) in spans_j.items():
             q = (bi + di, bj + dj)
             if (di and not hx) or (dj and not hy) or q not in vals:
                 continue
@@ -80,6 +82,127 @@ def _ring_extend_1d(vals: dict, b, h: int, axis: str) -> torch.Tensor:
     z = a.new_zeros(a.shape[:-1] + (h,))
     return torch.cat([z if lo is None else lo[..., n - h:], a,
                       z if hi is None else hi[..., :h]], dim=-1)
+
+
+# the eight neighbours, in the order both sides of an exchange pack them
+_DIRS = ((-1, -1), (-1, 0), (-1, 1), (0, -1), (0, 1), (1, -1), (1, 0),
+         (1, 1))
+
+
+def _reads(axis, d, h, n) -> Optional[tuple]:
+    """(source index in the neighbour, destination index in the extended
+    tensor) of the cells that a block's ring of ``h`` = (hx, hy) reads from
+    its neighbour in direction ``d``, for a field over (.., ni, nj) (``axis``
+    None, ``n`` = (ni, nj)) or a per-side series along i (``"x"``, ``n`` =
+    (ni,)) or j (``"y"``, ``n`` = (nj,)); None where it reads none."""
+    di, dj = d
+    if axis is None:
+        if (di and not h[0]) or (dj and not h[1]):
+            return None
+        (si, ti), (sj, tj) = _spans(n[0], h[0])[di], _spans(n[1], h[1])[dj]
+        return (..., si, sj), (..., ti, tj)
+    k = 0 if axis == "x" else 1
+    if d[1 - k] or not h[k]:
+        return None
+    s, t = _spans(n[0], h[k])[d[k]]
+    return (..., s), (..., t)
+
+
+def ring_extend_all(fields: list, h, owner: dict, rank: int,
+                    fills=0.0, axes=None) -> list:
+    """The collective :func:`_ring_extend` (and :func:`_ring_extend_1d`) of
+    every field of ``fields`` (each a dict: this rank's block -> tensor) on
+    every block this rank owns, with the neighbours' cells from whichever
+    rank owns them (``owner``: block -> rank, the whole mesh): the blocks
+    of this rank are copied from, and for each other rank all strips of
+    all fields go in one buffer each way (``distributed.exchange``).  The
+    corners come from the diagonal neighbours, so the result is bit-equal
+    to the in-process ring.  ``fills`` and ``axes`` give each field its
+    fill and, for a per-side series, its axis ("x", "y"; None for a field
+    over (.., ni, nj)).  Every rank must make the same calls in the same
+    order.  Returns a list of dicts, one per field."""
+    from extpom_tpu_torch.mesh import distributed
+    nf = len(fields)
+    fills = [fills] * nf if not isinstance(fills, (list, tuple)) else fills
+    axes = [None] * nf if axes is None else axes
+    hx, hy = h
+    if not (hx or hy) or not nf:
+        return [dict(f) for f in fields]
+    ids = sorted(fields[0])
+    first = fields[0][ids[0]]
+    device, dtype = first.device, first.dtype
+    size = {None: first.shape[-2:]}
+    for f, ax in zip(fields, axes):
+        a = f[ids[0]]
+        if a.dtype != dtype:
+            raise ValueError(f"one exchange of {dtype} and {a.dtype} fields")
+        if ax is not None:
+            size[ax] = a.shape[-1:]
+    ni, nj = size[None]
+    if hx > ni or hy > nj:
+        raise ValueError(f"a ring of ({hx}, {hy}) cells is wider than the "
+                         f"({ni}, {nj}) block it would be read from")
+    n_of = lambda ax: size[ax] if ax is not None else (ni, nj)
+    out = []
+    for f, ax, fill in zip(fields, axes, fills):
+        ext = {}
+        for b in ids:
+            a = f[b]
+            if ax is None:
+                e = a.new_full(a.shape[:-2] + (ni + 2 * hx, nj + 2 * hy),
+                               fill)
+                e[..., hx:hx + ni, hy:hy + nj] = a
+            else:
+                k = hx if ax == "x" else hy
+                e = a.new_zeros(a.shape[:-1] + (a.shape[-1] + 2 * k,))
+                e[..., k:k + a.shape[-1]] = a
+            ext[b] = e
+        out.append(ext)
+    # what this rank's blocks read from each other rank, in its packing
+    # order: block (row-major), direction, field
+    pending: dict = {}
+    for b in ids:
+        for d in _DIRS:
+            q = (b[0] + d[0], b[1] + d[1])
+            if q not in owner:
+                continue
+            for k, ax in enumerate(axes):
+                rd = _reads(ax, d, h, n_of(ax))
+                if rd is None:
+                    continue
+                if owner[q] == rank:
+                    out[k][b][rd[1]] = fields[k][q][rd[0]]
+                else:
+                    pending.setdefault(owner[q], []).append((k, b, rd[1]))
+    if not pending:
+        return out
+    # what each other rank's blocks read from this rank's, in that rank's
+    # packing order
+    send: dict = {}
+    for p in sorted(owner):
+        r = owner[p]
+        if r == rank:
+            continue
+        for d in _DIRS:
+            q = (p[0] + d[0], p[1] + d[1])
+            if owner.get(q) != rank:
+                continue
+            for k, ax in enumerate(axes):
+                rd = _reads(ax, d, h, n_of(ax))
+                if rd is not None:
+                    send.setdefault(r, []).append(
+                        fields[k][q][rd[0]].reshape(-1))
+    send = {r: torch.cat(s) for r, s in send.items()}
+    numel = {r: sum(out[k][b][t].numel() for k, b, t in lst)
+             for r, lst in pending.items()}
+    got = distributed.exchange(send, numel, device, dtype)
+    for r, lst in pending.items():
+        o = 0
+        for k, b, t in lst:
+            dst = out[k][b][t]
+            dst.copy_(got[r][o:o + dst.numel()].view(dst.shape))
+            o += dst.numel()
+    return out
 
 
 def _chunk(cfg, px: int, py: int, ni: int, nj: int) -> int:
@@ -146,8 +269,9 @@ def chunk_plan(cfg, px: int, py: int, ni: int, nj: int, device,
 def run_external_loop_chunked(blocks, cfg, carry: dict, aux: dict, fc):
     """The isplit external substeps of every block of ``blocks``
     (``mesh.shardmap.Blocks``): per C substeps, ring-extend each block's
-    carry from its neighbours' current carry, run the chunk on the
-    extended block and trim the ring.  ``carry`` and ``aux`` map a block
+    carry from its neighbours' current carry (the 14 fields of every block
+    in one exchange), run the chunk on the extended block and trim the
+    ring; ``aux`` is extended once per step.  ``carry`` and ``aux`` map a block
     to its ``ExtCarry`` and its (adx2d, ady2d, drx2d, dry2d, aam2d); the
     static operands are extended once, and the step's forcing ``fc``
     (``mesh.shardmap.BlockForcing``: wind stress, vflux, e_atmos, the
@@ -158,15 +282,16 @@ def run_external_loop_chunked(blocks, cfg, carry: dict, aux: dict, fc):
     plan = chunk_plan(cfg, blocks.px, blocks.py, blocks.ni, blocks.nj,
                       el.device, el.element_size())
     h = (plan.hx, plan.hy)
-    aux_e = {b: tuple(blocks.ext({q: aux[q][k] for q in blocks.ids}, b, h)
-                      for k in range(len(aux[b])))
-             for b in blocks.ids}
+    ids = blocks.ids
+    aux_e = blocks.ext_all([{q: aux[q][k] for q in ids}
+                            for k in range(len(aux[ids[0]]))], h)
+    aux_e = {b: tuple(a[b] for a in aux_e) for b in ids}
     for ic in range(cfg.isplit // plan.C):
+        ext = blocks.ext_all([{q: carry[q][k] for q in ids}
+                              for k in range(len(ExtCarry._fields))], h)
         new = {}
-        for b in blocks.ids:
-            c = ExtCarry(*(blocks.ext({q: carry[q][k] for q in blocks.ids},
-                                      b, h)
-                           for k in range(len(ExtCarry._fields))))
+        for b in ids:
+            c = ExtCarry(*(e[b] for e in ext))
             args = (blocks.grid_ext(b, h), cfg, c,
                     fc.ext(b, h, EXT_FORCING),
                     aux_e[b],
@@ -176,5 +301,6 @@ def run_external_loop_chunked(blocks, cfg, carry: dict, aux: dict, fc):
             else:
                 c = extloop.run_external_chunk(*args)
             new[b] = ExtCarry(*(blocks.trim(x, h) for x in c))
+        del ext
         carry = new
     return carry

@@ -97,8 +97,9 @@ def _pad_tree(obj, im: int, jm: int, imp: int, jmp: int) -> dict:
     return out
 
 
-def pad_state(st: State, cfg: Config, imp: int, jmp: int) -> State:
-    return State(**_pad_tree(st, cfg.im, cfg.jm, imp, jmp))
+def pad_state(st, cfg: Config, imp: int, jmp: int):
+    """A State (or the ``ColdInputs`` of a deferred cold start) padded."""
+    return type(st)(**_pad_tree(st, cfg.im, cfg.jm, imp, jmp))
 
 
 def pad_forcing(fc: Forcing, cfg: Config, imp: int, jmp: int) -> Forcing:
@@ -137,7 +138,7 @@ def pad_model(m, px: int, py: int) -> None:
     m.base_forcing = pad_forcing(m.base_forcing, cfg, imp, jmp)
     for name in ("rmean", "tclim", "sclim"):
         a = getattr(m, name)
-        if a.dim() >= 2 and a.shape[-2:] == (cfg.im, cfg.jm):
+        if a is not None and a.dim() >= 2 and a.shape[-2:] == (cfg.im, cfg.jm):
             setattr(m, name, _pad_hv(a, imp, jmp, 0.0))
     m.cfg = cfg.replace(im=imp, jm=jmp, im_act=cfg.im, jm_act=cfg.jm)
     m.reset_plans()

@@ -8,7 +8,8 @@ in segments between print, restart and ``iswtch`` boundaries, with the
 diagnostics print and blow-up guard, snapshots and restarts written by a
 background writer, and resume from a restart (nread_rst, initialize.f:39).
 It runs on the card unless ``--device cpu`` is given, and raises when there
-is no card.
+is no card.  Under several processes (the ``distributed`` block) each
+process runs its own blocks of the mesh on its own device.
 
 Config schema (all keys optional unless noted)::
 
@@ -30,17 +31,36 @@ Config schema (all keys optional unless noted)::
       #   (Zarr needs tensorstore)
       "nread_rst": 0, "read_rst_path": "out/run.rst.000024.nc",
       "cont_bry": 0,
-      "mesh": {"px": 2, "py": 4}             # Model.shard blocks, one card
+      "mesh": {"px": 2, "py": 4},            # Model.shard blocks
+      "distributed": {"num_processes": 2,    # one process per card
+                      "coordinator": "host:port", "process_id": 0,
+                      "backend": "nccl" | "gloo"}
     }
+
+The ``distributed`` block (``mesh/distributed.py``) joins the process
+group before any device use; its keys default to torchrun's environment
+(WORLD_SIZE, RANK, MASTER_ADDR/MASTER_PORT; the device is
+``cuda:LOCAL_RANK``, the CPU with ``--device cpu``), so one run file serves
+every process::
+
+    torchrun --nproc-per-node 2 -m extpom_tpu_torch.run run.json
+
+Each process builds the case on the host and keeps only its own blocks of
+the mesh block's mesh, on its device; only rank 0 prints.
+The diagnostics come from the blocks (``diag.stats`` block forms), the
+Zarr snapshots and restarts are written cooperatively
+(``io.zarrstore``), and a Zarr restart resumes into each rank's blocks.
+``out_format`` "nc" raises under several processes, as in the JAX
+package: write Zarr.
 
 A mesh block runs forced runs too: the staged series are cut to the
 blocks.  A grid that does not divide the mesh is padded (``Model.shard``,
 ``mesh/padding.py``); its snapshots and restarts hold the active ``im x
 jm``, and a restart of it resumes into the padded model.
 
-Not ported, and raising ``NotImplementedError``: the ``distributed``
-block, ``"mode": "gspmd"`` in the mesh block, and forcing series on a
-padded grid (the JAX package cannot run them either).  A fresh run
+Not ported, and raising ``NotImplementedError``: ``"mode": "gspmd"`` in
+the mesh block, several processes without a mesh block, and forcing series
+on a padded grid (the JAX package cannot run them either).  A fresh run
 (``nread_rst`` 0) writes its ``{run}.nc`` anew.
 """
 
@@ -74,35 +94,38 @@ def _open_source(path: str):
 
 def build_model(conf: dict, device=None):
     """The Model of a run configuration on ``device`` (the card unless
-    given): case or datasets, forcing sources, restart, mesh."""
+    given): case or datasets, forcing sources, restart, mesh.  Under
+    several processes (``init_distributed`` ran) the case is built on the
+    host, and each process cold-starts its own blocks on its device
+    (``Model(defer=True)``); a restart is read into the blocks."""
     from extpom_tpu_torch.cases.seamount import resolve_device
     from extpom_tpu_torch.core.config import Config
     from extpom_tpu_torch.core.model import Model
     from extpom_tpu_torch.forcing.provider import ForcingProvider, MultiSource
     from extpom_tpu_torch.io import netcdf as ncio
     from extpom_tpu_torch.io import zarrstore as zio
+    from extpom_tpu_torch.mesh import distributed
 
-    if "distributed" in conf:
-        raise NotImplementedError(
-            "the 'distributed' block (several processes) is not ported yet")
-    device = resolve_device(device)
+    procs = distributed.procs()
+    device = procs.device if procs.world > 1 else resolve_device(device)
+    host = torch.device("cpu") if procs.world > 1 else device
     cfg_kw = dict(conf.get("config", {}))
     case = conf.get("case")
     src = None
     if case == "seamount":
         from extpom_tpu_torch.cases.seamount import seamount_case
-        cfg, grid, ics = seamount_case(device=device,
+        cfg, grid, ics = seamount_case(device=host,
                                        **conf.get("case_args", {}), **cfg_kw)
     elif case == "channel":
         from extpom_tpu_torch.cases.channel import channel_case
         cfg, grid, ics, src = channel_case(
-            device=device, **conf.get("case_args", {}), **cfg_kw)
+            device=host, **conf.get("case_args", {}), **cfg_kw)
     elif "grid" in conf:
         cfg = Config(**cfg_kw)
         if conf["grid"].endswith(".nc"):
-            grid = ncio.read_grid_nc(conf["grid"], cfg, device)
+            grid = ncio.read_grid_nc(conf["grid"], cfg, host)
         else:
-            grid = zio.read_grid(conf["grid"], cfg, device)
+            grid = zio.read_grid(conf["grid"], cfg, host)
         if conf["init"].endswith(".nc"):
             tb, sb, tclim, sclim = ncio.read_initial_ts_nc(conf["init"])
         else:
@@ -111,9 +134,10 @@ def build_model(conf: dict, device=None):
     else:
         raise ValueError("config needs 'case' or 'grid'")
 
+    # under several processes the cold start runs on each rank's blocks
     m = Model(grid, cfg, tb=ics["tb"], sb=ics["sb"], tclim=ics.get("tclim"),
               sclim=ics.get("sclim"), elb=ics.get("elb"),
-              uab=ics.get("uab"), vab=ics.get("vab"))
+              uab=ics.get("uab"), vab=ics.get("vab"), defer=procs.world > 1)
 
     sources = [] if src is None else [src]
     sources += [_open_source(conf[k]) for k in ("sfrc", "lbry") if k in conf]
@@ -123,22 +147,49 @@ def build_model(conf: dict, device=None):
             grid, cfg, m.base_forcing, src,
             cont_bry_offset=int(conf.get("cont_bry", 0)))
 
-    # restart resume (initialize.f:39; read_restart_pnetcdf)
-    if conf.get("nread_rst"):
-        path = conf["read_rst_path"]
+    # restart resume (initialize.f:39; read_restart_pnetcdf): under several
+    # processes into the blocks, below
+    path = conf.get("read_rst_path") if conf.get("nread_rst") else None
+    if path is not None and procs.world == 1:
         if path.endswith(".nc"):
             m.state, m.iint, m.time0 = ncio.read_restart_nc(path, cfg,
                                                             device)
         else:
             m.state, m.iint, m.time0 = zio.read_restart(path, cfg, device)
 
-    # blocks on the one device (distribute_mpi analogue, parallel_mpi.f)
+    # the blocks (distribute_mpi analogue, parallel_mpi.f)
     if "mesh" in conf:
         from extpom_tpu_torch.mesh.shardmap import Mesh
         mk = conf["mesh"]
         m.shard(Mesh(int(mk["px"]), int(mk["py"]), device=device),
                 mode=mk.get("mode", "shardmap"))
+    if path is not None and procs.world > 1:
+        if path.endswith(".nc"):
+            raise NotImplementedError(
+                "a NetCDF restart under several processes: resume from a "
+                "Zarr restart, which each process reads its blocks of")
+        _, m.iint, m.time0 = zio.read_restart(path, m.cfg, device,
+                                              blocks=m.blocks)
     return m
+
+
+def start_processes(conf: dict, device=None):
+    """Join the processes of the run's ``distributed`` block
+    (``mesh.distributed.init_distributed``, before any device use): a
+    no-op without one or for one process.  Several processes decompose one
+    model, so they need the mesh block."""
+    from extpom_tpu_torch.mesh import distributed
+    dk = conf.get("distributed")
+    if dk is None:
+        return distributed.procs()
+    n = int(dk.get("num_processes") or os.environ.get("WORLD_SIZE", 1))
+    if n > 1 and "mesh" not in conf:
+        raise NotImplementedError(
+            "several processes without a mesh block: the processes of the "
+            "port share one decomposed model")
+    return distributed.init_distributed(
+        dk.get("coordinator"), dk.get("num_processes"),
+        dk.get("process_id"), backend=dk.get("backend"), device=device)
 
 
 @dataclasses.dataclass
@@ -159,7 +210,7 @@ def _sync(device: torch.device) -> None:
 def execute(conf: dict, device=None,
             log: Callable[[str], None] = print) -> RunResult:
     """Run a configuration (see the module docstring); ``log`` takes each
-    line the driver prints."""
+    line the driver prints (on rank 0 only under several processes)."""
     from extpom_tpu_torch.core import dispatch
     from extpom_tpu_torch.core.grid import Grid
     from extpom_tpu_torch.diag import stats as diag_stats
@@ -174,9 +225,18 @@ def execute(conf: dict, device=None,
                          f"{out_format!r}")
     if out_format == "zarr":
         zio._ts()                 # raises here, not in the writer thread
+    procs = start_processes(conf, device)
+    multi = procs.world > 1
+    if multi and out_format == "nc":
+        # the NetCDF writers take whole arrays (extpom_tpu/run.py:277-283)
+        raise RuntimeError("out_format='nc' is single-process only; write "
+                           "zarr and convert via python -m extpom_tpu_torch."
+                           "io.netcdf")
+    if procs.rank != 0:
+        log = lambda line: None   # rank 0 prints
     m = build_model(conf, device)
     cfg = m.cfg
-    device = m.grid.device
+    device = m.device
     run = conf.get("run_name", "run")
     out_dir = conf.get("out_dir", "out")
     os.makedirs(out_dir, exist_ok=True)
@@ -191,6 +251,9 @@ def execute(conf: dict, device=None,
               "days", "prtd1", "smoth", "horcon", "ntp", "nbct", "nbcs"):
         log(f"  {k} = {getattr(cfg, k)}")
     log(f"  dti = {cfg.dti}  iend = {cfg.iend}  iprint = {cfg.iprint}")
+    if multi:
+        log(f"  processes = {procs.world}  devices = "
+            f"{len(set(procs.devices))}")
     log(f"  CFL advisory: min dt_ext = "
         f"{float(diag_stats.cfl_min(m.grid, cfg)):.2f} s (dte = {cfg.dte} s)")
     log("dispatch:")
@@ -223,25 +286,28 @@ def execute(conf: dict, device=None,
             iprint = cfg.iprint if m.iint < cfg.iswtch else cfg.iprint2
             st = None
             if m.iint % iprint == 0 or m.iint == cfg.iend:
-                st = m.gathered_state()
-                s = {k: float(v) for k, v in diag_stats.domain_stats(
-                    m.grid, cfg, st).items()}
-                vamax, (iloc, jloc) = diag_stats.check_velocity(cfg, st.va)
-                vamax = float(vamax)
+                st = None if multi else m.gathered_state()
+                s = m.stats(st)
+                vamax, (iloc, jloc) = m.velocity_check(st)
                 if not np.isfinite(vamax) or vamax > cfg.vmaxl:
                     log("POM terminated with error: velocity condition "
                         f"violated, vamax={vamax:.3e} at (i,j)="
-                        f"({int(iloc)},{int(jloc)}), iint={m.iint}")
+                        f"({iloc},{jloc}), iint={m.iint}")
                     rc = 1
                     break
                 log(f"time = {m.time_days:9.4f}  iint = {m.iint:8d}  "
                     f"vtot = {s['vtot']:.7e}  eaver = {s['eaver']:.7e}  "
                     f"taver = {s['taver']:.7e}  saver = {s['saver']:.7e}")
-                extra = ({"wr": unpad(m.compute_wr(), cfg)} if cfg.calc_wr
-                         else None)
-                snap = types.SimpleNamespace(**{
-                    n: unpad(getattr(st, n), cfg)
-                    for n in ncio.OUTPUT_FIELDS})
+                if multi:   # each rank's hyperslabs, written together
+                    extra = ({"wr": m.blocks.slabs(m.wr_blocks())}
+                             if cfg.calc_wr else None)
+                    snap = m.blocks.state_slabs(ncio.OUTPUT_FIELDS)
+                else:
+                    extra = ({"wr": unpad(m.compute_wr(), cfg)}
+                             if cfg.calc_wr else None)
+                    snap = types.SimpleNamespace(**{
+                        n: unpad(getattr(st, n), cfg)
+                        for n in ncio.OUTPUT_FIELDS})
                 if out_format == "nc":
                     # one record stream per run (io_pnetcdf.F:180-410); the
                     # writer's single worker keeps the order
@@ -255,7 +321,11 @@ def execute(conf: dict, device=None,
                         grid_host, out_cfg, snap, m.time_days, s,
                         extra=extra)
             if m.iint % cfg.irestart == 0:
-                st = unpad(st if st is not None else m.gathered_state(), cfg)
+                if multi:
+                    st = m.blocks.state_slabs()
+                else:
+                    st = unpad(st if st is not None else m.gathered_state(),
+                               cfg)
                 rst = os.path.join(out_dir, f"{run}.rst.{m.iint:06d}")
                 if out_format == "nc":
                     writer.submit(ncio.write_restart_nc, rst + ".nc", st,
@@ -292,7 +362,11 @@ def main(argv=None) -> int:
         return 2
     with open(argv[0]) as f:
         conf = json.load(f)
-    return execute(conf, device).rc
+    from extpom_tpu_torch.mesh import distributed
+    try:
+        return execute(conf, device).rc
+    finally:
+        distributed.destroy()
 
 
 if __name__ == "__main__":
