@@ -19,9 +19,11 @@ and timed on the large-grid path's operands (``[large_phases]``) and, with
 the window chunks, on every call of one step of its decomposed blocks
 (``[large_mesh_phases]``), with the registers, shared memory and resident
 blocks the card gives them.  Two more paths go through the run driver
-``extpom_tpu_torch.run.main`` with NetCDF output, each resumed from its
-mid-run restart and held equal to the whole run: the main path's seamount
-(``[cli]``, 48 steps) and the tidal channel at 512x512x31, whose lateral
+``extpom_tpu_torch.run.main`` with NetCDF snapshots and Zarr restarts
+(the port's own store, raw chunks), each resumed from its mid-run restart
+and held equal to the whole run: the main path's seamount (``[cli]``, 48
+steps; ``[cli_zarr]`` the same with Zarr snapshots) and the tidal channel
+at 512x512x31, whose lateral
 series are staged on the card a window per segment and interpolated at
 every step (``[channel]``, 120 steps; the window kernel where the L2
 dispatch picks it), each of whose kernels is held to its plain version on
@@ -57,7 +59,12 @@ and two processes, 7 steps), each held bit for bit to ``[mesh]``'s or
 ``[large_mesh]``'s blocks by fingerprints of every field, their launches
 summed to that run's, with each rank's ms per step, exchange, busy
 device time and peak memory; ``[nccl_refusal]`` shows nccl refusing two
-ranks on one card before a step.  The Thomas kernel is held to its plain
+ranks on one card before a step; ``[config4]`` runs BASELINE config 4
+(the seamount at 512x512x31 on config5's 2x4 mesh) through ``python -m
+extpom_tpu_torch.run`` as two processes with Zarr snapshots and restarts,
+resumes it from its mid-run restart as two processes (the last restart
+bit-equal) and holds its snapshots to the same file run in one process,
+with each rank's ms per step, writer seconds and bytes written.  The Thomas kernel is held to its plain
 version bit for bit and timed at 256x256x31, 256x256x41 and
 2048x2048x41.  It checks the
 results, prints the dispatch echo of ten, one ``kernels`` JSON line,
@@ -74,6 +81,7 @@ import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1689,9 +1697,32 @@ def records(path: str) -> int:
 
 
 def restart_state(path: str, cfg):
-    """The State of a restart file the driver wrote, on the card."""
-    from extpom_tpu_torch.io import netcdf as ncio
-    return ncio.read_restart_nc(path, cfg, "cuda")
+    """The State of a (Zarr) restart the driver wrote, on the card."""
+    from extpom_tpu_torch.io import zarrstore as zio
+    return zio.read_restart(path, cfg, "cuda")
+
+
+def tree_bytes(path: str) -> int:
+    """The bytes of the file ``path``, or of the files under it."""
+    if os.path.isfile(path):
+        return os.path.getsize(path)
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def raw_stores(path: str) -> int:
+    """The Zarr arrays under ``path``; raise where one is not raw
+    (``"compressor": null``) or a chunk's temporary was left."""
+    n = 0
+    for d, _, files in os.walk(path):
+        if ".zarray" in files:
+            with open(os.path.join(d, ".zarray")) as f:
+                if json.load(f)["compressor"] is not None:
+                    raise AssertionError(f"{d}: a compressed store")
+            if any(f.startswith(".tmp-") for f in files):
+                raise AssertionError(f"{d}: a temporary left")
+            n += 1
+    return n
 
 
 def assert_states_equal(a, b, what: str) -> None:
@@ -1716,25 +1747,29 @@ def say_driver(tag: str, nums: dict, cells: int, peak: int, card: str,
         card=f"'{card}'")
 
 
-def cli_phase(card: str) -> tuple:
+def cli_phase(card: str, fmt: str = "nc") -> tuple:
     """The run driver on the main path's configuration: ``run.main`` on the
     seamount case at 256x256x31 float32 (mode 3, extpom, isplit 30),
     CLI_STEPS steps with a print every CLI_PRINT, a restart every
-    CLI_RESTART and NetCDF output; then resumed from the restart at
-    CLI_RESTART to the end.  The two runs' final restarts are held equal
+    CLI_RESTART, snapshots in ``fmt`` (``[cli]``: NetCDF, ``[cli_zarr]``:
+    Zarr; the restarts are Zarr under both); then resumed from the restart
+    at CLI_RESTART to the end.  The two runs' final restarts are held equal
     field by field, and to a ``Model.run_segment`` run of the same steps;
-    one snapshot per print, saver, and the exact launch counts of each run.
-    Returns (the whole run's launch counts, the resumed run's)."""
+    one snapshot per print, saver, the exact launch counts of each run,
+    and raw chunks in every Zarr store.  Prints the bytes written per
+    snapshot and per restart.  Returns (the whole run's launch counts, the
+    resumed run's)."""
     from extpom_tpu_torch.cases.seamount import seamount_model
     from extpom_tpu_torch.diag import stats
     from extpom_tpu_torch.io import netcdf as ncio
+    tag = "cli" if fmt == "nc" else f"cli_{fmt}"
     conf = {"run_name": "cli", "case": "seamount",
             "case_args": {"im": IM, "jm": JM, "kb": KB},
             "config": {"dtype": "float32",
                        "days": CLI_STEPS * STEP_S / 86400,
                        "prtd1": CLI_PRINT * STEP_S / 86400,
                        "write_rst": CLI_RESTART * STEP_S / 86400},
-            "out_format": "nc"}
+            "out_format": fmt}
     with tempfile.TemporaryDirectory() as tmp:
         lines, launches, peak = run_cli(conf, tmp, "whole")
         nums = driver_numbers(lines)
@@ -1742,50 +1777,62 @@ def cli_phase(card: str) -> tuple:
         want = {**dict.fromkeys(launches, 0), "extloop": n, "phase_lat": n,
                 **{f"phase_{p}": n - 1 for p in PHASES[1:]}}
         if launches != want or nums["machine"] != "cuda-chain":
-            raise AssertionError(f"cli: {nums['machine']}, launch counts "
+            raise AssertionError(f"{tag}: {nums['machine']}, launch counts "
                                  f"{launches} != {want}")
-        n_rec = records(os.path.join(tmp, "whole", "cli.nc"))
+        out = os.path.join(tmp, "whole")
+        if fmt == "nc":
+            n_rec = records(os.path.join(out, "cli.nc"))
+            snap_bytes = tree_bytes(os.path.join(out, "cli.nc")) / n_rec
+        else:
+            snaps = [os.path.join(out, f"cli.{k:06d}")
+                     for k in range(CLI_PRINT, n + 1, CLI_PRINT)]
+            n_rec = sum(os.path.isfile(os.path.join(d, "attrs.json"))
+                        for d in snaps)
+            snap_bytes = sum(map(tree_bytes, snaps)) / len(snaps)
         if n_rec != n // CLI_PRINT or len(nums["prints"]) != n_rec:
-            raise AssertionError(f"cli: {n_rec} snapshots, "
+            raise AssertionError(f"{tag}: {n_rec} snapshots, "
                                  f"{len(nums['prints'])} prints")
-        rst = os.path.join(tmp, "whole", f"cli.rst.{n:06d}.nc")
+        rst = os.path.join(out, f"cli.rst.{n:06d}")
+        rst_bytes = tree_bytes(rst)
         ref = seamount_model(im=IM, jm=JM, kb=KB)
         cfg = ref.cfg
         whole, iint, _ = restart_state(rst, cfg)
         s = {k: float(v) for k, v in
              stats.domain_stats(ref.grid, cfg, whole).items()}
         if iint != n or not abs(s["saver"] - 15.0) <= 1e-4:
-            raise AssertionError(f"cli: iint {iint}, saver {s['saver']}")
-        # the restart holds the fields the reference checkpoints; the others
-        # are seeded when it is read
+            raise AssertionError(f"{tag}: iint {iint}, saver {s['saver']}")
+        # the fields the reference checkpoints (the run's state after the
+        # same steps; the others are held by the resume below)
         ref.run_segment(n)
         for f in ncio.RESTART_FIELDS:
             if not torch.equal(getattr(whole, f), getattr(ref.state, f)):
-                raise AssertionError(f"cli vs run_segment: {f} differs")
+                raise AssertionError(f"{tag} vs run_segment: {f} differs")
         del ref
         r_lines, r_launches, _ = run_cli(
             conf, tmp, "resumed", nread_rst=1,
-            read_rst_path=os.path.join(tmp, "whole",
-                                       f"cli.rst.{CLI_RESTART:06d}.nc"))
+            read_rst_path=os.path.join(out, f"cli.rst.{CLI_RESTART:06d}"))
         r_nums = driver_numbers(r_lines)
         half = n - CLI_RESTART
         r_want = {**dict.fromkeys(r_launches, 0), "extloop": half,
                   **{f"phase_{p}": half for p in PHASES}}
         if r_launches != r_want:
-            raise AssertionError(f"cli resumed: launch counts {r_launches} "
-                                 f"!= {r_want}")
+            raise AssertionError(f"{tag} resumed: launch counts "
+                                 f"{r_launches} != {r_want}")
         if r_nums["prints"] != nums["prints"][-len(r_nums["prints"]):]:
-            raise AssertionError("cli resumed: its prints differ")
+            raise AssertionError(f"{tag} resumed: its prints differ")
         resumed, _, _ = restart_state(
-            os.path.join(tmp, "resumed", f"cli.rst.{n:06d}.nc"), cfg)
-        assert_states_equal(resumed, whole, "cli resumed vs whole")
+            os.path.join(tmp, "resumed", f"cli.rst.{n:06d}"), cfg)
+        assert_states_equal(resumed, whole, f"{tag} resumed vs whole")
+        arrays = raw_stores(tmp)
     for line in nums["prints"]:
-        print(f"[cli] {line}", flush=True)
-    say_driver("cli", nums, IM * JM * KB, peak, card,
-               grid=f"{IM}x{JM}x{KB}", dtype="float32",
+        print(f"[{tag}] {line}", flush=True)
+    say_driver(tag, nums, IM * JM * KB, peak, card,
+               grid=f"{IM}x{JM}x{KB}", dtype="float32", out_format=fmt,
                saver=f"{s['saver']:.7f}", snapshots=n_rec,
-               resumed_from=CLI_RESTART, resumed_equal=True,
-               run_segment_equal=True,
+               mb_per_snapshot=f"{snap_bytes / 1e6:.3f}",
+               mb_per_restart=f"{rst_bytes / 1e6:.3f}",
+               zarr_arrays_raw=arrays, resumed_from=CLI_RESTART,
+               resumed_equal=True, run_segment_equal=True,
                launches=json.dumps(launches, separators=(",", ":")),
                resumed_launches=json.dumps(r_launches,
                                            separators=(",", ":")))
@@ -1931,7 +1978,7 @@ def channel_phase(card: str, flush: L2Flush) -> dict:
             raise AssertionError(f"channel: {n_rec} snapshots")
         os.remove(os.path.join(tmp, "whole", "channel.nc"))
         whole, iint, _ = restart_state(
-            os.path.join(tmp, "whole", f"channel.rst.{n:06d}.nc"), cfg)
+            os.path.join(tmp, "whole", f"channel.rst.{n:06d}"), cfg)
         for f in whole.field_names():
             if not bool(torch.isfinite(getattr(whole, f)).all()):
                 raise AssertionError(f"channel: {f} is not finite")
@@ -1945,21 +1992,21 @@ def channel_phase(card: str, flush: L2Flush) -> dict:
         r_lines, r_launches, _ = run_cli(
             conf, tmp, "resumed", nread_rst=1,
             read_rst_path=os.path.join(tmp, "whole",
-                                       f"channel.rst.{CHANNEL_RESTART:06d}.nc"))
+                                       f"channel.rst.{CHANNEL_RESTART:06d}"))
         resumed, _, _ = restart_state(
-            os.path.join(tmp, "resumed", f"channel.rst.{n:06d}.nc"), cfg)
+            os.path.join(tmp, "resumed", f"channel.rst.{n:06d}"), cfg)
         assert_states_equal(resumed, whole, "channel resumed vs whole")
         if driver_numbers(r_lines)["prints"] != nums["prints"][-2:]:
             raise AssertionError("channel resumed: its prints differ")
         m = run.build_model({**conf, "nread_rst": 1,
                              "read_rst_path": os.path.join(
                                  tmp, "whole",
-                                 f"channel.rst.{CHANNEL_RESTART:06d}.nc")})
+                                 f"channel.rst.{CHANNEL_RESTART:06d}")})
         channel_kernels(m)
         del m
         m = run.build_model({**conf, "nread_rst": 1,
                              "read_rst_path": os.path.join(
-                                 tmp, "whole", f"channel.rst.{n:06d}.nc")})
+                                 tmp, "whole", f"channel.rst.{n:06d}")})
         del resumed
     for line in nums["prints"]:
         print(f"[channel] {line}", flush=True)
@@ -2057,20 +2104,20 @@ def channel_mesh_phase(card: str, flush: L2Flush, want) -> dict:
         mesh_block = json.load(f)["mesh"]
     conf = {**channel_conf(), "mesh": mesh_block}
     n = CHANNEL_STEPS
-    rst = f"channel.rst.{CHANNEL_RESTART:06d}.nc"
+    rst = f"channel.rst.{CHANNEL_RESTART:06d}"
     with tempfile.TemporaryDirectory() as tmp:
         lines, launches, peak = run_cli(conf, tmp, "whole")
         nums = driver_numbers(lines)
         cfg = Config(im=im, jm=jm, kb=kb, dtype="float32")
         whole, _, _ = restart_state(
-            os.path.join(tmp, "whole", f"channel.rst.{n:06d}.nc"), cfg)
+            os.path.join(tmp, "whole", f"channel.rst.{n:06d}"), cfg)
         assert_states_equal(whole, want, "channel_mesh vs channel")
         del whole
         r_lines, _, _ = run_cli(conf, tmp, "resumed", nread_rst=1,
                                 read_rst_path=os.path.join(tmp, "whole",
                                                            rst))
         resumed, _, _ = restart_state(
-            os.path.join(tmp, "resumed", f"channel.rst.{n:06d}.nc"), cfg)
+            os.path.join(tmp, "resumed", f"channel.rst.{n:06d}"), cfg)
         assert_states_equal(resumed, want, "channel_mesh resumed")
         del resumed
         if driver_numbers(r_lines)["prints"] != nums["prints"][-2:]:
@@ -2998,7 +3045,7 @@ def file_restore_phase(card: str, flush: L2Flush) -> tuple:
             raise AssertionError(f"file_restore: launch counts {launches} "
                                  f"!= {want}")
         end, _, _ = restart_state(
-            os.path.join(tmp, "run", f"file_restore.rst.{n:06d}.nc"), cfg)
+            os.path.join(tmp, "run", f"file_restore.rst.{n:06d}"), cfg)
         assert_finite(end, "file_restore")
         m = run.build_model(conf)
         t_end = wet_mean(end.t, m.grid, kb - 1)
@@ -3081,7 +3128,7 @@ def file_restore_mesh_phase(card: str, flush: L2Flush, want) -> tuple:
         lines, launches, peak = run_cli(conf, tmp, "run")
         nums = driver_numbers(lines)
         end, _, _ = restart_state(
-            os.path.join(tmp, "run", f"file_restore.rst.{n:06d}.nc"), cfg)
+            os.path.join(tmp, "run", f"file_restore.rst.{n:06d}"), cfg)
         assert_states_equal(end, want, "file_restore_mesh vs file_restore")
         m = run.build_model(conf)
     t_end = wet_mean(end.t, m.grid, kb - 1)
@@ -3596,6 +3643,191 @@ def distributed_conf(large: bool) -> dict:
             "config": {}, "mesh": run["mesh"]}
 
 
+CONFIG4 = (512, 512, 31)       # [config4]: BASELINE config 4
+CONFIG4_STEPS, CONFIG4_PRINT, CONFIG4_RESTART = 48, 24, 24
+CONFIG4_TOL = 1e-5             # of each field's scale, f32 (PERF.md §2)
+RANK_LINE = re.compile(
+    r"rank (\d+): wall clock ([\d.]+) s, writes: (\d+) in ([\d.]+) s on the "
+    r"writer thread, ([\d.]+) s of the driver's time, kernel launches "
+    r"(\{.*\})")
+
+
+def config4_conf() -> dict:
+    """``[config4]``'s run file: BASELINE config 4, the seamount at
+    CONFIG4 float32 with the main path's options, config5's 2x4 mesh block
+    and a distributed block of two processes over gloo, Zarr output, a
+    print and a snapshot every CONFIG4_PRINT steps and a restart every
+    CONFIG4_RESTART."""
+    with open(LARGE) as f:
+        run = json.load(f)
+    im, jm, kb = CONFIG4
+    return {"run_name": "config4", "case": "seamount",
+            "case_args": {"im": im, "jm": jm, "kb": kb},
+            "config": {"dtype": "float32", "mode": 3, "bc_scheme": "extpom",
+                       "nadv": 1, "npg": 1, "dte": 6.0, "isplit": 30,
+                       "days": CONFIG4_STEPS * STEP_S / 86400,
+                       "prtd1": CONFIG4_PRINT * STEP_S / 86400,
+                       "write_rst": CONFIG4_RESTART * STEP_S / 86400},
+            "out_format": "zarr", "mesh": run["mesh"],
+            "distributed": {"backend": "gloo", "num_processes":
+                            run["distributed"]["num_processes"]}}
+
+
+def driver_ranks(conf: dict, tmp: str, tag: str) -> tuple:
+    """``python -m extpom_tpu_torch.run`` on ``conf`` (its out_dir
+    ``tmp/tag``) as DIST_RANKS processes on the one card (``--device
+    cuda:0``), launched as torchrun would.  Returns (rank 0's lines, each
+    rank's wall clock, writes, writer and blocked seconds and launches from
+    the driver's closing lines); rank 1 must print nothing."""
+    from extpom_tpu_torch.mesh import distributed
+    conf = {**conf, "out_dir": os.path.join(tmp, tag)}
+    path = os.path.join(tmp, f"{tag}.json")
+    with open(path, "w") as f:
+        json.dump(conf, f)
+    threads = str(max(1, (os.cpu_count() or 2) // DIST_RANKS))
+    res = distributed.spawn(
+        [sys.executable, "-m", "extpom_tpu_torch.run", path, "--device",
+         "cuda:0"], DIST_RANKS, DIST_TIMEOUT_S,
+        env=dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS=threads),
+        cwd=tmp)
+    for r, (rc, so, se) in enumerate(res):
+        if rc != 0:
+            raise AssertionError(f"{tag}: rank {r} exited {rc} (None: cut "
+                                 f"at {DIST_TIMEOUT_S} s):\n{so[-1500:]}\n"
+                                 f"{se[-3000:]}")
+    if any(so.strip() for _, so, _ in res[1:]):
+        raise AssertionError(f"{tag}: a rank other than 0 printed")
+    ranks = [dict(wall=float(w), writes=int(n), busy=float(b),
+                  blocked=float(bl), launches=json.loads(la))
+             for _, w, n, b, bl, la in RANK_LINE.findall(res[0][1])]
+    if len(ranks) != DIST_RANKS:
+        raise AssertionError(f"{tag}: {len(ranks)} rank lines")
+    return res[0][1].splitlines(), ranks
+
+
+def config4_phase(card: str) -> tuple:
+    """BASELINE config 4 through the run driver on the card
+    (``config4_conf``): CONFIG4_STEPS steps as two processes sharing the
+    card over gloo, each holding a block row of the 2x4 mesh (the blocks
+    256x128x31: extchunk and the phase_<p>_mesh kernels); then resumed
+    from the restart at CONFIG4_RESTART as two processes; then the same
+    file in one process (the mesh block, no distributed block).  Gates:
+    the two-process snapshots within CONFIG4_TOL of each field's scale of
+    the one-process run's (bit-equality reported), the resumed run's last
+    restart bit-equal to the uninterrupted run's in every State field,
+    the ranks' launches summed to the one-process run's (the block kernels
+    only), raw chunks in every store, saver.  Each run writes into a
+    temporary directory, removed as soon as it is compared; the bytes of
+    each snapshot and restart are printed.  Returns (the ranks' summed
+    launch counts, by rank)."""
+    from extpom_tpu_torch import kernels
+    from extpom_tpu_torch.core.state import State
+    from extpom_tpu_torch.io import zarrstore as zio
+    im, jm, kb = CONFIG4
+    n, half = CONFIG4_STEPS, CONFIG4_RESTART
+    conf = config4_conf()
+    mesh = conf["mesh"]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        lines, ranks = driver_ranks(conf, tmp, "two")
+        two_s = time.perf_counter() - t0
+        nums = driver_numbers(lines)
+        two = os.path.join(tmp, "two")
+        snaps = [f"config4.{k:06d}" for k in range(CONFIG4_PRINT, n + 1,
+                                                   CONFIG4_PRINT)]
+        rsts = [f"config4.rst.{k:06d}" for k in range(
+            CONFIG4_RESTART, n + 1, CONFIG4_RESTART)]
+        snap_bytes = [tree_bytes(os.path.join(two, d)) for d in snaps]
+        rst_bytes = [tree_bytes(os.path.join(two, d)) for d in rsts]
+        written = tree_bytes(two)
+        arrays = raw_stores(two)
+        if (len(nums["prints"]) != len(snaps) or nums["machine"]
+                != "cuda-extchunk"):
+            raise AssertionError(f"config4: {len(nums['prints'])} prints, "
+                                 f"external {nums['machine']}")
+        saver = float(re.search(r"saver = *([-\d.e+]+)",
+                                nums["prints"][-1]).group(1))
+        if not abs(saver - 15.0) <= 1e-4:
+            raise AssertionError(f"config4: saver {saver}")
+        r_lines, r_ranks = driver_ranks(
+            {**conf, "nread_rst": 1,
+             "read_rst_path": os.path.join(two, rsts[0])}, tmp, "resumed")
+        if driver_numbers(r_lines)["prints"] != nums["prints"][-1:]:
+            raise AssertionError("config4 resumed: its print differs")
+        arrays += raw_stores(os.path.join(tmp, "resumed"))
+        a_rst = os.path.join(two, rsts[-1])
+        b_rst = os.path.join(tmp, "resumed", rsts[-1])
+        for f in State.field_names():
+            a, b = zio.read_array(a_rst, f), zio.read_array(b_rst, f)
+            if not (a.dtype == b.dtype and np.array_equal(a, b)):
+                raise AssertionError(f"config4 resumed: restart field {f} "
+                                     f"differs")
+        if zio._read_attrs(a_rst) != zio._read_attrs(b_rst):
+            raise AssertionError("config4 resumed: restart attributes")
+        shutil.rmtree(os.path.join(tmp, "resumed"))
+        for d in rsts:
+            shutil.rmtree(os.path.join(two, d))
+        one_conf = {k: v for k, v in conf.items() if k != "distributed"}
+        o_lines, o_launches, o_peak = run_cli(one_conf, tmp, "one")
+        o_nums = driver_numbers(o_lines)
+        arrays += raw_stores(os.path.join(tmp, "one"))
+        worst, equal = (0.0, "none"), True
+        for d in snaps:
+            for name in zio.OUTPUT_GRID_VARS + zio.OUTPUT_FIELDS:
+                a = zio.read_array(os.path.join(two, d), name)
+                b = zio.read_array(os.path.join(tmp, "one", d), name)
+                if not (np.isfinite(a).all() and a.shape == b.shape):
+                    raise AssertionError(f"config4: {d}/{name}")
+                scale = max(float(np.abs(b).max()), 1e-30)
+                rel = float(np.abs(a - b).max()) / scale
+                equal = equal and np.array_equal(a, b)
+                if not rel <= CONFIG4_TOL:
+                    raise AssertionError(f"config4: {d}/{name} is {rel:.3e} "
+                                         f"of scale off the one-process run")
+                if rel >= worst[0]:
+                    worst = (rel, f"{d[-6:]}/{name}")
+    summed = {k: sum(r["launches"].get(k, 0) for r in ranks)
+              for k in kernels.LAUNCHES}
+    if summed != o_launches:
+        raise AssertionError(f"config4: the ranks' launches {summed} != the "
+                             f"one process's {o_launches}")
+    block = {"extchunk", *(f"phase_{p}_mesh" for p in PHASES)}
+    if {k for k, v in summed.items() if v} != block:
+        raise AssertionError(f"config4: kernels launched {summed}")
+    for line in nums["prints"]:
+        print(f"[config4] {line}", flush=True)
+    steps = nums["steps"]
+    for r, (rk, rr) in enumerate(zip(ranks, r_ranks)):
+        hidden = 1.0 - rk["blocked"] / rk["busy"] if rk["busy"] else 0.0
+        say("config4", rank=r, steps=steps,
+            ms_per_step=f"{rk['wall'] / steps * 1e3:.3f}",
+            ms_per_step_not_blocked=(
+                f"{(rk['wall'] - rk['blocked']) / steps * 1e3:.3f}"),
+            writes=rk["writes"], write_s=f"{rk['busy']:.3f}",
+            driver_blocked_s=f"{rk['blocked']:.3f}",
+            write_share_hidden=f"{hidden:.3f}",
+            resumed_ms_per_step=f"{rr['wall'] / (n - half) * 1e3:.3f}",
+            resumed_write_s=f"{rr['busy']:.3f}",
+            launches=json.dumps(rk["launches"], separators=(",", ":")))
+    say_driver("config4_one_process", o_nums, im * jm * kb, o_peak, card,
+               grid=f"{im}x{jm}x{kb}", mesh=f"{mesh['px']}x{mesh['py']}")
+    say("config4", grid=f"{im}x{jm}x{kb}", dtype="float32",
+        mesh=f"{mesh['px']}x{mesh['py']}", processes=len(ranks),
+        transport="gloo", steps=steps, saver=f"{saver:.7f}",
+        snapshots=len(snaps), restarts=len(rsts),
+        mb_per_snapshot=f"{sum(snap_bytes) / len(snaps) / 1e6:.3f}",
+        mb_per_restart=f"{sum(rst_bytes) / len(rsts) / 1e6:.3f}",
+        mb_written=f"{written / 1e6:.3f}", zarr_arrays_raw=arrays,
+        vs_one_process_max_rel_err=f"{worst[0]:.3e}", worst_field=worst[1],
+        tol=CONFIG4_TOL, snapshots_bit_equal=equal,
+        resumed_from=half, resumed_restart_bit_equal=True,
+        restart_fields_checked=len(State.field_names()),
+        launches_equal_one_process=True, two_process_wall_s=f"{two_s:.1f}",
+        card=f"'{card}'")
+    return summed, {k: [r["launches"].get(k, 0) for r in ranks]
+                    for k in summed}
+
+
 def dispatch_echo(*runs) -> None:
     """The dispatch report of each (configuration, mesh block or None) in
     float32 on the card."""
@@ -3644,6 +3876,7 @@ def main() -> int:
         large_mesh_phase(card, flush, large_ref)
     del large_ref
     cli_launches, _ = cli_phase(card)
+    cli_zarr_launches, _ = cli_phase(card, "zarr")
     channel_launches, channel_end = channel_phase(card, flush)
     channel_mesh_launches = channel_mesh_phase(card, flush, channel_end)
     del channel_end
@@ -3680,6 +3913,7 @@ def main() -> int:
     dist_large_launches, dist_large_by_rank = distributed_phase(
         card, "distributed_large", distributed_conf(True), LARGE_WARM,
         LARGE_TIMED, large_mesh_prints, large_mesh_launches)
+    config4_launches, config4_by_rank = config4_phase(card)
     with open(LARGE) as f:
         mesh_block = json.load(f)["mesh"]
     channel_cfg = cfg.replace(dtype="float32", im=CHANNEL[0], jm=CHANNEL[1],
@@ -3704,9 +3938,12 @@ def main() -> int:
              "channel_mesh_512": channel_mesh_launches,
              "file_restore_mesh_512": frm_launches, **ragged_launches,
              "distributed_256": dist_launches,
-             "distributed_2048": dist_large_launches}
+             "distributed_2048": dist_large_launches,
+             "cli_zarr_256": cli_zarr_launches,
+             "config4_512": config4_launches}
     by_rank = {"distributed_256": dist_by_rank,
-               "distributed_2048": dist_large_by_rank}
+               "distributed_2048": dist_large_by_rank,
+               "config4_512": config4_by_rank}
     # the new paths' own numbers, under their path's name
     ext.update({f"orlanski_256_{k}": v for k, v in orl_k["extloop"].items()})
     ext.update({f"basin_512_{k}": v for k, v in basin_k["extloop"].items()})

@@ -1,4 +1,6 @@
-"""Chunked Zarr datasets through TensorStore (``extpom_tpu/io/zarrstore.py``).
+"""Chunked Zarr datasets (``extpom_tpu/io/zarrstore.py``) on the port's own
+Zarr v2 store (``io/zarr.py``), which tensorstore and the JAX package read
+as their own and which reads theirs.
 
 The reference's datasets — grid, initial T/S, forcing series, restart,
 output (io_pnetcdf.F) — as Zarr arrays, one directory per dataset with an
@@ -14,26 +16,24 @@ output (io_pnetcdf.F) — as Zarr arrays, one directory per dataset with an
 * :class:`ZarrSource` / :func:`write_forcing_series` — forcing record
   series (io_pnetcdf.F:2912-3622).
 
-TensorStore is imported at first use.  Where it is not installed, every
-Zarr path raises and names the NetCDF alternative; nothing falls back to
-another format.
+The port writes raw chunks (``"compressor": null``) and reads raw chunks
+and tensorstore's default blosc-lz4 ones.
 
 Under several processes (``mesh/distributed.py``) the writes are
 cooperative, as the JAX package's ``_write_array_multihost`` and the
 reference's per-rank hyperslab puts (io_pnetcdf.F:272-275): a decomposed
 array (``distributed.Slabs``) is created by rank 0, all ranks wait, each
-writes its own blocks' hyperslabs (a chunk of the store is a block, so no
-two ranks write one chunk), and all ranks wait again; an array every rank
-holds whole (the grid) and the attributes are written by rank 0.  The
-waits are on the I/O group, never on the group of the step's exchange, so
-the writer thread may run them.  :func:`read_restart` reads each rank's
-hyperslabs into its blocks.
+writes its own blocks' chunks (a chunk of the store is a block, and each
+chunk file is written whole, so no two ranks write one file), and all
+ranks wait again; an array every rank holds whole (the grid) and the
+attributes are written by rank 0.  The waits are on the I/O group, never
+on the group of the step's exchange, so the writer thread may run them.
+:func:`read_restart` reads each rank's hyperslabs into its blocks.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import importlib.util
 import json
 import os
 from typing import Dict, Optional
@@ -44,34 +44,14 @@ import torch
 from extpom_tpu_torch.core.config import Config
 from extpom_tpu_torch.core.grid import Grid, make_grid
 from extpom_tpu_torch.core.state import State
+from extpom_tpu_torch.io import zarr
 from extpom_tpu_torch.io.netcdf import OUTPUT_FIELDS
 from extpom_tpu_torch.mesh import distributed
 
-HAVE_TS = importlib.util.find_spec("tensorstore") is not None
 
-
-def _ts():
-    try:
-        import tensorstore
-    except ImportError as e:
-        raise RuntimeError(
-            'Zarr I/O needs the tensorstore package, which is not installed; '
-            'write NetCDF instead ("out_format": "nc", .nc grid, init, '
-            'forcing and restart paths)') from e
-    return tensorstore
-
-
-def _spec(path: str, create: bool = False, shape=None, dtype=None,
-          chunks=None):
-    spec = {"driver": "zarr",
-            "kvstore": {"driver": "file", "path": path}}
-    kw = {}
-    if create:
-        kw = dict(create=True, delete_existing=True,
-                  dtype=np.dtype(dtype).name, shape=list(shape))
-        if chunks is not None:
-            spec["metadata"] = {"chunks": list(chunks)}
-    return spec, kw
+def _numpy(a) -> np.ndarray:
+    return (a.detach().cpu().numpy() if isinstance(a, torch.Tensor)
+            else np.asarray(a))
 
 
 def write_array(root: str, name: str, arr,
@@ -81,48 +61,40 @@ def write_array(root: str, name: str, arr,
     ``distributed.Slabs`` cooperatively (:func:`_write_slabs`).  Under
     several processes an array that every rank holds whole is written by
     rank 0."""
-    ts = _ts()
     if isinstance(arr, distributed.Slabs):
         _write_slabs(root, name, arr)
         return
     if distributed.rank() != 0:
         return
-    a = (arr.detach().cpu().numpy() if isinstance(arr, torch.Tensor)
-         else np.asarray(arr))
+    a = _numpy(arr)
     if chunks is None:
         chunks = tuple(min(s, 256) for s in a.shape) if a.ndim else (1,)
     if a.ndim == 0:
         a = a[None]
         chunks = (1,)
-    spec, kw = _spec(os.path.join(root, name), create=True, shape=a.shape,
-                     dtype=a.dtype, chunks=chunks)
-    ts.open(spec, **kw).result()[...] = a
+    zarr.Array.create(os.path.join(root, name), a.shape, a.dtype,
+                      chunks).write(a)
 
 
 def _write_slabs(root: str, name: str, arr: "distributed.Slabs") -> None:
     """Cooperative write of a decomposed array: rank 0 creates the store
-    (a chunk per block), all ranks wait, each writes its hyperslabs, and
-    all ranks wait again."""
-    ts = _ts()
+    (a chunk per block), all ranks wait, each writes its pieces, and all
+    ranks wait again.  A piece must be exactly one chunk (an edge chunk:
+    its cells inside the array), so that each chunk file has one
+    writer."""
     path = os.path.join(root, name)
     if distributed.rank() == 0:
-        spec, kw = _spec(path, create=True, shape=arr.shape,
-                         dtype=arr.dtype, chunks=arr.chunks)
-        ts.open(spec, **kw).result()
+        zarr.Array.create(path, arr.shape, arr.dtype, arr.chunks)
     distributed.process_barrier(f"zarr-create:{name}")
-    h = ts.open(_spec(path)[0]).result()
-    writes = [h[..., i0:i1, j0:j1].write(
-        piece.detach().cpu().numpy() if isinstance(piece, torch.Tensor)
-        else np.asarray(piece))
-        for ((i0, i1), (j0, j1)), piece in arr.pieces.items()]
-    for w in writes:
-        w.result()
+    z = zarr.Array(path)
+    for ((i0, i1), (j0, j1)), piece in arr.pieces.items():
+        z.write_chunk(z.chunk_index((..., slice(i0, i1), slice(j0, j1))),
+                      _numpy(piece))
     distributed.process_barrier(f"zarr-written:{name}")
 
 
 def read_array(root: str, name: str) -> np.ndarray:
-    spec, _ = _spec(os.path.join(root, name))
-    return np.asarray(_ts().open(spec).result().read().result())
+    return zarr.Array(os.path.join(root, name)).read()
 
 
 def _write_attrs(root: str, attrs: Dict) -> None:
@@ -163,11 +135,10 @@ def read_restart(path: str, cfg: Config, device, blocks=None):
     instead (``Blocks.load_state``) and the state returned is None."""
     attrs = _read_attrs(path)
     if blocks is not None:
-        ts = _ts()
-        handles = {f: ts.open(_spec(os.path.join(path, f))[0]).result()
-                   for f in State.field_names()}
-        blocks.load_state(lambda f, i, j: np.asarray(
-            handles[f][..., i[0]:i[1], j[0]:j[1]].read().result()))
+        arrays = {f: zarr.Array(os.path.join(path, f))
+                  for f in State.field_names()}
+        blocks.load_state(lambda f, i, j: arrays[f][..., i[0]:i[1],
+                                                    j[0]:j[1]])
         return None, attrs["iint"], attrs["time0"]
     fields = {f.name: _tensor(read_array(path, f.name), cfg, device)
               for f in dataclasses.fields(State)}
@@ -272,29 +243,26 @@ class ZarrSource:
     index clamped to the series)."""
 
     def __init__(self, root: str):
-        _ts()
         self.root = root
-        self._handles: Dict[str, object] = {}
+        self._arrays: Dict[str, zarr.Array] = {}
         self._names = [d for d in os.listdir(root)
                        if os.path.isdir(os.path.join(root, d))]
 
     def names(self):
         return list(self._names)
 
-    def _handle(self, name: str):
-        h = self._handles.get(name)
-        if h is None:
-            spec, _ = _spec(os.path.join(self.root, name))
-            h = self._handles[name] = _ts().open(spec).result()
-        return h
+    def _array(self, name: str) -> zarr.Array:
+        a = self._arrays.get(name)
+        if a is None:
+            a = self._arrays[name] = zarr.Array(os.path.join(self.root, name))
+        return a
 
     def nrec(self, name: str) -> int:
-        return self._handle(name).shape[0]
+        return self._array(name).shape[0]
 
     def read(self, name: str, n: int) -> np.ndarray:
-        h = self._handle(name)
-        n = min(max(n, 0), h.shape[0] - 1)
-        return np.asarray(h[n].read().result())
+        a = self._array(name)
+        return a[min(max(n, 0), a.shape[0] - 1)]
 
 
 def write_forcing_series(root: str, data: Dict[str, np.ndarray]) -> None:

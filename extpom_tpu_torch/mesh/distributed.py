@@ -220,18 +220,6 @@ def destroy() -> None:
     _PROCS = Procs()
 
 
-@dataclasses.dataclass
-class Slabs:
-    """A global array held as this process's hyperslabs: its ``shape``, its
-    dtype's name, the ``chunks`` of its store (each filled by one rank) and
-    the ``pieces``: ((i0, i1), (j0, j1)) of the two trailing axes -> the
-    tensor of those cells (``mesh.shardmap.Blocks.slabs``)."""
-    shape: tuple
-    dtype: str
-    chunks: tuple
-    pieces: dict
-
-
 def owned_blocks(px: int, py: int, rank: int, world: int) -> list:
     """The blocks of rank ``rank`` of ``world`` on a px x py mesh: the
     row-major ids split into contiguous runs (the earlier ranks one longer

@@ -16,19 +16,17 @@ from __future__ import annotations
 
 import ctypes
 import os
-import shutil
 import struct
-import subprocess
-import tempfile
 from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
 
+from extpom_tpu_torch.native import BUILD, build_library
+
 _MAGIC = 0x31524645
 ROOT = Path(__file__).resolve().parent.parent.parent
 SRC = ROOT / "native" / "recordio.cpp"
-BUILD = ROOT / "build" / "native"
 LIB = BUILD / "librecordio.so"
 CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-pthread", "-shared",
              "-ffp-contract=off"]
@@ -37,26 +35,7 @@ _lib = None
 
 
 def _build() -> Optional[Path]:
-    """Build the library unless it is newer than its source; None when
-    there is no source or no ``g++``."""
-    if not SRC.exists():
-        return None
-    if LIB.exists() and LIB.stat().st_mtime >= SRC.stat().st_mtime:
-        return LIB
-    cxx = shutil.which("g++")
-    if cxx is None:
-        return None
-    BUILD.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
-    os.close(fd)
-    try:
-        subprocess.run([cxx, *CXX_FLAGS, str(SRC), "-o", tmp], check=True,
-                       capture_output=True)
-        os.replace(tmp, LIB)          # atomic: parallel builds agree
-    except (OSError, subprocess.CalledProcessError):
-        os.unlink(tmp)
-        return None
-    return LIB
+    return build_library(SRC, LIB, CXX_FLAGS)
 
 
 def get_lib():

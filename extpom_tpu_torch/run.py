@@ -26,10 +26,11 @@ Config schema (all keys optional unless noted)::
       "config": {"mode": 3, "dte": 6.0, "days": 1.0, ...},
       "out_dir": "out",
       "out_format": "zarr" | "nc",
-      #   snapshots AND restarts: Zarr directories, or with "nc" one
-      #   {run}.nc record stream and {run}.rst.NNNNNN.nc restarts
-      #   (Zarr needs tensorstore)
-      "nread_rst": 0, "read_rst_path": "out/run.rst.000024.nc",
+      #   snapshots: Zarr directories {run}.NNNNNN, or with "nc" one
+      #   {run}.nc record stream; restarts are Zarr directories
+      #   {run}.rst.NNNNNN under both (io/zarrstore.py, raw chunks)
+      "nread_rst": 0, "read_rst_path": "out/run.rst.000024",
+      #   a Zarr restart, or a reference-format .nc restart file
       "cont_bry": 0,
       "mesh": {"px": 2, "py": 4},            # Model.shard blocks
       "distributed": {"num_processes": 2,    # one process per card
@@ -49,7 +50,9 @@ Each process builds the case on the host and keeps only its own blocks of
 the mesh block's mesh, on its device; only rank 0 prints.
 The diagnostics come from the blocks (``diag.stats`` block forms), the
 Zarr snapshots and restarts are written cooperatively
-(``io.zarrstore``), and a Zarr restart resumes into each rank's blocks.
+(``io.zarrstore``), a Zarr restart resumes into each rank's blocks, and
+rank 0 prints each rank's wall clock, writer times and kernel launches at
+the end.
 ``out_format`` "nc" raises under several processes, as in the JAX
 package: write Zarr.
 
@@ -217,14 +220,13 @@ def execute(conf: dict, device=None,
     from extpom_tpu_torch.io import netcdf as ncio
     from extpom_tpu_torch.io import zarrstore as zio
     from extpom_tpu_torch.io.asyncwriter import AsyncWriter
+    from extpom_tpu_torch.mesh import distributed
     from extpom_tpu_torch.mesh.padding import unpad
 
     out_format = conf.get("out_format", "zarr")
     if out_format not in ("zarr", "nc"):
         raise ValueError(f"out_format must be 'zarr' or 'nc', not "
                          f"{out_format!r}")
-    if out_format == "zarr":
-        zio._ts()                 # raises here, not in the writer thread
     procs = start_processes(conf, device)
     multi = procs.world > 1
     if multi and out_format == "nc":
@@ -326,13 +328,10 @@ def execute(conf: dict, device=None,
                 else:
                     st = unpad(st if st is not None else m.gathered_state(),
                                cfg)
-                rst = os.path.join(out_dir, f"{run}.rst.{m.iint:06d}")
-                if out_format == "nc":
-                    writer.submit(ncio.write_restart_nc, rst + ".nc", st,
-                                  m.time_days, m.iint, m.time0)
-                else:
-                    writer.submit(zio.write_restart, rst, st, m.iint,
-                                  m.time0)
+                # Zarr under both formats (extpom_tpu/run.py:294-297)
+                writer.submit(zio.write_restart, os.path.join(
+                    out_dir, f"{run}.rst.{m.iint:06d}"), st, m.iint,
+                    m.time0)
     finally:
         writer.close()            # drain the last interval's writes
     _sync(device)
@@ -344,6 +343,17 @@ def execute(conf: dict, device=None,
             f"writes; {gps / 1e6:.1f} Mgrid-pt-steps/s)")
         log(f"writes: {writer.n_writes} in {writer.busy_s:.3f} s on the "
             f"writer thread, {writer.blocked_s:.3f} s of the driver's time")
+    if multi:
+        from extpom_tpu_torch import kernels
+        per_rank = distributed.host_all_gather(
+            (wall, writer.n_writes, writer.busy_s, writer.blocked_s,
+             {k: v for k, v in kernels.LAUNCHES.items() if v}))
+        for r, (w, n, busy, blocked, launches) in enumerate(per_rank):
+            if rc == 0:
+                log(f"rank {r}: wall clock {w:.3f} s, writes: {n} in "
+                    f"{busy:.3f} s on the writer thread, {blocked:.3f} s of "
+                    f"the driver's time, kernel launches "
+                    f"{json.dumps(launches, separators=(',', ':'))}")
     return RunResult(rc, m, steps, writer.n_writes)
 
 

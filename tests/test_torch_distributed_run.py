@@ -5,7 +5,10 @@ mesh, print the diagnostics once (rank 0), and write Zarr snapshots and
 restarts cooperatively; held to the same run in one process (snapshots and
 restarts bit-equal, the diagnostics to 1e-12 of their value).  A
 two-process resume from the mid-run restart is bit-equal to the
-uninterrupted run, and NetCDF output raises under two processes."""
+uninterrupted run, and NetCDF output raises under two processes.  The
+port writes and reads every store itself: tensorstore is masked in the
+ranks (a package of that name on their path that fails to import) and in
+this process while the one-process run writes."""
 
 import copy
 import json
@@ -32,7 +35,6 @@ CONF = {"run_name": "sm", "case": "seamount",
                    "calc_wr": True, "dtype": "float64"},
         "out_dir": "out", "out_format": "zarr", "mesh": {"px": 2, "py": 2},
         "distributed": {"backend": "gloo"}}
-pytest.importorskip("tensorstore")
 
 
 def _ranks(tmp, conf: dict, n: int = 2) -> list:
@@ -41,7 +43,12 @@ def _ranks(tmp, conf: dict, n: int = 2) -> list:
     path = os.path.join(tmp, f"{conf['run_name']}.json")
     with open(path, "w") as f:
         json.dump(conf, f)
-    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    mask = os.path.join(tmp, "mask")
+    os.makedirs(os.path.join(mask, "tensorstore"), exist_ok=True)
+    with open(os.path.join(mask, "tensorstore", "__init__.py"), "w") as f:
+        f.write('raise ImportError("tensorstore is masked")\n')
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join((mask, ROOT)),
+               OMP_NUM_THREADS="1")
     return distributed.spawn(
         [sys.executable, "-m", "extpom_tpu_torch.run", path, "--device",
          "cpu"], n, 240.0, env=env, cwd=tmp)
@@ -66,7 +73,9 @@ def runs(tmp_path_factory):
     one = dict(copy.deepcopy(CONF), out_dir=os.path.join(tmp, "out1"))
     del one["distributed"]
     lines: list = []
-    assert ptrun.execute(one, "cpu", log=lines.append).rc == 0
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(sys.modules, "tensorstore", None)
+        assert ptrun.execute(one, "cpu", log=lines.append).rc == 0
     return tmp, two, res, lines
 
 
@@ -84,6 +93,8 @@ def test_rank_0_prints_once(runs):
     assert "processes: 2 over gloo (device tensors)" in text
     assert "rank 1: blocks (1, 0), (1, 1) on cpu" in text
     assert "printed by rank 0" in text
+    for r in (0, 1):                 # each rank's clock and writer, once
+        assert text.count(f"rank {r}: wall clock ") == 1
 
 
 def test_snapshots_and_restarts_equal_one_process(runs):
@@ -103,6 +114,11 @@ def test_snapshots_and_restarts_equal_one_process(runs):
     for k in (4, 8):
         _same_restart(os.path.join(tmp, "out", f"sm.rst.{k:06d}"),
                       os.path.join(tmp, "out1", f"sm.rst.{k:06d}"))
+    for d, _, files in os.walk(os.path.join(tmp, "out")):
+        if ".zarray" in files:       # raw chunks, and no temporary left
+            with open(os.path.join(d, ".zarray")) as f:
+                assert json.load(f)["compressor"] is None, d
+            assert not [n for n in files if n.startswith(".tmp")], d
 
 
 def _same_restart(a: str, b: str) -> None:

@@ -2,7 +2,7 @@
 interp.py``) against the JAX package's (``extpom_tpu/utils/interp.py``) on
 the four cases of tests/test_interp.py, the same seeded inputs through
 both, at 1e-12; and the full-state debug dump ``io/zarrstore.py:
-write_aux`` read back (skipped only where tensorstore does not import)."""
+write_aux`` read back from the port's own Zarr store."""
 
 import numpy as np
 import pytest
@@ -71,7 +71,6 @@ def test_ztosig_missing_data_repair_matches_jax():
     assert np.all(got[:, 3, 3] >= 10.0)
 
 
-@pytest.mark.skipif(not zio.HAVE_TS, reason="tensorstore does not import")
 def test_write_aux_round_trip(tmp_path):
     m = seamount_model(device="cpu", im=9, jm=11, kb=5, dtype="float64")
     m.run_segment(2)

@@ -1,7 +1,7 @@
 """The port's I/O on the CPU: NetCDF round trips (grid, initial T/S, output
 with append, restart with its step counter) and against the JAX package's
-readers and writers on the same files; Zarr datasets (skipped only where
-tensorstore does not import); the native record store against numpy
+readers and writers on the same files; Zarr datasets on the port's own
+store, with tensorstore masked; the native record store against numpy
 (skipped without g++); and the async writer's host copies."""
 
 import dataclasses
@@ -30,8 +30,6 @@ from extpom_tpu_torch.native import recordio
 torch.set_num_threads(1)
 
 KW = dict(im=17, jm=13, kb=7)
-needs_ts = pytest.mark.skipif(not zio.HAVE_TS,
-                              reason="tensorstore does not import")
 
 
 @pytest.fixture(scope="module")
@@ -233,11 +231,12 @@ def test_nc_forcing_source_matches_jax(tmp_path):
         assert np.array_equal(again.read(name, 3), data[name][3])
 
 
-@needs_ts
-def test_zarr_datasets(tmp_path, run3):
+def test_zarr_datasets(tmp_path, run3, monkeypatch):
     """Zarr restart (every State field, bit for bit, readable by the JAX
     package), snapshot (and its NetCDF conversion), grid, initial T/S and
-    forcing series."""
+    forcing series, written and read by the port with tensorstore
+    masked."""
+    monkeypatch.setitem(sys.modules, "tensorstore", None)
     m = run3
     rst = str(tmp_path / "rst")
     zio.write_restart(rst, m.state, m.iint, 0.5)
@@ -280,13 +279,16 @@ def test_zarr_datasets(tmp_path, run3):
 
 
 def test_zarr_without_tensorstore_raises(tmp_path, monkeypatch):
-    """Where tensorstore is not installed a Zarr path raises and names the
-    NetCDF alternative; nothing switches format."""
+    """Where tensorstore is not installed the Zarr paths that once raised
+    there run on the port's own store: an array is written and read back,
+    and a forcing source opens and reads its records."""
     monkeypatch.setitem(sys.modules, "tensorstore", None)
-    with pytest.raises(RuntimeError, match='"out_format": "nc"'):
-        zio.write_array(str(tmp_path / "x"), "a", np.zeros(3))
-    with pytest.raises(RuntimeError, match='"out_format": "nc"'):
-        zio.ZarrSource(str(tmp_path))
+    a = np.arange(6.0).reshape(2, 3)
+    zio.write_array(str(tmp_path / "x"), "a", a)
+    assert np.array_equal(zio.read_array(str(tmp_path / "x"), "a"), a)
+    src = zio.ZarrSource(str(tmp_path / "x"))
+    assert src.names() == ["a"] and src.nrec("a") == 2
+    assert np.array_equal(src.read("a", 5), a[1])
 
 
 @pytest.mark.skipif(not recordio.available(),

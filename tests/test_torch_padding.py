@@ -35,6 +35,7 @@ from extpom_tpu_torch.cases.seamount import seamount_model as pt_model
 from extpom_tpu_torch.core.state import State
 from extpom_tpu_torch.diag import stats
 from extpom_tpu_torch.io import netcdf as ncio
+from extpom_tpu_torch.io import zarrstore as zio
 from extpom_tpu_torch.mesh.padding import pad_model, padded_dims, unpad
 from extpom_tpu_torch.mesh.shardmap import Mesh
 
@@ -215,7 +216,7 @@ def test_cli_ragged_mesh_block_writes_and_resumes_the_active_grid(tmp_path):
                                     "nread_rst": 1,
                                     "read_rst_path": str(
                                         tmp_path / "mesh" /
-                                        "mesh.rst.000004.nc")})):
+                                        "mesh.rst.000004")})):
         conf = dict(base, run_name=name if name != "resume" else "mesh",
                     out_dir=str(tmp_path / name), **extra)
         path = tmp_path / f"{name}.json"
@@ -233,10 +234,10 @@ def test_cli_ragged_mesh_block_writes_and_resumes_the_active_grid(tmp_path):
     for name in ("elb", "t", "u", "h", "fsm"):
         np.testing.assert_array_equal(mesh[name], one[name], err_msg=name)
     cfg1 = runs["one"][0].model.cfg
-    rst_one = ncio.read_restart_nc(str(tmp_path / "one" / "one.rst.000008.nc"),
-                                   cfg1, "cpu")[0]
-    rst_mesh = ncio.read_restart_nc(
-        str(tmp_path / "mesh" / "mesh.rst.000008.nc"), cfg1, "cpu")[0]
+    rst_one = zio.read_restart(str(tmp_path / "one" / "one.rst.000008"),
+                               cfg1, "cpu")[0]
+    rst_mesh = zio.read_restart(
+        str(tmp_path / "mesh" / "mesh.rst.000008"), cfg1, "cpu")[0]
     assert rst_mesh.el.shape == (33, 37)
     for name in State.field_names():
         assert torch.equal(getattr(rst_mesh, name),

@@ -1,6 +1,7 @@
-"""Rules of the PyTorch port: it imports neither JAX nor the JAX package,
-its entry points run on the card unless the caller asks for the CPU, and
-what is not ported yet raises instead of running something else."""
+"""Rules of the PyTorch port: it imports neither JAX, the JAX package nor
+tensorstore (its Zarr store is its own), its entry points run on the card
+unless the caller asks for the CPU, and what is not ported yet raises
+instead of running something else."""
 
 import ast
 import pathlib
@@ -20,8 +21,7 @@ SOURCES = sorted((ROOT / "extpom_tpu_torch").rglob("*.py")) + [
 
 
 def _forbidden(name: str) -> bool:
-    top = name.split(".")[0]
-    return top == "jax" or top == "extpom_tpu"
+    return name.split(".")[0] in ("jax", "extpom_tpu", "tensorstore")
 
 
 @pytest.mark.parametrize("path", SOURCES,

@@ -1,13 +1,17 @@
 """The port's run driver (``python -m extpom_tpu_torch.run``) on the CPU in
 float64: its printed diagnostics and NetCDF snapshots against the JAX
 package's driver on the same seamount configuration, restart and resume
-bit for bit, a fresh run's record stream, inputs and forcing from files,
-the channel case, a 2x2 mesh block, the blow-up guard, and what raises."""
+bit for bit (Zarr restarts under both output formats, and a reference
+.nc restart), a fresh run's record stream, inputs and forcing from files,
+the channel case, a 2x2 mesh block, the blow-up guard, and what raises;
+the Zarr paths with tensorstore masked."""
 
 import contextlib
 import io
 import json
+import os
 import re
+import sys
 
 import numpy as np
 import pytest
@@ -98,15 +102,17 @@ def test_cli_matches_jax_driver(tmp_path, jax_cli):
 
 
 @pytest.mark.parametrize("fmt", ["nc", "zarr"])
-def test_resume_equals_uninterrupted(tmp_path, fmt):
+def test_resume_equals_uninterrupted(tmp_path, fmt, monkeypatch):
     """Restart at step 8, resume to 16: every state field equal to the
-    uninterrupted run's; the restarts follow out_format."""
-    if fmt == "zarr" and not zio.HAVE_TS:
-        pytest.skip("tensorstore does not import")
+    uninterrupted run's; the restarts are Zarr under both out_formats (the
+    JAX driver's rule), written and read with tensorstore masked."""
+    monkeypatch.setitem(sys.modules, "tensorstore", None)
     conf, _ = _conf(tmp_path, "whole", out_format=fmt)
     whole = ptrun.execute(conf, "cpu", log=lambda s: None)
     assert whole.rc == 0 and whole.steps == 16 and whole.writes == 6
-    rst = f"{conf['out_dir']}/sm.rst.000008" + (".nc" if fmt == "nc" else "")
+    rst = f"{conf['out_dir']}/sm.rst.000008"
+    assert os.path.isfile(os.path.join(rst, "attrs.json"))
+    assert not os.path.exists(rst + ".nc")
     conf2, _ = _conf(tmp_path, "resumed", out_format=fmt, nread_rst=1,
                      read_rst_path=rst)
     resumed = ptrun.execute(conf2, "cpu", log=lambda s: None)
@@ -207,7 +213,7 @@ def test_cli_channel(tmp_path):
     _assert_equal_states(r.model.state, m.state)
     assert float(m.state.el[1:10, 1:-1].abs().max()) > 0.005
     conf2, _ = _conf(tmp_path, "ch2", base, nread_rst=1,
-                     read_rst_path=f"{conf['out_dir']}/ch.rst.{n // 2:06d}.nc")
+                     read_rst_path=f"{conf['out_dir']}/ch.rst.{n // 2:06d}")
     resumed = ptrun.execute(conf2, "cpu", log=lambda s: None)
     _assert_equal_states(resumed.model.state, m.state)
 
@@ -263,7 +269,7 @@ def test_unported_blocks_raise(tmp_path, what):
 
 def test_no_card_raises(tmp_path):
     """Without --device cpu the driver runs on the card, and raises where
-    there is none; a Zarr out_format without tensorstore raises too."""
+    there is none."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     conf, path = _conf(tmp_path, "card")
@@ -273,9 +279,40 @@ def test_no_card_raises(tmp_path):
 
 
 def test_zarr_out_format_without_tensorstore_raises(tmp_path, monkeypatch):
-    """Where tensorstore is not installed, out_format "zarr" raises before
-    the run and names the NetCDF alternative; it is not switched."""
-    monkeypatch.setitem(__import__("sys").modules, "tensorstore", None)
+    """Where tensorstore is not installed, out_format "zarr" (which raised
+    there before the port had its own store) runs: one Zarr snapshot per
+    print and a restart every 8 steps, holding the run's fields."""
+    monkeypatch.setitem(sys.modules, "tensorstore", None)
     conf, _ = _conf(tmp_path, "zarr", out_format="zarr")
-    with pytest.raises(RuntimeError, match='"out_format": "nc"'):
-        ptrun.execute(conf, "cpu", log=lambda s: None)
+    res = ptrun.execute(conf, "cpu", log=lambda s: None)
+    assert res.rc == 0 and res.writes == 6
+    out = conf["out_dir"]
+    assert sorted(os.listdir(out)) == [
+        "sm.000004", "sm.000008", "sm.000012", "sm.000016",
+        "sm.rst.000008", "sm.rst.000016"]
+    snap = zio.read_output(os.path.join(out, "sm.000016"))
+    assert np.array_equal(snap["t"], res.model.state.t.numpy())
+    st, iint, _ = zio.read_restart(os.path.join(out, "sm.rst.000016"),
+                                   res.model.cfg, "cpu")
+    assert iint == 16
+    _assert_equal_states(st, res.model.state)
+
+
+def test_nc_restart_still_resumes(tmp_path):
+    """A read_rst_path ending in .nc resumes through read_restart_nc (the
+    reference's restart format): a run to step 8, its state written as a
+    .nc restart, resumed to 16, equals the uninterrupted run."""
+    conf, _ = _conf(tmp_path, "whole")
+    whole = ptrun.execute(conf, "cpu", log=lambda s: None)
+    half = json.loads(json.dumps(conf))
+    half["config"]["days"] = 8 * DTI / 86400
+    half["out_dir"] = str(tmp_path / "half")
+    first = ptrun.execute(half, "cpu", log=lambda s: None)
+    assert first.rc == 0 and first.model.iint == 8
+    rst = str(tmp_path / "sm.rst.000008.nc")
+    ncio.write_restart_nc(rst, first.model.state, first.model.time_days,
+                          first.model.iint, first.model.time0)
+    conf2, _ = _conf(tmp_path, "resumed", nread_rst=1, read_rst_path=rst)
+    resumed = ptrun.execute(conf2, "cpu", log=lambda s: None)
+    assert resumed.rc == 0 and resumed.steps == 8
+    _assert_equal_states(resumed.model.state, whole.model.state)
