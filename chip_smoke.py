@@ -19,8 +19,10 @@ and timed on the large-grid path's operands (``[large_phases]``) and, with
 the window chunks, on every call of one step of its decomposed blocks
 (``[large_mesh_phases]``), with the registers, shared memory and resident
 blocks the card gives them.  Two more paths go through the run driver
-``extpom_tpu_torch.run.main`` with NetCDF snapshots and Zarr restarts
-(the port's own store, raw chunks), each resumed from its mid-run restart
+``extpom_tpu_torch.run`` with NetCDF snapshots and Zarr restarts
+(the port's own store, blosc-lz4 chunks as the JAX package writes them,
+each store gated on that format and the last snapshot and restart read
+back bit-equal to the run's state), each resumed from its mid-run restart
 and held equal to the whole run: the main path's seamount (``[cli]``, 48
 steps; ``[cli_zarr]`` the same with Zarr snapshots) and the tidal channel
 at 512x512x31, whose lateral
@@ -64,7 +66,10 @@ ranks on one card before a step; ``[config4]`` runs BASELINE config 4
 extpom_tpu_torch.run`` as two processes with Zarr snapshots and restarts,
 resumes it from its mid-run restart as two processes (the last restart
 bit-equal) and holds its snapshots to the same file run in one process,
-with each rank's ms per step, writer seconds and bytes written.  The Thomas kernel is held to its plain
+with each rank's ms per step, writer and encoder seconds and bytes written,
+raw and stored.  ``[tolerance]`` holds the float32 kernels to the float64
+kernels over the f32 tolerance ladder's runs (VALIDATION.md §2).  The
+Thomas kernel is held to its plain
 version bit for bit and timed at 256x256x31, 256x256x41 and
 2048x2048x41.  It checks the
 results, prints the dispatch echo of ten, one ``kernels`` JSON line,
@@ -1649,32 +1654,36 @@ CHANNEL_STEPS, CHANNEL_PRINT, CHANNEL_RESTART = 120, 30, 60
 
 
 def run_cli(conf: dict, tmp: str, tag: str, **extra) -> tuple:
-    """``extpom_tpu_torch.run.main`` on ``conf`` (with ``extra``) written to
-    a file under ``tmp``, on the card, its output captured.  Returns (the
-    driver's lines, the launch counts of the run, its peak device
-    memory)."""
+    """The run driver (``extpom_tpu_torch.run.execute``, what ``run.main``
+    runs on a run file) on ``conf`` (with ``extra``), out_dir ``tmp/tag``,
+    on the card, its output captured.  Returns (the driver's lines, the
+    launch counts of the run, its peak device memory, the model at the
+    run's end)."""
     from extpom_tpu_torch import kernels, run
     conf = {**conf, **extra, "out_dir": os.path.join(tmp, tag)}
-    path = os.path.join(tmp, f"{tag}.json")
-    with open(path, "w") as f:
-        json.dump(conf, f)
     kernels.reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = run.main([path])
-    if rc != 0:
-        raise AssertionError(f"{tag}: run.main returned {rc}:\n"
+        res = run.execute(conf)
+    if res.rc != 0:
+        raise AssertionError(f"{tag}: the driver returned {res.rc}:\n"
                              + buf.getvalue())
     return (buf.getvalue().splitlines(), dict(kernels.LAUNCHES),
-            torch.cuda.max_memory_allocated())
+            torch.cuda.max_memory_allocated(), res.model)
+
+
+# the driver's line of the Zarr chunks it encoded (run.execute)
+ENCODER = re.compile(r"encoder: (\d+) chunks in ([\d.]+) s, ([\d.]+) MB "
+                     r"into ([\d.]+) MB")
 
 
 def driver_numbers(lines) -> dict:
     """The numbers of the driver's closing lines: wall seconds and steps,
     the writes, the writer thread's seconds and the driver's blocked
-    seconds; the diagnostics lines; the external machine it echoed."""
+    seconds, the chunks it encoded, their seconds and raw and encoded MB;
+    the diagnostics lines; the external machine it echoed."""
     text = "\n".join(lines)
     wall, steps = re.search(r"wall clock: ([\d.]+) s for (\d+) steps",
                             text).groups()
@@ -1682,8 +1691,11 @@ def driver_numbers(lines) -> dict:
         r"writes: (\d+) in ([\d.]+) s on the writer thread, ([\d.]+) s",
         text).groups()
     machine = re.search(r"external mode: (\S+)", text).group(1)
+    enc = ENCODER.search(text).groups()
     return dict(wall=float(wall), steps=int(steps), writes=int(n),
                 busy=float(busy), blocked=float(blocked), machine=machine,
+                encoded=int(enc[0]), encode_s=float(enc[1]),
+                encoded_raw_mb=float(enc[2]), encoded_mb=float(enc[3]),
                 prints=[l for l in lines if l.startswith("time =")])
 
 
@@ -1710,19 +1722,79 @@ def tree_bytes(path: str) -> int:
                for d, _, files in os.walk(path) for f in files)
 
 
-def raw_stores(path: str) -> int:
-    """The Zarr arrays under ``path``; raise where one is not raw
-    (``"compressor": null``) or a chunk's temporary was left."""
-    n = 0
+def blosc_stores(path: str) -> dict:
+    """The Zarr arrays under ``path``, each held to the format the JAX
+    package writes through tensorstore: ``.zarray`` carries tensorstore's
+    default compressor entry (``zarr.BLOSC``), every chunk file is one
+    blosc1 frame of LZ4 (version 2, LZ4 format 1, byte shuffle or none, the
+    array's typesize, the chunk's bytes, ``cbytes`` the file's size), and
+    no temporary is left.  Returns the arrays, the chunks, their raw bytes
+    and the bytes of their frames."""
+    from extpom_tpu_torch.io import zarr
+    from extpom_tpu_torch.native import zcodec
+    n = dict(arrays=0, chunks=0, raw=0, stored=0)
     for d, _, files in os.walk(path):
-        if ".zarray" in files:
-            with open(os.path.join(d, ".zarray")) as f:
-                if json.load(f)["compressor"] is not None:
-                    raise AssertionError(f"{d}: a compressed store")
-            if any(f.startswith(".tmp-") for f in files):
-                raise AssertionError(f"{d}: a temporary left")
-            n += 1
+        if zarr.ZARRAY not in files:
+            continue
+        with open(os.path.join(d, zarr.ZARRAY)) as f:
+            comp = json.load(f)["compressor"]
+        if comp != zarr.BLOSC:
+            raise AssertionError(f"{d}: compressor {comp}")
+        if any(f.startswith(".tmp-") for f in files):
+            raise AssertionError(f"{d}: a temporary left")
+        z = zarr.Array(d)
+        for name in files:
+            if not re.fullmatch(r"\d+(\.\d+)*", name):
+                continue
+            with open(os.path.join(d, name), "rb") as f:
+                frame = f.read()
+            flags, ts, nbytes, blocksize, cbytes = zcodec.header(frame)
+            if not (frame[:2] == b"\x02\x01" and flags >> 5 == 1
+                    and not flags & zcodec.BITSHUFFLE
+                    and ts == z.dtype.itemsize and nbytes == z.chunk_nbytes
+                    and cbytes == len(frame) and blocksize > 0):
+                raise AssertionError(
+                    f"{d}/{name}: not an LZ4 blosc1 frame of its chunk: "
+                    f"{frame[:2]!r}, flags {flags:#x}, typesize {ts}, "
+                    f"nbytes {nbytes}, blocksize {blocksize}, cbytes "
+                    f"{cbytes} of {len(frame)}")
+            n["chunks"] += 1
+            n["raw"] += nbytes
+            n["stored"] += cbytes
+        n["arrays"] += 1
     return n
+
+
+def per_store(paths) -> tuple:
+    """(MB stored, raw MB) per Zarr dataset of ``paths``, each gated by
+    :func:`blosc_stores`."""
+    sums = [blosc_stores(p) for p in paths]
+    return (sum(x["stored"] for x in sums) / len(sums) / 1e6,
+            sum(x["raw"] for x in sums) / len(sums) / 1e6)
+
+
+def assert_lossless(snapshot, restart: str, model, what: str) -> None:
+    """The snapshot (a Zarr dataset, or None) and the restart a run wrote at
+    its last step, read back through the port's decoder, bit-equal to the
+    run's model there: every State field of the restart, every field and
+    grid variable of the snapshot."""
+    from extpom_tpu_torch.io import zarrstore as zio
+    st = model.gathered_state()
+    for f in st.field_names():
+        got = zio.read_array(restart, f)
+        want = getattr(st, f).cpu().numpy()
+        if not (got.dtype == want.dtype and np.array_equal(got, want)):
+            raise AssertionError(f"{what}: restart field {f} is not the "
+                                 f"run's")
+    if snapshot is None:
+        return
+    snap = zio.read_output(snapshot)
+    for name in zio.OUTPUT_FIELDS + zio.OUTPUT_GRID_VARS:
+        src = st if name in zio.OUTPUT_FIELDS else model.grid
+        want = getattr(src, name).cpu().numpy()
+        if not (snap[name].dtype == want.dtype
+                and np.array_equal(snap[name], want)):
+            raise AssertionError(f"{what}: snapshot {name} is not the run's")
 
 
 def assert_states_equal(a, b, what: str) -> None:
@@ -1742,22 +1814,28 @@ def say_driver(tag: str, nums: dict, cells: int, peak: int, card: str,
         mgrid_pt_steps_per_s=f"{cells * steps / nums['wall'] / 1e6:.2f}",
         writes=nums["writes"], write_s=f"{nums['busy']:.3f}",
         driver_blocked_s=f"{nums['blocked']:.3f}",
-        write_share_hidden=f"{hidden:.3f}",
+        write_share_hidden=f"{hidden:.3f}", encoded_chunks=nums["encoded"],
+        encode_s=f"{nums['encode_s']:.3f}",
+        encoded_raw_mb=f"{nums['encoded_raw_mb']:.3f}",
+        encoded_mb=f"{nums['encoded_mb']:.3f}",
         peak_mem_gb=f"{peak / 1e9:.3f}", external=nums["machine"], **kv,
         card=f"'{card}'")
 
 
 def cli_phase(card: str, fmt: str = "nc") -> tuple:
-    """The run driver on the main path's configuration: ``run.main`` on the
-    seamount case at 256x256x31 float32 (mode 3, extpom, isplit 30),
+    """The run driver on the main path's configuration (``run_cli``) on
+    the seamount case at 256x256x31 float32 (mode 3, extpom, isplit 30),
     CLI_STEPS steps with a print every CLI_PRINT, a restart every
     CLI_RESTART, snapshots in ``fmt`` (``[cli]``: NetCDF, ``[cli_zarr]``:
     Zarr; the restarts are Zarr under both); then resumed from the restart
     at CLI_RESTART to the end.  The two runs' final restarts are held equal
     field by field, and to a ``Model.run_segment`` run of the same steps;
     one snapshot per print, saver, the exact launch counts of each run,
-    and raw chunks in every Zarr store.  Prints the bytes written per
-    snapshot and per restart.  Returns (the whole run's launch counts, the
+    every Zarr store as the JAX package writes it (``blosc_stores``), and
+    the last restart (and with Zarr snapshots the last snapshot) read back
+    bit-equal to the run's model (``assert_lossless``).  Prints the bytes
+    written per snapshot and per restart, raw and stored, the writer's and
+    the encoder's seconds.  Returns (the whole run's launch counts, the
     resumed run's)."""
     from extpom_tpu_torch.cases.seamount import seamount_model
     from extpom_tpu_torch.diag import stats
@@ -1771,7 +1849,7 @@ def cli_phase(card: str, fmt: str = "nc") -> tuple:
                        "write_rst": CLI_RESTART * STEP_S / 86400},
             "out_format": fmt}
     with tempfile.TemporaryDirectory() as tmp:
-        lines, launches, peak = run_cli(conf, tmp, "whole")
+        lines, launches, peak, model = run_cli(conf, tmp, "whole")
         nums = driver_numbers(lines)
         n = CLI_STEPS
         want = {**dict.fromkeys(launches, 0), "extloop": n, "phase_lat": n,
@@ -1794,6 +1872,13 @@ def cli_phase(card: str, fmt: str = "nc") -> tuple:
                                  f"{len(nums['prints'])} prints")
         rst = os.path.join(out, f"cli.rst.{n:06d}")
         rst_bytes = tree_bytes(rst)
+        rst_mb, rst_raw_mb = per_store([rst])
+        if fmt == "nc":
+            assert_lossless(None, rst, model, tag)
+        else:
+            snap_mb, snap_raw_mb = per_store(snaps)
+            assert_lossless(snaps[-1], rst, model, tag)
+        del model
         ref = seamount_model(im=IM, jm=JM, kb=KB)
         cfg = ref.cfg
         whole, iint, _ = restart_state(rst, cfg)
@@ -1808,7 +1893,7 @@ def cli_phase(card: str, fmt: str = "nc") -> tuple:
             if not torch.equal(getattr(whole, f), getattr(ref.state, f)):
                 raise AssertionError(f"{tag} vs run_segment: {f} differs")
         del ref
-        r_lines, r_launches, _ = run_cli(
+        r_lines, r_launches, _, _ = run_cli(
             conf, tmp, "resumed", nread_rst=1,
             read_rst_path=os.path.join(out, f"cli.rst.{CLI_RESTART:06d}"))
         r_nums = driver_numbers(r_lines)
@@ -1823,15 +1908,23 @@ def cli_phase(card: str, fmt: str = "nc") -> tuple:
         resumed, _, _ = restart_state(
             os.path.join(tmp, "resumed", f"cli.rst.{n:06d}"), cfg)
         assert_states_equal(resumed, whole, f"{tag} resumed vs whole")
-        arrays = raw_stores(tmp)
+        stores = blosc_stores(tmp)
     for line in nums["prints"]:
         print(f"[{tag}] {line}", flush=True)
+    snap_kv = ({} if fmt == "nc" else dict(
+        raw_mb_per_snapshot=f"{snap_raw_mb:.3f}",
+        snapshot_ratio=f"{snap_raw_mb / snap_mb:.3f}"))
     say_driver(tag, nums, IM * JM * KB, peak, card,
                grid=f"{IM}x{JM}x{KB}", dtype="float32", out_format=fmt,
                saver=f"{s['saver']:.7f}", snapshots=n_rec,
-               mb_per_snapshot=f"{snap_bytes / 1e6:.3f}",
+               mb_per_snapshot=f"{snap_bytes / 1e6:.3f}", **snap_kv,
                mb_per_restart=f"{rst_bytes / 1e6:.3f}",
-               zarr_arrays_raw=arrays, resumed_from=CLI_RESTART,
+               raw_mb_per_restart=f"{rst_raw_mb:.3f}",
+               restart_ratio=f"{rst_raw_mb / rst_mb:.3f}",
+               zarr_arrays_blosc=stores["arrays"],
+               zarr_chunks_blosc=stores["chunks"],
+               zarr_ratio=f"{stores['raw'] / stores['stored']:.3f}",
+               lossless=True, resumed_from=CLI_RESTART,
                resumed_equal=True, run_segment_equal=True,
                launches=json.dumps(launches, separators=(",", ":")),
                resumed_launches=json.dumps(r_launches,
@@ -1957,7 +2050,7 @@ def channel_phase(card: str, flush: L2Flush) -> dict:
     conf = channel_conf()
     n = CHANNEL_STEPS
     with tempfile.TemporaryDirectory() as tmp:
-        lines, launches, peak = run_cli(conf, tmp, "whole")
+        lines, launches, peak, _ = run_cli(conf, tmp, "whole")
         nums = driver_numbers(lines)
         cfg = Config(im=im, jm=jm, kb=kb, dtype="float32")
         windowed = extwin.use_windowed(im, jm, 4, extwin.l2_bytes(
@@ -1989,7 +2082,7 @@ def channel_phase(card: str, flush: L2Flush) -> dict:
         salt = float((whole.s[:kb - 1, :, 1:-1] - 15.0).abs().max())
         if not salt <= 1e-4:
             raise AssertionError(f"channel: salinity drifted by {salt}")
-        r_lines, r_launches, _ = run_cli(
+        r_lines, r_launches, _, _ = run_cli(
             conf, tmp, "resumed", nread_rst=1,
             read_rst_path=os.path.join(tmp, "whole",
                                        f"channel.rst.{CHANNEL_RESTART:06d}"))
@@ -2106,14 +2199,14 @@ def channel_mesh_phase(card: str, flush: L2Flush, want) -> dict:
     n = CHANNEL_STEPS
     rst = f"channel.rst.{CHANNEL_RESTART:06d}"
     with tempfile.TemporaryDirectory() as tmp:
-        lines, launches, peak = run_cli(conf, tmp, "whole")
+        lines, launches, peak, _ = run_cli(conf, tmp, "whole")
         nums = driver_numbers(lines)
         cfg = Config(im=im, jm=jm, kb=kb, dtype="float32")
         whole, _, _ = restart_state(
             os.path.join(tmp, "whole", f"channel.rst.{n:06d}"), cfg)
         assert_states_equal(whole, want, "channel_mesh vs channel")
         del whole
-        r_lines, _, _ = run_cli(conf, tmp, "resumed", nread_rst=1,
+        r_lines, _, _, _ = run_cli(conf, tmp, "resumed", nread_rst=1,
                                 read_rst_path=os.path.join(tmp, "whole",
                                                            rst))
         resumed, _, _ = restart_state(
@@ -3031,7 +3124,7 @@ def file_restore_phase(card: str, flush: L2Flush) -> tuple:
     n = FILE_RESTORE_STEPS
     with tempfile.TemporaryDirectory() as tmp:
         conf, data, t_start, tr_mean, cfg = file_restore_conf(tmp)
-        lines, launches, peak = run_cli(conf, tmp, "run")
+        lines, launches, peak, _ = run_cli(conf, tmp, "run")
         nums = driver_numbers(lines)
         windowed = extwin.use_windowed(im, jm, 4, extwin.l2_bytes(
             torch.device("cuda")))
@@ -3125,7 +3218,7 @@ def file_restore_mesh_phase(card: str, flush: L2Flush, want) -> tuple:
     with tempfile.TemporaryDirectory() as tmp:
         conf, data, t_start, tr_mean, cfg = file_restore_conf(tmp)
         conf["mesh"] = mesh_block
-        lines, launches, peak = run_cli(conf, tmp, "run")
+        lines, launches, peak, _ = run_cli(conf, tmp, "run")
         nums = driver_numbers(lines)
         end, _, _ = restart_state(
             os.path.join(tmp, "run", f"file_restore.rst.{n:06d}"), cfg)
@@ -3421,6 +3514,40 @@ def file_restore_check() -> None:
     state_check("file_restore_check", make, n)
 
 
+def tolerance_phase(card: str) -> None:
+    """The f32-against-f64 tolerance ladder on the card
+    (``diag/ladder.py``, VALIDATION.md §2, ``tests/test_torch_tolerance.py``
+    on the CPU): the seamount (33x33x11, 60 steps) and the channel
+    (32x24x7, 40 steps) each run by the kernels in float64 and in float32;
+    every field's and scalar's drift is printed beside its bound, and a
+    drift at or over its bound fails.  Each run must have launched the
+    whole-grid loop and the five phases."""
+    from extpom_tpu_torch import kernels
+    from extpom_tpu_torch.diag import ladder
+    want = {"extloop", *(f"phase_{p}" for p in PHASES)}
+    for case, (kw, steps) in ladder.CASES.items():
+        runs = {}
+        for dtype in ("float64", "float32"):
+            kernels.reset_launches()
+            runs[dtype] = ladder.run(case, dtype, "cuda")
+            torch.cuda.synchronize()
+            launched = {k for k, v in kernels.LAUNCHES.items() if v}
+            if launched != want:
+                raise AssertionError(f"tolerance {case} {dtype}: kernels "
+                                     f"launched {dict(kernels.LAUNCHES)}")
+        d = ladder.drift(runs["float64"], runs["float32"])
+        bounds = ladder.BOUNDS[case]
+        bad = ladder.over(case, d)
+        say("tolerance", case=case, grid=f"{kw['im']}x{kw['jm']}x{kw['kb']}",
+            steps=steps, **{k: f"{v:.3e}" + (f"/{bounds[k]:.0e}"
+                                             if k in bounds else "")
+                            for k, v in d.items()},
+            within_bounds=not bad, card=f"'{card}'")
+        if bad:
+            raise AssertionError(f"tolerance {case}: drift over its bounds "
+                                 f"(drift, bound): {bad}")
+
+
 def breakdown_phase() -> None:
     """``diag.profiling.step_breakdown`` at the main path's 256x256x31
     float32 on the card: the external-only (mode 2) step against the full
@@ -3648,7 +3775,8 @@ CONFIG4_STEPS, CONFIG4_PRINT, CONFIG4_RESTART = 48, 24, 24
 CONFIG4_TOL = 1e-5             # of each field's scale, f32 (PERF.md §2)
 RANK_LINE = re.compile(
     r"rank (\d+): wall clock ([\d.]+) s, writes: (\d+) in ([\d.]+) s on the "
-    r"writer thread, ([\d.]+) s of the driver's time, kernel launches "
+    r"writer thread, ([\d.]+) s of the driver's time, encoder: (\d+) chunks "
+    r"in ([\d.]+) s, ([\d.]+) MB into ([\d.]+) MB, kernel launches "
     r"(\{.*\})")
 
 
@@ -3678,7 +3806,8 @@ def driver_ranks(conf: dict, tmp: str, tag: str) -> tuple:
     ``tmp/tag``) as DIST_RANKS processes on the one card (``--device
     cuda:0``), launched as torchrun would.  Returns (rank 0's lines, each
     rank's wall clock, writes, writer and blocked seconds and launches from
-    the driver's closing lines); rank 1 must print nothing."""
+    the driver's closing lines, with its encoder's chunks, seconds and
+    MB); rank 1 must print nothing."""
     from extpom_tpu_torch.mesh import distributed
     conf = {**conf, "out_dir": os.path.join(tmp, tag)}
     path = os.path.join(tmp, f"{tag}.json")
@@ -3698,8 +3827,11 @@ def driver_ranks(conf: dict, tmp: str, tag: str) -> tuple:
     if any(so.strip() for _, so, _ in res[1:]):
         raise AssertionError(f"{tag}: a rank other than 0 printed")
     ranks = [dict(wall=float(w), writes=int(n), busy=float(b),
-                  blocked=float(bl), launches=json.loads(la))
-             for _, w, n, b, bl, la in RANK_LINE.findall(res[0][1])]
+                  blocked=float(bl), encoded=int(ec), encode_s=float(es),
+                  encoded_raw_mb=float(er), encoded_mb=float(em),
+                  launches=json.loads(la))
+             for _, w, n, b, bl, ec, es, er, em, la
+             in RANK_LINE.findall(res[0][1])]
     if len(ranks) != DIST_RANKS:
         raise AssertionError(f"{tag}: {len(ranks)} rank lines")
     return res[0][1].splitlines(), ranks
@@ -3716,10 +3848,13 @@ def config4_phase(card: str) -> tuple:
     the one-process run's (bit-equality reported), the resumed run's last
     restart bit-equal to the uninterrupted run's in every State field,
     the ranks' launches summed to the one-process run's (the block kernels
-    only), raw chunks in every store, saver.  Each run writes into a
+    only), every store as the JAX package writes it (``blosc_stores``),
+    the one-process run's last snapshot and restart read back bit-equal to
+    its model (``assert_lossless``), saver.  Each run writes into a
     temporary directory, removed as soon as it is compared; the bytes of
-    each snapshot and restart are printed.  Returns (the ranks' summed
-    launch counts, by rank)."""
+    each snapshot and restart, raw and stored, and each rank's writer and
+    encoder seconds are printed.  Returns (the ranks' summed launch
+    counts, by rank)."""
     from extpom_tpu_torch import kernels
     from extpom_tpu_torch.core.state import State
     from extpom_tpu_torch.io import zarrstore as zio
@@ -3740,7 +3875,10 @@ def config4_phase(card: str) -> tuple:
         snap_bytes = [tree_bytes(os.path.join(two, d)) for d in snaps]
         rst_bytes = [tree_bytes(os.path.join(two, d)) for d in rsts]
         written = tree_bytes(two)
-        arrays = raw_stores(two)
+        snap_mb, snap_raw_mb = per_store([os.path.join(two, d)
+                                          for d in snaps])
+        rst_mb, rst_raw_mb = per_store([os.path.join(two, d) for d in rsts])
+        stores = [blosc_stores(two)]
         if (len(nums["prints"]) != len(snaps) or nums["machine"]
                 != "cuda-extchunk"):
             raise AssertionError(f"config4: {len(nums['prints'])} prints, "
@@ -3754,7 +3892,7 @@ def config4_phase(card: str) -> tuple:
              "read_rst_path": os.path.join(two, rsts[0])}, tmp, "resumed")
         if driver_numbers(r_lines)["prints"] != nums["prints"][-1:]:
             raise AssertionError("config4 resumed: its print differs")
-        arrays += raw_stores(os.path.join(tmp, "resumed"))
+        stores.append(blosc_stores(os.path.join(tmp, "resumed")))
         a_rst = os.path.join(two, rsts[-1])
         b_rst = os.path.join(tmp, "resumed", rsts[-1])
         for f in State.field_names():
@@ -3768,9 +3906,13 @@ def config4_phase(card: str) -> tuple:
         for d in rsts:
             shutil.rmtree(os.path.join(two, d))
         one_conf = {k: v for k, v in conf.items() if k != "distributed"}
-        o_lines, o_launches, o_peak = run_cli(one_conf, tmp, "one")
+        o_lines, o_launches, o_peak, o_model = run_cli(one_conf, tmp, "one")
         o_nums = driver_numbers(o_lines)
-        arrays += raw_stores(os.path.join(tmp, "one"))
+        stores.append(blosc_stores(os.path.join(tmp, "one")))
+        assert_lossless(os.path.join(tmp, "one", snaps[-1]),
+                        os.path.join(tmp, "one", rsts[-1]), o_model,
+                        "config4 one process")
+        del o_model
         worst, equal = (0.0, "none"), True
         for d in snaps:
             for name in zio.OUTPUT_GRID_VARS + zio.OUTPUT_FIELDS:
@@ -3794,6 +3936,8 @@ def config4_phase(card: str) -> tuple:
     block = {"extchunk", *(f"phase_{p}_mesh" for p in PHASES)}
     if {k for k, v in summed.items() if v} != block:
         raise AssertionError(f"config4: kernels launched {summed}")
+    raw_all = sum(x["raw"] for x in stores)
+    stored_all = sum(x["stored"] for x in stores)
     for line in nums["prints"]:
         print(f"[config4] {line}", flush=True)
     steps = nums["steps"]
@@ -3806,8 +3950,12 @@ def config4_phase(card: str) -> tuple:
             writes=rk["writes"], write_s=f"{rk['busy']:.3f}",
             driver_blocked_s=f"{rk['blocked']:.3f}",
             write_share_hidden=f"{hidden:.3f}",
+            encoded_chunks=rk["encoded"], encode_s=f"{rk['encode_s']:.3f}",
+            encoded_raw_mb=f"{rk['encoded_raw_mb']:.3f}",
+            encoded_mb=f"{rk['encoded_mb']:.3f}",
             resumed_ms_per_step=f"{rr['wall'] / (n - half) * 1e3:.3f}",
             resumed_write_s=f"{rr['busy']:.3f}",
+            resumed_encode_s=f"{rr['encode_s']:.3f}",
             launches=json.dumps(rk["launches"], separators=(",", ":")))
     say_driver("config4_one_process", o_nums, im * jm * kb, o_peak, card,
                grid=f"{im}x{jm}x{kb}", mesh=f"{mesh['px']}x{mesh['py']}")
@@ -3816,8 +3964,16 @@ def config4_phase(card: str) -> tuple:
         transport="gloo", steps=steps, saver=f"{saver:.7f}",
         snapshots=len(snaps), restarts=len(rsts),
         mb_per_snapshot=f"{sum(snap_bytes) / len(snaps) / 1e6:.3f}",
+        raw_mb_per_snapshot=f"{snap_raw_mb:.3f}",
+        snapshot_ratio=f"{snap_raw_mb / snap_mb:.3f}",
         mb_per_restart=f"{sum(rst_bytes) / len(rsts) / 1e6:.3f}",
-        mb_written=f"{written / 1e6:.3f}", zarr_arrays_raw=arrays,
+        raw_mb_per_restart=f"{rst_raw_mb:.3f}",
+        restart_ratio=f"{rst_raw_mb / rst_mb:.3f}",
+        mb_written=f"{written / 1e6:.3f}",
+        zarr_arrays_blosc=sum(x["arrays"] for x in stores),
+        zarr_chunks_blosc=sum(x["chunks"] for x in stores),
+        zarr_ratio=f"{raw_all / stored_all:.3f}",
+        lossless=True,
         vs_one_process_max_rel_err=f"{worst[0]:.3e}", worst_field=worst[1],
         tol=CONFIG4_TOL, snapshots_bit_equal=equal,
         resumed_from=half, resumed_restart_bit_equal=True,
@@ -3843,6 +3999,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from extpom_tpu_torch.kernels import build
+    from extpom_tpu_torch.native import zcodec
 
     card = card_line()
     say("card", nvidia_smi=f"'{card}'", torch=torch.__version__,
@@ -3853,6 +4010,12 @@ def main() -> int:
     build_s = build.build(verbose=True)
     build.library()
     say("build", seconds=f"{build_s:.1f}", lib=build.LIB.name)
+    # the Zarr codec (g++), built here so that no timed run builds it
+    t0 = time.perf_counter()
+    if zcodec.get_lib() is None:
+        raise AssertionError(f"{zcodec.SRC.name} did not build")
+    say("build", seconds=f"{time.perf_counter() - t0:.1f}",
+        lib=zcodec.LIB.name)
 
     flush = L2Flush()
     tri = tridiag_phase(flush)
@@ -3900,6 +4063,7 @@ def main() -> int:
     ragged_launches = ragged_phase(card)
     options_check()
     file_restore_check()
+    tolerance_phase(card)
     breakdown_phase()
     # several processes last, with the parent's cached device memory freed:
     # two ranks share the card

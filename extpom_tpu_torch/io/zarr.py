@@ -5,15 +5,19 @@ file per chunk, named by the chunk's indices joined by ``.`` (``i.j.k``).
 The store reads and writes the stores of tensorstore's ``zarr`` driver,
 which the JAX package writes, so either side reads the other's:
 
-* :meth:`Array.create` writes ``.zarray`` as tensorstore writes it, but
-  for ``"compressor": null``: chunks are raw C-order bytes, an edge chunk
-  full-size.  Creating an array deletes the chunk files already in its
-  directory (tensorstore's ``delete_existing``), so no stale chunk outlives
-  a re-run.
-* :meth:`Array.write` writes whole chunks only: each chunk file is written
-  whole to a temporary name in its directory, then renamed into place.
-  Writers of disjoint chunks therefore never touch one file, which the
-  cooperative writes of several processes (``io/zarrstore.py``) rely on.
+* :meth:`Array.create` writes ``.zarray`` as tensorstore writes it by
+  default (:data:`BLOSC`: blosc1, lz4, clevel 5, byte shuffle; fill value
+  null), byte for byte; ``compressor=None`` writes a raw store instead.
+  Creating an array deletes the chunk files already in its directory
+  (tensorstore's ``delete_existing``), so no stale chunk outlives a re-run.
+* :meth:`Array.write` writes whole chunks only (an edge chunk full-size,
+  padded with the fill value): each chunk is encoded as one blosc1 frame
+  by ``native/zcodec.cpp`` (or kept raw in a raw store), written whole to a
+  temporary name in its directory, then renamed into place.  Writers of
+  disjoint chunks therefore never touch one file, which the cooperative
+  writes of several processes (``io/zarrstore.py``) rely on.  Where the
+  encoder cannot be built, a write to a blosc store raises; nothing writes
+  raw chunks in its place.
 * :meth:`Array.read` returns any hyperslab, across any chunk grid.  A
   missing chunk reads as the fill value (0 under ``null``, as tensorstore
   reads it).  Chunks are raw, or blosc1 frames with ``cname`` ``lz4`` and
@@ -36,6 +40,9 @@ from typing import Optional, Sequence
 import numpy as np
 
 ZARRAY = ".zarray"
+# tensorstore's default compressor entry, which the JAX package's stores hold
+BLOSC = {"blocksize": 0, "clevel": 5, "cname": "lz4", "id": "blosc",
+         "shuffle": -1}
 _CHUNK_KEY = re.compile(r"^\d+(\.\d+)*$")
 _TMP_PREFIX = ".tmp-"
 
@@ -105,10 +112,15 @@ class Array:
 
     @classmethod
     def create(cls, path: str, shape: Sequence[int], dtype,
-               chunks: Optional[Sequence[int]] = None) -> "Array":
-        """A new empty array at ``path`` (raw chunks, fill value null);
-        the chunk files, temporaries and ``.zattrs`` already there are
+               chunks: Optional[Sequence[int]] = None,
+               compressor: Optional[dict] = BLOSC) -> "Array":
+        """A new empty array at ``path`` (fill value null), its chunks
+        blosc-lz4 (:data:`BLOSC`) or, with ``compressor=None``, raw; the
+        chunk files, temporaries and ``.zattrs`` already there are
         deleted.  ``chunks`` defaults to the whole array."""
+        if compressor is not None and compressor != BLOSC:
+            raise NotImplementedError(f"compressor {compressor!r}; the store "
+                                      f"writes {BLOSC!r} or raw chunks")
         shape = tuple(int(n) for n in shape)
         chunks = shape if chunks is None else tuple(int(n) for n in chunks)
         if len(chunks) != len(shape) or any(c < 1 for c in chunks):
@@ -118,7 +130,8 @@ class Array:
             if (_CHUNK_KEY.match(name) or name.startswith(_TMP_PREFIX)
                     or name == ".zattrs"):
                 os.unlink(os.path.join(path, name))
-        meta = {"chunks": list(chunks), "compressor": None,
+        meta = {"chunks": list(chunks),
+                "compressor": None if compressor is None else dict(BLOSC),
                 "dimension_separator": ".", "dtype": np.dtype(dtype).str,
                 "fill_value": None, "filters": None, "order": "C",
                 "shape": list(shape), "zarr_format": 2}
@@ -229,7 +242,8 @@ class Array:
 
     def write_chunk(self, idx: tuple, data) -> None:
         """Chunk ``idx`` from ``data``, its cells inside the array; an edge
-        chunk is padded to full size with the fill value."""
+        chunk is padded to full size with the fill value.  A blosc store's
+        chunk is encoded as one frame."""
         span = self._span(idx)
         data = np.asarray(data, dtype=self.dtype)
         want = tuple(b - a for a, b in span)
@@ -240,8 +254,11 @@ class Array:
             full = np.full(self.chunks, self.fill, self.dtype)
             full[tuple(slice(0, n) for n in want)] = data
             data = full
-        _write_file(os.path.join(self.path, self._key(idx)),
-                    np.ascontiguousarray(data).data)
+        payload = np.ascontiguousarray(data).data
+        if self.blosc:
+            from extpom_tpu_torch.native import zcodec
+            payload = zcodec.encode(payload, self.dtype.itemsize)
+        _write_file(os.path.join(self.path, self._key(idx)), payload)
 
     def write(self, data, key=Ellipsis) -> None:
         """``data`` into the region ``key``, which must be made of whole

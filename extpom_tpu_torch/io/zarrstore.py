@@ -16,8 +16,9 @@ output (io_pnetcdf.F) — as Zarr arrays, one directory per dataset with an
 * :class:`ZarrSource` / :func:`write_forcing_series` — forcing record
   series (io_pnetcdf.F:2912-3622).
 
-The port writes raw chunks (``"compressor": null``) and reads raw chunks
-and tensorstore's default blosc-lz4 ones.
+Every array is written as the JAX package writes it through tensorstore:
+blosc-lz4 chunks under tensorstore's default ``.zarray``
+(``zarr.BLOSC``); raw stores are read too.
 
 Under several processes (``mesh/distributed.py``) the writes are
 cooperative, as the JAX package's ``_write_array_multihost`` and the

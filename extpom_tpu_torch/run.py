@@ -28,7 +28,7 @@ Config schema (all keys optional unless noted)::
       "out_format": "zarr" | "nc",
       #   snapshots: Zarr directories {run}.NNNNNN, or with "nc" one
       #   {run}.nc record stream; restarts are Zarr directories
-      #   {run}.rst.NNNNNN under both (io/zarrstore.py, raw chunks)
+      #   {run}.rst.NNNNNN under both (io/zarrstore.py, blosc-lz4 chunks)
       "nread_rst": 0, "read_rst_path": "out/run.rst.000024",
       #   a Zarr restart, or a reference-format .nc restart file
       "cont_bry": 0,
@@ -51,8 +51,8 @@ the mesh block's mesh, on its device; only rank 0 prints.
 The diagnostics come from the blocks (``diag.stats`` block forms), the
 Zarr snapshots and restarts are written cooperatively
 (``io.zarrstore``), a Zarr restart resumes into each rank's blocks, and
-rank 0 prints each rank's wall clock, writer times and kernel launches at
-the end.
+rank 0 prints each rank's wall clock, writer times, encoder times and
+kernel launches at the end.
 ``out_format`` "nc" raises under several processes, as in the JAX
 package: write Zarr.
 
@@ -222,6 +222,7 @@ def execute(conf: dict, device=None,
     from extpom_tpu_torch.io.asyncwriter import AsyncWriter
     from extpom_tpu_torch.mesh import distributed
     from extpom_tpu_torch.mesh.padding import unpad
+    from extpom_tpu_torch.native import zcodec
 
     out_format = conf.get("out_format", "zarr")
     if out_format not in ("zarr", "nc"):
@@ -270,6 +271,7 @@ def execute(conf: dict, device=None,
     ia, ja = cfg.active
     out_cfg = cfg.replace(im=ia, jm=ja, im_act=None, jm_act=None)
     writer = AsyncWriter()
+    encoded0 = zcodec.ENCODED.totals()
     iint0 = m.iint
     rc = 0
     _sync(device)
@@ -337,22 +339,28 @@ def execute(conf: dict, device=None,
     _sync(device)
     wall = time.perf_counter() - t0
     steps = m.iint - iint0
+    # the Zarr chunks this run encoded (writer thread), seconds and bytes
+    frames, enc_s, raw_b, frame_b = (
+        b - a for a, b in zip(encoded0, zcodec.ENCODED.totals()))
+    encoded = (f"encoder: {frames} chunks in {enc_s:.3f} s, "
+               f"{raw_b / 1e6:.3f} MB into {frame_b / 1e6:.3f} MB")
     if rc == 0:
         gps = out_cfg.im * out_cfg.jm * cfg.kb * steps / max(wall, 1e-9)
         log(f"wall clock: {wall:.3f} s for {steps} steps (segments + async "
             f"writes; {gps / 1e6:.1f} Mgrid-pt-steps/s)")
         log(f"writes: {writer.n_writes} in {writer.busy_s:.3f} s on the "
             f"writer thread, {writer.blocked_s:.3f} s of the driver's time")
+        log(encoded)
     if multi:
         from extpom_tpu_torch import kernels
         per_rank = distributed.host_all_gather(
-            (wall, writer.n_writes, writer.busy_s, writer.blocked_s,
+            (wall, writer.n_writes, writer.busy_s, writer.blocked_s, encoded,
              {k: v for k, v in kernels.LAUNCHES.items() if v}))
-        for r, (w, n, busy, blocked, launches) in enumerate(per_rank):
+        for r, (w, n, busy, blocked, enc, launches) in enumerate(per_rank):
             if rc == 0:
                 log(f"rank {r}: wall clock {w:.3f} s, writes: {n} in "
                     f"{busy:.3f} s on the writer thread, {blocked:.3f} s of "
-                    f"the driver's time, kernel launches "
+                    f"the driver's time, {enc}, kernel launches "
                     f"{json.dumps(launches, separators=(',', ':'))}")
     return RunResult(rc, m, steps, writer.n_writes)
 

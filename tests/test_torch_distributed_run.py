@@ -21,6 +21,7 @@ import torch
 
 from extpom_tpu_torch import run as ptrun
 from extpom_tpu_torch.core.state import State
+from extpom_tpu_torch.io import zarr
 from extpom_tpu_torch.io import zarrstore as zio
 from extpom_tpu_torch.mesh import distributed
 
@@ -115,9 +116,9 @@ def test_snapshots_and_restarts_equal_one_process(runs):
         _same_restart(os.path.join(tmp, "out", f"sm.rst.{k:06d}"),
                       os.path.join(tmp, "out1", f"sm.rst.{k:06d}"))
     for d, _, files in os.walk(os.path.join(tmp, "out")):
-        if ".zarray" in files:       # raw chunks, and no temporary left
-            with open(os.path.join(d, ".zarray")) as f:
-                assert json.load(f)["compressor"] is None, d
+        if ".zarray" in files:       # blosc-lz4 as the JAX package's
+            with open(os.path.join(d, ".zarray")) as f:  # no temporary left
+                assert json.load(f)["compressor"] == zarr.BLOSC, d
             assert not [n for n in files if n.startswith(".tmp")], d
 
 

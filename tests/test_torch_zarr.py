@@ -1,8 +1,14 @@
 """The port's Zarr v2 store (``extpom_tpu_torch/io/zarr.py``) against
 tensorstore and the JAX package on the CPU, both ways and bit for bit.
 
-* ``.zarray`` as tensorstore writes it (``"compressor": null``); what the
-  port writes, tensorstore and the JAX package read;
+* ``.zarray`` as tensorstore writes it, by default (blosc lz4) and raw;
+  what the port writes, tensorstore and the JAX package read;
+* the port's blosc1/LZ4 encoder (``native/zcodec.cpp``): its frames read
+  back bit-equal by tensorstore's c-blosc and by the port's decoder over
+  every dtype and sample kind, at 1-64 bytes (the LZ4 block's end rules,
+  checked stream by stream), on the 31x256x256 chunk of the main path (a
+  short last block), on data that does not compress (raw streams, the
+  memcpyed frame); without the encoder a write raises;
 * what tensorstore writes, by default (blosc1, lz4, byte shuffle, decoded
   by ``native/zcodec.cpp``) and raw, the port reads: random, smooth,
   constant and periodic data (LZ4 matches that overlap their own output),
@@ -22,6 +28,7 @@ import io
 import json
 import os
 import shutil
+import struct
 import sys
 import tempfile
 import types
@@ -107,33 +114,57 @@ def layouts(draw, max_dims=3, max_side=24):
 
 # -- metadata and the two directions -----------------------------------------
 
+def port_create(path, shape, dtype, chunks, comp="default"):
+    """``zarr.Array.create`` with the store's default compressor, or with
+    ``compressor=None`` where ``comp`` is None."""
+    kw = {} if comp == "default" else {"compressor": comp}
+    return zarr.Array.create(str(path), shape, dtype, chunks, **kw)
+
+
+@pytest.mark.parametrize("comp", ("default", None))
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_zarray_as_tensorstore_writes_it(tmp_path, dtype):
+def test_zarray_as_tensorstore_writes_it(tmp_path, dtype, comp):
     a = np.zeros((4, 5), dtype)
-    ts_write(str(tmp_path / "ts"), a, (2, 3), compressor=None)
-    zarr.Array.create(str(tmp_path / "pt"), (4, 5), dtype, (2, 3))
+    ts_write(str(tmp_path / "ts"), a, (2, 3), compressor=comp)
+    port_create(tmp_path / "pt", (4, 5), dtype, (2, 3), comp)
     assert ((tmp_path / "pt" / ".zarray").read_text()
             == (tmp_path / "ts" / ".zarray").read_text())
     assert json.loads((tmp_path / "pt" / ".zarray").read_text())[
-        "compressor"] is None
+        "compressor"] == (zarr.BLOSC if comp == "default" else None)
 
 
+def chunk_files(path) -> list:
+    files = sorted(os.listdir(path))
+    assert files[0] == ".zarray"
+    return [os.path.join(path, f) for f in files[1:]]
+
+
+@pytest.mark.parametrize("comp", ("default", None))
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape,chunks", [
     ((7,), (3,)), ((4, 5), (2, 3)), ((31, 40, 33), (31, 16, 16)),
     ((5, 9, 11), (2, 4, 5)), ((3, 17, 13), (3, 17, 13))])
-def test_port_writes_tensorstore_reads(tmp_path, dtype, shape, chunks):
-    """Edge chunks included (full-size files); the JAX reader agrees."""
+def test_port_writes_tensorstore_reads(tmp_path, dtype, shape, chunks, comp):
+    """Edge chunks included (full-size chunks); the JAX reader agrees.  A
+    raw chunk file holds the chunk's bytes, a blosc one a frame of them
+    whose cbytes is the file's size."""
     a = sample("random", shape, dtype, 1)
-    z = zarr.Array.create(str(tmp_path / "a"), shape, dtype, chunks)
+    z = port_create(tmp_path / "a", shape, dtype, chunks, comp)
     z.write(a)
     assert bits_equal(ts_read(str(tmp_path / "a")), a)
     assert bits_equal(jx_zarr.read_array(str(tmp_path), "a"), a)
     n = int(np.prod([-(-s // c) for s, c in zip(shape, chunks)]))
-    files = sorted(os.listdir(tmp_path / "a"))
-    assert files[0] == ".zarray" and len(files) == n + 1
-    assert all(os.path.getsize(tmp_path / "a" / f)
-               == int(np.prod(chunks)) * a.itemsize for f in files[1:])
+    files = chunk_files(tmp_path / "a")
+    assert len(files) == n
+    nbytes = int(np.prod(chunks)) * a.itemsize
+    for f in files:
+        if comp is None:
+            assert os.path.getsize(f) == nbytes
+        else:
+            frame = open(f, "rb").read()
+            _, typesize, size, _, cbytes = zcodec.header(frame)
+            assert (typesize, size, cbytes) == (a.itemsize, nbytes,
+                                                len(frame))
 
 
 @QUICK
@@ -177,6 +208,178 @@ def test_lz4_overlapping_matches(period, reps, dtype, seed):
     with tempfile.TemporaryDirectory() as tmp:
         ts_write(tmp, a, (max(1, len(a) // 2),))
         assert bits_equal(zarr.Array(tmp).read(), a)
+
+
+# -- the port's encoder -------------------------------------------------------
+
+def lz4_block(block: bytes, n: int) -> bytes:
+    """The ``n`` bytes of an LZ4 block, decoded here with the format's end
+    rules asserted as LZ4's and c-blosc's decoders enforce them: a match
+    starts at least 12 bytes before the end, ends at least 5 before it,
+    and has an offset into the output so far."""
+    out, i = bytearray(), 0
+
+    def length(i, v):
+        if v == 15:
+            while True:
+                b = block[i]
+                i, v = i + 1, v + b
+                if b != 255:
+                    break
+        return i, v
+
+    while True:
+        token = block[i]
+        i, lit = length(i + 1, token >> 4)
+        out += block[i:i + lit]
+        i += lit
+        if i == len(block):             # the last sequence: literals only
+            break
+        assert len(out) <= n - 12, ("a match within the last 12 bytes",
+                                    len(out), n)
+        off = block[i] | block[i + 1] << 8
+        i, ml = length(i + 2, token & 15)
+        assert 1 <= off <= len(out), ("an offset out of the output", off)
+        for _ in range(ml + 4):
+            out.append(out[-off])
+        assert len(out) <= n - 5, ("a match in the last 5 bytes", len(out),
+                                   n)
+    assert len(out) == n, (len(out), n)
+    return bytes(out)
+
+
+def frame_streams(frame: bytes) -> list:
+    """Each stream of a blosc1 frame, checked against the block layout the
+    header gives: (its bytes, whether it is stored raw)."""
+    flags, typesize, nbytes, blocksize, cbytes = zcodec.header(frame)
+    assert cbytes == len(frame) and flags >> 5 == 1
+    if flags & zcodec.MEMCPYED:
+        assert cbytes == nbytes + 16
+        return []
+    nblocks = -(-nbytes // blocksize)
+    starts = struct.unpack_from(f"<{nblocks}I", frame, 16)
+    assert starts[0] == 16 + 4 * nblocks
+    streams, pos = [], starts[0]
+    for b in range(nblocks):
+        assert starts[b] == pos
+        bsize = min(blocksize, nbytes - b * blocksize)
+        nsplits = (typesize if not flags & 0x10 and bsize == blocksize
+                   else 1)
+        for _ in range(nsplits):
+            cs = struct.unpack_from("<I", frame, pos)[0]
+            body = frame[pos + 4:pos + 4 + cs]
+            n = bsize // nsplits
+            streams.append((body, True) if cs == n
+                           else (lz4_block(body, n), False))
+            pos += 4 + cs
+    assert pos == cbytes
+    return streams
+
+
+def encoded_store(path, a: np.ndarray) -> list:
+    """``a`` as a one-chunk port store at ``path``; its frame's streams."""
+    port_create(path, a.shape, a.dtype, a.shape or (1,)).write(a)
+    (chunk,) = chunk_files(path)
+    return frame_streams(open(chunk, "rb").read())
+
+
+@QUICK
+@given(st.sampled_from(DTYPES + ("uint8",)),
+       st.sampled_from(("random", "smooth", "constant", "periodic")),
+       st.integers(1, 64), st.integers(0, 2**16))
+def test_encode_small_frames(dtype, kind, nbytes, seed):
+    """1-64 bytes, where a block is one LZ4 stream and the end rules decide
+    every match: tensorstore and the port's decoder read the frame
+    bit-equal, and every stream keeps the rules."""
+    n = max(1, nbytes // np.dtype(dtype).itemsize)
+    a = sample(kind, (n,), dtype, seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        encoded_store(tmp, a)
+        assert bits_equal(ts_read(tmp), a)
+        assert bits_equal(zarr.Array(tmp).read(), a)
+
+
+@QUICK
+@given(layouts(max_side=40), st.sampled_from(DTYPES),
+       st.sampled_from(("random", "smooth", "constant", "periodic")),
+       st.integers(0, 2**16))
+def test_encode_round_trip(layout, dtype, kind, seed):
+    """Any layout, dtype and kind of data, through the port's writes:
+    tensorstore, the JAX reader and the port read it back bit-equal."""
+    shape, chunks = layout
+    a = sample(kind, shape, dtype, seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        port_create(os.path.join(tmp, "a"), shape, dtype, chunks).write(a)
+        assert bits_equal(ts_read(os.path.join(tmp, "a")), a)
+        assert bits_equal(jx_zarr.read_array(tmp, "a"), a)
+        assert bits_equal(zarr.Array(os.path.join(tmp, "a")).read(), a)
+
+
+def test_encode_end_rules_at_every_length():
+    """Every length from 1 to 600 bytes of constant, periodic and smooth
+    bytes (one stream, matches up to the last bytes allowed): each stream
+    keeps the end rules and tensorstore reads each frame."""
+    rng = np.random.default_rng(3)
+    for n in range(1, 601):
+        for a in (np.full(n, 7, np.uint8),
+                  np.tile(rng.integers(0, 256, 3, dtype=np.uint8), n)[:n],
+                  (np.arange(n) // 5).astype(np.uint8)):
+            with tempfile.TemporaryDirectory() as tmp:
+                streams = encoded_store(tmp, a)
+                assert bits_equal(ts_read(tmp), a), n
+            if n >= 64:
+                assert streams and not streams[0][1], n   # compressed
+
+
+@pytest.mark.parametrize("dtype,kind", [
+    ("float32", "smooth"), ("float32", "random"), ("float32", "periodic"),
+    ("float64", "smooth"), ("int64", "smooth"), ("int64", "periodic")])
+def test_main_path_chunk_encodes(tmp_path, dtype, kind):
+    """The port's frame of a 31x256x256 chunk (blocks of 512 KiB at f32,
+    1 MiB at 8 bytes, and a short last block): split, shuffled and read
+    back bit-equal by tensorstore and the port, within 5 % of the bytes
+    of tensorstore's own frame of the same chunk."""
+    shape = (31, 256, 256) if dtype == "float32" else (31, 256, 128)
+    a = sample(kind, shape, dtype, 7)
+    port_create(tmp_path / "a", shape, dtype, shape).write(a)
+    frame = (tmp_path / "a" / "0.0.0").read_bytes()
+    flags, typesize, nbytes, blocksize, cbytes = zcodec.header(frame)
+    assert (typesize, nbytes, cbytes) == (a.itemsize, a.nbytes, len(frame))
+    assert blocksize == 2**17 * a.itemsize and nbytes % blocksize
+    assert flags == 0x01 | 1 << 5          # byte shuffle, split, lz4
+    assert bits_equal(ts_read(str(tmp_path / "a")), a)
+    assert bits_equal(zarr.Array(str(tmp_path / "a")).read(), a)
+    ts_write(str(tmp_path / "t"), a, shape)
+    assert cbytes <= 1.05 * os.path.getsize(tmp_path / "t" / "0.0.0")
+
+
+def test_encode_incompressible(tmp_path):
+    """Random floats: the mantissa streams stay raw under their own size
+    and the exponent streams compress; random bytes: the memcpyed frame.
+    Both read back bit-equal."""
+    a = sample("random", (64, 1024), "float32", 5)
+    streams = encoded_store(tmp_path / "f", a)
+    raw = [body for body, is_raw in streams if is_raw]
+    assert raw and len(raw) < len(streams)
+    assert bits_equal(ts_read(str(tmp_path / "f")), a)
+    b = np.random.default_rng(6).integers(0, 256, 70000, dtype=np.uint8)
+    assert encoded_store(tmp_path / "b", b) == []
+    flags = zcodec.header((tmp_path / "b" / "0").read_bytes())[0]
+    assert flags & zcodec.MEMCPYED
+    assert bits_equal(ts_read(str(tmp_path / "b")), b)
+    assert bits_equal(zarr.Array(str(tmp_path / "b")).read(), b)
+
+
+def test_encode_threads_agree():
+    """One frame whatever the number of threads, and the counts of
+    ``ENCODED`` add up."""
+    a = sample("smooth", (31, 64, 256), "float32", 0)
+    frames = [zcodec.encode(a, 4, threads=t) for t in (1, 3, 8)]
+    assert frames[0] == frames[1] == frames[2]
+    before = zcodec.ENCODED.totals()
+    zcodec.encode(a, 4)
+    n, s, raw, out = (y - x for x, y in zip(before, zcodec.ENCODED.totals()))
+    assert (n, raw, out) == (1, a.nbytes, len(frames[0])) and s >= 0
 
 
 @QUICK
@@ -269,6 +472,23 @@ def test_unsupported_frames_and_metadata_raise(tmp_path):
             {**meta, key: value}))
         with pytest.raises(NotImplementedError, match=word):
             zarr.Array(str(tmp_path / "l"))
+
+
+def test_blosc_write_without_codec_raises(tmp_path, monkeypatch):
+    """Where the encoder cannot be built a write raises, and no chunk is
+    written raw in its place; a raw store is still written."""
+    a = sample("smooth", (8, 8), "float64", 0)
+    monkeypatch.setattr(zcodec, "_lib", None)
+    monkeypatch.setattr(zcodec, "_build", lambda: None)
+    z = zarr.Array.create(str(tmp_path / "b"), (8, 8), "float64", (4, 4))
+    with pytest.raises(RuntimeError, match="cannot be built"):
+        z.write(a)
+    with pytest.raises(RuntimeError, match="cannot be built"):
+        zio.write_array(str(tmp_path), "c", a)
+    assert chunk_files(tmp_path / "b") == chunk_files(tmp_path / "c") == []
+    zarr.Array.create(str(tmp_path / "r"), (8, 8), "float64", (4, 4),
+                      compressor=None).write(a)
+    assert bits_equal(ts_read(str(tmp_path / "r")), a)
 
 
 def test_blosc_without_codec_raises(tmp_path, monkeypatch):
