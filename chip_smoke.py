@@ -37,7 +37,10 @@ options: ``[orlanski]`` and ``[orlanski_mesh]`` (the main path under
 Orlanski edges), ``[basin]`` (mode 2 at 512x512x31), and the phase
 options of lat, tracer and mom: ``[options]`` (the main path under
 McCalpin's pressure gradient and MPDATA, 22 steps, lat, tracer and
-MPDATA's launches held to their plain versions on step 3's operands),
+MPDATA's launches held to their plain versions on step 3's operands;
+``[mpdata_edges]`` holds MPDATA's kernel bit for bit at every nitera up to
+8, on grids no tile divides, on fields that cross value_min and on every
+block of a 2x4 mesh),
 ``[options_mesh]`` (the same on the 2x4 mesh, bit-equal to one device) and
 ``[file_restore]`` (the 512x512x31 channel through ``run.main`` under the
 file scheme with interior restoring from an lbry file written from a
@@ -125,7 +128,7 @@ DEEP = ((96, 80, 41), (33, 65, 9), (17, 33, 4))
 PHASE_KERNELS = {"lat": ("::k_lat_tile<",), "uvw": ("::k_uvw_tile<",),
                  "tke": ("::k_tke_tile<",),
                  "tracer": ("::k_tracer_tile<", "::k_tracer_edge<",
-                            "::k_mpdata_"),
+                            "::k_mpdata_tile<"),
                  "mom": ("::k_mom_tile<", "::k_mom_edge<")}
 # the block kernels of the decomposed step, as the profiler names them
 MESH_KERNELS = {"extchunk": EXT_KERNELS["extloop"],
@@ -2748,9 +2751,9 @@ FILE_RESTORE = (512, 512, 31)                       # [file_restore]
 FILE_RESTORE_STEPS, FILE_RESTORE_PRINT = 60, 30
 OPTIONS_CHECK = (33, 33, 11, 10)                    # [options_check]
 FILE_RESTORE_CHECK = (97, 33, 16, 10)               # [file_restore_check]
-# flops per grid point of one MPDATA launch, T and S (csrc/phase_tracer.cu
-# k_mpdata_upwind: four upwind face fluxes, two vertical ones and the step;
-# k_mpdata_adif: the three antidiffusive velocities)
+# flops per grid point of MPDATA's steps, T and S (csrc/phase_mpdata.cu):
+# each upstream step (four upwind face fluxes, two vertical ones and the
+# step), each antidiffusion between two steps (the three velocities)
 MPDATA_FLOPS = {"upwind": 110, "adif": 90}
 # ... and what McCalpin adds to lat's PHASE_FLOPS_PER_POINT (the
 # corrections and the second-order building blocks of both components)
@@ -2762,10 +2765,10 @@ def option_want(launches: dict, cfg, n: int, nb: int = 0,
     """The launch counts of n steps from a cold start under cfg's options:
     lat every step, the other phases from the second, each under the name
     of the instantiation cfg runs (``phases.counter``), MPDATA's
-    2 nitera - 1 launches per tracer phase; on nb blocks (chunks external
-    chunks per step) the block variants'."""
+    launches per tracer phase (:func:`mpdata_launches`); on nb blocks
+    (chunks external chunks per step) the block variants'."""
     from extpom_tpu_torch.kernels import phases
-    mp = (2 * cfg.nitera - 1) if cfg.nadv == 2 else 0
+    mp = mpdata_launches(cfg)
     sfx = "_mesh" if nb else ""
     nb = nb or 1
     name = lambda p: phases.counter(p, cfg) + sfx
@@ -2773,6 +2776,17 @@ def option_want(launches: dict, cfg, n: int, nb: int = 0,
     return {**dict.fromkeys(launches, 0), **ext, name("lat"): n * nb,
             **{name(p): (n - 1) * nb for p in PHASES[1:]},
             f"phase_tracer_mpdata{sfx}": (n - 1) * nb * mp}
+
+
+def mpdata_launches(cfg) -> int:
+    """MPDATA's launches per tracer phase under cfg: the groups of
+    ``phases.mpdata_plan`` (which depend on nitera and the dtype, not on
+    the grid or block), 0 unless nadv=2."""
+    from extpom_tpu_torch.kernels import phases
+    if cfg.nadv != 2:
+        return 0
+    return phases.mpdata_plan(cfg.nitera, getattr(torch, cfg.dtype), cfg.kb,
+                              cfg.im, cfg.jm).launches
 
 
 def options_phase(card: str) -> tuple:
@@ -2815,24 +2829,38 @@ def options_phase(card: str) -> tuple:
 
 
 def mpdata_work(cfg, n: int, item: int) -> tuple:
-    """(bytes, flops) of MPDATA's 2 nitera - 1 launches on n points: each
-    launch's reads (3-D: the step's field of T and S, the mass fluxes or
-    u, v, w; the first step tb, sb and the surface of t, s) and writes (the
-    new field, or the six fluxes), and their operations."""
-    n3 = 0
-    for it in range(cfg.nitera):
-        n3 += (2 + 3 if it == 0 else 2 + 6) + 2          # upwind
-        if it + 1 < cfg.nitera:
-            n3 += 2 + (3 if it == 0 else 6) + 6          # adif
+    """(bytes, flops) of MPDATA's steps on n points (``phases.mpdata``'s
+    call, each operand read once and each output written once): tb, sb,
+    u, v and w read and the fields of T and S written (kb levels each),
+    the surfaces of t and s and the ten 2-D fields read, and the
+    operations of nitera upstream steps and nitera - 1 antidiffusions.
+    The fields and velocities between the steps are work inside the call
+    (:func:`mpdata_work_launches` counts them as a launch per step
+    would move them)."""
     n2 = n // cfg.kb
-    nbytes = (n3 * n + 12 * n2 * (2 * cfg.nitera - 1)) * item
+    nbytes = (7 * n + (2 + 10) * n2 + 2 * cfg.kb) * item
     flops = (MPDATA_FLOPS["upwind"] * cfg.nitera
              + MPDATA_FLOPS["adif"] * (cfg.nitera - 1)) * n
     return nbytes, flops
 
 
+def mpdata_work_launches(cfg, n: int, item: int) -> int:
+    """The bytes of MPDATA's steps on n points counted by launches of
+    one step each (2 nitera - 1 of them), for the record beside
+    :func:`mpdata_work`'s bound: each launch reading and writing its fields
+    and velocities (3-D: the step's field of T and S, the velocities or u,
+    v, w; the first step tb, sb and the surface of t, s; 12 2-D fields a
+    launch)."""
+    n3 = 0
+    for it in range(cfg.nitera):
+        n3 += (2 + 3 if it == 0 else 2 + 6) + 2          # upwind
+        if it + 1 < cfg.nitera:
+            n3 += 2 + (3 if it == 0 else 6) + 6          # adif
+    return (n3 * n + 12 * (n // cfg.kb) * (2 * cfg.nitera - 1)) * item
+
+
 def mpdata_bound(cfg, n: int, item: int, dtype) -> tuple:
-    """(bound ms, bound_by) of MPDATA's launches on n points
+    """(bound ms, bound_by) of MPDATA's steps on n points
     (:func:`mpdata_work`)."""
     nbytes, flops = mpdata_work(cfg, n, item)
     bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -2898,11 +2926,12 @@ def mcc_extra(n: int) -> tuple:
 
 def mpdata_extra(cfg, item: int):
     """n -> (bytes, flops) MPDATA adds to the tracer phase on n points:
-    its launches' work (:func:`mpdata_work`) and the tile's reads of
-    their two fields; the entry then covers the whole phase."""
+    the operands of its steps that the phase's own operands do not hold
+    (aru and arv) and its operations; its two fields are work inside the
+    phase.  The entry then covers the whole phase."""
     def extra(n):
-        nbytes, flops = mpdata_work(cfg, n, item)
-        return nbytes + 2 * n * item, flops
+        _, flops = mpdata_work(cfg, n, item)
+        return 2 * (n // cfg.kb) * item, flops
     return extra
 
 
@@ -2910,27 +2939,141 @@ def mpdata_entry(tag: str, key: str, g, cfg, mops, flush: L2Flush,
                  off=None, trim=None) -> dict:
     """MPDATA's launches (``phases.mpdata`` on the operands ``mops``, on
     a block at ``off``) held bit for bit to ``mpdata_plain`` (on a block's
-    own cells, ``trim``), timed beside it, with :func:`mpdata_bound`."""
+    own cells, ``trim``), timed beside it, with :func:`mpdata_bound` (and
+    the count by launches, ``launch_count_bound_ms``), the plan's tile,
+    halo and group and what the card gives the kernel."""
+    from extpom_tpu_torch import kernels
     from extpom_tpu_torch.kernels import phases
     from extpom_tpu_torch.ops.stencil import DomainCtx, domain
     trim = trim or (lambda x: x)
     raw = lambda: phases.mpdata(g, cfg, *mops, off=off)
+    t = mops[0]
+    plan = phases.mpdata_launch_plan(cfg, t, off is not None)
+    info = phases.mpdata_info(t.dtype, plan, off is not None)
+    name = "phase_tracer_mpdata" + ("" if off is None else "_mesh")
+    before = kernels.LAUNCHES[name]
 
     def plain():
         with (contextlib.nullcontext() if off is None else
               domain(DomainCtx(cfg.im, cfg.jm, *off))):
             return phases.mpdata_plain(g, cfg, *mops)
-    worst = hold(tag, key, [trim(x) for x in raw()],
+    got = raw()
+    launched = kernels.LAUNCHES[name] - before
+    if launched != plan.launches:
+        raise AssertionError(f"{tag}: {launched} MPDATA launches, the plan "
+                             f"has {plan.launches}")
+    worst = hold(tag, key, [trim(x) for x in got],
                  [trim(x) for x in plain()], ("ff_t", "ff_s"), True, 0.0)
     ms = device_ms(raw, 20, flush)
     plain_ms = device_ms(plain, 3, flush)
-    t = mops[0]
-    bound, by = mpdata_bound(cfg, t.numel(), t.element_size(), t.dtype)
+    item = t.element_size()
+    bound, by = mpdata_bound(cfg, t.numel(), item, t.dtype)
+    old = mpdata_work_launches(cfg, t.numel(), item) / HBM_BYTES_PER_S * 1e3
     say(tag, kernel=key, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.3f}",
         bound_ms=f"{bound:.5f}", bound_by=by,
-        device_launches=2 * cfg.nitera - 1, points=t.numel())
+        launch_count_bound_ms=f"{old:.5f}", device_launches=launched,
+        tile=f"{plan.ti}x{plan.tj}", threads=plan.threads,
+        halo=plan.halos[0],
+        group=plan.group, groups=",".join(map(str, plan.groups)),
+        chunks=plan.chunks, launch_blocks=plan.blocks,
+        registers=info["registers"], dynamic_smem=info["dynamic_smem"],
+        blocks_per_sm=info["blocks_per_sm"],
+        spill_bytes=info["spill_bytes"], points=t.numel())
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=by)
+                bound_by=by, registers=info["registers"],
+                dynamic_smem=info["dynamic_smem"])
+
+
+# MPDATA's kernel at the edges of its plan (tests/test_torch_cuda.py's
+# MPDATA cases): grids no tile divides, every nitera up to the phase ring's
+# 8 (8 chains two launches in both dtypes), fields that cross value_min,
+# and every block of a 2x4 mesh
+MPDATA_EDGE_SHAPES = ((33, 65, 9), (257, 131, 31))
+MPDATA_EDGE_NITERA = (1, 2, 3, 4, 8)
+MPDATA_EDGE_MESH = (32, 48, 6)
+
+
+def mpdata_edges_phase() -> None:
+    """``phases.mpdata`` against ``mpdata_plain`` on the card, bit for bit
+    and with the plan's launches, on the operands of float64 seamount runs
+    (two steps, then seeded perturbations; T positive): at
+    MPDATA_EDGE_SHAPES for each nitera of MPDATA_EDGE_NITERA in float64
+    and float32, on the first shape also T and S that cross value_min, and
+    every block of MPDATA_EDGE_MESH on 2x4 (tracer's block calls of its
+    third step), held on the block's own cells."""
+    from extpom_tpu_torch import kernels
+    from extpom_tpu_torch.cases.seamount import seamount_model
+    from extpom_tpu_torch.kernels import phases
+    from extpom_tpu_torch.mesh.shardmap import Mesh
+    from extpom_tpu_torch.ops.stencil import domain_of
+
+    def held(g, cfg, ops, off=None, trim=lambda x: x) -> str:
+        name = "phase_tracer_mpdata" + ("" if off is None else "_mesh")
+        plan = phases.mpdata_launch_plan(cfg, ops[0], off is not None)
+        before = kernels.LAUNCHES[name]
+        got = phases.mpdata(g, cfg, *ops, off=off)
+        if kernels.LAUNCHES[name] - before != plan.launches:
+            raise AssertionError(f"mpdata_edges: {name} launched "
+                                 f"{kernels.LAUNCHES[name] - before}, the "
+                                 f"plan {plan.launches}")
+        with domain_of(cfg, off):
+            want = phases.mpdata_plain(g, cfg, *ops)
+        for f, a, b in zip(("ff_t", "ff_s"), got, want):
+            if not torch.equal(trim(a), trim(b)):
+                raise AssertionError(f"mpdata_edges: {f} differs at nitera "
+                                     f"{cfg.nitera}, {ops[0].dtype}, shape "
+                                     f"{tuple(a.shape)}, off {off}")
+        return "+".join(map(str, plan.groups))
+
+    def operands(st, g, rng, cutoff=False) -> list:
+        noise = lambda x, s: x + s * torch.from_numpy(
+            rng.standard_normal(tuple(x.shape))).to(x)
+        t, tb, s_, sb = noise(st.t, 0.1) + 20.0, st.tb + 20.0, \
+            noise(st.s, 0.01), st.sb
+        if cutoff:
+            r = rng.random((2,) + tuple(st.t.shape))
+            fb = torch.from_numpy(np.where(r[0] < 0.3, 0.0, r[1])).to(st.t)
+            t, tb, s_, sb = fb, fb, 2.0 * fb, 2.0 * fb
+        return [t, tb, s_, sb, noise(st.u, 0.05), noise(st.v, 0.05),
+                noise(st.w, 1e-5), g.h + st.et, st.etb, noise(st.et, 1e-3)]
+
+    for shape in MPDATA_EDGE_SHAPES:
+        im, jm, kb = shape
+        m = seamount_model(im=im, jm=jm, kb=kb, dtype="float64")
+        m.run_segment(2)
+        rng = np.random.default_rng(3)
+        cases = [("tracers", operands(m.state, m.grid, rng))]
+        if shape == MPDATA_EDGE_SHAPES[0]:
+            cases.append(("value_min", operands(m.state, m.grid, rng, True)))
+        for field, ops in cases:
+            for dtype in (torch.float64, torch.float32):
+                g = cast(m.grid, dtype)
+                groups = [held(g, m.cfg.replace(
+                    dtype=str(dtype).split(".")[1], nadv=2, nitera=n),
+                    [cast(x, dtype) for x in ops])
+                    for n in MPDATA_EDGE_NITERA]
+                say("mpdata_edges", grid=f"{im}x{jm}x{kb}", field=field,
+                    dtype=str(dtype).split(".")[1],
+                    nitera=",".join(map(str, MPDATA_EDGE_NITERA)),
+                    launches_of_steps=",".join(groups), bit_equal=True)
+    im, jm, kb = MPDATA_EDGE_MESH
+    m = seamount_model(im=im, jm=jm, kb=kb, dtype="float64",
+                       isplit=6).shard(Mesh(2, 4))
+    m.run_segment(2)
+    calls = record_calls(lambda: m.run_segment(1), ("tracer",))["tracer"]
+    for dtype in (torch.float64, torch.float32):
+        for n in MPDATA_EDGE_NITERA:
+            for args, kw in calls:
+                g, cfg, t, tb, s_, sb, _, _, u, v, w, _, _, dt, etb, etf = \
+                    args[:16]
+                ops = [cast(x, dtype) for x in (t + 20.0, tb + 20.0, s_, sb,
+                                                u, v, w, dt, etb, etf)]
+                held(cast(g, dtype), cfg.replace(
+                    dtype=str(dtype).split(".")[1], nadv=2, nitera=n), ops,
+                    kw["off"], lambda x: trim_to(m.blocks, x))
+        say("mpdata_edges", grid=f"{im}x{jm}x{kb}", mesh="2x4",
+            blocks=len(calls), dtype=str(dtype).split(".")[1],
+            nitera=",".join(map(str, MPDATA_EDGE_NITERA)), bit_equal=True)
 
 
 def mpdata_operands(rest) -> tuple:
@@ -4056,6 +4199,7 @@ def main() -> int:
     opt_launches, m = options_phase(card)
     del m
     opt_k = options_kernels(flush)
+    mpdata_edges_phase()
     opt_mesh_launches, opt_mesh_k = options_mesh_phase(card, flush)
     fr_launches, fr_k, fr_end = file_restore_phase(card, flush)
     frm_launches, frm_k = file_restore_mesh_phase(card, flush, fr_end)
@@ -4186,16 +4330,16 @@ def main() -> int:
         ("phase_lat_npg2", "lat", "options_256", opt_k["lat"],
          "extpom_tpu/pallas/phases.py:803"),
         ("phase_tracer_options", "tracer", "options_256", opt_k["tracer"],
-         "extpom_tpu/pallas/phases.py:770"),
-        ("phase_tracer_mpdata", "tracer", "options_256", opt_k["mpdata"],
-         "extpom_tpu/pallas/phases.py:770"),
+         "extpom_tpu/pallas/phases.py:771"),
+        ("phase_tracer_mpdata", "mpdata", "options_256", opt_k["mpdata"],
+         "extpom_tpu/pallas/phases.py:771"),
         ("phase_mom_file", "mom", "file_restore_512", fr_k["mom"],
          "extpom_tpu/pallas/phases.py:823"),
         ("phase_lat_npg2_mesh", "lat", "options_mesh_256", opt_mesh_k["lat"],
          "extpom_tpu/pallas/phases.py:904"),
         ("phase_tracer_options_mesh", "tracer", "options_mesh_256",
          opt_mesh_k["tracer"], "extpom_tpu/pallas/phases.py:904"),
-        ("phase_tracer_mpdata_mesh", "tracer", "options_mesh_256",
+        ("phase_tracer_mpdata_mesh", "mpdata", "options_mesh_256",
          opt_mesh_k["mpdata"], "extpom_tpu/pallas/phases.py:904"),
         ("phase_mom_file_mesh", "mom", "file_restore_mesh_512",
          frm_k["mom"], "extpom_tpu/pallas/phases.py:904"))

@@ -53,11 +53,9 @@
 //   * MPDATA (nadv=2, ops/tracers.py:advt2) does not fit the tile's single
 //     upward sweep: each of its nitera upstream steps couples level k with
 //     k-1 and k+1 and widens the horizontal reach by a cell.  Its steps run
-//     first as launches of their own over the whole grid (or block), one
-//     thread per point and T and S in each launch, into device scratch
-//     (k_mpdata_upwind: the upstream step and smol_adif's fsm mask;
-//     k_mpdata_adif: the antidiffusive velocities, between two steps: the
-//     last step's are read by nothing).  The tile then takes the field of
+//     first in launches of their own over the whole grid (or block),
+//     phase_mpdata.cu's k_mpdata_tile, all nitera steps in one launch where
+//     they fit.  The tile then takes the field of
 //     the last step (mt, ms) in place of advt1's and forms only the closing
 //     climatology-deviation diffusion from its staged planes (fb - fclim,
 //     aam and the 2-D window); the ghost level kb-1 and the edge columns
@@ -68,11 +66,6 @@
 //     the restored t and s; taurstr may be one broadcast value.
 //
 // Where an off-by-one would hide:
-//   * MPDATA's work field starts as fb with its ghost level, not zeros
-//     (tracers.py:182); the first step alone has eta = etb and the surface
-//     flux w[0] f[0] art; smol_adif masks the whole field by fsm before its
-//     x (k < kbm1, i 1.., j 1..jm-2), y (i 1..im-2, j 1..) and z (1 <= k <
-//     kbm1, interior) regions;
 //   * advt1's ghost bottom layer (tracers.py:65-66) is never read by the
 //     levels k < kbm1 it commits; the k=0 zflux is f[0] w[0] art
 //     (tracers.py:75);
@@ -705,229 +698,6 @@ __global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 4 ? 2 : 1)
   }
 }
 
-// ---- MPDATA's upstream steps (ops/tracers.py:advt2 before its closing
-// diffusion; mpdata_upwind, smol_adif) ----------------------------------
-
-template <typename T, bool O>
-struct Mpd {
-  const T *t, *s, *tb, *sb, *u, *v, *w, *dt, *etb, *etf;  // 3-D, then 2-D
-  const T *h, *dx, *dy, *art, *aru, *arv, *fsm;           // (im, jm)
-  const T *dz, *dzz;                                      // (kb,)
-  // the field of the previous step of T and S (null in the first step:
-  // fb with its ghost level); the field this step writes (upwind)
-  const T* fin[2];
-  T* fout[2];
-  // xm, ym, zw of T, then of S (read from the formula and w in the first
-  // step's antidiffusion, which writes them)
-  T* flux[6];
-  GeomT<O> g;
-  int kbm1;
-  bool first;
-  T dti2, sw, vmin, eps;
-};
-
-template <typename T, bool O>
-struct MpdPoint {
-  const Mpd<T, O>& m;
-  int c;  // tracer
-
-  __device__ bool in(int i, int j) const {
-    return i >= 0 && i < m.g.im && j >= 0 && j < m.g.jm;
-  }
-  __device__ long at(int k, int i, int j) const {
-    return k * m.g.n + (long)i * m.g.jm + j;
-  }
-  // the step's input field, 0 outside the array
-  __device__ T fbmem(int k, int i, int j) const {
-    if (k < 0 || k >= m.g.kb || !in(i, j)) return T(0);
-    if (!m.first) return m.fin[c][at(k, i, j)];
-    const T* fb = c ? m.sb : m.tb;
-    return fb[at(k == m.g.kb - 1 ? m.g.kb - 2 : k, i, j)];
-  }
-  // the x mass flux (k, i, j) in the array
-  __device__ T xm(int k, int i, int j) const {
-    if (!m.first) return m.flux[3 * c][at(k, i, j)];
-    const auto& g = m.g;
-    const int gi = g.gi(i), gj = g.gj(j);
-    if (k >= m.kbm1 || gi < 1 || gj < 1 || gj > g.GJ() - 2) return T(0);
-    const long p = (long)i * g.jm + j;
-    return T(0.25) * (extpom::ld2(m.dy, g, i - 1, j) + m.dy[p]) *
-           (extpom::ld2(m.dt, g, i - 1, j) + m.dt[p]) * m.u[at(k, i, j)];
-  }
-  __device__ T ym(int k, int i, int j) const {
-    if (!m.first) return m.flux[3 * c + 1][at(k, i, j)];
-    const auto& g = m.g;
-    const int gi = g.gi(i), gj = g.gj(j);
-    if (k >= m.kbm1 || gj < 1 || gi < 1 || gi > g.GI() - 2) return T(0);
-    const long p = (long)i * g.jm + j;
-    return T(0.25) * (extpom::ld2(m.dx, g, i, j - 1) + m.dx[p]) *
-           (extpom::ld2(m.dt, g, i, j - 1) + m.dt[p]) * m.v[at(k, i, j)];
-  }
-  __device__ T zw(int k, int i, int j) const {
-    return m.first ? m.w[at(k, i, j)] : m.flux[3 * c + 2][at(k, i, j)];
-  }
-  // the upwind fluxes across the x face of (k, i, j) (region k < kbm1,
-  // i 1.., j 1..; 0 outside the array)
-  __device__ T xflux(int k, int i, int j) const {
-    if (!in(i, j) || k >= m.kbm1 || m.g.gi(i) < 1 || m.g.gj(j) < 1)
-      return T(0);
-    const T x = xm(k, i, j);
-    return T(0.5) * ((x + fabs(x)) * fbmem(k, i - 1, j) +
-                     (x - fabs(x)) * fbmem(k, i, j));
-  }
-  __device__ T yflux(int k, int i, int j) const {
-    if (!in(i, j) || k >= m.kbm1 || m.g.gi(i) < 1 || m.g.gj(j) < 1)
-      return T(0);
-    const T y = ym(k, i, j);
-    return T(0.5) * ((y + fabs(y)) * fbmem(k, i, j - 1) +
-                     (y - fabs(y)) * fbmem(k, i, j));
-  }
-  // the vertical flux at the top face of level k of an interior column
-  __device__ T zflux(int k, int i, int j, T art) const {
-    if (k == 0) {
-      if (!m.first) return T(0);
-      const long q = at(0, i, j);
-      return m.w[q] * (c ? m.s : m.t)[q] * art;
-    }
-    if (k >= m.kbm1) return T(0);
-    const T z = zw(k, i, j);
-    return T(0.5) * ((z + fabs(z)) * fbmem(k, i, j) +
-                     (z - fabs(z)) * fbmem(k - 1, i, j)) *
-           art;
-  }
-};
-
-// One point (k, i, j) per thread, T and S: the upstream step into fout,
-// times fsm (the mask smol_adif applies first)
-template <typename T, bool O>
-__global__ void k_mpdata_upwind(Mpd<T, O> m) {
-  const auto& g = m.g;
-  const long e = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= g.kb * g.n) return;
-  const int k = (int)(e / g.n);
-  const long p = e % g.n;
-  const int i = (int)(p / g.jm), j = (int)(p % g.jm);
-  const int gi = g.gi(i), gj = g.gj(j);
-  const bool interior = k < m.kbm1 && gi >= 1 && gi <= g.GI() - 2 &&
-                        gj >= 1 && gj <= g.GJ() - 2;
-  const T fsm = m.fsm[p];
-  for (int c = 0; c < 2; ++c) {
-    const MpdPoint<T, O> pt{m, c};
-    const T fb = pt.fbmem(k, i, j);
-    T f = fb;
-    if (interior) {
-      const T art = m.art[p], h = m.h[p];
-      const T eta = m.first ? m.etb[p] : m.etf[p];
-      T ff = pt.xflux(k, i + 1, j) - pt.xflux(k, i, j) +
-             pt.yflux(k, i, j + 1) - pt.yflux(k, i, j) +
-             (pt.zflux(k, i, j, art) - pt.zflux(k + 1, i, j, art)) /
-                 m.dz[k];
-      f = (fb * (h + eta) * art - m.dti2 * ff) / ((h + m.etf[p]) * art);
-    }
-    m.fout[c][e] = f * fsm;
-  }
-}
-
-// One point (k, i, j) per thread, T and S: smol_adif's antidiffusive
-// velocities from the masked field fin, in place of the old ones (read
-// from the formula and w in the first step)
-template <typename T, bool O>
-__global__ void k_mpdata_adif(Mpd<T, O> m) {
-  const auto& g = m.g;
-  const long e = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= g.kb * g.n) return;
-  const int k = (int)(e / g.n);
-  const long p = e % g.n;
-  const int i = (int)(p / g.jm), j = (int)(p % g.jm);
-  const int gi = g.gi(i), gj = g.gj(j), GI = g.GI(), GJ = g.GJ();
-  const T dt = m.dt[p];
-  for (int c = 0; c < 2; ++c) {
-    const MpdPoint<T, O> pt{m, c};
-    const T* F = m.fin[c];
-    const T f = F[e];
-    auto ok = [&](T a, T b) { return f < m.vmin || a < m.vmin || b; };
-    // x, region k < kbm1, i 1.., j 1..jm-2
-    T x = pt.xm(k, i, j);
-    if (k < m.kbm1 && gi >= 1 && gj >= 1 && gj <= GJ - 2) {
-      const T fw = extpom::ld3(F, g, k, i - 1, j);
-      const T udx = fabs(x);
-      const T u2dt = m.dti2 * x * x * T(2) /
-                     (m.aru[p] * (extpom::ld2(m.dt, g, i - 1, j) + dt));
-      const T mol = (f - fw) / (fw + f + m.eps);
-      x = ok(fw, udx < u2dt) ? T(0) : (udx - u2dt) * mol * m.sw;
-    }
-    // y, region k < kbm1, i 1..im-2, j 1..
-    T y = pt.ym(k, i, j);
-    if (k < m.kbm1 && gj >= 1 && gi >= 1 && gi <= GI - 2) {
-      const T fs = extpom::ld3(F, g, k, i, j - 1);
-      const T vdy = fabs(y);
-      const T v2dt = m.dti2 * y * y * T(2) /
-                     (m.arv[p] * (extpom::ld2(m.dt, g, i, j - 1) + dt));
-      const T mol = (f - fs) / (fs + f + m.eps);
-      y = ok(fs, vdy < v2dt) ? T(0) : (vdy - v2dt) * mol * m.sw;
-    }
-    // z, region 1 <= k < kbm1 of the interior
-    T z = pt.zw(k, i, j);
-    if (k >= 1 && k < m.kbm1 && gi >= 1 && gi <= GI - 2 && gj >= 1 &&
-        gj <= GJ - 2) {
-      const T fu = F[e - g.n];
-      const T wdz = fabs(z);
-      const T w2dt = m.dti2 * z * z / m.dzz[k - 1] / dt;
-      const T mol = (fu - f) / (f + fu + m.eps);
-      z = ok(fu, wdz < w2dt) ? T(0) : (wdz - w2dt) * mol * m.sw;
-    }
-    m.flux[3 * c][e] = x;
-    m.flux[3 * c + 1][e] = y;
-    m.flux[3 * c + 2][e] = z;
-  }
-}
-
-constexpr int kMpdPointers = 29;
-constexpr int kMpdThreads = 256;
-
-// ptr: t, s, tb, sb, u, v, w, dt, etb, etf, h, dx, dy, art, aru, arv, fsm,
-// dz, dzz, the field of T and S in (null in the first upwind step), the
-// field of T and S out (upwind; null for adif), the six mass fluxes;
-// adif 0: the upstream step, 1: the antidiffusive velocities
-template <typename T, bool O>
-int run_mpdata(void* const* ptr, const double* prm, int kb, int im, int jm,
-               int R, int L, int oi, int oj, int adif, int first,
-               void* stream) {
-  Mpd<T, O> m;
-  int k = 0;
-#define NEXT(f) m.f = (decltype(m.f))ptr[k++]
-  NEXT(t); NEXT(s); NEXT(tb); NEXT(sb); NEXT(u); NEXT(v); NEXT(w); NEXT(dt);
-  NEXT(etb); NEXT(etf);
-  NEXT(h); NEXT(dx); NEXT(dy); NEXT(art); NEXT(aru); NEXT(arv); NEXT(fsm);
-  NEXT(dz); NEXT(dzz);
-  NEXT(fin[0]); NEXT(fin[1]); NEXT(fout[0]); NEXT(fout[1]);
-  for (int f = 0; f < 6; ++f) NEXT(flux[f]);
-#undef NEXT
-  if (k != kMpdPointers || kb < 4) return (int)cudaErrorInvalidValue;
-  for (int f = 0; f < 6; ++f)
-    if (m.flux[f] == nullptr) return (int)cudaErrorInvalidValue;
-  if (adif ? (m.fin[0] == nullptr || m.fin[1] == nullptr)
-           : (m.fout[0] == nullptr || m.fout[1] == nullptr ||
-              (!first && (m.fin[0] == nullptr || m.fin[1] == nullptr))))
-    return (int)cudaErrorInvalidValue;
-  m.g = extpom::geometry<O>(kb, im, jm, R, L, oi, oj, 0);
-  m.kbm1 = kb - 1;
-  m.first = first != 0;
-  // prm: dti2, sw, value_min, epsilon
-  m.dti2 = T(prm[0]);
-  m.sw = T(prm[1]);
-  m.vmin = T(prm[2]);
-  m.eps = T(prm[3]);
-  const long pts = (long)kb * m.g.n;
-  const int blocks = (int)((pts + kMpdThreads - 1) / kMpdThreads);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (adif)
-    k_mpdata_adif<T, O><<<blocks, kMpdThreads, 0, st>>>(m);
-  else
-    k_mpdata_upwind<T, O><<<blocks, kMpdThreads, 0, st>>>(m);
-  return (int)cudaGetLastError();
-}
-
 constexpr int kPointers = 51;
 constexpr int kEdgeThreads = 128;
 
@@ -1074,38 +844,6 @@ extern "C" int extpom_phase_tracer_mesh_f64(void* const* ptr,
                                             void* stream) {
   return run<double, true>(ptr, prm, kb, im, jm, R, L, oi, oj, nbct, nbcs, TI,
                            TJ, grid, stream);
-}
-
-// MPDATA's steps: adif 0 the upstream step, 1 the antidiffusive velocities;
-// first: the first step
-extern "C" int extpom_phase_tracer_mpdata_f32(void* const* ptr,
-                                              const double* prm, int kb,
-                                              int im, int jm, int adif,
-                                              int first, void* stream) {
-  return run_mpdata<float, false>(ptr, prm, kb, im, jm, im, jm, 0, 0, adif,
-                                  first, stream);
-}
-
-extern "C" int extpom_phase_tracer_mpdata_f64(void* const* ptr,
-                                              const double* prm, int kb,
-                                              int im, int jm, int adif,
-                                              int first, void* stream) {
-  return run_mpdata<double, false>(ptr, prm, kb, im, jm, im, jm, 0, 0, adif,
-                                   first, stream);
-}
-
-extern "C" int extpom_phase_tracer_mpdata_mesh_f32(
-    void* const* ptr, const double* prm, int kb, int im, int jm, int R, int L,
-    int oi, int oj, int adif, int first, void* stream) {
-  return run_mpdata<float, true>(ptr, prm, kb, im, jm, R, L, oi, oj, adif,
-                                 first, stream);
-}
-
-extern "C" int extpom_phase_tracer_mpdata_mesh_f64(
-    void* const* ptr, const double* prm, int kb, int im, int jm, int R, int L,
-    int oi, int oj, int adif, int first, void* stream) {
-  return run_mpdata<double, true>(ptr, prm, kb, im, jm, R, L, oi, oj, adif,
-                                  first, stream);
 }
 
 // registers, static and dynamic shared bytes, resident blocks per SM,

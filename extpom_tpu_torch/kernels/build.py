@@ -69,13 +69,17 @@ SIGNATURES = {
     # blocks; stream
     **{f"extpom_phase_{ph}_mesh_{t}": [_P, _P] + [_I] * 12 + [_P]
        for ph in TILED for t in ("f32", "f64")},
-    # MPDATA's steps of the tracer phase (csrc/phase_tracer.cu): pointer
-    # table, parameter table; kb, im, jm, adif, first; stream; on a block
-    # kb, im, jm, R, L, oi, oj, adif, first; stream
-    **{f"extpom_phase_tracer_mpdata_{t}": [_P, _P] + [_I] * 5 + [_P]
+    # MPDATA's steps of the tracer phase (csrc/phase_mpdata.cu): pointer
+    # table, parameter table; kb, im, jm, steps in the launch, threads, TI,
+    # TJ, chunks of levels; stream; on a block kb, im, jm, R, L, oi, oj,
+    # steps, threads, TI, TJ, chunks; stream
+    **{f"extpom_phase_tracer_mpdata_{t}": [_P, _P] + [_I] * 8 + [_P]
        for t in ("f32", "f64")},
-    **{f"extpom_phase_tracer_mpdata_mesh_{t}": [_P, _P] + [_I] * 9 + [_P]
+    **{f"extpom_phase_tracer_mpdata_mesh_{t}": [_P, _P] + [_I] * 12 + [_P]
        for t in ("f32", "f64")},
+    # f64, block variant, steps, halo, threads, dynamic shared bytes; the
+    # six ints of column.cuh tile_info
+    "extpom_phase_tracer_mpdata_info": [_I] * 6 + [_P],
     # f64, block variant, TI, TJ, kb, keep (bit 0: mom's and uvw's keep,
     # tke's and tracer's orlanski variant; bit 1: lat's and tracer's option
     # variant); the six ints of column.cuh tile_info

@@ -710,14 +710,153 @@ def mpdata_radius(cfg: Config) -> int:
     return max(cfg.nitera, 1)
 
 
+# the tile (TI, TJ) of csrc/phase_mpdata.cu by itemsize (its kTileI,
+# kTileJ: compiled in)
+MPDATA_TILE = {4: (16, 32), 8: (8, 32)}
+# the resident blocks the planner counts on where the card has not said
+# (two blocks of the f32 kernel fit an SM, by its launch bounds and shared
+# memory; one of the f64), and the SMs (H100 SXM)
+MPDATA_RESIDENT = {4: 2, 8: 1}
+H100_SMS = 132
+_MPDATA_LAYOUT = ("kInRing", "kInVelRing", "kFieldRing", "kVelRing", "k2D",
+                  "kTable", "kMaxGroup", "kMaxHalo", "kMaxThreads")
+
+
+@functools.lru_cache(maxsize=None)
+def mpdata_layout() -> dict:
+    """The constants that size the MPDATA kernel's shared memory, read from
+    ``csrc/phase_mpdata.cu``: the levels of the input field's ring
+    (kInRing), of the input velocities' rings (kInVelRing), of a step's
+    field (kFieldRing) and velocities (kVelRing), the 2-D planes (k2D), the
+    32-bit planes of the cell table (kTable), the most steps a launch
+    chains (kMaxGroup), the widest halo compiled (kMaxHalo) and
+    kMaxThreads."""
+    src = (build.CSRC / "phase_mpdata.cu").read_text()
+    return {name: int(re.search(rf"constexpr int {name} = (\d+);",
+                                src).group(1)) for name in _MPDATA_LAYOUT}
+
+
+def _mpdata_smem(steps: int, halo: int, ti: int, tj: int, item: int) -> int:
+    """Shared bytes of a launch of ``steps`` steps with ``halo``: the planes
+    of the kernel's ``planes(ns)`` and its cell table over the
+    (ti + 2 halo) x (tj + 2 halo) box (``smem_bytes``)."""
+    c = mpdata_layout()
+    planes = (c["kInRing"] + 3 * c["kInVelRing"] + c["kFieldRing"] * steps
+              + 3 * c["kVelRing"] * (steps - 1) + c["k2D"])
+    return (ti + 2 * halo) * (tj + 2 * halo) * (planes * item
+                                                + 4 * c["kTable"])
+
+
+class MpdataPlan(NamedTuple):
+    """The launches of MPDATA's steps on (kb, R, L) operands: TI x TJ tiles
+    of ``threads`` threads, ``groups`` steps per launch in order and the
+    halo of each (``halos``; the first launch is the longest and widest),
+    the shared bytes per block of the widest (``smem``), the most steps one
+    launch chains (``group``, G), the launches per tracer phase, the chunks
+    of levels each column is cut into and the blocks of each launch (tiles
+    x chunks, for T and for S)."""
+    ti: int
+    tj: int
+    threads: int
+    groups: tuple
+    halos: tuple
+    group: int
+    smem: int
+    launches: int
+    chunks: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=None)
+def mpdata_plan(nitera: int, dtype: torch.dtype, kb: int, R: int, L: int,
+                threads=None, chunks=None, slots=None) -> MpdataPlan:
+    """How ``csrc/phase_mpdata.cu`` runs ``nitera`` upstream steps on
+    (kb, R, L) operands in ``dtype``, on the tiles of :data:`MPDATA_TILE`.
+    A launch of n steps has a halo of n cells (n + 1 where another launch
+    follows: its last step's velocities read that step's field at i-1 and
+    j-1); G is the most steps (at most kMaxGroup, halos up to kMaxHalo)
+    whose launch fits a block's shared memory, and the ``nitera`` steps run
+    as the fewest launches of at most G steps, the longer ones first.
+    ``threads`` is by default one per cell of the first step's domain (the
+    first launch's box less a cell each side), at most kMaxThreads.  Unless
+    ``chunks`` says, each column is cut into the chunks of levels that
+    minimise the waves of blocks times the levels a block walks (its chunk,
+    widened by the halo), where ``slots`` blocks run at once (the card's
+    resident blocks per SM times its SMs; :data:`MPDATA_RESIDENT` on an
+    H100 by default): the whole column where the tiles fill the card, more
+    chunks where they leave SMs idle.  Raises ValueError where one step
+    does not fit."""
+    item = torch.finfo(dtype).bits // 8
+    ti, tj = MPDATA_TILE[item]
+    c = mpdata_layout()
+    nitera = max(int(nitera), 1)
+    fits = lambda n, halo: (halo <= c["kMaxHalo"] and
+                            _mpdata_smem(n, halo, ti, tj, item) <= SMEM_BYTES)
+    g = 0
+    for n in range(1, min(nitera, c["kMaxGroup"]) + 1):
+        if fits(n, n) and (n == nitera or fits(n, n + 1)):
+            g = n
+    if g == 0:
+        raise ValueError(f"mpdata_plan: one step of a {ti}x{tj} tile in "
+                         f"{dtype} does not fit a block's shared memory")
+    count = -(-nitera // g)
+    groups = tuple(nitera // count + (k < nitera % count)
+                   for k in range(count))
+    halos = [n + (k + 1 < count) for k, n in enumerate(groups)]
+    smem = max(_mpdata_smem(n, h, ti, tj, item)
+               for n, h in zip(groups, halos))
+    # a thread per cell of the first step's domain (the box less a cell
+    # each side), as far as a block takes them
+    box1 = (ti + 2 * halos[0] - 2) * (tj + 2 * halos[0] - 2)
+    threads = threads or min(-(-box1 // 32) * 32, c["kMaxThreads"])
+    if threads % 32 or not 32 <= threads <= c["kMaxThreads"]:
+        raise ValueError(f"mpdata_plan: {threads} threads; a block takes a "
+                         f"multiple of 32 up to {c['kMaxThreads']}")
+    tiles = 2 * -(-R // ti) * -(-L // tj)
+    if chunks is None:
+        slots = slots or MPDATA_RESIDENT[item] * H100_SMS
+        walk = lambda k: (-(-tiles * k // slots)
+                          * (-(-kb // k) + max(halos) + max(groups)))
+        chunks = min(range(1, kb + 1), key=walk)
+    chunks = max(1, min(int(chunks), kb))
+    return MpdataPlan(ti, tj, threads, groups, tuple(halos), g, smem, count,
+                      chunks, tiles * chunks)
+
+
+@functools.lru_cache(maxsize=None)
+def _mpdata_info(f64: bool, mesh: bool, steps: int, halo: int,
+                 threads: int, smem: int, device: int) -> dict:
+    out = (ctypes.c_int * 6)()
+    with torch.cuda.device(device):
+        status = build.library().extpom_phase_tracer_mpdata_info(
+            int(f64), int(mesh), steps, halo, threads, smem,
+            ctypes.cast(out, ctypes.c_void_p))
+    build.check(status, "phase_tracer_mpdata info")
+    return dict(zip(("registers", "static_smem", "dynamic_smem",
+                     "blocks_per_sm", "spill_bytes", "sms"), out))
+
+
+def mpdata_info(dtype: torch.dtype, plan: MpdataPlan, mesh: bool = False,
+                device=None) -> dict:
+    """What the compiler and the card give the MPDATA kernel under
+    ``plan`` (the instantiation of its first launch, the longest and
+    widest, at the plan's shared memory): registers, static and dynamic
+    shared bytes, resident blocks per SM, spill bytes, SMs.  Builds the
+    kernels; needs a CUDA device."""
+    device = torch.device("cuda" if device is None else device)
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return dict(_mpdata_info(dtype == torch.float64, mesh, plan.groups[0],
+                             plan.halos[0], plan.threads, plan.smem, index))
+
+
 def mpdata(grid, cfg: Config, t, tb, s, sb, u, v, w, dt, etb, etf,
-           off=None) -> tuple:
+           off=None, plan=None) -> tuple:
     """The ``nitera`` MPDATA upstream steps of T and S (``ops/tracers.py:
     advt2`` before its closing diffusion) -> (F_t, F_s), ff after the last
-    step's fsm mask.  CUDA tensors launch ``csrc/phase_tracer.cu``'s
-    ``k_mpdata_upwind`` per step and ``k_mpdata_adif`` between steps (the
-    last step's antidiffusive velocities are read by nothing), T and S in
-    each launch: 2 nitera - 1 launches counted under
+    step's fsm mask.  CUDA tensors launch ``csrc/phase_mpdata.cu``'s
+    ``k_mpdata_tile`` as ``plan`` (:func:`mpdata_plan`'s by default) says,
+    one launch per group of steps, T and S in each, counted under
     ``phase_tracer_mpdata`` (``_mesh`` on a block); CPU tensors run
     :func:`mpdata_plain`.  ``off`` as the phases'."""
     if t.device.type == "cpu":
@@ -727,7 +866,7 @@ def mpdata(grid, cfg: Config, t, tb, s, sb, u, v, w, dt, etb, etf,
     if off is None:
         kernels.whole_grid_only(cfg, "mpdata")
     return _mpdata_launch(grid, cfg, t, tb, s, sb, u, v, w, dt, etb, etf,
-                          off)
+                          off, plan)
 
 
 def mpdata_plain(grid, cfg: Config, t, tb, s, sb, u, v, w, dt, etb,
@@ -738,24 +877,44 @@ def mpdata_plain(grid, cfg: Config, t, tb, s, sb, u, v, w, dt, etb,
                                       etf)[0] for f, fb in ((t, tb), (s, sb)))
 
 
+def mpdata_launch_plan(cfg: Config, t: torch.Tensor,
+                       mesh: bool = False) -> MpdataPlan:
+    """The plan :func:`mpdata` launches on CUDA operands like ``t`` (on a
+    block when ``mesh``): its chunks from the blocks the card holds at
+    once."""
+    plan = mpdata_plan(cfg.nitera, t.dtype, *t.shape, chunks=1)
+    info = mpdata_info(t.dtype, plan, mesh, t.device)
+    return mpdata_plan(cfg.nitera, t.dtype, *t.shape,
+                       slots=max(info["blocks_per_sm"], 1) * info["sms"])
+
+
+def mpdata_inputs(grid, t, tb, s, sb, u, v, w, dt, etb, etf) -> list:
+    """The operands the MPDATA kernel reads, in its pointer-table order:
+    the 3-D fields, the ten 2-D fields (``csrc/phase_mpdata.cu``'s D*
+    order), dz and dzz; the group before's fields and velocities and the
+    outputs follow them."""
+    return [t, s, tb, sb, u, v, w, dt, grid.dx, grid.dy, grid.h, grid.art,
+            grid.aru, grid.arv, grid.fsm, etb, etf, grid.dz, grid.dzz]
+
+
 def _mpdata_launch(grid, cfg: Config, t, tb, s, sb, u, v, w, dt, etb, etf,
-                   off) -> tuple:
-    """:func:`mpdata` on CUDA tensors: the launches into fresh fields."""
-    ff = [_empty(t, 2), _empty(t, 2)]      # [step parity][tracer]
-    flux = _empty(t, 6)                    # xm, ym, zw of T, then of S
-    ins = [t, s, tb, sb, u, v, w, dt, etb, etf, grid.h, grid.dx, grid.dy,
-           grid.art, grid.aru, grid.arv, grid.fsm, grid.dz, grid.dzz]
+                   off, plan=None) -> tuple:
+    """:func:`mpdata` on CUDA tensors: a launch per group of steps, each
+    into fresh fields; a group that another follows also writes its last
+    step's velocities, which the next one reads."""
+    plan = plan or mpdata_launch_plan(cfg, t, off is not None)
+    ins = mpdata_inputs(grid, t, tb, s, sb, u, v, w, dt, etb, etf)
     prm = [cfg.dti2, cfg.sw, tracers.MPDATA_VALUE_MIN,
            tracers.MPDATA_EPSILON]
-    for it in range(cfg.nitera):
-        prev = [None, None] if it == 0 else ff[(it - 1) % 2]
-        _launch("tracer", ins + prev + ff[it % 2] + flux, prm, cfg, 0,
-                int(it == 0), off=off, entry="phase_tracer_mpdata")
-        if it + 1 < cfg.nitera:
-            _launch("tracer", ins + ff[it % 2] + [None, None] + flux, prm,
-                    cfg, 1, int(it == 0), off=off,
-                    entry="phase_tracer_mpdata")
-    return tuple(ff[(cfg.nitera - 1) % 2])
+    fin, vin = [None] * 2, [None] * 6      # the group before's
+    for k, steps in enumerate(plan.groups):
+        fout = _empty(t, 2)
+        vout = _empty(t, 6) if k + 1 < plan.launches else [None] * 6
+        _launch("tracer", ins + fin + vin + fout + vout, prm, cfg, steps,
+                plan.threads, off=off, geo=(plan.ti, plan.tj, plan.chunks),
+                entry="phase_tracer_mpdata")
+        fin, vin = fout, vout
+    return tuple(fin)
 
 
 def phase_tracer(grid, cfg: Config, t, tb, s, sb, tclim, sclim, u, v, w,

@@ -17,6 +17,7 @@ from extpom_tpu_torch.core import dispatch, stepper
 from extpom_tpu_torch.forcing import provider as prov
 from extpom_tpu_torch.kernels import extloop, extwin, phases, tridiag
 from extpom_tpu_torch.mesh.shardmap import Mesh
+from extpom_tpu_torch.ops.stencil import domain_of
 
 torch.set_num_threads(1)
 
@@ -795,7 +796,7 @@ def _hold(phase, got, want, dtype):
 def test_phase_option_kernel_matches_plain(card, phase, kw, shape, dtype):
     """Each option's kernel against its plain phase, with the launches the
     wrapper counts: one launch of the option's instantiation, under its
-    own name, and 2 nitera - 1 MPDATA launches before it."""
+    own name, and MPDATA's planned launches before it."""
     g, cfg, args = _phase_case(*shape)
     cfg = cfg.replace(dtype=str(dtype).split(".")[1], **kw)
     args = _with_options(phase, args[phase], kw)
@@ -803,7 +804,9 @@ def test_phase_option_kernel_matches_plain(card, phase, kw, shape, dtype):
     args = [_to(x, card, dtype) for x in args]
     before = dict(kernels.LAUNCHES)
     got = getattr(phases, f"phase_{phase}")(g, cfg, *args)
-    mp = 2 * cfg.nitera - 1 if cfg.nadv == 2 and phase == "tracer" else 0
+    mp = (phases.mpdata_plan(cfg.nitera, dtype, shape[2], *shape[:2])
+          .launches
+          if cfg.nadv == 2 and phase == "tracer" else 0)
     name = phases.counter(phase, cfg)
     assert name != f"phase_{phase}"
     assert kernels.LAUNCHES == {
@@ -813,24 +816,75 @@ def test_phase_option_kernel_matches_plain(card, phase, kw, shape, dtype):
     _hold(phase, got, want, dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("nitera", [1, 2, 4])
-def test_mpdata_kernels_match_plain(card, nitera, dtype):
-    """MPDATA's upstream steps on the card give mpdata_plain's bits, T and
-    S, on a ragged grid."""
-    g, cfg, args = _phase_case(33, 65, 9)
-    cfg = cfg.replace(dtype=str(dtype).split(".")[1], nadv=2, nitera=nitera)
+# grids no MPDATA tile divides (the kernel's tiles are 16x32 in f32, 8x32
+# in f64), (im, jm, kb)
+MPDATA_SHAPES = {"ragged": (33, 65, 9), "wide": (257, 131, 31)}
+MPDATA_NITERA = [1, 2, 3, 4, 8]
+
+
+def _mpdata_operands(args, cutoff=False):
+    """MPDATA's operands (t, tb, s, sb, u, v, w, dt, etb, etf) among the
+    tracer phase's, T positive; with ``cutoff`` T and S cross value_min as
+    tests/test_torch_options.py:_mpdata_inputs(cutoff=True) makes them (a
+    field in [0, 1) with 30 % of its points 0)."""
     t, tb, s, sb, _, _, u, v, w, _, _, dt, etb, etf, _ = _with_options(
-        "tracer", args["tracer"], dict(nadv=2))
-    ops = [_to(x, card, dtype) for x in (t, tb, s, sb, u, v, w, dt, etb,
-                                         etf)]
+        "tracer", args, dict(nadv=2))
+    if cutoff:
+        rng = np.random.default_rng(3)
+        fb = torch.from_numpy(np.where(rng.random(t.shape) < 0.3, 0.0,
+                                       rng.random(t.shape)))
+        t, tb, s, sb = fb, fb, 2.0 * fb, 2.0 * fb
+    return t, tb, s, sb, u, v, w, dt, etb, etf
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("nitera", MPDATA_NITERA)
+@pytest.mark.parametrize("case", ["ragged", "wide", "cutoff"])
+def test_mpdata_kernels_match_plain(card, case, nitera, dtype):
+    """MPDATA's upstream steps on the card give mpdata_plain's bits, T and
+    S, in the plan's launches (nitera 8 crosses a group boundary in both
+    dtypes): on grids no tile divides, and on fields that cross
+    value_min."""
+    shape = MPDATA_SHAPES.get(case, MPDATA_SHAPES["ragged"])
+    g, cfg, args = _phase_case(*shape)
+    cfg = cfg.replace(dtype=str(dtype).split(".")[1], nadv=2, nitera=nitera)
+    ops = [_to(x, card, dtype)
+           for x in _mpdata_operands(args["tracer"], case == "cutoff")]
     g = _to(g, card, dtype)
+    plan = phases.mpdata_launch_plan(cfg, ops[0])
+    assert sum(plan.groups) == nitera
     before = kernels.LAUNCHES["phase_tracer_mpdata"]
     got = phases.mpdata(g, cfg, *ops)
-    assert kernels.LAUNCHES["phase_tracer_mpdata"] == before + 2 * nitera - 1
+    assert (kernels.LAUNCHES["phase_tracer_mpdata"]
+            == before + plan.launches)
     want = phases.mpdata_plain(g, cfg, *ops)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("nitera", MPDATA_NITERA)
+def test_mpdata_mesh_kernels_match_plain(card, nitera, dtype):
+    """MPDATA's block variant on every ring-extended block of the 2x4 mesh
+    (each at its offset) against mpdata_plain on the block, on the
+    block's own cells, in the plan's launches."""
+    rec = _mesh_calls()
+    for (g, cfg, *args), kwb in rec["calls"]["tracer"]:
+        cfg = cfg.replace(dtype=str(dtype).split(".")[1], nadv=2,
+                          nitera=nitera)
+        ops = [_to(x, card, dtype) for x in _mpdata_operands(args)]
+        g = _to(g, card, dtype)
+        off = kwb["off"]
+        plan = phases.mpdata_launch_plan(cfg, ops[0], True)
+        before = kernels.LAUNCHES["phase_tracer_mpdata_mesh"]
+        got = phases.mpdata(g, cfg, *ops, off=off)
+        assert (kernels.LAUNCHES["phase_tracer_mpdata_mesh"]
+                == before + plan.launches)
+        with domain_of(cfg, off):
+            want = phases.mpdata_plain(g, cfg, *ops)
+        for a, b in zip(got, want):
+            assert torch.equal(_trim(rec["blocks"], a),
+                               _trim(rec["blocks"], b))
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -855,8 +909,8 @@ def test_phase_option_mesh_kernel_matches_plain(card, phase, kw, dtype):
         before = dict(kernels.LAUNCHES)
         got = getattr(phases, f"phase_{phase}")(g, cfg, *args, **kwb)
         name = f"{phases.counter(phase, cfg)}_mesh"
-        mp = 2 * cfg.nitera - 1 if cfg.nadv == 2 and phase == "tracer" \
-            else 0
+        mp = (phases.mpdata_plan(cfg.nitera, dtype, *args[0].shape)
+              .launches if cfg.nadv == 2 and phase == "tracer" else 0)
         assert kernels.LAUNCHES == {
             **before, name: before[name] + 1,
             "phase_tracer_mpdata_mesh":
@@ -880,7 +934,8 @@ def test_option_card_path_matches_cpu_path(card, kw):
     kernels.reset_launches()
     gpu.run_segment(4)
     cpu.run_segment(4)
-    mp = 3 * (2 * gpu.cfg.nitera - 1) if gpu.cfg.nadv == 2 else 0
+    mp = (3 * phases.mpdata_plan(gpu.cfg.nitera, torch.float64, 7, 33,
+                                 41).launches if gpu.cfg.nadv == 2 else 0)
     name = lambda p: phases.counter(p, gpu.cfg)
     assert kernels.LAUNCHES == {
         **{k: 0 for k in kernels.LAUNCHES}, "extloop": 4, name("lat"): 4,
