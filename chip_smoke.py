@@ -34,7 +34,8 @@ the operands of steps after the restart (``[channel_kernels]``);
 whole-grid loop and with the window kernel, to the plain path on the CPU,
 beside the plain path on the card and a one-ulp change of T.  Then the
 options: ``[orlanski]`` and ``[orlanski_mesh]`` (the main path under
-Orlanski edges), ``[basin]`` (mode 2 at 512x512x31), and the phase
+Orlanski edges), ``[basin]`` (mode 2 at 512x512x31), ``[mode2]`` (the
+main path in mode 2 under extpom edges, against the CPU), and the phase
 options of lat, tracer and mom: ``[options]`` (the main path under
 McCalpin's pressure gradient and MPDATA, 22 steps, lat, tracer and
 MPDATA's launches held to their plain versions on step 3's operands;
@@ -2337,6 +2338,8 @@ BASIN = (512, 512, 31)                              # [basin]
 BASIN_LENGTH = 1.0e6 * (BASIN[0] - 2) / 49
 BASIN_DAYS = 12.0
 BASIN_CHECK = (48, 48, 5, 200)                      # [basin_check]
+MODE2_STEPS = 20                                    # [mode2]
+MODE2_TOL = 1e-4
 ORL_MESH_STEPS = 5                                  # [orlanski_mesh]
 # flops per grid point per external substep that mode 2 adds to
 # EXTLOOP_FLOPS_PER_POINT (advection2d.py's mode-2 branch): wubot and wvbot
@@ -2741,6 +2744,50 @@ def basin_check() -> None:
         worst_rel_err=f"{worst['kernels']:.3e}",
         window_worst_rel_err=f"{worst['window']:.3e}",
         window_equal_to_loop=True, tol="1e-9")
+
+
+def mode2_check(card: str) -> None:
+    """The seamount in mode 2 (the external mode alone) at the main path's
+    256x256x31 float32 on the card, MODE2_STEPS steps of ``run_segment``
+    from a cold start: the whole-grid loop under ``extpom`` edges, its
+    flags mode 2 alone, against the same model on the CPU (the plain
+    loop).  Gates: one ``extloop`` launch a step and no other launch,
+    every field finite, each field within MODE2_TOL of its scale."""
+    from extpom_tpu_torch import kernels
+    from extpom_tpu_torch.cases.seamount import seamount_model
+    from extpom_tpu_torch.kernels import extloop
+    n = MODE2_STEPS
+    runs = {dev: seamount_model(device=dev, im=IM, jm=JM, kb=KB, mode=2)
+            for dev in ("cuda", "cpu")}
+    flags = extloop.ext_flags(runs["cuda"].cfg)
+    if flags != extloop.MODE2:
+        raise AssertionError(f"mode2: the loop's flags {flags}")
+    kernels.reset_launches()
+    lib0 = extloop.device_launches()
+    runs["cuda"].run_segment(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runs["cuda"].run_segment(n - 1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    lib = extloop.device_launches() - lib0
+    if launches != {**dict.fromkeys(launches, 0), "extloop": n} or lib != n:
+        raise AssertionError(f"mode2: launch counts {launches}, the "
+                             f"library's {lib}")
+    runs["cpu"].run_segment(n)
+    assert_finite(runs["cuda"].state, "mode2")
+    err = state_errors(runs["cuda"].state, runs["cpu"].state)
+    f = max(err, key=err.get)
+    say("mode2", grid=f"{IM}x{JM}x{KB}", dtype="float32", mode=2,
+        bc_scheme="extpom", steps=n, worst_rel_err=f"{err[f]:.3e}",
+        worst_field=f, tol=MODE2_TOL,
+        **{k: f"{err[k]:.3e}" for k in ("el", "ua", "va", "utb", "egb")},
+        ms_per_step=f"{wall / (n - 1) * 1e3:.4f}", flags=flags,
+        launches=json.dumps(launches, separators=(",", ":")),
+        device_launches=lib, card=f"'{card}'")
+    if not err[f] <= MODE2_TOL:
+        raise AssertionError(f"mode2: the card vs the CPU, {f}: {err[f]}")
 
 
 # ---- the phase options: McCalpin, MPDATA, restoring, bc_vel3d ----
@@ -3691,20 +3738,6 @@ def tolerance_phase(card: str) -> None:
                                  f"(drift, bound): {bad}")
 
 
-def breakdown_phase() -> None:
-    """``diag.profiling.step_breakdown`` at the main path's 256x256x31
-    float32 on the card: the external-only (mode 2) step against the full
-    (mode 3) step, seconds per step on the host clock after a drained
-    queue."""
-    from extpom_tpu_torch.diag import profiling
-    out = profiling.step_breakdown(im=IM, jm=JM, kb=KB, n=20,
-                                   dtype="float32")
-    say("breakdown", grid=f"{IM}x{JM}x{KB}", dtype="float32", steps=20,
-        full_step_ms=f"{out['full_step'] * 1e3:.4f}",
-        external_only_ms=f"{out['external_only'] * 1e3:.4f}",
-        internal_est_ms=f"{out['internal_est'] * 1e3:.4f}")
-
-
 # -- several processes on the one card ---------------------------------------
 
 DIST_RANKS = 2                 # [distributed], [distributed_large]
@@ -4196,6 +4229,7 @@ def main() -> int:
     basin_k = basin_kernels(m, kept, flush)
     del m, kept
     basin_check()
+    mode2_check(card)
     opt_launches, m = options_phase(card)
     del m
     opt_k = options_kernels(flush)
@@ -4208,7 +4242,6 @@ def main() -> int:
     options_check()
     file_restore_check()
     tolerance_phase(card)
-    breakdown_phase()
     # several processes last, with the parent's cached device memory freed:
     # two ranks share the card
     import gc

@@ -26,6 +26,7 @@ from extpom_tpu_torch.core.state import State, Forcing, zero_state, zero_forcing
 from extpom_tpu_torch.core import stepper
 from extpom_tpu_torch.ops import density, pressure
 from extpom_tpu_torch.diag import stats as diag_stats
+from extpom_tpu_torch.diag.profiling import host_value, span
 
 
 def _as(x, like: torch.Tensor) -> torch.Tensor:
@@ -343,25 +344,27 @@ class Model:
         """``diag.stats.domain_stats`` of the current state (or of the
         gathered ``st``) as floats; under several processes from each
         rank's blocks (``domain_stats_blocks``)."""
-        if self.world > 1:
-            s = diag_stats.domain_stats_blocks(self.blocks, self.cfg)
-        else:
+        with span("stats"):
+            if self.world > 1:     # host tensors, read in the block form
+                s = diag_stats.domain_stats_blocks(self.blocks, self.cfg)
+                return {k: float(v) for k, v in s.items()}
             s = diag_stats.domain_stats(
                 self.grid, self.cfg,
                 self.gathered_state() if st is None else st)
-        return {k: float(v) for k, v in s.items()}
+            return {k: host_value(v) for k, v in s.items()}
 
     def velocity_check(self, st: Optional[State] = None) -> tuple:
         """(max |va| as a float, (i, j) of it) of the current state (or of
         the gathered ``st``; ``diag.stats.check_velocity``), under several
         processes from each rank's blocks (``check_velocity_blocks``)."""
-        if self.world > 1:
-            vamax, (i, j) = diag_stats.check_velocity_blocks(self.blocks,
-                                                             self.cfg)
-        else:
+        with span("velocity"):
+            if self.world > 1:     # read on the host in the block form
+                vamax, ij = diag_stats.check_velocity_blocks(
+                    self.blocks, self.cfg)
+                return float(vamax), ij
             vamax, (i, j) = diag_stats.check_velocity(
                 self.cfg, (self.gathered_state() if st is None else st).va)
-        return float(vamax), (int(i), int(j))
+            return host_value(vamax), (host_value(i), host_value(j))
 
     def _device_plan(self, t0_days=None, t1_days=None):
         """The staged forcing series of a ``ForcingProvider`` forcing_fn
@@ -402,20 +405,22 @@ class Model:
         self._check_forcing()
         period = self._period()
         t0 = self.time_days
-        plan = self._device_plan(t0, t0 + n_steps * self.cfg.dti / 86400.0)
-        blocks = self._step_blocks()
-        if blocks is not None:
-            from extpom_tpu_torch.mesh import shardmap
-            shardmap.make_shardmap_run(blocks, self.cfg, period,
-                                       self.time0)(
-                self.iint, n_steps, first=(self.iint == 0), plan=plan)
-            if blocks is self._solo:
-                self.state = blocks.state[(0, 0)]
-        else:
-            self.state = stepper.run_steps(
-                self.grid, self.cfg, self.state, self.base_forcing,
-                self.rmean, self.tclim, self.sclim, self.iint, n_steps,
-                period, self.time0, first=(self.iint == 0), plan=plan)
+        with span("segment"):
+            plan = self._device_plan(t0,
+                                     t0 + n_steps * self.cfg.dti / 86400.0)
+            blocks = self._step_blocks()
+            if blocks is not None:
+                from extpom_tpu_torch.mesh import shardmap
+                shardmap.make_shardmap_run(blocks, self.cfg, period,
+                                           self.time0)(
+                    self.iint, n_steps, first=(self.iint == 0), plan=plan)
+                if blocks is self._solo:
+                    self.state = blocks.state[(0, 0)]
+            else:
+                self.state = stepper.run_steps(
+                    self.grid, self.cfg, self.state, self.base_forcing,
+                    self.rmean, self.tclim, self.sclim, self.iint, n_steps,
+                    period, self.time0, first=(self.iint == 0), plan=plan)
         self.iint += n_steps
         return self.state
 

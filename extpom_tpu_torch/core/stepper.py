@@ -24,6 +24,7 @@ import torch
 from extpom_tpu_torch.core.config import Config
 from extpom_tpu_torch.core.grid import Grid
 from extpom_tpu_torch.core.state import State, Forcing
+from extpom_tpu_torch.diag.profiling import span
 from extpom_tpu_torch.kernels import phases
 from extpom_tpu_torch.ops.stencil import domain_of, sft, put
 from extpom_tpu_torch.ops import advection2d
@@ -254,7 +255,6 @@ def mode_internal(grid: Grid, cfg: Config, st: State, fc: Forcing,
     cold start skips the 3-D block, as the reference does (advance.f:362),
     and mode 2 skips it at every step, keeping the final copies."""
     h = grid.h
-    dt = h + st.et
     etf = c.etf
     u, ub, v, vb, w = st.u, st.ub, st.v, st.vb, st.w
     t, tb, s, sb, rho = st.t, st.tb, st.s, st.sb, st.rho
@@ -263,20 +263,25 @@ def mode_internal(grid: Grid, cfg: Config, st: State, fc: Forcing,
     wubot, wvbot = c.wubot, c.wvbot
 
     if not first and cfg.mode != 2:
-        u, v, w = phases.phase_uvw(grid, cfg, u, v, w, dt, st.utb, st.vtb,
-                                   c.utf, c.vtf, st.etb, etf, st.vfluxb,
-                                   fc.vflux)
-        (q2, q2b, q2l, q2lb, km, kh, kq, l) = phases.phase_tke(
-            grid, cfg, q2, q2b, q2l, q2lb, u, v, w, aam, t, s, rho,
-            km, kh, kq, dt, st.etb, etf, wubot, wvbot, fc)
+        with span("uvw"):
+            dt = h + st.et
+            u, v, w = phases.phase_uvw(grid, cfg, u, v, w, dt, st.utb,
+                                       st.vtb, c.utf, c.vtf, st.etb, etf,
+                                       st.vfluxb, fc.vflux)
+        with span("tke"):
+            (q2, q2b, q2l, q2lb, km, kh, kq, l) = phases.phase_tke(
+                grid, cfg, q2, q2b, q2l, q2lb, u, v, w, aam, t, s, rho,
+                km, kh, kq, dt, st.etb, etf, wubot, wvbot, fc)
         if cfg.mode != 4:
-            t, tb, s, sb, rho = phases.phase_tracer(
-                grid, cfg, t, tb, s, sb, tclim, sclim, u, v, w,
-                aam, kh, dt, st.etb, etf, fc, ub=ub)
-        u, ub, v, vb, wubot, wvbot = phases.phase_mom(
-            grid, cfg, u, ub, v, vb, w, advx, advy, drhox, drhoy,
-            km, dt, c.egf, st.egb, st.etb, etf,
-            h + c.el if phases.reads_depth("mom", cfg) else None, fc)
+            with span("tracer"):
+                t, tb, s, sb, rho = phases.phase_tracer(
+                    grid, cfg, t, tb, s, sb, tclim, sclim, u, v, w,
+                    aam, kh, dt, st.etb, etf, fc, ub=ub)
+        with span("mom"):
+            u, ub, v, vb, wubot, wvbot = phases.phase_mom(
+                grid, cfg, u, ub, v, vb, w, advx, advy, drhox, drhoy,
+                km, dt, c.egf, st.egb, st.etb, etf,
+                h + c.el if phases.reads_depth("mom", cfg) else None, fc)
 
     return st.replace(
         u=u, ub=ub, v=v, vb=vb, w=w, t=t, tb=tb, s=s, sb=sb, rho=rho,
@@ -303,26 +308,31 @@ def step(grid: Grid, cfg: Config, st: State, fc: Forcing, rmean, tclim,
     if cfg.mode == 2:   # no 3-D terms (advance.f:21 skips them)
         aam, advx, advy, drhox, drhoy = st.aam, None, None, None, None
     else:
-        aam, advx, advy, drhox, drhoy = phases.phase_lat(
-            grid, cfg, st.u, st.v, st.ub, st.vb, st.aam, st.rho, rmean,
-            grid.h + st.et,
-            grid.h + st.el if phases.reads_depth("lat", cfg) else None,
-            fc.ramp)
+        with span("lat"):
+            aam, advx, advy, drhox, drhoy = phases.phase_lat(
+                grid, cfg, st.u, st.v, st.ub, st.vb, st.aam, st.rho, rmean,
+                grid.h + st.et,
+                grid.h + st.el if phases.reads_depth("lat", cfg) else None,
+                fc.ramp)
 
-    (adx2d, ady2d, drx2d, dry2d, aam2d, advua, advva, wubot, wvbot,
-     egf, utf, vtf) = mode_interaction(grid, cfg, st, aam, advx, advy,
-                                       drhox, drhoy)
-    carry0 = ExtCarry(el=st.el, elb=st.elb, ua=st.ua, uab=st.uab,
-                      va=st.va, vab=st.vab, etf=st.etf, egf=egf,
-                      utf=utf, vtf=vtf, advua=advua, advva=advva,
-                      wubot=wubot, wvbot=wvbot)
-    aux = (adx2d, ady2d, drx2d, dry2d, aam2d)
+    with span("interaction"):
+        (adx2d, ady2d, drx2d, dry2d, aam2d, advua, advva, wubot, wvbot,
+         egf, utf, vtf) = mode_interaction(grid, cfg, st, aam, advx, advy,
+                                           drhox, drhoy)
+        carry0 = ExtCarry(el=st.el, elb=st.elb, ua=st.ua, uab=st.uab,
+                          va=st.va, vab=st.vab, etf=st.etf, egf=egf,
+                          utf=utf, vtf=vtf, advua=advua, advva=advva,
+                          wubot=wubot, wvbot=wvbot)
+        aux = (adx2d, ady2d, drx2d, dry2d, aam2d)
     el = carry0.el
-    if el.is_cuda and extwin.use_windowed(cfg.im, cfg.jm, el.element_size(),
-                                          extwin.l2_bytes(el.device)):
-        carry = extwin.run_external_loop_windowed(grid, cfg, carry0, fc, aux)
-    else:
-        carry = extloop.run_external_loop(grid, cfg, carry0, fc, aux)
+    with span("external"):
+        if el.is_cuda and extwin.use_windowed(
+                cfg.im, cfg.jm, el.element_size(),
+                extwin.l2_bytes(el.device)):
+            carry = extwin.run_external_loop_windowed(grid, cfg, carry0, fc,
+                                                      aux)
+        else:
+            carry = extloop.run_external_loop(grid, cfg, carry0, fc, aux)
 
     st = mode_internal(grid, cfg, st, fc, carry, aam, advx, advy,
                        drhox, drhoy, tclim, sclim, first)
@@ -376,7 +386,8 @@ def mesh_step(blocks, cfg: Config, fc, first: bool = False) -> None:
                     for x, e in zip(vals, ext)]
             return trim(fn(blocks.grid_ext(b, hp), cfg, *args[:n],
                            off=blocks.goff(b, hp), **dict(zip(kw, args[n:]))))
-        return {b: run(b) for b in ids}
+        with span(fn.__name__.removeprefix("phase_")):
+            return {b: run(b) for b in ids}
 
     m2 = cfg.mode == 2
     lat = {}
@@ -499,14 +510,15 @@ def run_steps(grid: Grid, cfg: Config, st: State, fc: Forcing, rmean,
     from it on the device; otherwise ``fc`` is held constant."""
     from extpom_tpu_torch.forcing import device as fdev
     for n in range(n_steps):
-        i = iint0 + 1 + n
-        ramp = torch.full((), ramp_at(cfg, i, period_days, time0_days),
-                          dtype=st.dtype, device=st.el.device)
-        fc_i = fc
-        if plan is not None:
-            fc_i = fdev.forcing_at(
-                plan, fc, cfg, grid.dz,
-                fdev.t_days_at(cfg, i, time0_days, st.dtype))
-        st = step(grid, cfg, st, fc_i.replace(ramp=ramp), rmean, tclim,
-                  sclim, first=first and n == 0)
+        with span("step"):
+            i = iint0 + 1 + n
+            ramp = torch.full((), ramp_at(cfg, i, period_days, time0_days),
+                              dtype=st.dtype, device=st.el.device)
+            fc_i = fc
+            if plan is not None:
+                fc_i = fdev.forcing_at(
+                    plan, fc, cfg, grid.dz,
+                    fdev.t_days_at(cfg, i, time0_days, st.dtype))
+            st = step(grid, cfg, st, fc_i.replace(ramp=ramp), rmean, tclim,
+                      sclim, first=first and n == 0)
     return st

@@ -1,12 +1,28 @@
-"""Tracing and phase timing (``extpom_tpu/diag/profiling.py``).
+"""Tracing (``extpom_tpu/diag/profiling.py``).
 
-* :class:`PhaseTimer` -- wall timers per phase that wait for the card
-  (``torch.cuda.synchronize``) before a phase's clock stops, so that
-  queued kernels are charged to the phase that launched them.
+* :func:`span` -- a range ``extpom.<name>`` in the profile of the
+  enclosed code while ``torch.profiler`` records, and nothing otherwise.
+  Its events carry the profiler's timestamps, the clock of the card's
+  kernels and copies, so an idle gap of the card falls inside the host
+  span that was open across it, and a kernel belongs to the innermost
+  span open at its launch (matched by correlation id).  A span is a
+  function-scope range, not a user annotation: the profiler makes no
+  device-side copy of it, so the card's timeline holds only its kernels,
+  copies and fills.
+* :func:`host_value` -- the one way the step and the diagnostics read a
+  device value to the host, inside the span ``sync``: that span's count is
+  the number of reads, its duration the wait.
 * :func:`trace` -- a ``torch.profiler`` trace of the enclosed code,
   written as a Chrome trace into a directory.
-* :func:`step_breakdown` -- the seamount step's external-only (mode 2) and
-  full (mode 3) costs, and their difference as the internal mode's.
+* :func:`stage_times` -- a finished profile's device time by the path of
+  the innermost span open at each operation's launch (``segment/step/tke``),
+  with the spans' counts; :func:`span_paths` the spans alone, in order.
+
+The spans the model opens (their names without the prefix): ``segment``
+(``Model.run_segment``), ``step`` (each internal step), the stages ``lat``,
+``interaction``, ``external``, ``uvw``, ``tke``, ``tracer`` (with
+``mpdata`` inside it under ``nadv=2``) and ``mom``, the diagnostics
+``stats`` and ``velocity``, and ``sync``.
 """
 
 from __future__ import annotations
@@ -14,59 +30,41 @@ from __future__ import annotations
 import contextlib
 import os
 import tempfile
-import time
-from collections import defaultdict
-from typing import Dict, Optional
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+PREFIX = "extpom."
+_OFF = contextlib.nullcontext()
 
 
-def _sync(x) -> None:
-    """Wait for the card where ``x`` (a tensor, or anything holding them as
-    attributes, e.g. a State) lives on it."""
-    if isinstance(x, torch.Tensor):
-        if x.is_cuda:
-            torch.cuda.synchronize(x.device)
-        return
-    el = getattr(x, "el", None)
-    if isinstance(el, torch.Tensor):
-        _sync(el)
+def span(name: str):
+    """A profiler range ``extpom.<name>`` while a profiler records;
+    otherwise one shared null context, so that with no profiler open a span
+    allocates nothing, reads no clock and waits for nothing."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    # a range in the scope of a function (a user annotation, as
+    # record_function makes, gets a copy on the device's timeline)
+    return torch._C._profiler._RecordFunctionFast(PREFIX + name)
 
 
-class PhaseTimer:
-    def __init__(self):
-        self.totals: Dict[str, float] = defaultdict(float)
-        self.counts: Dict[str, int] = defaultdict(int)
-
-    @contextlib.contextmanager
-    def phase(self, name: str, sync=None):
-        """Time the enclosed code as ``name``; with ``sync`` (a tensor or
-        a State) wait for its device before the clock stops."""
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if sync is not None:
-                _sync(sync)
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
-
-    def report(self) -> str:
-        lines = []
-        total = sum(self.totals.values()) or 1.0
-        for name, t in sorted(self.totals.items(), key=lambda kv: -kv[1]):
-            n = self.counts[name]
-            lines.append(f"{name:24s} {t:9.3f} s  {t/n*1e3:9.2f} ms/call "
-                         f"x{n:<6d} {100*t/total:5.1f} %")
-        return "\n".join(lines)
+def host_value(t: torch.Tensor):
+    """The value of the 0-d tensor ``t`` as a Python float, int or bool (as
+    ``float``/``int`` of it give), read inside the span ``sync``: on the
+    card the read waits for every kernel queued before it."""
+    with span("sync"):
+        return t.item()
 
 
 @contextlib.contextmanager
 def trace(logdir: Optional[str] = None):
     """A ``torch.profiler`` trace of the enclosed code (the card's kernels
-    too where there is one), written as ``trace.json`` into ``logdir`` (by
-    default ``extpom_trace`` in the temporary directory); yields the
-    profiler, whose ``key_averages()`` summarise it."""
+    too where there is one, and the model's spans), written as
+    ``trace.json`` into ``logdir`` (by default ``extpom_trace`` in the
+    temporary directory); yields the profiler, whose ``key_averages()``
+    summarise it."""
     logdir = logdir or os.path.join(tempfile.gettempdir(), "extpom_trace")
     os.makedirs(logdir, exist_ok=True)
     acts = [torch.profiler.ProfilerActivity.CPU]
@@ -77,27 +75,75 @@ def trace(logdir: Optional[str] = None):
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
-def step_breakdown(im: int = 128, jm: Optional[int] = None, kb: int = 21,
-                   n: int = 20, device=None, **case_kw) -> Dict[str, float]:
-    """Seconds per step of the seamount at (im, jm, kb): the full mode-3
-    step, the external-only mode-2 step, and their difference as the
-    internal mode's estimate.  Two warm steps each; the card's queue is
-    drained before each clock reads."""
-    from extpom_tpu_torch.cases.seamount import seamount_model
-
-    jm = im if jm is None else jm
-    out = {}
-    for label, mode in (("full_step", 3), ("external_only", 2)):
-        m = seamount_model(im=im, jm=jm, kb=kb, mode=mode, device=device,
-                           **case_kw)
-        m.step_once()
-        m.step_once()
-        _sync(m.state)
-        t0 = time.perf_counter()
-        for _ in range(n):
-            m.step_once()
-        _sync(m.state)
-        out[label] = (time.perf_counter() - t0) / n
-        del m
-    out["internal_est"] = out["full_step"] - out["external_only"]
+def span_paths(events: Iterable) -> List[Tuple[str, int, int]]:
+    """The model's spans among a profile's raw events
+    (``prof.profiler.kineto_results.events()``) as (path, start ns, end
+    ns), in the order they open: a span's path is the names of the spans
+    that enclose it, then its own (``segment/step/tracer/mpdata``)."""
+    n = len(PREFIX)
+    raw = sorted((e.start_ns(), -e.end_ns(), e.name()[n:]) for e in events
+                 if e.name().startswith(PREFIX)
+                 and e.device_type() == _autograd_profiler.DeviceType.CPU)
+    out, open_ = [], []
+    for s, neg_e, name in raw:
+        while open_ and open_[-1][0] <= s:
+            open_.pop()
+        path = f"{open_[-1][1]}/{name}" if open_ else name
+        out.append((path, s, -neg_e))
+        open_.append((-neg_e, path))
     return out
+
+
+def attribute(spans, launches, ops) -> Dict[str, dict]:
+    """Each operation under the innermost span open at its launch.
+    ``spans``: (path, start, end) as :func:`span_paths` gives them;
+    ``launches``: {correlation id: time} of the host's runtime calls;
+    ``ops``: (name, correlation id, linked correlation id, device us) of
+    the device's kernels, copies and fills.  Returns {path: {"spans": how
+    many spans have the path, "device_us": the time of the operations
+    launched in it, "ops": {name: [count, us]}}}, the path "" for the
+    operations launched outside every span or not matched to a launch."""
+    out: Dict[str, dict] = {}
+    entry = lambda p: out.setdefault(p, {"spans": 0, "device_us": 0.0,
+                                         "ops": {}})
+    for path, _, _ in spans:
+        entry(path)["spans"] += 1
+    # one sweep in time: at one time a span opens (0) before a launch (1),
+    # and the longer of two spans first
+    marks = sorted([(s, 0, -e, path) for path, s, e in spans]
+                   + [(t, 1, c, "") for c, t in launches.items()])
+    where, open_ = {}, []
+    for t, kind, x, path in marks:
+        while open_ and open_[-1][0] < t:
+            open_.pop()
+        if kind == 0:
+            open_.append((-x, path))
+        else:
+            where[x] = open_[-1][1] if open_ else ""
+    for name, corr, linked, us in ops:
+        e = entry(where.get(corr, where.get(linked, "")))
+        e["device_us"] += us
+        count = e["ops"].setdefault(name, [0, 0.0])
+        count[0] += 1
+        count[1] += us
+    return out
+
+
+def stage_times(events: Iterable) -> Dict[str, dict]:
+    """:func:`attribute` over a profile's raw events
+    (``prof.profiler.kineto_results.events()``, or a part of them): the
+    card's operations (a device-side copy of a span left out), the runtime
+    calls that launched them (matched by correlation id) and the model's
+    spans, all on the profiler's clock."""
+    cuda = _autograd_profiler.DeviceType.CUDA
+    events = list(events)
+    launches, ops = {}, []
+    for e in events:
+        name = e.name()
+        if e.device_type() == cuda:
+            if not name.startswith(PREFIX):
+                ops.append((name, e.correlation_id(),
+                            e.linked_correlation_id(), e.duration_ns() / 1e3))
+        elif name.startswith("cu"):        # a runtime call: a launch
+            launches[e.correlation_id()] = e.start_ns()
+    return attribute(span_paths(events), launches, ops)

@@ -17,6 +17,7 @@ import torch
 from extpom_tpu_torch.core.config import Config
 from extpom_tpu_torch.core.grid import Grid
 from extpom_tpu_torch.core.state import State
+from extpom_tpu_torch.diag.profiling import host_value, span
 
 
 def _csum(x: torch.Tensor) -> torch.Tensor:
@@ -169,7 +170,9 @@ def domain_stats_blocks(blocks, cfg: Config) -> Dict[str, torch.Tensor]:
         parts["ekin"] += [c * _cells(ke, r, off, n) for r, c in reg["ke"]]
     # each rank's totals as (sum, error) pairs, summed again over the
     # ranks: a partial sum rounded to float64 would lose what cancels
-    mine = [torch.stack(_csum2(torch.cat(v))).cpu() for v in parts.values()]
+    with span("sync"):
+        mine = [torch.stack(_csum2(torch.cat(v))).cpu()
+                for v in parts.values()]
     every = distributed.host_all_gather(torch.stack(mine))
     atot, eavg, vtot, mtot, tavg, stot, ekin = (
         _csum(torch.cat([t[k] for t in every])) for k in range(len(mine)))
@@ -195,9 +198,9 @@ def check_velocity_blocks(blocks, cfg: Config) -> Tuple[torch.Tensor,
         if i1 <= i0 or j1 <= j0:
             continue
         a = torch.abs(blocks.state[b].va[..., :i1 - i0, :j1 - j0])
-        k = int(torch.argmax(a))
+        k = host_value(torch.argmax(a))
         i, j = i0 + k // a.shape[1], j0 + k % a.shape[1]
-        cand = (float(torch.max(a)), i * ja + j)
+        cand = (host_value(torch.max(a)), i * ja + j)
         best = cand if best is None else _larger(best, cand)
     for cand in distributed.host_all_gather(best):
         if cand is not None:

@@ -40,6 +40,7 @@ import torch
 
 from extpom_tpu_torch import kernels
 from extpom_tpu_torch.core.config import Config
+from extpom_tpu_torch.diag.profiling import span
 from extpom_tpu_torch.kernels import build
 from extpom_tpu_torch.ops import (continuity, density, momentum, pressure,
                                   tracers, vertical)
@@ -939,9 +940,11 @@ def phase_tracer(grid, cfg: Config, t, tb, s, sb, tclim, sclim, u, v, w,
         if nbc not in (1, 2, 3, 4):
             raise ValueError(f"invalid nbc {nbc}")
     # MPDATA's upstream steps (null: the tile forms advt1 itself)
-    adv = list(_mpdata_launch(grid, cfg, t, tb, s, sb, u, v, w, dt, etb,
-                              etf, off)
-               if cfg.nadv == 2 else (None, None))
+    adv = [None, None]
+    if cfg.nadv == 2:
+        with span("mpdata"):
+            adv = list(_mpdata_launch(grid, cfg, t, tb, s, sb, u, v, w, dt,
+                                      etb, etf, off))
     opt = variant("tracer", cfg)
     out = _empty(t, 5, cfg, off)
     ntp = cfg.ntp - 1

@@ -40,6 +40,8 @@ from typing import Optional
 
 import torch
 
+from extpom_tpu_torch.diag.profiling import span
+
 BACKENDS = ("nccl", "gloo")
 
 
@@ -273,7 +275,8 @@ def exchange(send: dict, recv: dict, device, dtype) -> dict:
             buf = send[r]
             if stage:
                 host = torch.empty(buf.shape, dtype=dtype, pin_memory=True)
-                host.copy_(buf)
+                with span("sync"):
+                    host.copy_(buf)
                 buf = host
             ops.append(dist.P2POp(dist.isend, buf, r))
         if r in recv:

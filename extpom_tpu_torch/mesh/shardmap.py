@@ -37,6 +37,7 @@ import torch
 from extpom_tpu_torch.core.config import Config
 from extpom_tpu_torch.core.grid import Grid
 from extpom_tpu_torch.core.state import State, Forcing
+from extpom_tpu_torch.diag.profiling import span
 from extpom_tpu_torch.mesh import extchunk
 from extpom_tpu_torch.mesh.distributed import Slabs
 from extpom_tpu_torch.mesh.extchunk import _ring_extend, _ring_extend_1d
@@ -509,17 +510,19 @@ def make_shardmap_run(blocks: Blocks, cfg: Config, period_days: float,
             plan=None) -> None:
         el = blocks.state[blocks.ids[0]].el
         for n in range(n_steps):
-            i = iint0 + 1 + n
-            ramp = torch.full((), stepper.ramp_at(cfg, i, period_days,
-                                                  time0_days),
-                              dtype=el.dtype, device=el.device)
-            if plan is None:
-                fc = blocks.static_forcing(ramp)
-            else:
-                fc = blocks.host_forcing(fdev.forcing_at(
-                    plan, blocks.base, cfg, blocks.grid[blocks.ids[0]].dz,
-                    fdev.t_days_at(cfg, i, time0_days, el.dtype)).replace(
-                        ramp=ramp))
-            stepper.mesh_step(blocks, cfg, fc, first=first and n == 0)
+            with span("step"):
+                i = iint0 + 1 + n
+                ramp = torch.full((), stepper.ramp_at(cfg, i, period_days,
+                                                      time0_days),
+                                  dtype=el.dtype, device=el.device)
+                if plan is None:
+                    fc = blocks.static_forcing(ramp)
+                else:
+                    fc = blocks.host_forcing(fdev.forcing_at(
+                        plan, blocks.base, cfg,
+                        blocks.grid[blocks.ids[0]].dz,
+                        fdev.t_days_at(cfg, i, time0_days,
+                                       el.dtype)).replace(ramp=ramp))
+                stepper.mesh_step(blocks, cfg, fc, first=first and n == 0)
 
     return run

@@ -14,6 +14,7 @@ import torch
 
 from extpom_tpu_torch.core.config import Config
 from extpom_tpu_torch.core.grid import Grid
+from extpom_tpu_torch.diag.profiling import span
 from extpom_tpu_torch.ops.stencil import sft, sfk, put, set_k, s_
 
 
@@ -211,5 +212,6 @@ def advt2(grid: Grid, cfg: Config, fb, f, fclim, u, v, w, aam, dt, etb,
           etf) -> torch.Tensor:
     """Smolarkiewicz MPDATA upstream tracer step -> ff: the upstream steps
     (:func:`mpdata_steps`), then the climatology-deviation diffusion."""
-    ff, fb = mpdata_steps(grid, cfg, fb, f, u, v, w, dt, etb, etf)
+    with span("mpdata"):
+        ff, fb = mpdata_steps(grid, cfg, fb, f, u, v, w, dt, etb, etf)
     return mpdata_diffusion(grid, cfg, ff, fb, fclim, aam, etf)

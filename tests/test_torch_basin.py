@@ -161,32 +161,11 @@ def test_basin_cfl_at_ten_km_cells():
     assert abs(cfl - 0.5 * limit) < 1e-9
 
 
-def test_phase_timer_counts_and_reports():
-    pt = profiling.PhaseTimer()
-    x = torch.ones(3)
-    for _ in range(3):
-        with pt.phase("a", sync=x):
-            x = x + 1
-    with pt.phase("b"):
-        pass
-    assert pt.counts == {"a": 3, "b": 1}
-    rep = pt.report()
-    assert "a" in rep and "x3" in rep and "b" in rep
-
-
 def test_trace_writes_a_chrome_trace(tmp_path):
     with profiling.trace(str(tmp_path)) as prof:
         torch.ones(8).sum()
     assert (tmp_path / "trace.json").exists()
     assert prof is not None
-
-
-def test_step_breakdown_on_the_cpu():
-    out = profiling.step_breakdown(im=12, jm=10, kb=5, n=2, device="cpu",
-                                   dtype="float64")
-    assert set(out) == {"full_step", "external_only", "internal_est"}
-    assert out["full_step"] > 0 and out["external_only"] > 0
-    assert out["internal_est"] == out["full_step"] - out["external_only"]
 
 
 def test_dispatch_report_names_the_options():
