@@ -72,7 +72,13 @@ resumes it from its mid-run restart as two processes (the last restart
 bit-equal) and holds its snapshots to the same file run in one process,
 with each rank's ms per step, writer and encoder seconds and bytes written,
 raw and stored.  ``[tolerance]`` holds the float32 kernels to the float64
-kernels over the f32 tolerance ladder's runs (VALIDATION.md §2).  The
+kernels over the f32 tolerance ladder's runs (VALIDATION.md §2).
+``[diag]`` holds the print's compensated sums on the card
+(``kernels/diagsum.py``) to the plain sums, and at 256² to ``math.fsum``
+of their cells, in float32 and float64 at 256x256x31, on config5's
+2048x2048x41 (synthetic operands), on a ragged 255x255x31 grid under
+``pad_model``, on block (0, 1) of the 2x4 mesh and through the mesh's
+block form, with five calls of the same bits and both paths timed.  The
 Thomas kernel is held to its plain
 version bit for bit and timed at 256x256x31, 256x256x41 and
 2048x2048x41.  It checks the
@@ -3738,6 +3744,224 @@ def tolerance_phase(card: str) -> None:
                                  f"(drift, bound): {bad}")
 
 
+# -- the print's compensated sums (kernels/diagsum.py) -----------------------
+
+DIAG_STEPS = 4                 # steps before a 256² state is summed
+DIAG_LARGE = (2048, 41)        # the synthetic 2048x2048x41 operands
+DIAG_REPEATS = 5               # calls that must give the same bits
+DIAG_ULP = 2                   # the largest gap of a total, in ulp
+DIAG_MEAN_ULP = 4              # of taver and saver, each a ratio of totals
+DIAG_CANCEL = 1e-15            # eavg's numerator, of the sum of |et darea|
+
+
+def one_block(grid, st, n) -> object:
+    """A whole array as the one block of ``stats._block_pairs_plain`` and
+    ``diagsum.block_pairs``: ``n`` cells at global (0, 0)."""
+    import types
+    return types.SimpleNamespace(ni=n[0], nj=n[1], ids=[(0, 0)],
+                                 grid={(0, 0): grid}, state={(0, 0): st},
+                                 goff=lambda b, h: (0, 0))
+
+
+def diag_large_operands(dtype, seed: int = 20481):
+    """Synthetic operands of ``domain_stats`` at DIAG_LARGE on the card, of
+    the magnitudes of config5's state: cells of 4 km, a seamount in 4500 m,
+    a land mask, a surface of centimetres, T near 15 and S near 35, speeds
+    of 0.1 m/s, rho an anomaly of 1e-3.  Returns (grid, config, state), the
+    parts of each that ``domain_stats`` reads."""
+    import types
+    n, kb = DIAG_LARGE
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=g, device="cuda",
+                                 dtype=torch.float64)
+    x = torch.linspace(-1.0, 1.0, n, device="cuda", dtype=torch.float64)
+    r2 = x[:, None] ** 2 + x[None, :] ** 2
+    cast = lambda a: a.to(dtype).contiguous()
+    dz = torch.full((kb,), 1.0 / (kb - 1), device="cuda", dtype=dtype)
+    dz[-1] = 0.0
+    grid = types.SimpleNamespace(
+        dx=cast(4000.0 * (1 + 0.01 * rnd(n, n))),
+        dy=cast(4000.0 * (1 + 0.01 * rnd(n, n))),
+        fsm=cast((rnd(n, n) > -2.0).double()),
+        h=cast(4500.0 - 4000.0 * torch.exp(-r2 / 0.02)), dz=dz)
+    grid.dz3 = dz[:, None, None]
+    st = types.SimpleNamespace(
+        et=cast(0.05 * rnd(n, n)), rho=cast(1e-3 * rnd(kb, n, n)),
+        tb=cast(15.0 + rnd(kb, n, n)), sb=cast(35.0 + 0.1 * rnd(kb, n, n)),
+        u=cast(0.1 * rnd(kb, n, n)), v=cast(0.1 * rnd(kb, n, n)))
+    cfg = types.SimpleNamespace(kbm1=kb - 1, active=(n, n), rhoref=1025.0)
+    return grid, cfg, st
+
+
+def diag_bound_ms(cfg, n, item: int) -> float:
+    """The least time of one print's sums: the five 2-D and the five 3-D
+    operands (kbm1 levels) of the active cells read once, at 3.35 TB/s."""
+    cells = n[0] * n[1]
+    return (5 + 5 * cfg.kbm1) * cells * item / HBM_BYTES_PER_S * 1e3
+
+
+def ulp_gap(a: float, b: float) -> float:
+    import math
+    return 0.0 if a == b else abs(a - b) / math.ulp(max(abs(a), abs(b)))
+
+
+def diag_entry(card: str, flush: L2Flush, tag: str, grid, cfg, st, blocks,
+               fsum: bool, timed: bool) -> float:
+    """Hold the kernel's pairs over ``blocks`` (each block's own regions)
+    to the plain pairs (``stats._block_pairs_plain``), and, with ``fsum``,
+    to ``math.fsum`` of the plain path's cells: every total within DIAG_ULP
+    but eavg's numerator, which cancels, within DIAG_CANCEL of the sum of
+    |et darea|; where ``blocks`` is the whole grid the eight values too
+    (the means of T and S within DIAG_MEAN_ULP); DIAG_REPEATS calls of the
+    same bits.  With ``timed``, both paths' ms beside the byte bound.
+    Returns the sum of |et darea|."""
+    import math
+    from extpom_tpu_torch.diag import stats
+    from extpom_tpu_torch.kernels import diagsum
+    reg = stats._regions(*cfg.active)
+    dtype = blocks.state[blocks.ids[0]].et.dtype
+    runs = [diagsum.block_pairs(blocks, cfg, reg).clone()
+            for _ in range(DIAG_REPEATS)]
+    same = all(torch.equal(runs[0], r) for r in runs[1:])
+    got = runs[0].cpu()
+    want = stats._block_pairs_plain(blocks, cfg, reg)
+    tot = lambda p: [float(p[q, 0]) + float(p[q, 1])
+                     for q in range(len(diagsum.SUMS))]
+    got_t, want_t = dict(zip(diagsum.SUMS, tot(got))), \
+        dict(zip(diagsum.SUMS, tot(want)))
+    n = (blocks.ni, blocks.nj)
+    cells = {k: [] for k in diagsum.SUMS}
+    for b in blocks.ids:
+        for k, v in stats.block_cells(blocks.grid[b], blocks.state[b], cfg,
+                                      reg, blocks.goff(b, (0, 0)),
+                                      n).items():
+            cells[k] += v
+    cancel = float(sum(c.abs().sum() for c in cells["eavg"]))
+    fs = ({k: math.fsum(torch.cat(v).tolist()) for k, v in cells.items()}
+          if fsum else None)
+    del cells
+    gaps, bad = {}, []
+    for k in diagsum.SUMS:
+        refs = {"plain": want_t[k], **({"fsum": fs[k]} if fsum else {})}
+        for ref, w in refs.items():
+            if k == "eavg":
+                gap = abs(got_t[k] - w) / cancel if cancel else 0.0
+                ok = gap <= DIAG_CANCEL
+                gaps[f"{k}_{ref}_rel"] = f"{gap:.2e}"
+            else:
+                gap = ulp_gap(got_t[k], w)
+                ok = gap <= DIAG_ULP
+                gaps[f"{k}_{ref}_ulp"] = f"{gap:g}"
+            if not ok:
+                bad.append((k, ref, got_t[k], w))
+    if len(blocks.ids) == 1 and blocks.goff(blocks.ids[0], (0, 0)) == (0, 0):
+        vals = {k: float(v) for k, v in
+                stats.domain_stats(grid, cfg, st).items()}
+        plain = {k: float(v) for k, v in
+                 stats.domain_stats_plain(grid, cfg, st).items()}
+        for k in diagsum.NAMES:
+            gap = ulp_gap(vals[k], plain[k])
+            if k == "eaver":
+                gap = (abs(vals[k] - plain[k]) * abs(plain["atot"]) / cancel
+                       if cancel else 0.0)
+                ok = gap <= DIAG_CANCEL
+            else:
+                ok = gap <= (DIAG_MEAN_ULP if k in ("taver", "saver")
+                             else DIAG_ULP)
+            gaps[f"{k}_gap"] = f"{gap:.3g}"
+            if not ok:
+                bad.append((k, "values", vals[k], plain[k]))
+    extra = {}
+    if timed:
+        info = diagsum.kernel_info(dtype)
+        item = torch.finfo(dtype).bits // 8
+        reps = 3 if n[0] * n[1] > 2 ** 20 else 10
+        kernel = lambda: diagsum.block_pairs(blocks, cfg, reg)
+        plain_fn = lambda: stats.domain_stats_plain(grid, cfg, st)
+        extra = dict(ms=f"{device_ms(kernel, 20, flush):.4f}",
+                     plain_ms=f"{device_ms(plain_fn, reps, flush):.3f}",
+                     bound_ms=f"{diag_bound_ms(cfg, cfg.active, item):.4f}",
+                     rows=sum(diagsum.rows(
+                         diagsum.pack(reg, cfg.active,
+                                      blocks.goff(b, (0, 0)), n), dtype,
+                         st.et.device) for b in blocks.ids),
+                     **{k: info[k] for k in ("threads", "registers",
+                                             "static_smem", "blocks_per_sm",
+                                             "spill_bytes")})
+    say("diag", case=tag, dtype=str(dtype).split(".")[-1],
+        same_bits=same, **gaps, **extra, ok=not bad and same,
+        card=f"'{card}'")
+    if bad or not same:
+        raise AssertionError(f"diag {tag} {dtype}: same_bits={same}, over "
+                             f"the limits (sum, reference, kernel, "
+                             f"reference): {bad}")
+    return cancel
+
+
+def diag_phase(card: str, flush: L2Flush) -> None:
+    """The print's compensated sums on the card (``kernels/diagsum.py``,
+    ``k_diag_sums`` and ``k_diag_finish``) against the plain sums that the
+    CPU runs, in float32 and float64: the seamount at 256x256x31 after
+    DIAG_STEPS steps (also against ``math.fsum`` of its cells), config5's
+    2048x2048x41 on synthetic operands, a ragged 255x255x31 seamount under
+    ``pad_model`` (2x4) and block (0, 1) of the 256x256x31 seamount on
+    config5's 2x4 mesh, then that mesh's whole block form
+    (``domain_stats_blocks``) against the gathered state's plain sums.
+    Each line: every gap, whether 5 calls gave the same bits; at 256² and
+    2048² both paths' ms (CUDA events after an L2 flush) beside the byte
+    bound and what the card gives the kernel."""
+    import gc
+    from extpom_tpu_torch.cases.seamount import seamount_model
+    from extpom_tpu_torch.diag import stats
+    from extpom_tpu_torch.mesh.padding import pad_model
+    with open(LARGE) as f:
+        mesh = mesh_of(json.load(f))
+    for dtype in ("float32", "float64"):
+        m = seamount_model(im=256, jm=256, kb=31, dtype=dtype)
+        m.run_segment(DIAG_STEPS)
+        n = tuple(m.state.et.shape)
+        cancel = diag_entry(card, flush, "256", m.grid, m.cfg, m.state,
+                            one_block(m.grid, m.state, n), fsum=True,
+                            timed=True)
+        whole = stats.domain_stats_plain(m.grid, m.cfg, m.state)
+        m.shard(mesh)
+        b = (0, 1)
+        blk = one_block(m.blocks.grid[b], m.blocks.state[b],
+                        (m.blocks.ni, m.blocks.nj))
+        blk.goff = lambda _, h, b=b: m.blocks.goff(b, h)
+        diag_entry(card, flush, "256_block_0_1", None, m.cfg, None, blk,
+                   fsum=False, timed=False)
+        got = {k: float(v) for k, v in
+               stats.domain_stats_blocks(m.blocks, m.cfg).items()}
+        gaps = {k: ulp_gap(got[k], float(whole[k])) for k in got}
+        gaps["eaver"] = (abs(got["eaver"] - float(whole["eaver"]))
+                         * got["atot"] / cancel)
+        limit = lambda k: (DIAG_CANCEL if k == "eaver" else DIAG_MEAN_ULP
+                           if k in ("taver", "saver") else DIAG_ULP)
+        say("diag", case="256_mesh_2x4", dtype=dtype,
+            **{f"{k}_gap": f"{v:.3g}" for k, v in gaps.items()},
+            card=f"'{card}'")
+        if any(v > limit(k) for k, v in gaps.items()):
+            raise AssertionError(f"diag 256_mesh_2x4 {dtype}: {gaps}")
+        del m, whole
+        r = seamount_model(im=255, jm=255, kb=31, dtype=dtype)
+        r.run_segment(DIAG_STEPS)
+        pad_model(r, mesh.px, mesh.py)
+        n = tuple(r.state.et.shape)
+        diag_entry(card, flush, f"255_padded_{n[0]}x{n[1]}", r.grid, r.cfg,
+                   r.state, one_block(r.grid, r.state, n), fsum=False,
+                   timed=False)
+        del r
+        gc.collect()
+        torch.cuda.empty_cache()
+        grid, cfg, st = diag_large_operands(getattr(torch, dtype))
+        diag_entry(card, flush, "2048x41_synthetic", grid, cfg, st,
+                   one_block(grid, st, cfg.active), fsum=False, timed=True)
+        del grid, st
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 # -- several processes on the one card ---------------------------------------
 
 DIST_RANKS = 2                 # [distributed], [distributed_large]
@@ -4242,6 +4466,7 @@ def main() -> int:
     options_check()
     file_restore_check()
     tolerance_phase(card)
+    diag_phase(card, flush)
     # several processes last, with the parent's cached device memory freed:
     # two ranks share the card
     import gc

@@ -11,7 +11,8 @@
   copies and fills.
 * :func:`host_value` -- the one way the step and the diagnostics read a
   device value to the host, inside the span ``sync``: that span's count is
-  the number of reads, its duration the wait.
+  the number of reads, its duration the wait; :func:`host_values` reads
+  several values of one tensor in one such read.
 * :func:`trace` -- a ``torch.profiler`` trace of the enclosed code,
   written as a Chrome trace into a directory.
 * :func:`stage_times` -- a finished profile's device time by the path of
@@ -56,6 +57,13 @@ def host_value(t: torch.Tensor):
     card the read waits for every kernel queued before it."""
     with span("sync"):
         return t.item()
+
+
+def host_values(t: torch.Tensor) -> list:
+    """The values of the 1-D tensor ``t`` as Python numbers (as
+    ``t.tolist()`` gives them), read at once inside one span ``sync``."""
+    with span("sync"):
+        return t.tolist()
 
 
 @contextlib.contextmanager

@@ -5,7 +5,10 @@ advance.f:611-756).
 block forms (:func:`domain_stats_blocks`, :func:`check_velocity_blocks`)
 read the blocks of a model decomposed over several processes: each rank
 sums its blocks' cells of the same regions, and the ranks' partial sums
-are summed again (``mesh.distributed.host_all_gather``)."""
+are summed again (``mesh.distributed.host_all_gather``).  On the card
+both forms sum in one pass of the hand-written kernel
+(``kernels/diagsum.py``); the CPU runs the plain sums
+(:func:`domain_stats_plain`, :func:`_csum2`), which the kernel is held to."""
 
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from extpom_tpu_torch.core.config import Config
 from extpom_tpu_torch.core.grid import Grid
 from extpom_tpu_torch.core.state import State
 from extpom_tpu_torch.diag.profiling import host_value, span
+from extpom_tpu_torch.kernels import diagsum
 
 
 def _csum(x: torch.Tensor) -> torch.Tensor:
@@ -54,9 +58,20 @@ def _csum2(x: torch.Tensor) -> tuple:
 
 
 def domain_stats(grid: Grid, cfg: Config, st: State) -> Dict[str, torch.Tensor]:
-    """vtot, atot, mtot, tsalt, taver, saver, eaver, ekin; sums cover the
-    interior plus the four edges without the corners (advance.f:669-745),
-    accumulated in float64, over the active region of a padded grid."""
+    """vtot, atot, mtot, tsalt, taver, saver, eaver, ekin as 0-d float64
+    tensors; sums cover the interior plus the four edges without the
+    corners (advance.f:669-745), accumulated in float64, over the active
+    region of a padded grid.  CUDA tensors are summed by the kernel
+    (``kernels/diagsum.py``), CPU tensors by :func:`domain_stats_plain`."""
+    if st.et.device.type == "cuda":
+        return diagsum.domain_stats(grid, cfg, st, _regions(*cfg.active))
+    return domain_stats_plain(grid, cfg, st)
+
+
+def domain_stats_plain(grid: Grid, cfg: Config,
+                       st: State) -> Dict[str, torch.Tensor]:
+    """:func:`domain_stats` in plain PyTorch: each sum a :func:`_csum` of
+    its cells."""
     kbm1 = cfg.kbm1
     ia, ja = cfg.active
     wide = lambda a: a[..., :ia, :ja].to(torch.float64)
@@ -131,49 +146,28 @@ def _regions(ia: int, ja: int) -> dict:
 def _cells(a: torch.Tensor, region, off, n) -> torch.Tensor:
     """The cells of global ``region`` in a block of ``n`` = (ni, nj) cells
     at global ``off``, flattened (empty where they miss the block)."""
-    (i0, i1), (j0, j1) = region
-    li0, li1 = max(i0 - off[0], 0), min(i1 - off[0], n[0])
-    lj0, lj1 = max(j0 - off[1], 0), min(j1 - off[1], n[1])
-    if li1 <= li0 or lj1 <= lj0:
-        return a.new_zeros((0,))
-    return a[..., li0:li1, lj0:lj1].reshape(-1)
+    i0, i1, j0, j1 = diagsum.clip(region, off, n)
+    return a[..., i0:i1, j0:j1].reshape(-1)
 
 
 def domain_stats_blocks(blocks, cfg: Config) -> Dict[str, torch.Tensor]:
     """:func:`domain_stats` of a model decomposed over several processes
     (``mesh.shardmap.Blocks``): each rank forms the compensated sums of its
-    blocks' cells of the same regions in float64 (:func:`_csum2`), and a
-    compensated sum of every rank's (sum, error) pairs combines them;
-    within 1e-12 of the single-process values.  CPU tensors of float64."""
+    blocks' cells of the same regions in float64 (:func:`_csum2`; on the
+    card the kernel, ``kernels/diagsum.py:block_pairs``), and a compensated
+    sum of every rank's (sum, error) pairs combines them; within 1e-12 of
+    the single-process values.  CPU tensors of float64."""
     from extpom_tpu_torch.mesh import distributed
-    kbm1 = cfg.kbm1
     reg = _regions(*cfg.active)
-    n = (blocks.ni, blocks.nj)
-    parts: dict = {k: [] for k in ("atot", "eavg", "vtot", "mtot", "tavg",
-                                   "stot", "ekin")}
-    for b in blocks.ids:
-        g, st = blocks.grid[b], blocks.state[b]
-        off = blocks.goff(b, (0, 0))
-        w = lambda a: a.to(torch.float64)
-        edge = lambda a: [_cells(a, r, off, n) for r in reg["edge"]]
-        darea = w(g.dx) * w(g.dy) * w(g.fsm)
-        dvol = (darea[None] * (w(g.h) + w(st.et))[None]
-                * g.dz3[:kbm1].to(torch.float64))
-        dmass = dvol * (w(st.rho)[:kbm1] * cfg.rhoref + 1000.0)
-        ke = dmass * (w(st.u)[:kbm1] ** 2 + w(st.v)[:kbm1] ** 2)
-        parts["atot"] += edge(darea)
-        parts["eavg"] += edge(w(st.et) * darea)
-        parts["vtot"] += edge(dvol)
-        parts["mtot"] += [_cells(dmass, r, off, n) for r in reg["mass"]]
-        parts["tavg"] += edge(w(st.tb)[:kbm1] * dvol)
-        parts["stot"] += edge(w(st.sb)[:kbm1] * dvol)
-        parts["ekin"] += [c * _cells(ke, r, off, n) for r, c in reg["ke"]]
     # each rank's totals as (sum, error) pairs, summed again over the
     # ranks: a partial sum rounded to float64 would lose what cancels
-    with span("sync"):
-        mine = [torch.stack(_csum2(torch.cat(v))).cpu()
-                for v in parts.values()]
-    every = distributed.host_all_gather(torch.stack(mine))
+    if blocks.device.type == "cuda":
+        pairs = diagsum.block_pairs(blocks, cfg, reg)
+        with span("sync"):
+            mine = pairs.cpu()
+    else:
+        mine = _block_pairs_plain(blocks, cfg, reg)
+    every = distributed.host_all_gather(mine)
     atot, eavg, vtot, mtot, tavg, stot, ekin = (
         _csum(torch.cat([t[k] for t in every])) for k in range(len(mine)))
     eavg = torch.where(atot != 0, eavg / atot, 0.0)
@@ -181,6 +175,43 @@ def domain_stats_blocks(blocks, cfg: Config) -> Dict[str, torch.Tensor]:
     savg = torch.where(vtot != 0, stot / vtot, 0.0)
     return dict(vtot=vtot, atot=atot, mtot=mtot, tsalt=stot,
                 taver=tavg, saver=savg, eaver=eavg, ekin=ekin)
+
+
+def _block_pairs_plain(blocks, cfg: Config, reg: dict) -> torch.Tensor:
+    """This process's (sum, error) pairs of :func:`domain_stats_blocks`'
+    seven sums in plain PyTorch: a (7, 2) float64 tensor on the host."""
+    n = (blocks.ni, blocks.nj)
+    parts: dict = {k: [] for k in diagsum.SUMS}
+    for b in blocks.ids:
+        cells = block_cells(blocks.grid[b], blocks.state[b], cfg, reg,
+                            blocks.goff(b, (0, 0)), n)
+        for k, v in cells.items():
+            parts[k] += v
+    with span("sync"):
+        mine = [torch.stack(_csum2(torch.cat(v))).cpu()
+                for v in parts.values()]
+    return torch.stack(mine)
+
+
+def block_cells(g: Grid, st: State, cfg: Config, reg: dict, off,
+                n) -> dict:
+    """The float64 cells of each of the seven sums (``diagsum.SUMS``) in a
+    block of ``n`` cells at global ``off``, as lists of flat tensors over
+    the global regions ``reg`` (:func:`_regions`) cut to the block."""
+    kbm1 = cfg.kbm1
+    w = lambda a: a.to(torch.float64)
+    edge = lambda a: [_cells(a, r, off, n) for r in reg["edge"]]
+    darea = w(g.dx) * w(g.dy) * w(g.fsm)
+    dvol = (darea[None] * (w(g.h) + w(st.et))[None]
+            * g.dz3[:kbm1].to(torch.float64))
+    dmass = dvol * (w(st.rho)[:kbm1] * cfg.rhoref + 1000.0)
+    ke = dmass * (w(st.u)[:kbm1] ** 2 + w(st.v)[:kbm1] ** 2)
+    return {"atot": edge(darea), "eavg": edge(w(st.et) * darea),
+            "vtot": edge(dvol),
+            "mtot": [_cells(dmass, r, off, n) for r in reg["mass"]],
+            "tavg": edge(w(st.tb)[:kbm1] * dvol),
+            "stot": edge(w(st.sb)[:kbm1] * dvol),
+            "ekin": [c * _cells(ke, r, off, n) for r, c in reg["ke"]]}
 
 
 def check_velocity_blocks(blocks, cfg: Config) -> Tuple[torch.Tensor,

@@ -25,7 +25,7 @@ LIB = BUILD / "libextpom_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-fmad=false"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # the column-tile phase kernels: every phase
 TILED = ("lat", "uvw", "tke", "tracer", "mom")
 # C entry points: (argument types); each returns a cudaError_t as int
@@ -89,6 +89,14 @@ SIGNATURES = {
     # f64, block variant, options, threads, dynamic shared bytes; the six
     # ints of column.cuh tile_info
     "extpom_extwin_info": [_I] * 5 + [_P],
+    # a print's compensated sums (csrc/diagsum.cu): pointer table, stride
+    # table, region table; rhoref, levels, blocks; stream
+    "extpom_diag_sums_f32": [_P, _P, _P, _D, _I, _I, _P],
+    "extpom_diag_sums_f64": [_P, _P, _P, _D, _I, _I, _P],
+    # partials, rows, out; stream
+    "extpom_diag_finish": [_P, _I, _P, _P],
+    # f64; threads per block and the six ints of column.cuh tile_info
+    "extpom_diag_sums_info": [_I, _P],
     "extpom_error_string": [_I],
 }
 

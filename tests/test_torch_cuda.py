@@ -987,3 +987,37 @@ def test_option_mesh_card_path_bit_equal(card, kw):
     for name in got.field_names():
         assert torch.equal(getattr(got, name), getattr(one.state, name)), \
             name
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_diag_sums_kernel_matches_plain(card, dtype):
+    """The print's sums on the card (kernels/diagsum.py) against the plain
+    sums of the same state: every total within 2 ulp of theirs, taver and
+    saver, ratios of two totals, within 4, eaver, whose numerator cancels,
+    within 1e-15 of the sum of |et darea| over atot; the same bits on two calls, and the block form of the 2x4
+    mesh's blocks within the same."""
+    import math
+    from extpom_tpu_torch.diag import stats
+    m = seamount_model(im=32, jm=48, kb=7, dtype=dtype, device=card)
+    m.run_segment(3)
+    ulp = lambda a, b: 0 if a == b else abs(a - b) / math.ulp(max(abs(a),
+                                                                  abs(b)))
+    want = {k: float(v) for k, v in
+            stats.domain_stats_plain(m.grid, m.cfg, m.state).items()}
+    cells = stats.block_cells(m.grid, m.state, m.cfg,
+                              stats._regions(*m.cfg.active), (0, 0),
+                              tuple(m.state.et.shape))["eavg"]
+    cancel = float(sum(c.abs().sum() for c in cells))
+    a = stats.domain_stats(m.grid, m.cfg, m.state)
+    b = stats.domain_stats(m.grid, m.cfg, m.state)
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    m.shard(Mesh(2, 4, device=card))
+    blocks = stats.domain_stats_blocks(m.blocks, m.cfg)
+    for got in ({k: float(v) for k, v in a.items()},
+                {k: float(v) for k, v in blocks.items()}):
+        for k in want:
+            if k == "eaver":
+                assert abs(got[k] - want[k]) * want["atot"] <= 1e-15 * cancel
+            else:
+                limit = 4 if k in ("taver", "saver") else 2
+                assert ulp(got[k], want[k]) <= limit, (k, got[k], want[k])
