@@ -13,7 +13,9 @@ and the diagnostics by itself:
 - ``ext_gap`` and ``int_gap``: one step from the state in which the window
   ended.  The program advances it through the window's own call
   (``Model.run_segment``) at the window's sizes; the reference advances the
-  same state with its own grid, edge data, ramp and climatology.  For each
+  same state with its own grid, edge data, ramp and climatology, and with
+  the step's forcing, which it interpolates itself from the case's series
+  (:func:`pombench.reference.model.forcing_at`).  For each
   compared field, the widest gap between the two new states over the
   widest change the reference makes in the step; the largest over the
   external mode's fields (``ext_gap``) and over the internal mode's
@@ -104,7 +106,9 @@ def step_gap(got: torch.Tensor, want: torch.Tensor,
 
 class Reference:
     """The reference's model of ``inp`` in ``dtype`` on ``device``: its
-    constants, grid, cold start, climatology and edge data."""
+    constants, grid, cold start, climatology (the initial fields where the
+    case gives none), the edge data of its cold start and the case's
+    forcing series."""
 
     def __init__(self, inp: pin.Inputs, device, dtype):
         self.p = p = ref.params(inp.namelist)
@@ -112,18 +116,24 @@ class Reference:
         self.dtype, self.device = dtype, device
         tb, sb, elb, uab, vab = (x.to(device, dtype) for x in
                                  (inp.tb, inp.sb, inp.elb, inp.uab, inp.vab))
-        self.start, self.rmean = ref.cold_start(p, g, tb, sb, tb, sb, elb,
-                                                uab, vab)
-        self.tclim, self.sclim = tb, sb
+        clim = lambda c, f: f if c is None else c.to(device, dtype)
+        self.tclim, self.sclim = clim(inp.tclim, tb), clim(inp.sclim, sb)
+        self.start, self.rmean = ref.cold_start(p, g, tb, sb, self.tclim,
+                                                self.sclim, elb, uab, vab)
         self.fc = ref.edge_data(p, g, tb, sb, elb, uab, vab)
+        self.series = inp.series
+        self.periods = {n: pin.PERIODS[pin.dataset(n)] for n in inp.series}
 
     def state(self, fields: dict) -> dict:
         return {k: v.to(self.device, self.dtype) for k, v in fields.items()}
 
     def step(self, fields: dict, iint: int) -> dict:
-        """The state after internal step ``iint + 1`` from ``fields``."""
-        return ref.step(self.p, self.g, self.state(fields), self.fc,
-                        self.rmean, self.tclim, self.sclim, iint)
+        """The state after internal step ``iint + 1`` from ``fields``, under
+        that step's forcing."""
+        fc = ref.forcing_at(self.p, self.g, self.fc, self.series,
+                            self.periods, iint)
+        return ref.step(self.p, self.g, self.state(fields), fc, self.rmean,
+                        self.tclim, self.sclim, iint)
 
     def stats(self, fields: dict) -> dict:
         return ref.stats(self.p, self.g, self.state(fields))

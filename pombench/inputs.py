@@ -9,6 +9,15 @@ returns the :class:`Inputs`.  The seed draws what the case draws (for the
 seamount, the phases of a smooth perturbation of the initial temperature
 and salinity, the same modes and amplitudes for every seed, so every seed
 does the same work); geometry and options do not depend on it.
+
+A forced case also gives its climatology (``tclim``, ``sclim``; the
+initial fields where it gives none) and forcing series (``series``: name
+-> a ``(nrec, ...)`` float64 host array, one record per period of its
+dataset, named as bounds_forcing.f's datasets name them, :data:`SERIES`),
+each dataset's records the period of bounds_forcing.f apart
+(:data:`PERIODS`).  The port stages them through its
+``ForcingProvider`` (:mod:`pombench.program`); the reference interpolates
+them itself (:func:`pombench.reference.model.forcing_at`).
 """
 
 from __future__ import annotations
@@ -16,6 +25,7 @@ from __future__ import annotations
 import dataclasses
 import importlib
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -39,6 +49,36 @@ class Inputs:
     elb: torch.Tensor        # (im, jm)
     uab: torch.Tensor
     vab: torch.Tensor
+    series: dict = dataclasses.field(default_factory=dict)
+    tclim: Optional[torch.Tensor] = None   # (kb, im, jm) like tb
+    sclim: Optional[torch.Tensor] = None
+
+
+# the series a case may give, by the dataset of bounds_forcing.f that holds
+# them: the lateral records (lateral_bc, :593-868), the surface records
+# (wind, heat and surface, :871-983) and the interior restoring records
+# (restore_interior, :1023-1121).  The water series stays out: advance.f:89
+# leaves water uncalled.  The depth-mean edge velocities uab*/vab* are no
+# series: they are formed from the ub*/vb* profiles (:626-635).
+SIDES = ("w", "e", "s", "n")
+SERIES = {
+    "lbry": tuple(f"el{s}" for s in SIDES)
+    + tuple(f"{v}b{s}" for v in "tsuv" for s in SIDES),
+    "sfrc": ("wusurf", "wvsurf", "wtsurf", "swrad", "tsurf", "ssurf"),
+    "clim": ("trstr", "srstr", "taurstr"),
+}
+# each dataset's record period in days (bounds_forcing.f:607 tbc, :886
+# twind, :929 theat, :1033 trst)
+PERIODS = {"lbry": 1.0 / 24.0, "sfrc": 0.125, "clim": 30.0}
+
+
+def dataset(name: str) -> str:
+    """The dataset of :data:`SERIES` that holds the series ``name``."""
+    for d, names in SERIES.items():
+        if name in names:
+            return d
+    raise ValueError(f"no forcing series {name!r}: a case gives "
+                     f"{', '.join(n for v in SERIES.values() for n in v)}")
 
 
 def rng(seed: int) -> np.random.Generator:

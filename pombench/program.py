@@ -15,16 +15,28 @@ def load() -> None:
 
 def build(inp: Inputs, device):
     """The port's Model of ``inp`` on ``device``: its grid from the
-    metrics and its cold start from the initial fields (climatology = the
-    initial fields, as POM's cases have it)."""
+    metrics and its cold start from the initial fields, with the case's
+    climatology (the initial fields where it gives none, as POM's cases
+    have it).  A case's forcing series reach the port as a run's files do
+    (``run.py:execute``): through a ``ForcingProvider`` that
+    ``Model.run_segment`` stages on the device and interpolates at every
+    step."""
     from extpom_tpu_torch.core.config import Config
     from extpom_tpu_torch.core.grid import make_grid
     from extpom_tpu_torch.core.model import Model
     cfg = Config(**inp.namelist)
     grid = make_grid(cfg, inp.z, inp.zz, inp.dx, inp.dy, inp.h, inp.fsm,
                      cor=inp.cor, device=device)
-    return Model(grid, cfg, tb=inp.tb, sb=inp.sb, tclim=inp.tb.clone(),
-                 sclim=inp.sb.clone(), elb=inp.elb, uab=inp.uab, vab=inp.vab)
+    tclim = inp.tb.clone() if inp.tclim is None else inp.tclim
+    sclim = inp.sb.clone() if inp.sclim is None else inp.sclim
+    m = Model(grid, cfg, tb=inp.tb, sb=inp.sb, tclim=tclim, sclim=sclim,
+              elb=inp.elb, uab=inp.uab, vab=inp.vab)
+    if inp.series:
+        from extpom_tpu_torch.forcing.provider import (ArraySource,
+                                                       ForcingProvider)
+        m.forcing_fn = ForcingProvider(grid, cfg, m.base_forcing,
+                                       ArraySource(dict(inp.series)))
+    return m
 
 
 def state_fields(m) -> dict:

@@ -961,3 +961,50 @@ def bcond_vel2d(uaf_in, vaf_in, el, d, fc, dum, dvm, grav, ramp, rfe, rfw,
                          * (el[I, -2] - fc["eln"][I]))
     uaf[I, -1] = fc["uabn"][I]
     return uaf * dum, vaf * dvm
+
+
+def _smooth(a):
+    """The 1-2-1 average along the last axis, on its interior points."""
+    return 0.25 * a[..., :-2] + 0.5 * a[..., 1:-1] + 0.25 * a[..., 2:]
+
+
+def bcond_vel3d(uf_in, vf_in, u, v, d, fc, hmax, dum, dvm, kbm1):
+    """bcond_vel3d_ref: the internal velocity of the open edges,
+    bounds_forcing.f:85-149.  On levels k < kbm1 the normal velocity of
+    each edge is the blend ga * (the old velocity one cell in) + (1 - ga)
+    * (the edge's profile), each smoothed 1-2-1 along the edge, with
+    ga = sqrt(d / hmax) at the edge's outer cell; the tangential velocity
+    is the profile.  Written east, west, south, north, then masked."""
+    uf, vf = uf_in.clone(), vf_in.clone()
+    K, J, I = slice(0, kbm1), slice(1, -1), slice(1, -1)
+    blend = lambda ga, inner, prof: (ga * _smooth(inner)
+                                     + (1.0 - ga) * _smooth(prof[K]))
+    uf[K, -1, J] = blend(torch.sqrt(d[-1, J] / hmax), u[K, -2, :],
+                         fc["ube"])
+    vf[K, -1, J] = fc["vbe"][K, J]
+    uf[K, 1, J] = blend(torch.sqrt(d[0, J] / hmax), u[K, 2, :], fc["ubw"])
+    uf[K, 0, J] = uf[K, 1, J]
+    vf[K, 0, J] = fc["vbw"][K, J]
+    vf[K, I, 1] = blend(torch.sqrt(d[I, 0] / hmax), v[K, :, 2], fc["vbs"])
+    vf[K, I, 0] = vf[K, I, 1]
+    uf[K, I, 0] = fc["ubs"][K, I]
+    vf[K, I, -1] = blend(torch.sqrt(d[I, -1] / hmax), v[K, :, -2],
+                         fc["vbn"])
+    uf[K, I, -1] = fc["ubn"][K, I]
+    uf[K] = uf[K] * dum
+    vf[K] = vf[K] * dvm
+    return uf, vf
+
+
+def restore_interior(t, tb, s, sb, trstr, srstr, taurstr, fsm, dti, kbm1):
+    """restore_interior_ref: T and S of both time levels relaxed toward
+    ``trstr`` and ``srstr`` at the rate ``taurstr`` [1/day] on levels
+    k < kbm1, then masked, bounds_forcing.f:1097-1118 -> (t, tb, s, sb).
+    ``taurstr`` is (kb, im, jm) or one value as (1, 1, 1)."""
+    fac = 2.0 * dti / 86400.0 * taurstr[:kbm1]
+    out = []
+    for f, clim in ((t, trstr), (tb, trstr), (s, srstr), (sb, srstr)):
+        f = f.clone()
+        f[:kbm1] = (f[:kbm1] + fac * (clim[:kbm1] - f[:kbm1])) * fsm
+        out.append(f)
+    return tuple(out)

@@ -11,6 +11,12 @@ with their depth-mean corrections).  The grid, the cold start, the edge
 data and the diagnostics follow initialize.f, bounds_forcing.f and
 advance.f:669-745.  Nothing here imports the port.
 
+A forced configuration's step reads the forcing of its time
+(:func:`forcing_at`: get_time and the record interpolation of
+bounds_forcing.f:841-865, in float64 host time), and may take the ``file``
+edges (bcond(3), bounds_forcing.f:85-149, in place of Orlanski's) and the
+interior restoring (restore_interior, bounds_forcing.f:1023-1121).
+
 A state is a dict of field name -> tensor, in the reference's own dtype.
 """
 
@@ -49,14 +55,11 @@ def params(namelist: dict) -> SimpleNamespace:
     p = dict(NAMELIST)
     p.update(namelist)
     p = SimpleNamespace(**p)
-    unsupported = {k: v for k, v in (("mode", p.mode),
-                                     ("bc_scheme", p.bc_scheme),
-                                     ("do_restore", p.do_restore))
-                   if v != NAMELIST[k]}
-    if unsupported:
+    if p.mode != 3 or p.bc_scheme not in EDGES:
         raise NotImplementedError(
-            f"the reference steps only mode 3 with the extpom edges and no "
-            f"restoring; the configuration asks for {unsupported}")
+            f"the reference steps mode 3 with the {' or the '.join(EDGES)} "
+            f"edges, with or without interior restoring; the configuration "
+            f"asks for mode {p.mode} with the {p.bc_scheme!r} edges")
     p.kbm1 = p.kb - 1
     p.dti = p.dte * float(p.isplit)
     p.dte2 = 2.0 * p.dte
@@ -64,6 +67,11 @@ def params(namelist: dict) -> SimpleNamespace:
     p.ispi = 1.0 / float(p.isplit)
     p.isp2i = 1.0 / (2.0 * float(p.isplit))
     return p
+
+
+# the edges of the internal velocity the reference steps: Orlanski's
+# (bcondorl(3), the extpom scheme) or the file's profiles (bcond(3))
+EDGES = ("extpom", "file")
 
 
 def make_grid(inp, dtype, device) -> SimpleNamespace:
@@ -94,11 +102,16 @@ def make_grid(inp, dtype, device) -> SimpleNamespace:
     cor = np.broadcast_to(np.asarray(inp.cor, np.float64), h.shape)
     dev = lambda a: torch.as_tensor(np.array(a, np.float64), device=device
                                     ).to(dtype)
+    # the deepest wet depth, bcond(3)'s hmax: bounds_forcing.f:90 takes
+    # maxval(d) of its rank's tile at each call; the whole grid's, fixed
+    # once, does not hang on the decomposition (VALIDATION.md's deliberate
+    # deviation 3, the intended semantics)
+    hmax = np.max(h * fsm) if np.any(fsm > 0) else np.max(h)
     g = SimpleNamespace(z=dev(z), zz=dev(zz), dz=dev(dz), dzz=dev(dzz),
                         dx=dev(dx), dy=dev(dy), h=dev(h), fsm=dev(fsm),
                         dum=dev(dum), dvm=dev(dvm), cor=dev(cor),
                         art=dev(dx * dy), aru=dev(aru), arv=dev(arv),
-                        cbc=dev(cbc))
+                        cbc=dev(cbc), hmax=dev(hmax), dz64=dz)
     c = cor[cor.shape[0] // 2, cor.shape[1] // 2]
     # the inertial period at the centre, the ramp's length (1 day on the
     # equator)
@@ -160,8 +173,9 @@ def edge_data(p, g, tb, sb, elb, uab, vab) -> dict:
     """The forcing of a case without surface fluxes: every surface field
     zero, and the open edges' profiles and values from the initial fields
     (initialize.f:437-460): T and S on each side's outer row or column,
-    the elevation and the depth-mean velocities as the lateral data of
-    the reference's .lbry file reads them."""
+    the velocity profiles of each side (those of the cold start's ub and
+    vb, which are zero), the elevation and the depth-mean velocities as
+    the lateral data of the reference's .lbry file reads them."""
     z2 = torch.zeros_like(g.h)
     fc = {f: z2 for f in ("vflux", "wusurf", "wvsurf", "wtsurf", "wssurf",
                           "swrad", "e_atmos")}
@@ -169,10 +183,74 @@ def edge_data(p, g, tb, sb, elb, uab, vab) -> dict:
     for name, f in (("t", tb), ("s", sb)):
         fc.update({f"{name}be": f[:, -1, :], f"{name}bw": f[:, 0, :],
                    f"{name}bn": f[:, :, -1], f"{name}bs": f[:, :, 0]})
+    zj, zi = torch.zeros_like(tb[:, 0, :]), torch.zeros_like(tb[:, :, 0])
+    fc.update({f"{v}b{side}": zj if side in "we" else zi
+               for v in "uv" for side in "wesn"})
     fc.update(elw=elb[0, :], ele=elb[-1, :], els=elb[:, 0], eln=elb[:, -1],
               uabw=uab[1, :], uabe=uab[-1, :], vabw=vab[0, :],
               vabe=vab[-1, :], vabs=vab[:, 1], vabn=vab[:, -1],
               uabs=uab[:, 0], uabn=uab[:, -1])
+    return fc
+
+
+# the surface series that bounds_forcing.f's surface (:963-983) holds for
+# a whole record, not interpolated in time
+HELD = ("tsurf", "ssurf")
+# the edge profile whose depth integral is each side's depth-mean normal
+# velocity (bounds_forcing.f:626-635)
+NORMAL = {"ubw": "uabw", "ube": "uabe", "vbs": "vabs", "vbn": "vabn"}
+
+
+def record_pair(t_days: float, days: float, nrec: int) -> tuple:
+    """The records bracketing model time ``t_days`` in a series of ``nrec``
+    records ``days`` apart, and the fraction of the way from the first to
+    the second (bounds_forcing.f:841-865) -> (b, f, frac).  Past either end
+    the index holds the end record, as the port's sources clamp a read
+    (VALIDATION.md, deviation 2)."""
+    x = t_days / days
+    n = math.floor(x)
+    clamp = lambda i: min(max(i, 0), nrec - 1)
+    return clamp(n), clamp(n + 1), x - n
+
+
+def forcing_at(p, g, base: dict, series: dict, cadences: dict,
+               iint: int) -> dict:
+    """The forcing of the step from ``iint`` to ``iint + 1``: ``base`` (the
+    edge data of the cold start) with each series of ``series`` (name ->
+    ``(nrec, ...)`` float64 host array, records ``cadences[name]`` days
+    apart) at the step's model time, get_time's dti * (iint + 1) / 86400
+    days, in float64 on the host.  Each record pair is interpolated
+    linearly in float64, but for SST and SSS, which hold their record
+    (:data:`HELD`); a normal velocity profile's pair is depth-integrated
+    first (sum over k < kbm1 of profile * dz, bounds_forcing.f:626-635)
+    into the side's depth-mean velocity, which is interpolated with it.
+    Where restoring series come without ``taurstr``, the rate is 1/trst
+    [1/day], the restoring records' period (bounds_forcing.f:1043)."""
+    if p.do_restore and not {"trstr", "srstr"} <= set(series):
+        raise ValueError("restoring reads the trstr and srstr series "
+                         "(restore_interior, bounds_forcing.f:1023-1121): "
+                         "the case gives neither or one")
+    if not series:
+        return base
+    t_days = p.dti * (iint + 1) / 86400.0
+    dev = lambda a: torch.as_tensor(np.asarray(a, np.float64),
+                                    device=g.h.device)
+    fc = dict(base)
+    for name, recs in series.items():
+        nb, nf, frac = record_pair(t_days, cadences[name], recs.shape[0])
+        pair = [(name, recs[nb], recs[nf])]
+        if name in NORMAL:
+            dz = g.dz64[:p.kbm1]
+            pair.append((NORMAL[name], np.tensordot(dz, recs[nb][:p.kbm1], 1),
+                         np.tensordot(dz, recs[nf][:p.kbm1], 1)))
+        for n, b, f in pair:
+            b = dev(b)
+            if n not in HELD:
+                b = (1.0 - frac) * b + frac * dev(f)
+            fc[n] = b.to(g.h.dtype)
+    if p.do_restore and "taurstr" not in series:
+        fc["taurstr"] = torch.full((1, 1, 1), 1.0 / cadences["trstr"],
+                                   dtype=g.h.dtype, device=g.h.device)
     return fc
 
 
@@ -277,8 +355,10 @@ def external_substep(p, g, c: dict, aux: dict, fc: dict, iext: int,
 
 def internal(p, g, st: dict, carry: dict, lat: dict, fc: dict, tclim,
              sclim) -> dict:
-    """mode_internal_ref: the internal mode (advance.f:356-537) for the
-    extpom edges, with MPDATA's tracer step where ``nadv`` is 2."""
+    """mode_internal_ref: the internal mode (advance.f:356-537), with
+    MPDATA's tracer step where ``nadv`` is 2, the interior restoring where
+    ``do_restore`` is set, and the internal velocity's edges of the extpom
+    scheme (Orlanski's) or of the file scheme (bcond(3))."""
     kb, kbm1 = p.kb, p.kbm1
     dz, h = g.dz, g.h
     dt = h + st["et"]
@@ -339,6 +419,10 @@ def internal(p, g, st: dict, carry: dict, lat: dict, fc: dict, tclim,
     tb = t + 0.5 * p.smoth * (tf + tb - 2.0 * t)
     sb = s + 0.5 * p.smoth * (sf + sb - 2.0 * s)
     t, s = tf, sf
+    if p.do_restore:               # advance.f:424-456, before dens
+        t, tb, s, sb = K.restore_interior(t, tb, s, sb, fc["trstr"],
+                                          fc["srstr"], fc["taurstr"], g.fsm,
+                                          p.dti, kbm1)
     rho = K.dens(s, t, g.zz, h, g.fsm, p.tbias, p.sbias, p.grav, p.rhoref)
 
     # momentum (advance.f:459-521)
@@ -352,7 +436,13 @@ def internal(p, g, st: dict, carry: dict, lat: dict, fc: dict, tclim,
                         dz, g.dzz, p.dti2, p.umol, kb)
     vf, wvbot = K.profv(vf, ub, vb, km, etf, fc["wvsurf"], h, g.cbc, g.dvm,
                         dz, g.dzz, p.dti2, p.umol, kb)
-    uf, vf = K.bcondorl_vel3d(uf, vf, u, ub, v, vb, g.dum, g.dvm, kbm1)
+    if p.bc_scheme == "file":
+        # d: the depth under the external mode's last elevation
+        uf, vf = K.bcond_vel3d(uf, vf, u, v, h + carry["el"], fc, g.hmax,
+                               g.dum, g.dvm, kbm1)
+    else:
+        uf, vf = K.bcondorl_vel3d(uf, vf, u, ub, v, vb, g.dum, g.dvm,
+                                  kbm1)
     tps = _depth_sum(uf + ub - 2.0 * u, dz, kbm1)
     ub = u + 0.5 * p.smoth * (uf + ub - 2.0 * u - tps)
     tps = _depth_sum(vf + vb - 2.0 * v, dz, kbm1)
