@@ -73,6 +73,12 @@ bit-equal) and holds its snapshots to the same file run in one process,
 with each rank's ms per step, writer and encoder seconds and bytes written,
 raw and stored.  ``[tolerance]`` holds the float32 kernels to the float64
 kernels over the f32 tolerance ladder's runs (VALIDATION.md §2).
+``[forcing]`` holds the step's forcing on the card (``kernels/forcing.py``,
+one launch of ``k_forcing_interp``) to the plain path by ``torch.equal``
+in float32 and float64, on the staged series of ``[channel]`` and
+``[file_restore]``, whole and windowed, and on every series of the forced
+regional domain at 2048x2048x41, timed there beside its byte bound; the
+paths that stage a plan count its launches under ``forcing``.
 ``[diag]`` holds the print's compensated sums on the card
 (``kernels/diagsum.py``) to the plain sums, and at 256² to ``math.fsum``
 of their cells, in float32 and float64 at 256x256x31, on config5's
@@ -2050,7 +2056,9 @@ def channel_phase(card: str, flush: L2Flush) -> dict:
     echo's machine and its exact launch counts.  Then each kernel of the
     path against its plain version on the operands of steps after the
     restart (``channel_kernels``), the device busy time of a few more steps,
-    and the plain kernels and time per step of the forcing interpolation.
+    and the time per step of the forcing interpolation by its one launch
+    (``k_forcing_interp``, counted under ``forcing`` in the launch counts)
+    and by the plain path, with the plain path's kernels.
     Returns (the whole run's launch counts, its State at the last step)."""
     from extpom_tpu_torch.core.config import Config
     from extpom_tpu_torch.forcing import device as fdev
@@ -2072,7 +2080,7 @@ def channel_phase(card: str, flush: L2Flush) -> dict:
                                // extwin.chunk_geometry(cfg, 4).C)}
                if windowed else {"extloop": n})
         want = {**dict.fromkeys(launches, 0), **ext, "phase_lat": n,
-                **{f"phase_{p}": n - 1 for p in PHASES[1:]}}
+                **{f"phase_{p}": n - 1 for p in PHASES[1:]}, "forcing": n}
         if launches != want:
             raise AssertionError(f"channel: launch counts {launches} != "
                                  f"{want}")
@@ -2113,22 +2121,29 @@ def channel_phase(card: str, flush: L2Flush) -> dict:
         del resumed
     for line in nums["prints"]:
         print(f"[channel] {line}", flush=True)
-    # the interpolation's own cost: the Forcing of one step from the plan
+    # the forcing's own cost: the Forcing of one step from the plan, by the
+    # hand-written launch (k_forcing_interp) and by the plain path
     plan = m._device_plan(m.time_days, m.time_days + STEP_S / 86400)
     t = fdev.t_days_at(m.cfg, m.iint + 1, m.time0, torch.float32)
     interp = lambda: fdev.forcing_at(plan, m.base_forcing, m.cfg, m.grid.dz,
                                      t)
+    ps = fdev.picks(plan, t)
+    plain = lambda: fdev.forcing_at_plain(ps, m.base_forcing, m.cfg,
+                                          m.grid.dz)
     with OpCount() as ops:
-        interp()
+        plain()
     interp_ms = device_ms(interp, 20, flush)
+    plain_ms = device_ms(plain, 20, flush)
     say_driver("channel", nums, im * jm * kb, peak, card,
                grid=f"{im}x{jm}x{kb}", dtype="float32",
                series=",".join(plan.names),
                window_records=plan.stacks[0].shape[0],
                tide_west_max_m=f"{tide:.4f}", salinity_drift=f"{salt:.3e}",
                snapshots=n_rec, resumed_from=CHANNEL_RESTART,
-               resumed_equal=True, interp_kernels_per_step=ops.n,
-               interp_ms_per_step=f"{interp_ms:.4f}",
+               resumed_equal=True, forcing_launches_per_step=1,
+               forcing_ms_per_step=f"{interp_ms:.4f}",
+               interp_plain_kernels_per_step=ops.n,
+               interp_plain_ms_per_step=f"{plain_ms:.4f}",
                launches=json.dumps(launches, separators=(",", ":")))
     profile_phase(m, steps=3, tag="channel_profile")
     return launches, whole
@@ -2149,12 +2164,15 @@ def channel_conf() -> dict:
             "out_format": "nc"}
 
 
-def mesh_want(launches: dict, cfg, n: int, nb: int, plan) -> dict:
+def mesh_want(launches: dict, cfg, n: int, nb: int, plan,
+              forcing: int = 0) -> dict:
     """The launch counts of n steps from a cold start on nb blocks: the
     chunk kernel the plan names (``extchunk`` or ``extwin_chunk``, one
     count per chunk call) nb x isplit / C times a step, lat's block
     variant every step and the other phases' from the second, each under
-    the name of the instantiation cfg runs (``phases.counter``)."""
+    the name of the instantiation cfg runs (``phases.counter``); and
+    ``forcing`` launches of the step's forcing (n where a staged plan is
+    interpolated on the whole grid every step)."""
     from extpom_tpu_torch.kernels import phases
     chunk = ("extwin_chunk" if plan.machine == "cuda-extwin-chunk"
              else "extchunk")
@@ -2162,7 +2180,7 @@ def mesh_want(launches: dict, cfg, n: int, nb: int, plan) -> dict:
             chunk: n * nb * cfg.isplit // plan.C,
             phases.counter("lat", cfg) + "_mesh": n * nb,
             **{phases.counter(p, cfg) + "_mesh": (n - 1) * nb
-               for p in PHASES[1:]}}
+               for p in PHASES[1:]}, "forcing": forcing}
 
 
 def west_series(m, steps: int) -> float:
@@ -2230,7 +2248,7 @@ def channel_mesh_phase(card: str, flush: L2Flush, want) -> dict:
                                                            rst)})
     plan = chunk_plan(m)
     nb = m.blocks.px * m.blocks.py
-    expect = mesh_want(launches, m.cfg, n, nb, plan)
+    expect = mesh_want(launches, m.cfg, n, nb, plan, forcing=n)
     if launches != expect:
         raise AssertionError(f"channel_mesh: launch counts {launches} != "
                              f"{expect}")
@@ -3329,7 +3347,8 @@ def file_restore_phase(card: str, flush: L2Flush) -> tuple:
                if windowed else {"extloop": n})
         want = {**dict.fromkeys(launches, 0), **ext,
                 phases.counter("lat", cfg): n,
-                **{phases.counter(p, cfg): n - 1 for p in PHASES[1:]}}
+                **{phases.counter(p, cfg): n - 1 for p in PHASES[1:]},
+                "forcing": n}
         if launches != want:
             raise AssertionError(f"file_restore: launch counts {launches} "
                                  f"!= {want}")
@@ -3427,7 +3446,7 @@ def file_restore_mesh_phase(card: str, flush: L2Flush, want) -> tuple:
                              f"{t_end} does not move toward trstr's "
                              f"{tr_mean}")
     nb = m.blocks.px * m.blocks.py
-    expect = mesh_want(launches, m.cfg, n, nb, chunk_plan(m))
+    expect = mesh_want(launches, m.cfg, n, nb, chunk_plan(m), forcing=n)
     if launches != expect:
         raise AssertionError(f"file_restore_mesh: launch counts {launches} "
                              f"!= {expect}")
@@ -3717,11 +3736,13 @@ def tolerance_phase(card: str) -> None:
     (32x24x7, 40 steps) each run by the kernels in float64 and in float32;
     every field's and scalar's drift is printed beside its bound, and a
     drift at or over its bound fails.  Each run must have launched the
-    whole-grid loop and the five phases."""
+    whole-grid loop and the five phases, and the channel the step's forcing
+    (its tide series staged)."""
     from extpom_tpu_torch import kernels
     from extpom_tpu_torch.diag import ladder
-    want = {"extloop", *(f"phase_{p}" for p in PHASES)}
     for case, (kw, steps) in ladder.CASES.items():
+        want = {"extloop", *(f"phase_{p}" for p in PHASES),
+                *(("forcing",) if case == "channel" else ())}
         runs = {}
         for dtype in ("float64", "float32"):
             kernels.reset_launches()
@@ -3960,6 +3981,205 @@ def diag_phase(card: str, flush: L2Flush) -> None:
         del grid, st
         gc.collect()
         torch.cuda.empty_cache()
+
+
+# -- the step's forcing (kernels/forcing.py) ---------------------------------
+
+FORCING_LARGE = (2048, 2048, 41)   # the forced regional domain's grid
+FORCING_STEPS = (1, 19, 20, 21, 61, 10 ** 4)   # steps held on each plan
+# records of each dataset on FORCING_LARGE: enough that a window of the
+# lateral series starts past the first record
+FORCING_NREC = {"lbry": 8, "sfrc": 3, "clim": 2}
+
+
+def forcing_large_provider(card, seed: int = 2304):
+    """A provider of every series of the forced regional domain at
+    FORCING_LARGE (``pombench/configs/forced2048.json``): the 20 lateral
+    series, the four fluxes, tsurf and ssurf, and the 3-D trstr, srstr and
+    taurstr, at bounds_forcing.f's periods with FORCING_NREC records of
+    each dataset, drawn on the host in float64 (a 3-D record is a drawn
+    plane times a drawn profile).  Returns (provider, its float32 cfg)."""
+    import types
+    from extpom_tpu_torch.core.config import Config
+    from extpom_tpu_torch.forcing import provider as prov
+    im, jm, kb = FORCING_LARGE
+    cfg = Config(im=im, jm=jm, kb=kb, dtype="float32", bc_scheme="file",
+                 do_restore=True, forcing_hbm_mb=16384)
+    r = np.random.default_rng(seed)
+    data = {}
+    nrec = FORCING_NREC["lbry"]
+    for side in prov.BRY_SIDES:
+        n = jm if side in "we" else im
+        data[f"el{side}"] = r.standard_normal((nrec, n))
+        for v in "tsuv":
+            data[f"{v}b{side}"] = r.standard_normal((nrec, kb, n))
+    nrec = FORCING_NREC["sfrc"]
+    for v in prov.WIND_VARS + prov.HEAT_VARS + prov.SURF_VARS:
+        data[v] = r.standard_normal((nrec, im, jm))
+    nrec = FORCING_NREC["clim"]
+    for v in prov.RESTORE_VARS:
+        data[v] = np.stack([r.uniform(0.5, 1.5, (kb, 1, 1))
+                            * r.standard_normal((im, jm))[None]
+                            for _ in range(nrec)])
+    grid = types.SimpleNamespace(device=card)
+    return prov.ForcingProvider(grid, cfg, None, prov.ArraySource(data),
+                                prefetch=False), cfg
+
+
+def forcing_bytes(ps, item: int) -> int:
+    """Compulsory bytes of one step's forcing from the picks ``ps``: each
+    interpolated series' two records read and its value written once, and
+    each edge profile's barotropic value written."""
+    from extpom_tpu_torch.forcing import provider as prov
+    interp = {p.name: p for p in ps if p.f is not None}
+    profiles = [prov.barotropic_name(s)[0] for s in prov.BRY_SIDES]
+    edges = sum(interp[u].b.shape[-1] for u in profiles if u in interp)
+    return (3 * sum(p.b.numel() for p in interp.values()) + edges) * item
+
+
+def forcing_entry(card: str, flush: L2Flush, tag: str, staged, cfg, dz,
+                  timed: bool) -> dict:
+    """Hold ``forcing_at`` on the card (``k_forcing_interp``) to
+    ``forcing_at_plain`` on each (plan, model time) of ``staged`` by
+    ``torch.equal`` on every field, with one launch a call by the
+    library's count and by the profiler's (and no other device kernel);
+    with ``timed``, both paths' ms on the last pair beside the byte bound
+    and what the card gives the kernel.  Prints and returns the line's
+    numbers."""
+    from extpom_tpu_torch import kernels
+    from extpom_tpu_torch.core.state import zero_forcing
+    from extpom_tpu_torch.forcing import device as fdev
+    from extpom_tpu_torch.kernels import forcing as kforcing
+    dtype = staged[0][0].stacks[0].dtype
+    name = str(dtype).split(".")[-1]
+    cfg = cfg.replace(dtype=name)
+    base = zero_forcing(cfg, torch.device("cuda"))
+    bad = []
+    for plan, t in staged:
+        ps = fdev.picks(plan, t)
+        before = kernels.LAUNCHES["forcing"]
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            got = fdev.forcing_at(plan, base, cfg, dz, t)
+            torch.cuda.synchronize()
+        launched = kernels.LAUNCHES["forcing"] - before
+        names = [k.key for k in _kernel_events(prof)]
+        if launched != 1 or len(names) != 1 \
+                or "k_forcing_interp" not in names[0]:
+            raise AssertionError(f"forcing {tag}: {launched} launches by "
+                                 f"the count, device kernels {names}")
+        want = fdev.forcing_at_plain(ps, base, cfg, dz)
+        for f in dataclasses.fields(want):
+            a, b = getattr(got, f.name), getattr(want, f.name)
+            if not (a.dtype == b.dtype and a.shape == b.shape
+                    and torch.equal(a, b)):
+                bad.append((float(t), f.name))
+    rows = kforcing.rows(ps, cfg.kbm1)
+    nums = dict(case=tag, dtype=name,
+                windowed=any(any(p.starts) for p, _ in staged),
+                times=len(staged),
+                interpolated=sum(lev == 0 for _, _, lev in rows),
+                edge_integrals=sum(lev > 0 for _, _, lev in rows),
+                launches_per_call=1, bit_equal=not bad)
+    if timed:
+        item = torch.finfo(dtype).bits // 8
+        info = kforcing.kernel_info(dtype)
+        bound = forcing_bytes(ps, item) / HBM_BYTES_PER_S * 1e3
+        ms = device_ms(lambda: fdev.forcing_at(plan, base, cfg, dz, t), 20,
+                       flush)
+        plain = device_ms(lambda: fdev.forcing_at_plain(ps, base, cfg, dz),
+                          5, flush)
+        with OpCount() as ops:
+            fdev.forcing_at_plain(ps, base, cfg, dz)
+        nums.update(ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
+                    bound_ms=f"{bound:.4f}",
+                    roofline_pct=f"{100 * bound / ms:.1f}",
+                    plain_kernels=ops.n,
+                    **{k: info[k] for k in ("threads", "entries",
+                                            "registers", "blocks_per_sm",
+                                            "spill_bytes")})
+    say("forcing", **nums, card=f"'{card}'")
+    if bad:
+        raise AssertionError(f"forcing {tag} {name}: the kernel and the "
+                             f"plain path differ at (time, field) "
+                             f"{bad[:8]}")
+    return nums
+
+
+def model_plans(m, dtype, windowed: bool) -> list:
+    """(plan, model time) of ``m``'s provider at each step of
+    FORCING_STEPS (inside a record, at and across a lateral record, past
+    the last): the whole staged plan, or the window that a print from the
+    step before stages."""
+    from extpom_tpu_torch.forcing import device as fdev
+    p, dt = m.forcing_fn, m.cfg.dti / 86400.0
+    whole = None if windowed else fdev.make_device_plan(
+        p, dtype=dtype, device=m.device)
+    return [(whole or fdev.make_device_plan(
+                p, dtype=dtype, budget_bytes=0, t0_days=(i - 1) * dt,
+                t1_days=(i - 1 + m.cfg.iprint) * dt, device=m.device),
+             fdev.t_days_at(m.cfg, i, m.time0, dtype))
+            for i in FORCING_STEPS]
+
+
+def forcing_phase(card: str, flush: L2Flush) -> dict:
+    """The step's forcing on the card (``kernels/forcing.py``,
+    ``k_forcing_interp``) against the plain path that the CPU runs
+    (``forcing_at_plain``), by ``torch.equal`` in float32 and float64:
+    on the providers of ``[channel]`` (the tidal channel's lateral series,
+    512x512x31) and ``[file_restore]`` (its lbry file: every lateral series
+    and the 3-D restoring, the default taurstr), whole and windowed, at
+    each step of FORCING_STEPS; and on every series of the forced regional
+    domain at FORCING_LARGE, whole and windowed, timed there beside its
+    byte bound and the plain path.  Returns the float32 2048² line's
+    numbers for the ``kernels`` line."""
+    import gc
+    from extpom_tpu_torch import run
+    from extpom_tpu_torch.forcing import device as fdev
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        confs = {"channel_512": channel_conf(),
+                 "file_restore_512": file_restore_conf(tmp)[0]}
+        for tag, conf in confs.items():
+            for dtype in ("float32", "float64"):
+                m = run.build_model({**conf, "config": {
+                    **conf["config"], "dtype": dtype}})
+                for windowed in (False, True):
+                    nums = forcing_entry(
+                        card, flush, tag,
+                        model_plans(m, getattr(torch, dtype), windowed),
+                        m.cfg, m.grid.dz,
+                        timed=dtype == "float32" and not windowed)
+                    if "ms" in nums:
+                        out.update({f"{tag}_{k}": nums[k]
+                                    for k in ("ms", "plain_ms", "bound_ms")})
+                del m
+    p, cfg = forcing_large_provider(torch.device("cuda"))
+    for dtype in ("float32", "float64"):
+        dt = getattr(torch, dtype)
+        c = cfg.replace(dtype=dtype)
+        dz = torch.linspace(0.01, 0.04, cfg.kb, dtype=dt, device="cuda")
+        times = [fdev.t_days_at(c, 0, t, dt)
+                 for t in (0.0, 0.0104, 1 / 24, 0.1, 0.125, 0.13)]
+        plan = fdev.make_device_plan(p, dtype=dt, device="cuda")
+        nums = forcing_entry(card, flush, "2048x41",
+                             [(plan, t) for t in times], c, dz, timed=True)
+        if dtype == "float32":
+            out = {**{k: nums[k] for k in (
+                "ms", "plain_ms", "bound_ms", "roofline_pct",
+                "plain_kernels", "threads", "entries", "registers",
+                "blocks_per_sm", "spill_bytes")}, **out}
+        del plan
+        plan = fdev.make_device_plan(p, dtype=dt, budget_bytes=0,
+                                     t0_days=0.09, t1_days=0.135,
+                                     device="cuda")
+        forcing_entry(card, flush, "2048x41", [(plan, t) for t in times[3:]],
+                      c, dz, timed=False)
+        del plan
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 # -- several processes on the one card ---------------------------------------
@@ -4467,6 +4687,7 @@ def main() -> int:
     file_restore_check()
     tolerance_phase(card)
     diag_phase(card, flush)
+    frc = forcing_phase(card, flush)
     # several processes last, with the parent's cached device memory freed:
     # two ranks share the card
     import gc
@@ -4577,7 +4798,13 @@ def main() -> int:
              launches_by_path=by_path(f"phase_{p}_mesh"),
              launches_by_rank=ranks(f"phase_{p}_mesh"), library_ms=None,
              **mesh_k[f"phase_{p}_mesh"])
-        for p in PHASES]}
+        for p in PHASES] + [
+        dict(name="forcing", route="cuda",
+             source="extpom_tpu_torch/csrc/forcing.cu",
+             replaces="extpom_tpu/forcing/device.py:139",
+             launches=channel_launches["forcing"], on_main_path=False,
+             launches_by_path=by_path("forcing"),
+             launches_by_rank=ranks("forcing"), library_ms=None, **frc)]}
     # the option instantiations of lat, tracer and mom and MPDATA's
     # launches, each counted under its own name (phases.counter); the
     # tracer's is timed on [options] (with MPDATA's launches) and on

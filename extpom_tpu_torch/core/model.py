@@ -382,11 +382,14 @@ class Model:
         if self._plan_bytes is None or self._plan_bytes[0] is not p:
             self._plan_bytes = (p, fdev.plan_bytes(p))
         if self._plan_bytes[1] > budget and t0_days is not None:
-            return fdev.make_device_plan(p, budget_bytes=budget,
-                                         t0_days=t0_days, t1_days=t1_days,
-                                         device=self.device)
+            with span("forcing_stage"):
+                return fdev.make_device_plan(p, budget_bytes=budget,
+                                             t0_days=t0_days,
+                                             t1_days=t1_days,
+                                             device=self.device)
         if self._plan is None or self._plan[0] is not p:
-            self._plan = (p, fdev.make_device_plan(p, device=self.device))
+            with span("forcing_stage"):
+                self._plan = (p, fdev.make_device_plan(p, device=self.device))
         return self._plan[1]
 
     def run_segment(self, n_steps: int) -> Optional[State]:

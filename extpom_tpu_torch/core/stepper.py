@@ -516,9 +516,10 @@ def run_steps(grid: Grid, cfg: Config, st: State, fc: Forcing, rmean,
                               dtype=st.dtype, device=st.el.device)
             fc_i = fc
             if plan is not None:
-                fc_i = fdev.forcing_at(
-                    plan, fc, cfg, grid.dz,
-                    fdev.t_days_at(cfg, i, time0_days, st.dtype))
+                with span("forcing"):
+                    fc_i = fdev.forcing_at(
+                        plan, fc, cfg, grid.dz,
+                        fdev.t_days_at(cfg, i, time0_days, st.dtype))
             st = step(grid, cfg, st, fc_i.replace(ramp=ramp), rmean, tclim,
                       sclim, first=first and n == 0)
     return st

@@ -20,10 +20,16 @@
   with the spans' counts; :func:`span_paths` the spans alone, in order.
 
 The spans the model opens (their names without the prefix): ``segment``
-(``Model.run_segment``), ``step`` (each internal step), the stages ``lat``,
+(``Model.run_segment``), ``step`` (each internal step), ``forcing`` (the
+step's interpolation of a staged forcing plan, ``forcing/device.py:
+forcing_at``, in ``stepper.run_steps`` and in the mesh path's segment,
+where it also cuts the forcing to the blocks), the stages ``lat``,
 ``interaction``, ``external``, ``uvw``, ``tke``, ``tracer`` (with
 ``mpdata`` inside it under ``nadv=2``) and ``mom``, the diagnostics
-``stats`` and ``velocity``, and ``sync``.
+``stats`` and ``velocity``, and ``sync``.  ``forcing_stage``
+(``Model._device_plan``) is a counter too: one span a staging of the
+forcing series on the device, once at the first segment for a whole plan,
+once a segment for a windowed one (``segment/forcing_stage``).
 """
 
 from __future__ import annotations

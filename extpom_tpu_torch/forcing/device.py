@@ -4,11 +4,14 @@ A :class:`DevicePlan` holds each record series of a
 :class:`~extpom_tpu_torch.forcing.provider.ForcingProvider` as one
 ``(nrec, ...)`` tensor on the model's device.  :func:`forcing_at` builds
 the Forcing of one internal step from it: the bracketing records are
-views of the stack, and the linear time interpolation
-(bounds_forcing.f:841-865) runs on the device as three elementwise
-kernels per series.  The record index and the interpolation fraction are
-host arithmetic on the step number (:func:`t_days_at`, in the model's
-dtype, as the JAX package forms them), so no step waits on the device.
+views of the stack (:func:`picks`), and the linear time interpolation
+(bounds_forcing.f:841-865) and the edge profiles' depth integrals run on
+the device: on the card in one launch of the hand-written kernel
+(``kernels/forcing.py``), on the CPU as plain elementwise kernels
+(:func:`forcing_at_plain`, which the kernel equals bit for bit).  The
+record index and the interpolation fraction are host arithmetic on the
+step number (:func:`t_days_at`, in the model's dtype, as the JAX package
+forms them), so no step waits on the device.
 
 On a mesh the Forcing of a step is formed the same way, once on the whole
 grid, and then cut to the blocks (``mesh.shardmap.Blocks.host_forcing``).
@@ -23,7 +26,7 @@ bounds_forcing.f:607-613).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -128,15 +131,22 @@ def t_days_at(cfg: Config, iint: int, time0_days: float, dtype):
     return d(cfg.dti) * d(iint) / d(86400.0) + d(time0_days)
 
 
-def forcing_at(plan: DevicePlan, base: Forcing, cfg: Config,
-               dz: torch.Tensor, t_days) -> Forcing:
-    """The Forcing at model time ``t_days`` (from :func:`t_days_at`): each
-    staged series at its bracketing records, linearly interpolated; the
-    boundary velocity profiles also depth-integrated to their barotropic
-    values, in ascending k.  Every tensor it makes is contiguous, of the
-    stacks' dtype, on their device; the other fields are ``base``'s own."""
+class Pick(NamedTuple):
+    """One staged series at one time: its bracketing records, views of its
+    stack (``f`` None for a piecewise-constant series), and their weights,
+    Python floats exact in the stack's dtype."""
+    name: str
+    b: torch.Tensor
+    f: Optional[torch.Tensor]
+    w0: float
+    w1: float
+
+
+def picks(plan: DevicePlan, t_days) -> list:
+    """The :class:`Pick` of each staged series at model time ``t_days``
+    (from :func:`t_days_at`), in the plan's order."""
     d = type(t_days)
-    upd = {}
+    out = []
     for name, cad, off, do_i, stack, start in zip(
             plan.names, plan.cadences, plan.offsets, plan.interp,
             plan.stacks, plan.starts):
@@ -147,10 +157,37 @@ def forcing_at(plan: DevicePlan, base: Forcing, cfg: Config,
         b = stack[min(max(n, 0), nrec - 1)]
         if do_i:
             frac = x - fl
-            f = stack[min(max(n + 1, 0), nrec - 1)]
-            upd[name] = b * float(d(1.0) - frac) + f * float(frac)
+            out.append(Pick(name, b, stack[min(max(n + 1, 0), nrec - 1)],
+                            float(d(1.0) - frac), float(frac)))
         else:
-            upd[name] = b
+            out.append(Pick(name, b, None, 1.0, 0.0))
+    return out
+
+
+def forcing_at(plan: DevicePlan, base: Forcing, cfg: Config,
+               dz: torch.Tensor, t_days) -> Forcing:
+    """The Forcing at model time ``t_days`` (from :func:`t_days_at`): each
+    staged series at its bracketing records, linearly interpolated; the
+    boundary velocity profiles also depth-integrated to their barotropic
+    values, in ascending k.  Every tensor it makes is contiguous, of the
+    stacks' dtype, on their device; a piecewise-constant series is its
+    record; the other fields are ``base``'s own.  Where ``dz`` is on the
+    card one launch of ``k_forcing_interp`` (``kernels/forcing.py``) forms
+    them all; elsewhere :func:`forcing_at_plain`."""
+    ps = picks(plan, t_days)
+    if dz.device.type == "cuda":
+        from extpom_tpu_torch.kernels import forcing as kforcing
+        return base.replace(**kforcing.interpolate(ps, dz, cfg.kbm1))
+    return forcing_at_plain(ps, base, cfg, dz)
+
+
+def forcing_at_plain(ps: list, base: Forcing, cfg: Config,
+                     dz: torch.Tensor) -> Forcing:
+    """:func:`forcing_at` from the :func:`picks` ``ps`` in plain PyTorch:
+    three elementwise kernels a series (``b*w0``, ``f*w1``, their sum) and
+    ``2*kbm1 - 1`` an edge profile's integral."""
+    upd = {p.name: p.b if p.f is None else p.b * p.w0 + p.f * p.w1
+           for p in ps}
     for side in prov.BRY_SIDES:
         un, tn = prov.barotropic_name(side)
         if un in upd:

@@ -11,7 +11,9 @@ variant ``phase_lat_npg2``, tracer's MPDATA/restoring variant
 ``phase_tracer_options``, mom's ``file`` scheme ``phase_mom_file`` (each
 ``_mesh`` on a block).  MPDATA's upstream steps (``nadv=2``), launched by
 the tracer phase before its tile, count one per launch under
-``phase_tracer_mpdata`` (``_mesh``).
+``phase_tracer_mpdata`` (``_mesh``).  The step's forcing interpolation
+(``kernels/forcing.py``) counts one per launch under ``forcing``, on one
+device and on a mesh alike (the mesh forms it on the whole grid).
 """
 
 PHASES = ("lat", "uvw", "tke", "tracer", "mom")
@@ -22,7 +24,8 @@ LAUNCHES = {"tridiag": 0, "extloop": 0, "extwin": 0,
             **{v: 0 for v in OPTION_VARIANTS},
             "extchunk": 0, "extwin_chunk": 0,
             **{f"phase_{p}_mesh": 0 for p in PHASES},
-            **{f"{v}_mesh": 0 for v in OPTION_VARIANTS}}
+            **{f"{v}_mesh": 0 for v in OPTION_VARIANTS},
+            "forcing": 0}
 
 
 def whole_grid_only(cfg, what: str) -> None:

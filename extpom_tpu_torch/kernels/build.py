@@ -97,6 +97,14 @@ SIGNATURES = {
     "extpom_diag_finish": [_P, _I, _P, _P],
     # f64; threads per block and the six ints of column.cuh tile_info
     "extpom_diag_sums_info": [_I, _P],
+    # the step's forcing (csrc/forcing.cu): pointer table (b, f, out an
+    # entry), element counts, weights (w0, w1 an entry), levels; entries,
+    # dz; stream
+    "extpom_forcing_f32": [_P, _P, _P, _P, _I, _P, _P],
+    "extpom_forcing_f64": [_P, _P, _P, _P, _I, _P, _P],
+    # f64; threads per block, entries per launch and the six ints of
+    # column.cuh tile_info
+    "extpom_forcing_info": [_I, _P],
     "extpom_error_string": [_I],
 }
 

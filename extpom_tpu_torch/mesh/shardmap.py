@@ -518,11 +518,12 @@ def make_shardmap_run(blocks: Blocks, cfg: Config, period_days: float,
                 if plan is None:
                     fc = blocks.static_forcing(ramp)
                 else:
-                    fc = blocks.host_forcing(fdev.forcing_at(
-                        plan, blocks.base, cfg,
-                        blocks.grid[blocks.ids[0]].dz,
-                        fdev.t_days_at(cfg, i, time0_days,
-                                       el.dtype)).replace(ramp=ramp))
+                    with span("forcing"):
+                        fc = blocks.host_forcing(fdev.forcing_at(
+                            plan, blocks.base, cfg,
+                            blocks.grid[blocks.ids[0]].dz,
+                            fdev.t_days_at(cfg, i, time0_days,
+                                           el.dtype)).replace(ramp=ramp))
                 stepper.mesh_step(blocks, cfg, fc, first=first and n == 0)
 
     return run

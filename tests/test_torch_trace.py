@@ -178,3 +178,68 @@ def test_stage_times_count_the_spans_on_the_cpu():
             **{f"segment/step/{s}": 2 for s in STAGES}}
     assert {p: e["spans"] for p, e in got.items()} == want
     assert all(e["device_us"] == 0 and not e["ops"] for e in got.values())
+
+
+def forced_model(budget_mb: int):
+    """The harness's small forced case (every series of bounds_forcing.f,
+    the file edges, the restoring) at 17x17x5 in float64, its series
+    staged whole (``budget_mb`` large) or a window a segment (0)."""
+    from pombench import program
+    from pombench.tests import forced_case
+    conf = dict(forced_case.CONF,
+                case_args=dict(forced_case.CONF["case_args"], im=17, jm=17,
+                               kb=5),
+                config=dict(forced_case.CONF["config"],
+                            forcing_hbm_mb=budget_mb))
+    cpu = torch.device("cpu")
+    return program.build(forced_case.make(conf, 2 ** 31 + 23, cpu,
+                                          torch.float64), cpu)
+
+
+@pytest.mark.parametrize("budget_mb, stagings", [(16384, [1, 0]),
+                                                 (0, [1, 1])],
+                         ids=["whole", "window"])
+def test_forcing_spans_count_steps_and_stagings(budget_mb, stagings):
+    """One ``forcing`` span a step inside ``step``; one ``forcing_stage``
+    a staging inside ``segment``: at the first segment only for a whole
+    plan, at every segment for a windowed one."""
+    m = forced_model(budget_mb)
+    for want in stagings:
+        got = profiled(lambda: m.run_segment(3))
+        assert got.count("segment/forcing_stage") == want
+        assert got.count("segment/step/forcing") == 3
+        assert [p for p in got if p.endswith("forcing")] == [
+            "segment/step/forcing"] * 3
+        assert got.count("segment/step") == 3
+
+
+def test_every_forcing_operation_under_step_forcing(monkeypatch):
+    """Each operation that ``forcing_at`` runs, marked by a probe range
+    around the call, falls under ``segment/step/forcing`` by
+    ``profiling.attribute``, and the probe opens once a forcing span."""
+    from extpom_tpu_torch.forcing import device as fdev
+    real = fdev.forcing_at
+
+    def probed(*a, **k):
+        with torch.profiler.record_function("probe.forcing"):
+            return real(*a, **k)
+    monkeypatch.setattr(fdev, "forcing_at", probed)
+    m = forced_model(16384)
+    m.run_segment(1)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        m.run_segment(2)
+    events = list(prof.profiler.kineto_results.events())
+    probes = [(e.start_ns(), e.end_ns()) for e in events
+              if e.name() == "probe.forcing"]
+    inside = [e for e in events if e.name().startswith("aten::")
+              and any(a <= e.start_ns() <= e.end_ns() <= b
+                      for a, b in probes)]
+    assert len(probes) == 2 and inside
+    spans = profiling.span_paths(events)
+    got = profiling.attribute(
+        spans, {q: e.start_ns() for q, e in enumerate(inside)},
+        [(e.name(), q, -1, 1.0) for q, e in enumerate(inside)])
+    assert got["segment/step/forcing"]["spans"] == 2
+    assert sum(c for c, _ in got["segment/step/forcing"]["ops"].values()) \
+        == len(inside)
